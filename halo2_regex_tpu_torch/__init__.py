@@ -1,0 +1,46 @@
+"""halo2_regex_tpu_torch — the PyTorch + CUDA port of ``halo2_regex_tpu``.
+
+The port runs the bit-sliced witness pipeline (``BitplaneMatcher(model,
+columns="witness")``) on an NVIDIA H100 through hand-written CUDA kernels
+(``csrc/``, built with nvcc at first use), and on the CPU through the
+kernels' plain PyTorch versions.  It imports ``torch`` and numpy, never
+JAX: the host layer it needs (regex compiler, models, oracle) is carried
+here as jax-free copies, because importing any submodule of the JAX
+package runs that package's ``__init__``, which loads JAX.
+
+Quick start::
+
+    from halo2_regex_tpu_torch import BitplaneMatcher, zoo
+
+    model = zoo.email_headers_model(max_chars_size=1024, headers=("from",))
+    matcher = BitplaneMatcher(model, columns="witness", device="cuda")
+    out = matcher(chars, lengths)  # [B, 1024] uint8, [B] int32
+"""
+
+import sys as _sys
+
+# The compiler front-end recurses over deep alternation ASTs (98-way
+# catch-all groups under +/? are standard in zk-email regexes).
+if _sys.getrecursionlimit() < 20_000:
+    _sys.setrecursionlimit(20_000)
+
+from .compiler.decomposed import DecomposedRegexConfig, RegexPartConfig, VrmError
+from .models import zoo
+from .models.compiled import CompiledRegexModel
+from .ops.bitplane import BitplaneMatcher
+from .ops.reference import extract_substrings, match_substrs
+from .witness.result import RegexResult
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BitplaneMatcher",
+    "CompiledRegexModel",
+    "DecomposedRegexConfig",
+    "RegexPartConfig",
+    "RegexResult",
+    "VrmError",
+    "extract_substrings",
+    "match_substrs",
+    "zoo",
+]
