@@ -1,20 +1,22 @@
 """halo2_regex_tpu_torch — the PyTorch + CUDA port of ``halo2_regex_tpu``.
 
-The port runs the bit-sliced witness pipeline (``BitplaneMatcher(model,
-columns="witness")``) on an NVIDIA H100 through hand-written CUDA kernels
-(``csrc/``, built with nvcc at first use), and on the CPU through the
-kernels' plain PyTorch versions.  It imports ``torch`` and numpy, never
+The port runs the bit-sliced matcher (``BitplaneMatcher(model, columns=
+"full" | "witness" | "match")``) on an NVIDIA H100 through hand-written
+CUDA kernels (``csrc/``, built with nvcc at first use), and on the CPU
+through the kernels' plain PyTorch versions; ``extract_runs`` decodes the
+masked runs of a result where it lies.  It imports ``torch`` and numpy, never
 JAX: the host layer it needs (regex compiler, models, oracle) is carried
 here as jax-free copies, because importing any submodule of the JAX
 package runs that package's ``__init__``, which loads JAX.
 
 Quick start::
 
-    from halo2_regex_tpu_torch import BitplaneMatcher, zoo
+    from halo2_regex_tpu_torch import BitplaneMatcher, extract_runs, zoo
 
     model = zoo.email_headers_model(max_chars_size=1024, headers=("from",))
-    matcher = BitplaneMatcher(model, columns="witness", device="cuda")
-    out = matcher(chars, lengths)  # [B, 1024] uint8, [B] int32
+    matcher = BitplaneMatcher(model, device="cuda")
+    res = matcher(chars, lengths)  # [B, 1024] uint8, [B] int32 -> RegexResult
+    runs = extract_runs(res.all_substr_ids, res.masked_characters, max_len=32)
 """
 
 import sys as _sys
@@ -28,6 +30,7 @@ from .compiler.decomposed import DecomposedRegexConfig, RegexPartConfig, VrmErro
 from .models import zoo
 from .models.compiled import CompiledRegexModel
 from .ops.bitplane import BitplaneMatcher
+from .ops.extract import extract_runs, runs_to_python
 from .ops.reference import extract_substrings, match_substrs
 from .witness.result import RegexResult
 
@@ -40,7 +43,9 @@ __all__ = [
     "RegexPartConfig",
     "RegexResult",
     "VrmError",
+    "extract_runs",
     "extract_substrings",
     "match_substrs",
+    "runs_to_python",
     "zoo",
 ]

@@ -1,27 +1,36 @@
-// K3: post -- tags, id sum, mask FSMs, dummy splice, byte-group emission
-// and final-state boundary planes.
+// K3: post -- tags, id sum, mask FSMs, then one of two emissions:
+//   bytes mode (columns="witness"): dummy splice, byte-group emission and
+//     final-state boundary planes, entry h2r_post;
+//   planes mode (columns="full", the generated header sets
+//     H2R_POST_PLANES): the named bit planes of the full RegexResult --
+//     per def ids/start/endf, idsum, masked_idsum, fwd, bwd, mask -- entry
+//     h2r_post_planes.
 //
 // Replaces the TPU kernel BitplaneMatcher._make_post in bytes mode with
-// pre-dummied states (halo2_regex_tpu/ops/bitplane.py:1338, pallas_call
-// at :1592).
+// pre-dummied states, and in planes mode (halo2_regex_tpu/ops/bitplane.py
+// :1338, pallas_call at :1592).
 //
 // What bounds it on the H100: latency, like the scan.  One thread owns one
 // word and walks L twice; at B = 32768 that is 1024 threads on 32 SMs.
 // Per position it runs the generated tag circuit of every def (91 ops for
-// the from: model) plus the FSM steps and an 8x8 bit transpose per byte
-// group.  Memory traffic is small by comparison: SB_SUM + 1 planes read
-// twice, one fwd plane written and read back, 8 * NGROUPS words written.
+// the from: model) plus the FSM steps and, in bytes mode, an 8x8 bit
+// transpose per byte group.  Memory traffic is small by comparison: SB_SUM
+// + 1 planes read twice, one fwd plane written and read back, and
+// 8 * NGROUPS words (bytes mode) or P_total planes (planes mode) written.
 //
 // Design: the two mask FSMs run as serial recurrences
 // x = (x & hold[l]) | set[l], which is exactly what the TPU kernel's
 // Hillis-Steele log-scan (_fsm_log_scan, :341) computes.
 //   pass 1, l = 0 .. L-1: tag(l), id sum, forward FSM; fwd[l] goes to a
-//     scratch plane the wrapper allocates.
+//     scratch plane the wrapper allocates (planes mode: to the output's
+//     fwd plane), and planes mode also writes the per-def tag planes and
+//     idsum here.
 //   pass 2, l = L-1 .. 0: tag(l) again (recomputing is cheaper than
 //     storing NSUM + 2 planes), backward FSM with ids_sum[l + 1] and
 //     start_any[l + 1] carried in registers from the previous step, then
-//     mask = fwd & bwd, the flags/masked-id/state fields, the transpose
-//     and the byte-group stores; the boundary planes accumulate here too.
+//     mask = fwd & bwd.  Bytes mode: the flags/masked-id/state fields, the
+//     transpose and the byte-group stores, and the boundary planes
+//     accumulate.  Planes mode: bwd, mask and masked_idsum stores.
 // The prev planes of position 0 are the first state's bits.  Only the FSM
 // bits x and y carry from one position to the next; the tag circuit and
 // the emission of neighbouring positions are independent, so both loops
@@ -31,27 +40,39 @@
 // computes.  Loads and stores are coalesced over words.
 //
 // Layouts: logs [NWS, SB_SUM, L, 128]; en and fwd [NWS, L, 128];
-// g4 [NWS, 8 * NGROUPS, L, 128]; fb [NWS, NDEFS, 8, 128]; all int32.
+// bytes mode g4 [NWS, 8 * NGROUPS, L, 128] and fb [NWS, NDEFS, 8, 128];
+// planes mode out [NWS, P_TOTAL, L, 128]; all int32.
 
 #include "bitplane_common.cuh"
 #include "h2r_circuits.cuh"
+
+#ifndef H2R_POST_PLANES
+#define H2R_POST_PLANES 0
+#endif
 
 namespace {
 
 constexpr int THREADS = 32;
 
+// fwd_buf: bytes mode the [NWS, L, 128] scratch plane (out is g4); planes
+// mode unused (fwd lives in out).
 __global__ void __launch_bounds__(THREADS)
 post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
-            int32_t* __restrict__ fwd_buf, int32_t* __restrict__ g4,
+            int32_t* __restrict__ fwd_buf, int32_t* __restrict__ out,
             int32_t* __restrict__ fb, int NW, int L) {
   const int w = blockIdx.x * THREADS + threadIdx.x;
   if (w >= NW) return;
   const int nws = w / H2R_LANE, lane = w % H2R_LANE;
-  const int32_t* lg_base = logs + (size_t)nws * H2R_SB_SUM * L * H2R_LANE + lane;
-  const int32_t* en_base = en + (size_t)nws * L * H2R_LANE + lane;
-  int32_t* fwd_base = fwd_buf + (size_t)nws * L * H2R_LANE + lane;
-  int32_t* g4_base = g4 + (size_t)nws * 8 * H2R_NGROUPS * L * H2R_LANE + lane;
   const size_t plane = (size_t)L * H2R_LANE;  // stride between planes
+  const int32_t* lg_base = logs + (size_t)nws * H2R_SB_SUM * plane + lane;
+  const int32_t* en_base = en + (size_t)nws * plane + lane;
+#if H2R_POST_PLANES
+  int32_t* out_base = out + (size_t)nws * H2R_P_TOTAL * plane + lane;
+  int32_t* fwd_base = out_base + H2R_OFF_FWD * plane;
+#else
+  int32_t* fwd_base = fwd_buf + (size_t)nws * plane + lane;
+  int32_t* g4_base = out + (size_t)nws * 8 * H2R_NGROUPS * plane + lane;
+#endif
 
   uint32_t first[H2R_SB_SUM];
   h2r_first_log(first);
@@ -77,8 +98,15 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
 #pragma unroll
       for (int j = 0; j < H2R_SB_SUM; ++j) nxt[j] = LOG(j, ln);
       const uint32_t e_next = EN(ln);
-      uint32_t ids[H2R_NSUM], sa, ea;
-      h2r_tag(prev, cur, e, ids, sa, ea);
+      uint32_t ids[H2R_NSUM], sa, ea, dt[H2R_NDT];
+      h2r_tag(prev, cur, e, ids, sa, ea, dt);
+#if H2R_POST_PLANES
+#pragma unroll
+      for (int k = 0; k < H2R_NDT; ++k) out_base[k * plane + (size_t)l * H2R_LANE] = (int32_t)dt[k];
+#pragma unroll
+      for (int k = 0; k < H2R_NSUM; ++k)
+        out_base[(H2R_OFF_IDSUM + k) * plane + (size_t)l * H2R_LANE] = (int32_t)ids[k];
+#endif
       uint32_t changed = 0;
 #pragma unroll
       for (int k = 0; k < H2R_NSUM; ++k) changed |= ids[k] ^ prev_sum[k];
@@ -98,15 +126,19 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
     }
   }
 
-  // pass 2: backward FSM, emission, boundary planes; the planes of
+  // pass 2: backward FSM and the rest of the emission; the planes of
   // position l - 1 (and the prev planes of l - 1, at l - 2) are loaded
   // while position l computes.
-  uint32_t next_sum[H2R_NSUM], acc[H2R_SB_SUM], cur[H2R_SB_SUM], prv[H2R_SB_SUM];
+  uint32_t next_sum[H2R_NSUM], cur[H2R_SB_SUM], prv[H2R_SB_SUM];
+#if !H2R_POST_PLANES
+  uint32_t acc[H2R_SB_SUM];
+#pragma unroll
+  for (int j = 0; j < H2R_SB_SUM; ++j) acc[j] = 0;
+#endif
 #pragma unroll
   for (int k = 0; k < H2R_NSUM; ++k) next_sum[k] = 0;
 #pragma unroll
   for (int j = 0; j < H2R_SB_SUM; ++j) {
-    acc[j] = 0;
     cur[j] = LOG(j, L - 1);
     prv[j] = L > 1 ? LOG(j, L - 2) : first[j];
   }
@@ -120,8 +152,8 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
     for (int j = 0; j < H2R_SB_SUM; ++j) pp[j] = l > 1 ? LOG(j, l - 2) : first[j];
     const uint32_t e_prev = EN(lp);
     const uint32_t fwd_prev = (uint32_t)fwd_base[(size_t)lp * H2R_LANE];
-    uint32_t ids[H2R_NSUM], sa, ea;
-    h2r_tag(prv, cur, e, ids, sa, ea);
+    uint32_t ids[H2R_NSUM], sa, ea, dt[H2R_NDT];
+    h2r_tag(prv, cur, e, ids, sa, ea, dt);
     uint32_t changed = 0;
 #pragma unroll
     for (int k = 0; k < H2R_NSUM; ++k) changed |= ids[k] ^ next_sum[k];
@@ -129,10 +161,18 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
     const uint32_t reset_b = ~ea & next_start & changed;
     y = (y & ~(set_b | reset_b)) | set_b;
     const uint32_t mask = fwd & y;
-    const uint32_t flags[6] = {mask, fwd, y, e, sa, ea};
     uint32_t midsum[H2R_NSUM];
 #pragma unroll
     for (int k = 0; k < H2R_NSUM; ++k) midsum[k] = ids[k] & mask;
+#if H2R_POST_PLANES
+    const size_t row = (size_t)l * H2R_LANE;
+    out_base[H2R_OFF_BWD * plane + row] = (int32_t)y;
+    out_base[H2R_OFF_MASK * plane + row] = (int32_t)mask;
+#pragma unroll
+    for (int k = 0; k < H2R_NSUM; ++k)
+      out_base[(H2R_OFF_MASKED_IDSUM + k) * plane + row] = (int32_t)midsum[k];
+#else
+    const uint32_t flags[6] = {mask, fwd, y, e, sa, ea};
     uint32_t words[8 * H2R_NGROUPS];
     h2r_emit(flags, midsum, cur, e, words);
 #pragma unroll
@@ -141,6 +181,7 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
     const uint32_t bnd = e & ~en_next;
 #pragma unroll
     for (int j = 0; j < H2R_SB_SUM; ++j) acc[j] |= bnd & cur[j];
+#endif
 #pragma unroll
     for (int k = 0; k < H2R_NSUM; ++k) next_sum[k] = ids[k];
 #pragma unroll
@@ -153,16 +194,26 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
     e = e_prev;
     fwd = fwd_prev;
   }
+#if !H2R_POST_PLANES
   // strings whose first byte is disabled are empty
-  uint32_t out[H2R_NDEFS * 8];
-  h2r_fb(acc, ~EN(0), out);
+  uint32_t fbw[H2R_NDEFS * 8];
+  h2r_fb(acc, ~EN(0), fbw);
 #pragma unroll
   for (int k = 0; k < H2R_NDEFS * 8; ++k)
-    fb[((size_t)nws * H2R_NDEFS * 8 + k) * H2R_LANE + lane] = (int32_t)out[k];
+    fb[((size_t)nws * H2R_NDEFS * 8 + k) * H2R_LANE + lane] = (int32_t)fbw[k];
+#endif
 }
 
 }  // namespace
 
+#if H2R_POST_PLANES
+extern "C" int h2r_post_planes(const void* logs, const void* en, void* out, int NW, int L,
+                               void* stream) {
+  post_kernel<<<(NW + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)logs, (const int32_t*)en, nullptr, (int32_t*)out, nullptr, NW, L);
+  return (int)cudaGetLastError();
+}
+#else
 extern "C" int h2r_post(const void* logs, const void* en, void* fwd_buf, void* g4, void* fb,
                         int NW, int L, void* stream) {
   post_kernel<<<(NW + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
@@ -170,3 +221,4 @@ extern "C" int h2r_post(const void* logs, const void* en, void* fwd_buf, void* g
       NW, L);
   return (int)cudaGetLastError();
 }
+#endif

@@ -1,2 +1,3 @@
-"""Device ops of the port: the bitplane witness pipeline (``bitplane``),
-its CUDA kernels (``kernels``), the knob check and the numpy oracle."""
+"""Device ops of the port: the bitplane matcher (``bitplane``), its CUDA
+kernels (``kernels``), run extraction (``extract``), the knob check and
+the numpy oracle."""

@@ -1,34 +1,43 @@
-"""Bit-sliced (bitplane) witness pipeline, PyTorch port.
+"""Bit-sliced (bitplane) matcher, PyTorch port.
 
-The port of ``halo2_regex_tpu.ops.bitplane.BitplaneMatcher(columns=
-"witness")`` with the default knobs.  Thirty-two strings share each int32
-word and the DFA runs as synthesized boolean circuits
+The port of ``halo2_regex_tpu.ops.bitplane.BitplaneMatcher`` with the
+default knobs, for its three column sets.  Thirty-two strings share each
+int32 word and the DFA runs as synthesized boolean circuits
 (:mod:`..compiler.bitslice`):
 
-  1. **qpack**: [B, L] bytes -> 8 byte-bit planes -> each def's byte->class
-     circuit -> class planes [L, KP, NWS, LANE], plus the enable plane
-     (pos < len) [NWS, L, LANE].
+  1. **pack**: [B, L] bytes -> 8 byte-bit planes -> each def's byte->class
+     circuit -> class planes [L_pad, KP, NWS, LANE], plus the enable plane
+     (pos < len) [NWS, L_pad, LANE].  ``qpack`` reads the [B, L] bytes
+     directly (when L_pad == L); ``pack`` reads the raw quad rows of
+     ``raw_quads`` (any L, or ``qpack=False``).
   2. **scan**: the only sequential stage.  One-hot live-state planes are
      carried across the bytes; each byte runs every def's step circuit and
-     writes log2-encoded state planes [NWS, SB, L, LANE].
-  3. **post**: tag circuit on (prev, next) state planes, id sum across
-     defs, forward/backward mask FSMs, dummy splice, and an 8x8 bit
-     transpose into byte-group words [NWS, 8G, L, LANE], plus the
-     final-state boundary planes ``fb`` [NWS, n_defs, 8, LANE].
-  4. **decode + finish** (plain torch ops): byte-group words -> [B, L]
-     uint8 columns, final states from ``fb``, verdicts.
+     writes log2-encoded state planes [NWS, SB, L_pad, LANE].
+  3. the tail, by ``columns``:
+     - ``"witness"``: **post** (tag circuit on (prev, next) state planes,
+       id sum across defs, forward/backward mask FSMs, dummy splice, 8x8
+       bit transpose into byte-group words [NWS, 8G, L_pad, LANE], plus
+       the final-state boundary planes ``fb`` [NWS, n_defs, 8, LANE]),
+       then ``decode_bytes`` and ``finish_witness``;
+     - ``"full"``: **post_planes** (the same tags, id sum and FSMs, written
+       as named bit planes [NWS, P_total, L_pad, LANE]), then
+       ``unpack_groups`` and ``finish_full`` -> a ``RegexResult``;
+     - ``"match"``: **fb_only** (the boundary planes alone), then
+       ``finish_match`` -> final states and verdicts.
 
 The packed layout is the JAX package's exactly, so every intermediate can
 be compared array for array: word ``w`` of a plane holds, at bit
 ``beta``, string ``g(w, beta) = 4*(w + NW*(beta % 8)) + beta // 8``
 (NW = B/32), and planes are NWS-major with LANE = 128 words per row.
+Rows at positions L..L_pad-1 have enable 0, so tags, FSMs and boundaries
+ignore them; the decodes slice them off.
 
-Each stage has a plain PyTorch version here (``qpack_plain``,
-``scan_plain``, ``post_plain``) and a hand-written CUDA kernel in
-``csrc/`` (bound by :mod:`.kernels`).  The stage functions ``qpack``,
-``scan`` and ``post`` route by device: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel (or raises).  There is no
-fallback between the two.
+Each kernel stage has a plain PyTorch version here (``qpack_plain``,
+``pack_plain``, ``scan_plain``, ``post_plain``, ``post_planes_plain``,
+``fb_only_plain``) and a hand-written CUDA kernel in ``csrc/`` (bound by
+:mod:`.kernels`).  The stage functions without ``_plain`` route by
+device: a CPU tensor takes the plain version, a CUDA tensor launches the
+kernel (or raises).  There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -42,11 +51,14 @@ from torch import nn
 
 from ..compiler.bitslice import DefCircuits, synthesize_def
 from ..models.compiled import CompiledRegexModel
-from .knobs import check_main_path
+from ..witness.result import RegexResult
+from .knobs import check_main_path, resolve_qpack
 
 LANE = 128
 TILE = 32 * LANE  # strings per NWS row: the batch is padded to a multiple
+LC = 128  # the JAX matcher's default L chunk: L_pad rounds L up to it
 _QUAD_MASK = 0x01010101
+COLUMNS = ("full", "witness", "match")
 
 
 def _substr_pairs(model: CompiledRegexModel, d: int):
@@ -70,6 +82,23 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _byte_groups(fields) -> List[Tuple[Tuple[str, int, int], ...]]:
+    """Greedy packing of (name, bit count) fields into <= 8-bit groups of
+    (name, first bit, bit count), as the JAX matcher packs them."""
+    groups: List[Tuple[Tuple[str, int, int], ...]] = []
+    cur: List[Tuple[str, int, int]] = []
+    bits = 0
+    for name, nb in fields:
+        if bits + nb > 8 and cur:
+            groups.append(tuple(cur))
+            cur, bits = [], 0
+        cur.append((name, bits, nb))
+        bits += nb
+    if cur:
+        groups.append(tuple(cur))
+    return groups
+
+
 # ---------------------------------------------------------------------------
 # The plan: everything static about one matcher
 # ---------------------------------------------------------------------------
@@ -79,13 +108,24 @@ def _round_up(x: int, m: int) -> int:
 class BitplanePlan:
     """Model-derived layout shared by the kernels and their plain versions.
 
-    ``cls_off[d]``/``sb_off[d]``: def d's first class plane / log plane in
-    the concatenated stacks.  ``wgroups``: the byte groups of the post
-    emission, each a tuple of (field, first bit, bit count) with at most 8
-    bits in all (``flags`` = mask, fwd, bwd, en, start_any, endf_any)."""
+    ``L_pad``: L for L <= 128, else L rounded up to a multiple of 128 (the
+    JAX matcher's default ``lc``); every plane has L_pad rows.  ``qpack``:
+    pack from the [B, L] bytes (K1) rather than from raw quad rows (B5);
+    only when L_pad == L.  ``cls_off[d]``/``sb_off[d]``: def d's first
+    class plane / log plane in the concatenated stacks.  ``wgroups``
+    (witness only): the byte groups of the post emission, each a tuple of
+    (field, first bit, bit count) with at most 8 bits in all (``flags`` =
+    mask, fwd, bwd, en, start_any, endf_any).  ``post_off`` (full only):
+    name -> (first plane, plane count) of the planes-mode post output,
+    ``p_total`` planes in all.  ``compact``: full mode's uint8 columns
+    (else int32)."""
 
     circuits: Tuple[DefCircuits, ...]
+    columns: str
     L: int
+    L_pad: int
+    qpack: bool
+    compact: bool
     idb: int
     nsum: int
     cls_off: Tuple[int, ...]
@@ -93,6 +133,8 @@ class BitplanePlan:
     sb_off: Tuple[int, ...]
     sb_sum: int
     wgroups: Tuple[Tuple[Tuple[str, int, int], ...], ...]
+    post_off: Dict[str, Tuple[int, int]]
+    p_total: int
     first_states: Tuple[int, ...]
     dummy_states: Tuple[int, ...]
 
@@ -108,17 +150,20 @@ class BitplanePlan:
         return bool((self.first_states[d] >> j) & 1)
 
 
-def make_plan(model: CompiledRegexModel) -> BitplanePlan:
+def make_plan(
+    model: CompiledRegexModel,
+    columns: str = "full",
+    qpack: bool = True,
+    compact: bool = True,
+) -> BitplanePlan:
     """Synthesize every def's circuits (binary class stage) and lay out
-    the plane stacks and byte groups as the JAX matcher does."""
+    the plane stacks, and the post output of ``columns``, as the JAX
+    matcher does."""
+    if columns not in COLUMNS:
+        raise ValueError(f"columns={columns!r}: expected full/witness/match")
     n_defs = model.n_defs
     L = model.max_chars_size
-    if L > LANE and L % LANE:
-        raise NotImplementedError(
-            f"max_chars_size={L}: L > {LANE} must be a multiple of {LANE}. "
-            "The JAX matcher pads such L and packs through the raw-quads "
-            "pack kernel (B5), which waits for ROADMAP A5"
-        )
+    L_pad = _round_up(L, min(LC, L))
     idb = max(1, int(model.total_substrs).bit_length())
     circuits = []
     for d in range(n_defs):
@@ -140,33 +185,42 @@ def make_plan(model: CompiledRegexModel) -> BitplanePlan:
         sb_off.append(off_sb)
         off_sb += c.sb
     nsum = idb if n_defs == 1 else idb + (n_defs - 1).bit_length() + 1
-    fields = [("flags", 6), ("masked_idsum", nsum)]
-    fields += [(f"states{d}", c.sb) for d, c in enumerate(circuits)]
-    if any(nb > 8 for _, nb in fields):
-        raise NotImplementedError(
-            f"fields {fields}: a field wider than 8 bits needs the planes "
-            "emission, which waits for ROADMAP A11"
-        )
+
     groups: List[Tuple[Tuple[str, int, int], ...]] = []
-    cur: List[Tuple[str, int, int]] = []
-    bits = 0
-    for name, nb in fields:
-        if bits + nb > 8:
-            groups.append(tuple(cur))
-            cur, bits = [], 0
-        cur.append((name, bits, nb))
-        bits += nb
-    if cur:
-        groups.append(tuple(cur))
-    # The post stage splices each def's dummy state into its log planes
-    # where enable is off.  dummy = largest + 1 < dead, and dead is a live
-    # state, so the dummy always fits the def's sb planes.
-    for d, c in enumerate(circuits):
-        if int(model.dummy_states[d]).bit_length() > c.sb:
-            raise ValueError(f"def {d}: dummy state does not fit {c.sb} planes")
+    if columns == "witness":
+        fields = [("flags", 6), ("masked_idsum", nsum)]
+        fields += [(f"states{d}", c.sb) for d, c in enumerate(circuits)]
+        if any(nb > 8 for _, nb in fields):
+            raise NotImplementedError(
+                f"fields {fields}: a field wider than 8 bits needs the planes "
+                "emission, which waits for ROADMAP A11"
+            )
+        groups = _byte_groups(fields)
+        # The post stage splices each def's dummy state into its log planes
+        # where enable is off.  dummy = largest + 1 < dead, and dead is a
+        # live state, so the dummy always fits the def's sb planes.
+        for d, c in enumerate(circuits):
+            if int(model.dummy_states[d]).bit_length() > c.sb:
+                raise ValueError(f"def {d}: dummy state does not fit {c.sb} planes")
+
+    post_off: Dict[str, Tuple[int, int]] = {}
+    if columns == "full":  # halo2_regex_tpu/ops/bitplane.py:683-704
+        plan_fields = []
+        for d in range(n_defs):
+            plan_fields += [(f"ids{d}", idb), (f"start{d}", 1), (f"endf{d}", 1)]
+        plan_fields += [("idsum", nsum), ("masked_idsum", nsum), ("fwd", 1),
+                        ("bwd", 1), ("mask", 1)]
+        off = 0
+        for name, nb in plan_fields:
+            post_off[name] = (off, nb)
+            off += nb
     return BitplanePlan(
         circuits=tuple(circuits),
+        columns=columns,
         L=L,
+        L_pad=L_pad,
+        qpack=bool(qpack) and L_pad == L,
+        compact=compact,
         idb=idb,
         nsum=nsum,
         cls_off=tuple(cls_off),
@@ -174,6 +228,8 @@ def make_plan(model: CompiledRegexModel) -> BitplanePlan:
         sb_off=tuple(sb_off),
         sb_sum=off_sb,
         wgroups=tuple(groups),
+        post_off=post_off,
+        p_total=sum(nb for _o, nb in post_off.values()),
         first_states=tuple(int(s) for s in model.first_states),
         dummy_states=tuple(int(s) for s in model.dummy_states),
     )
@@ -196,22 +252,33 @@ def len_table(lengths: torch.Tensor) -> torch.Tensor:
     )
 
 
-def transpose8_planes(planes: List[torch.Tensor]) -> List[torch.Tensor]:
-    """SWAR 8x8 bit-block transpose of eight int32 planes: output word
-    ``O_b`` holds, in byte lane ``s`` bit ``j``, the bit ``P_j[8s+b]``, i.e.
-    the value bytes of the four strings at ``beta % 8 == b``.  The masks
+def raw_quads(chars: torch.Tensor, L_pad: int) -> torch.Tensor:
+    """[B, L] uint8 -> raw quad rows [L_pad, 8, NWS, LANE] int32: the
+    transpose, zero pad and bitcast of the JAX ``raw_quads``
+    (halo2_regex_tpu/ops/bitplane.py:108).  Row (l, m, w) holds bytes
+    s = 0..3 of strings 4*(w + NW*m) + s at position l."""
+    B, L = chars.shape
+    x = chars.t()
+    if L_pad != L:
+        x = torch.cat([x, x.new_zeros((L_pad - L, B))])
+    # flat first: a size-1 dim may keep any stride, which view(int32) refuses
+    return x.contiguous().reshape(-1).view(torch.int32).reshape(L_pad, 8, B // TILE, LANE)
+
+
+def transpose8(x: torch.Tensor) -> torch.Tensor:
+    """SWAR 8x8 bit-block transpose of eight stacked int32 planes
+    [8, ...]: output word ``O_b`` holds, in byte lane ``s`` bit ``j``, the
+    bit ``P_j[8s+b]``, i.e. the value bytes of the four strings at
+    ``beta % 8 == b``.  Each of the three stages swaps the bit blocks of
+    every plane pair (i, i + d) at once, on views of the stack.  The masks
     make arithmetic right shifts safe (sign bits are masked off)."""
-    x = list(planes)
-    assert len(x) == 8
+    shape = x.shape
     for d, mask in ((4, 0x0F0F0F0F), (2, 0x33333333), (1, 0x55555555)):
-        for i in range(8):
-            if i & d:
-                continue
-            a, b = x[i], x[i + d]
-            t = ((a >> d) ^ b) & mask
-            x[i + d] = b ^ t
-            x[i] = a ^ (t << d)
-    return x
+        y = x.reshape(8 // (2 * d), 2, d, -1)  # [:, 0] planes i, [:, 1] planes i + d
+        a, b = y[:, 0], y[:, 1]
+        t = ((a >> d) ^ b) & mask
+        x = torch.stack([a ^ (t << d), b ^ t], 1)
+    return x.reshape(shape)
 
 
 def plane_add(a: List[torch.Tensor], b: List[torch.Tensor], n_out: int):
@@ -272,6 +339,16 @@ def _or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x[0]
 
 
+def _shift_down(p: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """[NWS, L, LANE]: p[l] := p[l-1], row 0 := first [NWS, 1, LANE]."""
+    return torch.cat([first, p[:, :-1]], 1)
+
+
+def _shift_up(p: torch.Tensor) -> torch.Tensor:
+    """[NWS, L, LANE]: p[l] := p[l+1], last row := 0."""
+    return torch.cat([p[:, 1:], torch.zeros_like(p[:, :1])], 1)
+
+
 def _on_cuda(*tensors: torch.Tensor) -> bool:
     """Route a stage: False for CPU tensors (plain version), True for CUDA
     tensors (kernel).  Anything else, or a mix, raises."""
@@ -286,54 +363,67 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"device {dev}: the port runs on cpu (plain) or cuda")
 
 
+def _kernels():
+    from . import kernels
+
+    return kernels
+
+
 # ---------------------------------------------------------------------------
-# Stage 1: qpack (K1 on the card)
+# Stage 1: pack (K1 qpack / B5 pack_raw on the card)
 # ---------------------------------------------------------------------------
 
 
-def qpack_plain(
-    plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor
+def pack_plain(
+    plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, L] uint8 chars and the [NWS, LANE, 32] length table -> class
-    planes [L, KP, NWS, LANE] and enable plane [NWS, L, LANE]
-    (int32).  Same function as the JAX ``_make_qpack`` kernel."""
-    B, L = chars.shape
-    NW = B // 32
-    NWS = NW // LANE
-    # string g = m*4NW + 4w + s: the pure view [8m, NW, 4s, L]
-    ch = chars.reshape(8, NW, 4, L).to(torch.int32)
-    word = ch[:, :, 0]
-    for s in range(1, 4):
-        word = word | (ch[:, :, s] << (8 * s))  # [8m, NW, L] quad words
+    """Raw quad rows [L_pad, 8, NWS, LANE] and the [NWS, LANE, 32] length
+    table -> class planes [L_pad, KP, NWS, LANE] and enable plane
+    [NWS, L_pad, LANE] (int32).  Same function as the JAX ``_make_pack``
+    kernel with the class stage and en_pack on."""
+    L_pad, _m8, NWS, _lane = quads.shape
     planes = []
     for j in range(8):
         acc = None
         for m in range(8):
-            v = ((word[m] >> j) & _QUAD_MASK) << m
+            v = ((quads[:, m] >> j) & _QUAD_MASK) << m
             acc = v if acc is None else acc | v
-        planes.append(acc.t().reshape(L, NWS, LANE))
+        planes.append(acc)  # [L_pad, NWS, LANE]
     env = {f"byte_bit{j}": planes[j] for j in range(8)}
     cls = []
     for c in plan.circuits:
         out = c.class_prog.run(env)
         cls += [out[name] for name in c.class_plane_names]
     bits_stack = torch.stack(cls, 1).contiguous()
-    pos = torch.arange(L, dtype=torch.int32, device=chars.device)
-    en = torch.zeros((NWS, L, LANE), dtype=torch.int32,
-                     device=chars.device)
+    pos = torch.arange(L_pad, dtype=torch.int32, device=quads.device)
+    en = torch.zeros((NWS, L_pad, LANE), dtype=torch.int32, device=quads.device)
     for beta in range(32):
         lt = pos[None, :, None] < len_wb[:, None, :, beta]
         en |= lt.to(torch.int32) << beta
     return bits_stack, en
 
 
-def qpack(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):
-    """Stage 1, routed by device (see module docstring)."""
-    if _on_cuda(chars, len_wb):
-        from . import kernels
+def qpack_plain(
+    plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, L] uint8 chars (L == L_pad) and the length table -> as
+    ``pack_plain``: the JAX ``_make_qpack`` kernel computes the pack
+    kernel's function from the bytes directly."""
+    return pack_plain(plan, raw_quads(chars, chars.shape[1]), len_wb)
 
-        return kernels.qpack_cuda(plan, chars, len_wb)
+
+def qpack(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):
+    """Stage 1 from [B, L] bytes, routed by device (module docstring)."""
+    if _on_cuda(chars, len_wb):
+        return _kernels().qpack_cuda(plan, chars, len_wb)
     return qpack_plain(plan, chars, len_wb)
+
+
+def pack(plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor):
+    """Stage 1 from raw quad rows, routed by device (module docstring)."""
+    if _on_cuda(quads, len_wb):
+        return _kernels().pack_raw_cuda(plan, quads, len_wb)
+    return pack_plain(plan, quads, len_wb)
 
 
 # ---------------------------------------------------------------------------
@@ -342,8 +432,8 @@ def qpack(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):
 
 
 def scan_plain(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
-    """Class planes [L, KP, NWS, LANE] -> log state planes
-    [NWS, SB, L, LANE]: the serial recurrence of the JAX
+    """Class planes [L_pad, KP, NWS, LANE] -> log state planes
+    [NWS, SB, L_pad, LANE]: the serial recurrence of the JAX
     ``_make_scan_fused`` kernel, one byte position per Python step."""
     L, _kp, NWS, _lane = bits_stack.shape
     dev = bits_stack.device
@@ -375,40 +465,38 @@ def scan_plain(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
 def scan(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
     """Stage 2, routed by device (see module docstring)."""
     if _on_cuda(bits_stack):
-        from . import kernels
-
-        return kernels.scan_cuda(plan, bits_stack)
+        return _kernels().scan_cuda(plan, bits_stack)
     return scan_plain(plan, bits_stack)
 
 
 # ---------------------------------------------------------------------------
-# Stage 3: post (K3 on the card)
+# Stage 3: post (K3), post_planes (B3 planes mode), fb_only (B4)
 # ---------------------------------------------------------------------------
 
 
-def post_plain(
-    plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Log planes [NWS, SB, L, LANE] and enable plane [NWS, L, LANE]
-    -> byte-group words [NWS, 8G, L, LANE] and final-state boundary
-    planes [NWS, n_defs, 8, LANE]: the JAX ``_make_post`` kernel in bytes
-    mode with pre-dummied states.  Position-parallel: the mask FSMs run
-    as log-scans here (the CUDA kernel runs them serially)."""
-    NWS, _sb, L, _lane = logs.shape
-    dev = logs.device
-    zrow = torch.zeros((NWS, 1, LANE), dtype=torch.int32, device=dev)
+@dataclass
+class _Tags:
+    per_def: List[Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]]
+    ids_sum: List[torch.Tensor]
+    start_any: torch.Tensor
+    endf_any: torch.Tensor
+    fwd: torch.Tensor
+    bwd: torch.Tensor
+    mask: torch.Tensor
 
-    def shift_down(p, first):  # p[l] := p[l-1], row 0 := first
-        return torch.cat([first, p[:, : L - 1]], 1)
 
-    def shift_up(p):  # p[l] := p[l+1], last row := 0
-        return torch.cat([p[:, 1:], zrow], 1)
-
+def _tags_and_masks(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> _Tags:
+    """The body shared by both post modes: each def's tag circuit on its
+    (prev, next) log planes (ids, is_start, is_end, masked by enable), the
+    id sum across defs, and the forward/backward mask FSMs as log-scans
+    (the CUDA kernels run them serially)."""
+    zrow = torch.zeros_like(en[:, :1])
+    per_def = []
     ids_sum = start_any = endf_any = None
     for d, c in enumerate(plan.circuits):
         nxt = [logs[:, plan.sb_off[d] + j] for j in range(c.sb)]
         prv = [
-            shift_down(nxt[j], torch.full_like(zrow, -1 if plan.first_bit(d, j) else 0))
+            _shift_down(nxt[j], torch.full_like(zrow, -1 if plan.first_bit(d, j) else 0))
             for j in range(c.sb)
         ]
         env = {f"prev{j}": prv[j] for j in range(c.sb)}
@@ -417,6 +505,7 @@ def post_plain(
         idp = [tag[f"id{j}"] & en for j in range(plan.idb)]
         stp = tag["is_start"] & en
         efp = tag["is_end"] & en
+        per_def.append((idp, stp, efp))
         if ids_sum is None:
             ids_sum, start_any, endf_any = idp, stp, efp
         else:
@@ -425,22 +514,55 @@ def post_plain(
             endf_any = endf_any | efp
 
     # forward FSM (src/lib.rs:598-645)
-    changed = _or_reduce(torch.stack([p ^ shift_down(p, zrow) for p in ids_sum]), 0)
-    prev_endf = shift_down(endf_any, zrow)
+    changed = _or_reduce(torch.stack([p ^ _shift_down(p, zrow) for p in ids_sum]), 0)
+    prev_endf = _shift_down(endf_any, zrow)
     is_set = start_any & changed
     is_reset = ~start_any & prev_endf & changed
     fwd = _fsm_log_scan(~(is_set | is_reset), is_set, reverse=False)
     # backward FSM (src/lib.rs:663-714)
-    changed_b = _or_reduce(torch.stack([p ^ shift_up(p) for p in ids_sum]), 0)
-    next_start = shift_up(start_any)
+    changed_b = _or_reduce(torch.stack([p ^ _shift_up(p) for p in ids_sum]), 0)
+    next_start = _shift_up(start_any)
     set_b = endf_any & changed_b
     reset_b = ~endf_any & next_start & changed_b
     bwd = _fsm_log_scan(~(set_b | reset_b), set_b, reverse=True)
-    mask = fwd & bwd
+    return _Tags(per_def, ids_sum, start_any, endf_any, fwd, bwd, fwd & bwd)
 
+
+def fb_only_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """Log planes [NWS, SB, L_pad, LANE] and enable plane [NWS, L_pad,
+    LANE] -> final-state boundary planes [NWS, n_defs, 8, LANE]: per def
+    the log bits at the last enabled position (the first state for empty
+    strings).  The JAX ``_make_fb_only`` kernel; ``post_plain`` emits the
+    same planes."""
+    NWS = logs.shape[0]
+    bnd = en & ~_shift_up(en)  # last enabled position of each string
+    empty = ~en[:, 0]  # [NWS, LANE]
+    fb = torch.zeros((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=logs.device)
+    for d, c in enumerate(plan.circuits):
+        for j in range(c.sb):
+            x = _or_reduce(bnd & logs[:, plan.sb_off[d] + j], 1)
+            fb[:, d, j] = x | empty if plan.first_bit(d, j) else x
+    return fb
+
+
+def fb_only(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """Stage 3 of match mode, routed by device (see module docstring)."""
+    if _on_cuda(logs, en):
+        return _kernels().fb_only_cuda(plan, logs, en)
+    return fb_only_plain(plan, logs, en)
+
+
+def post_plain(
+    plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Log planes [NWS, SB, L_pad, LANE] and enable plane [NWS, L_pad,
+    LANE] -> byte-group words [NWS, 8G, L_pad, LANE] and final-state
+    boundary planes [NWS, n_defs, 8, LANE]: the JAX ``_make_post`` kernel
+    in bytes mode with pre-dummied states."""
+    t = _tags_and_masks(plan, logs, en)
     avail: Dict[str, List[torch.Tensor]] = {
-        "flags": [mask, fwd, bwd, en, start_any, endf_any],
-        "masked_idsum": [p & mask for p in ids_sum],
+        "flags": [t.mask, t.fwd, t.bwd, en, t.start_any, t.endf_any],
+        "masked_idsum": [p & t.mask for p in t.ids_sum],
     }
     for d, c in enumerate(plan.circuits):
         planes = []
@@ -450,32 +572,39 @@ def post_plain(
                 p = p | ~en
             planes.append(p)
         avail[f"states{d}"] = planes
-    words = []
-    for grp in plan.wgroups:
-        planes = [p for name, _off, _nb in grp for p in avail[name]]
-        planes += [torch.zeros_like(en)] * (8 - len(planes))
-        words += transpose8_planes(planes)
-    g4 = torch.stack(words, 1)
-
-    # final-state boundary planes: per def the log bits at the last
-    # enabled position (first state for empty strings)
-    bnd = en & ~shift_up(en)
-    empty = ~en[:, 0]  # [NWS, LANE]
-    fb = torch.zeros((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
-    for d, c in enumerate(plan.circuits):
-        for j in range(c.sb):
-            x = _or_reduce(bnd & logs[:, plan.sb_off[d] + j], 1)
-            fb[:, d, j] = x | (empty if plan.first_bit(d, j) else 0)
-    return g4, fb
+    return _group_words(plan.wgroups, avail), fb_only_plain(plan, logs, en)
 
 
 def post(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
-    """Stage 3, routed by device (see module docstring)."""
+    """Stage 3 of witness mode, routed by device (see module docstring)."""
     if _on_cuda(logs, en):
-        from . import kernels
-
-        return kernels.post_cuda(plan, logs, en)
+        return _kernels().post_cuda(plan, logs, en)
     return post_plain(plan, logs, en)
+
+
+def post_planes_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """Log planes and enable plane -> the named planes of ``post_off``
+    [NWS, P_total, L_pad, LANE]: per def ids/start/endf, then idsum,
+    masked_idsum, fwd, bwd, mask.  The JAX ``_make_post`` kernel in planes
+    mode (no byte groups, no ``fb``, no dummy splice)."""
+    t = _tags_and_masks(plan, logs, en)
+    named: Dict[str, List[torch.Tensor]] = {
+        "idsum": t.ids_sum,
+        "masked_idsum": [p & t.mask for p in t.ids_sum],
+        "fwd": [t.fwd],
+        "bwd": [t.bwd],
+        "mask": [t.mask],
+    }
+    for d, (idp, stp, efp) in enumerate(t.per_def):
+        named.update({f"ids{d}": idp, f"start{d}": [stp], f"endf{d}": [efp]})
+    return torch.stack([p for name in plan.post_off for p in named[name]], 1)
+
+
+def post_planes(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """Stage 3 of full mode, routed by device (see module docstring)."""
+    if _on_cuda(logs, en):
+        return _kernels().post_planes_cuda(plan, logs, en)
+    return post_planes_plain(plan, logs, en)
 
 
 # ---------------------------------------------------------------------------
@@ -483,51 +612,99 @@ def post(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def decode_bytes(
-    plan: BitplanePlan, g4: torch.Tensor, B: int, first_states: torch.Tensor
-) -> Dict[str, torch.Tensor]:
-    """Byte-group words -> [B, L] uint8 field columns, plus ``states``
-    [B, n_defs, L+1]: each def's first state, then its states field,
-    written in place.  Byte lane s of word (nws, lane) in group word b is
-    string 4*(w + NW*b) + s, so the flat string order is dims
-    (b, nws, lane, s).  The transpose to string-major runs on int32 words
+def _group_words(groups, avail: Dict[str, List[torch.Tensor]]) -> torch.Tensor:
+    """Each <= 8-plane group of named planes [NWS, L_pad, LANE] -> its 8
+    byte-lane words (SWAR transpose, zero planes above the last field):
+    [NWS, 8G, L_pad, LANE]."""
+    words = []
+    for grp in groups:
+        planes = [p for name, _off, _nb in grp for p in avail[name]]
+        planes += [torch.zeros_like(planes[0])] * (8 - len(planes))
+        words.append(transpose8(torch.stack(planes)))
+    return torch.cat(words).movedim(0, 1)
+
+
+def decode_groups(g4: torch.Tensor, groups, L: int) -> Dict[str, torch.Tensor]:
+    """Byte-group words [NWS, 8G, L_pad, LANE] -> each field's uint8
+    values as a [8, NWS, LANE, 4, L] view, whose flat order is the string
+    order: byte lane s of word (nws, lane) in group word b is string
+    4*(w + NW*b) + s.  The transpose to string-major runs on int32 words
     first (one pass over all groups), then on each field's byte lanes: on
     the H100 that is 1.9x faster than one byte-level transpose per field."""
-    NWS = g4.shape[0]
-    L = plan.L
-    G = plan.n_groups
-    words = g4.reshape(NWS, G, 8, L, LANE)
+    NWS, _g8, L_pad, _lane = g4.shape
+    G = len(groups)
+    words = g4.reshape(NWS, G, 8, L_pad, LANE)[:, :, :, :L]
     words = words.permute(1, 2, 0, 4, 3).contiguous()  # [G, b, nws, lane, L]
     # int32 -> 4 uint8 lanes: torch widens the last dim instead of adding
     # an axis, so split it back out
     u8 = words.reshape(-1).view(torch.uint8).reshape(G, 8, NWS, LANE, L, 4)
-    states = torch.empty((B, plan.n_defs, L + 1), dtype=torch.uint8, device=g4.device)
-    states[:, :, 0] = first_states.to(torch.uint8)
-    vals = {"states": states}
-    for gi, grp in enumerate(plan.wgroups):
+    out = {}
+    for gi, grp in enumerate(groups):
         arr = u8[gi]  # [b, nws, lane, L, s]
         for k, (name, off, nb) in enumerate(grp):
             v = arr >> off if off else arr
             if k + 1 < len(grp):  # the transpose zero-fills the bits above
                 v = v & ((1 << nb) - 1)  # a group's last field
-            v = v.permute(0, 1, 2, 4, 3)  # [b, nws, lane, s, L]: string-major
-            if name.startswith("states"):
-                d = int(name[len("states"):])
-                states[:, d, 1:].view(8, NWS, LANE, 4, L).copy_(v)
-            else:
-                vals[name] = v.reshape(B, L)
+            out[name] = v.permute(0, 1, 2, 4, 3)  # [b, nws, lane, s, L]
+    return out
+
+
+def decode_bytes(
+    plan: BitplanePlan, g4: torch.Tensor, B: int, first_states: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """Witness byte-group words -> [B, L] uint8 field columns, plus
+    ``states`` [B, n_defs, L+1]: each def's first state, then its states
+    field, written in place."""
+    L = plan.L
+    states = torch.empty((B, plan.n_defs, L + 1), dtype=torch.uint8, device=g4.device)
+    states[:, :, 0] = first_states.to(torch.uint8)
+    vals = {"states": states}
+    for name, v in decode_groups(g4, plan.wgroups, L).items():
+        if name.startswith("states"):
+            d = int(name[len("states"):])
+            states[:, d, 1:].view(v.shape).copy_(v)
+        else:
+            vals[name] = v.reshape(B, L)
     return vals
+
+
+def unpack_groups(
+    named: List[Tuple[str, List[torch.Tensor]]], L: int
+) -> Dict[str, torch.Tensor]:
+    """Named plane vectors [NWS, L_pad, LANE] -> [B, L] values (the JAX
+    ``unpack_groups``, halo2_regex_tpu/ops/bitplane.py:266): uint8 for a
+    field of <= 8 planes, int32 above.  Fields pack greedily into <= 8-bit
+    groups; each group is one SWAR transpose into byte-lane words and one
+    ``decode_groups`` pass, with no 32x bit-expanded intermediate.  A field
+    wider than 8 planes is split into byte-wide parts and reassembled."""
+    parts, avail = [], {}
+    for name, planes in named:
+        for k in range(0, len(planes), 8):
+            avail[(name, k)] = planes[k : k + 8]
+            parts.append(((name, k), len(avail[(name, k)])))
+    groups = _byte_groups(parts)
+    g4 = _group_words(groups, avail)
+    B = g4.shape[0] * TILE
+    vals = {key: v.reshape(B, L) for key, v in decode_groups(g4, groups, L).items()}
+    out = {}
+    for name, planes in named:
+        if len(planes) <= 8:
+            out[name] = vals[(name, 0)]
+        else:
+            out[name] = sum(vals[(name, k)].to(torch.int32) << k
+                            for k in range(0, len(planes), 8))
+    return out
 
 
 def final_from_fb(fb: torch.Tensor, B: int) -> torch.Tensor:
     """[NWS, n_defs, 8, LANE] boundary planes -> final states [B, n_defs]
-    (bit beta = 8s+m of word w is string 4*(w + NW*m) + s)."""
+    int32 (bit beta = 8s+m of word w is string 4*(w + NW*m) + s)."""
     NW = B // 32
     n_defs = fb.shape[1]
     beta = torch.arange(32, dtype=torch.int32, device=fb.device)
     bits = (fb[..., None] >> beta) & 1  # [NWS, n_defs, 8, LANE, 32]
     shifts = torch.arange(8, dtype=torch.int32, device=fb.device)
-    vals = (bits << shifts[None, None, :, None, None]).sum(2)  # [NWS, n_defs, LANE, 32]
+    vals = (bits << shifts[None, None, :, None, None]).sum(2, dtype=torch.int32)
     cols = [
         vals[:, d].reshape(NW, 4, 8).permute(2, 0, 1).reshape(B)
         for d in range(n_defs)
@@ -535,8 +712,27 @@ def final_from_fb(fb: torch.Tensor, B: int) -> torch.Tensor:
     return torch.stack(cols, 1)
 
 
+def _verdicts(tables: Dict[str, torch.Tensor], final: torch.Tensor):
+    """Final states [B, n_defs] -> accepted, has_dead, match_ok."""
+    d_idx = torch.arange(final.shape[1], device=final.device)[None, :]
+    accepted = tables["accept_mask"][d_idx, final.long()]
+    has_dead = final == tables["dead_states"][None, :]
+    return accepted, has_dead, accepted.all(1) & ~has_dead.any(1)
+
+
+def finish_match(
+    tables: Dict[str, torch.Tensor], fb: torch.Tensor, B: int, B_orig: int
+) -> Dict[str, torch.Tensor]:
+    """The verdict dict of the JAX ``_finish_match``: ``final_states``
+    [B, n_defs] int32, ``accepted``, ``has_dead``, ``match_ok``."""
+    final = final_from_fb(fb, B)
+    accepted, has_dead, match_ok = _verdicts(tables, final)
+    out = dict(final_states=final, accepted=accepted, has_dead=has_dead,
+               match_ok=match_ok)
+    return {k: v[:B_orig] for k, v in out.items()}
+
+
 def finish_witness(
-    plan: BitplanePlan,
     tables: Dict[str, torch.Tensor],
     chars: torch.Tensor,
     vals: Dict[str, torch.Tensor],
@@ -545,13 +741,9 @@ def finish_witness(
 ) -> Dict[str, torch.Tensor]:
     """The compact witness dict of the JAX ``_finish_witness`` (bytes
     emission, pre-dummied states)."""
-    B = chars.shape[0]
     flags = vals["flags"]
     mask = flags & 1
-    final = final_from_fb(fb, B).long()
-    d_idx = torch.arange(plan.n_defs, device=fb.device)[None, :]
-    accepted = tables["accept_mask"][d_idx, final]
-    has_dead = final == tables["dead_states"][None, :]
+    accepted, has_dead, match_ok = _verdicts(tables, final_from_fb(fb, chars.shape[0]))
     out = dict(
         states=vals["states"],
         all_substr_ids=vals["masked_idsum"],
@@ -560,25 +752,100 @@ def finish_witness(
         mask=mask,
         accepted=accepted,
         has_dead=has_dead,
-        match_ok=accepted.all(1) & ~has_dead.any(1),
+        match_ok=match_ok,
     )
-    if B_orig != B:
-        out = {k: v[:B_orig] for k, v in out.items()}
-    return out
+    return {k: v[:B_orig] for k, v in out.items()}
 
 
-def witness(
+def finish_full(
+    plan: BitplanePlan,
+    tables: Dict[str, torch.Tensor],
+    chars: torch.Tensor,
+    lengths: torch.Tensor,
+    post_out: torch.Tensor,
+    logs: torch.Tensor,
+    B_orig: int,
+) -> RegexResult:
+    """The full ``RegexResult`` of the JAX ``_finish_full``
+    (halo2_regex_tpu/ops/bitplane.py:2077): states come from the raw log
+    planes (not pre-dummied), with the dummy state past each length and
+    the final state read at the length."""
+    B, L = chars.shape
+    dev = chars.device
+    val_dtype = torch.uint8 if plan.compact else torch.int32
+
+    def planes_of(name):
+        o, nb = plan.post_off[name]
+        return [post_out[:, o + j] for j in range(nb)]
+
+    named = [(name, planes_of(name)) for name in ("idsum", "masked_idsum", "fwd", "bwd", "mask")]
+    for d, c in enumerate(plan.circuits):
+        named.append((f"states{d}", [logs[:, plan.sb_off[d] + j] for j in range(c.sb)]))
+        named += [(f"{f}{d}", planes_of(f"{f}{d}")) for f in ("ids", "start", "endf")]
+    vals = unpack_groups(named, L)
+
+    pos = torch.arange(L, dtype=torch.int32, device=dev)
+    enable = (pos[None, :] < lengths[:, None]).to(val_dtype)
+    chars_v = chars.to(val_dtype) * enable
+    mask = vals["mask"].to(val_dtype)
+    sum_dtype = val_dtype if plan.nsum <= 8 else torch.int32
+    s_pad = tables["accept_mask"].shape[1]
+    st_dtype = val_dtype if s_pad <= 255 else torch.int32
+
+    ids_list, start_list, end_list = [], [], []
+    for d in range(plan.n_defs):
+        ids_list.append(vals[f"ids{d}"].to(val_dtype))
+        start_list.append(vals[f"start{d}"].to(val_dtype))
+        end_list.append(vals[f"endf{d}"].to(val_dtype))
+    start_sum, end_sum = sum(start_list), sum(end_list)
+
+    after = torch.stack([vals[f"states{d}"].to(st_dtype) for d in range(plan.n_defs)], 1)
+    first = tables["first_states"].to(st_dtype)[None, :, None].expand(B, plan.n_defs, 1)
+    raw = torch.cat([first, after], 2)  # [B, n_defs, L + 1]
+    posL1 = torch.arange(L + 1, dtype=torch.int32, device=dev)
+    in_range = posL1[None, None, :] <= lengths[:, None, None]
+    dummy = tables["dummy_states"].to(st_dtype)[None, :, None]
+    states = torch.where(in_range, raw, dummy)
+    idx = lengths.long()[:, None, None].expand(B, plan.n_defs, 1)
+    final = torch.gather(raw, 2, idx)[:, :, 0].to(torch.int32)
+    accepted, has_dead, match_ok = _verdicts(tables, final)
+
+    zcol = torch.zeros((B, 1), dtype=start_sum.dtype, device=dev)
+    out = dict(
+        all_enable_flags=enable,
+        all_characters=chars_v,
+        all_substr_ids=vals["masked_idsum"].to(sum_dtype),
+        masked_characters=mask * chars_v,
+        states=states,
+        substr_ids_per_def=torch.stack(ids_list, 1),
+        start_enable=torch.stack(start_list, 1),
+        end_enable=torch.stack(end_list, 1),
+        is_start_sum=torch.cat([start_sum, zcol], 1),
+        is_end_sum=torch.cat([zcol, end_sum], 1),
+        substr_id_sum=vals["idsum"].to(sum_dtype),
+        fwd_mask=vals["fwd"].to(val_dtype),
+        bwd_mask=vals["bwd"].to(val_dtype),
+        mask=mask,
+        accepted=accepted,
+        has_dead=has_dead,
+        match_ok=match_ok,
+    )
+    return RegexResult(**{k: v[:B_orig] for k, v in out.items()})
+
+
+def run(
     plan: BitplanePlan,
     tables: Dict[str, torch.Tensor],
     chars: torch.Tensor,
     lengths: torch.Tensor,
     plain: bool = False,
-) -> Dict[str, torch.Tensor]:
-    """The whole witness pipeline on ``chars`` [B, L] uint8 and ``lengths``
-    [B] int32 (both on the device that runs it).  The batch is padded to
-    a multiple of 32*LANE strings and the outputs sliced back.  ``plain``
-    runs the plain version of every stage on any device (the reference
-    the kernels are held against); otherwise stages route by device."""
+):
+    """The whole pipeline of ``plan.columns`` on ``chars`` [B, L] uint8 and
+    ``lengths`` [B] int32 (both on the device that runs it).  The batch is
+    padded to a multiple of 32*LANE strings and the outputs sliced back.
+    ``plain`` runs the plain version of every stage on any device (the
+    reference the kernels are held against); otherwise stages route by
+    device."""
     B_orig, L = chars.shape
     if L != plan.L:
         raise ValueError(f"chars are [B, {L}]; the model needs L={plan.L}")
@@ -589,16 +856,22 @@ def witness(
         pad = B - B_orig
         chars = torch.cat([chars, chars.new_zeros((pad, L))])
         lengths = torch.cat([lengths, lengths.new_zeros((pad,))])
-    if plain:
-        bits_stack, en = qpack_plain(plan, chars, len_table(lengths))
-        logs = scan_plain(plan, bits_stack)
-        g4, fb = post_plain(plan, logs, en)
+    len_wb = len_table(lengths)
+    if plan.qpack:
+        bits_stack, en = (qpack_plain if plain else qpack)(plan, chars, len_wb)
     else:
-        bits_stack, en = qpack(plan, chars, len_table(lengths))
-        logs = scan(plan, bits_stack)
-        g4, fb = post(plan, logs, en)
-    vals = decode_bytes(plan, g4, B, tables["first_states"])
-    return finish_witness(plan, tables, chars, vals, fb, B_orig)
+        quads = raw_quads(chars, plan.L_pad)
+        bits_stack, en = (pack_plain if plain else pack)(plan, quads, len_wb)
+    logs = (scan_plain if plain else scan)(plan, bits_stack)
+    if plan.columns == "match":
+        fb = (fb_only_plain if plain else fb_only)(plan, logs, en)
+        return finish_match(tables, fb, B, B_orig)
+    if plan.columns == "witness":
+        g4, fb = (post_plain if plain else post)(plan, logs, en)
+        vals = decode_bytes(plan, g4, B, tables["first_states"])
+        return finish_witness(tables, chars, vals, fb, B_orig)
+    post_out = (post_planes_plain if plain else post_planes)(plan, logs, en)
+    return finish_full(plan, tables, chars, lengths, post_out, logs, B_orig)
 
 
 # ---------------------------------------------------------------------------
@@ -607,26 +880,31 @@ def witness(
 
 
 class BitplaneMatcher(nn.Module):
-    """Bit-sliced witness matcher (port of the JAX ``BitplaneMatcher``).
+    """Bit-sliced matcher (port of the JAX ``BitplaneMatcher``).
 
-    Only ``columns="witness"`` with the default knobs is ported: calling
-    returns the dict of ``halo2_regex_tpu``'s ``_finish_witness`` (keys
-    states, all_substr_ids, masked_characters, flags, mask, accepted,
+    ``columns`` selects what a call returns, as in the JAX package:
+    ``"full"`` (the default) a ``RegexResult`` with every witness column
+    (uint8 columns, or int32 with ``compact=False``); ``"witness"`` the
+    dict of ``_finish_witness`` (states, all_substr_ids,
+    masked_characters, flags, mask, accepted, has_dead, match_ok);
+    ``"match"`` the dict of ``_finish_match`` (final_states, accepted,
     has_dead, match_ok).  The model's tables are registered buffers and
     follow ``.to(device)``; ``device="cuda"`` runs the CUDA kernels and
     raises where CUDA is absent.
 
     Args mirror the JAX constructor, less ``lc`` and ``max_step_ops``
-    (TPU tile and VMEM limits), with ``columns`` defaulting to the only
-    value the port runs.  Settings it does not run yet raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    (TPU tile and VMEM limits).  ``qpack`` (or ``H2R_QPACK``) picks the
+    pack from bytes (K1) or from raw quad rows (B5), which any L whose
+    L_pad differs from L takes anyway.  Settings the port does not run
+    yet raise ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(
         self,
         model: CompiledRegexModel,
+        compact: bool = True,
         post: str = "kernel",
-        columns: str = "witness",
+        columns: str = "full",
         class_stage=None,
         unroll: Optional[int] = None,
         fuse_pack: Optional[bool] = None,
@@ -637,16 +915,8 @@ class BitplaneMatcher(nn.Module):
         device=None,
     ):
         super().__init__()
-        if columns not in ("full", "witness", "match"):
+        if columns not in COLUMNS:
             raise ValueError(f"columns={columns!r}: expected full/witness/match")
-        if columns != "witness":
-            item = "A5 (full RegexResult columns)" if columns == "full" else (
-                "A4 (match-only serving)"
-            )
-            raise NotImplementedError(
-                f"columns={columns!r} waits for ROADMAP {item}; the port "
-                "runs columns='witness'"
-            )
         if input_layout not in ("bl", "tiled"):
             raise ValueError(f"input_layout={input_layout!r}: expected bl/tiled")
         if input_layout == "tiled":
@@ -662,14 +932,14 @@ class BitplaneMatcher(nn.Module):
             raise ValueError(f"post={post!r}: expected kernel")
         check_main_path(
             unroll=unroll, fuse_pack=fuse_pack, class_stage=class_stage,
-            en_pack=en_pack, qpack=qpack, emit=emit,
+            en_pack=en_pack, emit=emit,
         )
         self.model = model
-        self.plan = make_plan(model)
+        self.plan = make_plan(model, columns, qpack=resolve_qpack(qpack), compact=compact)
         self.register_buffer(
             "accept_mask", torch.from_numpy(np.asarray(model.accept_mask, bool))
         )
-        for name in ("first_states", "dead_states"):
+        for name in ("first_states", "dead_states", "dummy_states"):
             self.register_buffer(
                 name, torch.from_numpy(np.asarray(getattr(model, name), np.int64))
             )
@@ -683,6 +953,10 @@ class BitplaneMatcher(nn.Module):
         self.to(device)
 
     @property
+    def columns(self) -> str:
+        return self.plan.columns
+
+    @property
     def device(self) -> torch.device:
         return self.accept_mask.device
 
@@ -690,14 +964,15 @@ class BitplaneMatcher(nn.Module):
         return dict(self.named_buffers())
 
     @torch.no_grad()
-    def forward(self, chars, lengths) -> Dict[str, torch.Tensor]:
+    def forward(self, chars, lengths):
         chars = torch.as_tensor(chars, dtype=torch.uint8, device=self.device)
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
-        return witness(self.plan, self.tables(), chars.contiguous(),
-                       lengths.contiguous())
+        return run(self.plan, self.tables(), chars.contiguous(), lengths.contiguous())
 
-    def match_one(self, characters: bytes) -> Dict[str, np.ndarray]:
+    def match_one(self, characters: bytes):
         buf = np.zeros((1, self.plan.L), np.uint8)
         buf[0, : len(characters)] = bytearray(characters)
         out = self(buf, np.array([len(characters)], np.int32))
+        if isinstance(out, RegexResult):
+            return out.map(lambda v: v[0].cpu().numpy())
         return {k: v[0].cpu().numpy() for k, v in out.items()}

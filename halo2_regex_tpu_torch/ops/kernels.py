@@ -1,25 +1,30 @@
 """CUDA kernels of the bitplane pipeline: circuit codegen, nvcc build,
 ctypes binding, launch counters.
 
-The kernels themselves are static templates under ``csrc/``
-(``bitplane_pack.cu`` K1, ``bitplane_scan.cu`` K2, ``bitplane_post.cu``
-K3).  What they compute per word depends on the model, so this module
-emits each def's synthesized class, step and tag circuits as straight-line
-``__device__ __forceinline__`` functions into a header,
-``h2r_circuits.cuh``, that the templates include.  At first use for a
-model the header and the three templates are compiled by nvcc for
-``sm_90a`` into one shared library with a plain C interface, under
-``<build root>/<hash of sources + header + flags>/``, and loaded with
-``ctypes``.  The build root is ``$H2R_TORCH_BUILD_DIR`` when set, else
-``build/h2r_torch_kernels/`` in the source checkout when that is
-writable, else ``h2r_torch_kernels/`` in the user's cache directory
-(``$XDG_CACHE_HOME`` or ``~/.cache``), as for an installed package.
+The kernels themselves are static templates under ``csrc/``:
+``bitplane_pack.cu`` (K1 qpack), ``bitplane_pack_raw.cu`` (pack from raw
+quad rows, B5), ``bitplane_scan.cu`` (K2), ``bitplane_post.cu`` (K3 in
+bytes mode; in planes mode when the header sets ``H2R_POST_PLANES``) and
+``bitplane_fb.cu`` (the match-only boundary reduction, B4).  What they
+compute per word depends on the model, so this module emits each def's
+synthesized class, step and tag circuits, and the post emission of the
+plan's column set, as straight-line ``__device__ __forceinline__``
+functions into a header, ``h2r_circuits.cuh``, that the templates
+include.  At first use for a plan the header and the templates its
+column set runs are compiled by nvcc for ``sm_90a`` into one shared
+library with a plain C interface, under ``<build root>/<hash of sources +
+header + flags>/``, and loaded with ``ctypes``.  The build root is
+``$H2R_TORCH_BUILD_DIR`` when set, else ``build/h2r_torch_kernels/`` in
+the source checkout when that is writable, else ``h2r_torch_kernels/`` in
+the user's cache directory (``$XDG_CACHE_HOME`` or ``~/.cache``), as for
+an installed package.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current stream without
-synchronising, raises if ``cudaGetLastError`` reports a failed launch,
-and adds one to its kernel's ``launches`` count.  Nothing here runs on
-the CPU: the plain versions live in :mod:`.bitplane`.
+outputs with ``torch.empty`` (``torch.zeros`` where the kernel ORs into
+them), launches on the current stream without synchronising, raises if
+``cudaGetLastError`` reports a failed launch, and adds one to its
+kernel's ``launches`` count.  Nothing here runs on the CPU: the plain
+versions live in :mod:`.bitplane`.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -39,7 +45,14 @@ import torch
 from .bitplane import LANE, TILE, BitplanePlan
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("bitplane_pack.cu", "bitplane_scan.cu", "bitplane_post.cu")
+_FRONT = ("bitplane_pack.cu", "bitplane_pack_raw.cu", "bitplane_scan.cu")
+# the templates each column set compiles (bitplane_post.cu serves both
+# post modes, selected by the generated header)
+SOURCES = {
+    "witness": _FRONT + ("bitplane_post.cu",),
+    "full": _FRONT + ("bitplane_post.cu",),
+    "match": _FRONT + ("bitplane_fb.cu",),
+}
 HEADERS = ("bitplane_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -71,7 +84,35 @@ POST = CudaKernel(
     "post", "h2r_post", "halo2_regex_tpu_torch/csrc/bitplane_post.cu",
     "halo2_regex_tpu/ops/bitplane.py:1338",
 )
-KERNELS = (QPACK, SCAN, POST)
+PACK_RAW = CudaKernel(
+    "pack_raw", "h2r_pack_raw", "halo2_regex_tpu_torch/csrc/bitplane_pack_raw.cu",
+    "halo2_regex_tpu/ops/bitplane.py:1040",
+)
+POST_PLANES = CudaKernel(
+    "post_planes", "h2r_post_planes", "halo2_regex_tpu_torch/csrc/bitplane_post.cu",
+    "halo2_regex_tpu/ops/bitplane.py:1338",
+)
+FB_ONLY = CudaKernel(
+    "fb_only", "h2r_fb_only", "halo2_regex_tpu_torch/csrc/bitplane_fb.cu",
+    "halo2_regex_tpu/ops/bitplane.py:1606",
+)
+KERNELS = (QPACK, PACK_RAW, SCAN, POST, POST_PLANES, FB_ONLY)
+# entry points of each column set's library: (kernel, ctypes argument kinds)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRIES = {
+    QPACK: [_P, _P, _P, _P, _I, _I, _I, _P],
+    PACK_RAW: [_P, _P, _P, _P, _I, _I, _P],
+    SCAN: [_P, _P, _I, _I, _P],
+    POST: [_P, _P, _P, _P, _P, _I, _I, _P],
+    POST_PLANES: [_P, _P, _P, _I, _I, _P],
+    FB_ONLY: [_P, _P, _P, _I, _I, _P],
+}
+_TAIL = {"witness": POST, "full": POST_PLANES, "match": FB_ONLY}
+
+
+def path_kernels(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
+    """The kernels one call of ``plan``'s pipeline launches, in order."""
+    return (QPACK if plan.qpack else PACK_RAW), SCAN, _TAIL[plan.columns]
 
 
 def reset_launch_counts() -> None:
@@ -142,9 +183,15 @@ def circuits_header(plan: BitplanePlan) -> str:
         f"#define H2R_SB_SUM {plan.sb_sum}",
         f"#define H2R_NLIVE {n_live}",
         f"#define H2R_NSUM {plan.nsum}",
-        f"#define H2R_NGROUPS {plan.n_groups}",
-        "",
+        f"#define H2R_NDT {plan.n_defs * (plan.idb + 2)}",
     ]
+    if plan.columns == "witness":
+        out.append(f"#define H2R_NGROUPS {plan.n_groups}")
+    if plan.columns == "full":
+        out += ["#define H2R_POST_PLANES 1", f"#define H2R_P_TOTAL {plan.p_total}"]
+        out += [f"#define H2R_OFF_{name.upper()} {plan.post_off[name][0]}"
+                for name in ("idsum", "masked_idsum", "fwd", "bwd", "mask")]
+    out.append("")
 
     body = []
     for d, c in enumerate(circ):
@@ -186,6 +233,8 @@ def circuits_header(plan: BitplanePlan) -> str:
         n_tmp[0] += 1
         return f"s{n_tmp[0]}"
 
+    # dt[(idb + 2) * d + k]: def d's id planes, is_start, is_end, the
+    # order of the planes-mode post output (post_off)
     body = []
     ids_sum: List[str] = []
     for d, c in enumerate(circ):
@@ -199,6 +248,8 @@ def circuits_header(plan: BitplanePlan) -> str:
         body += ["  " + s for s in c.tag_prog.to_c(ins, outs)]
         body.append("}")
         body += [f"{v} &= en;" for v in idp + [f"st{d}", f"ef{d}"]]
+        body += [f"dt[{(plan.idb + 2) * d + k}] = {v};"
+                 for k, v in enumerate(idp + [f"st{d}", f"ef{d}"])]
         if d == 0:
             ids_sum = idp
             body += ["start_any = st0;", "endf_any = ef0;"]
@@ -209,9 +260,23 @@ def circuits_header(plan: BitplanePlan) -> str:
     body += [f"ids[{k}] = {v};" for k, v in enumerate(ids_sum)]
     out += _fn(
         "h2r_tag(const uint32_t* prev, const uint32_t* next, uint32_t en, "
-        "uint32_t* ids, uint32_t& start_any, uint32_t& endf_any)",
+        "uint32_t* ids, uint32_t& start_any, uint32_t& endf_any, uint32_t* dt)",
         body,
     )
+
+    body = []
+    for d, c in enumerate(circ):
+        for j in range(8):
+            if j < c.sb:
+                v = f"acc[{plan.sb_off[d] + j}]"
+                if plan.first_bit(d, j):
+                    v += " | empty"
+            else:
+                v = "0u"
+            body.append(f"fb[{8 * d + j}] = {v};")
+    out += _fn("h2r_fb(const uint32_t* acc, uint32_t empty, uint32_t* fb)", body)
+    if plan.columns != "witness":
+        return "\n".join(out)
 
     avail: Dict[str, List[str]] = {
         "flags": [f"flags[{k}]" for k in range(6)],
@@ -237,18 +302,6 @@ def circuits_header(plan: BitplanePlan) -> str:
         "const uint32_t* lg, uint32_t en, uint32_t* words)",
         body,
     )
-
-    body = []
-    for d, c in enumerate(circ):
-        for j in range(8):
-            if j < c.sb:
-                v = f"acc[{plan.sb_off[d] + j}]"
-                if plan.first_bit(d, j):
-                    v += " | empty"
-            else:
-                v = "0u"
-            body.append(f"fb[{8 * d + j}] = {v};")
-    out += _fn("h2r_fb(const uint32_t* acc, uint32_t empty, uint32_t* fb)", body)
     return "\n".join(out)
 
 
@@ -257,6 +310,9 @@ def circuits_header(plan: BitplanePlan) -> str:
 # ---------------------------------------------------------------------------
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one lock per library key: plans that share a header (the same model and
+# column set at two lengths) may be built from several threads at once
+_KEY_LOCKS: Dict[str, threading.Lock] = {}
 # plan -> library, so a launch does not regenerate and hash the header
 # (milliseconds of host time); plans hash by identity, and an entry goes
 # with its plan.
@@ -297,16 +353,22 @@ def build(plan: BitplanePlan) -> ctypes.CDLL:
     if hit is not None:
         return hit
     header = circuits_header(plan)
+    sources = SOURCES[plan.columns]
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in sources + HEADERS:
         h.update((CSRC / name).read_bytes())
     h.update(header.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     key = h.hexdigest()[:16]
-    lib = _LIBS.get(key)
-    if lib is not None:
-        _PLAN_LIBS[plan] = lib
-        return lib
+    with _KEY_LOCKS.setdefault(key, threading.Lock()):
+        lib = _LIBS.get(key) or _load(key, header, sources, plan.columns)
+    _PLAN_LIBS[plan] = lib
+    return lib
+
+
+def _load(key: str, header: str, sources: Tuple[str, ...], columns: str) -> ctypes.CDLL:
+    """Build the library of ``key`` unless the build root holds it, then
+    load it and bind its entry points."""
     out_dir = build_root() / key
     so = out_dir / "libh2r_bitplane.so"
     if not so.exists():
@@ -315,7 +377,7 @@ def build(plan: BitplanePlan) -> ctypes.CDLL:
         tmp = out_dir / f"libh2r_bitplane.{os.getpid()}.so"
         cmd = [
             _nvcc(), *NVCC_FLAGS, f"-I{CSRC}", f"-I{out_dir}", "-o", str(tmp),
-            *[str(CSRC / s) for s in SOURCES],
+            *[str(CSRC / s) for s in sources],
         ]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -330,14 +392,11 @@ def build(plan: BitplanePlan) -> ctypes.CDLL:
         BUILD_LOG[key] = {"seconds": secs, "dir": str(out_dir),
                           "ptxas": res.stderr}
     lib = ctypes.CDLL(str(so))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.h2r_qpack.argtypes = [P, P, P, P, I, I, I, P]
-    lib.h2r_scan.argtypes = [P, P, I, I, P]
-    lib.h2r_post.argtypes = [P, P, P, P, P, I, I, P]
-    for fn in (lib.h2r_qpack, lib.h2r_scan, lib.h2r_post):
-        fn.restype = I
+    for k in (QPACK, PACK_RAW, SCAN, _TAIL[columns]):
+        fn = getattr(lib, k.entry)
+        fn.argtypes = _ENTRIES[k]
+        fn.restype = ctypes.c_int
     _LIBS[key] = lib
-    _PLAN_LIBS[plan] = lib
     return lib
 
 
@@ -366,8 +425,8 @@ def _stream(t: torch.Tensor) -> int:
 def qpack_cuda(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):
     """K1 (``csrc/bitplane_pack.cu``): same contract as ``qpack_plain``."""
     B, L = chars.shape
-    if B % TILE or L != plan.L:
-        raise ValueError(f"chars {tuple(chars.shape)}: need B % {TILE} == 0 and L == {plan.L}")
+    if B % TILE or L != plan.L_pad:
+        raise ValueError(f"chars {tuple(chars.shape)}: need B % {TILE} == 0 and L == {plan.L_pad}")
     NWS = B // TILE
     _check(chars, "chars", torch.uint8, (B, L))
     _check(len_wb, "len_wb", torch.int32, (NWS, LANE, 32))
@@ -381,10 +440,25 @@ def qpack_cuda(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):
     return bits, en
 
 
+def pack_raw_cuda(plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor):
+    """B5 (``csrc/bitplane_pack_raw.cu``): same contract as ``pack_plain``."""
+    NWS = quads.shape[2] if quads.dim() == 4 else 0
+    _check(quads, "quads", torch.int32, (plan.L_pad, 8, NWS, LANE))
+    _check(len_wb, "len_wb", torch.int32, (NWS, LANE, 32))
+    lib = build(plan)
+    dev = quads.device
+    with torch.cuda.device(dev):
+        bits = torch.empty((plan.L_pad, plan.kp, NWS, LANE), dtype=torch.int32, device=dev)
+        en = torch.empty((NWS, plan.L_pad, LANE), dtype=torch.int32, device=dev)
+        _launch(PACK_RAW, lib.h2r_pack_raw, quads.data_ptr(), len_wb.data_ptr(),
+                bits.data_ptr(), en.data_ptr(), NWS * LANE, plan.L_pad, _stream(quads))
+    return bits, en
+
+
 def scan_cuda(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
     """K2 (``csrc/bitplane_scan.cu``): same contract as ``scan_plain``."""
     L, KP, NWS, _lane = bits_stack.shape
-    _check(bits_stack, "bits_stack", torch.int32, (plan.L, plan.kp, NWS, LANE))
+    _check(bits_stack, "bits_stack", torch.int32, (plan.L_pad, plan.kp, NWS, LANE))
     lib = build(plan)
     with torch.cuda.device(bits_stack.device):
         logs = torch.empty((NWS, plan.sb_sum, L, LANE), dtype=torch.int32,
@@ -394,11 +468,18 @@ def scan_cuda(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
     return logs
 
 
+def _check_logs_en(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> int:
+    NWS = logs.shape[0] if logs.dim() == 4 else 0
+    _check(logs, "logs", torch.int32, (NWS, plan.sb_sum, plan.L_pad, LANE))
+    _check(en, "en", torch.int32, (NWS, plan.L_pad, LANE))
+    return NWS
+
+
 def post_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
-    """K3 (``csrc/bitplane_post.cu``): same contract as ``post_plain``."""
-    NWS, _sb, L, _lane = logs.shape
-    _check(logs, "logs", torch.int32, (NWS, plan.sb_sum, plan.L, LANE))
-    _check(en, "en", torch.int32, (NWS, plan.L, LANE))
+    """K3 (``csrc/bitplane_post.cu``, bytes mode): same contract as
+    ``post_plain``."""
+    NWS = _check_logs_en(plan, logs, en)
+    L = plan.L_pad
     lib = build(plan)
     dev = logs.device
     with torch.cuda.device(dev):
@@ -408,3 +489,29 @@ def post_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
         _launch(POST, lib.h2r_post, logs.data_ptr(), en.data_ptr(), fwd.data_ptr(),
                 g4.data_ptr(), fb.data_ptr(), NWS * LANE, L, _stream(logs))
     return g4, fb
+
+
+def post_planes_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """B3 planes mode (``csrc/bitplane_post.cu`` under ``H2R_POST_PLANES``):
+    same contract as ``post_planes_plain``."""
+    NWS = _check_logs_en(plan, logs, en)
+    lib = build(plan)
+    dev = logs.device
+    with torch.cuda.device(dev):
+        out = torch.empty((NWS, plan.p_total, plan.L_pad, LANE), dtype=torch.int32, device=dev)
+        _launch(POST_PLANES, lib.h2r_post_planes, logs.data_ptr(), en.data_ptr(),
+                out.data_ptr(), NWS * LANE, plan.L_pad, _stream(logs))
+    return out
+
+
+def fb_only_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """B4 (``csrc/bitplane_fb.cu``): same contract as ``fb_only_plain``.
+    The kernel ORs partial reductions into the output, so it starts at 0."""
+    NWS = _check_logs_en(plan, logs, en)
+    lib = build(plan)
+    dev = logs.device
+    with torch.cuda.device(dev):
+        fb = torch.zeros((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
+        _launch(FB_ONLY, lib.h2r_fb_only, logs.data_ptr(), en.data_ptr(), fb.data_ptr(),
+                NWS, plan.L_pad, _stream(logs))
+    return fb

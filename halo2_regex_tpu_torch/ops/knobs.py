@@ -1,22 +1,26 @@
-"""The pipeline knobs the port's bitplane matcher refuses.
+"""The pipeline knobs of the port's bitplane matcher.
 
 The JAX package's ``ops/knobs.py`` resolves the ``H2R_*`` knobs from
-arguments and the environment; the port runs the main-path defaults only:
+arguments and the environment.  The port runs:
 
+  qpack       = True/False pack from the [B, L] bytes (K1) or from the raw
+                quad rows (the B5 kernel); default True, and any model
+                whose L_pad differs from L takes the raw-quads pack anyway
   class_stage = "binary"   byte->class circuit in the pack kernel
   en_pack     = True       enable plane computed in the pack kernel
-  qpack       = True       pack reads the [B, L] bytes directly
-  emit        = "bytes"    post kernel assembles value bytes
+  emit        = "bytes"    witness post kernel assembles value bytes
   unroll      = 1, fuse_pack = False
 
+:func:`resolve_qpack` resolves ``qpack`` as the JAX package does.
 :func:`check_main_path` raises ``NotImplementedError`` naming the
-ROADMAP.md item that will port any other value, so a setting is never
-silently ignored.
+ROADMAP.md item that will port any other value of the rest, so a setting
+is never silently ignored.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 # knob: (main-path value, {environment variable: its main-path spelling},
 # ROADMAP.md item that ports the other values)
@@ -27,10 +31,16 @@ _MAIN_PATH = {
                     "A11 (onehot / off class stage)"),
     "en_pack": (True, {"H2R_EN_PACK": "1"},
                 "A11 (enable plane outside the pack kernel)"),
-    "qpack": (True, {"H2R_QPACK": "1"}, "A5 (the raw-quads pack kernel B5)"),
     "emit": ("bytes", {"H2R_EMIT": "bytes", "H2R_WITNESS_BYTES": "1"},
              "A11 (planes / direct / kdecode emission)"),
 }
+
+
+def resolve_qpack(qpack: Optional[bool]) -> bool:
+    """The argument when given, else ``H2R_QPACK`` (on iff "1"), else on."""
+    if qpack is not None:
+        return bool(qpack)
+    return os.environ.get("H2R_QPACK", "1") == "1"
 
 
 def check_main_path(**given) -> None:

@@ -53,26 +53,26 @@ PIECES = {
 }
 
 
-def _build(pkg, zoo, name):
+def _build(pkg, zoo, name, L=MAX_LEN):
     if name == "from":
-        return zoo.email_headers_model(max_chars_size=MAX_LEN, headers=("from",))
+        return zoo.email_headers_model(max_chars_size=L, headers=("from",))
     cfgs = (["regex1", "regex2"] if name == "two_def" else [name])
     return pkg.CompiledRegexModel.from_decomposed(
         [pkg.DecomposedRegexConfig.from_json(CONFIGS[c]) for c in cfgs],
-        max_chars_size=MAX_LEN,
+        max_chars_size=L,
     )
 
 
-def corpus(name, n, seed):
+def corpus(name, n, seed, L=MAX_LEN):
     """Seeded strings built from pieces of the model's language (so the
     masks and ids light up), with every 7th string random bytes."""
     rng = np.random.default_rng(seed)
-    chars = np.zeros((n, MAX_LEN), np.uint8)
+    chars = np.zeros((n, L), np.uint8)
     lengths = np.zeros((n,), np.int32)
     pieces = PIECES[name]
     for i in range(n):
         if i % 7 == 3:
-            s = rng.integers(0, 256, size=int(rng.integers(0, MAX_LEN + 1))).astype(np.uint8).tobytes()
+            s = rng.integers(0, 256, size=int(rng.integers(0, L + 1))).astype(np.uint8).tobytes()
         elif i % 3 == 1 and name != "two_def":
             user = bytes(rng.choice(list(b"abcxyz._-"), size=int(rng.integers(1, 8))).astype(np.uint8))
             s = (b"ab c" * int(rng.integers(0, 3)) + b"\r\nfrom:"
@@ -81,7 +81,7 @@ def corpus(name, n, seed):
         else:
             k = int(rng.integers(0, 8))
             s = b"".join(pieces[j] for j in rng.integers(0, len(pieces), size=k))
-        s = s[:MAX_LEN]
+        s = s[:L]
         chars[i, : len(s)] = bytearray(s)
         lengths[i] = len(s)
     return chars, lengths
@@ -255,8 +255,8 @@ def test_witness_plain_flag_is_the_cpu_route(ports):
     chars, lengths = corpus("from", 40, 9)
     m = ports["from"]
     a = m(chars, lengths)
-    b = bp.witness(m.plan, m.tables(), torch.from_numpy(chars), torch.from_numpy(lengths),
-                   plain=True)
+    b = bp.run(m.plan, m.tables(), torch.from_numpy(chars), torch.from_numpy(lengths),
+               plain=True)
     for k in KEYS:
         assert torch.equal(a[k], b[k]), k
 
@@ -280,8 +280,8 @@ def test_stage_on_unsupported_device_raises(ports):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(columns="full"), dict(columns="match"), dict(input_layout="tiled"),
-    dict(post="xla"), dict(emit="kdecode"), dict(qpack=False),
+    dict(emit="planes"), dict(fuse_pack=True), dict(input_layout="tiled"),
+    dict(post="xla"), dict(emit="kdecode"), dict(en_pack=False),
     dict(class_stage="onehot"), dict(unroll=4),
 ])
 def test_unported_settings_raise(models, kw):
@@ -291,24 +291,25 @@ def test_unported_settings_raise(models, kw):
 
 
 def test_unpadded_length_raises():
-    """L > 128 with L % 128 != 0: the JAX matcher pads L and needs the
-    raw-quads pack kernel there, not ported yet."""
+    """L > 128 with L % 128 != 0 no longer raises: the plan pads L to
+    L_pad as the JAX matcher does, and packs through the raw-quads pack
+    (B5), since qpack needs L == L_pad."""
     model = T.CompiledRegexModel.from_decomposed(
         T.DecomposedRegexConfig.from_json(CONFIGS["regex3"]), max_chars_size=200
     )
-    with pytest.raises(NotImplementedError, match="A5"):
-        T.BitplaneMatcher(model, columns="witness")
+    plan = T.BitplaneMatcher(model, columns="witness").plan
+    assert (plan.L, plan.L_pad, plan.qpack) == (200, 256, False)
 
 
 @pytest.mark.parametrize("var,value", [
-    ("H2R_QPACK", "0"), ("H2R_EMIT", "planes"), ("H2R_WITNESS_BYTES", "0"),
+    ("H2R_EMIT", "direct"), ("H2R_EMIT", "planes"), ("H2R_WITNESS_BYTES", "0"),
     ("H2R_CLASS_STAGE", "onehot"), ("H2R_SCAN_UNROLL", "2"), ("H2R_FUSE_PACK", "1"),
     ("H2R_EN_PACK", "0"),
 ])
 def test_unported_env_knobs_raise(models, monkeypatch, var, value):
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match=f"{var}={value}.*ROADMAP"):
-        T.BitplaneMatcher(models["regex3"][1])
+        T.BitplaneMatcher(models["regex3"][1], columns="witness")
 
 
 def test_main_path_knobs_accepted(models, monkeypatch):
@@ -324,10 +325,14 @@ def test_main_path_knobs_accepted(models, monkeypatch):
 
 
 def test_default_columns_is_witness(models, ports):
+    """``columns="witness"`` is no longer the default (the JAX default,
+    "full", is; tests/test_torch_serving.py holds that): given
+    explicitly it returns the witness dict."""
     chars, lengths = _pack(STRINGS3)
-    out = T.BitplaneMatcher(models["regex3"][1])(chars, lengths)
-    want = ports["regex3"](chars, lengths)
-    assert_witness_equal(out, {k: v.numpy() for k, v in want.items()})
+    m = T.BitplaneMatcher(models["regex3"][1], columns="witness")
+    assert T.BitplaneMatcher(models["regex3"][1]).columns == "full"
+    assert_witness_equal(m(chars, lengths),
+                         {k: v.numpy() for k, v in ports["regex3"](chars, lengths).items()})
 
 
 def test_multiple_of_128_length_plans():

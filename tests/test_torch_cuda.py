@@ -92,21 +92,59 @@ def test_qpack_byte_path_matches_plain(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("name,L", [("regex3", MAX_LEN), ("from", 40), ("from", 1024)])
-def test_matcher_on_card_matches_cpu(dev, name, L):
-    """The whole witness dict on the card equals the CPU (plain) run,
-    including a ragged batch (4099) and lengths that are not a multiple of
-    the pack kernel's 32-position tile; every kernel launches."""
+@pytest.mark.parametrize("name,L", [("regex3", MAX_LEN), ("two_def", MAX_LEN), ("from", MAX_LEN),
+                                    ("regex3", 200), ("from", 1000)])
+def test_serving_kernels_match_plain(dev, name, L):
+    """pack_raw (B5), post_planes (B3 planes mode) and fb_only (B4)
+    against their plain versions, at L == L_pad and at L_pad > L."""
     model = _model(name, L)
-    chars, lengths = _corpus(4099, L, 2)
-    kernels.reset_launch_counts()
-    got = T.BitplaneMatcher(model, columns="witness", device=dev)(chars, lengths)
-    torch.cuda.synchronize()
-    assert all(k.launches == 1 for k in kernels.KERNELS)
-    want = T.BitplaneMatcher(model, columns="witness")(chars, lengths)
+    full, match = (bp.make_plan(model, c) for c in ("full", "match"))
+    chars, lengths = _corpus(8192, L, 4)
+    quads = bp.raw_quads(torch.from_numpy(chars).to(dev), full.L_pad)
+    lw = bp.len_table(torch.from_numpy(lengths).to(dev))
+    bits, en = bp.pack_plain(full, quads, lw)
+    kb, ke = kernels.pack_raw_cuda(full, quads, lw)
+    assert torch.equal(kb, bits) and torch.equal(ke, en)
+    logs = kernels.scan_cuda(full, bits)
+    assert torch.equal(kernels.post_planes_cuda(full, logs, en), bp.post_planes_plain(full, logs, en))
+    assert torch.equal(kernels.fb_only_cuda(match, logs, en), bp.fb_only_plain(match, logs, en))
+
+
+def _assert_same(got, want):
+    if isinstance(want, T.RegexResult):
+        got, want = vars(got), vars(want)
     for k, v in want.items():
         assert got[k].device.type == "cuda"
         assert got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.parametrize("columns", ["witness", "full", "match"])
+@pytest.mark.parametrize("name,L", [("regex3", MAX_LEN), ("from", 40), ("from", 1024),
+                                    ("from", 1000)])
+def test_matcher_on_card_matches_cpu(dev, columns, name, L):
+    """Each column set's result on the card equals the CPU (plain) run,
+    including a ragged batch (4099), lengths that are not a multiple of
+    the pack kernel's 32-position tile, and L_pad > L; the path's kernels
+    launch once each, and no other kernel does."""
+    model = _model(name, L)
+    chars, lengths = _corpus(4099, L, 2)
+    m = T.BitplaneMatcher(model, columns=columns, device=dev)
+    kernels.reset_launch_counts()
+    got = m(chars, lengths)
+    torch.cuda.synchronize()
+    path = kernels.path_kernels(m.plan)
+    assert {k.name: k.launches for k in kernels.KERNELS} == {
+        k.name: int(k in path) for k in kernels.KERNELS}
+    _assert_same(got, T.BitplaneMatcher(model, columns=columns)(chars, lengths))
+
+
+def test_extract_runs_on_card_matches_cpu(dev):
+    model = _model("two_def")
+    chars, lengths = _corpus(4099, MAX_LEN, 6)
+    res = T.BitplaneMatcher(model, device=dev)(chars, lengths)
+    got = T.extract_runs(res.all_substr_ids, res.masked_characters, max_len=32)
+    want = T.extract_runs(res.all_substr_ids.cpu(), res.masked_characters.cpu(), max_len=32)
+    _assert_same(got, want)
 
 
 def test_wrapper_rejects_bad_inputs(dev):
@@ -121,3 +159,6 @@ def test_wrapper_rejects_bad_inputs(dev):
     bits = torch.zeros((2, MAX_LEN, m.plan.kp, 128), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.scan_cuda(m.plan, bits.permute(1, 2, 0, 3))
+    with pytest.raises(ValueError, match="shape"):
+        kernels.fb_only_cuda(m.plan, torch.zeros((1, m.plan.sb_sum, 8, 128), dtype=torch.int32,
+                                                 device=dev), lw[:, :8])

@@ -1,8 +1,8 @@
 """The PyTorch port never imports JAX.
 
 ``tests/conftest.py`` imports jax into the test process itself, so the
-check runs the port in a fresh interpreter: import it, run a tiny witness
-match on the CPU, and assert that neither JAX nor the JAX package was
+check runs the port in a fresh interpreter: import it, run a tiny match
+of each column set and a run extraction on the CPU, and assert that neither JAX nor the JAX package was
 loaded along the way.
 """
 
@@ -31,6 +31,14 @@ out = m.match_one(b"id: 1234.")
 assert bool(out["match_ok"]), out
 ids = out["all_substr_ids"]
 assert bytes(out["masked_characters"][ids > 0]) == b"1234", out
+chars = np.zeros((2, 32), np.uint8)
+chars[0, :9] = bytearray(b"id: 1234.")
+lengths = np.array([9, 0], np.int32)
+res = h2r.BitplaneMatcher(model)(chars, lengths)
+runs = h2r.extract_runs(res.all_substr_ids, res.masked_characters, max_len=8)
+assert h2r.runs_to_python(runs, 0) == [(4, "1234", 1)], runs
+verdict = h2r.BitplaneMatcher(model, columns="match")(chars, lengths)
+assert verdict["match_ok"].tolist() == [True, False], verdict
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu"))
 assert not bad, bad
