@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives ``halo2_regex_tpu_torch.BitplaneMatcher(model, columns=...,
-device="cuda")`` on the zk-email ``from:`` header model at bench.py's
-shape (B=32768 strings x L=1024 bytes, bench.py's synthetic corpus, seed
-0), through each of its paths:
+Drives ``halo2_regex_tpu_torch.BitplaneMatcher(model, columns=...)`` on the
+zk-email ``from:`` header model at bench.py's shape (B=32768 strings x
+L=1024 bytes, bench.py's synthetic corpus, seed 0), and the table-driven
+``PallasMatcher`` on that corpus and on BASELINE configs[3], through each
+of these paths:
 
   witness   columns="witness" (bench.py's headline): K1 qpack, K2 scan,
             K3 post;
@@ -15,28 +16,44 @@ shape (B=32768 strings x L=1024 bytes, bench.py's synthetic corpus, seed
             benchmarks/run_benchmarks.py's extract-serving rows): qpack,
             scan, post_planes;
   L=1000    the witness path on the model at max_chars_size=1000 (L_pad
-            1024): pack_raw replaces qpack.
+            1024): pack_raw replaces qpack;
+  pallas_large  BASELINE configs[3] at its published size (a 1000-state
+            random table, B=64 x L=65536, run_benchmarks.py:352-396's data):
+            PallasMatcher(max_pairs=4096), segmented into 16 x 4096:
+            table_scan, table_tag, table_fsm per segment;
+  pallas_from  PallasMatcher on the from: corpus in batch mode (bench.py's
+            pallas leg, bench.py:195-214).
 
 and proves on the card that:
 
   1. the card is there (name and power limit from nvidia-smi, versions);
   2. the CUDA kernels build from the sources in this checkout (nvcc, one
-     library per path, all built at once);
+     library per bitplane path and one for the table kernels, every
+     source compiled at once);
   3. the models compile and the corpora are built;
-  4. each of the six kernels is bit-exact against its plain PyTorch
-     version on the same inputs at that size;
+  4. each of the nine kernels is bit-exact against its plain PyTorch
+     version on the same inputs at that size (the table kernels on the
+     first segment of configs[3] and on the whole from: corpus, and on a
+     middle window of its first 4096 strings with carries on both sides,
+     where the FSM runs in chunks; the from: planes must not be all
+     zeros, as configs[3]'s tag and FSM planes are: it has no pairs);
   5. each path, driven once through the matcher with the launch counts
-     reset just before it, launched each of its kernels and no other, and
-     equals its plain pipeline on the card (every output, dtypes
-     included); a 256-string subset equals the numpy oracle, and for
+     reset just before it, launched each of its kernels (the table paths:
+     a scan and a tag per window, two FSMs) and no other, and equals its
+     plain pipeline on the card (every output, dtypes included); a subset
+     equals the numpy oracle (256 strings, 8 for configs[3]); for
      extraction serving the runs equal the oracle's extracted substrings;
+     pallas_from equals BitplaneMatcher(compact=False) on every field,
+     and at B=4096 its plain pipeline;
   6. timings with CUDA events (2 warm-ups, 10 timed runs, median and
      IQR; L2 flushed before each timed run): each kernel's device time
-     beside its plain version's, each path end to end as a caller sees one
-     call (host launch overhead included) with its peak device memory, the
-     B=4096 latency of match and extraction serving, and the plain
-     pipelines (the witness one with 2 + 10 runs, the others, at about
-     2.3 s a call, with PLAIN_WARMUP + PLAIN_ITERS).
+     beside its plain version's and its bound (the larger of its bytes
+     over 3.35 TB/s and its int32 operations over the card's int32 rate),
+     each path end to end as a caller sees one call (host launch overhead
+     included) with its peak device memory (and, for the table paths, the
+     host's enqueue time), the B=4096 latency of match, extraction serving
+     and pallas_from, and the plain pipelines (the witness one with
+     2 + 10 runs, the others with PLAIN_WARMUP + PLAIN_ITERS).
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
 as its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -62,6 +79,16 @@ B_LATENCY = 4096  # the suite's latency rows
 WARMUP, ITERS = 2, 10
 PLAIN_WARMUP, PLAIN_ITERS = 1, 3
 ORACLE_N = 256
+B3, L3, S3 = 64, 65536, 1000  # BASELINE configs[3] (run_benchmarks.py:352-396)
+ORACLE_N3 = 8
+# bounds: H100 SXM HBM3 rate; int32 rate = 132 SMs x 64 INT32 lanes x the
+# 1.98 GHz boost clock (Hopper white paper); for the log lines only, an
+# estimate of the table scan's chain: one shared-memory load of it taken
+# as 30 cycles at that clock
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SMEM_CHAIN_S = 30 / 1.98e9
+WIN0, WIN_LS = 256, 512  # the B=4096 from: window checks: [256, 768) of L
 EXTRACT = dict(max_runs=4, max_len=32)  # run_benchmarks._extract_serving
 KEYS = ("states", "all_substr_ids", "masked_characters", "flags", "mask",
         "accepted", "has_dead", "match_ok")
@@ -144,6 +171,81 @@ def time_ms(fn, flush: torch.Tensor, device_only: bool, warmup: int = WARMUP,
             "all": [float(x) for x in ms], "runs": iters}
 
 
+def config3(h2r):
+    """BASELINE configs[3] as run_benchmarks.py:360-391 makes it: the
+    1000-state table over bytes 32..126, then the B3 x L3 chars, drawn in
+    that order from one default_rng(0)."""
+    from halo2_regex_tpu_torch.models.defs import AllstrRegexDef, RegexDefs
+
+    rng = np.random.default_rng(0)
+    allstr = AllstrRegexDef(first_state_val=0, accepted_state_val=1, largest_state_val=S3 - 1)
+    line = 3
+    for c in range(32, 127):
+        for s in range(S3):
+            allstr.state_lookup[(c, s)] = (line, int(rng.integers(0, S3)))
+            line += 1
+    model = h2r.CompiledRegexModel.from_defs([RegexDefs(allstr=allstr, substrs=[])],
+                                             max_chars_size=L3)
+    chars = rng.integers(32, 127, size=(B3, L3)).astype(np.uint8)
+    return model, chars, np.full((B3,), L3, np.int32)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the int32 operations over the int32 rate."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": float(nbytes), "ops": float(ops)}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def host_ms(fn, iters: int = ITERS) -> dict:
+    """Median host time to enqueue one call (no synchronise inside)."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return {"median": float(np.median(ms)), "all": ms}
+
+
+def profile_call(fn, n: int = 5) -> dict:
+    """One torch.profiler trace of ``n`` back-to-back calls: per call, the
+    device busy time (the sum of the kernels' durations), the time by
+    kernel, and the top-level host calls (torch ops and CUDA runtime calls
+    outside any op) by their total time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kern, host = {}, {}
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if e.device_type == DeviceType.CUDA:
+            kern[e.name] = kern.get(e.name, 0.0) + us
+        elif e.cpu_parent is None:
+            host[e.name] = host.get(e.name, 0.0) + us
+
+    def top(d, k):
+        return [(name[:60], v / n / 1e3) for name, v in sorted(d.items(), key=lambda kv: -kv[1])[:k]]
+
+    return {"busy_ms": sum(kern.values()) / n / 1e3, "kernels": top(kern, 8),
+            "host": top(host, 8), "n_kernels": sum(1 for e in prof.events()
+                                                  if e.device_type == DeviceType.CUDA) / n}
+
+
 def max_abs_err(a, b) -> int:
     if isinstance(a, (tuple, list)):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
@@ -180,6 +282,7 @@ def main() -> dict:
     import halo2_regex_tpu_torch as h2r
     from halo2_regex_tpu_torch.ops import bitplane as bp
     from halo2_regex_tpu_torch.ops import kernels
+    from halo2_regex_tpu_torch.ops import pallas_scan as ps
     from halo2_regex_tpu_torch.ops.reference import extract_substrings, match_substrs
 
     rec: dict = {}
@@ -190,22 +293,39 @@ def main() -> dict:
     log(f"[1] card: {card}")
     log(f"[1] versions: {json.dumps(rec['versions'])}")
 
-    # [2] one matcher (and kernel library) per path, built at once
+    # [2] one matcher per path; the kernel libraries built at once
     t0 = time.perf_counter()
     model = h2r.zoo.email_headers_model(max_chars_size=L, headers=("from",))
     model_u = h2r.zoo.email_headers_model(max_chars_size=L_UNPADDED, headers=("from",))
+    model3, chars3_np, lengths3_np = config3(h2r)
     t_model = time.perf_counter() - t0
     matchers = {
-        "witness": h2r.BitplaneMatcher(model, columns="witness", device=dev),
-        "match": h2r.BitplaneMatcher(model, columns="match", device=dev),
-        "full": h2r.BitplaneMatcher(model, device=dev),
-        "L1000": h2r.BitplaneMatcher(model_u, columns="witness", device=dev),
+        "witness": h2r.BitplaneMatcher(model, columns="witness"),
+        "match": h2r.BitplaneMatcher(model, columns="match"),
+        "full": h2r.BitplaneMatcher(model),
+        "L1000": h2r.BitplaneMatcher(model_u, columns="witness"),
     }
+    # the table paths, and the bitplane backend pallas_from is held to
+    tables = {
+        "pallas_large": h2r.PallasMatcher(model3, max_pairs=4096),
+        "pallas_from": h2r.PallasMatcher(model),
+    }
+    full32 = h2r.BitplaneMatcher(model, compact=False)
     if matchers["full"].columns != "full" or matchers["L1000"].plan.qpack:
         raise AssertionError("default columns or the L=1000 pack route changed")
+    if any(m.device.type != "cuda" for m in (*matchers.values(), *tables.values())):
+        raise AssertionError("a matcher built without a device is not on the card")
+    m3, mf = tables["pallas_large"], tables["pallas_from"]
+    if (m3.hi_lo, m3.mode, m3.grid_mode, m3.segment, m3.n_seg, tuple(m3.next_table.shape),
+            tuple(m3.pairs.shape)) != (True, "split", "segmented", 4096, 16, (1, 96, 1008),
+                                       (1, 0, 5)):
+        raise AssertionError("configs[3] no longer sizes as in JAX (16 x 4096, 96 classes)")
+    if (mf.mode, mf.grid_mode) != ("split", "batch"):
+        raise AssertionError("the from: table path is no longer split/batch")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(matchers)) as pool:
-        list(pool.map(kernels.build, [m.plan for m in matchers.values()]))
+    builds = [lambda p=m.plan: kernels.build(p) for m in (*matchers.values(), full32)]
+    with ThreadPoolExecutor(len(builds) + 1) as pool:
+        list(pool.map(lambda f: f(), builds + [kernels.build_tables]))
     t_build = time.perf_counter() - t0
     regs = []
     for info in kernels.BUILD_LOG.values():
@@ -214,7 +334,7 @@ def main() -> dict:
     rec["build"] = {"seconds": t_build, "libraries": {
         k: {"seconds": v["seconds"], "dir": v["dir"]} for k, v in kernels.BUILD_LOG.items()},
         "ptxas": regs}
-    log(f"[2] {len(kernels.BUILD_LOG)} kernel libraries built in {t_build:.1f} s "
+    log(f"[2] {len(kernels.BUILD_LOG)} kernel libraries built at once in {t_build:.1f} s "
         f"(each {[round(v['seconds'], 1) for v in kernels.BUILD_LOG.values()]} s)")
     for ln in regs:
         log(f"[2]   {ln}")
@@ -225,6 +345,11 @@ def main() -> dict:
         f"class {c.class_prog.n_ops} ops, tag {c.tag_ops} ops, "
         f"groups {[[n for n, _o, _b in g] for g in plan.wgroups]}, "
         f"full post planes {list(matchers['full'].plan.post_off)}")
+    for path, m in tables.items():
+        log(f"[3] {path}: S={m.S}, hi_lo={m.hi_lo}, {m.mode}/{m.grid_mode}, window "
+            f"{m.window} x {m.L // m.window}, next table {tuple(m.next_table.shape)}, "
+            f"pairs {tuple(m.pairs.shape)}, table in shared memory: "
+            f"{kernels.table_smem_bytes(*m.next_table.shape[1:], dev)} B")
     t0 = time.perf_counter()
     corpora = {L: bench_corpus(B, L), L_UNPADDED: bench_corpus(B, L_UNPADDED)}
     log(f"[3] corpora B={B} x L={L} and L={L_UNPADDED} built in "
@@ -233,6 +358,8 @@ def main() -> dict:
               for Lc, (c_, l_) in corpora.items()}
     chars, lengths = inputs[L]
     chars_u, lengths_u = inputs[L_UNPADDED]
+    chars3 = torch.from_numpy(chars3_np).to(dev)
+    lengths3 = torch.from_numpy(lengths3_np).to(dev)
 
     # [4] each kernel against its plain version on the same inputs
     pf, pm, pu = (matchers[k].plan for k in ("full", "match", "L1000"))
@@ -255,6 +382,27 @@ def main() -> dict:
         "pack_raw": (kernels.PACK_RAW, lambda: kernels.pack_raw_cuda(pu, quads_u, len_wb_u),
                      lambda: bp.pack_plain(pu, quads_u, len_wb_u)),
     }
+    # bounds from this run's inputs: bytes read once and written once;
+    # operations = the circuit ops each word runs per position
+    words = B // 32
+    ops_of = {n: sum(f(c) for c in plan.circuits) * plan.L_pad * words
+              for n, f in (("class", lambda c: c.class_prog.n_ops),
+                           ("step", lambda c: c.step_ops), ("tag", lambda c: c.tag_ops))}
+    en_next = torch.cat([en_p[:, 1:], torch.zeros_like(en_p[:, :1])], 1)
+    n_bnd = int(((en_p & ~en_next) != 0).sum())  # log words fb_only reads
+    plane = plan.L_pad * words * 4
+    bounds = {
+        "qpack": bound(B * L + nbytes(len_wb) + plane * (plan.kp + 1), ops_of["class"]),
+        "pack_raw": bound(nbytes(quads_u, len_wb_u) + pu.L_pad * words * 4 * (pu.kp + 1),
+                          ops_of["class"]),
+        "scan": bound(plane * (plan.kp + plan.sb_sum), ops_of["step"]),
+        "post": bound(plane * (plan.sb_sum + 1 + 8 * plan.n_groups)
+                      + words * plan.n_defs * 8 * 4, ops_of["tag"]),
+        "post_planes": bound(plane * (plan.sb_sum + 1 + pf.p_total), ops_of["tag"]),
+        "fb_only": bound(plane + 4 * n_bnd * pm.sb_sum + words * pm.n_defs * 8 * 4,
+                         n_bnd * pm.sb_sum),
+    }
+    del en_next
     errs = {}
     for name, (k, run_k, run_p) in stages.items():
         want = (bits_p, en_p) if name == "qpack" else (logs_p if name == "scan" else run_p())
@@ -262,9 +410,160 @@ def main() -> dict:
         torch.cuda.synchronize()
         errs[name] = max_abs_err(got, want)
         log(f"[4] {name}: kernel vs plain max_abs_err={errs[name]} "
-            f"(tolerance 0, integer outputs)")
+            f"(tolerance 0, integer outputs); bound {bounds[name]['bound_ms']:.4f} ms "
+            f"by {bounds[name]['bound_by']}")
         if errs[name] != 0:
             raise AssertionError(f"{name} kernel disagrees with its plain version")
+        del got, want
+
+    # the table kernels on real inputs: the plain pipelines' own planes,
+    # the first window of each path (configs[3]: segment 0 of 16, with the
+    # backward FSM's carries from segment 1; from: the whole L)
+    table_io = {"pallas_large": (chars3, lengths3), "pallas_from": (chars, lengths)}
+    planes, t_plain_planes = {}, {}
+    for path, m in tables.items():
+        t0 = time.perf_counter()
+        planes[path] = m.run_planes(*table_io[path], plain=True)
+        torch.cuda.synchronize()
+        t_plain_planes[path] = time.perf_counter() - t0
+        log(f"[4] {path}: plain pipeline planes in {t_plain_planes[path]:.1f} s")
+
+    def table_stages(path):
+        m = tables[path]
+        ch, ln = table_io[path]
+        st, ids, sta, ef, fwd, bwd = planes[path]
+        nd, LS, Bt = m.n_defs, m.window, ch.shape[0]
+        firsts = m._firsts(Bt)
+        carry_b = (bwd[LS], ids[:, LS], sta[:, LS]) if LS < m.L else (None, None, None)
+
+        def scan_with(fn):
+            def go():
+                out = torch.empty_like(st)
+                fn(m.class_map, m.next_table, ch, firsts, 0, LS, out)
+                return out[:, :LS]
+            return go
+
+        def tag_with(fn):
+            def go():
+                outs = [torch.empty_like(st) for _ in range(3)]
+                fn(st, firsts, ln, m.pairs, 0, LS, *outs)
+                return tuple(o[:, :LS] for o in outs)
+            return go
+
+        def fsm_with(fn):  # one forward and one backward launch
+            def go():
+                f, b = torch.empty_like(fwd), torch.empty_like(bwd)
+                fn(False, ids, sta, ef, None, None, None, 0, LS, f)
+                fn(True, ids, sta, ef, *carry_b, 0, LS, b)
+                return f[:LS], b[:LS]
+            return go
+
+        # the tag kernel's compares: a hit at list index k costs k + 1,
+        # a miss the padded list length P, a masked position none
+        P = m.pairs.shape[1]
+        compares = 0
+        pos = torch.arange(LS, device=dev)[:, None]
+        for d, plist in enumerate(m.pairs.tolist()):
+            prev = torch.cat([firsts[d][None], st[d, : LS - 1]])
+            cmp = torch.full_like(prev, P)
+            for k, (a, b, *_f) in reversed(list(enumerate(plist))):
+                if a >= 0:
+                    cmp = torch.where((prev == a) & (st[d, :LS] == b), k + 1, cmp)
+            compares += int((cmp * (pos < ln[None, :])).sum())
+        cells = nd * LS * Bt
+        win = cells * 4
+        return {
+            "table_scan": (kernels.TABLE_SCAN, scan_with(kernels.table_scan_cuda),
+                           scan_with(ps.scan_plain),
+                           bound(Bt * LS + nbytes(firsts, m.class_map, m.next_table) + win,
+                                 2 * cells)),
+            "table_tag": (kernels.TABLE_TAG, tag_with(kernels.table_tag_cuda),
+                          tag_with(ps.tag_plain),
+                          bound(4 * win + nbytes(firsts, ln, m.pairs), 2 * compares + 4 * cells)),
+            "table_fsm": (kernels.TABLE_FSM, fsm_with(kernels.table_fsm_cuda),
+                          fsm_with(ps.fsm_plain),
+                          bound(3 * win + 2 * LS * Bt * 4 + nbytes(*carry_b),
+                                2 * LS * Bt * (3 * nd + 6))),
+        }
+
+    def chain_note(path, name):
+        if name != "table_scan":
+            return ""
+        return (f", dependent-load chain {tables[path].window * SMEM_CHAIN_S * 1e3:.4f} ms "
+                f"(an estimate: 30 cycles a load)")
+
+    def nonzero(what, *ts):
+        if not all(bool(t.any()) for t in ts):
+            raise AssertionError(f"{what}: a compared plane is all zeros")
+
+    tstages = {path: table_stages(path) for path in tables}
+    for path, stg in tstages.items():
+        for name, (k, run_k, run_p, bd) in stg.items():
+            want = run_p()
+            got = run_k()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            errs[f"{name}@{path}"] = err
+            log(f"[4] {name} @ {path}: kernel vs plain max_abs_err={err} (tolerance 0, "
+                f"integer outputs); bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}"
+                + chain_note(path, name))
+            if err != 0:
+                raise AssertionError(f"{name} kernel disagrees with its plain version on {path}")
+            if path == "pallas_from":
+                nonzero(f"{name} @ {path}", *(got if isinstance(got, tuple) else (got,)))
+            del got, want
+    log("[4] pallas_large has no pairs (P = 0): its tag and FSM planes are zeros, so the "
+        "from: checks below hold the chunked FSM on planes that light up")
+
+    # the from: corpus at B=4096: table_fsm cuts each string's window into
+    # chunks there (the instance configs[3] runs), and a middle window
+    # [WIN0, WIN0 + WIN_LS) takes carries on both sides; every kernel
+    # against its plain version on that window and against the plain
+    # pipeline's planes over all of L, on planes that are not all zeros
+    nb = B_LATENCY
+    ch4, ln4 = chars[:nb], lengths[:nb]
+    n_chunks = kernels.table_fsm_chunks(nb, dev)
+    if n_chunks < 2:
+        raise AssertionError(f"B={nb}: table_fsm takes {n_chunks} chunk; the check needs more")
+    planes4 = mf.run_planes(ch4, ln4, plain=True)
+    st4, ids4, sta4, ef4, fwd4, bwd4 = planes4
+    q0, q1 = WIN0, WIN0 + WIN_LS
+    win = slice(q0, q1)
+
+    def fresh(t):
+        return torch.full_like(t, -7)
+
+    carry_f = (fwd4[q0 - 1], ids4[:, q0 - 1], ef4[:, q0 - 1])
+    carry_b = (bwd4[q1], ids4[:, q1], sta4[:, q1])
+    nonzero(f"B={nb} window carries", carry_f[0], carry_b[0])
+    for name, fn, outs, whole in (
+        ("table_scan", lambda f, o: f(mf.class_map, mf.next_table, ch4, st4[:, q0 - 1], q0,
+                                      WIN_LS, *o), [st4], [st4]),
+        ("table_tag", lambda f, o: f(st4, st4[:, q0 - 1], ln4, mf.pairs, q0, WIN_LS, *o),
+         [ids4, sta4, ef4], [ids4, sta4, ef4]),
+        ("table_fsm", None, [fwd4, bwd4], [fwd4, bwd4]),
+    ):
+        got, want = [fresh(t) for t in outs], [fresh(t) for t in outs]
+        if name == "table_fsm":
+            kernels.table_fsm_cuda(False, ids4, sta4, ef4, *carry_f, q0, WIN_LS, got[0])
+            kernels.table_fsm_cuda(True, ids4, sta4, ef4, *carry_b, q0, WIN_LS, got[1])
+            ps.fsm_plain(False, ids4, sta4, ef4, *carry_f, q0, WIN_LS, want[0])
+            ps.fsm_plain(True, ids4, sta4, ef4, *carry_b, q0, WIN_LS, want[1])
+        else:
+            fn(getattr(kernels, f"{name}_cuda"), got)
+            fn(getattr(ps, f"{name.split('_')[1]}_plain"), want)
+        torch.cuda.synchronize()
+        got = tuple(g[..., win, :] for g in got)
+        want = tuple(w[..., win, :] for w in want)
+        err = max(max_abs_err(got, want),
+                  max_abs_err(got, tuple(t[..., win, :] for t in whole)))
+        errs[f"{name}@from_b{nb}_window"] = err
+        log(f"[4] {name} @ from: B={nb}, window [{q0}, {q1}) with carries: kernel vs plain "
+            f"max_abs_err={err} (tolerance 0), also vs the plain pipeline's planes"
+            + (f"; {n_chunks} chunks per string" if name == "table_fsm" else ""))
+        if err != 0:
+            raise AssertionError(f"{name} kernel disagrees with its plain version at B={nb}")
+        nonzero(f"{name} @ B={nb} window", *got)
         del got, want
 
     # [5] each path once through the matcher, with launch counts
@@ -290,6 +589,41 @@ def main() -> dict:
         torch.cuda.synchronize()
         outs[path], path_launches[path] = out, launches
         log(f"[5] {path}: equals the plain pipeline on all {len(as_dict(out))} outputs")
+    for path, m in tables.items():
+        ch, ln = table_io[path]
+        kernels.reset_launch_counts()
+        out = m(ch, ln)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        expected = {k.name: 0 for k in kernels.KERNELS}
+        n_win = m.L // m.window
+        expected.update({k.name: v for k, v in kernels.table_path_launches(n_win).items()})
+        log(f"[5] {path}: launches {launches}")
+        if launches != expected:
+            raise AssertionError(f"{path}: launch counts {launches}, expected {expected}")
+        assert_same(path, out, m.finish(ch, ln, *planes[path]))
+        torch.cuda.synchronize()
+        outs[path], path_launches[path] = out, launches
+        log(f"[5] {path}: equals the plain pipeline on all {len(as_dict(out))} fields, "
+            f"dtypes included ({n_win} windows of {m.window})")
+    assert_same("pallas_from vs BitplaneMatcher(compact=False)", outs["pallas_from"],
+                full32(chars, lengths))
+    torch.cuda.synchronize()
+    log("[5] pallas_from equals BitplaneMatcher(model, compact=False) on every field, "
+        "dtypes included")
+    # the B=4096 call the latency row times: the chunked FSM instance
+    kernels.reset_launch_counts()
+    out4 = mf(ch4, ln4)
+    torch.cuda.synchronize()
+    launches4 = {k.name: k.launches for k in kernels.KERNELS}
+    if launches4 != path_launches["pallas_from"]:
+        raise AssertionError(f"pallas_from at B={nb}: launch counts {launches4}")
+    assert_same(f"pallas_from at B={nb}", out4, mf.finish(ch4, ln4, *planes4))
+    nonzero(f"pallas_from at B={nb}", out4.mask, out4.all_substr_ids)
+    torch.cuda.synchronize()
+    log(f"[5] pallas_from at B={nb} ({n_chunks} FSM chunks per string) equals its plain "
+        f"pipeline on every field, dtypes included; launches as at B={B}")
+    del out4, planes4, st4, ids4, sta4, ef4, fwd4, bwd4, carry_f, carry_b, whole
 
     # the oracle on a 256-string subset of each path
     checks = {
@@ -313,9 +647,23 @@ def main() -> dict:
                                       np.asarray(getattr(o, key)).astype(np.int64)):
                     raise AssertionError(f"{path}: string {i}: {key} differs from the oracle")
         log(f"[5] {path}: {ORACLE_N} strings equal the numpy oracle on {list(keys)}")
+    idx3 = np.sort(rng.choice(B3, size=ORACLE_N3, replace=False))
+    for path, o_model, (c_np, l_np), sub in (
+        ("pallas_from", model, corpora[L], idx),
+        ("pallas_large", model3, (chars3_np, lengths3_np), idx3),
+    ):
+        sub_t = torch.from_numpy(sub).to(dev)
+        host = {k: as_dict(outs[path])[k][sub_t].cpu().numpy() for k in checks["full"]}
+        for r, i in enumerate(sub):
+            o = match_substrs(o_model.regex_defs, bytes(c_np[i, : l_np[i]]), c_np.shape[1])
+            for key in checks["full"]:
+                if not np.array_equal(np.asarray(host[key][r]).astype(np.int64),
+                                      np.asarray(getattr(o, key)).astype(np.int64)):
+                    raise AssertionError(f"{path}: string {i}: {key} differs from the oracle")
+        log(f"[5] {path}: {len(sub)} strings equal the numpy oracle on every field")
     n_ok = {p: int(as_dict(o)["match_ok"].sum().item()) for p, o in outs.items()}
     rec["match_ok"] = n_ok
-    log(f"[5] match_ok per path {n_ok} of {B}; full states "
+    log(f"[5] match_ok per path {n_ok} (of {B}; pallas_large of {B3}); full states "
         f"{tuple(outs['full'].states.shape)} {outs['full'].states.dtype}")
 
     # extraction serving: runs on the card == runs on the plain output ==
@@ -364,8 +712,44 @@ def main() -> dict:
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": path_launches[path_of[name]][k.name],
             "max_abs_err": errs[name], "ms": tk["median"], "plain_ms": tp["median"],
+            "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+            "library_ms": None,
         })
     del bits_p, en_p, logs_p, quads_u
+    # the table kernels at both configurations, one window each (the fsm
+    # row is one forward and one backward launch); the line's entry is
+    # configs[3]'s, with the largest error of any of the kernel's checks;
+    # from:'s rides under "configs"
+    table_rows = {}
+    for path, stg in tstages.items():
+        for name, (k, run_k, run_p, bd) in stg.items():
+            tk = time_ms(run_k, flush, device_only=True)
+            tp = time_ms(run_p, flush, device_only=True, warmup=PLAIN_WARMUP,
+                         iters=PLAIN_ITERS)
+            times[f"{name}@{path}"] = {"kernel": tk, "plain": tp, **bd}
+            log(f"[6] {name} @ {path}: kernel {fmt(tk)}, plain {fmt(tp)} over "
+                f"{tp['runs']} runs; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}"
+                + chain_note(path, name))
+            row = {"launches": path_launches[path][k.name], "max_abs_err": errs[f"{name}@{path}"],
+                   "ms": tk["median"], "plain_ms": tp["median"], "bound_ms": bd["bound_ms"],
+                   "bound_by": bd["bound_by"], "library_ms": None}
+            if path == "pallas_large":
+                worst = max(v for key, v in errs.items() if key.split("@")[0] == name)
+                table_rows[name] = {"name": k.name, "route": "cuda", "source": k.source,
+                                    "replaces": k.replaces, **row, "max_abs_err": worst,
+                                    "configs": {}}
+            else:
+                table_rows[name]["configs"][path] = row
+    kern_rows += list(table_rows.values())
+    # the chain measured: configs[3]'s first window for one string (one
+    # thread, table staging included) beside the 64 strings above
+    f1 = m3._firsts(1)
+    one = torch.empty((m3.n_defs, m3.L, 1), dtype=torch.int32, device=dev)
+    t1 = time_ms(lambda: kernels.table_scan_cuda(m3.class_map, m3.next_table, chars3[:1], f1,
+                                                 0, m3.window, one), flush, device_only=True)
+    times["table_scan_one_string@pallas_large"] = {"kernel": t1}
+    log(f"[6] table_scan @ pallas_large, one string: {fmt(t1)} (64 strings: "
+        f"{times['table_scan@pallas_large']['kernel']['median']:.4f} ms)")
 
     e2e_paths = {
         "witness": (lambda: matchers["witness"](chars, lengths), "witness", inputs[L]),
@@ -374,6 +758,21 @@ def main() -> dict:
         "extract_serving": (lambda: serve(full_m, chars, lengths), "full", inputs[L]),
         "L1000": (lambda: matchers["L1000"](chars_u, lengths_u), "L1000", inputs[L_UNPADDED]),
     }
+    for path, m in tables.items():
+        ch, ln = table_io[path]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time_ms(lambda: m(ch, ln), flush, device_only=False)
+        peak = torch.cuda.max_memory_allocated()
+        enq = host_ms(lambda: m(ch, ln))
+        tp = time_ms(lambda: m.run(ch, ln, plain=True), flush, device_only=False,
+                     warmup=PLAIN_WARMUP, iters=PLAIN_ITERS)
+        gbs = ch.numel() / (t["median"] * 1e-3) / 1e9
+        times[f"end_to_end_{path}"] = {"kernel": t, "plain": tp, "peak_bytes": peak,
+                                       "input_gb_per_s": gbs, "host_enqueue": enq}
+        log(f"[6] end to end {path}: {fmt(t)}, {gbs:.3f} GB/s of input, host enqueue "
+            f"{enq['median']:.4f} ms; plain pipeline {fmt(tp)} over {tp['runs']} runs; "
+            f"peak memory {peak / 2**20:.1f} MiB; card {card}")
     for path, (fn, mk, (ch, ln)) in e2e_paths.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -398,12 +797,27 @@ def main() -> dict:
     for path, fn in (
         ("match", lambda: matchers["match"](chars[:B_LATENCY], lengths[:B_LATENCY])),
         ("extract_serving", lambda: serve(full_m, chars[:B_LATENCY], lengths[:B_LATENCY])),
+        ("pallas_from", lambda: mf(chars[:B_LATENCY], lengths[:B_LATENCY])),
     ):
         t = time_ms(fn, flush, device_only=False)
         times[f"latency_b{B_LATENCY}_{path}"] = {"kernel": t}
         log(f"[6] B={B_LATENCY} {path}: {fmt(t)} per call; card {card}")
 
-    rec.update(times=times, launches=path_launches, kernels=kern_rows)
+    # [7] where the time goes on the table paths (profiler; walls above)
+    for path, m in tables.items():
+        ch, ln = table_io[path]
+        prof = profile_call(lambda: m(ch, ln))
+        wall = times[f"end_to_end_{path}"]["kernel"]["median"]
+        prof["idle_share"] = 1 - prof["busy_ms"] / wall
+        times[f"profile_{path}"] = prof
+        log(f"[7] {path}: device busy {prof['busy_ms']:.4f} ms per call over "
+            f"{prof['n_kernels']:.0f} kernels, idle share {prof['idle_share']:.4f} of the "
+            f"{wall:.4f} ms wall; card {card}")
+        log(f"[7]   kernels (ms per call): "
+            + "; ".join(f"{k} {v:.4f}" for k, v in prof["kernels"]))
+        log(f"[7]   host (ms per call): " + "; ".join(f"{k} {v:.4f}" for k, v in prof["host"]))
+
+    rec.update(times=times, launches=path_launches, kernels=kern_rows, max_abs_err=errs)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

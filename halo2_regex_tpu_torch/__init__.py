@@ -1,22 +1,25 @@
 """halo2_regex_tpu_torch — the PyTorch + CUDA port of ``halo2_regex_tpu``.
 
 The port runs the bit-sliced matcher (``BitplaneMatcher(model, columns=
-"full" | "witness" | "match")``) on an NVIDIA H100 through hand-written
-CUDA kernels (``csrc/``, built with nvcc at first use), and on the CPU
-through the kernels' plain PyTorch versions; ``extract_runs`` decodes the
-masked runs of a result where it lies.  It imports ``torch`` and numpy, never
+"full" | "witness" | "match")``) and the table-driven split matcher
+(``PallasMatcher``, for large DFAs and long inputs) on an NVIDIA H100
+through hand-written CUDA kernels (``csrc/``, built with nvcc at first
+use), and on the CPU through the kernels' plain PyTorch versions when the
+caller passes ``device="cpu"``; ``extract_runs`` decodes the masked runs of
+a result where it lies.  It imports ``torch`` and numpy, never
 JAX: the host layer it needs (regex compiler, models, oracle) is carried
 here as jax-free copies, because importing any submodule of the JAX
 package runs that package's ``__init__``, which loads JAX.
 
 Quick start::
 
-    from halo2_regex_tpu_torch import BitplaneMatcher, extract_runs, zoo
+    from halo2_regex_tpu_torch import BitplaneMatcher, PallasMatcher, extract_runs, zoo
 
     model = zoo.email_headers_model(max_chars_size=1024, headers=("from",))
-    matcher = BitplaneMatcher(model, device="cuda")
+    matcher = BitplaneMatcher(model)  # on the card; device="cpu" for the CPU
     res = matcher(chars, lengths)  # [B, 1024] uint8, [B] int32 -> RegexResult
     runs = extract_runs(res.all_substr_ids, res.masked_characters, max_len=32)
+    res = PallasMatcher(model)(chars, lengths)  # the same RegexResult
 """
 
 import sys as _sys
@@ -31,6 +34,7 @@ from .models import zoo
 from .models.compiled import CompiledRegexModel
 from .ops.bitplane import BitplaneMatcher
 from .ops.extract import extract_runs, runs_to_python
+from .ops.pallas_scan import PallasMatcher
 from .ops.reference import extract_substrings, match_substrs
 from .witness.result import RegexResult
 
@@ -40,6 +44,7 @@ __all__ = [
     "BitplaneMatcher",
     "CompiledRegexModel",
     "DecomposedRegexConfig",
+    "PallasMatcher",
     "RegexPartConfig",
     "RegexResult",
     "VrmError",

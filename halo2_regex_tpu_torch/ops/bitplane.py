@@ -363,6 +363,20 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"device {dev}: the port runs on cpu (plain) or cuda")
 
 
+def resolve_device(device) -> torch.device:
+    """A matcher's device: the card unless the caller asks for the CPU.
+    ``"cuda"`` (the default) raises where CUDA is absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} requested but CUDA is not available "
+            "(pass device='cpu' to run the plain versions on the CPU)"
+        )
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device={str(device)!r}: expected cpu or cuda")
+    return device
+
+
 def _kernels():
     from . import kernels
 
@@ -889,8 +903,9 @@ class BitplaneMatcher(nn.Module):
     masked_characters, flags, mask, accepted, has_dead, match_ok);
     ``"match"`` the dict of ``_finish_match`` (final_states, accepted,
     has_dead, match_ok).  The model's tables are registered buffers and
-    follow ``.to(device)``; ``device="cuda"`` runs the CUDA kernels and
-    raises where CUDA is absent.
+    follow ``.to(device)``.  ``device="cuda"``, the default, runs the CUDA
+    kernels and raises where CUDA is absent; ``device="cpu"`` runs their
+    plain versions.
 
     Args mirror the JAX constructor, less ``lc`` and ``max_step_ops``
     (TPU tile and VMEM limits).  ``qpack`` (or ``H2R_QPACK``) picks the
@@ -912,7 +927,7 @@ class BitplaneMatcher(nn.Module):
         qpack: Optional[bool] = None,
         emit: Optional[str] = None,
         input_layout: str = "bl",
-        device=None,
+        device="cuda",
     ):
         super().__init__()
         if columns not in COLUMNS:
@@ -943,14 +958,7 @@ class BitplaneMatcher(nn.Module):
             self.register_buffer(
                 name, torch.from_numpy(np.asarray(getattr(model, name), np.int64))
             )
-        device = torch.device(device if device is not None else "cpu")
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={str(device)!r} requested but CUDA is not available"
-            )
-        if device.type not in ("cpu", "cuda"):
-            raise ValueError(f"device={str(device)!r}: expected cpu or cuda")
-        self.to(device)
+        self.to(resolve_device(device))
 
     @property
     def columns(self) -> str:

@@ -1,35 +1,42 @@
-"""CUDA kernels of the bitplane pipeline: circuit codegen, nvcc build,
-ctypes binding, launch counters.
+"""CUDA kernels of the port: circuit codegen, nvcc build, ctypes binding,
+launch counters.
 
-The kernels themselves are static templates under ``csrc/``:
-``bitplane_pack.cu`` (K1 qpack), ``bitplane_pack_raw.cu`` (pack from raw
-quad rows, B5), ``bitplane_scan.cu`` (K2), ``bitplane_post.cu`` (K3 in
-bytes mode; in planes mode when the header sets ``H2R_POST_PLANES``) and
-``bitplane_fb.cu`` (the match-only boundary reduction, B4).  What they
-compute per word depends on the model, so this module emits each def's
-synthesized class, step and tag circuits, and the post emission of the
-plan's column set, as straight-line ``__device__ __forceinline__``
-functions into a header, ``h2r_circuits.cuh``, that the templates
-include.  At first use for a plan the header and the templates its
-column set runs are compiled by nvcc for ``sm_90a`` into one shared
-library with a plain C interface, under ``<build root>/<hash of sources +
-header + flags>/``, and loaded with ``ctypes``.  The build root is
-``$H2R_TORCH_BUILD_DIR`` when set, else ``build/h2r_torch_kernels/`` in
-the source checkout when that is writable, else ``h2r_torch_kernels/`` in
-the user's cache directory (``$XDG_CACHE_HOME`` or ``~/.cache``), as for
-an installed package.
+The kernels themselves are under ``csrc/``.  The bitplane pipeline's are
+static templates: ``bitplane_pack.cu`` (K1 qpack), ``bitplane_pack_raw.cu``
+(pack from raw quad rows, B5), ``bitplane_scan.cu`` (K2),
+``bitplane_post.cu`` (K3 in bytes mode; in planes mode when the header sets
+``H2R_POST_PLANES``) and ``bitplane_fb.cu`` (the match-only boundary
+reduction, B4).  What they compute per word depends on the model, so this
+module emits each def's synthesized class, step and tag circuits, and the
+post emission of the plan's column set, as straight-line
+``__device__ __forceinline__`` functions into a header,
+``h2r_circuits.cuh``, that the templates include: one library per plan.
+The table-driven split matcher's kernels (``table_scan.cu``,
+``table_tag.cu``, ``table_fsm.cu``; :mod:`.pallas_scan`) take their tables
+as data and need no header: one library for every model.
+
+At first use each library's sources are compiled by nvcc for ``sm_90a``,
+one nvcc per source, all at once, and linked into one shared library with a
+plain C interface under ``<build root>/<hash of sources + header +
+flags>/``, then loaded with ``ctypes``.  The build root is
+``$H2R_TORCH_BUILD_DIR`` when set, else ``build/h2r_torch_kernels/`` in the
+source checkout when that is writable, else ``h2r_torch_kernels/`` in the
+user's cache directory (``$XDG_CACHE_HOME`` or ``~/.cache``), as for an
+installed package.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (``torch.zeros`` where the kernel ORs into
-them), launches on the current stream without synchronising, raises if
-``cudaGetLastError`` reports a failed launch, and adds one to its
-kernel's ``launches`` count.  Nothing here runs on the CPU: the plain
-versions live in :mod:`.bitplane`.
+them) unless the caller passes them, launches on the current stream
+without synchronising, raises if ``cudaGetLastError`` reports a failed
+launch, and adds one to its kernel's ``launches`` count.  Nothing here
+runs on the CPU: the plain versions live in :mod:`.bitplane` and
+:mod:`.pallas_scan`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -37,8 +44,9 @@ import subprocess
 import threading
 import time
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,9 +62,10 @@ SOURCES = {
     "match": _FRONT + ("bitplane_fb.cu",),
 }
 HEADERS = ("bitplane_common.cuh",)
+TABLE_SOURCES = ("table_scan.cu", "table_tag.cu", "table_fsm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -96,9 +105,22 @@ FB_ONLY = CudaKernel(
     "fb_only", "h2r_fb_only", "halo2_regex_tpu_torch/csrc/bitplane_fb.cu",
     "halo2_regex_tpu/ops/bitplane.py:1606",
 )
-KERNELS = (QPACK, PACK_RAW, SCAN, POST, POST_PLANES, FB_ONLY)
-# entry points of each column set's library: (kernel, ctypes argument kinds)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+TABLE_SCAN = CudaKernel(
+    "table_scan", "h2r_table_scan", "halo2_regex_tpu_torch/csrc/table_scan.cu",
+    "halo2_regex_tpu/ops/pallas_scan.py:756, :1039",
+)
+TABLE_TAG = CudaKernel(
+    "table_tag", "h2r_table_tag", "halo2_regex_tpu_torch/csrc/table_tag.cu",
+    "halo2_regex_tpu/ops/pallas_scan.py:866, :1090",
+)
+TABLE_FSM = CudaKernel(
+    "table_fsm", "h2r_table_fsm", "halo2_regex_tpu_torch/csrc/table_fsm.cu",
+    "halo2_regex_tpu/ops/pallas_scan.py:898, :1145, :1168",
+)
+KERNELS = (QPACK, PACK_RAW, SCAN, POST, POST_PLANES, FB_ONLY,
+           TABLE_SCAN, TABLE_TAG, TABLE_FSM)
+# entry points of each library: (kernel, ctypes argument kinds)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
     QPACK: [_P, _P, _P, _P, _I, _I, _I, _P],
     PACK_RAW: [_P, _P, _P, _P, _I, _I, _P],
@@ -106,13 +128,30 @@ _ENTRIES = {
     POST: [_P, _P, _P, _P, _P, _I, _I, _P],
     POST_PLANES: [_P, _P, _P, _I, _I, _P],
     FB_ONLY: [_P, _P, _P, _I, _I, _P],
+    # chars, cmap, next, init, init def stride, states, n_defs, B, L, K, S,
+    # p0, LS, vec, smem bytes, stream
+    TABLE_SCAN: [_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # states, prev, prev def stride, lengths, pairs, P, ids, start, endf,
+    # n_defs, B, L, p0, LS, stream
+    TABLE_TAG: [_P, _P, _LL, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # reverse, ids, start, endf, entry, carry ids, carry x, carry def
+    # stride, out, n_defs, B, L, p0, LS, chunks per string, stream
+    TABLE_FSM: [_I, _P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 _TAIL = {"witness": POST, "full": POST_PLANES, "match": FB_ONLY}
+TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM)
 
 
 def path_kernels(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
     """The kernels one call of ``plan``'s pipeline launches, in order."""
     return (QPACK if plan.qpack else PACK_RAW), SCAN, _TAIL[plan.columns]
+
+
+def table_path_launches(n_windows: int) -> Dict[CudaKernel, int]:
+    """Launches of one ``PallasMatcher`` call over ``n_windows`` windows
+    (1 in batch mode, ``n_seg`` segmented): a scan and a tag per window,
+    a forward and a backward FSM per window."""
+    return {TABLE_SCAN: n_windows, TABLE_TAG: n_windows, TABLE_FSM: 2 * n_windows}
 
 
 def reset_launch_counts() -> None:
@@ -346,57 +385,96 @@ def build_root() -> Path:
     return Path(cache) / "h2r_torch_kernels"
 
 
-def build(plan: BitplanePlan) -> ctypes.CDLL:
-    """Build (once per model and source state) and load the kernels'
-    shared library.  A failed build raises with nvcc's output."""
-    hit = _PLAN_LIBS.get(plan)
-    if hit is not None:
-        return hit
-    header = circuits_header(plan)
-    sources = SOURCES[plan.columns]
+def _build_library(
+    sources: Sequence[str],
+    entries: Sequence[CudaKernel],
+    includes: Sequence[str] = (),
+    header: Optional[str] = None,
+) -> ctypes.CDLL:
+    """Build (once per source state) and load the library of ``sources``
+    (files under ``csrc/``; ``includes`` are the headers they include from
+    there, hashed with them; ``header`` the generated
+    ``h2r_circuits.cuh``, if any), and bind ``entries``.  A failed build
+    raises with nvcc's output."""
     h = hashlib.sha256()
-    for name in sources + HEADERS:
+    for name in tuple(sources) + tuple(includes):
         h.update((CSRC / name).read_bytes())
-    h.update(header.encode())
+    h.update((header or "").encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     key = h.hexdigest()[:16]
     with _KEY_LOCKS.setdefault(key, threading.Lock()):
-        lib = _LIBS.get(key) or _load(key, header, sources, plan.columns)
+        lib = _LIBS.get(key)
+        if lib is None:
+            lib = _LIBS[key] = _load(key, tuple(sources), header, entries)
+    return lib
+
+
+def _load(key: str, sources: Tuple[str, ...], header: Optional[str],
+          entries: Sequence[CudaKernel]) -> ctypes.CDLL:
+    """Build the library of ``key`` unless the build root holds it (one
+    nvcc per source at once, then a link), then load it and bind
+    ``entries``."""
+    out_dir = build_root() / key
+    so = out_dir / "libh2r.so"
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        if header is not None:
+            (out_dir / "h2r_circuits.cuh").write_text(header)
+        nvcc, tag = _nvcc(), f"{os.getpid()}.{threading.get_ident()}"
+
+        def run(cmd):
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}) building {out_dir}:\n"
+                    f"{' '.join(cmd)}\n{res.stderr}"
+                )
+            return res.stdout + res.stderr
+
+        objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in sources]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(sources)) as pool:
+            logs = list(pool.map(run, [
+                [nvcc, *NVCC_FLAGS, f"-I{CSRC}", f"-I{out_dir}", "-c", "-o", str(o),
+                 str(CSRC / src)]
+                for src, o in zip(sources, objs)
+            ]))
+        tmp = out_dir / f"libh2r.{tag}.so"
+        logs.append(run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)]))
+        secs = time.perf_counter() - t0
+        (out_dir / "build.log").write_text("".join(logs))
+        for o in objs:
+            o.unlink()
+        os.replace(tmp, so)  # atomic: a reader never sees a partial library
+        BUILD_LOG[key] = {"seconds": secs, "dir": str(out_dir), "ptxas": "".join(logs)}
+    lib = ctypes.CDLL(str(so))
+    for k in entries:
+        fn = getattr(lib, k.entry)
+        fn.argtypes = _ENTRIES[k]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build(plan: BitplanePlan) -> ctypes.CDLL:
+    """The bitplane kernels' library for ``plan`` (built once per model,
+    column set and source state)."""
+    hit = _PLAN_LIBS.get(plan)
+    if hit is not None:
+        return hit
+    lib = _build_library(
+        SOURCES[plan.columns], (QPACK, PACK_RAW, SCAN, _TAIL[plan.columns]),
+        includes=HEADERS, header=circuits_header(plan),
+    )
     _PLAN_LIBS[plan] = lib
     return lib
 
 
-def _load(key: str, header: str, sources: Tuple[str, ...], columns: str) -> ctypes.CDLL:
-    """Build the library of ``key`` unless the build root holds it, then
-    load it and bind its entry points."""
-    out_dir = build_root() / key
-    so = out_dir / "libh2r_bitplane.so"
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / "h2r_circuits.cuh").write_text(header)
-        tmp = out_dir / f"libh2r_bitplane.{os.getpid()}.so"
-        cmd = [
-            _nvcc(), *NVCC_FLAGS, f"-I{CSRC}", f"-I{out_dir}", "-o", str(tmp),
-            *[str(CSRC / s) for s in sources],
-        ]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        secs = time.perf_counter() - t0
-        (out_dir / "build.log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}) building {out_dir}:\n"
-                f"{' '.join(cmd)}\n{res.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a reader never sees a partial library
-        BUILD_LOG[key] = {"seconds": secs, "dir": str(out_dir),
-                          "ptxas": res.stderr}
-    lib = ctypes.CDLL(str(so))
-    for k in (QPACK, PACK_RAW, SCAN, _TAIL[columns]):
-        fn = getattr(lib, k.entry)
-        fn.argtypes = _ENTRIES[k]
-        fn.restype = ctypes.c_int
-    _LIBS[key] = lib
+@functools.cache
+def build_tables() -> ctypes.CDLL:
+    """The table kernels' library (one for every model)."""
+    lib = _build_library(TABLE_SOURCES, TABLE_KERNELS)
+    lib.h2r_smem_optin.argtypes = []
+    lib.h2r_smem_optin.restype = ctypes.c_int
     return lib
 
 
@@ -515,3 +593,134 @@ def fb_only_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> to
         _launch(FB_ONLY, lib.h2r_fb_only, logs.data_ptr(), en.data_ptr(), fb.data_ptr(),
                 NWS, plan.L_pad, _stream(logs))
     return fb
+
+
+# ---------------------------------------------------------------------------
+# The table-driven split matcher's kernels (contracts: .pallas_scan)
+# ---------------------------------------------------------------------------
+
+_SMEM_OPTIN: Dict[int, int] = {}
+TABLE_TAG_MAX_PAIRS = 4096  # kSmemPairs of csrc/table_tag.cu
+
+
+def _check_row(t: torch.Tensor, name: str, n: int, B: int, dev: torch.device) -> None:
+    """A carry row [n, B] int32 on ``dev``: contiguous along B, any stride
+    between its rows (a row of a [n, L, B] plane is a view)."""
+    if t.device != dev:
+        raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: expected torch.int32, got {t.dtype}")
+    if tuple(t.shape) != (n, B):
+        raise ValueError(f"{name}: expected shape {(n, B)}, got {tuple(t.shape)}")
+    if B > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous along the batch")
+
+
+def _check_window(p0: int, LS: int, L: int) -> None:
+    if not (0 <= p0 and 0 < LS and p0 + LS <= L):
+        raise ValueError(f"window [{p0}, {p0 + LS}) is not inside [0, {L})")
+
+
+def table_smem_bytes(K: int, S: int, dev: torch.device) -> int:
+    """Shared memory the scan kernel stages its uint16 next-state table in,
+    or 0 when it reads the int32 table from global memory (more than 65536
+    states, or a table beyond the card's opt-in limit less the kernel's
+    1 KiB of static shared memory)."""
+    if dev.index not in _SMEM_OPTIN:
+        with torch.cuda.device(dev):
+            _SMEM_OPTIN[dev.index] = build_tables().h2r_smem_optin()
+    need = 2 * K * S
+    return need if S <= 65536 and need + 1024 <= _SMEM_OPTIN[dev.index] else 0
+
+
+def table_scan_cuda(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
+    """B8/B11 scan (``csrc/table_scan.cu``): same contract as
+    ``pallas_scan.scan_plain``."""
+    n_defs, K, S = next_tab.shape
+    B, L = chars.shape
+    _check(cmap, "cmap", torch.int32, (n_defs, 256))
+    _check(next_tab, "next_tab", torch.int32, (n_defs, K, S))
+    _check(chars, "chars", torch.uint8, (B, L))
+    _check(out, "out", torch.int32, (n_defs, L, B))
+    _check_row(init, "init", n_defs, B, chars.device)
+    _check_window(p0, LS, L)
+    if B == 0:
+        return
+    lib = build_tables()
+    smem = table_smem_bytes(K, S, chars.device)
+    # 16-byte loads when a window holds at least one aligned 16-byte run
+    vec = int(LS >= 16 and L % 16 == 0 and p0 % 16 == 0 and chars.data_ptr() % 16 == 0)
+    with torch.cuda.device(chars.device):
+        _launch(TABLE_SCAN, lib.h2r_table_scan, chars.data_ptr(), cmap.data_ptr(),
+                next_tab.data_ptr(), init.data_ptr(), init.stride(0), out.data_ptr(),
+                n_defs, B, L, K, S, p0, LS, vec, smem, _stream(chars))
+
+
+def table_tag_cuda(states, prev, lengths, pairs, p0: int, LS: int, ids, start, endf) -> None:
+    """B9/B11 tag (``csrc/table_tag.cu``): same contract as
+    ``pallas_scan.tag_plain``, for at most ``TABLE_TAG_MAX_PAIRS`` pairs
+    per def (the list lives in the kernel's 48 KiB of shared memory)."""
+    n_defs, L, B = states.shape
+    P = pairs.shape[1] if pairs.dim() == 3 else -1
+    if P > TABLE_TAG_MAX_PAIRS:
+        raise NotImplementedError(
+            f"table_tag holds at most {TABLE_TAG_MAX_PAIRS} pairs per def in shared "
+            f"memory; this model has {P}"
+        )
+    _check(states, "states", torch.int32, (n_defs, L, B))
+    _check(lengths, "lengths", torch.int32, (B,))
+    _check(pairs, "pairs", torch.int32, (n_defs, P, 5))
+    for name, t in (("ids", ids), ("start", start), ("endf", endf)):
+        _check(t, name, torch.int32, (n_defs, L, B))
+    _check_row(prev, "prev", n_defs, B, states.device)
+    _check_window(p0, LS, L)
+    if B == 0:
+        return
+    lib = build_tables()
+    with torch.cuda.device(states.device):
+        _launch(TABLE_TAG, lib.h2r_table_tag, states.data_ptr(), prev.data_ptr(),
+                prev.stride(0), lengths.data_ptr(), pairs.data_ptr(), P, ids.data_ptr(),
+                start.data_ptr(), endf.data_ptr(), n_defs, B, L, p0, LS, _stream(states))
+
+
+def table_fsm_chunks(B: int, dev: torch.device) -> int:
+    """Chunks per string of the FSM kernel: 1 when the batch's 32-string
+    groups fill the card four times over (each string's window in one
+    pass, the planes read once), else enough for about 8 warps per SM, at
+    most 32."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = -(-B // 32)
+    return 1 if groups >= 4 * sms else min(32, -(-8 * sms // groups))
+
+
+def table_fsm_cuda(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
+                   p0: int, LS: int, out) -> None:
+    """B10/B11 mask FSM (``csrc/table_fsm.cu``): same contract as
+    ``pallas_scan.fsm_plain``; ``None`` carries reach the kernel as null
+    pointers, which it reads as zeros."""
+    n_defs, L, B = ids.shape
+    for name, t in (("ids", ids), ("start", start), ("endf", endf)):
+        _check(t, name, torch.int32, (n_defs, L, B))
+    _check(out, "out", torch.int32, (L, B))
+    if (carry_ids is None) != (carry_x is None):
+        raise ValueError("carry_ids and carry_x are given together or not at all")
+    if carry_ids is not None:
+        _check_row(carry_ids, "carry_ids", n_defs, B, ids.device)
+        _check_row(carry_x, "carry_x", n_defs, B, ids.device)
+        if carry_x.stride(0) != carry_ids.stride(0):
+            raise ValueError("carry_ids and carry_x need the same row stride")
+    if entry is not None:
+        _check(entry, "entry", torch.int32, (B,))
+    _check_window(p0, LS, L)
+    if B == 0:
+        return
+    lib = build_tables()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(ids.device):
+        _launch(TABLE_FSM, lib.h2r_table_fsm, int(reverse), ids.data_ptr(), start.data_ptr(),
+                endf.data_ptr(), ptr(entry), ptr(carry_ids), ptr(carry_x),
+                0 if carry_ids is None else carry_ids.stride(0), out.data_ptr(),
+                n_defs, B, L, p0, LS, table_fsm_chunks(B, ids.device), _stream(ids))

@@ -1,0 +1,573 @@
+"""Table-driven split matcher, PyTorch port.
+
+The module and class names follow the JAX package's
+``halo2_regex_tpu.ops.pallas_scan.PallasMatcher`` so that a reader finds the
+counterpart; the kernels here are hand-written CUDA (``csrc/table_scan.cu``,
+``csrc/table_tag.cu``, ``csrc/table_fsm.cu``, bound by :mod:`.kernels`),
+not Pallas.  This is the device path for DFAs the bitplane budget refuses:
+more than 256 states, large circuits, long inputs.  The JAX matcher's split
+mode runs three stages over L-windows:
+
+  1. **scan** (B8; B11 per segment): the only sequential stage.  Per def,
+     s = next[cls[c], s] for each byte: a byte -> class map [n_defs, 256]
+     and a next-state table [n_defs, K, S] (a model beyond 256 states
+     stores ``lo + 256*hi``, the transition itself).  Writes states
+     [n_defs, L, B], time-major.
+  2. **tag** (B9/B11): ids, is_start and is_end per (prev, next) state pair
+     from the pair list [n_defs, P, 5] of (a, b, gid, is_start, is_end),
+     masked by pos < length.  Position-parallel.
+  3. **fsm** (B10/B11): sums over defs, then the forward or backward
+     set/reset/hold mask FSM [L, B].
+
+``grid_mode="batch"`` runs each stage once over [0, L); ``"segmented"``
+runs them over ``n_seg`` windows of ``segment`` positions, with the carries
+(the scan's entry state, the tag's previous state row, the FSMs' entry
+value and neighbouring id/flag rows) passed as arguments.  Every output
+window lies in one full-length tensor, so no segment is concatenated.
+
+The TPU's stride-2 pair tables, slab unrolling, joint-def tables and the
+bf16/int8 one-hot MXU select exist to get exact integer gathers out of the
+TPU's matrix unit; the card gathers directly and the integers are the same,
+so they are not carried.  The monolithic kernel (B12, more than
+``max_pairs`` pairs per def) is not ported yet.
+
+Each stage has a plain PyTorch version here (``scan_plain``, ``tag_plain``,
+``fsm_plain``) and routes by device: a CPU tensor takes the plain version, a
+CUDA tensor launches the kernel (or raises).  There is no fallback.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.compiled import CompiledRegexModel
+from ..witness.result import RegexResult
+from .bitplane import _kernels, _on_cuda, _round_up, _substr_pairs, resolve_device
+
+PAIR_FIELDS = 5  # (a, b, gid, is_start, is_end); a = -1 pads a def's list
+
+
+# ---------------------------------------------------------------------------
+# Host phases (numpy), carried from the JAX module
+# ---------------------------------------------------------------------------
+
+
+def build_packed_tables(model: CompiledRegexModel) -> np.ndarray:
+    """Per-def [256, 4*S] packed tables: next | substr_id | is_start | is_end.
+
+    ``is_start``/``is_end`` are per-transition flags as functions of
+    (char, cur): id = substr_id_table[cur, next]; is_start = id!=0 and
+    cur in start_states(id); is_end = id!=0 and next in end_states(id)
+    (the oracle's is_end at index i+1, i.e. unshifted).
+    """
+    S = model.s_pad
+    assert S <= 256, f"s_pad {S} > 256 breaks bf16 exactness"
+    assert model.total_substrs <= 256, "substr ids > 256 break bf16 exactness"
+    n_defs = model.n_defs
+    out = np.zeros((n_defs, 256, 4 * S), np.float32)
+    for d in range(n_defs):
+        T = model.transition[d]  # [256, S]
+        sub = model.substr_id_table[d]  # [S, S]
+        cur = np.arange(S)[None, :].repeat(256, 0)
+        nxt = T
+        ids = sub[cur, nxt]
+        out[d, :, 0 * S : 1 * S] = nxt
+        out[d, :, 1 * S : 2 * S] = ids
+        out[d, :, 2 * S : 3 * S] = model.is_start_table[ids, cur]
+        out[d, :, 3 * S : 4 * S] = model.is_end_table[ids, nxt]
+    return out
+
+
+def byte_classes(packed_def: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Collapse the 256 byte rows of one def's packed table into
+    equivalence classes. Returns (class_of [256] int32, class_table
+    [k, 4S] f32)."""
+    uniq, inverse = np.unique(packed_def, axis=0, return_inverse=True)
+    return inverse.reshape(-1).astype(np.int32), uniq.astype(np.float32)
+
+
+def class_boundaries(class_of: np.ndarray) -> Tuple[int, List[Tuple[int, int]]]:
+    """Represent the byte->class map as cls(c) = cls0 + Σ Δ_r·(c >= b_r).
+    Returns (cls0, [(b_r, Δ_r)...]) with one term per point where the map
+    changes as c increases."""
+    cls0 = int(class_of[0])
+    terms = []
+    for c in range(1, 256):
+        d = int(class_of[c]) - int(class_of[c - 1])
+        if d != 0:
+            terms.append((c, d))
+    return cls0, terms
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: scan (B8 / B11 scan on the card)
+# ---------------------------------------------------------------------------
+
+
+def scan_plain(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
+    """Window [p0, p0 + LS) of the serial table scan, written into
+    ``out[:, p0:p0 + LS]``.  ``cmap`` [n_defs, 256] and ``next_tab``
+    [n_defs, K, S] int32, ``chars`` [B, L] uint8, ``init`` [n_defs, B] int32
+    (the state before position p0), ``out`` [n_defs, L, B] int32.  The scan
+    runs over the buffer's bytes past each string's length, as JAX does."""
+    S = next_tab.shape[2]
+    c = chars[:, p0 : p0 + LS].long()
+    for d in range(next_tab.shape[0]):
+        off = (cmap[d].long()[c] * S).t().contiguous()  # [LS, B]
+        flat = next_tab[d].reshape(-1)
+        s = init[d].long()
+        rows = []
+        for p in range(LS):
+            s = flat[off[p] + s].long()
+            rows.append(s)
+        out[d, p0 : p0 + LS] = torch.stack(rows).to(torch.int32)
+
+
+def scan(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
+    """Stage 1, routed by device (module docstring)."""
+    if _on_cuda(cmap, next_tab, chars, init, out):
+        _kernels().table_scan_cuda(cmap, next_tab, chars, init, p0, LS, out)
+    else:
+        scan_plain(cmap, next_tab, chars, init, p0, LS, out)
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: tag (B9 / B11 tag on the card)
+# ---------------------------------------------------------------------------
+
+
+def tag_plain(states, prev, lengths, pairs, p0: int, LS: int, ids, start, endf) -> None:
+    """Window [p0, p0 + LS) of the pair tagging: ``states`` [n_defs, L, B],
+    ``prev`` [n_defs, B] (the states at p0 - 1: the first states, or the
+    previous window's last row), ``lengths`` [B], ``pairs`` [n_defs, P, 5]
+    -> ``ids``/``start``/``endf`` [n_defs, L, B] at the window, masked by
+    pos < length."""
+    nxt = states[:, p0 : p0 + LS]
+    prv = torch.cat([prev[:, None, :], states[:, p0 : p0 + LS - 1]], 1)
+    pos = torch.arange(p0, p0 + LS, dtype=torch.int32, device=states.device)
+    en = (pos[:, None] < lengths[None, :]).to(torch.int32)
+    for d, plist in enumerate(pairs.tolist()):
+        i_ = torch.zeros_like(nxt[d])
+        s_ = torch.zeros_like(nxt[d])
+        e_ = torch.zeros_like(nxt[d])
+        for a, b, gid, s_flag, e_flag in plist:
+            if a < 0:
+                continue
+            m = ((prv[d] == a) & (nxt[d] == b)).to(torch.int32)
+            i_ += gid * m
+            if s_flag:
+                s_ += m
+            if e_flag:
+                e_ += m
+        ids[d, p0 : p0 + LS] = i_ * en
+        start[d, p0 : p0 + LS] = s_ * en
+        endf[d, p0 : p0 + LS] = e_ * en
+
+
+def tag(states, prev, lengths, pairs, p0: int, LS: int, ids, start, endf) -> None:
+    """Stage 2, routed by device (module docstring)."""
+    if _on_cuda(states, prev, lengths, pairs, ids, start, endf):
+        _kernels().table_tag_cuda(states, prev, lengths, pairs, p0, LS, ids, start, endf)
+    else:
+        tag_plain(states, prev, lengths, pairs, p0, LS, ids, start, endf)
+
+
+# ---------------------------------------------------------------------------
+# Stage 3: mask FSMs (B10 / B11 fsm on the card)
+# ---------------------------------------------------------------------------
+
+
+def _log_scan(a: torch.Tensor, b: torch.Tensor, reverse: bool):
+    """Inclusive Hillis-Steele scan along dim 0 of the maps x' = a*x + b
+    (the JAX ``_log_scan_pair_seg``): returns the composed (A, B)."""
+    n = a.shape[0]
+    shift = 1
+    while shift < n:
+        ones = torch.ones_like(a[:shift])
+        zeros = torch.zeros_like(b[:shift])
+        if not reverse:
+            a_prev = torch.cat([ones, a[: n - shift]])
+            b_prev = torch.cat([zeros, b[: n - shift]])
+        else:
+            a_prev = torch.cat([a[shift:], ones])
+            b_prev = torch.cat([b[shift:], zeros])
+        a, b = a_prev * a, a * b_prev + b
+        shift *= 2
+    return a, b
+
+
+def fsm_plain(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
+              p0: int, LS: int, out) -> None:
+    """Window [p0, p0 + LS) of the forward (``reverse=False``) or backward
+    mask FSM, written into ``out[p0:p0 + LS]`` ([L, B] int32).  The per-def
+    ``ids``/``start``/``endf`` [n_defs, L, B] are summed over defs.
+
+    Forward: ``entry`` [B] is the mask at p0 - 1, ``carry_ids`` and
+    ``carry_x`` [n_defs, B] the ids and endf rows at p0 - 1.  Backward:
+    ``entry`` is the mask at p0 + LS, ``carry_ids`` and ``carry_x`` the ids
+    and start rows there.  ``None`` stands for zeros (the ends of L)."""
+    sl = slice(p0, p0 + LS)
+    i32 = torch.int32
+    ids_sum = ids[:, sl].sum(0, dtype=i32)
+    st_sum = start[:, sl].sum(0, dtype=i32)
+    ef_sum = endf[:, sl].sum(0, dtype=i32)
+    zero = torch.zeros_like(ids_sum[0])
+    c_ids = zero if carry_ids is None else carry_ids.sum(0, dtype=i32)
+    c_x = zero if carry_x is None else carry_x.sum(0, dtype=i32)
+    e = zero if entry is None else entry
+    if not reverse:
+        prev_ids = torch.cat([c_ids[None], ids_sum[:-1]])
+        prev_ef = torch.cat([c_x[None], ef_sum[:-1]])
+        changed = prev_ids != ids_sum
+        setp = (st_sum > 0) & changed
+        reset = (st_sum == 0) & (prev_ef > 0) & changed
+    else:
+        next_ids = torch.cat([ids_sum[1:], c_ids[None]])
+        next_st = torch.cat([st_sum[1:], c_x[None]])
+        changed = next_ids != ids_sum
+        setp = (ef_sum > 0) & changed
+        reset = (ef_sum == 0) & (next_st > 0) & changed
+    hold = (~setp & ~reset).to(i32)
+    A, Bv = _log_scan(hold, setp.to(i32), reverse)
+    out[sl] = A * e[None, :] + Bv
+
+
+def fsm(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
+        p0: int, LS: int, out) -> None:
+    """Stage 3, routed by device (module docstring)."""
+    given = [t for t in (ids, start, endf, entry, carry_ids, carry_x, out) if t is not None]
+    if _on_cuda(*given):
+        _kernels().table_fsm_cuda(reverse, ids, start, endf, entry, carry_ids, carry_x,
+                                  p0, LS, out)
+    else:
+        fsm_plain(reverse, ids, start, endf, entry, carry_ids, carry_x, p0, LS, out)
+
+
+# ---------------------------------------------------------------------------
+# The matcher
+# ---------------------------------------------------------------------------
+
+
+class PallasMatcher(nn.Module):
+    """Table-driven split matcher (port of the JAX ``PallasMatcher`` in
+    split mode); a call returns a ``RegexResult`` equal to the JAX
+    matcher's, dtypes included.
+
+    Args mirror the JAX constructor, less ``interpret``, plus ``device``
+    (``"cuda"``, the default, runs the CUDA kernels and raises where CUDA is
+    absent; ``"cpu"`` runs their plain versions).  ``batch_tile`` only
+    feeds the segmented demotion, as in JAX: the port does not pad the
+    batch.  ``chunk`` and ``slab`` are TPU blocking factors the port has
+    no use for: other values raise ``ValueError``.  ``H2R_VMEM_BUDGET``
+    and ``H2R_SEGMENT`` are read as in JAX, so ``mode``, ``grid_mode``,
+    ``segment`` and ``n_seg`` equal the JAX matcher's for the same model.
+    A model of more than 4096 pairs per def runs on the CPU only (the
+    tag kernel's list lives in shared memory).  The monolithic mode (B12) and the
+    TPU lowerings ``compute``, ``table_dtype`` and ``extract`` raise
+    ``NotImplementedError`` naming their ROADMAP item.
+    """
+
+    def __init__(
+        self,
+        model: CompiledRegexModel,
+        batch_tile: int = 0,
+        chunk: int = 256,
+        max_boundary_terms: int = 96,
+        extract: str = "select",
+        grid_mode: str = "batch",
+        slab: int = 8,
+        compute: str = "mxu",
+        mode: str = "auto",
+        max_pairs: int = 160,
+        table_dtype: str = "bf16",
+        device="cuda",
+    ):
+        super().__init__()
+        if grid_mode == "chunked":
+            raise ValueError(
+                "grid_mode='chunked' was removed from the JAX package (Mosaic "
+                "SIGABRT); use 'segmented'"
+            )
+        if grid_mode not in ("batch", "segmented"):
+            raise ValueError(f"grid_mode={grid_mode!r}: expected batch/segmented")
+        for name, value, default in (("chunk", chunk, 256), ("slab", slab, 8)):
+            if value != default:
+                raise ValueError(
+                    f"{name}={value!r}: a TPU blocking factor; the port launches one "
+                    f"kernel per window and takes only the default ({default})"
+                )
+        for name, value, default in (("extract", extract, "select"),
+                                     ("compute", compute, "mxu"),
+                                     ("table_dtype", table_dtype, "bf16")):
+            if value != default:
+                raise NotImplementedError(
+                    f"{name}={value!r} is a TPU lowering with the same outputs; "
+                    f"it waits for ROADMAP A11 (the port gathers directly)"
+                )
+        self.model = model
+        self.L = model.max_chars_size
+        self.S = model.s_pad
+        self.n_defs = model.n_defs
+        self.grid_mode = grid_mode
+        self._budget = int(float(os.environ.get("H2R_VMEM_BUDGET", 56e6)))
+        mode = self._build_tables(mode, max_boundary_terms)
+        self._resolve_mode(mode, max_pairs)
+        if self.mode == "monolithic":
+            raise NotImplementedError(
+                "mode='monolithic' (the flat kernel B12, for more than max_pairs "
+                "pairs per def) waits for ROADMAP A7's remainder"
+            )
+        self._size_tiles(batch_tile)
+        self._register_tables()
+        self.to(resolve_device(device))
+
+    # ------------------------------------------------- construction phases
+
+    def _build_tables(self, mode: str, max_boundary_terms: int) -> str:
+        """Byte-class compression per def, as the JAX ``_build_tables``:
+        sets ``hi_lo``, ``class_info`` (use_classes, cls0, terms, table) and
+        the port's tables ``_cmap`` [n_defs, 256] and ``_next``
+        [n_defs, K, S] (K: the widest def's class count, 256 for a def
+        that keeps raw bytes, rounded up to 8)."""
+        model = self.model
+        S = self.S
+        n_defs = self.n_defs
+        hi_lo = S > 256
+        self.hi_lo = hi_lo
+        if hi_lo:
+            assert model.total_substrs <= 256, "substr ids > 256 unsupported"
+            if mode == "monolithic":
+                raise ValueError(">256-state models need mode='split'")
+            mode = "split"
+            packed = None
+        else:
+            packed = build_packed_tables(model)
+        class_info, class_ofs = [], []
+        for d in range(n_defs):
+            if hi_lo:
+                class_of, ctab_next = byte_classes(model.transition[d].astype(np.float32))
+                ctab_next = ctab_next.astype(np.int64)
+                tab = np.concatenate([ctab_next & 0xFF, ctab_next >> 8], axis=1)
+                tab = tab.astype(np.float32)
+            else:
+                class_of, tab = byte_classes(packed[d])
+            cls0, terms = class_boundaries(class_of)
+            class_info.append((len(terms) <= max_boundary_terms, cls0, terms, tab))
+            class_ofs.append(class_of)
+        self.class_info = class_info
+        k_rows = max(ci[3].shape[0] if ci[0] else 256 for ci in class_info)
+        K = _round_up(max(k_rows, 8), 8)
+        cmap = np.zeros((n_defs, 256), np.int32)
+        nxt = np.zeros((n_defs, K, S), np.int32)
+        for d, (use_classes, _cls0, _terms, tab) in enumerate(class_info):
+            if use_classes:
+                cmap[d] = class_ofs[d]
+                t = tab.astype(np.int64)
+                rows = t[:, :S] + 256 * t[:, S : 2 * S] if hi_lo else t[:, :S]
+                nxt[d, : tab.shape[0]] = rows
+            else:  # raw bytes: the identity map over the transition table
+                cmap[d] = np.arange(256)
+                nxt[d, :256] = model.transition[d]
+        self._cmap, self._next = cmap, nxt
+        return mode
+
+    def _resolve_mode(self, mode: str, max_pairs: int) -> None:
+        """Valid (prev, next) pairs per def, and split vs monolithic, as
+        the JAX ``_resolve_mode``; sets ``pair_info`` and the padded pair
+        array ``_pairs`` [n_defs, P, 5] (P: the longest def's list)."""
+        pair_info = [_substr_pairs(self.model, d) for d in range(self.n_defs)]
+        split_ok = all(len(plist) <= max_pairs for plist in pair_info)
+        if mode == "auto":
+            mode = "split" if split_ok else "monolithic"
+        elif mode == "split" and not split_ok:
+            raise ValueError(f"split mode needs <= {max_pairs} valid pairs per def")
+        self.mode = mode
+        self.pair_info = pair_info
+        P = max(len(p) for p in pair_info)
+        pairs = np.zeros((self.n_defs, P, PAIR_FIELDS), np.int32)
+        pairs[:, :, 0] = -1
+        for d, plist in enumerate(pair_info):
+            if plist:
+                pairs[d, : len(plist)] = np.array(plist, np.int64)
+        self._pairs = pairs
+
+    def _size_tiles(self, batch_tile: int) -> None:
+        """The parts of the JAX ``_size_tiles`` that change what runs:
+        the batch tile as far as the segmented demotion reads it, then
+        ``segment`` (``H2R_SEGMENT``, halved until it divides L) and
+        ``n_seg``."""
+        L = self.L
+        n_defs = self.n_defs
+        split_blocks = max(n_defs + 1, 4 * n_defs, 3 * n_defs + 2)
+        if not batch_tile:
+            per_tb = 2 * L * 4 * split_blocks
+            batch_tile = max(128, min(1024, (self._budget // per_tb) // 128 * 128))
+        self.batch_tile = batch_tile
+        if self.grid_mode == "batch" and 2 * L * 4 * split_blocks * batch_tile > self._budget:
+            self.grid_mode = "segmented"
+        LS = min(int(os.environ.get("H2R_SEGMENT", 4096)), L)
+        while L % LS != 0:
+            LS //= 2
+        self.segment = LS
+        self.n_seg = L // LS
+
+    def _register_tables(self) -> None:
+        model = self.model
+        self.register_buffer("class_map", torch.from_numpy(self._cmap))
+        self.register_buffer("next_table", torch.from_numpy(self._next))
+        self.register_buffer("pairs", torch.from_numpy(self._pairs))
+        self.register_buffer("accept_mask", torch.from_numpy(np.asarray(model.accept_mask, bool)))
+        for name in ("accepted_states", "dummy_states", "dead_states", "first_states"):
+            self.register_buffer(
+                name, torch.from_numpy(np.asarray(getattr(model, name), np.int32))
+            )
+
+    @property
+    def device(self) -> torch.device:
+        return self.accept_mask.device
+
+    @property
+    def window(self) -> int:
+        """Positions per launch: ``segment`` when segmented, else L."""
+        return self.segment if self.grid_mode == "segmented" else self.L
+
+    # ----------------------------------------------------------- pipeline
+
+    def _firsts(self, B: int) -> torch.Tensor:
+        return self.first_states[:, None].expand(self.n_defs, B).contiguous()
+
+    def _scan_all(self, chars, init, states, plain: bool) -> None:
+        LS = self.window
+        scan_f = scan_plain if plain else scan
+        for p0 in range(0, self.L, LS):
+            scan_f(self.class_map, self.next_table, chars, init, p0, LS, states)
+            init = states[:, p0 + LS - 1]
+
+    def run(self, chars: torch.Tensor, lengths: torch.Tensor, plain: bool = False) -> RegexResult:
+        """The split pipeline on ``chars`` [B, L] uint8 and ``lengths`` [B]
+        int32 (both on the matcher's device), then the finish.  ``plain``
+        runs the plain version of every stage on any device (the reference
+        the kernels are held against)."""
+        return self.finish(chars, lengths, *self.run_planes(chars, lengths, plain))
+
+    def run_planes(self, chars: torch.Tensor, lengths: torch.Tensor, plain: bool = False):
+        """The three stages over ``window``-position launches: every scan,
+        then every tag, the forward FSM ascending and the backward FSM
+        descending (the JAX ``_run_segmented``; batch mode is one window).
+        Returns the time-major planes states, ids, start, endf
+        [n_defs, L, B] and fwd, bwd [L, B], all int32."""
+        B, L = chars.shape
+        if L != self.L:
+            raise ValueError(f"chars are [B, {L}]; the model needs L={self.L}")
+        if tuple(lengths.shape) != (B,):
+            raise ValueError(f"lengths {tuple(lengths.shape)}: expected ({B},)")
+        n_defs, LS, dev = self.n_defs, self.window, chars.device
+        tag_f, fsm_f = (tag_plain, fsm_plain) if plain else (tag, fsm)
+
+        def plane(*lead):
+            return torch.empty((*lead, L, B), dtype=torch.int32, device=dev)
+
+        firsts = self._firsts(B)
+        states = plane(n_defs)
+        self._scan_all(chars, firsts, states, plain)
+        ids, start, endf = plane(n_defs), plane(n_defs), plane(n_defs)
+        prev = firsts
+        for p0 in range(0, L, LS):
+            tag_f(states, prev, lengths, self.pairs, p0, LS, ids, start, endf)
+            prev = states[:, p0 + LS - 1]
+        fwd, bwd = plane(), plane()
+        entry = c_ids = c_x = None
+        for p0 in range(0, L, LS):
+            fsm_f(False, ids, start, endf, entry, c_ids, c_x, p0, LS, fwd)
+            q = p0 + LS - 1
+            entry, c_ids, c_x = fwd[q], ids[:, q], endf[:, q]
+        entry = c_ids = c_x = None
+        for p0 in range(L - LS, -1, -LS):
+            fsm_f(True, ids, start, endf, entry, c_ids, c_x, p0, LS, bwd)
+            entry, c_ids, c_x = bwd[p0], ids[:, p0], start[:, p0]
+        return states, ids, start, endf, fwd, bwd
+
+    def finish(self, chars, lengths, states_tm, ids_tm, start_tm, endf_tm, fwd_tm, bwd_tm):
+        """The JAX ``_core`` tail (halo2_regex_tpu/ops/pallas_scan.py:1405):
+        the dummy state past each length, the final state read at the
+        length, the sums over defs and the mask, with the JAX values and
+        dtypes.  The columns are computed time-major, where the stages left
+        them, and returned as [B, ...] views of those buffers; the tag
+        stage masks ids/start/endf by the enable already, so start_enable
+        and end_enable are the start and endf planes themselves."""
+        B, L = chars.shape
+        n_defs, dev, i32 = self.n_defs, chars.device, torch.int32
+        pos = torch.arange(L + 1, dtype=i32, device=dev)
+        enable = (pos[None, :L] < lengths[:, None]).to(i32)  # [B, L]
+        chars_i32 = chars.to(i32) * enable
+        raw = torch.empty((n_defs, L + 1, B), dtype=i32, device=dev)
+        raw[:, 0] = self.first_states[:, None]
+        raw[:, 1:] = states_tm
+        in_range = pos[:, None] <= lengths[None, :]  # [L + 1, B]
+        states = torch.where(in_range, raw, self.dummy_states[:, None, None])
+        idx = lengths.long()[None, None, :].expand(n_defs, 1, B)
+        final = torch.gather(raw, 1, idx)[:, 0].t()  # [B, n_defs]
+        accepted = self.accept_mask[torch.arange(n_defs, device=dev)[None, :], final.long()]
+        has_dead = final == self.dead_states[None, :]
+        ids_sum = ids_tm.sum(0, dtype=i32)  # [L, B]
+        mask = fwd_tm * bwd_tm
+        start_sum = torch.zeros((L + 1, B), dtype=i32, device=dev)
+        start_sum[:L] = start_tm.sum(0, dtype=i32)
+        end_sum = torch.zeros((L + 1, B), dtype=i32, device=dev)
+        end_sum[1:] = endf_tm.sum(0, dtype=i32)
+        return RegexResult(
+            all_enable_flags=enable,
+            all_characters=chars_i32,
+            all_substr_ids=(mask * ids_sum).t(),
+            masked_characters=mask.t() * chars_i32,
+            states=states.permute(2, 0, 1),
+            substr_ids_per_def=ids_tm.permute(2, 0, 1),
+            start_enable=start_tm.permute(2, 0, 1),
+            end_enable=endf_tm.permute(2, 0, 1),
+            is_start_sum=start_sum.t(),
+            is_end_sum=end_sum.t(),
+            substr_id_sum=ids_sum.t(),
+            fwd_mask=fwd_tm.t(),
+            bwd_mask=bwd_tm.t(),
+            mask=mask.t(),
+            accepted=accepted,
+            has_dead=has_dead,
+            match_ok=accepted.all(1) & ~has_dead.any(1),
+        )
+
+    @torch.no_grad()
+    def forward(self, chars, lengths) -> RegexResult:
+        chars = torch.as_tensor(chars, dtype=torch.uint8, device=self.device)
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
+        return self.run(chars.contiguous(), lengths.contiguous())
+
+    def match_one(self, characters: bytes) -> RegexResult:
+        buf = np.zeros((1, self.L), np.uint8)
+        buf[0, : len(characters)] = bytearray(characters)
+        res = self(buf, np.array([len(characters)], np.int32))
+        return res.map(lambda v: v[0].cpu().numpy())
+
+    @torch.no_grad()
+    def scan_states_tm(self, ctm, init, B: int) -> torch.Tensor:
+        """Per-position states [n_defs, L, B] int32 scanned from per-string
+        initial states ``init`` [n_defs, B] instead of the model's first
+        states: the per-shard hook of sequence-sharded and speculative
+        scanning.  ``ctm`` is the time-major [L, B] int32 character array of
+        the JAX signature.  Needs ``grid_mode="segmented"``, as in JAX."""
+        if self.grid_mode != "segmented":
+            raise ValueError(
+                f"scan_states_tm needs grid_mode='segmented' (got {self.grid_mode!r})"
+            )
+        ctm = torch.as_tensor(ctm, device=self.device)
+        if tuple(ctm.shape) != (self.L, B):
+            raise ValueError(f"ctm {tuple(ctm.shape)}: expected ({self.L}, {B})")
+        chars = ctm.t().to(torch.uint8).contiguous()
+        init = torch.as_tensor(init, dtype=torch.int32, device=self.device).contiguous()
+        states = torch.empty((self.n_defs, self.L, B), dtype=torch.int32, device=self.device)
+        self._scan_all(chars, init, states, plain=False)
+        return states

@@ -99,7 +99,7 @@ def jax_matchers(models):
 
 @pytest.fixture(scope="module")
 def ports(models):
-    return {n: T.BitplaneMatcher(models[n][1], columns="witness") for n in MODELS}
+    return {n: T.BitplaneMatcher(models[n][1], columns="witness", device="cpu") for n in MODELS}
 
 
 @pytest.fixture(scope="module")
@@ -243,7 +243,7 @@ def test_witness_short_models_oracle(L):
     lengths = np.array([len(s) for s in strings], np.int32)
     for i, s in enumerate(strings):
         chars[i, : len(s)] = bytearray(s)
-    out = T.BitplaneMatcher(model, columns="witness")(chars, lengths)
+    out = T.BitplaneMatcher(model, columns="witness", device="cpu")(chars, lengths)
     for i, s in enumerate(strings):
         o = match_substrs(model.regex_defs, s, L)
         np.testing.assert_array_equal(out["states"][i].numpy(), o.states)
@@ -287,7 +287,7 @@ def test_stage_on_unsupported_device_raises(ports):
 def test_unported_settings_raise(models, kw):
     kw.setdefault("columns", "witness")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.BitplaneMatcher(models["regex3"][1], **kw)
+        T.BitplaneMatcher(models["regex3"][1], device="cpu", **kw)
 
 
 def test_unpadded_length_raises():
@@ -297,7 +297,7 @@ def test_unpadded_length_raises():
     model = T.CompiledRegexModel.from_decomposed(
         T.DecomposedRegexConfig.from_json(CONFIGS["regex3"]), max_chars_size=200
     )
-    plan = T.BitplaneMatcher(model, columns="witness").plan
+    plan = T.BitplaneMatcher(model, columns="witness", device="cpu").plan
     assert (plan.L, plan.L_pad, plan.qpack) == (200, 256, False)
 
 
@@ -309,7 +309,7 @@ def test_unpadded_length_raises():
 def test_unported_env_knobs_raise(models, monkeypatch, var, value):
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match=f"{var}={value}.*ROADMAP"):
-        T.BitplaneMatcher(models["regex3"][1], columns="witness")
+        T.BitplaneMatcher(models["regex3"][1], columns="witness", device="cpu")
 
 
 def test_main_path_knobs_accepted(models, monkeypatch):
@@ -320,7 +320,7 @@ def test_main_path_knobs_accepted(models, monkeypatch):
         monkeypatch.setenv(var, value)
     m = T.BitplaneMatcher(models["regex3"][1], qpack=True, emit="bytes",
                           class_stage="binary", en_pack=True, unroll=1,
-                          fuse_pack=False)
+                          fuse_pack=False, device="cpu")
     assert m.plan.L == MAX_LEN
 
 
@@ -329,8 +329,8 @@ def test_default_columns_is_witness(models, ports):
     "full", is; tests/test_torch_serving.py holds that): given
     explicitly it returns the witness dict."""
     chars, lengths = _pack(STRINGS3)
-    m = T.BitplaneMatcher(models["regex3"][1], columns="witness")
-    assert T.BitplaneMatcher(models["regex3"][1]).columns == "full"
+    m = T.BitplaneMatcher(models["regex3"][1], columns="witness", device="cpu")
+    assert T.BitplaneMatcher(models["regex3"][1], device="cpu").columns == "full"
     assert_witness_equal(m(chars, lengths),
                          {k: v.numpy() for k, v in ports["regex3"](chars, lengths).items()})
 
@@ -339,7 +339,7 @@ def test_multiple_of_128_length_plans():
     model = T.CompiledRegexModel.from_decomposed(
         T.DecomposedRegexConfig.from_json(CONFIGS["regex3"]), max_chars_size=256
     )
-    assert T.BitplaneMatcher(model).plan.L == 256
+    assert T.BitplaneMatcher(model, device="cpu").plan.L == 256
 
 
 def test_kernel_build_root(monkeypatch, tmp_path):

@@ -135,7 +135,7 @@ def test_matcher_on_card_matches_cpu(dev, columns, name, L):
     path = kernels.path_kernels(m.plan)
     assert {k.name: k.launches for k in kernels.KERNELS} == {
         k.name: int(k in path) for k in kernels.KERNELS}
-    _assert_same(got, T.BitplaneMatcher(model, columns=columns)(chars, lengths))
+    _assert_same(got, T.BitplaneMatcher(model, columns=columns, device="cpu")(chars, lengths))
 
 
 def test_extract_runs_on_card_matches_cpu(dev):
@@ -162,3 +162,167 @@ def test_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="shape"):
         kernels.fb_only_cuda(m.plan, torch.zeros((1, m.plan.sb_sum, 8, 128), dtype=torch.int32,
                                                  device=dev), lw[:, :8])
+
+
+# ---------------------------------------------------------------------------
+# the table-driven split matcher (PallasMatcher): B8-B11
+# ---------------------------------------------------------------------------
+
+
+def _large_model(S=300, L=MAX_LEN, seed=7):
+    """A random S-state table over bytes 97..102 (more than 256 states)."""
+    from halo2_regex_tpu_torch.models.defs import AllstrRegexDef, RegexDefs
+
+    rng = np.random.default_rng(seed)
+    allstr = AllstrRegexDef(first_state_val=0, accepted_state_val=1, largest_state_val=S - 1)
+    line = 3
+    for c in range(97, 103):
+        for s in range(S):
+            allstr.state_lookup[(c, s)] = (line, int(rng.integers(0, S)))
+            line += 1
+    return T.CompiledRegexModel.from_defs([RegexDefs(allstr=allstr, substrs=[])],
+                                          max_chars_size=L)
+
+
+def _table_model(name):
+    return _large_model() if name == "large" else _model(name)
+
+
+def _table_corpus(name, n, seed):
+    """``_corpus`` with a sender line in every third string (so the
+    from: models' ids and masks light up); random bytes of the table's
+    alphabet for the large model."""
+    chars, lengths = _corpus(n, MAX_LEN, seed)
+    rng = np.random.default_rng(seed)
+    if name == "large":
+        chars = rng.integers(97, 103, size=(n, MAX_LEN)).astype(np.uint8)
+        chars[::5, 3] = 7  # a byte outside the alphabet: the dead state
+        return chars, lengths
+    for i in range(1, n, 3):
+        user = bytes(rng.choice(list(b"abcxyz."), size=int(rng.integers(1, 8))).astype(np.uint8))
+        s = (b"ab c" * int(rng.integers(0, 3)) + b"\r\nfrom:" + (b"Al <" if i % 2 else b"")
+             + user + b"@gmail.com" + (b">" if i % 2 else b"") + b"\r\n")[:MAX_LEN]
+        chars[i] = 0
+        chars[i, : len(s)] = bytearray(s)
+        lengths[i] = len(s)
+    return chars, lengths
+
+
+@pytest.mark.parametrize("smem", [True, False])
+@pytest.mark.parametrize("name", ["regex3", "two_def", "from", "large"])
+def test_table_kernels_match_plain(dev, monkeypatch, name, smem):
+    """The three table kernels against their plain versions over the whole
+    L (batch mode) and on a middle window with carries (segmented), with
+    the next-state table in shared memory and read from global memory."""
+    from halo2_regex_tpu_torch.ops import pallas_scan as ps
+
+    if not smem:
+        monkeypatch.setattr(kernels, "table_smem_bytes", lambda K, S, d: 0)
+    m = T.PallasMatcher(_table_model(name), device=dev)
+    chars, lengths = _table_corpus(name, 4099, 7)
+    ch = torch.from_numpy(chars).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    B = ch.shape[0]
+    shape = (m.n_defs, MAX_LEN, B)
+
+    def planes(n):
+        return [torch.full(shape, -7, dtype=torch.int32, device=dev) for _ in range(n)]
+
+    st_p, st_k = planes(2)
+    ps.scan_plain(m.class_map, m.next_table, ch, m._firsts(B), 0, MAX_LEN, st_p)
+    kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(B), 0, MAX_LEN, st_k)
+    torch.cuda.synchronize()
+    assert torch.equal(st_k, st_p)
+    q0, LS = 16, 32  # a window with carries on both sides
+    st_w = planes(1)[0]
+    kernels.table_scan_cuda(m.class_map, m.next_table, ch, st_p[:, q0 - 1], q0, LS, st_w)
+    assert torch.equal(st_w[:, q0 : q0 + LS], st_p[:, q0 : q0 + LS])
+
+    want, got = planes(3), planes(3)
+    ps.tag_plain(st_p, m._firsts(B), ln, m.pairs, 0, MAX_LEN, *want)
+    kernels.table_tag_cuda(st_p, m._firsts(B), ln, m.pairs, 0, MAX_LEN, *got)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    win = planes(3)
+    kernels.table_tag_cuda(st_p, st_p[:, q0 - 1], ln, m.pairs, q0, LS, *win)
+    for a, b in zip(win, want):
+        assert torch.equal(a[:, q0 : q0 + LS], b[:, q0 : q0 + LS])
+
+    ids, sta, ef = want
+    for reverse, carry in ((False, lambda f: (f[q0 - 1], ids[:, q0 - 1], ef[:, q0 - 1])),
+                           (True, lambda f: (f[q0 + LS], ids[:, q0 + LS], sta[:, q0 + LS]))):
+        f_p = torch.full((MAX_LEN, B), -7, dtype=torch.int32, device=dev)
+        f_k = f_p.clone()
+        ps.fsm_plain(reverse, ids, sta, ef, None, None, None, 0, MAX_LEN, f_p)
+        kernels.table_fsm_cuda(reverse, ids, sta, ef, None, None, None, 0, MAX_LEN, f_k)
+        assert torch.equal(f_k, f_p)
+        f_w = torch.full_like(f_p, -7)
+        kernels.table_fsm_cuda(reverse, ids, sta, ef, *carry(f_p), q0, LS, f_w)
+        assert torch.equal(f_w[q0 : q0 + LS], f_p[q0 : q0 + LS])
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("name", ["regex3", "two_def", "from", "large"])
+def test_pallas_matcher_on_card_matches_cpu(dev, monkeypatch, name, segmented):
+    """The matcher on the card equals the CPU (plain) run on every field
+    and dtype, for a ragged batch, chars at an odd address (byte loads),
+    in batch mode and over 4 segments; each window launches one scan, one
+    tag and two FSMs, and no other kernel runs."""
+    model = _table_model(name)
+    if segmented:
+        monkeypatch.setenv("H2R_SEGMENT", "16")
+    kw = dict(grid_mode="segmented") if segmented else {}
+    m = T.PallasMatcher(model, device=dev, **kw)
+    chars, lengths = _table_corpus(name, 4099, 8)
+    for odd in (False, True):
+        ch = torch.from_numpy(chars).to(dev)
+        if odd:
+            buf = torch.zeros(chars.size + 1, dtype=torch.uint8, device=dev)
+            ch = buf[1:].view(chars.shape)
+            ch.copy_(torch.from_numpy(chars))
+        kernels.reset_launch_counts()
+        got = m(ch, torch.from_numpy(lengths).to(dev))
+        torch.cuda.synchronize()
+        n = m.n_seg if segmented else 1
+        want_counts = {k.name: 0 for k in kernels.KERNELS}
+        want_counts.update({k.name: v for k, v in kernels.table_path_launches(n).items()})
+        assert {k.name: k.launches for k in kernels.KERNELS} == want_counts
+        _assert_same(got, T.PallasMatcher(model, device="cpu", **kw)(chars, lengths))
+
+
+@pytest.mark.parametrize("name", ["from", "large"])
+def test_pallas_matcher_short_segments_on_card(dev, monkeypatch, name):
+    """Segments of 8 positions, shorter than one 16-byte load: the scan
+    reads its bytes one at a time and the result equals the CPU run."""
+    monkeypatch.setenv("H2R_SEGMENT", "8")
+    model = _table_model(name)
+    m = T.PallasMatcher(model, grid_mode="segmented", device=dev)
+    assert m.segment == 8
+    chars, lengths = _table_corpus(name, 300, 10)
+    got = m(torch.from_numpy(chars).to(dev), torch.from_numpy(lengths).to(dev))
+    _assert_same(got, T.PallasMatcher(model, grid_mode="segmented", device="cpu")(
+        chars, lengths))
+
+
+def test_pallas_scan_states_tm_on_card(dev, monkeypatch):
+    monkeypatch.setenv("H2R_SEGMENT", "16")
+    model = _large_model()
+    chars, _ = _table_corpus("large", 300, 9)
+    ctm = chars.astype(np.int32).T.copy()
+    init = np.random.default_rng(3).integers(0, 300, size=(1, 300)).astype(np.int32)
+    got = T.PallasMatcher(model, grid_mode="segmented", device=dev).scan_states_tm(ctm, init, 300)
+    want = T.PallasMatcher(model, grid_mode="segmented", device="cpu").scan_states_tm(
+        ctm, init, 300)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_table_wrappers_reject_bad_inputs(dev):
+    m = T.PallasMatcher(_model("regex3"), device=dev)
+    ch = torch.zeros((64, MAX_LEN), dtype=torch.uint8, device=dev)
+    out = torch.zeros((1, MAX_LEN, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="window"):
+        kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(64), 60, 8, out)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(64).long(), 0, 8, out)
+    with pytest.raises(ValueError, match="together"):
+        kernels.table_fsm_cuda(False, out, out, out, None, out[:, 0], None, 0, 8, out[0])

@@ -2,8 +2,9 @@
 
 ``tests/conftest.py`` imports jax into the test process itself, so the
 check runs the port in a fresh interpreter: import it, run a tiny match
-of each column set and a run extraction on the CPU, and assert that neither JAX nor the JAX package was
-loaded along the way.
+of each column set, a run extraction and the table-driven ``PallasMatcher``
+(batch and segmented) on the CPU, and assert that neither JAX nor the JAX
+package was loaded along the way.
 """
 
 import os
@@ -26,7 +27,7 @@ cfg = h2r.DecomposedRegexConfig.from_json({
     ],
 })
 model = h2r.CompiledRegexModel.from_decomposed(cfg)
-m = h2r.BitplaneMatcher(model, columns="witness")
+m = h2r.BitplaneMatcher(model, columns="witness", device="cpu")
 out = m.match_one(b"id: 1234.")
 assert bool(out["match_ok"]), out
 ids = out["all_substr_ids"]
@@ -34,11 +35,15 @@ assert bytes(out["masked_characters"][ids > 0]) == b"1234", out
 chars = np.zeros((2, 32), np.uint8)
 chars[0, :9] = bytearray(b"id: 1234.")
 lengths = np.array([9, 0], np.int32)
-res = h2r.BitplaneMatcher(model)(chars, lengths)
+res = h2r.BitplaneMatcher(model, device="cpu")(chars, lengths)
 runs = h2r.extract_runs(res.all_substr_ids, res.masked_characters, max_len=8)
 assert h2r.runs_to_python(runs, 0) == [(4, "1234", 1)], runs
-verdict = h2r.BitplaneMatcher(model, columns="match")(chars, lengths)
+verdict = h2r.BitplaneMatcher(model, columns="match", device="cpu")(chars, lengths)
 assert verdict["match_ok"].tolist() == [True, False], verdict
+for grid_mode in ("batch", "segmented"):
+    table = h2r.PallasMatcher(model, grid_mode=grid_mode, device="cpu")(chars, lengths)
+    assert table.match_ok.tolist() == [True, False], table
+    assert table.all_substr_ids.tolist() == res.all_substr_ids.long().tolist()
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu"))
 assert not bad, bad

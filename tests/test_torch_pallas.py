@@ -1,0 +1,441 @@
+"""The PyTorch port's table-driven split matcher against the JAX package.
+
+Each stage's plain PyTorch version (``scan_plain``, ``tag_plain``,
+``fsm_plain``) is held against the JAX kernel it stands for, run in Pallas
+interpret mode on the JAX matcher's own tables and the same seeded numpy
+inputs: B8-B10 (``_make_scan``, ``_make_tag``, ``_make_fsm``) in batch mode
+and the three B11 kernels (``_make_scan_seg``, ``_make_tag_seg``,
+``_make_fsm_seg``) on one middle segment with its carries.  The whole
+``RegexResult`` is held against the JAX ``PallasMatcher`` in batch mode and
+segmented (``H2R_SEGMENT=16``), and for a model beyond 256 states (the
+scaled-down BASELINE configs[3] of tests/test_pallas_scan.py).  All outputs
+are integers or booleans: tolerance 0, dtypes included.  The CUDA kernels
+are held against these same plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import halo2_regex_tpu as J
+from halo2_regex_tpu.models import zoo as jzoo
+from halo2_regex_tpu.models.defs import AllstrRegexDef as JAllstr
+from halo2_regex_tpu.models.defs import RegexDefs as JRegexDefs
+from halo2_regex_tpu.ops.pallas_scan import PallasMatcher as JaxPallas
+
+import halo2_regex_tpu_torch as T
+from halo2_regex_tpu_torch.models.defs import AllstrRegexDef, RegexDefs
+from halo2_regex_tpu_torch.ops import pallas_scan as ps
+
+from test_torch_bitplane import MAX_LEN, _build, corpus
+
+MODELS = ["regex3", "two_def", "from", "large"]
+SEG_MODELS = ["regex3", "two_def", "large"]
+TB = 8  # the JAX matchers' batch tile (one interpret-mode grid step)
+SEG = 16  # H2R_SEGMENT of the segmented matchers: 4 segments of L = 64
+SI = 1  # the segment the B11 stage tests take (carries on both sides)
+FIELDS = T.RegexResult.field_names()
+
+
+def _large(pkg_allstr, pkg_defs, pkg_model, S=300, L=MAX_LEN, seed=7):
+    """tests/test_pallas_scan.py's configs[3] shape scaled down: a random
+    S-state table over bytes 97..102, one def, no substrings."""
+    rng = np.random.default_rng(seed)
+    allstr = pkg_allstr(first_state_val=0, accepted_state_val=1, largest_state_val=S - 1)
+    line = 3
+    for c in range(97, 103):
+        for s in range(S):
+            allstr.state_lookup[(c, s)] = (line, int(rng.integers(0, S)))
+            line += 1
+    return pkg_model.from_defs([pkg_defs(allstr=allstr, substrs=[])], max_chars_size=L)
+
+
+def _models(name):
+    if name == "large":
+        return (_large(JAllstr, JRegexDefs, J.CompiledRegexModel),
+                _large(AllstrRegexDef, RegexDefs, T.CompiledRegexModel))
+    return _build(J, jzoo, name), _build(T, T.zoo, name)
+
+
+def _corpus(name, n, seed):
+    """Seeded strings of varied lengths; for the random-table model, runs
+    of its alphabet, some with a byte outside it (the dead state)."""
+    if name != "large":
+        return corpus(name, n, seed)
+    rng = np.random.default_rng(seed)
+    chars = np.zeros((n, MAX_LEN), np.uint8)
+    lengths = rng.integers(0, MAX_LEN + 1, size=n).astype(np.int32)
+    lengths[0] = MAX_LEN
+    for i in range(n):
+        chars[i] = rng.integers(97, 103, size=MAX_LEN)
+        if i % 4 == 3 and lengths[i]:
+            chars[i, rng.integers(0, lengths[i])] = 7
+    return chars, lengths
+
+
+@pytest.fixture(scope="module")
+def models():
+    return {n: _models(n) for n in MODELS}
+
+
+def _segmented(model, jax_side):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("H2R_SEGMENT", str(SEG))
+        if jax_side:
+            return JaxPallas(model, batch_tile=TB, interpret=True, grid_mode="segmented")
+        return T.PallasMatcher(model, grid_mode="segmented", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_stages(models):
+    """Each model's B8-B10 intermediates from the JAX batch-mode kernels on
+    one seeded 8-string batch (time-major), computed once per module."""
+    out = {}
+    for seed, n in enumerate(MODELS):
+        jm = JaxPallas(models[n][0], batch_tile=TB, interpret=True)
+        chars, lengths = _corpus(n, TB, 10 + seed)
+        ctm = jnp.asarray(chars.astype(np.int32).T)
+        states = jm._make_scan(TB)(jm._tables_c, jm._tables_raw, jm._tables_pair, ctm)
+        ids, st, ef = jm._make_tag(TB)(states, jnp.asarray(lengths)[None, :])
+        fwd, bwd = jm._make_fsm(TB)(ids, st, ef)
+        out[n] = {k: np.array(v) for k, v in dict(
+            chars=chars, lengths=lengths, states=states, ids=ids, start=st, endf=ef,
+            fwd=fwd, bwd=bwd).items()}
+    return out
+
+
+@pytest.fixture(scope="module")
+def ports(models):
+    return {n: T.PallasMatcher(models[n][1], device="cpu") for n in MODELS}
+
+
+def assert_equal(got: torch.Tensor, want, what):
+    want = np.asarray(want)
+    got = got.cpu().numpy()
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def assert_result_equal(got, want):
+    assert isinstance(got, T.RegexResult), type(got)
+    for k in FIELDS:
+        assert_equal(getattr(got, k), getattr(want, k), k)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# construction: the same tables and decisions as JAX
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_tables_match_jax_class_info(models, ports, name):
+    """The port's byte -> class map is JAX's boundary-sum chain
+    (cls0 + Σ Δ·(c >= b)), and its next-state rows are JAX's class table
+    (``lo + 256*hi`` beyond 256 states); its pair list is JAX's."""
+    jm = JaxPallas(models[name][0], batch_tile=TB, interpret=True)
+    m = ports[name]
+    S = m.S
+    assert m.hi_lo == jm.hi_lo == (name == "large")
+    for d, (use_classes, cls0, terms, tab) in enumerate(jm.class_info):
+        assert use_classes
+        cls = np.full(256, cls0, np.int64)
+        for b_r, delta in terms:
+            cls[b_r:] += delta
+        np.testing.assert_array_equal(m.class_map[d].numpy(), cls)
+        t = np.asarray(tab).astype(np.int64)
+        want = t[:, :S] + 256 * t[:, S : 2 * S] if jm.hi_lo else t[:, :S]
+        np.testing.assert_array_equal(m.next_table[d, : t.shape[0]].numpy(), want)
+        # the class table is the transition table, row by row
+        np.testing.assert_array_equal(
+            m.next_table[d].numpy()[m.class_map[d].numpy()], models[name][1].transition[d])
+        P = len(jm.pair_info[d])
+        assert [tuple(r) for r in m.pairs[d, :P].tolist()] == [
+            (a, b, g, int(s), int(e)) for a, b, g, s, e in jm.pair_info[d]]
+        assert (m.pairs[d, P:, 0] == -1).all()
+
+
+@pytest.mark.parametrize("env", [{}, {"H2R_SEGMENT": "16"}, {"H2R_SEGMENT": "48"},
+                                 {"H2R_VMEM_BUDGET": "1e6"}])
+@pytest.mark.parametrize("grid_mode", ["batch", "segmented"])
+def test_sizing_matches_jax(models, monkeypatch, env, grid_mode):
+    """mode, grid_mode (with the segmented demotion), segment and n_seg
+    equal the JAX matcher's for every model, under the same environment."""
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    for n in MODELS:
+        jm = JaxPallas(models[n][0], interpret=True, grid_mode=grid_mode)
+        m = T.PallasMatcher(models[n][1], grid_mode=grid_mode, device="cpu")
+        got = (m.mode, m.grid_mode, m.segment, m.n_seg, m.batch_tile)
+        assert got == (jm.mode, jm.grid_mode, jm.segment, jm.n_seg, jm.batch_tile), n
+
+
+def _config3(pkg_allstr, pkg_defs, pkg_model):
+    """BASELINE configs[3] as benchmarks/run_benchmarks.py:360-373 builds
+    it: a 1000-state table from default_rng(0) over bytes 32..126,
+    L = 65536."""
+    rng = np.random.default_rng(0)
+    allstr = pkg_allstr(first_state_val=0, accepted_state_val=1, largest_state_val=999)
+    line = 3
+    for c in range(32, 127):
+        for s in range(1000):
+            allstr.state_lookup[(c, s)] = (line, int(rng.integers(0, 1000)))
+            line += 1
+    return pkg_model.from_defs([pkg_defs(allstr=allstr, substrs=[])], max_chars_size=65536)
+
+
+def test_config3_sizing_matches_jax():
+    """The full-size large-DFA stress model: 1008 padded states, 96 byte
+    classes (exactly at the boundary-term limit), no pairs, demoted to
+    16 segments of 4096 as in JAX (max_pairs as the benchmark passes it)."""
+    jm = JaxPallas(_config3(JAllstr, JRegexDefs, J.CompiledRegexModel), max_pairs=4096)
+    m = T.PallasMatcher(_config3(AllstrRegexDef, RegexDefs, T.CompiledRegexModel),
+                        max_pairs=4096, device="cpu")
+    assert (m.S, m.hi_lo, m.mode, m.grid_mode, m.segment, m.n_seg, m.batch_tile) == (
+        jm.S, jm.hi_lo, jm.mode, jm.grid_mode, jm.segment, jm.n_seg, jm.batch_tile) == (
+        1008, True, "split", "segmented", 4096, 16, 128)
+    use_classes, _cls0, terms, tab = jm.class_info[0]
+    assert use_classes and len(terms) == 96 and tab.shape[0] == 96
+    assert tuple(m.next_table.shape) == (1, 96, 1008) and tuple(m.pairs.shape) == (1, 0, 5)
+
+
+# ---------------------------------------------------------------------------
+# stage by stage: plain version vs the JAX kernel on the same inputs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_scan_plain_matches_jax(ports, jax_stages, name):
+    s, m = jax_stages[name], ports[name]
+    out = torch.full(s["states"].shape, -7, dtype=torch.int32)
+    ps.scan_plain(m.class_map, m.next_table, _t(s["chars"]), m._firsts(TB), 0, MAX_LEN, out)
+    assert_equal(out, s["states"], "states")
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_tag_plain_matches_jax(ports, jax_stages, name):
+    s, m = jax_stages[name], ports[name]
+    outs = [torch.full(s["states"].shape, -7, dtype=torch.int32) for _ in range(3)]
+    ps.tag_plain(_t(s["states"]), m._firsts(TB), _t(s["lengths"]), m.pairs, 0, MAX_LEN, *outs)
+    for got, key in zip(outs, ("ids", "start", "endf")):
+        assert_equal(got, s[key], key)
+    if name in ("regex3", "two_def", "from"):
+        assert s["ids"].any() and s["start"].any() and s["endf"].any()
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_fsm_plain_matches_jax(jax_stages, name):
+    s = jax_stages[name]
+    planes = [_t(s[k]) for k in ("ids", "start", "endf")]
+    for reverse, key in ((False, "fwd"), (True, "bwd")):
+        out = torch.full(s[key].shape, -7, dtype=torch.int32)
+        ps.fsm_plain(reverse, *planes, None, None, None, 0, MAX_LEN, out)
+        assert_equal(out, s[key], key)
+    if name != "large":
+        assert (s["fwd"] * s["bwd"]).any()
+
+
+@pytest.fixture(scope="module")
+def jax_seg_stages(models, jax_stages):
+    """The three B11 kernels of the JAX segmented matcher on segment SI,
+    their carries taken from the batch-mode intermediates (equal to what
+    the segmented pipeline carries), computed once per module."""
+    out = {}
+    LS, q0 = SEG, SI * SEG
+    for n in SEG_MODELS:
+        s, jm = jax_stages[n], _segmented(models[n][0], jax_side=True)
+        assert (jm.segment, jm.n_seg) == (SEG, MAX_LEN // SEG)
+        st = jnp.asarray(s["states"])
+        ctm = jnp.asarray(s["chars"].astype(np.int32).T)
+        prev = st[:, q0 - 1, :]
+        scan = jm._make_scan_seg(TB)(jm._tables_c, jm._tables_raw,
+                                     jnp.concatenate([prev, ctm[q0 : q0 + LS]], 0))
+        tags = jm._make_tag_seg(TB)(jnp.concatenate([prev[:, None], st[:, q0 : q0 + LS]], 1),
+                                    jnp.asarray(s["lengths"] - q0)[None, :])
+        ids, sta, ef = (jnp.asarray(s[k]) for k in ("ids", "start", "endf"))
+
+        def row(a, q):
+            return a[:, q : q + 1, :]
+
+        def mask_row(vals):
+            return jnp.zeros((jm.n_defs, 1, TB), jnp.int32).at[0, 0].set(vals)
+
+        win = slice(q0, q0 + LS)
+        fwd = jm._make_fsm_seg(TB, reverse=False)(
+            jnp.concatenate([row(ids, q0 - 1), ids[:, win]], 1),
+            jnp.concatenate([mask_row(jnp.asarray(s["fwd"][q0 - 1])), sta[:, win]], 1),
+            jnp.concatenate([row(ef, q0 - 1), ef[:, win]], 1))
+        bwd = jm._make_fsm_seg(TB, reverse=True)(
+            jnp.concatenate([ids[:, win], row(ids, q0 + LS)], 1),
+            jnp.concatenate([sta[:, win], row(sta, q0 + LS)], 1),
+            jnp.concatenate([ef[:, win], mask_row(jnp.asarray(s["bwd"][q0 + LS]))], 1))
+        out[n] = {k: np.array(v) for k, v in dict(
+            states=scan, ids=tags[0], start=tags[1], endf=tags[2], fwd=fwd, bwd=bwd).items()}
+    return out
+
+
+@pytest.mark.parametrize("name", SEG_MODELS)
+def test_segment_stages_match_jax(models, jax_stages, jax_seg_stages, name):
+    """scan, tag and both FSMs on segment SI with explicit carries equal
+    the JAX B11 kernels with their prepended/appended carry rows (and the
+    batch-mode intermediates' window)."""
+    s, g = jax_stages[name], jax_seg_stages[name]
+    m = _segmented(models[name][1], jax_side=False)
+    LS, q0 = SEG, SI * SEG
+    win = slice(q0, q0 + LS)
+    st = _t(s["states"])
+    out = torch.full(st.shape, -7, dtype=torch.int32)
+    ps.scan_plain(m.class_map, m.next_table, _t(s["chars"]), st[:, q0 - 1], q0, LS, out)
+    assert_equal(out[:, win], g["states"], "states")
+    np.testing.assert_array_equal(g["states"], s["states"][:, win])
+
+    outs = [torch.full(st.shape, -7, dtype=torch.int32) for _ in range(3)]
+    ps.tag_plain(st, st[:, q0 - 1], _t(s["lengths"]), m.pairs, q0, LS, *outs)
+    for got, key in zip(outs, ("ids", "start", "endf")):
+        assert_equal(got[:, win], g[key], key)
+        np.testing.assert_array_equal(g[key], s[key][:, win])
+
+    ids, sta, ef = (_t(s[k]) for k in ("ids", "start", "endf"))
+    fwd = torch.full(_t(s["fwd"]).shape, -7, dtype=torch.int32)
+    ps.fsm_plain(False, ids, sta, ef, _t(s["fwd"][q0 - 1]), ids[:, q0 - 1], ef[:, q0 - 1],
+                 q0, LS, fwd)
+    assert_equal(fwd[win], g["fwd"], "fwd")
+    bwd = torch.full(_t(s["bwd"]).shape, -7, dtype=torch.int32)
+    ps.fsm_plain(True, ids, sta, ef, _t(s["bwd"][q0 + LS]), ids[:, q0 + LS], sta[:, q0 + LS],
+                 q0, LS, bwd)
+    assert_equal(bwd[win], g["bwd"], "bwd")
+    np.testing.assert_array_equal(g["fwd"], s["fwd"][win])
+    np.testing.assert_array_equal(g["bwd"], s["bwd"][win])
+
+
+# ---------------------------------------------------------------------------
+# end to end: every RegexResult field and dtype vs the JAX matcher
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_batch_matches_jax(models, ports, name):
+    """13 strings (not a multiple of the JAX batch tile, which pads to 16;
+    the port does not pad), varied lengths."""
+    chars, lengths = _corpus(name, 13, 20)
+    want = JaxPallas(models[name][0], batch_tile=TB, interpret=True)(chars, lengths)
+    got = ports[name](chars, lengths)
+    assert got.states.shape == (13, models[name][1].n_defs, MAX_LEN + 1)
+    assert_result_equal(got, want)
+    if name == "large":
+        assert got.has_dead.any() and not got.has_dead.all()
+
+
+@pytest.mark.parametrize("name", SEG_MODELS)
+def test_segmented_matches_jax(models, ports, name):
+    """H2R_SEGMENT=16: four segments whose carries cross every boundary,
+    against the JAX segmented matcher and the port's batch mode."""
+    chars, lengths = _corpus(name, 13, 21)
+    m = _segmented(models[name][1], jax_side=False)
+    assert (m.grid_mode, m.segment, m.n_seg) == ("segmented", SEG, MAX_LEN // SEG)
+    got = m(chars, lengths)
+    assert_result_equal(got, _segmented(models[name][0], jax_side=True)(chars, lengths))
+    assert_result_equal(got, ports[name](chars, lengths).map(lambda v: v.numpy()))
+    if name != "large":
+        # a masked substring crosses a segment boundary
+        cross = (got.mask[:, SEG - 1 :: SEG][:, :-1] & got.mask[:, SEG::SEG]).any()
+        assert bool(cross)
+
+
+def test_scan_states_tm_matches_jax(models):
+    """Per-string random initial states, time-major int32 characters."""
+    jm = _segmented(models["large"][0], jax_side=True)
+    m = _segmented(models["large"][1], jax_side=False)
+    chars, _lengths = _corpus("large", TB, 22)
+    ctm = chars.astype(np.int32).T.copy()
+    init = np.random.default_rng(23).integers(0, 300, size=(1, TB)).astype(np.int32)
+    want = np.array(jm.scan_states_tm(jnp.asarray(ctm), jnp.asarray(init), TB))
+    got = m.scan_states_tm(ctm, init, TB)
+    assert_equal(got, want, "states")
+    with pytest.raises(ValueError, match="segmented"):
+        T.PallasMatcher(models["large"][1], device="cpu").scan_states_tm(ctm, init, TB)
+
+
+def test_match_one_matches_oracle(models):
+    m = T.PallasMatcher(models["regex3"][1], device="cpu")
+    row = m.match_one(b"from:alice@gmail.com\r\n")
+    o = T.match_substrs(models["regex3"][1].regex_defs, b"from:alice@gmail.com\r\n", MAX_LEN)
+    assert bool(row.match_ok)
+    for k in FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(row, k)).astype(np.int64),
+                                      np.asarray(getattr(o, k)).astype(np.int64), err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# what the port refuses, and where it runs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="monolithic"), dict(max_pairs=1), dict(compute="vpu"),
+    dict(table_dtype="int8"), dict(extract="take_along"),
+])
+def test_unported_settings_raise(models, kw):
+    """The monolithic kernel (B12; also when ``auto`` resolves to it) and
+    the TPU lowerings wait for their ROADMAP items."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.PallasMatcher(models["regex3"][1], device="cpu", **kw)
+    if "max_pairs" in kw:
+        assert JaxPallas(models["regex3"][0], interpret=True, **kw).mode == "monolithic"
+
+
+def test_refusals_match_jax(models):
+    for kw, match in ((dict(grid_mode="chunked"), "chunked"),
+                      (dict(mode="split", max_pairs=1), "split mode needs")):
+        with pytest.raises(ValueError, match=match):
+            JaxPallas(models["regex3"][0], interpret=True, **kw)
+        with pytest.raises(ValueError, match=match):
+            T.PallasMatcher(models["regex3"][1], device="cpu", **kw)
+    with pytest.raises(ValueError, match="need mode='split'"):
+        T.PallasMatcher(models["large"][1], mode="monolithic", device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(chunk=128), dict(slab=4)])
+def test_tpu_blocking_factors_raise(models, kw):
+    """``chunk`` and ``slab`` only block the TPU kernels: the port takes
+    their defaults and refuses other values rather than ignore them."""
+    assert JaxPallas(models["regex3"][0], interpret=True, **kw).mode == "split"
+    with pytest.raises(ValueError, match="TPU blocking factor"):
+        T.PallasMatcher(models["regex3"][1], device="cpu", **kw)
+
+
+def test_table_tag_refuses_lists_beyond_shared_memory():
+    """The tag kernel keeps a def's pair list in shared memory: a longer
+    list raises before anything is checked or launched."""
+    from halo2_regex_tpu_torch.ops import kernels
+
+    n = kernels.TABLE_TAG_MAX_PAIRS + 1
+    st = torch.empty((1, MAX_LEN, TB), dtype=torch.int32, device="meta")
+    pairs = torch.empty((1, n, ps.PAIR_FIELDS), dtype=torch.int32, device="meta")
+    with pytest.raises(NotImplementedError, match=f"at most {n - 1} pairs"):
+        kernels.table_tag_cuda(st, st[:, 0], st[0, 0], pairs, 0, MAX_LEN, st, st, st)
+
+
+def test_matchers_default_to_the_card(models):
+    """With no device, both matchers run on the card: they land there when
+    CUDA is present and raise where it is absent (nothing is replaced)."""
+    for cls in (T.BitplaneMatcher, T.PallasMatcher):
+        if torch.cuda.is_available():
+            assert cls(models["regex3"][1]).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                cls(models["regex3"][1])
+
+
+def test_stage_on_unsupported_device_raises(ports):
+    m = ports["regex3"]
+    x = torch.empty((TB, MAX_LEN), dtype=torch.uint8, device="meta")
+    out = torch.empty((1, MAX_LEN, TB), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="several devices"):
+        ps.scan(m.class_map, m.next_table, x, m._firsts(TB), 0, MAX_LEN, out)

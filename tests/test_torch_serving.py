@@ -162,7 +162,7 @@ def test_unpack_groups_matches_jax():
 def test_match_matches_jax(models, name):
     """4096 + 3 strings pad to NWS = 2 and the verdicts slice back."""
     chars, lengths = corpus(name, 4099, 42)
-    out = T.BitplaneMatcher(models[name][1], columns="match")(chars, lengths)
+    out = T.BitplaneMatcher(models[name][1], columns="match", device="cpu")(chars, lengths)
     want = JaxMatcher(models[name][0], columns="match", interpret=True)(chars, lengths)
     assert set(out) == {"final_states", "accepted", "has_dead", "match_ok"}
     assert out["final_states"].shape == (4099, models[name][1].n_defs)
@@ -175,7 +175,7 @@ def test_match_matches_jax(models, name):
 ])
 def test_full_matches_jax(models, name, compact):
     chars, lengths = corpus(name, 4099, 43)
-    got = T.BitplaneMatcher(models[name][1], compact=compact)(chars, lengths)
+    got = T.BitplaneMatcher(models[name][1], compact=compact, device="cpu")(chars, lengths)
     want = JaxMatcher(models[name][0], compact=compact, interpret=True)(chars, lengths)
     assert got.states.shape == (4099, models[name][1].n_defs, MAX_LEN + 1)
     assert_result_equal(got, want)
@@ -185,7 +185,7 @@ def test_full_matches_jax(models, name, compact):
 def test_columns_at_unpadded_length_match_jax(models200, columns):
     """L=200: every column set packs through B5 and slices L_pad back."""
     chars, lengths = corpus("regex3", 300, 44, L=L200)
-    m = T.BitplaneMatcher(models200["regex3"][1], columns=columns)
+    m = T.BitplaneMatcher(models200["regex3"][1], columns=columns, device="cpu")
     assert not m.plan.qpack
     got = m(chars, lengths)
     want = JaxMatcher(models200["regex3"][0], columns=columns, interpret=True)(chars, lengths)
@@ -199,7 +199,7 @@ def test_columns_at_unpadded_length_match_jax(models200, columns):
 @pytest.mark.parametrize("name,strings", [("regex3", STRINGS3), ("two_def", STRINGS12)])
 def test_full_matches_oracle(models, name, strings):
     chars, lengths = _pack(strings)
-    res = T.BitplaneMatcher(models[name][1])(chars, lengths)
+    res = T.BitplaneMatcher(models[name][1], device="cpu")(chars, lengths)
     for i, s in enumerate(strings):
         o = match_substrs(models[name][1].regex_defs, s, MAX_LEN)
         for k in FIELDS:
@@ -212,7 +212,7 @@ def test_default_columns_is_full(models):
     """``BitplaneMatcher(model)`` returns a ``RegexResult``, as the JAX
     package's default does, and ``match_one`` maps it to row 0."""
     chars, lengths = _pack(STRINGS3)
-    m = T.BitplaneMatcher(models["regex3"][1])
+    m = T.BitplaneMatcher(models["regex3"][1], device="cpu")
     assert m.columns == "full"
     assert_result_equal(m(chars, lengths), JaxMatcher(models["regex3"][0], interpret=True)(chars, lengths))
     one = m.match_one(STRINGS3[0])
@@ -227,12 +227,12 @@ def test_qpack_off_runs_raw_quads_pack(models, monkeypatch, how):
     chars, lengths = corpus("two_def", 200, 45)
     if how == "environment":
         monkeypatch.setenv("H2R_QPACK", "0")
-        m = T.BitplaneMatcher(models["two_def"][1])
+        m = T.BitplaneMatcher(models["two_def"][1], device="cpu")
     else:
-        m = T.BitplaneMatcher(models["two_def"][1], qpack=False)
+        m = T.BitplaneMatcher(models["two_def"][1], qpack=False, device="cpu")
     assert not m.plan.qpack
     monkeypatch.delenv("H2R_QPACK", raising=False)
-    base = T.BitplaneMatcher(models["two_def"][1])
+    base = T.BitplaneMatcher(models["two_def"][1], device="cpu")
     assert base.plan.qpack
     want = base(chars, lengths)
     assert_result_equal(m(chars, lengths), want.map(lambda v: v.numpy()))
@@ -246,7 +246,7 @@ def test_qpack_off_runs_raw_quads_pack(models, monkeypatch, how):
 @pytest.fixture(scope="module")
 def full_two_def(models):
     chars, lengths = corpus("two_def", 600, 46)
-    return T.BitplaneMatcher(models["two_def"][1])(chars, lengths)
+    return T.BitplaneMatcher(models["two_def"][1], device="cpu")(chars, lengths)
 
 
 @pytest.mark.parametrize("max_len", [32, 0])
