@@ -4,9 +4,10 @@
 
 Drives ``halo2_regex_tpu_torch.BitplaneMatcher(model, columns=...)`` on the
 zk-email ``from:`` header model at bench.py's shape (B=32768 strings x
-L=1024 bytes, bench.py's synthetic corpus, seed 0), and the table-driven
-``PallasMatcher`` on that corpus and on BASELINE configs[3], through each
-of these paths:
+L=1024 bytes, bench.py's synthetic corpus, seed 0), the table-driven
+``PallasMatcher`` on that corpus, on BASELINE configs[3] and on the
+40-word dictionary model, and the corpus-scan CLI, through each of these
+paths:
 
   witness   columns="witness" (bench.py's headline): K1 qpack, K2 scan,
             K3 post;
@@ -22,7 +23,18 @@ of these paths:
             PallasMatcher(max_pairs=4096), segmented into 16 x 4096:
             table_scan, table_tag, table_fsm per segment;
   pallas_from  PallasMatcher on the from: corpus in batch mode (bench.py's
-            pallas leg, bench.py:195-214).
+            pallas leg, bench.py:195-214);
+  tiled_witness, tiled_match  the witness and match paths on the
+            host-pretiled corpus (``tile_corpus``, input_layout="tiled"):
+            tpack, scan, then post_tiled or fb_only;
+  pallas_dict  PallasMatcher on the 40-word dictionary model
+            (``zoo.dictionary_model``: 211 pairs, so ``auto`` resolves to
+            the monolithic mode) over a seeded corpus: one table_flat
+            launch;
+  cli_scan  ``cli.main(["scan", ...])`` in process over a 100,000-line
+            file (the first 50,000 bench.py strings, each split at its
+            \r\n into a filler line and a from: line), batch 32768, both
+            input layouts.
 
 and proves on the card that:
 
@@ -31,7 +43,7 @@ and proves on the card that:
      library per bitplane path and one for the table kernels, every
      source compiled at once);
   3. the models compile and the corpora are built;
-  4. each of the nine kernels is bit-exact against its plain PyTorch
+  4. each of the twelve kernels is bit-exact against its plain PyTorch
      version on the same inputs at that size (the table kernels on the
      first segment of configs[3] and on the whole from: corpus, and on a
      middle window of its first 4096 strings with carries on both sides,
@@ -43,8 +55,11 @@ and proves on the card that:
      plain pipeline on the card (every output, dtypes included); a subset
      equals the numpy oracle (256 strings, 8 for configs[3]); for
      extraction serving the runs equal the oracle's extracted substrings;
-     pallas_from equals BitplaneMatcher(compact=False) on every field,
-     and at B=4096 its plain pipeline;
+     pallas_from and pallas_dict equal BitplaneMatcher(compact=False) on
+     every field, pallas_from at B=4096 its plain pipeline; the tiled
+     paths equal the [B, L] paths on every key; cli_scan's counters are
+     equal between the layouts and count the match path's verdicts on the
+     same packed lines;
   6. timings with CUDA events (2 warm-ups, 10 timed runs, median and
      IQR; L2 flushed before each timed run): each kernel's device time
      beside its plain version's and its bound (the larger of its bytes
@@ -53,7 +68,10 @@ and proves on the card that:
      included) with its peak device memory (and, for the table paths, the
      host's enqueue time), the B=4096 latency of match, extraction serving
      and pallas_from, and the plain pipelines (the witness one with
-     2 + 10 runs, the others with PLAIN_WARMUP + PLAIN_ITERS).
+     2 + 10 runs, the others with PLAIN_WARMUP + PLAIN_ITERS); the tiled
+     and [B, L] walls side by side at B=32768 and B=4096 with the host's
+     tile_corpus time per batch; pallas_dict beside its split-mode
+     equivalent (max_pairs=4096); cli_scan's bytes per second per layout.
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
 as its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -63,6 +81,8 @@ record goes to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -81,6 +101,7 @@ PLAIN_WARMUP, PLAIN_ITERS = 1, 3
 ORACLE_N = 256
 B3, L3, S3 = 64, 65536, 1000  # BASELINE configs[3] (run_benchmarks.py:352-396)
 ORACLE_N3 = 8
+N_CLI = 50000  # bench.py strings in cli_scan's file: two lines each
 # bounds: H100 SXM HBM3 rate; int32 rate = 132 SMs x 64 INT32 lanes x the
 # 1.98 GHz boost clock (Hopper white paper); for the log lines only, an
 # estimate of the table scan's chain: one shared-memory load of it taken
@@ -169,6 +190,23 @@ def time_ms(fn, flush: torch.Tensor, device_only: bool, warmup: int = WARMUP,
     q1, med, q3 = np.percentile(ms, [25, 50, 75])
     return {"median": float(med), "iqr": [float(q1), float(q3)],
             "all": [float(x) for x in ms], "runs": iters}
+
+
+def dict_corpus(n: int, length: int, words, seed: int = 2):
+    """The pallas_dict corpus: random lowercase bytes, lengths spread over
+    [0, length]; every third string is ``tag:<word>\r\n`` (a match that
+    extracts the word), every third after it the same with a wrong ending
+    (ids light up, no match); the bytes past each length stay random."""
+    rng = np.random.default_rng(seed)
+    chars = rng.integers(97, 123, size=(n, length)).astype(np.uint8)
+    lengths = rng.integers(0, length + 1, size=n).astype(np.int32)
+    for i in range(n):
+        if i % 3 == 2:
+            continue
+        s = b"tag:" + words[int(rng.integers(0, len(words)))] + (b"\r\n" if i % 3 == 0 else b"\r")
+        chars[i, : len(s)] = bytearray(s)
+        lengths[i] = len(s)
+    return chars, lengths
 
 
 def config3(h2r):
@@ -280,10 +318,12 @@ def main() -> dict:
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import halo2_regex_tpu_torch as h2r
+    from halo2_regex_tpu_torch import cli, native
     from halo2_regex_tpu_torch.ops import bitplane as bp
     from halo2_regex_tpu_torch.ops import kernels
     from halo2_regex_tpu_torch.ops import pallas_scan as ps
     from halo2_regex_tpu_torch.ops.reference import extract_substrings, match_substrs
+    from halo2_regex_tpu_torch.utils.io import batch_iterator, pack_lines
 
     rec: dict = {}
     dev = torch.device("cuda")
@@ -298,24 +338,34 @@ def main() -> dict:
     model = h2r.zoo.email_headers_model(max_chars_size=L, headers=("from",))
     model_u = h2r.zoo.email_headers_model(max_chars_size=L_UNPADDED, headers=("from",))
     model3, chars3_np, lengths3_np = config3(h2r)
+    model_d = h2r.zoo.dictionary_model(40, max_chars_size=L)
     t_model = time.perf_counter() - t0
     matchers = {
         "witness": h2r.BitplaneMatcher(model, columns="witness"),
         "match": h2r.BitplaneMatcher(model, columns="match"),
         "full": h2r.BitplaneMatcher(model),
         "L1000": h2r.BitplaneMatcher(model_u, columns="witness"),
+        "tiled_witness": h2r.BitplaneMatcher(model, columns="witness", input_layout="tiled"),
+        "tiled_match": h2r.BitplaneMatcher(model, columns="match", input_layout="tiled"),
     }
-    # the table paths, and the bitplane backend pallas_from is held to
+    # the table paths, and the bitplane backend pallas_from and pallas_dict
+    # are held to; pallas_dict's split-mode equivalent, timed beside it
     tables = {
         "pallas_large": h2r.PallasMatcher(model3, max_pairs=4096),
         "pallas_from": h2r.PallasMatcher(model),
+        "pallas_dict": h2r.PallasMatcher(model_d),
     }
     full32 = h2r.BitplaneMatcher(model, compact=False)
+    dict32 = h2r.BitplaneMatcher(model_d, compact=False)
+    dict_split = h2r.PallasMatcher(model_d, max_pairs=4096)
     if matchers["full"].columns != "full" or matchers["L1000"].plan.qpack:
         raise AssertionError("default columns or the L=1000 pack route changed")
     if any(m.device.type != "cuda" for m in (*matchers.values(), *tables.values())):
         raise AssertionError("a matcher built without a device is not on the card")
-    m3, mf = tables["pallas_large"], tables["pallas_from"]
+    m3, mf, md = tables["pallas_large"], tables["pallas_from"], tables["pallas_dict"]
+    if (md.mode, md.grid_mode, [len(p) for p in md.pair_info], md.S) != (
+            "monolithic", "batch", [211], 184) or dict_split.mode != "split":
+        raise AssertionError("dict40 no longer resolves to monolithic (211 pairs, S=184)")
     if (m3.hi_lo, m3.mode, m3.grid_mode, m3.segment, m3.n_seg, tuple(m3.next_table.shape),
             tuple(m3.pairs.shape)) != (True, "split", "segmented", 4096, 16, (1, 96, 1008),
                                        (1, 0, 5)):
@@ -323,7 +373,7 @@ def main() -> dict:
     if (mf.mode, mf.grid_mode) != ("split", "batch"):
         raise AssertionError("the from: table path is no longer split/batch")
     t0 = time.perf_counter()
-    builds = [lambda p=m.plan: kernels.build(p) for m in (*matchers.values(), full32)]
+    builds = [lambda p=m.plan: kernels.build(p) for m in (*matchers.values(), full32, dict32)]
     with ThreadPoolExecutor(len(builds) + 1) as pool:
         list(pool.map(lambda f: f(), builds + [kernels.build_tables]))
     t_build = time.perf_counter() - t0
@@ -360,6 +410,15 @@ def main() -> dict:
     chars_u, lengths_u = inputs[L_UNPADDED]
     chars3 = torch.from_numpy(chars3_np).to(dev)
     lengths3 = torch.from_numpy(lengths3_np).to(dev)
+    pt = matchers["tiled_witness"].plan
+    t0 = time.perf_counter()
+    tiled = torch.from_numpy(h2r.tile_corpus(corpora[L][0], pt.L_pad)).to(dev)
+    log(f"[3] tile_corpus of the B={B} corpus -> {tuple(tiled.shape)} {tiled.dtype} in "
+        f"{time.perf_counter() - t0:.2f} s (native packer: {native.available()})")
+    words = [w.encode() for w in
+             h2r.zoo.dictionary_config(40)["parts"][1]["regex_def"][1:-1].split("|")]
+    dict_np = dict_corpus(B, L, words)
+    chars_d, lengths_d = (torch.from_numpy(a).to(dev) for a in dict_np)
 
     # [4] each kernel against its plain version on the same inputs
     pf, pm, pu = (matchers[k].plan for k in ("full", "match", "L1000"))
@@ -381,6 +440,12 @@ def main() -> dict:
                         lambda: bp.post_planes_plain(pf, logs_p, en_p)),
         "pack_raw": (kernels.PACK_RAW, lambda: kernels.pack_raw_cuda(pu, quads_u, len_wb_u),
                      lambda: bp.pack_plain(pu, quads_u, len_wb_u)),
+        # the tiled witness plan has the witness plan's circuits: its pack
+        # equals qpack's planes, so the scan's log planes feed its post
+        "tpack": (kernels.TPACK, lambda: kernels.tpack_cuda(pt, tiled, len_wb),
+                  lambda: bp.tpack_plain(pt, tiled, len_wb)),
+        "post_tiled": (kernels.POST_TILED, lambda: kernels.post_tiled_cuda(pt, logs_p, en_p, tiled),
+                       lambda: bp.post_plain(pt, logs_p, en_p, tiled)),
     }
     # bounds from this run's inputs: bytes read once and written once;
     # operations = the circuit ops each word runs per position
@@ -401,6 +466,12 @@ def main() -> dict:
         "post_planes": bound(plane * (plan.sb_sum + 1 + pf.p_total), ops_of["tag"]),
         "fb_only": bound(plane + 4 * n_bnd * pm.sb_sum + words * pm.n_defs * 8 * 4,
                          n_bnd * pm.sb_sum),
+        "tpack": bound(nbytes(tiled, len_wb) + plane * (pt.kp + 1), ops_of["class"]),
+        # the tags, plus the masked characters: 8 byte-bit planes of 8
+        # shift-and-or terms each, and 8 ANDs with the mask, per word
+        "post_tiled": bound(plane * (pt.sb_sum + 1 + 8 * pt.n_groups) + nbytes(tiled)
+                            + words * pt.n_defs * 8 * 4,
+                            ops_of["tag"] + (8 * 8 * 3 + 8) * pt.L_pad * words),
     }
     del en_next
     errs = {}
@@ -409,6 +480,8 @@ def main() -> dict:
         got = run_k()
         torch.cuda.synchronize()
         errs[name] = max_abs_err(got, want)
+        if name == "tpack" and max_abs_err(want, (bits_p, en_p)) != 0:
+            raise AssertionError("tpack_plain of the tiled corpus differs from qpack_plain")
         log(f"[4] {name}: kernel vs plain max_abs_err={errs[name]} "
             f"(tolerance 0, integer outputs); bound {bounds[name]['bound_ms']:.4f} ms "
             f"by {bounds[name]['bound_by']}")
@@ -419,7 +492,8 @@ def main() -> dict:
     # the table kernels on real inputs: the plain pipelines' own planes,
     # the first window of each path (configs[3]: segment 0 of 16, with the
     # backward FSM's carries from segment 1; from: the whole L)
-    table_io = {"pallas_large": (chars3, lengths3), "pallas_from": (chars, lengths)}
+    table_io = {"pallas_large": (chars3, lengths3), "pallas_from": (chars, lengths),
+                "pallas_dict": (chars_d, lengths_d)}
     planes, t_plain_planes = {}, {}
     for path, m in tables.items():
         t0 = time.perf_counter()
@@ -496,7 +570,7 @@ def main() -> dict:
         if not all(bool(t.any()) for t in ts):
             raise AssertionError(f"{what}: a compared plane is all zeros")
 
-    tstages = {path: table_stages(path) for path in tables}
+    tstages = {path: table_stages(path) for path in ("pallas_large", "pallas_from")}
     for path, stg in tstages.items():
         for name, (k, run_k, run_p, bd) in stg.items():
             want = run_p()
@@ -514,6 +588,36 @@ def main() -> dict:
             del got, want
     log("[4] pallas_large has no pairs (P = 0): its tag and FSM planes are zeros, so the "
         "from: checks below hold the chunked FSM on planes that light up")
+
+    # the flat kernel (monolithic mode) on the whole dictionary corpus: its
+    # plain version's output is the plain pipeline's planes
+    def flat_with(fn):
+        def go():
+            outs = [torch.empty_like(t) for t in planes["pallas_dict"]]
+            fn(md.class_map, md.flat_table, md.first_states, chars_d, lengths_d, *outs)
+            return tuple(outs)
+        return go
+
+    nd_d = md.n_defs
+    # bytes: chars, lengths and tables in, the six planes out; operations
+    # per position and string: per def the row offset, the entry's four
+    # fields, masking and sums (12), the forward FSM and the parked column
+    # (10), the backward FSM (8)
+    flat_stage = (kernels.TABLE_FLAT, flat_with(kernels.table_flat_cuda), flat_with(ps.flat_plain),
+                  bound(nbytes(chars_d, lengths_d, md.class_map, md.flat_table, md.first_states,
+                               *planes["pallas_dict"]), L * B * (12 * nd_d + 18)))
+    got = flat_stage[1]()
+    torch.cuda.synchronize()
+    errs["table_flat"] = max_abs_err(got, planes["pallas_dict"])
+    bd = flat_stage[3]
+    log(f"[4] table_flat @ pallas_dict: kernel vs plain max_abs_err={errs['table_flat']} "
+        f"(tolerance 0, integer outputs); bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; "
+        f"table {tuple(md.flat_table.shape)} in shared memory: "
+        f"{kernels.flat_smem_bytes(*md.flat_table.shape, kernels._smem_optin(dev))} B")
+    if errs["table_flat"] != 0:
+        raise AssertionError("table_flat kernel disagrees with its plain version")
+    nonzero("table_flat @ pallas_dict", *got[1:])
+    del got
 
     # the from: corpus at B=4096: table_fsm cuts each string's window into
     # chunks there (the instance configs[3] runs), and a middle window
@@ -571,7 +675,8 @@ def main() -> dict:
     idx = np.sort(rng.choice(B, size=ORACLE_N, replace=False))
     idx_t = torch.from_numpy(idx).to(dev)
     path_inputs = {"witness": inputs[L], "match": inputs[L], "full": inputs[L],
-                   "L1000": inputs[L_UNPADDED]}
+                   "L1000": inputs[L_UNPADDED], "tiled_witness": (tiled, lengths),
+                   "tiled_match": (tiled, lengths)}
     outs, path_launches = {}, {}
     for path, m in matchers.items():
         ch, ln = path_inputs[path]
@@ -597,7 +702,8 @@ def main() -> dict:
         launches = {k.name: k.launches for k in kernels.KERNELS}
         expected = {k.name: 0 for k in kernels.KERNELS}
         n_win = m.L // m.window
-        expected.update({k.name: v for k, v in kernels.table_path_launches(n_win).items()})
+        expected.update({k.name: v for k, v in
+                         kernels.table_path_launches(n_win, m.mode).items()})
         log(f"[5] {path}: launches {launches}")
         if launches != expected:
             raise AssertionError(f"{path}: launch counts {launches}, expected {expected}")
@@ -605,12 +711,25 @@ def main() -> dict:
         torch.cuda.synchronize()
         outs[path], path_launches[path] = out, launches
         log(f"[5] {path}: equals the plain pipeline on all {len(as_dict(out))} fields, "
-            f"dtypes included ({n_win} windows of {m.window})")
-    assert_same("pallas_from vs BitplaneMatcher(compact=False)", outs["pallas_from"],
-                full32(chars, lengths))
+            f"dtypes included ({m.mode}; {n_win} windows of {m.window})")
+    for path, want in (("witness", "tiled_witness"), ("match", "tiled_match")):
+        assert_same(f"{want} vs {path}", outs[want], outs[path])
+        log(f"[5] {want} equals the {path} path on all {len(outs[path])} keys, dtypes included")
+    for path, ref, (ch, ln) in (("pallas_from", full32, (chars, lengths)),
+                                ("pallas_dict", dict32, (chars_d, lengths_d))):
+        assert_same(f"{path} vs BitplaneMatcher(compact=False)", outs[path], ref(ch, ln))
+        torch.cuda.synchronize()
+        log(f"[5] {path} equals BitplaneMatcher(model, compact=False) on every field, "
+            "dtypes included")
+    od = outs["pallas_dict"]
+    n_words = int((od.match_ok & (od.all_substr_ids != 0).any(-1)).sum())
+    if n_words < B // 4:
+        raise AssertionError(f"pallas_dict: only {n_words} of {B} strings match with a word")
+    assert_same("pallas_dict vs its split mode", dict_split(chars_d, lengths_d), od)
     torch.cuda.synchronize()
-    log("[5] pallas_from equals BitplaneMatcher(model, compact=False) on every field, "
-        "dtypes included")
+    log(f"[5] pallas_dict: {n_words} of {B} strings match and extract a word; equals "
+        f"PallasMatcher(dict40, max_pairs=4096) (split mode) on every field")
+    del od
     # the B=4096 call the latency row times: the chunked FSM instance
     kernels.reset_launch_counts()
     out4 = mf(ch4, ln4)
@@ -631,6 +750,8 @@ def main() -> dict:
         "match": ("accepted", "has_dead", "match_ok"),
         "full": tuple(h2r.RegexResult.field_names()),
         "L1000": ("states", "all_substr_ids", "masked_characters", "mask", "match_ok"),
+        "tiled_witness": ("states", "all_substr_ids", "masked_characters", "mask", "match_ok"),
+        "tiled_match": ("accepted", "has_dead", "match_ok"),
     }
     oracle_rows = {}
     for path, keys in checks.items():
@@ -651,6 +772,7 @@ def main() -> dict:
     for path, o_model, (c_np, l_np), sub in (
         ("pallas_from", model, corpora[L], idx),
         ("pallas_large", model3, (chars3_np, lengths3_np), idx3),
+        ("pallas_dict", model_d, dict_np, idx),
     ):
         sub_t = torch.from_numpy(sub).to(dev)
         host = {k: as_dict(outs[path])[k][sub_t].cpu().numpy() for k in checks["full"]}
@@ -698,11 +820,62 @@ def main() -> dict:
         f"exceed max_runs/max_len; n_runs equal on all)")
     del outs, runs, host_runs
 
+    # cli_scan: the corpus-scan entry point in process, both layouts, each
+    # run with the launch counts reset just before it; the counters of the
+    # two layouts are equal and count the match path's verdicts on the same
+    # packed lines, batch by batch
+    c_np, l_np = bench_corpus(N_CLI, L)  # its first B strings are corpora[L]'s
+    data = b"".join(bytes(c_np[i, : l_np[i]]) for i in range(N_CLI))
+    work = kernels.build_root() / "cli_scan"
+    work.mkdir(parents=True, exist_ok=True)
+    corpus_file, model_file = work / "corpus.txt", work / "from.npz"
+    corpus_file.write_bytes(data)
+    model.save(str(model_file))
+    p_chars, p_lens, _trunc = pack_lines(data, L, keep_newline=True)
+    want_ok, n_batches = 0, 0
+    for bc, bl, nv in batch_iterator(p_chars, p_lens, B):
+        want_ok += int(matchers["match"](bc, bl)["match_ok"][:nv].sum())
+        n_batches += 1
+    cli_runs = {}
+    for layout in ("bl", "tiled", "bl", "tiled"):
+        kernels.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["scan", "--model", str(model_file), "--batch", str(B),
+                           "--keep-newline", "--input-layout", layout, str(corpus_file)])
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        if rc != 0:
+            raise AssertionError(f"cli scan --input-layout {layout} exited {rc}")
+        counters = json.loads(buf.getvalue().strip().splitlines()[-1])
+        plan_l = matchers["tiled_match" if layout == "tiled" else "match"].plan
+        expected = {k.name: 0 for k in kernels.KERNELS}
+        expected.update({k.name: n_batches for k in kernels.path_kernels(plan_l)})
+        log(f"[5] cli_scan {layout}: {json.dumps(counters)}; launches {launches}")
+        if launches != expected:
+            raise AssertionError(f"cli_scan {layout}: launches {launches}, expected {expected}")
+        if (counters["strings"], counters["matched"], counters["batches"]) != (
+                2 * N_CLI, want_ok, n_batches) or want_ok != N_CLI:
+            raise AssertionError(f"cli_scan {layout}: counters {counters}; the match path "
+                                 f"counts {want_ok} of {2 * N_CLI} in {n_batches} batches")
+        cli_runs.setdefault(layout, []).append(counters)
+    keys = ("batches", "strings", "bytes_scanned", "matched", "failed", "dead")
+    if any(r[k] != cli_runs["bl"][0][k] for rs in cli_runs.values() for r in rs for k in keys):
+        raise AssertionError(f"cli_scan: the layouts' counters differ: {cli_runs}")
+    rec["cli_scan"] = cli_runs
+    log(f"[5] cli_scan: both layouts count {want_ok} matches of {2 * N_CLI} lines in "
+        f"{n_batches} batches, as the match path does; launches per batch as its paths")
+    for f in (corpus_file, model_file):
+        f.unlink()
+    work.rmdir()
+    del data, p_chars, p_lens
+
     # [6] timings
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     kern_rows, times = [], {}
     path_of = {"qpack": "witness", "scan": "witness", "post": "witness",
-               "fb_only": "match", "post_planes": "full", "pack_raw": "L1000"}
+               "fb_only": "match", "post_planes": "full", "pack_raw": "L1000",
+               "tpack": "tiled_witness", "post_tiled": "tiled_witness"}
     for name, (k, run_k, run_p) in stages.items():
         tk = time_ms(run_k, flush, device_only=True)
         tp = time_ms(run_p, flush, device_only=True)
@@ -741,6 +914,17 @@ def main() -> dict:
             else:
                 table_rows[name]["configs"][path] = row
     kern_rows += list(table_rows.values())
+    k, run_k, run_p, bd = flat_stage
+    tk = time_ms(run_k, flush, device_only=True)
+    tp = time_ms(run_p, flush, device_only=True, warmup=PLAIN_WARMUP, iters=PLAIN_ITERS)
+    times["table_flat@pallas_dict"] = {"kernel": tk, "plain": tp, **bd}
+    log(f"[6] table_flat @ pallas_dict: kernel {fmt(tk)}, plain {fmt(tp)} over {tp['runs']} "
+        f"runs; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    kern_rows.append({"name": k.name, "route": "cuda", "source": k.source,
+                      "replaces": k.replaces, "launches": path_launches["pallas_dict"][k.name],
+                      "max_abs_err": errs["table_flat"], "ms": tk["median"],
+                      "plain_ms": tp["median"], "bound_ms": bd["bound_ms"],
+                      "bound_by": bd["bound_by"], "library_ms": None})
     # the chain measured: configs[3]'s first window for one string (one
     # thread, table staging included) beside the 64 strings above
     f1 = m3._firsts(1)
@@ -757,6 +941,10 @@ def main() -> dict:
         "full": (lambda: matchers["full"](chars, lengths), "full", inputs[L]),
         "extract_serving": (lambda: serve(full_m, chars, lengths), "full", inputs[L]),
         "L1000": (lambda: matchers["L1000"](chars_u, lengths_u), "L1000", inputs[L_UNPADDED]),
+        "tiled_witness": (lambda: matchers["tiled_witness"](tiled, lengths), "tiled_witness",
+                          (tiled, lengths)),
+        "tiled_match": (lambda: matchers["tiled_match"](tiled, lengths), "tiled_match",
+                        (tiled, lengths)),
     }
     for path, m in tables.items():
         ch, ln = table_io[path]
@@ -770,6 +958,11 @@ def main() -> dict:
         gbs = ch.numel() / (t["median"] * 1e-3) / 1e9
         times[f"end_to_end_{path}"] = {"kernel": t, "plain": tp, "peak_bytes": peak,
                                        "input_gb_per_s": gbs, "host_enqueue": enq}
+        if path == "pallas_dict":  # beside its split-mode equivalent
+            ts = time_ms(lambda: dict_split(ch, ln), flush, device_only=False)
+            times["end_to_end_pallas_dict_split"] = {"kernel": ts}
+            log(f"[6] end to end pallas_dict in split mode (max_pairs=4096): {fmt(ts)}; "
+                f"card {card}")
         log(f"[6] end to end {path}: {fmt(t)}, {gbs:.3f} GB/s of input, host enqueue "
             f"{enq['median']:.4f} ms; plain pipeline {fmt(tp)} over {tp['runs']} runs; "
             f"peak memory {peak / 2**20:.1f} MiB; card {card}")
@@ -787,14 +980,26 @@ def main() -> dict:
                          device_only=False, warmup=PLAIN_WARMUP, iters=PLAIN_ITERS)
         else:
             tp = None
-        gbs = B * ch.shape[1] / (t["median"] * 1e-3) / 1e9
+        gbs = B * (L_UNPADDED if path == "L1000" else L) / (t["median"] * 1e-3) / 1e9
         times[f"end_to_end_{path}"] = {"kernel": t, "plain": tp, "peak_bytes": peak,
                                        "input_gb_per_s": gbs}
         plain_txt = (f"plain pipeline {fmt(tp)} over {tp['runs']} runs" if tp else
                      "plain: see full")
         log(f"[6] end to end {path}: {fmt(t)}, {gbs:.3f} GB/s of input; {plain_txt}; "
             f"peak memory {peak / 2**20:.1f} MiB; card {card}")
+    # ROADMAP A8's question: the tiled and [B, L] walls at both batch sizes,
+    # with the host's tile_corpus time per batch beside them
+    tiled4_np = h2r.tile_corpus(corpora[L][0][:B_LATENCY], pt.L_pad)
+    tiled4 = torch.from_numpy(tiled4_np).to(dev)
+    for nb_, src in ((B, corpora[L][0]), (B_LATENCY, corpora[L][0][:B_LATENCY])):
+        th = host_ms(lambda: h2r.tile_corpus(src, pt.L_pad), iters=5)
+        times[f"tile_corpus_host_b{nb_}"] = th
+        log(f"[6] host tile_corpus at B={nb_}: {th['median']:.4f} ms per batch (median of "
+            f"5, native packer: {native.available()}, {os.cpu_count()} CPUs)")
     for path, fn in (
+        ("witness", lambda: matchers["witness"](chars[:B_LATENCY], lengths[:B_LATENCY])),
+        ("tiled_witness", lambda: matchers["tiled_witness"](tiled4, lengths[:B_LATENCY])),
+        ("tiled_match", lambda: matchers["tiled_match"](tiled4, lengths[:B_LATENCY])),
         ("match", lambda: matchers["match"](chars[:B_LATENCY], lengths[:B_LATENCY])),
         ("extract_serving", lambda: serve(full_m, chars[:B_LATENCY], lengths[:B_LATENCY])),
         ("pallas_from", lambda: mf(chars[:B_LATENCY], lengths[:B_LATENCY])),
@@ -802,6 +1007,11 @@ def main() -> dict:
         t = time_ms(fn, flush, device_only=False)
         times[f"latency_b{B_LATENCY}_{path}"] = {"kernel": t}
         log(f"[6] B={B_LATENCY} {path}: {fmt(t)} per call; card {card}")
+
+    for layout, runs_ in cli_runs.items():
+        log(f"[6] cli_scan {layout}: bytes_per_sec {[r['bytes_per_sec'] for r in runs_]}, "
+            f"wall_seconds {[r['wall_seconds'] for r in runs_]} (two runs in process; file "
+            f"reads, host packing and copies included); card {card}")
 
     # [7] where the time goes on the table paths (profiler; walls above)
     for path, m in tables.items():

@@ -1,25 +1,32 @@
 """halo2_regex_tpu_torch — the PyTorch + CUDA port of ``halo2_regex_tpu``.
 
 The port runs the bit-sliced matcher (``BitplaneMatcher(model, columns=
-"full" | "witness" | "match")``) and the table-driven split matcher
-(``PallasMatcher``, for large DFAs and long inputs) on an NVIDIA H100
-through hand-written CUDA kernels (``csrc/``, built with nvcc at first
-use), and on the CPU through the kernels' plain PyTorch versions when the
-caller passes ``device="cpu"``; ``extract_runs`` decodes the masked runs of
-a result where it lies.  It imports ``torch`` and numpy, never
-JAX: the host layer it needs (regex compiler, models, oracle) is carried
-here as jax-free copies, because importing any submodule of the JAX
-package runs that package's ``__init__``, which loads JAX.
+"full" | "witness" | "match", input_layout="bl" | "tiled")``) and the
+table-driven matcher (``PallasMatcher``, split and monolithic, for large
+DFAs and long inputs) on an NVIDIA H100 through hand-written CUDA kernels
+(``csrc/``, built with nvcc at first use), and on the CPU through the
+kernels' plain PyTorch versions when the caller passes ``device="cpu"``;
+``extract_runs`` decodes the masked runs of a result where it lies.  The
+corpus-scan entry point is the CLI (``python -m halo2_regex_tpu_torch
+scan ...``) over ``ScanJob``, with ``best_matcher`` picking the backend
+and ``tile_corpus`` packing the tiled input contract on the host.  It
+imports ``torch`` and numpy, never JAX: the host layer it needs (regex
+compiler, models, oracle) is carried here as jax-free copies, because
+importing any submodule of the JAX package runs that package's
+``__init__``, which loads JAX.
 
 Quick start::
 
-    from halo2_regex_tpu_torch import BitplaneMatcher, PallasMatcher, extract_runs, zoo
+    from halo2_regex_tpu_torch import (BitplaneMatcher, PallasMatcher, extract_runs,
+                                       tile_corpus, zoo)
 
     model = zoo.email_headers_model(max_chars_size=1024, headers=("from",))
     matcher = BitplaneMatcher(model)  # on the card; device="cpu" for the CPU
     res = matcher(chars, lengths)  # [B, 1024] uint8, [B] int32 -> RegexResult
     runs = extract_runs(res.all_substr_ids, res.masked_characters, max_len=32)
     res = PallasMatcher(model)(chars, lengths)  # the same RegexResult
+    tl = BitplaneMatcher(model, columns="match", input_layout="tiled")
+    verdicts = tl(tile_corpus(chars_np, tl.L_pad), lengths)  # host-pretiled
 """
 
 import sys as _sys
@@ -32,10 +39,12 @@ if _sys.getrecursionlimit() < 20_000:
 from .compiler.decomposed import DecomposedRegexConfig, RegexPartConfig, VrmError
 from .models import zoo
 from .models.compiled import CompiledRegexModel
-from .ops.bitplane import BitplaneMatcher
+from .ops import best_matcher
+from .ops.bitplane import BitplaneMatcher, tile_corpus
 from .ops.extract import extract_runs, runs_to_python
 from .ops.pallas_scan import PallasMatcher
 from .ops.reference import extract_substrings, match_substrs
+from .utils.jobs import ScanJob
 from .witness.result import RegexResult
 
 __version__ = "0.1.0"
@@ -47,10 +56,13 @@ __all__ = [
     "PallasMatcher",
     "RegexPartConfig",
     "RegexResult",
+    "ScanJob",
     "VrmError",
+    "best_matcher",
     "extract_runs",
     "extract_substrings",
     "match_substrs",
     "runs_to_python",
+    "tile_corpus",
     "zoo",
 ]

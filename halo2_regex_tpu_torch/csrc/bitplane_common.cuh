@@ -1,6 +1,6 @@
 // Shared definitions of the bitplane kernels (bitplane_pack.cu,
-// bitplane_pack_raw.cu, bitplane_scan.cu, bitplane_post.cu,
-// bitplane_fb.cu).
+// bitplane_pack_raw.cu, bitplane_tpack.cu, bitplane_scan.cu,
+// bitplane_post.cu, bitplane_fb.cu).
 //
 // Packed layout (the JAX package's, kept exactly): 32 strings share one
 // 32-bit word.  Word w of a plane holds, at bit beta, string
@@ -15,7 +15,8 @@
 //   H2R_NDEFS, H2R_KP (class planes), H2R_SB_SUM (log planes),
 //   H2R_NLIVE (one-hot state planes), H2R_NSUM (id-sum planes),
 //   H2R_NDT (per-def tag planes: NDEFS * (id bits + 2));
-//   witness only: H2R_NGROUPS (byte groups of the post emission);
+//   witness only: H2R_NGROUPS (byte groups of the post emission), and
+//   H2R_POST_TILED for tiled input (the post reads the quad words);
 //   full only: H2R_POST_PLANES, H2R_P_TOTAL (planes of the post output)
 //   and the first plane of its fields H2R_OFF_{IDSUM, MASKED_IDSUM, FWD,
 //   BWD, MASK} (the per-def planes come first, in the order of dt);
@@ -26,7 +27,8 @@
 //   h2r_tag(prev, next, en, ids[NSUM], start_any, endf_any, dt[NDT])
 //   h2r_fb(acc[SB_SUM], empty, fb[NDEFS*8])
 //   witness only: h2r_emit(flags[6], midsum[NSUM], lg[SB_SUM], en,
-//                          words[8*NGROUPS])
+//                          mcp[8], words[8*NGROUPS]) (mcp: the masked
+//                          byte-bit planes, read in tiled mode only)
 #pragma once
 
 #include <cuda_runtime.h>

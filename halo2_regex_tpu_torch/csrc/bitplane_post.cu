@@ -1,14 +1,19 @@
 // K3: post -- tags, id sum, mask FSMs, then one of two emissions:
 //   bytes mode (columns="witness"): dummy splice, byte-group emission and
-//     final-state boundary planes, entry h2r_post;
+//     final-state boundary planes, entry h2r_post; with tiled input (the
+//     generated header sets H2R_POST_TILED) it also reads the word group's
+//     pretiled quad words, extracts their 8 byte-bit planes with the quad
+//     mask and ANDs them with the mask FSM: the masked characters, emitted
+//     as one more byte group, entry h2r_post_tiled;
 //   planes mode (columns="full", the generated header sets
 //     H2R_POST_PLANES): the named bit planes of the full RegexResult --
 //     per def ids/start/endf, idsum, masked_idsum, fwd, bwd, mask -- entry
 //     h2r_post_planes.
 //
 // Replaces the TPU kernel BitplaneMatcher._make_post in bytes mode with
-// pre-dummied states, and in planes mode (halo2_regex_tpu/ops/bitplane.py
-// :1338, pallas_call at :1592).
+// pre-dummied states, in its tiled mode (the masked characters from the
+// quad words, :1455-1470, the extra input at :1547-1554), and in planes
+// mode (halo2_regex_tpu/ops/bitplane.py :1338, pallas_call at :1592).
 //
 // What bounds it on the H100: latency, like the scan.  One thread owns one
 // word and walks L twice; at B = 32768 that is 1024 threads on 32 SMs.
@@ -16,7 +21,10 @@
 // the from: model) plus the FSM steps and, in bytes mode, an 8x8 bit
 // transpose per byte group.  Memory traffic is small by comparison: SB_SUM
 // + 1 planes read twice, one fwd plane written and read back, and
-// 8 * NGROUPS words (bytes mode) or P_total planes (planes mode) written.
+// 8 * NGROUPS words (bytes mode) or P_total planes (planes mode) written;
+// the tiled mode reads 8 more planes (the quad words) and writes 8 more
+// words, and holds the 8 quad words and the 8 masked byte-bit planes of a
+// position in registers on top of bytes mode's.
 //
 // Design: the two mask FSMs run as serial recurrences
 // x = (x & hold[l]) | set[l], which is exactly what the TPU kernel's
@@ -41,7 +49,8 @@
 //
 // Layouts: logs [NWS, SB_SUM, L, 128]; en and fwd [NWS, L, 128];
 // bytes mode g4 [NWS, 8 * NGROUPS, L, 128] and fb [NWS, NDEFS, 8, 128];
-// planes mode out [NWS, P_TOTAL, L, 128]; all int32.
+// tiled mode also tiled [NWS, 8, L, 128]; planes mode out [NWS, P_TOTAL,
+// L, 128]; all int32.
 
 #include "bitplane_common.cuh"
 #include "h2r_circuits.cuh"
@@ -49,17 +58,20 @@
 #ifndef H2R_POST_PLANES
 #define H2R_POST_PLANES 0
 #endif
+#ifndef H2R_POST_TILED
+#define H2R_POST_TILED 0
+#endif
 
 namespace {
 
 constexpr int THREADS = 32;
 
 // fwd_buf: bytes mode the [NWS, L, 128] scratch plane (out is g4); planes
-// mode unused (fwd lives in out).
+// mode unused (fwd lives in out).  tiled: the quad words (tiled mode only).
 __global__ void __launch_bounds__(THREADS)
 post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
-            int32_t* __restrict__ fwd_buf, int32_t* __restrict__ out,
-            int32_t* __restrict__ fb, int NW, int L) {
+            const int32_t* __restrict__ tiled, int32_t* __restrict__ fwd_buf,
+            int32_t* __restrict__ out, int32_t* __restrict__ fb, int NW, int L) {
   const int w = blockIdx.x * THREADS + threadIdx.x;
   if (w >= NW) return;
   const int nws = w / H2R_LANE, lane = w % H2R_LANE;
@@ -72,6 +84,9 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
 #else
   int32_t* fwd_base = fwd_buf + (size_t)nws * plane + lane;
   int32_t* g4_base = out + (size_t)nws * 8 * H2R_NGROUPS * plane + lane;
+#endif
+#if H2R_POST_TILED
+  const int32_t* t_base = tiled + (size_t)nws * 8 * plane + lane;
 #endif
 
   uint32_t first[H2R_SB_SUM];
@@ -173,8 +188,23 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
       out_base[(H2R_OFF_MASKED_IDSUM + k) * plane + row] = (int32_t)midsum[k];
 #else
     const uint32_t flags[6] = {mask, fwd, y, e, sa, ea};
+    uint32_t mcp[8];  // masked byte-bit planes (tiled mode)
+#if H2R_POST_TILED
+    {
+      uint32_t q[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) q[m] = (uint32_t)t_base[m * plane + (size_t)l * H2R_LANE];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t acc = 0;
+#pragma unroll
+        for (int m = 0; m < 8; ++m) acc |= ((q[m] >> j) & 0x01010101u) << m;
+        mcp[j] = acc & mask;
+      }
+    }
+#endif
     uint32_t words[8 * H2R_NGROUPS];
-    h2r_emit(flags, midsum, cur, e, words);
+    h2r_emit(flags, midsum, cur, e, mcp, words);
 #pragma unroll
     for (int k = 0; k < 8 * H2R_NGROUPS; ++k)
       g4_base[k * plane + (size_t)l * H2R_LANE] = (int32_t)words[k];
@@ -210,15 +240,24 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
 extern "C" int h2r_post_planes(const void* logs, const void* en, void* out, int NW, int L,
                                void* stream) {
   post_kernel<<<(NW + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)logs, (const int32_t*)en, nullptr, (int32_t*)out, nullptr, NW, L);
+      (const int32_t*)logs, (const int32_t*)en, nullptr, nullptr, (int32_t*)out, nullptr, NW,
+      L);
+  return (int)cudaGetLastError();
+}
+#elif H2R_POST_TILED
+extern "C" int h2r_post_tiled(const void* logs, const void* en, const void* tiled,
+                              void* fwd_buf, void* g4, void* fb, int NW, int L, void* stream) {
+  post_kernel<<<(NW + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)logs, (const int32_t*)en, (const int32_t*)tiled, (int32_t*)fwd_buf,
+      (int32_t*)g4, (int32_t*)fb, NW, L);
   return (int)cudaGetLastError();
 }
 #else
 extern "C" int h2r_post(const void* logs, const void* en, void* fwd_buf, void* g4, void* fb,
                         int NW, int L, void* stream) {
   post_kernel<<<(NW + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)logs, (const int32_t*)en, (int32_t*)fwd_buf, (int32_t*)g4, (int32_t*)fb,
-      NW, L);
+      (const int32_t*)logs, (const int32_t*)en, nullptr, (int32_t*)fwd_buf, (int32_t*)g4,
+      (int32_t*)fb, NW, L);
   return (int)cudaGetLastError();
 }
 #endif

@@ -1,0 +1,226 @@
+// table_flat -- the monolithic table-driven matcher: scan, pick and both
+// mask FSMs in one kernel.
+//
+// Replaces the TPU kernel PallasMatcher._flat_kernel (B12,
+// halo2_regex_tpu/ops/pallas_scan.py:509, _make_flat at :708, pallas_call
+// at :713), the mode PallasMatcher resolves to when a def has more than
+// max_pairs valid (prev, next) substring pairs: the pair tagging of split
+// mode would then be a long list per position, so the scan picks, with
+// each transition, its substring id and its start and end flags.  On the
+// TPU each step is a one-hot bf16 MXU select of a packed
+// [k, 4S] next | id | start | end class table, slab-unrolled, with
+// joint-def tables; here a step is one gather of a packed int32 entry
+//     next | id << 8 | start << 24 | endf << 25
+// per (class, state) per def, the same integers.
+//
+// What bounds it on the H100: device-memory bytes in principle (the six
+// [n_defs, L, B] / [L, B] int32 outputs: 768 MiB at B=32768 x L=1024 for
+// one def, against 32 MiB of input), and in practice the serial chain of
+// 2 x L dependent steps per string: the forward pass's shared-memory
+// gathers, then the backward pass's reads.  What the design does about it:
+// one thread per string, 64 a block, so B=32768 gives 512 blocks (about 4
+// a SM; balanced within one block's time) and each warp's stores at one
+// position are one 128-byte line (time-major outputs).  The table
+// (n_defs x K x S entries: 23.5 KiB for the 40-word dictionary model) is
+// staged into shared memory once per block; the byte -> row offset maps
+// (cls(c) * S) sit in static shared memory; the chars of a string come in
+// 16-byte loads, two ahead of the chain.  The forward FSM runs in the scan
+// loop.  The backward FSM needs each position's id sum and flags in
+// reverse order: the forward pass leaves them packed in the thread's own
+// bwd column (id sum << 2 | start_any | endf_any << 1), and the backward
+// pass reads that column back, 8 positions a batch, and overwrites it with
+// the mask -- one int32 plane read and written instead of re-reading the
+// three per-def planes.  A table too large for shared memory (a raw-bytes
+// def, K = 256, at S = 256 needs 256 KiB, over the 227 KiB a block may
+// have) is read from global memory through the read-only cache instead
+// (smem_bytes = 0).
+//
+// Layouts (int32 unless stated): chars [B, L] uint8; lengths [B]; cmap
+// [n_defs, 256]; table [n_defs, K, S] packed entries; first [n_defs];
+// states, ids, start, endf [n_defs, L, B]; fwd, bwd [L, B].
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 64;
+constexpr int kMaxDefs = 8;
+constexpr int kStage = 8;  // table loads in flight per thread while staging
+constexpr int kBack = 8;   // positions a backward batch loads before use
+
+template <int kDefs, bool kSmem>
+__global__ void __launch_bounds__(kThreads)
+table_flat_kernel(const uint8_t* __restrict__ chars, const int32_t* __restrict__ lengths,
+                  const int32_t* __restrict__ cmap, const int32_t* __restrict__ table,
+                  const int32_t* __restrict__ first, int32_t* __restrict__ states,
+                  int32_t* __restrict__ ids, int32_t* __restrict__ start,
+                  int32_t* __restrict__ endf, int32_t* __restrict__ fwd,
+                  int32_t* __restrict__ bwd, int n_defs, int B, int L, int K, int S, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int32_t* tab = kSmem ? reinterpret_cast<const int32_t*>(smem) : table;
+  __shared__ int row_off[kDefs * 256];  // d * K * S + cls_d(c) * S
+  for (int i = threadIdx.x; i < n_defs * 256; i += blockDim.x)
+    row_off[i] = (i >> 8) * K * S + cmap[i] * S;
+  if (kSmem) {
+    int32_t* dst = reinterpret_cast<int32_t*>(smem);
+    const int n = n_defs * K * S;
+    const int n4 = (n & 3) == 0 && ((uintptr_t)table & 15) == 0 ? n / 4 : 0;
+    const int4* src4 = reinterpret_cast<const int4*>(table);
+    for (int i0 = threadIdx.x; i0 < n4; i0 += kStage * blockDim.x) {
+      int4 v[kStage];
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = i0 + u * blockDim.x;
+        v[u] = __ldg(src4 + (i < n4 ? i : 0));
+      }
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = i0 + u * blockDim.x;
+        if (i < n4) reinterpret_cast<int4*>(dst)[i] = v[u];
+      }
+    }
+    for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(table + i);
+  }
+  __syncthreads();
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+
+  const size_t plane = (size_t)L * B;
+  int s[kDefs];
+#pragma unroll
+  for (int d = 0; d < kDefs; ++d) s[d] = d < n_defs ? first[d] : 0;
+  const int len = lengths[b];
+  int prev_ids = 0, prev_ef = 0, x = 0;
+
+  // one byte: every def's entry, its outputs, the forward FSM, and the
+  // backward pass's inputs parked in bwd
+  auto step = [&](int c, int p) {
+    const bool en = p < len;
+    int isum = 0, ssum = 0, esum = 0;
+#pragma unroll
+    for (int d = 0; d < kDefs; ++d) {
+      if (d < n_defs) {
+        const int idx = row_off[d * 256 + c] + s[d];
+        uint32_t e;
+        if constexpr (kSmem) {
+          e = (uint32_t)tab[idx];
+        } else {
+          e = (uint32_t)__ldg(tab + idx);
+        }
+        s[d] = (int)(e & 0xFFu);
+        const int id = en ? (int)((e >> 8) & 0xFFFFu) : 0;
+        const int st = en ? (int)((e >> 24) & 1u) : 0;
+        const int ef = en ? (int)((e >> 25) & 1u) : 0;
+        const size_t o = d * plane + (size_t)p * B + b;
+        states[o] = s[d];
+        ids[o] = id;
+        start[o] = st;
+        endf[o] = ef;
+        isum += id;
+        ssum += st;
+        esum += ef;
+      }
+    }
+    // forward FSM (src/lib.rs:598-645)
+    const bool changed = prev_ids != isum;
+    x = ssum > 0 && changed ? 1 : (ssum == 0 && prev_ef > 0 && changed ? 0 : x);
+    const size_t q = (size_t)p * B + b;
+    fwd[q] = x;
+    bwd[q] = (isum << 2) | (ssum > 0 ? 1 : 0) | (esum > 0 ? 2 : 0);
+    prev_ids = isum;
+    prev_ef = esum;
+  };
+
+  const uint8_t* row = chars + (size_t)b * L;
+  if (vec) {
+    // 16 bytes a load, the next chunk loaded while this one steps
+    const uint4* row4 = reinterpret_cast<const uint4*>(row);
+    const int n16 = L / 16;
+    uint4 cur = __ldg(row4);
+    for (int i = 0; i < n16; ++i) {
+      const uint4 nxt = __ldg(row4 + (i + 1 < n16 ? i + 1 : i));
+      const uint32_t w[4] = {cur.x, cur.y, cur.z, cur.w};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) step((int)((w[j >> 2] >> (8 * (j & 3))) & 0xFFu), 16 * i + j);
+      cur = nxt;
+    }
+  } else {
+    for (int p = 0; p < L; ++p) step(row[p], p);
+  }
+
+  // backward FSM (src/lib.rs:663-714) over the parked column, descending
+  int next_ids = 0, next_st = 0, y = 0;
+  for (int p1 = L; p1 > 0; p1 -= kBack) {
+    const int n = p1 < kBack ? p1 : kBack;
+    int v[kBack];
+#pragma unroll
+    for (int k = 0; k < kBack; ++k) {
+      const int p = p1 - 1 - (k < n ? k : n - 1);  // clamped: no branch between the loads
+      v[k] = bwd[(size_t)p * B + b];
+    }
+#pragma unroll
+    for (int k = 0; k < kBack; ++k) {
+      if (k < n) {
+        const int isum = v[k] >> 2;
+        const bool st_any = v[k] & 1, ef_any = (v[k] >> 1) & 1;
+        const bool changed = next_ids != isum;
+        y = ef_any && changed ? 1 : (!ef_any && next_st && changed ? 0 : y);
+        bwd[(size_t)(p1 - 1 - k) * B + b] = y;
+        next_ids = isum;
+        next_st = st_any;
+      }
+    }
+  }
+}
+
+template <int kDefs>
+int launch(bool smem, const void* chars, const void* lengths, const void* cmap,
+           const void* table, const void* first, void* states, void* ids, void* start,
+           void* endf, void* fwd, void* bwd, int n_defs, int B, int L, int K, int S, int vec,
+           int smem_bytes, cudaStream_t stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+#define H2R_FLAT_ARGS                                                                       \
+  (const uint8_t*)chars, (const int32_t*)lengths, (const int32_t*)cmap,                    \
+      (const int32_t*)table, (const int32_t*)first, (int32_t*)states, (int32_t*)ids,       \
+      (int32_t*)start, (int32_t*)endf, (int32_t*)fwd, (int32_t*)bwd, n_defs, B, L, K, S, vec
+  if (smem) {
+    if (smem_bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          table_flat_kernel<kDefs, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    table_flat_kernel<kDefs, true><<<grid, kThreads, smem_bytes, stream>>>(H2R_FLAT_ARGS);
+  } else {
+    table_flat_kernel<kDefs, false><<<grid, kThreads, 0, stream>>>(H2R_FLAT_ARGS);
+  }
+#undef H2R_FLAT_ARGS
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// smem_bytes: the table's bytes (staged in shared memory), or 0 (read from
+// global memory).  n_defs: 1..8.
+extern "C" int h2r_table_flat(const void* chars, const void* lengths, const void* cmap,
+                              const void* table, const void* first, void* states, void* ids,
+                              void* start, void* endf, void* fwd, void* bwd, int n_defs,
+                              int B, int L, int K, int S, int vec, int smem_bytes,
+                              void* stream) {
+  if (n_defs < 1 || n_defs > kMaxDefs || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  const bool smem = smem_bytes > 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n_defs == 1)
+    return launch<1>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
+                     bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
+  if (n_defs == 2)
+    return launch<2>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
+                     bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
+  if (n_defs <= 4)
+    return launch<4>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
+                     bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
+  return launch<8>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
+                   bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
+}

@@ -142,3 +142,37 @@ def email_headers_model(max_chars_size: int = 1024, headers=("from", "to", "subj
     name_map = {"from": "email_from", "to": "email_to", "subject": "email_subject"}
     cfgs = [get_config(name_map[h], max_chars_size) for h in headers]
     return CompiledRegexModel.from_decomposed(cfgs, max_chars_size=max_chars_size)
+
+
+def dictionary_config(n_words: int = 40, seed: int = 1, max_byte_size: int = 1024) -> dict:
+    """A keyword-extraction config in the shape of the structured stress
+    model of benchmarks/run_benchmarks.py:407-426 (``config3_structured_
+    stress``): ``default_rng(seed)`` draws ``n_words`` random 5-8-letter
+    words (the set, sorted), and the parts are ``tag:``, the public word
+    alternation and ``\\r\\n``.  With 40 draws it has more than 160
+    substring pairs, so ``PallasMatcher``'s ``auto`` mode resolves to
+    monolithic."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    words = sorted({
+        "".join(letters[i] for i in rng.integers(0, 26, int(rng.integers(5, 9))))
+        for _ in range(n_words)
+    })
+    return {
+        "max_byte_size": max_byte_size,
+        "parts": [
+            {"is_public": False, "regex_def": "tag:", "max_size": 4},
+            {"is_public": True, "regex_def": "(" + "|".join(words) + ")", "max_size": 16},
+            {"is_public": False, "regex_def": "\r\n", "max_size": 2},
+        ],
+    }
+
+
+def dictionary_model(n_words: int = 40, max_chars_size: int = 1024, seed: int = 1):
+    """``dictionary_config`` compiled (``dict40`` with the defaults)."""
+    from ..models.compiled import CompiledRegexModel
+
+    cfg = DecomposedRegexConfig.from_json(dictionary_config(n_words, seed, max_chars_size))
+    return CompiledRegexModel.from_decomposed([cfg], max_chars_size=max_chars_size)

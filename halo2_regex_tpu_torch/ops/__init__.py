@@ -1,4 +1,44 @@
 """Device ops of the port: the bitplane matcher (``bitplane``), the
-table-driven split matcher (``pallas_scan``), their CUDA kernels
-(``kernels``), run extraction (``extract``), the knob check and the numpy
-oracle."""
+table-driven matcher (``pallas_scan``), their CUDA kernels (``kernels``),
+run extraction (``extract``), the knob check and the numpy oracle; and
+``best_matcher``, the backend ladder the CLI and ``ScanJob`` callers use."""
+
+from __future__ import annotations
+
+BACKENDS = ("auto", "bitplane", "pallas", "xla")
+
+
+def best_matcher(model, backend: str = "auto", device="cuda", **kwargs):
+    """Return ``(matcher, backend_name)``, the port of the JAX ladder
+    (halo2_regex_tpu/ops/__init__.py:11-53).
+
+    ``backend``: "auto" tries the bit-sliced ``BitplaneMatcher``, then the
+    table-driven ``PallasMatcher``, on either device; "bitplane" or
+    "pallas" takes that one alone; "xla" (the portable scan) raises
+    ``NotImplementedError`` until ROADMAP A6 ports it.  A rung that refuses
+    the model in its constructor (``ValueError``, ``NotImplementedError``:
+    a field wider than the witness emission, a knob the port does not run)
+    passes to the next; any other error, such as the ``RuntimeError`` of a
+    missing CUDA device or a failed build, propagates.  ``kwargs`` go to the
+    chosen matcher's constructor (``PallasMatcher`` takes no ``columns``)."""
+    from .bitplane import BitplaneMatcher
+    from .pallas_scan import PallasMatcher
+
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: expected one of {BACKENDS}")
+    if backend == "xla":
+        raise NotImplementedError(
+            "backend='xla' is the portable scan (ops/scan_jax.py), which waits for "
+            "ROADMAP A6"
+        )
+    candidates = ("bitplane", "pallas") if backend == "auto" else (backend,)
+    last: Exception = ValueError("no backend")
+    for name in candidates:
+        try:
+            if name == "bitplane":
+                return BitplaneMatcher(model, device=device, **kwargs), name
+            kw = {k: v for k, v in kwargs.items() if k != "columns"}
+            return PallasMatcher(model, device=device, **kw), name
+        except (ValueError, NotImplementedError) as e:  # the next rung
+            last = e
+    raise last

@@ -9,7 +9,8 @@ int32 word and the DFA runs as synthesized boolean circuits
      circuit -> class planes [L_pad, KP, NWS, LANE], plus the enable plane
      (pos < len) [NWS, L_pad, LANE].  ``qpack`` reads the [B, L] bytes
      directly (when L_pad == L); ``pack`` reads the raw quad rows of
-     ``raw_quads`` (any L, or ``qpack=False``).
+     ``raw_quads`` (any L, or ``qpack=False``); ``tpack`` reads the
+     host-pretiled quad words of ``tile_corpus`` (``input_layout="tiled"``).
   2. **scan**: the only sequential stage.  One-hot live-state planes are
      carried across the bytes; each byte runs every def's step circuit and
      writes log2-encoded state planes [NWS, SB, L_pad, LANE].
@@ -17,8 +18,9 @@ int32 word and the DFA runs as synthesized boolean circuits
      - ``"witness"``: **post** (tag circuit on (prev, next) state planes,
        id sum across defs, forward/backward mask FSMs, dummy splice, 8x8
        bit transpose into byte-group words [NWS, 8G, L_pad, LANE], plus
-       the final-state boundary planes ``fb`` [NWS, n_defs, 8, LANE]),
-       then ``decode_bytes`` and ``finish_witness``;
+       the final-state boundary planes ``fb`` [NWS, n_defs, 8, LANE];
+       with tiled input it also emits the masked characters from the quad
+       words), then ``decode_bytes`` and ``finish_witness``;
      - ``"full"``: **post_planes** (the same tags, id sum and FSMs, written
        as named bit planes [NWS, P_total, L_pad, LANE]), then
        ``unpack_groups`` and ``finish_full`` -> a ``RegexResult``;
@@ -33,8 +35,8 @@ Rows at positions L..L_pad-1 have enable 0, so tags, FSMs and boundaries
 ignore them; the decodes slice them off.
 
 Each kernel stage has a plain PyTorch version here (``qpack_plain``,
-``pack_plain``, ``scan_plain``, ``post_plain``, ``post_planes_plain``,
-``fb_only_plain``) and a hand-written CUDA kernel in ``csrc/`` (bound by
+``pack_plain``, ``tpack_plain``, ``scan_plain``, ``post_plain``,
+``post_planes_plain``, ``fb_only_plain``) and a hand-written CUDA kernel in ``csrc/`` (bound by
 :mod:`.kernels`).  The stage functions without ``_plain`` route by
 device: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel (or raises).  There is no fallback between the two.
@@ -52,7 +54,7 @@ from torch import nn
 from ..compiler.bitslice import DefCircuits, synthesize_def
 from ..models.compiled import CompiledRegexModel
 from ..witness.result import RegexResult
-from .knobs import check_main_path, resolve_qpack
+from .knobs import check_main_path, resolve_emit, resolve_qpack
 
 LANE = 128
 TILE = 32 * LANE  # strings per NWS row: the batch is padded to a multiple
@@ -111,8 +113,11 @@ class BitplanePlan:
     ``L_pad``: L for L <= 128, else L rounded up to a multiple of 128 (the
     JAX matcher's default ``lc``); every plane has L_pad rows.  ``qpack``:
     pack from the [B, L] bytes (K1) rather than from raw quad rows (B5);
-    only when L_pad == L.  ``cls_off[d]``/``sb_off[d]``: def d's first
-    class plane / log plane in the concatenated stacks.  ``wgroups``
+    only when L_pad == L.  ``tiled``: the input is the pretiled quad-word
+    buffer of ``tile_corpus`` (the pack is B6, and the witness emission
+    adds the 8-bit field ``masked_characters_pre``).  ``cls_off[d]`` /
+    ``sb_off[d]``: def d's first class plane / log plane in the
+    concatenated stacks.  ``wgroups``
     (witness only): the byte groups of the post emission, each a tuple of
     (field, first bit, bit count) with at most 8 bits in all (``flags`` =
     mask, fwd, bwd, en, start_any, endf_any).  ``post_off`` (full only):
@@ -125,6 +130,7 @@ class BitplanePlan:
     L: int
     L_pad: int
     qpack: bool
+    tiled: bool
     compact: bool
     idb: int
     nsum: int
@@ -155,12 +161,19 @@ def make_plan(
     columns: str = "full",
     qpack: bool = True,
     compact: bool = True,
+    tiled: bool = False,
 ) -> BitplanePlan:
     """Synthesize every def's circuits (binary class stage) and lay out
     the plane stacks, and the post output of ``columns``, as the JAX
     matcher does."""
     if columns not in COLUMNS:
         raise ValueError(f"columns={columns!r}: expected full/witness/match")
+    if tiled and columns == "full":  # halo2_regex_tpu/ops/bitplane.py:545-550
+        raise ValueError(
+            "input_layout='tiled' supports columns='witness'/'match' "
+            "only: the full RegexResult set emits all_characters, "
+            "which needs the string-major [B, L] chars"
+        )
     n_defs = model.n_defs
     L = model.max_chars_size
     L_pad = _round_up(L, min(LC, L))
@@ -190,6 +203,9 @@ def make_plan(
     if columns == "witness":
         fields = [("flags", 6), ("masked_idsum", nsum)]
         fields += [(f"states{d}", c.sb) for d, c in enumerate(circuits)]
+        if tiled:
+            # the post kernel assembles mask & chars from the quad words
+            fields.append(("masked_characters_pre", 8))
         if any(nb > 8 for _, nb in fields):
             raise NotImplementedError(
                 f"fields {fields}: a field wider than 8 bits needs the planes "
@@ -219,7 +235,8 @@ def make_plan(
         columns=columns,
         L=L,
         L_pad=L_pad,
-        qpack=bool(qpack) and L_pad == L,
+        qpack=bool(qpack) and L_pad == L and not tiled,
+        tiled=tiled,
         compact=compact,
         idb=idb,
         nsum=nsum,
@@ -263,6 +280,30 @@ def raw_quads(chars: torch.Tensor, L_pad: int) -> torch.Tensor:
         x = torch.cat([x, x.new_zeros((L_pad - L, B))])
     # flat first: a size-1 dim may keep any stride, which view(int32) refuses
     return x.contiguous().reshape(-1).view(torch.int32).reshape(L_pad, 8, B // TILE, LANE)
+
+
+def tile_corpus(chars: np.ndarray, L_pad: int) -> np.ndarray:
+    """Host packer of the tiled input contract (``input_layout="tiled"``):
+    [B, L] uint8 chars -> [NWS, 8, L_pad, LANE] int32 quad words, the
+    ``raw_quads`` tiling with the word-group axis leading, so every device
+    read is contiguous: T[nws, m, l, lane] packs bytes s = 0..3 of strings
+    4*((nws*LANE + lane) + NW*m) + s at position l.  B is padded up to a
+    multiple of 32*LANE (trailing strings read as empty: pass the unpadded
+    lengths and the matcher slices its outputs back) and L up to L_pad
+    with zero bytes.  The multithreaded C++ packer (``native``) where g++
+    exists, else numpy; the two give the same array."""
+    from .. import native
+
+    B, L = chars.shape
+    if L > L_pad:
+        raise ValueError(f"chars are [B, {L}]: longer than L_pad={L_pad}")
+    if native.available():
+        return native.tile_corpus(chars, L_pad)
+    Bp = _round_up(B, TILE)
+    x = np.zeros((L_pad, Bp), np.uint8)
+    x[:L, :B] = np.asarray(chars, np.uint8).T
+    words = x.reshape(L_pad, Bp // 4, 4).view(np.int32)[..., 0]
+    return np.ascontiguousarray(words.reshape(L_pad, 8, Bp // TILE, LANE).transpose(2, 1, 0, 3))
 
 
 def transpose8(x: torch.Tensor) -> torch.Tensor:
@@ -388,6 +429,20 @@ def _kernels():
 # ---------------------------------------------------------------------------
 
 
+def _byte_planes(rows: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The quad words of one position, ``rows[m]`` for m = 0..7 (bytes
+    s = 0..3 of strings 4*(w + NW*m) + s), -> the 8 byte-bit planes: bit
+    beta = 8s + m of plane j is bit j of that string's byte."""
+    planes = []
+    for j in range(8):
+        acc = None
+        for m in range(8):
+            v = ((rows[m] >> j) & _QUAD_MASK) << m
+            acc = v if acc is None else acc | v
+        planes.append(acc)
+    return planes
+
+
 def pack_plain(
     plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -396,13 +451,7 @@ def pack_plain(
     [NWS, L_pad, LANE] (int32).  Same function as the JAX ``_make_pack``
     kernel with the class stage and en_pack on."""
     L_pad, _m8, NWS, _lane = quads.shape
-    planes = []
-    for j in range(8):
-        acc = None
-        for m in range(8):
-            v = ((quads[:, m] >> j) & _QUAD_MASK) << m
-            acc = v if acc is None else acc | v
-        planes.append(acc)  # [L_pad, NWS, LANE]
+    planes = _byte_planes([quads[:, m] for m in range(8)])  # each [L_pad, NWS, LANE]
     env = {f"byte_bit{j}": planes[j] for j in range(8)}
     cls = []
     for c in plan.circuits:
@@ -438,6 +487,23 @@ def pack(plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor):
     if _on_cuda(quads, len_wb):
         return _kernels().pack_raw_cuda(plan, quads, len_wb)
     return pack_plain(plan, quads, len_wb)
+
+
+def tpack_plain(
+    plan: BitplanePlan, tiled: torch.Tensor, len_wb: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pretiled quad words [NWS, 8, L_pad, LANE] (``tile_corpus``) and the
+    length table -> as ``pack_plain``: the JAX ``_make_tpack`` kernel is the
+    pack kernel's function on the tiled words viewed back to quad rows."""
+    return pack_plain(plan, tiled.permute(2, 1, 0, 3), len_wb)
+
+
+def tpack(plan: BitplanePlan, tiled: torch.Tensor, len_wb: torch.Tensor):
+    """Stage 1 from pretiled quad words, routed by device (module
+    docstring)."""
+    if _on_cuda(tiled, len_wb):
+        return _kernels().tpack_cuda(plan, tiled, len_wb)
+    return tpack_plain(plan, tiled, len_wb)
 
 
 # ---------------------------------------------------------------------------
@@ -567,12 +633,18 @@ def fb_only(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.T
 
 
 def post_plain(
-    plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor
+    plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor,
+    tiled: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Log planes [NWS, SB, L_pad, LANE] and enable plane [NWS, L_pad,
     LANE] -> byte-group words [NWS, 8G, L_pad, LANE] and final-state
     boundary planes [NWS, n_defs, 8, LANE]: the JAX ``_make_post`` kernel
-    in bytes mode with pre-dummied states."""
+    in bytes mode with pre-dummied states.  A tiled plan also takes the
+    quad words ``tiled`` [NWS, 8, L_pad, LANE] and emits the masked
+    characters: the 8 byte-bit planes of the words ANDed with the mask
+    (the JAX tiled mode, halo2_regex_tpu/ops/bitplane.py:1455-1470)."""
+    if plan.tiled != (tiled is not None):
+        raise ValueError("a tiled plan's post takes the quad words, and only it")
     t = _tags_and_masks(plan, logs, en)
     avail: Dict[str, List[torch.Tensor]] = {
         "flags": [t.mask, t.fwd, t.bwd, en, t.start_any, t.endf_any],
@@ -586,14 +658,22 @@ def post_plain(
                 p = p | ~en
             planes.append(p)
         avail[f"states{d}"] = planes
+    if tiled is not None:
+        avail["masked_characters_pre"] = [
+            p & t.mask for p in _byte_planes([tiled[:, m] for m in range(8)])]
     return _group_words(plan.wgroups, avail), fb_only_plain(plan, logs, en)
 
 
-def post(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
-    """Stage 3 of witness mode, routed by device (see module docstring)."""
-    if _on_cuda(logs, en):
+def post(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor,
+         tiled: Optional[torch.Tensor] = None):
+    """Stage 3 of witness mode, routed by device (see module docstring);
+    a tiled plan launches the post kernel's tiled mode."""
+    given = [x for x in (logs, en, tiled) if x is not None]
+    if _on_cuda(*given):
+        if tiled is not None:
+            return _kernels().post_tiled_cuda(plan, logs, en, tiled)
         return _kernels().post_cuda(plan, logs, en)
-    return post_plain(plan, logs, en)
+    return post_plain(plan, logs, en, tiled)
 
 
 def post_planes_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
@@ -748,20 +828,24 @@ def finish_match(
 
 def finish_witness(
     tables: Dict[str, torch.Tensor],
-    chars: torch.Tensor,
     vals: Dict[str, torch.Tensor],
     fb: torch.Tensor,
+    B: int,
     B_orig: int,
+    chars: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """The compact witness dict of the JAX ``_finish_witness`` (bytes
-    emission, pre-dummied states)."""
+    emission, pre-dummied states).  The masked characters are
+    ``mask * chars``, or, for tiled input (no [B, L] chars exist), the
+    post kernel's ``masked_characters_pre`` field (JAX :2017-2066)."""
     flags = vals["flags"]
     mask = flags & 1
-    accepted, has_dead, match_ok = _verdicts(tables, final_from_fb(fb, chars.shape[0]))
+    accepted, has_dead, match_ok = _verdicts(tables, final_from_fb(fb, B))
+    masked = vals.get("masked_characters_pre")
     out = dict(
         states=vals["states"],
         all_substr_ids=vals["masked_idsum"],
-        masked_characters=mask * chars,
+        masked_characters=mask * chars if masked is None else masked,
         flags=flags,
         mask=mask,
         accepted=accepted,
@@ -857,9 +941,13 @@ def run(
     """The whole pipeline of ``plan.columns`` on ``chars`` [B, L] uint8 and
     ``lengths`` [B] int32 (both on the device that runs it).  The batch is
     padded to a multiple of 32*LANE strings and the outputs sliced back.
-    ``plain`` runs the plain version of every stage on any device (the
-    reference the kernels are held against); otherwise stages route by
-    device."""
+    A tiled plan takes the quad words [NWS, 8, L_pad, LANE] int32 of
+    ``tile_corpus`` as ``chars`` (B = NWS*32*LANE) and ``lengths`` of at
+    most B strings (the rest read as empty and are sliced off).  ``plain``
+    runs the plain version of every stage on any device (the reference the
+    kernels are held against); otherwise stages route by device."""
+    if plan.tiled:
+        return _run_tiled(plan, tables, chars, lengths, plain)
     B_orig, L = chars.shape
     if L != plan.L:
         raise ValueError(f"chars are [B, {L}]; the model needs L={plan.L}")
@@ -883,9 +971,34 @@ def run(
     if plan.columns == "witness":
         g4, fb = (post_plain if plain else post)(plan, logs, en)
         vals = decode_bytes(plan, g4, B, tables["first_states"])
-        return finish_witness(tables, chars, vals, fb, B_orig)
+        return finish_witness(tables, vals, fb, B, B_orig, chars)
     post_out = (post_planes_plain if plain else post_planes)(plan, logs, en)
     return finish_full(plan, tables, chars, lengths, post_out, logs, B_orig)
+
+
+def _run_tiled(plan, tables, tiled, lengths, plain):
+    """``run`` for the pretiled input contract (the JAX ``_core_tiled``,
+    halo2_regex_tpu/ops/bitplane.py:1831-1870): B6 tpack, the scan, then
+    the post kernel's tiled mode (witness) or fb_only (match)."""
+    shape = tuple(tiled.shape)
+    if len(shape) != 4 or shape[1:] != (8, plan.L_pad, LANE) or tiled.dtype != torch.int32:
+        raise ValueError(f"tiled input {shape} {tiled.dtype}: expected int32 "
+                         f"[NWS, 8, {plan.L_pad}, {LANE}] (see tile_corpus)")
+    B = shape[0] * TILE
+    B_orig = lengths.shape[0]
+    if lengths.dim() != 1 or B_orig > B:
+        raise ValueError(f"lengths {tuple(lengths.shape)}: expected at most {B} strings")
+    if B_orig != B:
+        lengths = torch.cat([lengths, lengths.new_zeros((B - B_orig,))])
+    len_wb = len_table(lengths)
+    bits_stack, en = (tpack_plain if plain else tpack)(plan, tiled, len_wb)
+    logs = (scan_plain if plain else scan)(plan, bits_stack)
+    if plan.columns == "match":
+        fb = (fb_only_plain if plain else fb_only)(plan, logs, en)
+        return finish_match(tables, fb, B, B_orig)
+    g4, fb = (post_plain if plain else post)(plan, logs, en, tiled)
+    vals = decode_bytes(plan, g4, B, tables["first_states"])
+    return finish_witness(tables, vals, fb, B, B_orig)
 
 
 # ---------------------------------------------------------------------------
@@ -910,7 +1023,12 @@ class BitplaneMatcher(nn.Module):
     Args mirror the JAX constructor, less ``lc`` and ``max_step_ops``
     (TPU tile and VMEM limits).  ``qpack`` (or ``H2R_QPACK``) picks the
     pack from bytes (K1) or from raw quad rows (B5), which any L whose
-    L_pad differs from L takes anyway.  Settings the port does not run
+    L_pad differs from L takes anyway.  ``input_layout="tiled"`` (with
+    ``columns="witness"`` or ``"match"``) takes the pretiled quad words of
+    ``tile_corpus(chars, matcher.L_pad)`` [NWS, 8, L_pad, LANE] int32 in
+    place of the [B, L] chars, and lengths for at most NWS*32*LANE
+    strings; the pack is then B6 and the witness emission assembles the
+    masked characters in the post kernel.  Settings the port does not run
     yet raise ``NotImplementedError`` naming their ROADMAP item.
     """
 
@@ -934,10 +1052,16 @@ class BitplaneMatcher(nn.Module):
             raise ValueError(f"columns={columns!r}: expected full/witness/match")
         if input_layout not in ("bl", "tiled"):
             raise ValueError(f"input_layout={input_layout!r}: expected bl/tiled")
-        if input_layout == "tiled":
-            raise NotImplementedError(
-                "input_layout='tiled' waits for ROADMAP A8 (tiled input)"
-            )
+        tiled = input_layout == "tiled"
+        if tiled and columns == "witness":  # halo2_regex_tpu/ops/bitplane.py:551-555, :765-769
+            if post != "kernel":
+                raise ValueError("input_layout='tiled' witness emission requires "
+                                 "the fused post kernel (post='kernel')")
+            L = model.max_chars_size
+            resolved = resolve_emit(emit, _round_up(L, min(LC, L)))
+            if resolved != "bytes":
+                raise ValueError(f"input_layout='tiled' witness emission requires "
+                                 f"emit='bytes' (resolved emit={resolved!r})")
         if post == "xla":
             raise NotImplementedError(
                 "post='xla' waits for ROADMAP A11; the port runs the fused "
@@ -950,7 +1074,8 @@ class BitplaneMatcher(nn.Module):
             en_pack=en_pack, emit=emit,
         )
         self.model = model
-        self.plan = make_plan(model, columns, qpack=resolve_qpack(qpack), compact=compact)
+        self.plan = make_plan(model, columns, qpack=resolve_qpack(qpack), compact=compact,
+                              tiled=tiled)
         self.register_buffer(
             "accept_mask", torch.from_numpy(np.asarray(model.accept_mask, bool))
         )
@@ -965,6 +1090,15 @@ class BitplaneMatcher(nn.Module):
         return self.plan.columns
 
     @property
+    def input_layout(self) -> str:
+        return "tiled" if self.plan.tiled else "bl"
+
+    @property
+    def L_pad(self) -> int:
+        """Rows of every plane: the ``L_pad`` that ``tile_corpus`` takes."""
+        return self.plan.L_pad
+
+    @property
     def device(self) -> torch.device:
         return self.accept_mask.device
 
@@ -973,13 +1107,16 @@ class BitplaneMatcher(nn.Module):
 
     @torch.no_grad()
     def forward(self, chars, lengths):
-        chars = torch.as_tensor(chars, dtype=torch.uint8, device=self.device)
+        dtype = torch.int32 if self.plan.tiled else torch.uint8
+        chars = torch.as_tensor(chars, dtype=dtype, device=self.device)
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
         return run(self.plan, self.tables(), chars.contiguous(), lengths.contiguous())
 
     def match_one(self, characters: bytes):
         buf = np.zeros((1, self.plan.L), np.uint8)
         buf[0, : len(characters)] = bytearray(characters)
+        if self.plan.tiled:
+            buf = tile_corpus(buf, self.plan.L_pad)
         out = self(buf, np.array([len(characters)], np.int32))
         if isinstance(out, RegexResult):
             return out.map(lambda v: v[0].cpu().numpy())

@@ -3,17 +3,20 @@ launch counters.
 
 The kernels themselves are under ``csrc/``.  The bitplane pipeline's are
 static templates: ``bitplane_pack.cu`` (K1 qpack), ``bitplane_pack_raw.cu``
-(pack from raw quad rows, B5), ``bitplane_scan.cu`` (K2),
-``bitplane_post.cu`` (K3 in bytes mode; in planes mode when the header sets
-``H2R_POST_PLANES``) and ``bitplane_fb.cu`` (the match-only boundary
+(pack from raw quad rows, B5), ``bitplane_tpack.cu`` (pack from the
+pretiled quad words of the tiled input contract, B6), ``bitplane_scan.cu``
+(K2), ``bitplane_post.cu`` (K3 in bytes mode; in planes mode when the
+header sets ``H2R_POST_PLANES``, in its tiled mode when it sets
+``H2R_POST_TILED``) and ``bitplane_fb.cu`` (the match-only boundary
 reduction, B4).  What they compute per word depends on the model, so this
 module emits each def's synthesized class, step and tag circuits, and the
 post emission of the plan's column set, as straight-line
 ``__device__ __forceinline__`` functions into a header,
-``h2r_circuits.cuh``, that the templates include: one library per plan.
-The table-driven split matcher's kernels (``table_scan.cu``,
-``table_tag.cu``, ``table_fsm.cu``; :mod:`.pallas_scan`) take their tables
-as data and need no header: one library for every model.
+``h2r_circuits.cuh``, that the templates include: one library per plan
+(model, column set and input layout).  The table-driven matcher's kernels
+(``table_scan.cu``, ``table_tag.cu``, ``table_fsm.cu`` of split mode and
+``table_flat.cu`` of monolithic mode; :mod:`.pallas_scan`) take their
+tables as data and need no header: one library for every model.
 
 At first use each library's sources are compiled by nvcc for ``sm_90a``,
 one nvcc per source, all at once, and linked into one shared library with a
@@ -54,15 +57,18 @@ from .bitplane import LANE, TILE, BitplanePlan
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _FRONT = ("bitplane_pack.cu", "bitplane_pack_raw.cu", "bitplane_scan.cu")
-# the templates each column set compiles (bitplane_post.cu serves both
-# post modes, selected by the generated header)
+_TFRONT = ("bitplane_tpack.cu", "bitplane_scan.cu")
+# the templates each (column set, tiled) compiles (bitplane_post.cu serves
+# every post mode, selected by the generated header)
 SOURCES = {
-    "witness": _FRONT + ("bitplane_post.cu",),
-    "full": _FRONT + ("bitplane_post.cu",),
-    "match": _FRONT + ("bitplane_fb.cu",),
+    ("witness", False): _FRONT + ("bitplane_post.cu",),
+    ("full", False): _FRONT + ("bitplane_post.cu",),
+    ("match", False): _FRONT + ("bitplane_fb.cu",),
+    ("witness", True): _TFRONT + ("bitplane_post.cu",),
+    ("match", True): _TFRONT + ("bitplane_fb.cu",),
 }
-HEADERS = ("bitplane_common.cuh",)
-TABLE_SOURCES = ("table_scan.cu", "table_tag.cu", "table_fsm.cu")
+HEADERS = ("bitplane_common.cuh", "bitplane_pack_words.cuh")
+TABLE_SOURCES = ("table_scan.cu", "table_tag.cu", "table_fsm.cu", "table_flat.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -105,6 +111,14 @@ FB_ONLY = CudaKernel(
     "fb_only", "h2r_fb_only", "halo2_regex_tpu_torch/csrc/bitplane_fb.cu",
     "halo2_regex_tpu/ops/bitplane.py:1606",
 )
+TPACK = CudaKernel(
+    "tpack", "h2r_tpack", "halo2_regex_tpu_torch/csrc/bitplane_tpack.cu",
+    "halo2_regex_tpu/ops/bitplane.py:1243",
+)
+POST_TILED = CudaKernel(
+    "post_tiled", "h2r_post_tiled", "halo2_regex_tpu_torch/csrc/bitplane_post.cu",
+    "halo2_regex_tpu/ops/bitplane.py:1338 (tiled mode, :1455-1470)",
+)
 TABLE_SCAN = CudaKernel(
     "table_scan", "h2r_table_scan", "halo2_regex_tpu_torch/csrc/table_scan.cu",
     "halo2_regex_tpu/ops/pallas_scan.py:756, :1039",
@@ -117,8 +131,12 @@ TABLE_FSM = CudaKernel(
     "table_fsm", "h2r_table_fsm", "halo2_regex_tpu_torch/csrc/table_fsm.cu",
     "halo2_regex_tpu/ops/pallas_scan.py:898, :1145, :1168",
 )
+TABLE_FLAT = CudaKernel(
+    "table_flat", "h2r_table_flat", "halo2_regex_tpu_torch/csrc/table_flat.cu",
+    "halo2_regex_tpu/ops/pallas_scan.py:708 (body :509)",
+)
 KERNELS = (QPACK, PACK_RAW, SCAN, POST, POST_PLANES, FB_ONLY,
-           TABLE_SCAN, TABLE_TAG, TABLE_FSM)
+           TABLE_SCAN, TABLE_TAG, TABLE_FSM, TPACK, POST_TILED, TABLE_FLAT)
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
@@ -128,6 +146,8 @@ _ENTRIES = {
     POST: [_P, _P, _P, _P, _P, _I, _I, _P],
     POST_PLANES: [_P, _P, _P, _I, _I, _P],
     FB_ONLY: [_P, _P, _P, _I, _I, _P],
+    TPACK: [_P, _P, _P, _P, _I, _I, _P],
+    POST_TILED: [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # chars, cmap, next, init, init def stride, states, n_defs, B, L, K, S,
     # p0, LS, vec, smem bytes, stream
     TABLE_SCAN: [_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -137,20 +157,28 @@ _ENTRIES = {
     # reverse, ids, start, endf, entry, carry ids, carry x, carry def
     # stride, out, n_defs, B, L, p0, LS, chunks per string, stream
     TABLE_FSM: [_I, _P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _P],
+    # chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
+    # bwd, n_defs, B, L, K, S, vec, smem bytes, stream
+    TABLE_FLAT: [_P] * 11 + [_I] * 7 + [_P],
 }
-_TAIL = {"witness": POST, "full": POST_PLANES, "match": FB_ONLY}
-TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM)
+_TAIL = {("witness", False): POST, ("full", False): POST_PLANES, ("match", False): FB_ONLY,
+         ("witness", True): POST_TILED, ("match", True): FB_ONLY}
+TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
 
 
 def path_kernels(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
     """The kernels one call of ``plan``'s pipeline launches, in order."""
-    return (QPACK if plan.qpack else PACK_RAW), SCAN, _TAIL[plan.columns]
+    front = TPACK if plan.tiled else (QPACK if plan.qpack else PACK_RAW)
+    return front, SCAN, _TAIL[plan.columns, plan.tiled]
 
 
-def table_path_launches(n_windows: int) -> Dict[CudaKernel, int]:
-    """Launches of one ``PallasMatcher`` call over ``n_windows`` windows
-    (1 in batch mode, ``n_seg`` segmented): a scan and a tag per window,
-    a forward and a backward FSM per window."""
+def table_path_launches(n_windows: int, mode: str = "split") -> Dict[CudaKernel, int]:
+    """Launches of one ``PallasMatcher`` call: in split mode over
+    ``n_windows`` windows (1 in batch mode, ``n_seg`` segmented), a scan
+    and a tag per window and a forward and a backward FSM per window; in
+    monolithic mode one flat kernel."""
+    if mode == "monolithic":
+        return {TABLE_FLAT: 1}
     return {TABLE_SCAN: n_windows, TABLE_TAG: n_windows, TABLE_FSM: 2 * n_windows}
 
 
@@ -226,6 +254,8 @@ def circuits_header(plan: BitplanePlan) -> str:
     ]
     if plan.columns == "witness":
         out.append(f"#define H2R_NGROUPS {plan.n_groups}")
+        if plan.tiled:
+            out.append("#define H2R_POST_TILED 1")
     if plan.columns == "full":
         out += ["#define H2R_POST_PLANES 1", f"#define H2R_P_TOTAL {plan.p_total}"]
         out += [f"#define H2R_OFF_{name.upper()} {plan.post_off[name][0]}"
@@ -320,6 +350,7 @@ def circuits_header(plan: BitplanePlan) -> str:
     avail: Dict[str, List[str]] = {
         "flags": [f"flags[{k}]" for k in range(6)],
         "masked_idsum": [f"midsum[{k}]" for k in range(plan.nsum)],
+        "masked_characters_pre": [f"mcp[{j}]" for j in range(8)],
     }
     for d, c in enumerate(circ):
         avail[f"states{d}"] = [
@@ -338,7 +369,7 @@ def circuits_header(plan: BitplanePlan) -> str:
         body.append("}")
     out += _fn(
         "h2r_emit(const uint32_t* flags, const uint32_t* midsum, "
-        "const uint32_t* lg, uint32_t en, uint32_t* words)",
+        "const uint32_t* lg, uint32_t en, const uint32_t* mcp, uint32_t* words)",
         body,
     )
     return "\n".join(out)
@@ -457,12 +488,13 @@ def _load(key: str, sources: Tuple[str, ...], header: Optional[str],
 
 def build(plan: BitplanePlan) -> ctypes.CDLL:
     """The bitplane kernels' library for ``plan`` (built once per model,
-    column set and source state)."""
+    column set, input layout and source state)."""
     hit = _PLAN_LIBS.get(plan)
     if hit is not None:
         return hit
+    front = (TPACK,) if plan.tiled else (QPACK, PACK_RAW)
     lib = _build_library(
-        SOURCES[plan.columns], (QPACK, PACK_RAW, SCAN, _TAIL[plan.columns]),
+        SOURCES[plan.columns, plan.tiled], front + (SCAN, _TAIL[plan.columns, plan.tiled]),
         includes=HEADERS, header=circuits_header(plan),
     )
     _PLAN_LIBS[plan] = lib
@@ -533,6 +565,21 @@ def pack_raw_cuda(plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor)
     return bits, en
 
 
+def tpack_cuda(plan: BitplanePlan, tiled: torch.Tensor, len_wb: torch.Tensor):
+    """B6 (``csrc/bitplane_tpack.cu``): same contract as ``tpack_plain``."""
+    NWS = tiled.shape[0] if tiled.dim() == 4 else 0
+    _check(tiled, "tiled", torch.int32, (NWS, 8, plan.L_pad, LANE))
+    _check(len_wb, "len_wb", torch.int32, (NWS, LANE, 32))
+    lib = build(plan)
+    dev = tiled.device
+    with torch.cuda.device(dev):
+        bits = torch.empty((plan.L_pad, plan.kp, NWS, LANE), dtype=torch.int32, device=dev)
+        en = torch.empty((NWS, plan.L_pad, LANE), dtype=torch.int32, device=dev)
+        _launch(TPACK, lib.h2r_tpack, tiled.data_ptr(), len_wb.data_ptr(), bits.data_ptr(),
+                en.data_ptr(), NWS * LANE, plan.L_pad, _stream(tiled))
+    return bits, en
+
+
 def scan_cuda(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
     """K2 (``csrc/bitplane_scan.cu``): same contract as ``scan_plain``."""
     L, KP, NWS, _lane = bits_stack.shape
@@ -556,6 +603,8 @@ def _check_logs_en(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> 
 def post_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
     """K3 (``csrc/bitplane_post.cu``, bytes mode): same contract as
     ``post_plain``."""
+    if plan.tiled:
+        raise ValueError("a tiled plan's post is post_tiled_cuda")
     NWS = _check_logs_en(plan, logs, en)
     L = plan.L_pad
     lib = build(plan)
@@ -566,6 +615,27 @@ def post_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
         fb = torch.empty((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
         _launch(POST, lib.h2r_post, logs.data_ptr(), en.data_ptr(), fwd.data_ptr(),
                 g4.data_ptr(), fb.data_ptr(), NWS * LANE, L, _stream(logs))
+    return g4, fb
+
+
+def post_tiled_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor,
+                    tiled: torch.Tensor):
+    """B3's tiled mode (``csrc/bitplane_post.cu`` under ``H2R_POST_TILED``):
+    same contract as ``post_plain`` with the quad words ``tiled``."""
+    if not plan.tiled or plan.columns != "witness":
+        raise ValueError("post_tiled needs a tiled witness plan")
+    NWS = _check_logs_en(plan, logs, en)
+    _check(tiled, "tiled", torch.int32, (NWS, 8, plan.L_pad, LANE))
+    L = plan.L_pad
+    lib = build(plan)
+    dev = logs.device
+    with torch.cuda.device(dev):
+        fwd = torch.empty((NWS, L, LANE), dtype=torch.int32, device=dev)
+        g4 = torch.empty((NWS, 8 * plan.n_groups, L, LANE), dtype=torch.int32, device=dev)
+        fb = torch.empty((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
+        _launch(POST_TILED, lib.h2r_post_tiled, logs.data_ptr(), en.data_ptr(),
+                tiled.data_ptr(), fwd.data_ptr(), g4.data_ptr(), fb.data_ptr(), NWS * LANE, L,
+                _stream(logs))
     return g4, fb
 
 
@@ -596,7 +666,7 @@ def fb_only_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> to
 
 
 # ---------------------------------------------------------------------------
-# The table-driven split matcher's kernels (contracts: .pallas_scan)
+# The table-driven matcher's kernels (contracts: .pallas_scan)
 # ---------------------------------------------------------------------------
 
 _SMEM_OPTIN: Dict[int, int] = {}
@@ -621,16 +691,34 @@ def _check_window(p0: int, LS: int, L: int) -> None:
         raise ValueError(f"window [{p0}, {p0 + LS}) is not inside [0, {L})")
 
 
+def _smem_optin(dev: torch.device) -> int:
+    """The card's per-block shared-memory opt-in limit, in bytes."""
+    if dev.index not in _SMEM_OPTIN:
+        with torch.cuda.device(dev):
+            _SMEM_OPTIN[dev.index] = build_tables().h2r_smem_optin()
+    return _SMEM_OPTIN[dev.index]
+
+
 def table_smem_bytes(K: int, S: int, dev: torch.device) -> int:
     """Shared memory the scan kernel stages its uint16 next-state table in,
     or 0 when it reads the int32 table from global memory (more than 65536
     states, or a table beyond the card's opt-in limit less the kernel's
     1 KiB of static shared memory)."""
-    if dev.index not in _SMEM_OPTIN:
-        with torch.cuda.device(dev):
-            _SMEM_OPTIN[dev.index] = build_tables().h2r_smem_optin()
     need = 2 * K * S
-    return need if S <= 65536 and need + 1024 <= _SMEM_OPTIN[dev.index] else 0
+    return need if S <= 65536 and need + 1024 <= _smem_optin(dev) else 0
+
+
+TABLE_FLAT_MAX_DEFS = 8  # kMaxDefs of csrc/table_flat.cu
+
+
+def flat_smem_bytes(n_defs: int, K: int, S: int, optin: int) -> int:
+    """Shared memory the flat kernel stages its packed int32 table in, or
+    0 when the table does not fit the card's opt-in limit ``optin`` beside
+    the kernel's static row-offset maps (8 KiB at most) and a margin: then
+    the kernel reads the table from global memory.  A raw-bytes def
+    (K = 256) at S = 256 needs 256 KiB, over the H100's 227 KiB."""
+    need = 4 * n_defs * K * S
+    return need if need + 4 * TABLE_FLAT_MAX_DEFS * 256 + 1024 <= optin else 0
 
 
 def table_scan_cuda(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
@@ -724,3 +812,34 @@ def table_fsm_cuda(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
                 endf.data_ptr(), ptr(entry), ptr(carry_ids), ptr(carry_x),
                 0 if carry_ids is None else carry_ids.stride(0), out.data_ptr(),
                 n_defs, B, L, p0, LS, table_fsm_chunks(B, ids.device), _stream(ids))
+
+
+def table_flat_cuda(cmap, table, first, chars, lengths, states, ids, start, endf,
+                    fwd, bwd) -> None:
+    """B12 (``csrc/table_flat.cu``): same contract as
+    ``pallas_scan.flat_plain``, one launch for the whole call."""
+    n_defs, K, S = table.shape
+    B, L = chars.shape
+    if n_defs > TABLE_FLAT_MAX_DEFS:
+        raise NotImplementedError(
+            f"table_flat runs at most {TABLE_FLAT_MAX_DEFS} defs; this model has {n_defs}"
+        )
+    _check(cmap, "cmap", torch.int32, (n_defs, 256))
+    _check(table, "table", torch.int32, (n_defs, K, S))
+    _check(first, "first", torch.int32, (n_defs,))
+    _check(chars, "chars", torch.uint8, (B, L))
+    _check(lengths, "lengths", torch.int32, (B,))
+    for name, t in (("states", states), ("ids", ids), ("start", start), ("endf", endf)):
+        _check(t, name, torch.int32, (n_defs, L, B))
+    _check(fwd, "fwd", torch.int32, (L, B))
+    _check(bwd, "bwd", torch.int32, (L, B))
+    if B == 0 or L == 0:
+        return
+    lib = build_tables()
+    smem = flat_smem_bytes(n_defs, K, S, _smem_optin(chars.device))
+    vec = int(L % 16 == 0 and chars.data_ptr() % 16 == 0)  # 16-byte char loads
+    with torch.cuda.device(chars.device):
+        _launch(TABLE_FLAT, lib.h2r_table_flat, chars.data_ptr(), lengths.data_ptr(),
+                cmap.data_ptr(), table.data_ptr(), first.data_ptr(), states.data_ptr(),
+                ids.data_ptr(), start.data_ptr(), endf.data_ptr(), fwd.data_ptr(),
+                bwd.data_ptr(), n_defs, B, L, K, S, vec, smem, _stream(chars))

@@ -11,7 +11,8 @@ arguments and the environment.  The port runs:
   emit        = "bytes"    witness post kernel assembles value bytes
   unroll      = 1, fuse_pack = False
 
-:func:`resolve_qpack` resolves ``qpack`` as the JAX package does.
+:func:`resolve_qpack` and :func:`resolve_emit` resolve ``qpack`` and the
+witness emission as the JAX package does.
 :func:`check_main_path` raises ``NotImplementedError`` naming the
 ROADMAP.md item that will port any other value of the rest, so a setting
 is never silently ignored.
@@ -41,6 +42,21 @@ def resolve_qpack(qpack: Optional[bool]) -> bool:
     if qpack is not None:
         return bool(qpack)
     return os.environ.get("H2R_QPACK", "1") == "1"
+
+
+def resolve_emit(emit: Optional[str], L_pad: int) -> str:
+    """The witness emission the JAX matcher resolves: the argument, else
+    ``H2R_EMIT``, else ``H2R_WITNESS_BYTES`` (0 planes, 1 bytes), else
+    bytes; ``direct`` and ``kdecode`` fall back to bytes when L_pad is not
+    a multiple of 4 (halo2_regex_tpu/ops/bitplane.py:726-751)."""
+    if emit is None:
+        emit = os.environ.get("H2R_EMIT")
+    if emit is None:
+        emit = {"0": "planes", "1": "bytes"}.get(os.environ.get("H2R_WITNESS_BYTES", "1"))
+    emit = (emit or "bytes").lower()
+    if emit in ("direct", "kdecode") and L_pad % 4:
+        return "bytes"
+    return emit
 
 
 def check_main_path(**given) -> None:

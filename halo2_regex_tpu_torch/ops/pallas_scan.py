@@ -1,12 +1,12 @@
-"""Table-driven split matcher, PyTorch port.
+"""Table-driven matcher, PyTorch port.
 
 The module and class names follow the JAX package's
 ``halo2_regex_tpu.ops.pallas_scan.PallasMatcher`` so that a reader finds the
 counterpart; the kernels here are hand-written CUDA (``csrc/table_scan.cu``,
-``csrc/table_tag.cu``, ``csrc/table_fsm.cu``, bound by :mod:`.kernels`),
-not Pallas.  This is the device path for DFAs the bitplane budget refuses:
-more than 256 states, large circuits, long inputs.  The JAX matcher's split
-mode runs three stages over L-windows:
+``csrc/table_tag.cu``, ``csrc/table_fsm.cu``, ``csrc/table_flat.cu``,
+bound by :mod:`.kernels`), not Pallas.  This is the device path for DFAs
+the bitplane budget refuses: more than 256 states, large circuits, long
+inputs.  The JAX matcher's split mode runs three stages over L-windows:
 
   1. **scan** (B8; B11 per segment): the only sequential stage.  Per def,
      s = next[cls[c], s] for each byte: a byte -> class map [n_defs, 256]
@@ -25,15 +25,23 @@ runs them over ``n_seg`` windows of ``segment`` positions, with the carries
 value and neighbouring id/flag rows) passed as arguments.  Every output
 window lies in one full-length tensor, so no segment is concatenated.
 
+``mode="monolithic"`` (what ``auto`` resolves to when a def has more than
+``max_pairs`` pairs, so the tag stage's pair list would be long) runs one
+**flat** stage (B12) over the whole L instead: the scan picks, with each
+transition, a packed entry ``next | id << 8 | start << 24 | endf << 25``
+of a [n_defs, K, S] table, and runs the forward FSM in the same loop and
+the backward FSM as a reversed pass.  It writes the same time-major planes,
+so the finish is shared.
+
 The TPU's stride-2 pair tables, slab unrolling, joint-def tables and the
 bf16/int8 one-hot MXU select exist to get exact integer gathers out of the
 TPU's matrix unit; the card gathers directly and the integers are the same,
-so they are not carried.  The monolithic kernel (B12, more than
-``max_pairs`` pairs per def) is not ported yet.
+so they are not carried.
 
 Each stage has a plain PyTorch version here (``scan_plain``, ``tag_plain``,
-``fsm_plain``) and routes by device: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel (or raises).  There is no fallback.
+``fsm_plain``, ``flat_plain``) and routes by device: a CPU tensor takes the
+plain version, a CUDA tensor launches the kernel (or raises).  There is no
+fallback.
 """
 
 from __future__ import annotations
@@ -50,6 +58,8 @@ from ..witness.result import RegexResult
 from .bitplane import _kernels, _on_cuda, _round_up, _substr_pairs, resolve_device
 
 PAIR_FIELDS = 5  # (a, b, gid, is_start, is_end); a = -1 pads a def's list
+# the flat table's packed entry: next state | substring id | start | end
+FLAT_ID_SHIFT, FLAT_START_SHIFT, FLAT_ENDF_SHIFT = 8, 24, 25
 
 
 # ---------------------------------------------------------------------------
@@ -249,13 +259,82 @@ def fsm(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
 
 
 # ---------------------------------------------------------------------------
+# Monolithic mode: the flat stage (B12 on the card)
+# ---------------------------------------------------------------------------
+
+
+def pack_flat_table(tab: np.ndarray, S: int) -> np.ndarray:
+    """[k, 4S] packed next | id | start | end rows (``build_packed_tables``,
+    class-compressed or raw) -> [k, S] int32 entries
+    ``next | id << 8 | start << 24 | endf << 25``."""
+    t = tab.astype(np.int64)
+    ent = (t[:, :S] | t[:, S : 2 * S] << FLAT_ID_SHIFT | t[:, 2 * S : 3 * S] << FLAT_START_SHIFT
+           | t[:, 3 * S :] << FLAT_ENDF_SHIFT)
+    return ent.astype(np.int32)
+
+
+def flat_plain(cmap, table, first, chars, lengths, states, ids, start, endf, fwd, bwd) -> None:
+    """The whole monolithic pipeline (the JAX ``_flat_kernel``): ``cmap``
+    [n_defs, 256] and the packed ``table`` [n_defs, K, S] int32, ``first``
+    [n_defs] int32, ``chars`` [B, L] uint8, ``lengths`` [B] int32 ->
+    ``states``/``ids``/``start``/``endf`` [n_defs, L, B] and ``fwd``/``bwd``
+    [L, B] int32, written in place.  The serial recurrence: per position,
+    every def's entry (ids and flags masked by pos < length) and the forward
+    FSM over the sums across defs; then the backward FSM, descending."""
+    n_defs, _K, S = table.shape
+    B, L = chars.shape
+    dev = chars.device
+    offs = [(cmap[d].long()[chars.long()] * S).t() for d in range(n_defs)]  # [L, B]
+    flats = [table[d].reshape(-1).long() for d in range(n_defs)]
+    s = [first[d].long().expand(B) for d in range(n_defs)]
+    zero = torch.zeros(B, dtype=torch.long, device=dev)
+    prev_ids, prev_ef, x = zero, zero, zero
+    lens = lengths.long()
+    sums = []
+    for p in range(L):
+        en = (p < lens).long()
+        isum, ssum, esum = zero, zero, zero
+        for d in range(n_defs):
+            e = flats[d][offs[d][p] + s[d]]
+            s[d] = e & 0xFF
+            idv = (e >> FLAT_ID_SHIFT & 0xFFFF) * en
+            stv = (e >> FLAT_START_SHIFT & 1) * en
+            efv = (e >> FLAT_ENDF_SHIFT & 1) * en
+            states[d, p], ids[d, p], start[d, p], endf[d, p] = s[d], idv, stv, efv
+            isum, ssum, esum = isum + idv, ssum + stv, esum + efv
+        changed = prev_ids != isum  # forward FSM (src/lib.rs:598-645)
+        x = torch.where((ssum > 0) & changed, 1,
+                        torch.where((ssum == 0) & (prev_ef > 0) & changed, 0, x))
+        fwd[p] = x
+        prev_ids, prev_ef = isum, esum
+        sums.append((isum, ssum, esum))
+    next_ids, next_st, y = zero, zero, zero
+    for p in range(L - 1, -1, -1):  # backward FSM (src/lib.rs:663-714)
+        isum, ssum, esum = sums[p]
+        changed = next_ids != isum
+        y = torch.where((esum > 0) & changed, 1,
+                        torch.where((esum == 0) & (next_st > 0) & changed, 0, y))
+        bwd[p] = y
+        next_ids, next_st = isum, ssum
+
+
+def flat(cmap, table, first, chars, lengths, states, ids, start, endf, fwd, bwd) -> None:
+    """The flat stage, routed by device (module docstring)."""
+    args = (cmap, table, first, chars, lengths, states, ids, start, endf, fwd, bwd)
+    if _on_cuda(*args):
+        _kernels().table_flat_cuda(*args)
+    else:
+        flat_plain(*args)
+
+
+# ---------------------------------------------------------------------------
 # The matcher
 # ---------------------------------------------------------------------------
 
 
 class PallasMatcher(nn.Module):
-    """Table-driven split matcher (port of the JAX ``PallasMatcher`` in
-    split mode); a call returns a ``RegexResult`` equal to the JAX
+    """Table-driven matcher (port of the JAX ``PallasMatcher``, split and
+    monolithic modes); a call returns a ``RegexResult`` equal to the JAX
     matcher's, dtypes included.
 
     Args mirror the JAX constructor, less ``interpret``, plus ``device``
@@ -265,10 +344,12 @@ class PallasMatcher(nn.Module):
     batch.  ``chunk`` and ``slab`` are TPU blocking factors the port has
     no use for: other values raise ``ValueError``.  ``H2R_VMEM_BUDGET``
     and ``H2R_SEGMENT`` are read as in JAX, so ``mode``, ``grid_mode``,
-    ``segment`` and ``n_seg`` equal the JAX matcher's for the same model.
-    A model of more than 4096 pairs per def runs on the CPU only (the
-    tag kernel's list lives in shared memory).  The monolithic mode (B12) and the
-    TPU lowerings ``compute``, ``table_dtype`` and ``extract`` raise
+    ``segment`` and ``n_seg`` equal the JAX matcher's for the same model;
+    monolithic mode ignores ``grid_mode`` and runs the whole L in one flat
+    launch, as in JAX.  A split model of more than 4096 pairs per def runs
+    on the CPU only (the tag kernel's list lives in shared memory), and a
+    monolithic one of more than 8 defs (the flat kernel's limit).  The TPU
+    lowerings ``compute``, ``table_dtype`` and ``extract`` raise
     ``NotImplementedError`` naming their ROADMAP item.
     """
 
@@ -317,11 +398,6 @@ class PallasMatcher(nn.Module):
         self._budget = int(float(os.environ.get("H2R_VMEM_BUDGET", 56e6)))
         mode = self._build_tables(mode, max_boundary_terms)
         self._resolve_mode(mode, max_pairs)
-        if self.mode == "monolithic":
-            raise NotImplementedError(
-                "mode='monolithic' (the flat kernel B12, for more than max_pairs "
-                "pairs per def) waits for ROADMAP A7's remainder"
-            )
         self._size_tiles(batch_tile)
         self._register_tables()
         self.to(resolve_device(device))
@@ -331,9 +407,10 @@ class PallasMatcher(nn.Module):
     def _build_tables(self, mode: str, max_boundary_terms: int) -> str:
         """Byte-class compression per def, as the JAX ``_build_tables``:
         sets ``hi_lo``, ``class_info`` (use_classes, cls0, terms, table) and
-        the port's tables ``_cmap`` [n_defs, 256] and ``_next``
-        [n_defs, K, S] (K: the widest def's class count, 256 for a def
-        that keeps raw bytes, rounded up to 8)."""
+        the port's tables ``_cmap`` [n_defs, 256], ``_next``
+        [n_defs, K, S] and, for models of at most 256 states, the flat
+        stage's packed ``_flat`` [n_defs, K, S] (K: the widest def's class
+        count, 256 for a def that keeps raw bytes, rounded up to 8)."""
         model = self.model
         S = self.S
         n_defs = self.n_defs
@@ -364,6 +441,7 @@ class PallasMatcher(nn.Module):
         K = _round_up(max(k_rows, 8), 8)
         cmap = np.zeros((n_defs, 256), np.int32)
         nxt = np.zeros((n_defs, K, S), np.int32)
+        flat = None if hi_lo else np.zeros((n_defs, K, S), np.int32)
         for d, (use_classes, _cls0, _terms, tab) in enumerate(class_info):
             if use_classes:
                 cmap[d] = class_ofs[d]
@@ -373,7 +451,10 @@ class PallasMatcher(nn.Module):
             else:  # raw bytes: the identity map over the transition table
                 cmap[d] = np.arange(256)
                 nxt[d, :256] = model.transition[d]
-        self._cmap, self._next = cmap, nxt
+                tab = None if hi_lo else packed[d]
+            if flat is not None:
+                flat[d, : tab.shape[0]] = pack_flat_table(tab, S)
+        self._cmap, self._next, self._flat = cmap, nxt, flat
         return mode
 
     def _resolve_mode(self, mode: str, max_pairs: int) -> None:
@@ -405,10 +486,12 @@ class PallasMatcher(nn.Module):
         n_defs = self.n_defs
         split_blocks = max(n_defs + 1, 4 * n_defs, 3 * n_defs + 2)
         if not batch_tile:
-            per_tb = 2 * L * 4 * split_blocks
+            blocks = split_blocks if self.mode == "split" else 4 * n_defs + 3
+            per_tb = 2 * L * 4 * blocks
             batch_tile = max(128, min(1024, (self._budget // per_tb) // 128 * 128))
         self.batch_tile = batch_tile
-        if self.grid_mode == "batch" and 2 * L * 4 * split_blocks * batch_tile > self._budget:
+        if (self.mode == "split" and self.grid_mode == "batch"
+                and 2 * L * 4 * split_blocks * batch_tile > self._budget):
             self.grid_mode = "segmented"
         LS = min(int(os.environ.get("H2R_SEGMENT", 4096)), L)
         while L % LS != 0:
@@ -421,6 +504,8 @@ class PallasMatcher(nn.Module):
         self.register_buffer("class_map", torch.from_numpy(self._cmap))
         self.register_buffer("next_table", torch.from_numpy(self._next))
         self.register_buffer("pairs", torch.from_numpy(self._pairs))
+        self.register_buffer(
+            "flat_table", torch.from_numpy(self._flat) if self.mode == "monolithic" else None)
         self.register_buffer("accept_mask", torch.from_numpy(np.asarray(model.accept_mask, bool)))
         for name in ("accepted_states", "dummy_states", "dead_states", "first_states"):
             self.register_buffer(
@@ -456,11 +541,12 @@ class PallasMatcher(nn.Module):
         return self.finish(chars, lengths, *self.run_planes(chars, lengths, plain))
 
     def run_planes(self, chars: torch.Tensor, lengths: torch.Tensor, plain: bool = False):
-        """The three stages over ``window``-position launches: every scan,
-        then every tag, the forward FSM ascending and the backward FSM
-        descending (the JAX ``_run_segmented``; batch mode is one window).
-        Returns the time-major planes states, ids, start, endf
-        [n_defs, L, B] and fwd, bwd [L, B], all int32."""
+        """Split mode: the three stages over ``window``-position launches:
+        every scan, then every tag, the forward FSM ascending and the
+        backward FSM descending (the JAX ``_run_segmented``; batch mode is
+        one window).  Monolithic mode: one flat stage.  Returns the
+        time-major planes states, ids, start, endf [n_defs, L, B] and fwd,
+        bwd [L, B], all int32."""
         B, L = chars.shape
         if L != self.L:
             raise ValueError(f"chars are [B, {L}]; the model needs L={self.L}")
@@ -472,6 +558,11 @@ class PallasMatcher(nn.Module):
         def plane(*lead):
             return torch.empty((*lead, L, B), dtype=torch.int32, device=dev)
 
+        if self.mode == "monolithic":
+            outs = [plane(n_defs) for _ in range(4)] + [plane(), plane()]
+            (flat_plain if plain else flat)(self.class_map, self.flat_table, self.first_states,
+                                           chars, lengths, *outs)
+            return tuple(outs)
         firsts = self._firsts(B)
         states = plane(n_defs)
         self._scan_all(chars, firsts, states, plain)

@@ -285,7 +285,16 @@ def test_stage_on_unsupported_device_raises(ports):
     dict(class_stage="onehot"), dict(unroll=4),
 ])
 def test_unported_settings_raise(models, kw):
+    """Knob variants off the main path wait for their ROADMAP items.  The
+    tiled input contract no longer raises: it runs, with the tiled pack and
+    post (tests/test_torch_tiled.py holds it to the JAX package)."""
     kw.setdefault("columns", "witness")
+    if "input_layout" in kw:
+        m = T.BitplaneMatcher(models["regex3"][1], device="cpu", **kw)
+        assert m.plan.tiled and not m.plan.qpack and m.input_layout == "tiled"
+        out = m.match_one(b"from:alice@gmail.com\r\n")
+        assert bool(out["match_ok"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.BitplaneMatcher(models["regex3"][1], device="cpu", **kw)
 

@@ -326,3 +326,143 @@ def test_table_wrappers_reject_bad_inputs(dev):
         kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(64).long(), 0, 8, out)
     with pytest.raises(ValueError, match="together"):
         kernels.table_fsm_cuda(False, out, out, out, None, out[:, 0], None, 0, 8, out[0])
+
+
+# ---------------------------------------------------------------------------
+# the tiled input contract (B6 tpack, B3's tiled mode) and the monolithic
+# table kernel (B12 table_flat)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,L", [("regex3", MAX_LEN), ("two_def", MAX_LEN), ("from", MAX_LEN),
+                                    ("from", 1000)])
+def test_tiled_kernels_match_plain(dev, name, L):
+    """tpack and the post kernel's tiled mode against their plain versions
+    on 8192 strings (NWS = 2), at L == L_pad and at L_pad > L."""
+    model = _model(name, L)
+    plan = bp.make_plan(model, "witness", tiled=True)
+    chars, lengths = _corpus(8192, L, 11)
+    tiled = torch.from_numpy(bp.tile_corpus(chars, plan.L_pad)).to(dev)
+    lw = bp.len_table(torch.from_numpy(lengths).to(dev))
+    bits, en = bp.tpack_plain(plan, tiled, lw)
+    kb, ke = kernels.tpack_cuda(plan, tiled, lw)
+    assert torch.equal(kb, bits) and torch.equal(ke, en)
+    logs = kernels.scan_cuda(plan, bits)
+    g4, fb = bp.post_plain(plan, logs, en, tiled)
+    kg, kf = kernels.post_tiled_cuda(plan, logs, en, tiled)
+    assert torch.equal(kg, g4) and torch.equal(kf, fb)
+
+
+@pytest.mark.parametrize("columns", ["witness", "match"])
+@pytest.mark.parametrize("name,L", [("regex3", MAX_LEN), ("two_def", MAX_LEN), ("from", 1000)])
+def test_tiled_matcher_on_card_matches_cpu(dev, columns, name, L):
+    """The tiled matcher on the card equals the CPU run and the [B, L]
+    matcher, for lengths shorter than the tiled batch; tpack, the scan and
+    the tail launch once each, and no other kernel does."""
+    model = _model(name, L)
+    chars, lengths = _corpus(4099, L, 12)
+    m = T.BitplaneMatcher(model, columns=columns, input_layout="tiled", device=dev)
+    tiled = bp.tile_corpus(chars, m.L_pad)
+    kernels.reset_launch_counts()
+    got = m(tiled, lengths)
+    torch.cuda.synchronize()
+    path = kernels.path_kernels(m.plan)
+    assert {k.name for k in path} == {"tpack", "scan",
+                                      "post_tiled" if columns == "witness" else "fb_only"}
+    assert {k.name: k.launches for k in kernels.KERNELS} == {
+        k.name: int(k in path) for k in kernels.KERNELS}
+    _assert_same(got, T.BitplaneMatcher(model, columns=columns, input_layout="tiled",
+                                        device="cpu")(tiled, lengths))
+    _assert_same(got, T.BitplaneMatcher(model, columns=columns, device="cpu")(chars, lengths))
+
+
+def _dict_model(L=MAX_LEN):
+    return T.zoo.dictionary_model(40, max_chars_size=L)
+
+
+def _flat_case(name):
+    """(model, PallasMatcher kwargs) of the monolithic cases: fixture
+    models forced monolithic, the 40-word dictionary (auto resolves to
+    monolithic) and a raw-bytes 256-state table (K = 256, read from global
+    memory)."""
+    if name == "dict40":
+        return _dict_model(), {}
+    if name == "raw256":
+        return _large_model(S=250), dict(mode="monolithic", max_boundary_terms=0)
+    return _model(name), dict(mode="monolithic")
+
+
+def _flat_corpus(name, n, seed):
+    if name == "raw256":
+        return _table_corpus("large", n, seed)
+    chars, lengths = _table_corpus("from" if name != "dict40" else "regex3", n, seed)
+    if name == "dict40":  # tag:<word>\r\n in every third string
+        words = T.zoo.dictionary_config()["parts"][1]["regex_def"][1:-1].split("|")
+        rng = np.random.default_rng(seed)
+        for i in range(0, n, 3):
+            s = b"tag:" + words[int(rng.integers(0, len(words)))].encode() + b"\r\n"
+            chars[i, : len(s)] = bytearray(s)
+            lengths[i] = len(s)
+    return chars, lengths
+
+
+@pytest.mark.parametrize("smem", [True, False])
+@pytest.mark.parametrize("name", ["regex3", "two_def", "from", "dict40", "raw256"])
+def test_table_flat_matches_plain(dev, monkeypatch, name, smem):
+    """table_flat against flat_plain on 4099 strings (a ragged grid), with
+    the packed table in shared memory and read from global memory; the
+    raw-bytes 256-state table does not fit shared memory and always takes
+    the global path."""
+    from halo2_regex_tpu_torch.ops import pallas_scan as ps
+
+    model, kw = _flat_case(name)
+    m = T.PallasMatcher(model, device=dev, **kw)
+    assert m.mode == "monolithic"
+    n_defs, K, S = m.flat_table.shape
+    fits = kernels.flat_smem_bytes(n_defs, K, S, kernels._smem_optin(dev)) > 0
+    assert fits == (name != "raw256")
+    if not smem:
+        monkeypatch.setattr(kernels, "flat_smem_bytes", lambda *a: 0)
+    chars, lengths = _flat_corpus(name, 4099, 13)
+    ch = torch.from_numpy(chars).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    B = ch.shape[0]
+
+    def outs():
+        return ([torch.full((n_defs, MAX_LEN, B), -7, dtype=torch.int32, device=dev)
+                 for _ in range(4)]
+                + [torch.full((MAX_LEN, B), -7, dtype=torch.int32, device=dev)
+                   for _ in range(2)])
+
+    want, got = outs(), outs()
+    args = (m.class_map, m.flat_table, m.first_states, ch, ln)
+    ps.flat_plain(*args, *want)
+    kernels.table_flat_cuda(*args, *got)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if name != "raw256":
+        assert bool((want[4] * want[5]).any())  # the mask lights up
+
+
+@pytest.mark.parametrize("name", ["regex3", "two_def", "dict40", "raw256"])
+def test_monolithic_matcher_on_card_matches_cpu(dev, name):
+    """The monolithic matcher on the card equals the CPU run on every
+    field and dtype (chars at an odd address: byte loads, too); one
+    table_flat launch and no other kernel."""
+    model, kw = _flat_case(name)
+    m = T.PallasMatcher(model, device=dev, **kw)
+    chars, lengths = _flat_corpus(name, 4099, 14)
+    for odd in (False, True):
+        ch = torch.from_numpy(chars).to(dev)
+        if odd:
+            buf = torch.zeros(chars.size + 1, dtype=torch.uint8, device=dev)
+            ch = buf[1:].view(chars.shape)
+            ch.copy_(torch.from_numpy(chars))
+        kernels.reset_launch_counts()
+        got = m(ch, torch.from_numpy(lengths).to(dev))
+        torch.cuda.synchronize()
+        want_counts = {k.name: 0 for k in kernels.KERNELS}
+        want_counts["table_flat"] = 1
+        assert {k.name: k.launches for k in kernels.KERNELS} == want_counts
+        _assert_same(got, T.PallasMatcher(model, device="cpu", **kw)(chars, lengths))

@@ -1,10 +1,11 @@
 """The PyTorch port never imports JAX.
 
 ``tests/conftest.py`` imports jax into the test process itself, so the
-check runs the port in a fresh interpreter: import it, run a tiny match
-of each column set, a run extraction and the table-driven ``PallasMatcher``
-(batch and segmented) on the CPU, and assert that neither JAX nor the JAX
-package was loaded along the way.
+check runs the port in a fresh interpreter: import it with its CLI, corpus
+utilities and native packers, run a tiny match of each column set, a run
+extraction, a tiled match, the table-driven ``PallasMatcher`` (batch,
+segmented and monolithic) and a CLI scan on the CPU, and assert that
+neither JAX nor the JAX package was loaded along the way.
 """
 
 import os
@@ -14,9 +15,12 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import sys
+import os, sys, tempfile
 import numpy as np
 import halo2_regex_tpu_torch as h2r
+import halo2_regex_tpu_torch.cli, halo2_regex_tpu_torch.native
+import halo2_regex_tpu_torch.utils.io, halo2_regex_tpu_torch.utils.jobs
+import halo2_regex_tpu_torch.utils.trace
 
 cfg = h2r.DecomposedRegexConfig.from_json({
     "max_byte_size": 32,
@@ -44,6 +48,18 @@ for grid_mode in ("batch", "segmented"):
     table = h2r.PallasMatcher(model, grid_mode=grid_mode, device="cpu")(chars, lengths)
     assert table.match_ok.tolist() == [True, False], table
     assert table.all_substr_ids.tolist() == res.all_substr_ids.long().tolist()
+mono = h2r.PallasMatcher(model, mode="monolithic", device="cpu")
+assert mono.mode == "monolithic"
+assert mono(chars, lengths).all_substr_ids.tolist() == res.all_substr_ids.long().tolist()
+tl = h2r.BitplaneMatcher(model, columns="match", input_layout="tiled", device="cpu")
+assert tl(h2r.tile_corpus(chars, tl.L_pad), lengths)["match_ok"].tolist() == [True, False]
+with tempfile.TemporaryDirectory() as d:
+    model.save(os.path.join(d, "m.npz"))
+    with open(os.path.join(d, "c.txt"), "wb") as f:
+        f.write(b"id: 1234.\nnope\n")
+    assert halo2_regex_tpu_torch.cli.main(
+        ["scan", "--model", os.path.join(d, "m.npz"), "--device", "cpu",
+         "--input-layout", "tiled", os.path.join(d, "c.txt")]) == 0
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu"))
 assert not bad, bad

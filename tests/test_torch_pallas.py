@@ -1,4 +1,4 @@
-"""The PyTorch port's table-driven split matcher against the JAX package.
+"""The PyTorch port's table-driven matcher against the JAX package.
 
 Each stage's plain PyTorch version (``scan_plain``, ``tag_plain``,
 ``fsm_plain``) is held against the JAX kernel it stands for, run in Pallas
@@ -8,7 +8,11 @@ and the three B11 kernels (``_make_scan_seg``, ``_make_tag_seg``,
 ``_make_fsm_seg``) on one middle segment with its carries.  The whole
 ``RegexResult`` is held against the JAX ``PallasMatcher`` in batch mode and
 segmented (``H2R_SEGMENT=16``), and for a model beyond 256 states (the
-scaled-down BASELINE configs[3] of tests/test_pallas_scan.py).  All outputs
+scaled-down BASELINE configs[3] of tests/test_pallas_scan.py).  Monolithic
+mode's ``flat_plain`` is held against the interpret-mode B12
+(``_make_flat``) on fixture models forced monolithic (one that JAX fuses
+into a joint-def table, one that keeps raw bytes) and on the 40-word
+dictionary model, which resolves to monolithic by itself.  All outputs
 are integers or booleans: tolerance 0, dtypes included.  The CUDA kernels
 are held against these same plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
@@ -382,12 +386,18 @@ def test_match_one_matches_oracle(models):
     dict(table_dtype="int8"), dict(extract="take_along"),
 ])
 def test_unported_settings_raise(models, kw):
-    """The monolithic kernel (B12; also when ``auto`` resolves to it) and
-    the TPU lowerings wait for their ROADMAP items."""
+    """The TPU lowerings wait for their ROADMAP items.  The monolithic
+    mode (B12), asked for or resolved by ``auto`` beyond ``max_pairs``, no
+    longer raises: it runs, equal to the JAX matcher's."""
+    if "mode" in kw or "max_pairs" in kw:
+        m = T.PallasMatcher(models["regex3"][1], device="cpu", **kw)
+        jm = JaxPallas(models["regex3"][0], batch_tile=TB, interpret=True, **kw)
+        assert m.mode == jm.mode == "monolithic"
+        chars, lengths = _corpus("regex3", TB, 30)
+        assert_result_equal(m(chars, lengths), jm(chars, lengths))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.PallasMatcher(models["regex3"][1], device="cpu", **kw)
-    if "max_pairs" in kw:
-        assert JaxPallas(models["regex3"][0], interpret=True, **kw).mode == "monolithic"
 
 
 def test_refusals_match_jax(models):
@@ -439,3 +449,123 @@ def test_stage_on_unsupported_device_raises(ports):
     out = torch.empty((1, MAX_LEN, TB), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="several devices"):
         ps.scan(m.class_map, m.next_table, x, m._firsts(TB), 0, MAX_LEN, out)
+
+
+# ---------------------------------------------------------------------------
+# monolithic mode: the flat stage (B12)
+# ---------------------------------------------------------------------------
+
+# name -> (JAX/port model key, constructor kwargs): regex3 forced
+# monolithic; two_def, whose two defs JAX fuses into one joint-def table;
+# regex3 with raw bytes (no byte classes: K = 256); the 40-word dictionary,
+# monolithic by itself (211 pairs > max_pairs)
+FLAT = {
+    "regex3": ("regex3", dict(mode="monolithic")),
+    "two_def": ("two_def", dict(mode="monolithic")),
+    "raw": ("regex3", dict(mode="monolithic", max_boundary_terms=0)),
+    "dict40": ("dict40", {}),
+}
+
+
+def _dict40():
+    cfg = T.zoo.dictionary_config(40, max_byte_size=MAX_LEN)
+    return (J.CompiledRegexModel.from_decomposed([J.DecomposedRegexConfig.from_json(cfg)],
+                                                 max_chars_size=MAX_LEN),
+            T.zoo.dictionary_model(40, max_chars_size=MAX_LEN))
+
+
+def _dict_corpus(n, seed):
+    """Random lowercase strings of varied lengths, with ``tag:<word>\r\n``
+    (a match) in every other string and a word with a wrong ending in
+    every fourth."""
+    rng = np.random.default_rng(seed)
+    words = T.zoo.dictionary_config()["parts"][1]["regex_def"][1:-1].split("|")
+    chars = rng.integers(97, 123, size=(n, MAX_LEN)).astype(np.uint8)
+    lengths = rng.integers(0, MAX_LEN + 1, size=n).astype(np.int32)
+    for i in range(0, n, 2):
+        s = b"tag:" + words[int(rng.integers(0, len(words)))].encode()
+        s += b"\r\n" if i % 4 == 0 else b"\r"
+        chars[i, : len(s)] = bytearray(s)
+        lengths[i] = len(s)
+    return chars, lengths
+
+
+@pytest.fixture(scope="module")
+def flat_models(models):
+    out = {"dict40": _dict40()}
+    out.update({k: models[k] for k in ("regex3", "two_def")})
+    return out
+
+
+def _flat_corpus(name, n, seed):
+    return _dict_corpus(n, seed) if name == "dict40" else _corpus(FLAT[name][0], n, seed)
+
+
+@pytest.mark.parametrize("name", list(FLAT))
+def test_flat_plain_matches_jax(flat_models, name):
+    """flat_plain's six planes against the interpret-mode JAX flat kernel
+    on its own tables, 8 strings."""
+    key, kw = FLAT[name]
+    jmodel, tmodel = flat_models[key]
+    jm = JaxPallas(jmodel, batch_tile=TB, interpret=True, **kw)
+    m = T.PallasMatcher(tmodel, device="cpu", **kw)
+    assert jm.mode == m.mode == "monolithic"
+    assert jm.fuse_defs == (name == "two_def")
+    assert jm._raw_needed == (name == "raw") == (m.flat_table.shape[1] == 256)
+    chars, lengths = _flat_corpus(name, TB, 31)
+    want = jm._make_flat(TB)(jm._tables_c, jm._tables_raw, jm._tables_joint,
+                             jnp.asarray(chars.astype(np.int32).T), jnp.asarray(lengths)[None, :])
+    outs = [torch.full(np.shape(w), -7, dtype=torch.int32) for w in want]
+    ps.flat_plain(m.class_map, m.flat_table, m.first_states, _t(chars), _t(lengths), *outs)
+    for got, w, key in zip(outs, want, ("states", "ids", "start", "endf", "fwd", "bwd")):
+        assert_equal(got, w, key)
+    if name != "two_def":
+        assert (np.asarray(want[4]) * np.asarray(want[5])).any()  # the mask lights up
+
+
+@pytest.mark.parametrize("name", list(FLAT))
+def test_monolithic_matches_jax(flat_models, name):
+    """Every RegexResult field and dtype against the JAX monolithic
+    matcher, 13 strings (the JAX side pads to 16)."""
+    key, kw = FLAT[name]
+    jmodel, tmodel = flat_models[key]
+    chars, lengths = _flat_corpus(name, 13, 32)
+    want = JaxPallas(jmodel, batch_tile=TB, interpret=True, **kw)(chars, lengths)
+    got = T.PallasMatcher(tmodel, device="cpu", **kw)(chars, lengths)
+    assert_result_equal(got, want)
+    if name in ("regex3", "dict40"):
+        assert got.match_ok.any() and got.all_substr_ids.any()
+
+
+def test_dict40_sizing_and_backends_agree(flat_models):
+    """The dictionary model at L=64: s_pad 184 and 211 pairs, so ``auto``
+    resolves to monolithic with the JAX matcher's batch tile and grid
+    mode (monolithic stays ``batch`` at any L); the bit-sliced matcher
+    and the split matcher (``max_pairs=4096``) give the same RegexResult."""
+    jmodel, tmodel = flat_models["dict40"]
+    m = T.PallasMatcher(tmodel, device="cpu")
+    jm = JaxPallas(jmodel, interpret=True)
+    assert (m.S, [len(p) for p in m.pair_info]) == (jm.S, [len(p) for p in jm.pair_info]) == (
+        184, [211])
+    assert (m.mode, m.grid_mode, m.batch_tile) == (jm.mode, jm.grid_mode, jm.batch_tile) == (
+        "monolithic", "batch", 1024)
+    chars, lengths = _dict_corpus(40, 33)
+    got = m(chars, lengths)
+    assert_result_equal(got, T.PallasMatcher(tmodel, max_pairs=4096, device="cpu")(
+        chars, lengths).map(lambda v: v.numpy()))
+    assert_result_equal(got, T.BitplaneMatcher(tmodel, compact=False, device="cpu")(
+        chars, lengths).map(lambda v: v.numpy()))
+    assert int(got.match_ok.sum()) == 10
+
+
+def test_flat_smem_sizing():
+    """The flat kernel stages its packed table in shared memory when it
+    fits the card's opt-in limit (227 KiB on the H100): the dictionary
+    model's 32 x 184 table does; a raw-bytes def (K = 256) at S = 256 does
+    not, and its wrapper sends it to global memory (smem bytes 0)."""
+    from halo2_regex_tpu_torch.ops import kernels
+
+    optin = 232448
+    assert kernels.flat_smem_bytes(1, 32, 184, optin) == 4 * 32 * 184
+    assert kernels.flat_smem_bytes(1, 256, 256, optin) == 0
+    assert kernels.flat_smem_bytes(2, 128, 256, optin) == 0
