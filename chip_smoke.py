@@ -34,7 +34,14 @@ paths:
   cli_scan  ``cli.main(["scan", ...])`` in process over a 100,000-line
             file (the first 50,000 bench.py strings, each split at its
             \r\n into a filler line and a from: line), batch 32768, both
-            input layouts.
+            input layouts;
+  knob paths  ``KNOB_PATHS``: the from: model under each knob value off
+            the default (emit direct / kdecode / planes, post="xla" for
+            witness and full, fuse_pack, class stage off and onehot,
+            match with en_pack off, unroll 1, 2, 4, 8): post_direct,
+            decode, scan_fpack and the pack, scan and post kernels' modes;
+  scan_planes  ``BitplaneMatcher.scan_planes(bits, d)`` for each def of
+            the 3-def email model (from, to, subject) at L=1024: scan_def.
 
 and proves on the card that:
 
@@ -43,8 +50,10 @@ and proves on the card that:
      library per bitplane path and one for the table kernels, every
      source compiled at once);
   3. the models compile and the corpora are built;
-  4. each of the twelve kernels is bit-exact against its plain PyTorch
-     version on the same inputs at that size (the table kernels on the
+  4. each of the sixteen kernels, and each knob mode of the pack, scan
+     and post kernels, is bit-exact against its plain PyTorch version on
+     the same inputs at that size (scan_def also against the fused
+     scan's slices) (the table kernels on the
      first segment of configs[3] and on the whole from: corpus, and on a
      middle window of its first 4096 strings with carries on both sides,
      where the FSM runs in chunks; the from: planes must not be all
@@ -59,7 +68,9 @@ and proves on the card that:
      every field, pallas_from at B=4096 its plain pipeline; the tiled
      paths equal the [B, L] paths on every key; cli_scan's counters are
      equal between the layouts and count the match path's verdicts on the
-     same packed lines;
+     same packed lines; each knob path equals its plain pipeline, the
+     default path of its column set on every key and the oracle's
+     subset; scan_planes the oracle's states of each def;
   6. timings with CUDA events (2 warm-ups, 10 timed runs, median and
      IQR; L2 flushed before each timed run): each kernel's device time
      beside its plain version's and its bound (the larger of its bytes
@@ -71,9 +82,12 @@ and proves on the card that:
      2 + 10 runs, the others with PLAIN_WARMUP + PLAIN_ITERS); the tiled
      and [B, L] walls side by side at B=32768 and B=4096 with the host's
      tile_corpus time per batch; pallas_dict beside its split-mode
-     equivalent (max_pairs=4096); cli_scan's bytes per second per layout.
+     equivalent (max_pairs=4096); cli_scan's bytes per second per layout;
+     the knob paths' kernels and walls (their plain scans and pipelines
+     over 1 run, seconds each).
 
-Prints one JSON line of per-kernel results, then the nvidia-smi line, then
+Prints one JSON line of per-kernel results (the knob modes of a kernel
+under its ``modes``), then the nvidia-smi line, then
 as its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero without that line, as does a machine without CUDA.  A full
 record goes to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX.
@@ -113,6 +127,22 @@ WIN0, WIN_LS = 256, 512  # the B=4096 from: window checks: [256, 768) of L
 EXTRACT = dict(max_runs=4, max_len=32)  # run_benchmarks._extract_serving
 KEYS = ("states", "all_substr_ids", "masked_characters", "flags", "mask",
         "accepted", "has_dead", "match_ok")
+# the knob paths on the from: model: (columns, BitplaneMatcher knobs); each
+# equals the default-knob path of its column set on every key
+KNOB_PATHS = {
+    "witness_direct": ("witness", {"emit": "direct"}),
+    "witness_kdecode": ("witness", {"emit": "kdecode"}),
+    "witness_planes": ("witness", {"emit": "planes"}),
+    "witness_post_xla": ("witness", {"post": "xla"}),
+    "full_post_xla": ("full", {"post": "xla"}),
+    "witness_fuse_pack": ("witness", {"fuse_pack": True}),
+    "witness_class_off": ("witness", {"class_stage": False}),
+    "witness_onehot": ("witness", {"class_stage": "onehot"}),
+    "match_en_off": ("match", {"en_pack": False}),
+    **{f"witness_unroll{u}": ("witness", {"unroll": u}) for u in (1, 2, 4, 8)},
+}
+ORACLE_KEYS = {"witness": ("states", "all_substr_ids", "masked_characters", "mask", "match_ok"),
+               "match": ("accepted", "has_dead", "match_ok")}
 
 
 def log(msg: str) -> None:
@@ -287,6 +317,10 @@ def profile_call(fn, n: int = 5) -> dict:
 def max_abs_err(a, b) -> int:
     if isinstance(a, (tuple, list)):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
+    if a is None or b is None:  # an output the mode does not write (en_pack off)
+        if (a is None) != (b is None):
+            raise AssertionError("an output is missing on one side")
+        return 0
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
                              f"{tuple(b.shape)} {b.dtype}")
@@ -310,6 +344,217 @@ def assert_same(path: str, got, want) -> None:
 
 def fmt(t: dict) -> str:
     return f"{t['median']:.4f} ms (IQR {t['iqr'][0]:.4f}-{t['iqr'][1]:.4f})"
+
+
+def oracle_equal(path: str, out, keys, rows: dict, idx: np.ndarray) -> None:
+    """The subset ``idx`` of a path's output equals the numpy oracle's
+    results ``rows`` (string index -> match_substrs result) on ``keys``."""
+    out = as_dict(out)
+    sub = torch.from_numpy(idx).to(out[keys[0]].device)
+    host = {k: out[k][sub].cpu().numpy() for k in keys}
+    for r, i in enumerate(idx):
+        for key in keys:
+            if not np.array_equal(np.asarray(host[key][r]).astype(np.int64),
+                                  np.asarray(getattr(rows[int(i)], key)).astype(np.int64)):
+                raise AssertionError(f"{path}: string {i}: {key} differs from the oracle")
+
+
+def knob_paths(h2r, bp, kernels, knob_ms, hdr, chars, lengths, main, twins, oracle_rows,
+               idx, flush, card) -> dict:
+    """[4]-[6] of the knob paths (``KNOB_PATHS``) and of ``scan_planes``
+    (B7, each def of the 3-def email model ``hdr``), at B x L on the
+    from: corpus: each new kernel and kernel mode against its plain
+    version on the same inputs (``main``: the default plan's length table,
+    pack, scan and enable planes); each path once through the matcher with
+    the launch counts reset just before it, equal to its plain pipeline,
+    to its column set's default-knob path ``twins`` and, on the subset
+    ``idx``, to the numpy oracle; then kernel and end-to-end times.  The
+    plain scans take seconds a run, so the plain versions of these
+    kernels and paths are timed over fewer runs (``runs`` in the record).
+    Returns the ``kernels`` rows of the four new kernels, the mode rows of
+    the existing ones, and the record."""
+    from halo2_regex_tpu_torch.ops.reference import match_substrs
+
+    P = {p: m.plan for p, m in knob_ms.items()}
+    p3 = hdr.plan
+    words = B // 32
+    plane = L * words * 4  # bytes of one [NWS, L, 128] int32 plane
+
+    def ops(plan, what, defs=None):
+        cs = plan.circuits if defs is None else [plan.circuits[d] for d in defs]
+        f = {"class": lambda c: c.class_prog.n_ops if plan.class_stage else 0,
+             "step": lambda c: c.step_ops, "tag": lambda c: c.tag_ops}[what]
+        return sum(f(c) for c in cs) * L * words
+
+    def n_in(plan, d):  # the scan input planes def d reads
+        return len(plan.circuits[d].class_plane_names) or 8
+
+    len_wb, bits_p, en_p, logs_p = (main[k] for k in ("len_wb", "bits", "en", "logs"))
+    quads = bp.raw_quads(chars, L)
+    pk = P["witness_kdecode"]
+    g4_p = bp.post_plain(pk, logs_p, en_p)[0].contiguous()
+    ch_l4 = chars.reshape(-1).view(torch.int32).reshape(B, pk.l4)
+    bits3 = kernels.qpack_cuda(p3, chars, bp.len_table(lengths))[0]
+    inputs = {}  # a mode's scan input: its pack's plain output
+    for mode, path in (("class_off", "witness_class_off"), ("onehot", "witness_onehot")):
+        inputs[mode] = bp.qpack_plain(P[path], chars, len_wb)
+    # (kernel, mode or None, the path that launches it, kernel call, plain
+    # call, bound, plain runs)
+    stages = []
+    for mode, path in (("class_off", "witness_class_off"), ("onehot", "witness_onehot"),
+                       ("en_off", "match_en_off")):
+        pl = P[path]
+        stages.append((kernels.QPACK, mode, path,
+                       lambda pl=pl: kernels.qpack_cuda(pl, chars, len_wb),
+                       lambda pl=pl: bp.qpack_plain(pl, chars, len_wb),
+                       bound(B * L + nbytes(len_wb) * pl.en_pack + plane * (pl.kp + pl.en_pack),
+                             ops(pl, "class")), (PLAIN_WARMUP, PLAIN_ITERS)))
+    scan_modes = [("fold_class", "witness_class_off", inputs["class_off"][0]),
+                  ("onehot", "witness_onehot", inputs["onehot"][0])]
+    scan_modes += [(f"unroll{u}", f"witness_unroll{u}", bits_p) for u in (1, 2, 4, 8)]
+    for mode, path, x in scan_modes:
+        pl = P[path]
+        stages.append((kernels.SCAN, mode, path, lambda pl=pl, x=x: kernels.scan_cuda(pl, x),
+                       lambda pl=pl, x=x: bp.scan_plain(pl, x),
+                       bound(plane * (pl.kp + pl.sb_sum), ops(pl, "step")), (0, 1)))
+    pf = P["witness_fuse_pack"]
+    # the in-scan pack: 8 byte-bit planes of 8 shift-and-or terms a word
+    stages.append((kernels.SCAN_FPACK, None, "witness_fuse_pack",
+                   lambda: kernels.scan_fpack_cuda(pf, quads), lambda: bp.scan_fpack_plain(pf, quads),
+                   bound(nbytes(quads) + plane * pf.sb_sum,
+                         ops(pf, "step") + 8 * 8 * 3 * L * words), (0, 1)))
+    # scan_planes: one launch per def, the row times the three together
+    stages.append((kernels.SCAN_DEF, None, "scan_planes",
+                   lambda: [kernels.scan_def_cuda(p3, bits3, d) for d in range(p3.n_defs)],
+                   lambda: [bp.scan_def_plain(p3, bits3, d) for d in range(p3.n_defs)],
+                   bound(sum(plane * (n_in(p3, d) + c.sb) for d, c in enumerate(p3.circuits)),
+                         ops(p3, "step")), (0, 1)))
+    pd = P["witness_direct"]
+    stages.append((kernels.POST_DIRECT, None, "witness_direct",
+                   lambda: kernels.post_direct_cuda(pd, logs_p, en_p),
+                   lambda: bp.post_direct_plain(pd, logs_p, en_p),
+                   bound(plane * (pd.sb_sum + 1) + len(pd.dfields) * B * L, ops(pd, "tag")),
+                   (PLAIN_WARMUP, PLAIN_ITERS)))
+    stages.append((kernels.POST, "kdecode", "witness_kdecode",
+                   lambda: kernels.post_cuda(pk, logs_p, en_p), lambda: bp.post_plain(pk, logs_p, en_p),
+                   bound(plane * (pk.sb_sum + 1 + 8 * pk.n_groups) + words * pk.n_defs * 8 * 4,
+                         ops(pk, "tag")), (PLAIN_WARMUP, PLAIN_ITERS)))
+    # the decode: per output int32 four byte extractions and placements
+    n_out = len(pk.fields_flat) + 1
+    stages.append((kernels.DECODE, None, "witness_kdecode",
+                   lambda: kernels.decode_cuda(pk, g4_p, ch_l4), lambda: bp.decode_plain(pk, g4_p, ch_l4),
+                   bound(nbytes(g4_p, ch_l4) + n_out * B * L, 16 * n_out * B * L // 4),
+                   (PLAIN_WARMUP, PLAIN_ITERS)))
+    pp = P["witness_planes"]
+    stages.append((kernels.POST_PLANES, "witness", "witness_planes",
+                   lambda: kernels.post_planes_cuda(pp, logs_p, en_p),
+                   lambda: bp.post_planes_plain(pp, logs_p, en_p),
+                   bound(plane * (pp.sb_sum + 1 + pp.p_total), ops(pp, "tag")),
+                   (PLAIN_WARMUP, PLAIN_ITERS)))
+
+    def label(k, mode):
+        return k.name if mode is None else f"{k.name}[{mode}]"
+
+    errs = {}
+    for k, mode, _path, run_k, run_p, bd, _runs in stages:
+        want = run_p()
+        got = run_k()
+        torch.cuda.synchronize()
+        errs[label(k, mode)] = err = max_abs_err(got, want)
+        log(f"[4] {label(k, mode)}: kernel vs plain max_abs_err={err} (tolerance 0, integer "
+            f"outputs); bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+        if err != 0:
+            raise AssertionError(f"{label(k, mode)} kernel disagrees with its plain version")
+        if k is kernels.SCAN_DEF:  # each def's planes are the fused scan's slice
+            fused = kernels.scan_cuda(p3, bits3)
+            for d, c in enumerate(p3.circuits):
+                if not torch.equal(got[d], fused[:, p3.sb_off[d]: p3.sb_off[d] + c.sb]):
+                    raise AssertionError(f"scan_def of def {d} differs from the fused scan's slice")
+            log(f"[4] scan_def: each of the {p3.n_defs} defs equals its slice of the fused scan")
+            del fused
+        del got, want
+
+    # [5] each path once, with launch counts
+    launches, outs, n_ok = {}, {}, {}
+    for path, m in knob_ms.items():
+        columns = KNOB_PATHS[path][0]
+        kernels.reset_launch_counts()
+        out = m(chars, lengths)
+        torch.cuda.synchronize()
+        launches[path] = {k.name: k.launches for k in kernels.KERNELS}
+        want = {k.name: int(k in kernels.path_kernels(m.plan)) for k in kernels.KERNELS}
+        log(f"[5] {path}: launches {launches[path]}")
+        if launches[path] != want:
+            raise AssertionError(f"{path}: launch counts {launches[path]}, expected {want}")
+        assert_same(path, out, bp.run(m.plan, m.tables(), chars, lengths, plain=True))
+        assert_same(f"{path} vs {columns}", out, twins[columns])
+        oracle_equal(path, out, ORACLE_KEYS.get(columns) or h2r.RegexResult.field_names(),
+                     oracle_rows, idx)
+        torch.cuda.synchronize()
+        n_ok[path] = int(as_dict(out)["match_ok"].sum())
+        log(f"[5] {path}: equals its plain pipeline and the default-knob {columns} path on all "
+            f"{len(as_dict(out))} outputs, dtypes included; {len(idx)} strings equal the "
+            f"numpy oracle")
+        del out
+    kernels.reset_launch_counts()
+    got = [hdr.scan_planes(bits3, d) for d in range(p3.n_defs)]
+    torch.cuda.synchronize()
+    launches["scan_planes"] = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"[5] scan_planes: launches {launches['scan_planes']}")
+    if launches["scan_planes"] != {k.name: p3.n_defs * (k is kernels.SCAN_DEF)
+                                   for k in kernels.KERNELS}:
+        raise AssertionError("scan_planes: expected one scan_def launch per def and no other")
+    assert_same("scan_planes", dict(enumerate(got)),
+                dict(enumerate(bp.scan_def_plain(p3, bits3, d) for d in range(p3.n_defs))))
+    # the states after each byte, unpacked, against the oracle's
+    vals = bp.unpack_groups([(f"s{d}", [got[d][:, j] for j in range(c.sb)])
+                             for d, c in enumerate(p3.circuits)], L)
+    c_np, l_np = (t.cpu().numpy() for t in (chars, lengths))
+    host = {d: vals[f"s{d}"][torch.from_numpy(idx).to(chars.device)].cpu().numpy()
+            for d in range(p3.n_defs)}
+    for r, i in enumerate(idx):
+        o = match_substrs(hdr.model.regex_defs, bytes(c_np[i, : l_np[i]]), L)
+        for d in range(p3.n_defs):
+            n = int(l_np[i])
+            if not np.array_equal(host[d][r, :n].astype(np.int64),
+                                  np.asarray(o.states[d, 1: n + 1]).astype(np.int64)):
+                raise AssertionError(f"scan_planes: string {i}, def {d}: states differ from "
+                                     "the oracle")
+    log(f"[5] scan_planes: equals scan_def_plain for each def; {len(idx)} strings' states "
+        f"equal the numpy oracle's for all {p3.n_defs} defs")
+    del got, vals
+
+    # [6] timings
+    rows, modes, times = [], {}, {}
+    for k, mode, path, run_k, run_p, bd, (pw, pi) in stages:
+        tk = time_ms(run_k, flush, device_only=True)
+        tp = time_ms(run_p, flush, device_only=True, warmup=pw, iters=pi)
+        times[label(k, mode)] = {"kernel": tk, "plain": tp, **bd}
+        log(f"[6] {label(k, mode)}: kernel {fmt(tk)}, plain {fmt(tp)} over {tp['runs']} runs; "
+            f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+        row = {"launches": launches[path][k.name], "max_abs_err": errs[label(k, mode)],
+               "ms": tk["median"], "plain_ms": tp["median"], "bound_ms": bd["bound_ms"],
+               "bound_by": bd["bound_by"], "library_ms": None}
+        if mode is None:
+            rows.append({"name": k.name, "route": "cuda", "source": k.source,
+                         "replaces": k.replaces, **row})
+        else:
+            modes.setdefault(k.name, {})[mode] = row
+    for path, m in knob_ms.items():
+        t = time_ms(lambda: m(chars, lengths), flush, device_only=False)
+        tp = time_ms(lambda: bp.run(m.plan, m.tables(), chars, lengths, plain=True), flush,
+                     device_only=False, warmup=0, iters=1)
+        times[f"end_to_end_{path}"] = {"kernel": t, "plain": tp,
+                                       "input_gb_per_s": B * L / (t["median"] * 1e-3) / 1e9}
+        log(f"[6] end to end {path}: {fmt(t)}, "
+            f"{times[f'end_to_end_{path}']['input_gb_per_s']:.3f} GB/s of input; plain "
+            f"pipeline {fmt(tp)} over 1 run; card {card}")
+    t = time_ms(lambda: [hdr.scan_planes(bits3, d) for d in range(p3.n_defs)], flush,
+                device_only=False)
+    times["end_to_end_scan_planes"] = {"kernel": t}
+    log(f"[6] end to end scan_planes ({p3.n_defs} calls): {fmt(t)}; card {card}")
+    return {"rows": rows, "modes": modes, "times": times, "errs": errs, "launches": launches,
+            "match_ok": n_ok}
 
 
 def main() -> dict:
@@ -372,13 +617,28 @@ def main() -> dict:
         raise AssertionError("configs[3] no longer sizes as in JAX (16 x 4096, 96 classes)")
     if (mf.mode, mf.grid_mode) != ("split", "batch"):
         raise AssertionError("the from: table path is no longer split/batch")
+    # the knob paths, and the 3-def email model whose defs scan_planes runs
+    knob_ms = {p: h2r.BitplaneMatcher(model, columns=c, **kw) for p, (c, kw) in KNOB_PATHS.items()}
+    hdr = h2r.BitplaneMatcher(h2r.zoo.email_headers_model(max_chars_size=L), columns="match")
+    resolved = {p: (m.plan.emit, m.plan.post, m.plan.fuse_pack, m.plan.class_stage, m.plan.kp,
+                    m.plan.en_pack, m.plan.unroll) for p, m in knob_ms.items()}
+    if ([resolved[p][0] for p in ("witness_direct", "witness_kdecode", "witness_planes")]
+            != ["direct", "kdecode", "planes"] or not resolved["witness_fuse_pack"][2]
+            or resolved["witness_class_off"][3:5] != (False, 8)
+            or resolved["witness_onehot"][3] != "onehot" or resolved["match_en_off"][5]
+            or [resolved[f"witness_unroll{u}"][6] for u in (1, 2, 4, 8)] != [1, 2, 4, 8]
+            or hdr.plan.n_defs != 3):
+        raise AssertionError(f"a knob path no longer resolves as named: {resolved}")
     t0 = time.perf_counter()
-    builds = [lambda p=m.plan: kernels.build(p) for m in (*matchers.values(), full32, dict32)]
+    builds = [lambda p=m.plan: kernels.build(p)
+              for m in (*matchers.values(), full32, dict32, *knob_ms.values(), hdr)]
+    builds += [lambda d=d: kernels.build_scan_def(hdr.plan, d) for d in range(hdr.plan.n_defs)]
     with ThreadPoolExecutor(len(builds) + 1) as pool:
         list(pool.map(lambda f: f(), builds + [kernels.build_tables]))
     t_build = time.perf_counter() - t0
-    regs = []
-    for info in kernels.BUILD_LOG.values():
+    regs = []  # per library: its header's defines, then each entry's registers and spills
+    for key, info in kernels.BUILD_LOG.items():
+        regs.append(f"library {key}: {'; '.join(info.get('defines', [])) or 'table kernels'}")
         regs += [ln.strip() for ln in str(info.get("ptxas", "")).splitlines()
                  if any(k in ln for k in ("Compiling entry", "registers", "spill"))]
     rec["build"] = {"seconds": t_build, "libraries": {
@@ -753,35 +1013,22 @@ def main() -> dict:
         "tiled_witness": ("states", "all_substr_ids", "masked_characters", "mask", "match_ok"),
         "tiled_match": ("accepted", "has_dead", "match_ok"),
     }
-    oracle_rows = {}
+    def oracle(o_model, c_np, l_np, sub):
+        return {int(i): match_substrs(o_model.regex_defs, bytes(c_np[i, : l_np[i]]),
+                                      c_np.shape[1]) for i in sub}
+
+    oracle_rows = oracle(model, *corpora[L], idx)  # every from: path at L shares them
     for path, keys in checks.items():
-        Lc = L_UNPADDED if path == "L1000" else L
-        c_np, l_np = corpora[Lc]
-        o_model = model_u if path == "L1000" else model
-        host = {k: as_dict(outs[path])[k][idx_t].cpu().numpy() for k in keys}
-        for r, i in enumerate(idx):
-            o = match_substrs(o_model.regex_defs, bytes(c_np[i, : l_np[i]]), Lc)
-            if path == "full":
-                oracle_rows[int(i)] = o
-            for key in keys:
-                if not np.array_equal(np.asarray(host[key][r]).astype(np.int64),
-                                      np.asarray(getattr(o, key)).astype(np.int64)):
-                    raise AssertionError(f"{path}: string {i}: {key} differs from the oracle")
+        rows = oracle(model_u, *corpora[L_UNPADDED], idx) if path == "L1000" else oracle_rows
+        oracle_equal(path, outs[path], keys, rows, idx)
         log(f"[5] {path}: {ORACLE_N} strings equal the numpy oracle on {list(keys)}")
     idx3 = np.sort(rng.choice(B3, size=ORACLE_N3, replace=False))
-    for path, o_model, (c_np, l_np), sub in (
-        ("pallas_from", model, corpora[L], idx),
-        ("pallas_large", model3, (chars3_np, lengths3_np), idx3),
-        ("pallas_dict", model_d, dict_np, idx),
+    for path, rows, sub in (
+        ("pallas_from", oracle_rows, idx),
+        ("pallas_large", oracle(model3, chars3_np, lengths3_np, idx3), idx3),
+        ("pallas_dict", oracle(model_d, *dict_np, idx), idx),
     ):
-        sub_t = torch.from_numpy(sub).to(dev)
-        host = {k: as_dict(outs[path])[k][sub_t].cpu().numpy() for k in checks["full"]}
-        for r, i in enumerate(sub):
-            o = match_substrs(o_model.regex_defs, bytes(c_np[i, : l_np[i]]), c_np.shape[1])
-            for key in checks["full"]:
-                if not np.array_equal(np.asarray(host[key][r]).astype(np.int64),
-                                      np.asarray(getattr(o, key)).astype(np.int64)):
-                    raise AssertionError(f"{path}: string {i}: {key} differs from the oracle")
+        oracle_equal(path, outs[path], checks["full"], rows, sub)
         log(f"[5] {path}: {len(sub)} strings equal the numpy oracle on every field")
     n_ok = {p: int(as_dict(o)["match_ok"].sum().item()) for p, o in outs.items()}
     rec["match_ok"] = n_ok
@@ -818,6 +1065,7 @@ def main() -> dict:
     log(f"[5] extraction serving: runs equal the plain pipeline's; {n_cmp} of "
         f"{ORACLE_N} strings equal the oracle's extract_substrings (the rest "
         f"exceed max_runs/max_len; n_runs equal on all)")
+    twins = {p: outs[p] for p in ("witness", "match", "full")}  # the knob paths' references
     del outs, runs, host_runs
 
     # cli_scan: the corpus-scan entry point in process, both layouts, each
@@ -888,7 +1136,7 @@ def main() -> dict:
             "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
             "library_ms": None,
         })
-    del bits_p, en_p, logs_p, quads_u
+    del quads_u
     # the table kernels at both configurations, one window each (the fsm
     # row is one forward and one backward launch); the line's entry is
     # configs[3]'s, with the largest error of any of the kernel's checks;
@@ -1026,6 +1274,22 @@ def main() -> dict:
         log(f"[7]   kernels (ms per call): "
             + "; ".join(f"{k} {v:.4f}" for k, v in prof["kernels"]))
         log(f"[7]   host (ms per call): " + "; ".join(f"{k} {v:.4f}" for k, v in prof["host"]))
+
+    # [4]-[6] of the knob paths and scan_planes; their mode rows ride under
+    # the existing kernels' rows
+    kp_rec = knob_paths(h2r, bp, kernels, knob_ms, hdr, chars, lengths,
+                        dict(len_wb=len_wb, bits=bits_p, en=en_p, logs=logs_p), twins,
+                        oracle_rows, idx, flush, card)
+    for row in kern_rows:
+        if row["name"] in kp_rec["modes"]:
+            row["modes"] = kp_rec["modes"][row["name"]]
+    kern_rows += kp_rec["rows"]
+    times.update(kp_rec["times"])
+    errs.update(kp_rec["errs"])
+    path_launches.update(kp_rec["launches"])
+    rec["match_ok"].update(kp_rec["match_ok"])
+    if sorted(r["name"] for r in kern_rows) != sorted(k.name for k in kernels.KERNELS):
+        raise AssertionError("the kernels line does not list every kernel once")
 
     rec.update(times=times, launches=path_launches, kernels=kern_rows, max_abs_err=errs)
     os.makedirs("chiprun_out", exist_ok=True)

@@ -1,7 +1,11 @@
 // K1: qpack -- [B, L] bytes -> class planes and enable plane.
 //
 // Replaces the TPU kernel BitplaneMatcher._make_qpack
-// (halo2_regex_tpu/ops/bitplane.py:1138, pallas_call at :1229).
+// (halo2_regex_tpu/ops/bitplane.py:1138, pallas_call at :1229), in each of
+// its modes: the class planes are binary or one-hot (the generated
+// h2r_class), or, with the class stage off, the 8 byte-bit planes
+// themselves (KP = 8); with en_pack off (H2R_EN_PACK 0) it writes no
+// enable plane (en is a null pointer) and torch ops build it.
 //
 // What bounds it on the H100: by bytes it would be device memory -- it
 // reads 1 B per input byte and writes (KP + 1) * 4 / 32 B per input byte
@@ -29,8 +33,8 @@
 // instructions, not device-memory bytes, were the limit.
 //
 // Layouts: chars [B, L] uint8; len_wb [NWS, 128, 32] int32 (length of
-// string g(w, beta) at [w, beta]); out [L, KP, NWS, 128] int32;
-// en [NWS, L, 128] int32.
+// string g(w, beta) at [w, beta]; unread with en_pack off); out [L, KP,
+// NWS, 128] int32; en [NWS, L, 128] int32 (en_pack only).
 
 #include "bitplane_common.cuh"
 #include "h2r_circuits.cuh"
@@ -73,31 +77,32 @@ qpack_kernel(const uint8_t* __restrict__ chars, const int32_t* __restrict__ len_
 
   const int wl = threadIdx.x % TW;
   const int w = w0 + wl;
+#if H2R_EN_PACK
   int32_t lens[32];
 #pragma unroll
   for (int b = 0; b < 32; ++b) lens[b] = len_wb[(size_t)w * 32 + b];
+#endif
 
   for (int p = threadIdx.x / TW; p < TL; p += THREADS / TW) {
     const int l = l0 + p;
     if (l >= L) break;
-    uint32_t bb[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    uint32_t q[8], bb[8];
 #pragma unroll
-    for (int m = 0; m < 8; ++m) {
-      // the quad word: bytes s = 0..3 of strings 4 * wl + s of chunk m
-      const uint32_t q = *(const uint32_t*)(tile + p * ROWB + m * 128 + 4 * wl);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bb[j] |= ((q >> j) & 0x01010101u) << m;
-    }
+    for (int m = 0; m < 8; ++m)  // bytes s = 0..3 of strings 4 * wl + s of chunk m
+      q[m] = *(const uint32_t*)(tile + p * ROWB + m * 128 + 4 * wl);
+    h2r_byte_planes(q, bb);
     uint32_t cls[H2R_KP];
     h2r_class(bb, cls);
 #pragma unroll
     for (int k = 0; k < H2R_KP; ++k)
       out[((size_t)l * H2R_KP + k) * NW + w] = (int32_t)cls[k];
+#if H2R_EN_PACK
     uint32_t e = 0;
 #pragma unroll
     for (int b = 0; b < 32; ++b) e |= (uint32_t)(l < lens[b]) << b;
     const int nws = w / H2R_LANE, lane = w % H2R_LANE;
     en[((size_t)nws * L + l) * H2R_LANE + lane] = (int32_t)e;
+#endif
   }
 }
 

@@ -1,9 +1,10 @@
 // pack_raw -- raw quad rows -> class planes and enable plane.
 //
-// Replaces the TPU kernel BitplaneMatcher._make_pack with the class stage
-// and en_pack on (halo2_regex_tpu/ops/bitplane.py:1040, pallas_call at
-// :1124).  The matcher takes it where K1 (qpack) cannot run: L_pad != L
-// (L > 128 and not a multiple of 128), or qpack=False.
+// Replaces the TPU kernel BitplaneMatcher._make_pack
+// (halo2_regex_tpu/ops/bitplane.py:1040, pallas_call at :1124) in each of
+// its modes (binary, one-hot or no class stage; en_pack on or off; see
+// bitplane_pack_words.cuh).  The matcher takes it where K1 (qpack) cannot
+// run: L_pad != L (L > 128 and not a multiple of 128), or qpack=False.
 //
 // What bounds it on the H100: device-memory bytes, in principle.  It
 // reads the raw quad rows (1 B per input byte, as a torch transpose of the

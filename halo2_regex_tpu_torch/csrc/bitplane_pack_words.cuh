@@ -1,7 +1,11 @@
 // The pack from quad words, shared by pack_raw (B5, bitplane_pack_raw.cu)
 // and tpack (B6, bitplane_tpack.cu): the two read the same quad words in
 // two layouts and compute the same class planes and enable plane.  Include
-// after "h2r_circuits.cuh" (it calls h2r_class).
+// after "h2r_circuits.cuh" (it calls h2r_class).  The modes of the JAX
+// pack kernels come from the header: binary or one-hot class planes, or
+// the 8 byte-bit planes with the class stage off (KP = 8); no enable
+// plane with en_pack off (H2R_EN_PACK 0; raw-quads pack only, since the
+// tiled contract always computes it).
 //
 // Quad word (nws, m, l) of lane `lane` holds bytes s = 0..3 of strings
 // 4 * (w + NW * m) + s at position l, w = nws * 128 + lane; it sits at
@@ -34,6 +38,7 @@ pack_words_kernel(const int32_t* __restrict__ quads, long long s_nws, long long 
   const int nws = blockIdx.x, lane = threadIdx.x;
   const int w = nws * H2R_LANE + lane;
   const int l0 = blockIdx.y * kPackTL;
+#if H2R_EN_PACK
   int32_t lens[32];
   const int4* lp = reinterpret_cast<const int4*>(len_wb + (size_t)w * 32);
 #pragma unroll
@@ -44,27 +49,27 @@ pack_words_kernel(const int32_t* __restrict__ quads, long long s_nws, long long 
     lens[4 * i + 2] = v.z;
     lens[4 * i + 3] = v.w;
   }
+#endif
   const int32_t* qw = quads + nws * s_nws + lane;
 #pragma unroll 2
   for (int p = 0; p < kPackTL; ++p) {
     const int l = l0 + p;
     if (l >= L) break;
-    uint32_t bb[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    uint32_t q[8], bb[8];
 #pragma unroll
-    for (int m = 0; m < 8; ++m) {
-      const uint32_t q = (uint32_t)qw[m * s_m + l * s_l];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bb[j] |= ((q >> j) & 0x01010101u) << m;
-    }
+    for (int m = 0; m < 8; ++m) q[m] = (uint32_t)qw[m * s_m + l * s_l];
+    h2r_byte_planes(q, bb);
     uint32_t cls[H2R_KP];
     h2r_class(bb, cls);
 #pragma unroll
     for (int k = 0; k < H2R_KP; ++k)
       out[((size_t)l * H2R_KP + k) * NW + w] = (int32_t)cls[k];
+#if H2R_EN_PACK
     uint32_t e = 0;
 #pragma unroll
     for (int b = 0; b < 32; ++b) e |= (uint32_t)(l < lens[b]) << b;
     en[((size_t)nws * L + l) * H2R_LANE + lane] = (int32_t)e;
+#endif
   }
 }
 

@@ -1,19 +1,26 @@
-// K3: post -- tags, id sum, mask FSMs, then one of two emissions:
-//   bytes mode (columns="witness"): dummy splice, byte-group emission and
-//     final-state boundary planes, entry h2r_post; with tiled input (the
-//     generated header sets H2R_POST_TILED) it also reads the word group's
-//     pretiled quad words, extracts their 8 byte-bit planes with the quad
-//     mask and ANDs them with the mask FSM: the masked characters, emitted
-//     as one more byte group, entry h2r_post_tiled;
-//   planes mode (columns="full", the generated header sets
-//     H2R_POST_PLANES): the named bit planes of the full RegexResult --
-//     per def ids/start/endf, idsum, masked_idsum, fwd, bwd, mask -- entry
-//     h2r_post_planes.
+// K3: post -- tags, id sum, mask FSMs, then one of three emissions:
+//   bytes mode (columns="witness", emit bytes or kdecode): dummy splice,
+//     byte-group emission and final-state boundary planes, entry h2r_post;
+//     with tiled input (the generated header sets H2R_POST_TILED) it also
+//     reads the word group's pretiled quad words, extracts their 8
+//     byte-bit planes with the quad mask and ANDs them with the mask FSM:
+//     the masked characters, emitted as one more byte group, entry
+//     h2r_post_tiled;
+//   direct mode (emit direct, the header sets H2R_POST_DIRECT): the dummy
+//     splice and the 8x8 transpose of each field (one field per group),
+//     written straight into string-major l4-packed arrays, no boundary
+//     planes, entry h2r_post_direct;
+//   planes mode (the header sets H2R_POST_PLANES): named bit planes --
+//     for columns="full" per def ids/start/endf, idsum, masked_idsum, fwd,
+//     bwd, mask; for the witness planes emission masked_idsum, fwd, bwd,
+//     mask, start_any, endf_any -- entry h2r_post_planes.
 //
 // Replaces the TPU kernel BitplaneMatcher._make_post in bytes mode with
 // pre-dummied states, in its tiled mode (the masked characters from the
-// quad words, :1455-1470, the extra input at :1547-1554), and in planes
-// mode (halo2_regex_tpu/ops/bitplane.py :1338, pallas_call at :1592).
+// quad words, :1455-1470, the extra input at :1547-1554), in direct mode
+// (:1471-1492, outputs :1555-1567) and in planes mode with the full and
+// the witness plans (:671-704) (halo2_regex_tpu/ops/bitplane.py :1338,
+// pallas_call at :1592).
 //
 // What bounds it on the H100: latency, like the scan.  One thread owns one
 // word and walks L twice; at B = 32768 that is 1024 threads on 32 SMs.
@@ -47,10 +54,23 @@
 // pass also loads the next position's planes while the current one
 // computes.  Loads and stores are coalesced over words.
 //
+// Direct mode: the JAX kernel built each field's string-major rows with
+// in-VMEM tile transposes; here the thread that owns word w holds, for
+// each field, transposed word m whose byte lane s belongs to row
+// (m * NWS + nws) * 512 + 4 * lane + s, column l of the field's [B, L]
+// bytes (byte l % 4 of int32 column l / 4).  The words of DP positions
+// are staged in shared memory (dynamic, up to 200 KiB: one warp a block,
+// at most one block an SM at B = 32768, so it costs no occupancy); at
+// each chunk's first position the warp writes the chunk out, 32 bytes of
+// a row per 8 threads after a 4 x 4 byte transpose.  Stored straight to
+// global memory, one byte per row and position, a warp store would touch
+// 32 rows L bytes apart.
+//
 // Layouts: logs [NWS, SB_SUM, L, 128]; en and fwd [NWS, L, 128];
 // bytes mode g4 [NWS, 8 * NGROUPS, L, 128] and fb [NWS, NDEFS, 8, 128];
 // tiled mode also tiled [NWS, 8, L, 128]; planes mode out [NWS, P_TOTAL,
-// L, 128]; all int32.
+// L, 128]; direct mode out [NGROUPS, 8, NWS, 512, L / 4] (the fields'
+// [B, L] bytes); all int32.
 
 #include "bitplane_common.cuh"
 #include "h2r_circuits.cuh"
@@ -61,13 +81,34 @@
 #ifndef H2R_POST_TILED
 #define H2R_POST_TILED 0
 #endif
+#ifndef H2R_POST_DIRECT
+#define H2R_POST_DIRECT 0
+#endif
 
 namespace {
 
 constexpr int THREADS = 32;
 
-// fwd_buf: bytes mode the [NWS, L, 128] scratch plane (out is g4); planes
-// mode unused (fwd lives in out).  tiled: the quad words (tiled mode only).
+#if H2R_POST_DIRECT
+// Direct mode stages the emission words of DP positions in shared memory
+// (word k of position l % DP and thread t at (k * DP + l % DP) * DPITCH + t) and
+// writes each chunk out row by row.  DP = 32 positions (32-byte row
+// segments, full sectors) while the stage fits 200 KiB, else fewer.
+constexpr int DWORDS = 8 * H2R_NGROUPS;  // emission words per position
+constexpr int DPITCH = THREADS + 1;
+constexpr int DSTAGE_UNIT = DWORDS * DPITCH * 4;  // bytes per staged position
+constexpr int DP = 32 * DSTAGE_UNIT <= 200 * 1024   ? 32
+                   : 16 * DSTAGE_UNIT <= 200 * 1024 ? 16
+                   : 8 * DSTAGE_UNIT <= 200 * 1024  ? 8
+                                                    : 4;
+static_assert(DP * DSTAGE_UNIT <= 227 * 1024, "direct emission: too many fields to stage");
+constexpr int DSTAGE_BYTES = DP * DSTAGE_UNIT;
+
+#endif
+
+// fwd_buf: bytes and direct modes the [NWS, L, 128] scratch plane (out is
+// g4, or the direct arrays); planes mode unused (fwd lives in out).
+// tiled: the quad words (tiled mode only).
 __global__ void __launch_bounds__(THREADS)
 post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
             const int32_t* __restrict__ tiled, int32_t* __restrict__ fwd_buf,
@@ -81,6 +122,15 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
 #if H2R_POST_PLANES
   int32_t* out_base = out + (size_t)nws * H2R_P_TOTAL * plane + lane;
   int32_t* fwd_base = out_base + H2R_OFF_FWD * plane;
+#elif H2R_POST_DIRECT
+  int32_t* fwd_base = fwd_buf + (size_t)nws * plane + lane;
+  extern __shared__ uint32_t stage[];
+  const int t = threadIdx.x;
+  // the block's first row for m = 0 in field 0's [B, L] bytes: thread t's
+  // rows are 4 t + s after it
+  uint8_t* d_base = reinterpret_cast<uint8_t*>(out) + ((size_t)nws * 512 + 4 * (lane - t)) * L;
+  const size_t d_m = (size_t)NW / H2R_LANE * 512 * L;  // next m: NWS * 512 rows
+  const size_t d_field = 8 * d_m;                      // next field: B rows
 #else
   int32_t* fwd_base = fwd_buf + (size_t)nws * plane + lane;
   int32_t* g4_base = out + (size_t)nws * 8 * H2R_NGROUPS * plane + lane;
@@ -115,12 +165,16 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
       const uint32_t e_next = EN(ln);
       uint32_t ids[H2R_NSUM], sa, ea, dt[H2R_NDT];
       h2r_tag(prev, cur, e, ids, sa, ea, dt);
-#if H2R_POST_PLANES
+#ifdef H2R_OFF_IDSUM  // full: the per-def planes first, then idsum
 #pragma unroll
       for (int k = 0; k < H2R_NDT; ++k) out_base[k * plane + (size_t)l * H2R_LANE] = (int32_t)dt[k];
 #pragma unroll
       for (int k = 0; k < H2R_NSUM; ++k)
         out_base[(H2R_OFF_IDSUM + k) * plane + (size_t)l * H2R_LANE] = (int32_t)ids[k];
+#endif
+#ifdef H2R_OFF_START_ANY  // the witness planes emission
+      out_base[H2R_OFF_START_ANY * plane + (size_t)l * H2R_LANE] = (int32_t)sa;
+      out_base[H2R_OFF_ENDF_ANY * plane + (size_t)l * H2R_LANE] = (int32_t)ea;
 #endif
       uint32_t changed = 0;
 #pragma unroll
@@ -145,7 +199,7 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
   // position l - 1 (and the prev planes of l - 1, at l - 2) are loaded
   // while position l computes.
   uint32_t next_sum[H2R_NSUM], cur[H2R_SB_SUM], prv[H2R_SB_SUM];
-#if !H2R_POST_PLANES
+#if !H2R_POST_PLANES && !H2R_POST_DIRECT
   uint32_t acc[H2R_SB_SUM];
 #pragma unroll
   for (int j = 0; j < H2R_SB_SUM; ++j) acc[j] = 0;
@@ -194,23 +248,51 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
       uint32_t q[8];
 #pragma unroll
       for (int m = 0; m < 8; ++m) q[m] = (uint32_t)t_base[m * plane + (size_t)l * H2R_LANE];
+      h2r_byte_planes(q, mcp);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t acc = 0;
-#pragma unroll
-        for (int m = 0; m < 8; ++m) acc |= ((q[m] >> j) & 0x01010101u) << m;
-        mcp[j] = acc & mask;
-      }
+      for (int j = 0; j < 8; ++j) mcp[j] &= mask;
     }
 #endif
     uint32_t words[8 * H2R_NGROUPS];
     h2r_emit(flags, midsum, cur, e, mcp, words);
+#if H2R_POST_DIRECT
+    // word k = 8 * field + m: byte lane s is string 4 * (w + NW * m) + s,
+    // row 4 t + s of the block's rows; staged, and at a chunk's first
+    // position the chunk [l, l + n) goes out: item (k, t2, g) is the 4 x 4
+    // bytes of rows 4 t2 + s at columns l + 4 g .. + 3, so 8 threads write
+    // a row's 32 bytes and a warp store 4 rows
+    const int dpos = l % DP;
+#pragma unroll
+    for (int k = 0; k < DWORDS; ++k) stage[(k * DP + dpos) * DPITCH + t] = words[k];
+    if (dpos == 0) {
+      __syncwarp();
+      const int g = t % 8, n4 = min(DP, L - l) / 4;
+      if (g < n4) {
+        for (int k = 0; k < DWORDS; ++k) {
+          uint8_t* p = d_base + (k >> 3) * d_field + (k & 7) * d_m + l + 4 * g;
+#pragma unroll
+          for (int i = 0; i < THREADS / 4; ++i) {
+            const int t2 = 4 * i + t / 8;
+            uint32_t v[4], o[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[j] = stage[(k * DP + 4 * g + j) * DPITCH + t2];
+            h2r_bytes4x4(v, o);
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              *reinterpret_cast<uint32_t*>(p + (size_t)(4 * t2 + s) * L) = o[s];
+          }
+        }
+      }
+      __syncwarp();
+    }
+#else
 #pragma unroll
     for (int k = 0; k < 8 * H2R_NGROUPS; ++k)
       g4_base[k * plane + (size_t)l * H2R_LANE] = (int32_t)words[k];
     const uint32_t bnd = e & ~en_next;
 #pragma unroll
     for (int j = 0; j < H2R_SB_SUM; ++j) acc[j] |= bnd & cur[j];
+#endif
 #endif
 #pragma unroll
     for (int k = 0; k < H2R_NSUM; ++k) next_sum[k] = ids[k];
@@ -224,7 +306,7 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
     e = e_prev;
     fwd = fwd_prev;
   }
-#if !H2R_POST_PLANES
+#if !H2R_POST_PLANES && !H2R_POST_DIRECT
   // strings whose first byte is disabled are empty
   uint32_t fbw[H2R_NDEFS * 8];
   h2r_fb(acc, ~EN(0), fbw);
@@ -242,6 +324,17 @@ extern "C" int h2r_post_planes(const void* logs, const void* en, void* out, int 
   post_kernel<<<(NW + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)logs, (const int32_t*)en, nullptr, nullptr, (int32_t*)out, nullptr, NW,
       L);
+  return (int)cudaGetLastError();
+}
+#elif H2R_POST_DIRECT
+extern "C" int h2r_post_direct(const void* logs, const void* en, void* fwd_buf, void* out,
+                               int NW, int L, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      post_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DSTAGE_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  post_kernel<<<(NW + THREADS - 1) / THREADS, THREADS, DSTAGE_BYTES, (cudaStream_t)stream>>>(
+      (const int32_t*)logs, (const int32_t*)en, nullptr, (int32_t*)fwd_buf, (int32_t*)out,
+      nullptr, NW, L);
   return (int)cudaGetLastError();
 }
 #elif H2R_POST_TILED

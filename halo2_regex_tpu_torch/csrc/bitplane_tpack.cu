@@ -4,7 +4,7 @@
 // halo2_regex_tpu/ops/bitplane.py:1243, pallas_call at :1324), the pack of
 // the tiled input contract (input_layout="tiled"): the host hands over the
 // [NWS, 8, L_pad, 128] int32 quad words of tile_corpus, and the outputs
-// are those of K1 qpack with en_pack on.
+// are those of K1 qpack with en_pack on, in each class-stage mode.
 //
 // What bounds it on the H100: device-memory bytes.  It reads 1 B per input
 // byte plus the length table and writes (KP + 1) * 4 / 32 B per input byte

@@ -1,29 +1,39 @@
 """Bit-sliced (bitplane) matcher, PyTorch port.
 
-The port of ``halo2_regex_tpu.ops.bitplane.BitplaneMatcher`` with the
-default knobs, for its three column sets.  Thirty-two strings share each
-int32 word and the DFA runs as synthesized boolean circuits
+The port of ``halo2_regex_tpu.ops.bitplane.BitplaneMatcher``, for its
+three column sets and every knob value it accepts.  Thirty-two strings
+share each int32 word and the DFA runs as synthesized boolean circuits
 (:mod:`..compiler.bitslice`):
 
   1. **pack**: [B, L] bytes -> 8 byte-bit planes -> each def's byte->class
-     circuit -> class planes [L_pad, KP, NWS, LANE], plus the enable plane
-     (pos < len) [NWS, L_pad, LANE].  ``qpack`` reads the [B, L] bytes
-     directly (when L_pad == L); ``pack`` reads the raw quad rows of
-     ``raw_quads`` (any L, or ``qpack=False``); ``tpack`` reads the
+     circuit -> class planes (binary or one-hot; with the class stage off,
+     the 8 byte-bit planes themselves) [L_pad, KP, NWS, LANE], plus the
+     enable plane (pos < len) [NWS, L_pad, LANE] (with ``en_pack`` off,
+     ``enable_plane`` builds it with torch ops).  ``qpack`` reads the
+     [B, L] bytes directly (when L_pad == L); ``pack`` reads the raw quad
+     rows of ``raw_quads`` (any L, or ``qpack=False``); ``tpack`` reads the
      host-pretiled quad words of ``tile_corpus`` (``input_layout="tiled"``).
+     With ``fuse_pack`` there is no pack: ``scan_fpack`` reads the raw
+     quad rows.
   2. **scan**: the only sequential stage.  One-hot live-state planes are
      carried across the bytes; each byte runs every def's step circuit and
      writes log2-encoded state planes [NWS, SB, L_pad, LANE].
+     ``scan_def`` runs one def's alone (``BitplaneMatcher.scan_planes``).
   3. the tail, by ``columns``:
-     - ``"witness"``: **post** (tag circuit on (prev, next) state planes,
-       id sum across defs, forward/backward mask FSMs, dummy splice, 8x8
-       bit transpose into byte-group words [NWS, 8G, L_pad, LANE], plus
-       the final-state boundary planes ``fb`` [NWS, n_defs, 8, LANE];
-       with tiled input it also emits the masked characters from the quad
-       words), then ``decode_bytes`` and ``finish_witness``;
+     - ``"witness"``, by the resolved ``emit``: **post** (tag circuit on
+       (prev, next) state planes, id sum across defs, forward/backward mask
+       FSMs, dummy splice, 8x8 bit transpose into byte-group words [NWS,
+       8G, L_pad, LANE], plus the final-state boundary planes ``fb`` [NWS,
+       n_defs, 8, LANE]; with tiled input it also emits the masked
+       characters from the quad words), then ``decode_bytes`` ("bytes") or
+       the **decode** kernel ("kdecode"); **post_direct** ("direct": one
+       string-major array per field, whose [B, L] columns are views); or
+       **post_planes** / ``post_xla`` ("planes": the named planes, then
+       ``unpack_groups``); then ``finish_witness``;
      - ``"full"``: **post_planes** (the same tags, id sum and FSMs, written
-       as named bit planes [NWS, P_total, L_pad, LANE]), then
-       ``unpack_groups`` and ``finish_full`` -> a ``RegexResult``;
+       as named bit planes [NWS, P_total, L_pad, LANE]) or, with
+       ``post="xla"``, ``post_xla`` (torch ops), then ``unpack_groups`` and
+       ``finish_full`` -> a ``RegexResult``;
      - ``"match"``: **fb_only** (the boundary planes alone), then
        ``finish_match`` -> final states and verdicts.
 
@@ -35,9 +45,10 @@ Rows at positions L..L_pad-1 have enable 0, so tags, FSMs and boundaries
 ignore them; the decodes slice them off.
 
 Each kernel stage has a plain PyTorch version here (``qpack_plain``,
-``pack_plain``, ``tpack_plain``, ``scan_plain``, ``post_plain``,
-``post_planes_plain``, ``fb_only_plain``) and a hand-written CUDA kernel in ``csrc/`` (bound by
-:mod:`.kernels`).  The stage functions without ``_plain`` route by
+``pack_plain``, ``tpack_plain``, ``scan_plain``, ``scan_fpack_plain``,
+``scan_def_plain``, ``post_plain``, ``post_planes_plain``,
+``post_direct_plain``, ``decode_plain``, ``fb_only_plain``) and a
+hand-written CUDA kernel in ``csrc/`` (bound by :mod:`.kernels`).  The stage functions without ``_plain`` route by
 device: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel (or raises).  There is no fallback between the two.
 """
@@ -54,7 +65,7 @@ from torch import nn
 from ..compiler.bitslice import DefCircuits, synthesize_def
 from ..models.compiled import CompiledRegexModel
 from ..witness.result import RegexResult
-from .knobs import check_main_path, resolve_emit, resolve_qpack
+from .knobs import BitplaneKnobs, scan_unroll
 
 LANE = 128
 TILE = 32 * LANE  # strings per NWS row: the batch is padded to a multiple
@@ -111,19 +122,30 @@ class BitplanePlan:
     """Model-derived layout shared by the kernels and their plain versions.
 
     ``L_pad``: L for L <= 128, else L rounded up to a multiple of 128 (the
-    JAX matcher's default ``lc``); every plane has L_pad rows.  ``qpack``:
-    pack from the [B, L] bytes (K1) rather than from raw quad rows (B5);
-    only when L_pad == L.  ``tiled``: the input is the pretiled quad-word
-    buffer of ``tile_corpus`` (the pack is B6, and the witness emission
-    adds the 8-bit field ``masked_characters_pre``).  ``cls_off[d]`` /
-    ``sb_off[d]``: def d's first class plane / log plane in the
-    concatenated stacks.  ``wgroups``
-    (witness only): the byte groups of the post emission, each a tuple of
-    (field, first bit, bit count) with at most 8 bits in all (``flags`` =
-    mask, fwd, bwd, en, start_any, endf_any).  ``post_off`` (full only):
-    name -> (first plane, plane count) of the planes-mode post output,
-    ``p_total`` planes in all.  ``compact``: full mode's uint8 columns
-    (else int32)."""
+    JAX matcher's default ``lc``); every plane has L_pad rows.
+    ``class_stage``: False (the scan's step circuits fold the class BDD in
+    and read the 8 byte-bit planes: KP = 8), "binary" or "onehot" (the pack
+    runs each def's class circuit and writes its class planes).
+    ``fuse_pack``: no pack kernel; the scan reads raw quad rows and
+    extracts the byte-bit planes itself (``scan_fpack``).  ``en_pack``: the
+    pack kernel writes the enable plane (else torch ops build it).
+    ``qpack``: pack from the [B, L] bytes (K1) rather than from raw quad
+    rows (B5); only when L_pad == L.  ``tiled``: the input is the pretiled
+    quad-word buffer of ``tile_corpus`` (the pack is B6, and the witness
+    emission adds the 8-bit field ``masked_characters_pre``).
+    ``cls_off[d]`` / ``sb_off[d]``: def d's first class plane / log plane
+    in the concatenated stacks.  ``post``: "pallas" (the fused post
+    kernel) or "xla" (torch ops).  ``emit`` (witness only, else "planes"):
+    the witness tail, resolved as the JAX matcher resolves it -- "bytes"
+    (byte groups ``wgroups``, each a tuple of (field, first bit, bit count)
+    with at most 8 bits; ``flags`` = mask, fwd, bwd, en, start_any,
+    endf_any), "kdecode" (the same groups, then the decode kernel),
+    "direct" (one string-major array per field of ``dfields``) or
+    "planes" (the named planes of ``post_off``).  ``post_off`` (full, and
+    witness planes): name -> (first plane, plane count) of the planes-mode
+    post output, ``p_total`` planes in all.  ``unroll``: the CUDA scans'
+    position-loop unroll.  ``compact``: full mode's uint8 columns (else
+    int32)."""
 
     circuits: Tuple[DefCircuits, ...]
     columns: str
@@ -143,6 +165,13 @@ class BitplanePlan:
     p_total: int
     first_states: Tuple[int, ...]
     dummy_states: Tuple[int, ...]
+    class_stage: object = "binary"
+    fuse_pack: bool = False
+    en_pack: bool = True
+    post: str = "pallas"
+    emit: str = "planes"
+    dfields: Tuple[Tuple[str, int], ...] = ()
+    unroll: int = 4
 
     @property
     def n_defs(self) -> int:
@@ -152,6 +181,18 @@ class BitplanePlan:
     def n_groups(self) -> int:
         return len(self.wgroups)
 
+    @property
+    def fields_flat(self) -> Tuple[Tuple[str, int, int, int], ...]:
+        """(field, group, first bit, bit count) of every byte-group field."""
+        return tuple((name, gi, off, nb) for gi, grp in enumerate(self.wgroups)
+                     for name, off, nb in grp)
+
+    @property
+    def l4(self) -> int:
+        """Columns of the l4-packed string-major arrays (4 positions per
+        int32) of the direct and kdecode emissions."""
+        return self.L_pad // 4
+
     def first_bit(self, d: int, j: int) -> bool:
         return bool((self.first_states[d] >> j) & 1)
 
@@ -159,13 +200,17 @@ class BitplanePlan:
 def make_plan(
     model: CompiledRegexModel,
     columns: str = "full",
-    qpack: bool = True,
+    qpack: Optional[bool] = None,
     compact: bool = True,
     tiled: bool = False,
+    knobs: Optional[BitplaneKnobs] = None,
+    post: str = "pallas",
+    unroll: int = 4,
 ) -> BitplanePlan:
-    """Synthesize every def's circuits (binary class stage) and lay out
-    the plane stacks, and the post output of ``columns``, as the JAX
-    matcher does."""
+    """Synthesize every def's circuits under ``knobs`` (the main path's
+    when None; ``qpack``, when given, overrides theirs) and lay out the
+    plane stacks, and the post output of ``columns``, as the JAX matcher
+    does (halo2_regex_tpu/ops/bitplane.py:556-830)."""
     if columns not in COLUMNS:
         raise ValueError(f"columns={columns!r}: expected full/witness/match")
     if tiled and columns == "full":  # halo2_regex_tpu/ops/bitplane.py:545-550
@@ -174,6 +219,10 @@ def make_plan(
             "only: the full RegexResult set emits all_characters, "
             "which needs the string-major [B, L] chars"
         )
+    if post not in ("pallas", "xla"):
+        raise ValueError(f"post={post!r}: expected pallas/xla")
+    knobs = knobs or BitplaneKnobs()
+    class_stage = knobs.class_stage
     n_defs = model.n_defs
     L = model.max_chars_size
     L_pad = _round_up(L, min(LC, L))
@@ -186,8 +235,8 @@ def make_plan(
             int(model.dead_states[d]),
             _substr_pairs(model, d),
             idb=idb,
-            fold_class=False,
-            class_encoding="binary",
+            fold_class=not class_stage,
+            class_encoding=class_stage if class_stage else "onehot",
         )
         circuits.append(c)
     cls_off, sb_off = [], []
@@ -199,19 +248,26 @@ def make_plan(
         off_sb += c.sb
     nsum = idb if n_defs == 1 else idb + (n_defs - 1).bit_length() + 1
 
-    groups: List[Tuple[Tuple[str, int, int], ...]] = []
-    if columns == "witness":
+    # the witness emission (halo2_regex_tpu/ops/bitplane.py:722-769)
+    emit, groups, dfields = "planes", [], ()
+    if columns == "witness" and post == "pallas":
+        want = knobs.emit if knobs.emit is not None else "bytes"
         fields = [("flags", 6), ("masked_idsum", nsum)]
         fields += [(f"states{d}", c.sb) for d, c in enumerate(circuits)]
         if tiled:
             # the post kernel assembles mask & chars from the quad words
             fields.append(("masked_characters_pre", 8))
-        if any(nb > 8 for _, nb in fields):
-            raise NotImplementedError(
-                f"fields {fields}: a field wider than 8 bits needs the planes "
-                "emission, which waits for ROADMAP A11"
-            )
-        groups = _byte_groups(fields)
+        # a field wider than 8 bits takes the planes emission
+        if want != "planes" and all(nb <= 8 for _, nb in fields):
+            if want == "direct" and L_pad % 4 == 0:
+                emit, dfields = "direct", tuple(fields)
+            else:
+                emit = "kdecode" if want == "kdecode" and L_pad % 4 == 0 else "bytes"
+                groups = _byte_groups(fields)
+    if tiled and columns == "witness" and emit != "bytes":
+        raise ValueError(f"input_layout='tiled' witness emission requires "
+                         f"emit='bytes' (resolved emit={emit!r})")
+    if emit != "planes":
         # The post stage splices each def's dummy state into its log planes
         # where enable is off.  dummy = largest + 1 < dead, and dead is a
         # live state, so the dummy always fits the def's sb planes.
@@ -219,36 +275,51 @@ def make_plan(
             if int(model.dummy_states[d]).bit_length() > c.sb:
                 raise ValueError(f"def {d}: dummy state does not fit {c.sb} planes")
 
-    post_off: Dict[str, Tuple[int, int]] = {}
-    if columns == "full":  # halo2_regex_tpu/ops/bitplane.py:683-704
-        plan_fields = []
+    # the planes-mode post output (halo2_regex_tpu/ops/bitplane.py:671-704)
+    plan_fields = []
+    if columns == "witness" and emit == "planes":
+        plan_fields = [("masked_idsum", nsum), ("fwd", 1), ("bwd", 1), ("mask", 1),
+                       ("start_any", 1), ("endf_any", 1)]
+    elif columns == "full":
         for d in range(n_defs):
             plan_fields += [(f"ids{d}", idb), (f"start{d}", 1), (f"endf{d}", 1)]
         plan_fields += [("idsum", nsum), ("masked_idsum", nsum), ("fwd", 1),
                         ("bwd", 1), ("mask", 1)]
-        off = 0
-        for name, nb in plan_fields:
-            post_off[name] = (off, nb)
-            off += nb
+    post_off: Dict[str, Tuple[int, int]] = {}
+    off = 0
+    for name, nb in plan_fields:
+        post_off[name] = (off, nb)
+        off += nb
+    # the tiled pack always computes the enable plane, and the tiled
+    # pipeline runs no in-scan pack (halo2_regex_tpu/ops/bitplane.py:1831)
+    fuse_pack = knobs.fuse_pack and not tiled
+    qpack = knobs.qpack if qpack is None else qpack
     return BitplanePlan(
         circuits=tuple(circuits),
         columns=columns,
         L=L,
         L_pad=L_pad,
-        qpack=bool(qpack) and L_pad == L and not tiled,
+        qpack=bool(qpack) and L_pad == L and not tiled and not fuse_pack,
         tiled=tiled,
         compact=compact,
         idb=idb,
         nsum=nsum,
         cls_off=tuple(cls_off),
-        kp=off_c,
+        kp=off_c if class_stage else 8,
         sb_off=tuple(sb_off),
         sb_sum=off_sb,
         wgroups=tuple(groups),
         post_off=post_off,
-        p_total=sum(nb for _o, nb in post_off.values()),
+        p_total=off,
         first_states=tuple(int(s) for s in model.first_states),
         dummy_states=tuple(int(s) for s in model.dummy_states),
+        class_stage=class_stage,
+        fuse_pack=fuse_pack,
+        en_pack=knobs.en_pack or tiled,
+        post=post,
+        emit=emit,
+        dfields=dfields,
+        unroll=unroll,
     )
 
 
@@ -443,32 +514,47 @@ def _byte_planes(rows: List[torch.Tensor]) -> List[torch.Tensor]:
     return planes
 
 
+def enable_plane(len_wb: torch.Tensor, L_pad: int) -> torch.Tensor:
+    """The [NWS, LANE, 32] length table -> the enable plane [NWS, L_pad,
+    LANE] int32: bit beta of word w at position l is l < the length of
+    string g(w, beta).  Torch ops where the pack kernel does not compute
+    it (en_pack off, fuse_pack), as the JAX matcher's XLA pass does
+    (halo2_regex_tpu/ops/bitplane.py:1799-1805)."""
+    NWS = len_wb.shape[0]
+    dev = len_wb.device
+    pos = torch.arange(L_pad, dtype=torch.int32, device=dev)
+    lt = (pos[None, :, None, None] < len_wb[:, None]).to(torch.uint8)  # [NWS, L_pad, LANE, 32]
+    # bits 8k..8k+7 of the word are its byte k (little endian): all 32
+    # bits in one pass
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    by = (lt.view(NWS, L_pad, LANE, 4, 8) << shifts).sum(-1, dtype=torch.uint8)
+    return by.view(torch.int32).reshape(NWS, L_pad, LANE)
+
+
 def pack_plain(
     plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Raw quad rows [L_pad, 8, NWS, LANE] and the [NWS, LANE, 32] length
-    table -> class planes [L_pad, KP, NWS, LANE] and enable plane
-    [NWS, L_pad, LANE] (int32).  Same function as the JAX ``_make_pack``
-    kernel with the class stage and en_pack on."""
-    L_pad, _m8, NWS, _lane = quads.shape
+    table -> the scan's input planes [L_pad, KP, NWS, LANE] (each def's
+    class planes, or the 8 byte-bit planes when the class stage is off)
+    and the enable plane [NWS, L_pad, LANE] (int32; None when en_pack is
+    off).  Same function as the JAX ``_make_pack`` kernel."""
     planes = _byte_planes([quads[:, m] for m in range(8)])  # each [L_pad, NWS, LANE]
-    env = {f"byte_bit{j}": planes[j] for j in range(8)}
-    cls = []
-    for c in plan.circuits:
-        out = c.class_prog.run(env)
-        cls += [out[name] for name in c.class_plane_names]
+    if plan.class_stage:
+        env = {f"byte_bit{j}": planes[j] for j in range(8)}
+        cls = []
+        for c in plan.circuits:
+            out = c.class_prog.run(env)
+            cls += [out[name] for name in c.class_plane_names]
+    else:
+        cls = planes
     bits_stack = torch.stack(cls, 1).contiguous()
-    pos = torch.arange(L_pad, dtype=torch.int32, device=quads.device)
-    en = torch.zeros((NWS, L_pad, LANE), dtype=torch.int32, device=quads.device)
-    for beta in range(32):
-        lt = pos[None, :, None] < len_wb[:, None, :, beta]
-        en |= lt.to(torch.int32) << beta
-    return bits_stack, en
+    return bits_stack, enable_plane(len_wb, quads.shape[0]) if plan.en_pack else None
 
 
 def qpack_plain(
     plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """[B, L] uint8 chars (L == L_pad) and the length table -> as
     ``pack_plain``: the JAX ``_make_qpack`` kernel computes the pack
     kernel's function from the bytes directly."""
@@ -511,29 +597,34 @@ def tpack(plan: BitplanePlan, tiled: torch.Tensor, len_wb: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def scan_plain(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
-    """Class planes [L_pad, KP, NWS, LANE] -> log state planes
-    [NWS, SB, L_pad, LANE]: the serial recurrence of the JAX
-    ``_make_scan_fused`` kernel, one byte position per Python step."""
+def _scan_defs(plan: BitplanePlan, bits_stack: torch.Tensor, defs) -> torch.Tensor:
+    """The serial recurrence of the defs ``defs`` over the scan's input
+    planes [L_pad, KP, NWS, LANE] -> their log state planes, concatenated
+    [NWS, sum of their sb, L_pad, LANE]; one byte position per Python step.
+    A def whose circuits fold the class BDD in reads the 8 byte-bit
+    planes, else its class planes at ``cls_off[d]``."""
     L, _kp, NWS, _lane = bits_stack.shape
     dev = bits_stack.device
-    states = []
-    for c in plan.circuits:
-        states.append({
+    states = {}
+    for d in defs:
+        c = plan.circuits[d]
+        states[d] = {
             f"st{s}": torch.full(
                 (NWS, LANE), -1 if s == c.first_state else 0,
                 dtype=torch.int32, device=dev,
             )
             for s in c.live_states
-        })
+        }
     rows = []
     for i in range(L):
         logs_i = []
-        for d, c in enumerate(plan.circuits):
-            env = {
-                name: bits_stack[i, plan.cls_off[d] + j]
-                for j, name in enumerate(c.class_plane_names)
-            }
+        for d in defs:
+            c = plan.circuits[d]
+            if c.fold_class:
+                env = {f"byte_bit{j}": bits_stack[i, j] for j in range(8)}
+            else:
+                env = {name: bits_stack[i, plan.cls_off[d] + j]
+                       for j, name in enumerate(c.class_plane_names)}
             env.update(states[d])
             out = c.step_prog.run(env)
             logs_i += [out[f"log{j}"] for j in range(c.sb)]
@@ -542,11 +633,52 @@ def scan_plain(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, 2).permute(1, 0, 2, 3).contiguous()
 
 
+def scan_plain(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
+    """The scan's input planes [L_pad, KP, NWS, LANE] -> log state planes
+    [NWS, SB, L_pad, LANE] of every def: the JAX ``_make_scan_fused``
+    kernel."""
+    return _scan_defs(plan, bits_stack, range(plan.n_defs))
+
+
 def scan(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
     """Stage 2, routed by device (see module docstring)."""
     if _on_cuda(bits_stack):
         return _kernels().scan_cuda(plan, bits_stack)
     return scan_plain(plan, bits_stack)
+
+
+def scan_fpack_plain(plan: BitplanePlan, quads: torch.Tensor) -> torch.Tensor:
+    """Raw quad rows [L_pad, 8, NWS, LANE] -> log state planes [NWS, SB,
+    L_pad, LANE]: the JAX ``_make_scan_fused`` kernel with ``fused_pack``,
+    whose prologue extracts the 8 byte-bit planes from the quad words
+    (halo2_regex_tpu/ops/bitplane.py:947-958) for the folded-class step
+    circuits."""
+    if plan.class_stage:
+        raise ValueError("fuse_pack runs with the class stage off")
+    bits = torch.stack(_byte_planes([quads[:, m] for m in range(8)]), 1)
+    return scan_plain(plan, bits)
+
+
+def scan_fpack(plan: BitplanePlan, quads: torch.Tensor) -> torch.Tensor:
+    """Stage 2 with the in-scan pack, routed by device (module docstring)."""
+    if _on_cuda(quads):
+        return _kernels().scan_fpack_cuda(plan, quads)
+    return scan_fpack_plain(plan, quads)
+
+
+def scan_def_plain(plan: BitplanePlan, bits_stack: torch.Tensor, d: int) -> torch.Tensor:
+    """Def ``d``'s serial scan alone: the scan's input planes [L_pad, KP,
+    NWS, LANE] -> its log planes [NWS, sb_d, L_pad, LANE].  The JAX
+    ``_make_scan`` kernel (halo2_regex_tpu/ops/bitplane.py:836), which
+    ``scan_planes`` runs."""
+    return _scan_defs(plan, bits_stack, [d])
+
+
+def scan_def(plan: BitplanePlan, bits_stack: torch.Tensor, d: int) -> torch.Tensor:
+    """One def's scan, routed by device (module docstring)."""
+    if _on_cuda(bits_stack):
+        return _kernels().scan_def_cuda(plan, bits_stack, d)
+    return scan_def_plain(plan, bits_stack, d)
 
 
 # ---------------------------------------------------------------------------
@@ -645,7 +777,15 @@ def post_plain(
     (the JAX tiled mode, halo2_regex_tpu/ops/bitplane.py:1455-1470)."""
     if plan.tiled != (tiled is not None):
         raise ValueError("a tiled plan's post takes the quad words, and only it")
-    t = _tags_and_masks(plan, logs, en)
+    avail = _emission_planes(plan, _tags_and_masks(plan, logs, en), logs, en, tiled)
+    return _group_words(plan.wgroups, avail), fb_only_plain(plan, logs, en)
+
+
+def _emission_planes(plan: BitplanePlan, t: _Tags, logs: torch.Tensor, en: torch.Tensor,
+                     tiled: Optional[torch.Tensor] = None) -> Dict[str, List[torch.Tensor]]:
+    """The witness fields' planes of the bytes, kdecode and direct
+    emissions: flags, masked ids, each def's states with its dummy state
+    spliced in where enable is off, and (tiled) the masked characters."""
     avail: Dict[str, List[torch.Tensor]] = {
         "flags": [t.mask, t.fwd, t.bwd, en, t.start_any, t.endf_any],
         "masked_idsum": [p & t.mask for p in t.ids_sum],
@@ -661,7 +801,69 @@ def post_plain(
     if tiled is not None:
         avail["masked_characters_pre"] = [
             p & t.mask for p in _byte_planes([tiled[:, m] for m in range(8)])]
-    return _group_words(plan.wgroups, avail), fb_only_plain(plan, logs, en)
+    return avail
+
+
+def _l4_rows(words: torch.Tensor) -> torch.Tensor:
+    """Byte-lane words [..., L_pad, LANE] int32 -> the string-major
+    l4-packed rows [..., 4 * LANE, L_pad / 4] int32: row 4 * lane + s holds
+    byte lane s of word ``lane``, byte l % 4 of column l / 4 is position l
+    (the in-VMEM transpose of the JAX direct and decode kernels,
+    halo2_regex_tpu/ops/bitplane.py:1476-1492, :1671-1682)."""
+    *lead, L_pad, _lane = words.shape
+    u8 = words.contiguous().reshape(-1).view(torch.uint8).reshape(*lead, L_pad, LANE, 4)
+    rows = u8.movedim(-3, -1).reshape(*lead, 4 * LANE, L_pad).contiguous()
+    return rows.reshape(-1).view(torch.int32).reshape(*lead, 4 * LANE, L_pad // 4)
+
+
+def post_direct_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """Log planes and enable plane -> one l4-packed string-major array per
+    field of ``dfields``, stacked [n_fields, 8, NWS, 4 * LANE, L_pad / 4]
+    int32: row (m, nws, 4 * lane + s) is string 4 * (w + NW * m) + s, so
+    each field's [B, L_pad] uint8 column is a view.  The JAX ``_make_post``
+    kernel in direct mode (pre-dummied states, no boundary planes)."""
+    avail = _emission_planes(plan, _tags_and_masks(plan, logs, en), logs, en)
+    out = []
+    for name, _nb in plan.dfields:
+        planes = avail[name] + [torch.zeros_like(en)] * (8 - len(avail[name]))
+        out.append(_l4_rows(transpose8(torch.stack(planes))))  # [8m, NWS, 512, l4]
+    return torch.stack(out)
+
+
+def post_direct(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """Stage 3 of the direct witness emission, routed by device."""
+    if _on_cuda(logs, en):
+        return _kernels().post_direct_cuda(plan, logs, en)
+    return post_direct_plain(plan, logs, en)
+
+
+def decode_plain(plan: BitplanePlan, g4: torch.Tensor, ch_l4: torch.Tensor) -> torch.Tensor:
+    """Byte-group words [NWS, 8G, L_pad, LANE] and the chars as l4-packed
+    int32 [B, L_pad / 4] -> every byte-group field as a string-major
+    l4-packed array, then the masked characters: [n_fields + 1, B,
+    L_pad / 4] int32.  Row 512 * (b * NWS + nws) + 4 * lane + s is string
+    4 * (w + NW * b) + s.  Field (group gi, first bit off, nb bits) is
+    (word >> off) & ((2^nb - 1) * 0x01010101) of group word b; the masked
+    characters are chars & 0xFF in every byte whose flags bit 0 (the mask)
+    is set.  The JAX ``_make_decode`` kernel (B14)."""
+    NWS, _g8, L_pad, _lane = g4.shape
+    g = g4.reshape(NWS, plan.n_groups, 8, L_pad, LANE)
+    out = []
+    for _name, gi, off, nb in plan.fields_flat:
+        v = (g[:, gi] >> off) & (((1 << nb) - 1) * _QUAD_MASK)
+        out.append(_l4_rows(v.movedim(1, 0)).reshape(ch_l4.shape))
+    m = out[0] & _QUAD_MASK  # flags, bit 0 of each byte
+    m = m | (m << 1)
+    m = m | (m << 2)
+    out.append(ch_l4 & (m | (m << 4)))
+    return torch.stack(out)
+
+
+def decode(plan: BitplanePlan, g4: torch.Tensor, ch_l4: torch.Tensor) -> torch.Tensor:
+    """The kdecode emission's decode (B14), routed by device."""
+    if _on_cuda(g4, ch_l4):
+        return _kernels().decode_cuda(plan, g4, ch_l4)
+    return decode_plain(plan, g4, ch_l4)
 
 
 def post(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor,
@@ -676,11 +878,13 @@ def post(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor,
     return post_plain(plan, logs, en, tiled)
 
 
-def post_planes_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
-    """Log planes and enable plane -> the named planes of ``post_off``
-    [NWS, P_total, L_pad, LANE]: per def ids/start/endf, then idsum,
-    masked_idsum, fwd, bwd, mask.  The JAX ``_make_post`` kernel in planes
-    mode (no byte groups, no ``fb``, no dummy splice)."""
+def post_xla(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor
+             ) -> Dict[str, List[torch.Tensor]]:
+    """Log planes and enable plane -> every named plane list of the post
+    stage: per def ids/start/endf, idsum, masked_idsum, fwd, bwd, mask,
+    start_any, endf_any.  The JAX ``_post_xla``
+    (halo2_regex_tpu/ops/bitplane.py:379-455): XLA there, torch ops on
+    any device here (``post="xla"``; no kernel)."""
     t = _tags_and_masks(plan, logs, en)
     named: Dict[str, List[torch.Tensor]] = {
         "idsum": t.ids_sum,
@@ -688,9 +892,22 @@ def post_planes_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) 
         "fwd": [t.fwd],
         "bwd": [t.bwd],
         "mask": [t.mask],
+        "start_any": [t.start_any],
+        "endf_any": [t.endf_any],
     }
     for d, (idp, stp, efp) in enumerate(t.per_def):
         named.update({f"ids{d}": idp, f"start{d}": [stp], f"endf{d}": [efp]})
+    return named
+
+
+def post_planes_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """Log planes and enable plane -> the named planes of ``post_off``
+    [NWS, P_total, L_pad, LANE]: for a full plan per def ids/start/endf,
+    then idsum, masked_idsum, fwd, bwd, mask; for a witness plan
+    masked_idsum, fwd, bwd, mask, start_any, endf_any.  The JAX
+    ``_make_post`` kernel in planes mode (no byte groups, no ``fb``, no
+    dummy splice)."""
+    named = post_xla(plan, logs, en)
     return torch.stack([p for name in plan.post_off for p in named[name]], 1)
 
 
@@ -826,24 +1043,64 @@ def finish_match(
     return {k: v[:B_orig] for k, v in out.items()}
 
 
+def decode_columns(plan: BitplanePlan, cols: torch.Tensor, names, B: int
+                   ) -> Dict[str, torch.Tensor]:
+    """l4-packed string-major arrays (each [B, L_pad / 4] int32 in memory:
+    ``post_direct``'s or ``decode``'s rows) -> each named field's [B, L]
+    uint8 column, a view of the array's bytes."""
+    L = plan.L
+    u8 = cols.reshape(-1).view(torch.uint8).reshape(len(names), B, plan.L_pad)
+    return {name: u8[i, :, :L] for i, name in enumerate(names)}
+
+
+def states_column(tables: Dict[str, torch.Tensor], vals: Dict[str, torch.Tensor],
+                  n_defs: int) -> torch.Tensor:
+    """Each def's [B, L] states field -> the [B, n_defs, L + 1] states
+    column, the first state in column 0 (JAX :2024-2032)."""
+    after = torch.stack([vals[f"states{d}"] for d in range(n_defs)], 1)
+    B = after.shape[0]
+    first = tables["first_states"].to(after.dtype)[None, :, None].expand(B, n_defs, 1)
+    return torch.cat([first, after], 2)
+
+
 def finish_witness(
     tables: Dict[str, torch.Tensor],
     vals: Dict[str, torch.Tensor],
-    fb: torch.Tensor,
+    fb: Optional[torch.Tensor],
     B: int,
     B_orig: int,
     chars: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
+    predummied: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """The compact witness dict of the JAX ``_finish_witness`` (bytes
-    emission, pre-dummied states).  The masked characters are
-    ``mask * chars``, or, for tiled input (no [B, L] chars exist), the
-    post kernel's ``masked_characters_pre`` field (JAX :2017-2066)."""
+    """The compact witness dict of the JAX ``_finish_witness``
+    (halo2_regex_tpu/ops/bitplane.py:1979-2075).  ``vals["states"]`` is
+    the [B, n_defs, L + 1] states column with the first state in column 0;
+    unless ``predummied`` (the post stage spliced the dummy state in), the
+    dummy state replaces every column past each string's length here.  The
+    final states come from the boundary planes ``fb`` when the post kernel
+    emitted them, else from the states column at each length.  The masked
+    characters are ``mask * chars``, or the ``masked_characters_pre``
+    field of the tiled post kernel or of the decode kernel."""
     flags = vals["flags"]
     mask = flags & 1
-    accepted, has_dead, match_ok = _verdicts(tables, final_from_fb(fb, B))
+    raw = vals["states"]
+    states = raw
+    if not predummied:
+        L1 = raw.shape[2]
+        in_range = (torch.arange(L1, dtype=torch.int32, device=raw.device)[None, None, :]
+                    <= lengths[:, None, None])
+        dummy = tables["dummy_states"].to(raw.dtype)[None, :, None]
+        states = torch.where(in_range, raw, dummy)
+    if fb is not None:
+        final = final_from_fb(fb, B)
+    else:
+        idx = lengths.long()[:, None, None].expand(B, raw.shape[1], 1)
+        final = torch.gather(raw, 2, idx)[:, :, 0].to(torch.int32)
+    accepted, has_dead, match_ok = _verdicts(tables, final)
     masked = vals.get("masked_characters_pre")
     out = dict(
-        states=vals["states"],
+        states=states,
         all_substr_ids=vals["masked_idsum"],
         masked_characters=mask * chars if masked is None else masked,
         flags=flags,
@@ -860,26 +1117,23 @@ def finish_full(
     tables: Dict[str, torch.Tensor],
     chars: torch.Tensor,
     lengths: torch.Tensor,
-    post_out: torch.Tensor,
+    planes: Dict[str, List[torch.Tensor]],
     logs: torch.Tensor,
     B_orig: int,
 ) -> RegexResult:
     """The full ``RegexResult`` of the JAX ``_finish_full``
-    (halo2_regex_tpu/ops/bitplane.py:2077): states come from the raw log
+    (halo2_regex_tpu/ops/bitplane.py:2077) from the post stage's named
+    planes (``planes_of`` or ``post_xla``): states come from the raw log
     planes (not pre-dummied), with the dummy state past each length and
     the final state read at the length."""
     B, L = chars.shape
     dev = chars.device
     val_dtype = torch.uint8 if plan.compact else torch.int32
 
-    def planes_of(name):
-        o, nb = plan.post_off[name]
-        return [post_out[:, o + j] for j in range(nb)]
-
-    named = [(name, planes_of(name)) for name in ("idsum", "masked_idsum", "fwd", "bwd", "mask")]
+    named = [(name, planes[name]) for name in ("idsum", "masked_idsum", "fwd", "bwd", "mask")]
     for d, c in enumerate(plan.circuits):
         named.append((f"states{d}", [logs[:, plan.sb_off[d] + j] for j in range(c.sb)]))
-        named += [(f"{f}{d}", planes_of(f"{f}{d}")) for f in ("ids", "start", "endf")]
+        named += [(f"{f}{d}", planes[f"{f}{d}"]) for f in ("ids", "start", "endf")]
     vals = unpack_groups(named, L)
 
     pos = torch.arange(L, dtype=torch.int32, device=dev)
@@ -959,21 +1213,73 @@ def run(
         chars = torch.cat([chars, chars.new_zeros((pad, L))])
         lengths = torch.cat([lengths, lengths.new_zeros((pad,))])
     len_wb = len_table(lengths)
-    if plan.qpack:
-        bits_stack, en = (qpack_plain if plain else qpack)(plan, chars, len_wb)
+    if plan.fuse_pack:  # the scan extracts the byte planes itself
+        logs = (scan_fpack_plain if plain else scan_fpack)(plan, raw_quads(chars, plan.L_pad))
+        en = None
     else:
-        quads = raw_quads(chars, plan.L_pad)
-        bits_stack, en = (pack_plain if plain else pack)(plan, quads, len_wb)
-    logs = (scan_plain if plain else scan)(plan, bits_stack)
+        if plan.qpack:
+            bits_stack, en = (qpack_plain if plain else qpack)(plan, chars, len_wb)
+        else:
+            quads = raw_quads(chars, plan.L_pad)
+            bits_stack, en = (pack_plain if plain else pack)(plan, quads, len_wb)
+        logs = (scan_plain if plain else scan)(plan, bits_stack)
+    if en is None:  # en_pack off: the JAX matcher's XLA pass, torch ops here
+        en = enable_plane(len_wb, plan.L_pad)
     if plan.columns == "match":
         fb = (fb_only_plain if plain else fb_only)(plan, logs, en)
         return finish_match(tables, fb, B, B_orig)
     if plan.columns == "witness":
+        return _witness_tail(plan, tables, logs, en, chars, lengths, B, B_orig, plain)
+    if plan.post == "xla":
+        planes = post_xla(plan, logs, en)
+    else:
+        planes = planes_of(plan, (post_planes_plain if plain else post_planes)(plan, logs, en))
+    return finish_full(plan, tables, chars, lengths, planes, logs, B_orig)
+
+
+def planes_of(plan: BitplanePlan, post_out: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+    """The planes-mode post output [NWS, P_total, L_pad, LANE] -> its
+    named plane lists (``post_off``)."""
+    return {name: [post_out[:, o + j] for j in range(nb)]
+            for name, (o, nb) in plan.post_off.items()}
+
+
+def _witness_tail(plan, tables, logs, en, chars, lengths, B, B_orig, plain):
+    """The witness emission of ``plan.emit`` (the JAX ``_post_decode`` and
+    ``_finish_witness``, halo2_regex_tpu/ops/bitplane.py:1892-2075)."""
+    if plan.emit in ("bytes", "kdecode"):
         g4, fb = (post_plain if plain else post)(plan, logs, en)
-        vals = decode_bytes(plan, g4, B, tables["first_states"])
+        if plan.emit == "bytes":
+            vals = decode_bytes(plan, g4, B, tables["first_states"])
+            return finish_witness(tables, vals, fb, B, B_orig, chars)
+        # the decode kernel emits every field and the masked characters
+        ch = chars if plan.L_pad == plan.L else torch.cat(
+            [chars, chars.new_zeros((B, plan.L_pad - plan.L))], 1)
+        ch_l4 = ch.contiguous().reshape(-1).view(torch.int32).reshape(B, plan.l4)
+        cols = (decode_plain if plain else decode)(plan, g4, ch_l4)
+        names = [name for name, *_ in plan.fields_flat] + ["masked_characters_pre"]
+        vals = decode_columns(plan, cols, names, B)
+        vals["states"] = states_column(tables, vals, plan.n_defs)
         return finish_witness(tables, vals, fb, B, B_orig, chars)
-    post_out = (post_planes_plain if plain else post_planes)(plan, logs, en)
-    return finish_full(plan, tables, chars, lengths, post_out, logs, B_orig)
+    if plan.emit == "direct":  # no boundary planes: final from the states
+        cols = (post_direct_plain if plain else post_direct)(plan, logs, en)
+        vals = decode_columns(plan, cols, [name for name, _nb in plan.dfields], B)
+        vals["states"] = states_column(tables, vals, plan.n_defs)
+        return finish_witness(tables, vals, None, B, B_orig, chars, lengths)
+    # planes: the post kernel's named planes, or torch ops for post="xla";
+    # states from the raw log planes, not pre-dummied (JAX :1984-2014)
+    if plan.post == "xla":
+        planes = post_xla(plan, logs, en)
+    else:
+        planes = planes_of(plan, (post_planes_plain if plain else post_planes)(plan, logs, en))
+    named = [("flags", planes["mask"] + planes["fwd"] + planes["bwd"] + [en]
+              + planes["start_any"] + planes["endf_any"]),
+             ("masked_idsum", planes["masked_idsum"])]
+    named += [(f"states{d}", [logs[:, plan.sb_off[d] + j] for j in range(c.sb)])
+              for d, c in enumerate(plan.circuits)]
+    vals = unpack_groups(named, plan.L)
+    vals["states"] = states_column(tables, vals, plan.n_defs)
+    return finish_witness(tables, vals, None, B, B_orig, chars, lengths, predummied=False)
 
 
 def _run_tiled(plan, tables, tiled, lengths, plain):
@@ -1021,15 +1327,23 @@ class BitplaneMatcher(nn.Module):
     plain versions.
 
     Args mirror the JAX constructor, less ``lc`` and ``max_step_ops``
-    (TPU tile and VMEM limits).  ``qpack`` (or ``H2R_QPACK``) picks the
-    pack from bytes (K1) or from raw quad rows (B5), which any L whose
-    L_pad differs from L takes anyway.  ``input_layout="tiled"`` (with
-    ``columns="witness"`` or ``"match"``) takes the pretiled quad words of
-    ``tile_corpus(chars, matcher.L_pad)`` [NWS, 8, L_pad, LANE] int32 in
-    place of the [B, L] chars, and lengths for at most NWS*32*LANE
-    strings; the pack is then B6 and the witness emission assembles the
-    masked characters in the post kernel.  Settings the port does not run
-    yet raise ``NotImplementedError`` naming their ROADMAP item.
+    (TPU tile and VMEM limits).  The knobs (``class_stage``, ``unroll``,
+    ``fuse_pack``, ``en_pack``, ``qpack``, ``emit`` and their ``H2R_*``
+    variables) resolve and validate as in JAX (:class:`.knobs.BitplaneKnobs`),
+    and every value the JAX matcher accepts runs, with the JAX outputs:
+    the class stage picks the pack's planes, ``fuse_pack`` the in-scan
+    pack (``scan_fpack``), ``en_pack=False`` the enable plane from torch
+    ops, ``qpack`` the pack from bytes (K1) or from raw quad rows (B5,
+    which any L whose L_pad differs from L takes anyway), ``emit`` the
+    witness tail (bytes, kdecode, direct or planes; planes whenever a
+    witness field is wider than 8 bits).  ``post="kernel"`` (or JAX's
+    ``"pallas"``) runs the fused post kernel, ``"xla"`` the same function
+    as torch ops.  ``input_layout="tiled"`` (with ``columns="witness"`` or
+    ``"match"``) takes the pretiled quad words of ``tile_corpus(chars,
+    matcher.L_pad)`` [NWS, 8, L_pad, LANE] int32 in place of the [B, L]
+    chars, and lengths for at most NWS*32*LANE strings; the pack is then B6
+    and the witness emission assembles the masked characters in the post
+    kernel.  ``scan_planes`` runs one def's scan alone (B7).
     """
 
     def __init__(
@@ -1053,29 +1367,26 @@ class BitplaneMatcher(nn.Module):
         if input_layout not in ("bl", "tiled"):
             raise ValueError(f"input_layout={input_layout!r}: expected bl/tiled")
         tiled = input_layout == "tiled"
-        if tiled and columns == "witness":  # halo2_regex_tpu/ops/bitplane.py:551-555, :765-769
-            if post != "kernel":
-                raise ValueError("input_layout='tiled' witness emission requires "
-                                 "the fused post kernel (post='kernel')")
-            L = model.max_chars_size
-            resolved = resolve_emit(emit, _round_up(L, min(LC, L)))
-            if resolved != "bytes":
-                raise ValueError(f"input_layout='tiled' witness emission requires "
-                                 f"emit='bytes' (resolved emit={resolved!r})")
-        if post == "xla":
-            raise NotImplementedError(
-                "post='xla' waits for ROADMAP A11; the port runs the fused "
-                "post kernel (post='kernel')"
-            )
-        if post != "kernel":
-            raise ValueError(f"post={post!r}: expected kernel")
-        check_main_path(
+        if tiled and columns == "full":  # halo2_regex_tpu/ops/bitplane.py:545-555
+            raise ValueError(
+                "input_layout='tiled' supports columns='witness'/'match' only: the full "
+                "RegexResult set emits all_characters, which needs the string-major "
+                "[B, L] chars")
+        if post not in ("kernel", "pallas", "xla"):
+            raise ValueError(f"post={post!r}: expected kernel (or its JAX name pallas) "
+                             "or xla")
+        post = "xla" if post == "xla" else "pallas"
+        if tiled and columns == "witness" and post != "pallas":
+            raise ValueError("input_layout='tiled' witness emission requires "
+                             "the fused post kernel (post='kernel')")
+        knobs = BitplaneKnobs.from_env(
             unroll=unroll, fuse_pack=fuse_pack, class_stage=class_stage,
-            en_pack=en_pack, emit=emit,
+            en_pack=en_pack, qpack=qpack, emit=emit,
         )
         self.model = model
-        self.plan = make_plan(model, columns, qpack=resolve_qpack(qpack), compact=compact,
-                              tiled=tiled)
+        self.knobs = knobs
+        self.plan = make_plan(model, columns, compact=compact, tiled=tiled, knobs=knobs,
+                              post=post, unroll=scan_unroll(knobs, unroll))
         self.register_buffer(
             "accept_mask", torch.from_numpy(np.asarray(model.accept_mask, bool))
         )
@@ -1111,6 +1422,19 @@ class BitplaneMatcher(nn.Module):
         chars = torch.as_tensor(chars, dtype=dtype, device=self.device)
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
         return run(self.plan, self.tables(), chars.contiguous(), lengths.contiguous())
+
+    @torch.no_grad()
+    def scan_planes(self, bits_stack, d: int = 0) -> torch.Tensor:
+        """Run def ``d``'s sequential scan alone (B7, ``scan_def``) on a
+        prepared plane stack [L_pad, KP, NWS, 128] int32: the pack's
+        output, i.e. the concatenated class planes, or the 8 byte-bit
+        planes when the class stage is off.  Returns def d's log planes
+        [NWS, sb_d, L_pad, 128], the slice ``sb_off[d]`` of the fused
+        scan's output (the JAX profiling hook of the same name)."""
+        if not 0 <= d < self.plan.n_defs:
+            raise ValueError(f"d={d}: the model has {self.plan.n_defs} defs")
+        bits = torch.as_tensor(bits_stack, dtype=torch.int32, device=self.device)
+        return scan_def(self.plan, bits.contiguous(), d)
 
     def match_one(self, characters: bytes):
         buf = np.zeros((1, self.plan.L), np.uint8)

@@ -5,15 +5,19 @@ The kernels themselves are under ``csrc/``.  The bitplane pipeline's are
 static templates: ``bitplane_pack.cu`` (K1 qpack), ``bitplane_pack_raw.cu``
 (pack from raw quad rows, B5), ``bitplane_tpack.cu`` (pack from the
 pretiled quad words of the tiled input contract, B6), ``bitplane_scan.cu``
-(K2), ``bitplane_post.cu`` (K3 in bytes mode; in planes mode when the
-header sets ``H2R_POST_PLANES``, in its tiled mode when it sets
-``H2R_POST_TILED``) and ``bitplane_fb.cu`` (the match-only boundary
-reduction, B4).  What they compute per word depends on the model, so this
-module emits each def's synthesized class, step and tag circuits, and the
-post emission of the plan's column set, as straight-line
-``__device__ __forceinline__`` functions into a header,
-``h2r_circuits.cuh``, that the templates include: one library per plan
-(model, column set and input layout).  The table-driven matcher's kernels
+(K2; with ``H2R_SCAN_FUSED_PACK`` the in-scan pack ``scan_fpack``, with
+``H2R_SCAN_DEF`` one def's scan ``scan_def``, B7), ``bitplane_post.cu``
+(K3 in bytes mode; in planes mode when the header sets
+``H2R_POST_PLANES``, in its tiled mode when it sets ``H2R_POST_TILED``,
+in direct mode when it sets ``H2R_POST_DIRECT``), ``bitplane_decode.cu``
+(the kdecode emission's decode, B14) and ``bitplane_fb.cu`` (the
+match-only boundary reduction, B4).  What they compute per word depends
+on the model and the knobs, so this module emits each def's synthesized
+class, step and tag circuits, the knob modes and the post emission of the
+plan's column set, as straight-line ``__device__ __forceinline__``
+functions and defines into a header, ``h2r_circuits.cuh``, that the
+templates include: one library per plan (model, column set, input layout
+and knobs).  The table-driven matcher's kernels
 (``table_scan.cu``, ``table_tag.cu``, ``table_fsm.cu`` of split mode and
 ``table_flat.cu`` of monolithic mode; :mod:`.pallas_scan`) take their
 tables as data and need no header: one library for every model.
@@ -39,6 +43,7 @@ runs on the CPU: the plain versions live in :mod:`.bitplane` and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -56,17 +61,6 @@ import torch
 from .bitplane import LANE, TILE, BitplanePlan
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_FRONT = ("bitplane_pack.cu", "bitplane_pack_raw.cu", "bitplane_scan.cu")
-_TFRONT = ("bitplane_tpack.cu", "bitplane_scan.cu")
-# the templates each (column set, tiled) compiles (bitplane_post.cu serves
-# every post mode, selected by the generated header)
-SOURCES = {
-    ("witness", False): _FRONT + ("bitplane_post.cu",),
-    ("full", False): _FRONT + ("bitplane_post.cu",),
-    ("match", False): _FRONT + ("bitplane_fb.cu",),
-    ("witness", True): _TFRONT + ("bitplane_post.cu",),
-    ("match", True): _TFRONT + ("bitplane_fb.cu",),
-}
 HEADERS = ("bitplane_common.cuh", "bitplane_pack_words.cuh")
 TABLE_SOURCES = ("table_scan.cu", "table_tag.cu", "table_fsm.cu", "table_flat.cu")
 NVCC_FLAGS = (
@@ -135,16 +129,39 @@ TABLE_FLAT = CudaKernel(
     "table_flat", "h2r_table_flat", "halo2_regex_tpu_torch/csrc/table_flat.cu",
     "halo2_regex_tpu/ops/pallas_scan.py:708 (body :509)",
 )
+SCAN_FPACK = CudaKernel(
+    "scan_fpack", "h2r_scan_fpack", "halo2_regex_tpu_torch/csrc/bitplane_scan.cu",
+    "halo2_regex_tpu/ops/bitplane.py:934 (fused_pack prologue :947-958)",
+)
+SCAN_DEF = CudaKernel(
+    "scan_def", "h2r_scan_def", "halo2_regex_tpu_torch/csrc/bitplane_scan.cu",
+    "halo2_regex_tpu/ops/bitplane.py:836",
+)
+POST_DIRECT = CudaKernel(
+    "post_direct", "h2r_post_direct", "halo2_regex_tpu_torch/csrc/bitplane_post.cu",
+    "halo2_regex_tpu/ops/bitplane.py:1338 (direct mode, :1471-1492)",
+)
+DECODE = CudaKernel(
+    "decode", "h2r_decode", "halo2_regex_tpu_torch/csrc/bitplane_decode.cu",
+    "halo2_regex_tpu/ops/bitplane.py:1666",
+)
 KERNELS = (QPACK, PACK_RAW, SCAN, POST, POST_PLANES, FB_ONLY,
-           TABLE_SCAN, TABLE_TAG, TABLE_FSM, TPACK, POST_TILED, TABLE_FLAT)
+           TABLE_SCAN, TABLE_TAG, TABLE_FSM, TPACK, POST_TILED, TABLE_FLAT,
+           SCAN_FPACK, SCAN_DEF, POST_DIRECT, DECODE)
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
+    # the pack kernels' en is a null pointer when the plan's en_pack is off
     QPACK: [_P, _P, _P, _P, _I, _I, _I, _P],
     PACK_RAW: [_P, _P, _P, _P, _I, _I, _P],
     SCAN: [_P, _P, _I, _I, _P],
+    SCAN_FPACK: [_P, _P, _I, _I, _P],
+    SCAN_DEF: [_P, _P, _I, _I, _P],
     POST: [_P, _P, _P, _P, _P, _I, _I, _P],
     POST_PLANES: [_P, _P, _P, _I, _I, _P],
+    POST_DIRECT: [_P, _P, _P, _P, _I, _I, _P],
+    # g4, chars (l4), out, NWS, L, stream
+    DECODE: [_P, _P, _P, _I, _I, _P],
     FB_ONLY: [_P, _P, _P, _I, _I, _P],
     TPACK: [_P, _P, _P, _P, _I, _I, _P],
     POST_TILED: [_P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -161,15 +178,43 @@ _ENTRIES = {
     # bwd, n_defs, B, L, K, S, vec, smem bytes, stream
     TABLE_FLAT: [_P] * 11 + [_I] * 7 + [_P],
 }
-_TAIL = {("witness", False): POST, ("full", False): POST_PLANES, ("match", False): FB_ONLY,
-         ("witness", True): POST_TILED, ("match", True): FB_ONLY}
 TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
+
+
+def _tail(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
+    """The kernels after the scan: none where ``post="xla"`` runs torch ops."""
+    if plan.columns == "match":
+        return (FB_ONLY,)
+    if plan.post == "xla":
+        return ()
+    if plan.columns == "full" or plan.emit == "planes":
+        return (POST_PLANES,)
+    if plan.emit == "direct":
+        return (POST_DIRECT,)
+    post_k = POST_TILED if plan.tiled else POST
+    return (post_k, DECODE) if plan.emit == "kdecode" else (post_k,)
 
 
 def path_kernels(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
     """The kernels one call of ``plan``'s pipeline launches, in order."""
+    if plan.fuse_pack:
+        return (SCAN_FPACK,) + _tail(plan)
     front = TPACK if plan.tiled else (QPACK if plan.qpack else PACK_RAW)
-    return front, SCAN, _TAIL[plan.columns, plan.tiled]
+    return (front, SCAN) + _tail(plan)
+
+
+def library_kernels(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
+    """The kernels of ``plan``'s library: its path's, and for a [B, L]
+    plan with a pack kernel both packs (qpack and pack_raw)."""
+    if plan.fuse_pack or plan.tiled:
+        return path_kernels(plan)
+    return (QPACK, PACK_RAW, SCAN) + _tail(plan)
+
+
+def _sources(kernels_: Sequence[CudaKernel]) -> Tuple[str, ...]:
+    """The csrc/ files of ``kernels_``, each once (a template serves
+    several kernels, each selected by the generated header)."""
+    return tuple(dict.fromkeys(Path(k.source).name for k in kernels_))
 
 
 def table_path_launches(n_windows: int, mode: str = "split") -> Dict[CudaKernel, int]:
@@ -251,25 +296,43 @@ def circuits_header(plan: BitplanePlan) -> str:
         f"#define H2R_NLIVE {n_live}",
         f"#define H2R_NSUM {plan.nsum}",
         f"#define H2R_NDT {plan.n_defs * (plan.idb + 2)}",
+        f"#define H2R_EN_PACK {int(plan.en_pack)}",
+        f"#define H2R_SCAN_UNROLL {plan.unroll}",
     ]
-    if plan.columns == "witness":
-        out.append(f"#define H2R_NGROUPS {plan.n_groups}")
+    if plan.fuse_pack:
+        out.append("#define H2R_SCAN_FUSED_PACK 1")
+    # the witness emission's byte groups: bytes/kdecode pack fields into
+    # <= 8-bit groups, direct gives each field its own group
+    groups: Tuple = ()
+    if plan.columns == "witness" and plan.emit in ("bytes", "kdecode"):
+        groups = plan.wgroups
+    elif plan.columns == "witness" and plan.emit == "direct":
+        groups = tuple(((name, 0, nb),) for name, nb in plan.dfields)
+        out.append("#define H2R_POST_DIRECT 1")
+    if groups:
+        out.append(f"#define H2R_NGROUPS {len(groups)}")
         if plan.tiled:
             out.append("#define H2R_POST_TILED 1")
-    if plan.columns == "full":
+    if plan.post_off and plan.post == "pallas":
         out += ["#define H2R_POST_PLANES 1", f"#define H2R_P_TOTAL {plan.p_total}"]
-        out += [f"#define H2R_OFF_{name.upper()} {plan.post_off[name][0]}"
-                for name in ("idsum", "masked_idsum", "fwd", "bwd", "mask")]
+        out += [f"#define H2R_OFF_{name.upper()} {o}" for name, (o, _nb) in plan.post_off.items()
+                if not name[-1].isdigit()]
+    if plan.emit == "kdecode":
+        out += [f"#define H2R_NFIELDS {len(plan.fields_flat)}",
+                "#define H2R_FLAGS_FIELD 0  // flags is the first field"]
     out.append("")
 
-    body = []
-    for d, c in enumerate(circ):
-        body.append(f"{{  // def {d}: {c.class_prog.n_ops} ops")
-        body += ["  " + s for s in c.class_prog.to_c(
-            {f"byte_bit{j}": f"bb[{j}]" for j in range(8)},
-            {n: f"cls[{plan.cls_off[d] + j}]" for j, n in enumerate(c.class_plane_names)},
-        )]
-        body.append("}")
+    if plan.class_stage:
+        body = []
+        for d, c in enumerate(circ):
+            body.append(f"{{  // def {d}: {c.class_prog.n_ops} ops")
+            body += ["  " + s for s in c.class_prog.to_c(
+                {f"byte_bit{j}": f"bb[{j}]" for j in range(8)},
+                {n: f"cls[{plan.cls_off[d] + j}]" for j, n in enumerate(c.class_plane_names)},
+            )]
+            body.append("}")
+    else:  # the class stage is off: the pack writes the byte-bit planes
+        body = [f"cls[{j}] = bb[{j}];" for j in range(8)]
     out += _fn("h2r_class(const uint32_t* bb, uint32_t* cls)", body)
 
     body = [
@@ -281,7 +344,10 @@ def circuits_header(plan: BitplanePlan) -> str:
     body = []
     for d, c in enumerate(circ):
         idx = {s: live_off[d] + i for i, s in enumerate(c.live_states)}
-        ins = {n: f"cls[{plan.cls_off[d] + j}]" for j, n in enumerate(c.class_plane_names)}
+        if c.fold_class:  # the step circuit reads the 8 byte-bit planes
+            ins = {f"byte_bit{j}": f"cls[{j}]" for j in range(8)}
+        else:
+            ins = {n: f"cls[{plan.cls_off[d] + j}]" for j, n in enumerate(c.class_plane_names)}
         ins.update({f"st{s}": f"st[{i}]" for s, i in idx.items()})
         outs = {f"nst{s}": f"st[{i}]" for s, i in idx.items()}
         outs.update({f"log{j}": f"lg[{plan.sb_off[d] + j}]" for j in range(c.sb)})
@@ -344,8 +410,13 @@ def circuits_header(plan: BitplanePlan) -> str:
                 v = "0u"
             body.append(f"fb[{8 * d + j}] = {v};")
     out += _fn("h2r_fb(const uint32_t* acc, uint32_t empty, uint32_t* fb)", body)
-    if plan.columns != "witness":
+    if not groups:
         return "\n".join(out)
+    if plan.emit == "kdecode":
+        # fw[f] = field f of the byte-group words gw[gi] (every byte lane)
+        body = [f"fw[{f}] = (gw[{gi}] >> {off}) & {((1 << nb) - 1) * 0x01010101:#010x}u;"
+                for f, (_name, gi, off, nb) in enumerate(plan.fields_flat)]
+        out += _fn("h2r_decode_fields(const uint32_t* gw, uint32_t* fw)", body)
 
     avail: Dict[str, List[str]] = {
         "flags": [f"flags[{k}]" for k in range(6)],
@@ -359,7 +430,7 @@ def circuits_header(plan: BitplanePlan) -> str:
             for j in range(c.sb)
         ]
     body = []
-    for gi, grp in enumerate(plan.wgroups):
+    for gi, grp in enumerate(groups):
         planes = [p for name, _off, _nb in grp for p in avail[name]]
         planes += ["0u"] * (8 - len(planes))
         body.append(f"{{  // group {gi}: {', '.join(n for n, _o, _b in grp)}")
@@ -477,7 +548,10 @@ def _load(key: str, sources: Tuple[str, ...], header: Optional[str],
         for o in objs:
             o.unlink()
         os.replace(tmp, so)  # atomic: a reader never sees a partial library
-        BUILD_LOG[key] = {"seconds": secs, "dir": str(out_dir), "ptxas": "".join(logs)}
+        defines = [ln.split(None, 1)[1] for ln in (header or "").splitlines()
+                   if ln.startswith("#define")]
+        BUILD_LOG[key] = {"seconds": secs, "dir": str(out_dir), "ptxas": "".join(logs),
+                          "defines": defines}
     lib = ctypes.CDLL(str(so))
     for k in entries:
         fn = getattr(lib, k.entry)
@@ -492,13 +566,40 @@ def build(plan: BitplanePlan) -> ctypes.CDLL:
     hit = _PLAN_LIBS.get(plan)
     if hit is not None:
         return hit
-    front = (TPACK,) if plan.tiled else (QPACK, PACK_RAW)
-    lib = _build_library(
-        SOURCES[plan.columns, plan.tiled], front + (SCAN, _TAIL[plan.columns, plan.tiled]),
-        includes=HEADERS, header=circuits_header(plan),
-    )
+    ks = library_kernels(plan)
+    lib = _build_library(_sources(ks), ks, includes=HEADERS, header=circuits_header(plan))
     _PLAN_LIBS[plan] = lib
     return lib
+
+
+def def_plan(plan: BitplanePlan, d: int) -> BitplanePlan:
+    """``plan`` narrowed to def ``d`` for its scan alone (``scan_def``):
+    the input stack keeps all KP planes, def d's at ``cls_off[d]``, and
+    the output holds its sb_d log planes."""
+    c = plan.circuits[d]
+    return dataclasses.replace(
+        plan, circuits=(c,), columns="match", tiled=False, fuse_pack=False, nsum=plan.idb,
+        cls_off=(plan.cls_off[d],), sb_off=(0,), sb_sum=c.sb, wgroups=(), post_off={},
+        p_total=0, emit="planes", dfields=(), first_states=(plan.first_states[d],),
+        dummy_states=(plan.dummy_states[d],),
+    )
+
+
+_DEF_LIBS: "weakref.WeakKeyDictionary[BitplanePlan, Dict[int, ctypes.CDLL]]" = (
+    weakref.WeakKeyDictionary()
+)
+
+
+def build_scan_def(plan: BitplanePlan, d: int) -> ctypes.CDLL:
+    """The library of ``scan_def`` for def ``d`` of ``plan``: the scan
+    template built against the header of ``def_plan(plan, d)``."""
+    libs = _DEF_LIBS.setdefault(plan, {})
+    if d not in libs:
+        header = circuits_header(def_plan(plan, d)).replace(
+            "#pragma once\n", f"#pragma once\n#define H2R_SCAN_DEF 1  // def {d} alone\n", 1)
+        libs[d] = _build_library(_sources((SCAN_DEF,)), (SCAN_DEF,), includes=HEADERS,
+                                 header=header)
+    return libs[d]
 
 
 @functools.cache
@@ -543,11 +644,23 @@ def qpack_cuda(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):
     lib = build(plan)
     with torch.cuda.device(chars.device):
         bits = torch.empty((L, plan.kp, NWS, LANE), dtype=torch.int32, device=chars.device)
-        en = torch.empty((NWS, L, LANE), dtype=torch.int32, device=chars.device)
+        en = _en_out(plan, NWS, chars.device)
         vec = int(L % 4 == 0 and chars.data_ptr() % 4 == 0)  # 32-bit loads
         _launch(QPACK, lib.h2r_qpack, chars.data_ptr(), len_wb.data_ptr(),
-                bits.data_ptr(), en.data_ptr(), B, L, vec, _stream(chars))
+                bits.data_ptr(), _ptr(en), B, L, vec, _stream(chars))
     return bits, en
+
+
+def _en_out(plan: BitplanePlan, NWS: int, dev: torch.device) -> Optional[torch.Tensor]:
+    """The pack kernels' enable plane output, or None when en_pack is off
+    (the kernel then writes none, and torch ops build it)."""
+    if not plan.en_pack:
+        return None
+    return torch.empty((NWS, plan.L_pad, LANE), dtype=torch.int32, device=dev)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def pack_raw_cuda(plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor):
@@ -559,9 +672,9 @@ def pack_raw_cuda(plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor)
     dev = quads.device
     with torch.cuda.device(dev):
         bits = torch.empty((plan.L_pad, plan.kp, NWS, LANE), dtype=torch.int32, device=dev)
-        en = torch.empty((NWS, plan.L_pad, LANE), dtype=torch.int32, device=dev)
+        en = _en_out(plan, NWS, dev)
         _launch(PACK_RAW, lib.h2r_pack_raw, quads.data_ptr(), len_wb.data_ptr(),
-                bits.data_ptr(), en.data_ptr(), NWS * LANE, plan.L_pad, _stream(quads))
+                bits.data_ptr(), _ptr(en), NWS * LANE, plan.L_pad, _stream(quads))
     return bits, en
 
 
@@ -582,15 +695,37 @@ def tpack_cuda(plan: BitplanePlan, tiled: torch.Tensor, len_wb: torch.Tensor):
 
 def scan_cuda(plan: BitplanePlan, bits_stack: torch.Tensor) -> torch.Tensor:
     """K2 (``csrc/bitplane_scan.cu``): same contract as ``scan_plain``."""
-    L, KP, NWS, _lane = bits_stack.shape
-    _check(bits_stack, "bits_stack", torch.int32, (plan.L_pad, plan.kp, NWS, LANE))
-    lib = build(plan)
-    with torch.cuda.device(bits_stack.device):
-        logs = torch.empty((NWS, plan.sb_sum, L, LANE), dtype=torch.int32,
-                           device=bits_stack.device)
-        _launch(SCAN, lib.h2r_scan, bits_stack.data_ptr(), logs.data_ptr(),
-                NWS * LANE, L, _stream(bits_stack))
+    if plan.fuse_pack:
+        raise ValueError("a fuse_pack plan's scan is scan_fpack_cuda")
+    return _scan_launch(SCAN, build(plan), plan, bits_stack, plan.kp, plan.sb_sum)
+
+
+def _scan_launch(kernel: CudaKernel, lib, plan: BitplanePlan, x: torch.Tensor, kin: int,
+                 sb: int) -> torch.Tensor:
+    """Launch one of the scans built from ``bitplane_scan.cu`` on its input
+    planes [L_pad, kin, NWS, LANE] -> log planes [NWS, sb, L_pad, LANE]."""
+    NWS = x.shape[2] if x.dim() == 4 else 0
+    _check(x, "bits_stack", torch.int32, (plan.L_pad, kin, NWS, LANE))
+    with torch.cuda.device(x.device):
+        logs = torch.empty((NWS, sb, plan.L_pad, LANE), dtype=torch.int32, device=x.device)
+        _launch(kernel, getattr(lib, kernel.entry), x.data_ptr(), logs.data_ptr(),
+                NWS * LANE, plan.L_pad, _stream(x))
     return logs
+
+
+def scan_fpack_cuda(plan: BitplanePlan, quads: torch.Tensor) -> torch.Tensor:
+    """B2's fused_pack mode (``csrc/bitplane_scan.cu`` under
+    ``H2R_SCAN_FUSED_PACK``): same contract as ``scan_fpack_plain``."""
+    if not plan.fuse_pack:
+        raise ValueError("scan_fpack needs a fuse_pack plan")
+    return _scan_launch(SCAN_FPACK, build(plan), plan, quads, 8, plan.sb_sum)
+
+
+def scan_def_cuda(plan: BitplanePlan, bits_stack: torch.Tensor, d: int) -> torch.Tensor:
+    """B7 (``csrc/bitplane_scan.cu`` built for def ``d`` alone, under
+    ``H2R_SCAN_DEF``): same contract as ``scan_def_plain``."""
+    return _scan_launch(SCAN_DEF, build_scan_def(plan, d), plan, bits_stack, plan.kp,
+                        plan.circuits[d].sb)
 
 
 def _check_logs_en(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> int:
@@ -603,8 +738,8 @@ def _check_logs_en(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> 
 def post_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
     """K3 (``csrc/bitplane_post.cu``, bytes mode): same contract as
     ``post_plain``."""
-    if plan.tiled:
-        raise ValueError("a tiled plan's post is post_tiled_cuda")
+    if plan.tiled or plan.emit not in ("bytes", "kdecode"):
+        raise ValueError("post needs a [B, L] witness plan in bytes or kdecode emission")
     NWS = _check_logs_en(plan, logs, en)
     L = plan.L_pad
     lib = build(plan)
@@ -641,7 +776,10 @@ def post_tiled_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor,
 
 def post_planes_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
     """B3 planes mode (``csrc/bitplane_post.cu`` under ``H2R_POST_PLANES``):
-    same contract as ``post_planes_plain``."""
+    same contract as ``post_planes_plain``: a full plan's planes, or a
+    witness plan's in planes emission."""
+    if not plan.post_off or plan.post != "pallas":
+        raise ValueError("post_planes needs a full or planes-emission plan with post='pallas'")
     NWS = _check_logs_en(plan, logs, en)
     lib = build(plan)
     dev = logs.device
@@ -649,6 +787,40 @@ def post_planes_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -
         out = torch.empty((NWS, plan.p_total, plan.L_pad, LANE), dtype=torch.int32, device=dev)
         _launch(POST_PLANES, lib.h2r_post_planes, logs.data_ptr(), en.data_ptr(),
                 out.data_ptr(), NWS * LANE, plan.L_pad, _stream(logs))
+    return out
+
+
+def post_direct_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """B3's direct mode (``csrc/bitplane_post.cu`` under ``H2R_POST_DIRECT``):
+    same contract as ``post_direct_plain``."""
+    if plan.emit != "direct":
+        raise ValueError("post_direct needs a witness plan in direct emission")
+    NWS = _check_logs_en(plan, logs, en)
+    lib = build(plan)
+    dev = logs.device
+    with torch.cuda.device(dev):
+        fwd = torch.empty((NWS, plan.L_pad, LANE), dtype=torch.int32, device=dev)
+        out = torch.empty((len(plan.dfields), 8, NWS, 4 * LANE, plan.l4), dtype=torch.int32,
+                          device=dev)
+        _launch(POST_DIRECT, lib.h2r_post_direct, logs.data_ptr(), en.data_ptr(),
+                fwd.data_ptr(), out.data_ptr(), NWS * LANE, plan.L_pad, _stream(logs))
+    return out
+
+
+def decode_cuda(plan: BitplanePlan, g4: torch.Tensor, ch_l4: torch.Tensor) -> torch.Tensor:
+    """B14 (``csrc/bitplane_decode.cu``): same contract as ``decode_plain``."""
+    if plan.emit != "kdecode":
+        raise ValueError("decode needs a witness plan in kdecode emission")
+    NWS = g4.shape[0] if g4.dim() == 4 else 0
+    _check(g4, "g4", torch.int32, (NWS, 8 * plan.n_groups, plan.L_pad, LANE))
+    _check(ch_l4, "ch_l4", torch.int32, (NWS * TILE, plan.l4))
+    lib = build(plan)
+    dev = g4.device
+    with torch.cuda.device(dev):
+        out = torch.empty((len(plan.fields_flat) + 1, NWS * TILE, plan.l4), dtype=torch.int32,
+                          device=dev)
+        _launch(DECODE, lib.h2r_decode, g4.data_ptr(), ch_l4.data_ptr(), out.data_ptr(), NWS,
+                plan.L_pad, _stream(g4))
     return out
 
 

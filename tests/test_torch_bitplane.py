@@ -262,7 +262,7 @@ def test_witness_plain_flag_is_the_cpu_route(ports):
 
 
 # ---------------------------------------------------------------------------
-# what the port refuses
+# what the port refuses, and the settings it once refused
 # ---------------------------------------------------------------------------
 
 
@@ -279,24 +279,43 @@ def test_stage_on_unsupported_device_raises(ports):
         bp.qpack(ports["regex3"].plan, x, lw)
 
 
+@pytest.fixture(scope="module")
+def jax_strings3(jax_matchers):
+    """The JAX default witness matcher's output on STRINGS3, computed once."""
+    chars, lengths = _pack(STRINGS3)
+    return {k: np.asarray(v) for k, v in jax_matchers["regex3"](chars, lengths).items()}
+
+
+def assert_resolves_and_runs_as_jax(models, jax_strings3, **kw):
+    """The port's matcher under ``kw`` (and the caller's environment)
+    resolves its knobs as the JAX matcher does under the same settings,
+    and returns the JAX witness dict on STRINGS3: every knob value of the
+    JAX matcher gives the default's outputs (tests/test_torch_variants_*.py
+    hold each value against the JAX matcher run with it)."""
+    m = T.BitplaneMatcher(models["regex3"][1], columns="witness", device="cpu", **kw)
+    j = JaxMatcher(models["regex3"][0], columns="witness", interpret=True, **kw)  # not called
+    assert (m.plan.emit, m.plan.class_stage, m.plan.fuse_pack, m.plan.kp, m.plan.en_pack,
+            m.plan.qpack) == (j._emit, j.class_stage, j.fuse_pack, j._kp, j._en_in_pack, j._qpack)
+    assert_witness_equal(m(*_pack(STRINGS3)), jax_strings3)
+
+
 @pytest.mark.parametrize("kw", [
     dict(emit="planes"), dict(fuse_pack=True), dict(input_layout="tiled"),
     dict(post="xla"), dict(emit="kdecode"), dict(en_pack=False),
     dict(class_stage="onehot"), dict(unroll=4),
 ])
-def test_unported_settings_raise(models, kw):
-    """Knob variants off the main path wait for their ROADMAP items.  The
-    tiled input contract no longer raises: it runs, with the tiled pack and
-    post (tests/test_torch_tiled.py holds it to the JAX package)."""
-    kw.setdefault("columns", "witness")
+def test_unported_settings_raise(models, jax_strings3, kw):
+    """The settings the port once refused run now, as in the JAX matcher
+    (the name is kept from when they raised).  The tiled input contract
+    runs with the tiled pack and post (tests/test_torch_tiled.py holds it
+    to the JAX package)."""
     if "input_layout" in kw:
-        m = T.BitplaneMatcher(models["regex3"][1], device="cpu", **kw)
+        m = T.BitplaneMatcher(models["regex3"][1], columns="witness", device="cpu", **kw)
         assert m.plan.tiled and not m.plan.qpack and m.input_layout == "tiled"
         out = m.match_one(b"from:alice@gmail.com\r\n")
         assert bool(out["match_ok"])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.BitplaneMatcher(models["regex3"][1], device="cpu", **kw)
+    assert_resolves_and_runs_as_jax(models, jax_strings3, **kw)
 
 
 def test_unpadded_length_raises():
@@ -315,10 +334,11 @@ def test_unpadded_length_raises():
     ("H2R_CLASS_STAGE", "onehot"), ("H2R_SCAN_UNROLL", "2"), ("H2R_FUSE_PACK", "1"),
     ("H2R_EN_PACK", "0"),
 ])
-def test_unported_env_knobs_raise(models, monkeypatch, var, value):
+def test_unported_env_knobs_raise(models, jax_strings3, monkeypatch, var, value):
+    """The environment knobs the port once refused run now, resolved as
+    in the JAX matcher (the name is kept from when they raised)."""
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match=f"{var}={value}.*ROADMAP"):
-        T.BitplaneMatcher(models["regex3"][1], columns="witness", device="cpu")
+    assert_resolves_and_runs_as_jax(models, jax_strings3)
 
 
 def test_main_path_knobs_accepted(models, monkeypatch):

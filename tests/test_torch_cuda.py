@@ -466,3 +466,130 @@ def test_monolithic_matcher_on_card_matches_cpu(dev, name):
         want_counts["table_flat"] = 1
         assert {k.name: k.launches for k in kernels.KERNELS} == want_counts
         _assert_same(got, T.PallasMatcher(model, device="cpu", **kw)(chars, lengths))
+
+
+# ---------------------------------------------------------------------------
+# the knob variants: the pack kernels' class-stage and en_pack modes, the
+# in-scan pack (B2 fused_pack), one def's scan (B7), B3's direct and
+# witness-planes modes and the decode kernel (B14)
+# ---------------------------------------------------------------------------
+
+
+def _knobs(**kw):
+    from halo2_regex_tpu_torch.ops.knobs import BitplaneKnobs
+
+    return BitplaneKnobs(**kw)
+
+
+@pytest.mark.parametrize("class_stage", [False, "binary", "onehot"])
+@pytest.mark.parametrize("name,L", [("regex3", MAX_LEN), ("two_def", MAX_LEN), ("from", 1000)])
+def test_pack_modes_and_scans_match_plain(dev, name, L, class_stage):
+    """qpack, pack_raw and tpack in each class-stage mode, with en_pack on
+    and off; the scan on each mode's planes, and scan_def for each def
+    (equal to the scan's slice)."""
+    model = _model(name, L)
+    chars, lengths = _corpus(8192, L, 21)
+    ch = torch.from_numpy(chars).to(dev)
+    lw = bp.len_table(torch.from_numpy(lengths).to(dev))
+    for en_pack in (True, False):
+        plan = bp.make_plan(model, "witness", knobs=_knobs(class_stage=class_stage,
+                                                           en_pack=en_pack), unroll=2)
+        quads = bp.raw_quads(ch, plan.L_pad)
+        bits, en = bp.pack_plain(plan, quads, lw)
+        assert (en is None) == (not en_pack)
+        kb, ke = kernels.pack_raw_cuda(plan, quads, lw)
+        assert torch.equal(kb, bits) and (ke is None if en is None else torch.equal(ke, en))
+        if plan.qpack:
+            kb, ke = kernels.qpack_cuda(plan, ch, lw)
+            assert torch.equal(kb, bits) and (ke is None if en is None else torch.equal(ke, en))
+        logs = bp.scan_plain(plan, bits)
+        assert torch.equal(kernels.scan_cuda(plan, bits), logs)
+        for d, c in enumerate(plan.circuits):
+            got = kernels.scan_def_cuda(plan, bits, d)
+            assert torch.equal(got, bp.scan_def_plain(plan, bits, d))
+            assert torch.equal(got, logs[:, plan.sb_off[d]: plan.sb_off[d] + c.sb])
+    tplan = bp.make_plan(model, "witness", knobs=_knobs(class_stage=class_stage), tiled=True)
+    tiled = torch.from_numpy(bp.tile_corpus(chars, tplan.L_pad)).to(dev)
+    kb, ke = kernels.tpack_cuda(tplan, tiled, lw)
+    bits, en = bp.tpack_plain(tplan, tiled, lw)
+    assert torch.equal(kb, bits) and torch.equal(ke, en)
+
+
+@pytest.mark.parametrize("unroll", [1, 3, 8])
+@pytest.mark.parametrize("name,L", [("regex3", MAX_LEN), ("from", 1000)])
+def test_scan_fpack_matches_plain(dev, name, L, unroll):
+    """B2's in-scan pack against its plain version, at several unrolls."""
+    model = _model(name, L)
+    plan = bp.make_plan(model, "witness", knobs=_knobs(fuse_pack=True, class_stage=False,
+                                                       en_pack=False, qpack=False),
+                        unroll=unroll)
+    chars, _lengths = _corpus(8192, L, 22)
+    quads = bp.raw_quads(torch.from_numpy(chars).to(dev), plan.L_pad)
+    assert torch.equal(kernels.scan_fpack_cuda(plan, quads), bp.scan_fpack_plain(plan, quads))
+
+
+@pytest.mark.parametrize("name,L", [("regex3", MAX_LEN), ("two_def", MAX_LEN), ("from", MAX_LEN),
+                                    ("from", 1000)])
+def test_emission_kernels_match_plain(dev, name, L):
+    """post_direct, the post kernel's witness planes mode and the decode
+    kernel (after the bytes-mode post) against their plain versions."""
+    model = _model(name, L)
+    chars, lengths = _corpus(8192, L, 23)
+    ch = torch.from_numpy(chars).to(dev)
+    lw = bp.len_table(torch.from_numpy(lengths).to(dev))
+    base = bp.make_plan(model, "witness")
+    bits, en = bp.pack_plain(base, bp.raw_quads(ch, base.L_pad), lw)
+    logs = kernels.scan_cuda(base, bits)
+    pd = bp.make_plan(model, "witness", knobs=_knobs(emit="direct"))
+    assert pd.emit == "direct"
+    assert torch.equal(kernels.post_direct_cuda(pd, logs, en), bp.post_direct_plain(pd, logs, en))
+    pp = bp.make_plan(model, "witness", knobs=_knobs(emit="planes"))
+    assert torch.equal(kernels.post_planes_cuda(pp, logs, en), bp.post_planes_plain(pp, logs, en))
+    pk = bp.make_plan(model, "witness", knobs=_knobs(emit="kdecode"))
+    g4, fb = kernels.post_cuda(pk, logs, en)
+    want = bp.post_plain(pk, logs, en)
+    assert torch.equal(g4, want[0]) and torch.equal(fb, want[1])
+    chp = torch.cat([ch, ch.new_zeros((ch.shape[0], pk.L_pad - pk.L))], 1) if pk.L_pad != pk.L else ch
+    ch_l4 = chp.contiguous().reshape(-1).view(torch.int32).reshape(ch.shape[0], pk.l4)
+    assert torch.equal(kernels.decode_cuda(pk, g4, ch_l4), bp.decode_plain(pk, g4, ch_l4))
+
+
+KNOB_CASES = [
+    dict(emit="direct"), dict(emit="kdecode"), dict(emit="planes"), dict(post="xla"),
+    dict(fuse_pack=True), dict(class_stage=False), dict(class_stage="onehot"),
+    dict(en_pack=False), dict(qpack=False, en_pack=False, class_stage="onehot"),
+    dict(unroll=1), dict(unroll=8),
+]
+
+
+@pytest.mark.parametrize("kw", KNOB_CASES, ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+@pytest.mark.parametrize("columns", ["witness", "full", "match"])
+def test_knob_variants_on_card_match_cpu(dev, columns, kw):
+    """Each knob variant's matcher on the card equals the CPU (plain) run
+    on 4099 strings, and launches exactly its path's kernels."""
+    model = _model("from", MAX_LEN)
+    chars, lengths = _corpus(4099, MAX_LEN, 24)
+    m = T.BitplaneMatcher(model, columns=columns, device=dev, **kw)
+    kernels.reset_launch_counts()
+    got = m(chars, lengths)
+    torch.cuda.synchronize()
+    path = kernels.path_kernels(m.plan)
+    assert {k.name: k.launches for k in kernels.KERNELS} == {
+        k.name: int(k in path) for k in kernels.KERNELS}
+    _assert_same(got, T.BitplaneMatcher(model, columns=columns, device="cpu", **kw)(chars, lengths))
+
+
+def test_scan_planes_on_card(dev):
+    """``scan_planes`` (B7) of each def of the 3-def email model equals the
+    fused scan's slice, with one scan_def launch per call."""
+    model = T.zoo.email_headers_model(max_chars_size=MAX_LEN)
+    m = T.BitplaneMatcher(model, columns="witness", device=dev)
+    chars, lengths = _corpus(4096, MAX_LEN, 25)
+    bits, _en = bp.qpack_plain(m.plan, torch.from_numpy(chars).to(dev),
+                               bp.len_table(torch.from_numpy(lengths).to(dev)))
+    logs = kernels.scan_cuda(m.plan, bits)
+    for d, c in enumerate(m.plan.circuits):
+        kernels.reset_launch_counts()
+        got = m.scan_planes(bits, d)
+        assert kernels.SCAN_DEF.launches == 1
+        assert torch.equal(got, logs[:, m.plan.sb_off[d]: m.plan.sb_off[d] + c.sb])

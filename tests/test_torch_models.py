@@ -64,14 +64,23 @@ def test_compiled_tables_equal(models, name):
     assert_models_equal(jm, tm)
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_synthesized_programs_identical(models, name):
-    """Binary class stage (the port's main path): class, step and tag
-    programs are instruction-for-instruction the same."""
+# the synthesis options of each class stage: binary (the main path; its
+# cases keep their plain model ids), one-hot class planes, and the class
+# BDD folded into the step circuit (the class stage off)
+STAGES = {"binary": dict(fold_class=False, class_encoding="binary"),
+          "onehot": dict(fold_class=False, class_encoding="onehot"),
+          "fold_class": dict(fold_class=True, class_encoding="onehot")}
+
+
+@pytest.mark.parametrize("name,stage", [(n, s) for s in STAGES for n in NAMES],
+                         ids=[n if s == "binary" else f"{n}-{s}" for s in STAGES for n in NAMES])
+def test_synthesized_programs_identical(models, name, stage):
+    """Under each class stage the class, step and tag programs are
+    instruction-for-instruction the same."""
     jm, tm = models[name]
     idb = max(1, int(jm.total_substrs).bit_length())
     for d in range(jm.n_defs):
-        kw = dict(idb=idb, fold_class=False, class_encoding="binary")
+        kw = dict(idb=idb, **STAGES[stage])
         cj = jbs.synthesize_def(
             jm.transition[d], int(jm.first_states[d]), int(jm.dead_states[d]),
             j_substr_pairs(jm, d), **kw,

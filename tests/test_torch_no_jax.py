@@ -2,8 +2,9 @@
 
 ``tests/conftest.py`` imports jax into the test process itself, so the
 check runs the port in a fresh interpreter: import it with its CLI, corpus
-utilities and native packers, run a tiny match of each column set, a run
-extraction, a tiled match, the table-driven ``PallasMatcher`` (batch,
+utilities and native packers, run a tiny match of each column set, a
+direct-emission and an in-scan-pack witness, a run extraction, a tiled
+match, the table-driven ``PallasMatcher`` (batch,
 segmented and monolithic) and a CLI scan on the CPU, and assert that
 neither JAX nor the JAX package was loaded along the way.
 """
@@ -51,6 +52,10 @@ for grid_mode in ("batch", "segmented"):
 mono = h2r.PallasMatcher(model, mode="monolithic", device="cpu")
 assert mono.mode == "monolithic"
 assert mono(chars, lengths).all_substr_ids.tolist() == res.all_substr_ids.long().tolist()
+for kw in (dict(emit="direct"), dict(fuse_pack=True)):
+    v = h2r.BitplaneMatcher(model, columns="witness", device="cpu", **kw)(chars, lengths)
+    assert v["match_ok"].tolist() == [True, False], (kw, v)
+    assert bytes(v["masked_characters"][0][v["all_substr_ids"][0] > 0]) == b"1234", (kw, v)
 tl = h2r.BitplaneMatcher(model, columns="match", input_layout="tiled", device="cpu")
 assert tl(h2r.tile_corpus(chars, tl.L_pad), lengths)["match_ok"].tolist() == [True, False]
 with tempfile.TemporaryDirectory() as d:

@@ -227,10 +227,14 @@ def test_tiled_rejects_unsupported_modes(models, monkeypatch):
     monkeypatch.setenv("H2R_EMIT", "kdecode")
     with pytest.raises(ValueError, match="resolved emit='kdecode'"):
         T.BitplaneMatcher(model, columns="witness", input_layout="tiled", device="cpu")
-    # match mode emits no witness fields: the port's knob check refuses
-    # the environment's emission as for the [B, L] matcher
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.BitplaneMatcher(model, columns="match", input_layout="tiled", device="cpu")
+    with pytest.raises(ValueError, match="resolved emit='direct'"):
+        T.BitplaneMatcher(model, columns="witness", emit="direct", input_layout="tiled",
+                          device="cpu")
+    # match mode emits no witness fields: the environment's emission is
+    # ignored, as in the JAX matcher
+    m = T.BitplaneMatcher(model, columns="match", input_layout="tiled", device="cpu")
+    assert (m.plan.emit, m.plan.tiled) == ("planes", True)
+    assert bool(m.match_one(b"xx\r\nfrom:bob@x.yz\r\n")["match_ok"])
 
 
 def test_tiled_rejects_bad_inputs(models):
