@@ -57,10 +57,15 @@ and proves on the card that:
      first segment of configs[3] and on the whole from: corpus, and on a
      middle window of its first 4096 strings with carries on both sides,
      where the FSM runs in chunks; the from: planes must not be all
-     zeros, as configs[3]'s tag and FSM planes are: it has no pairs);
+     zeros, as configs[3]'s tag and FSM planes are: it has no pairs); the
+     tag kernel also on a def of 7511 pairs (past the 4096 it stages in
+     shared memory) and the flat kernel on nine defs (two groups of its
+     scan), each model then run once through its matcher (``beyond_staging``);
   5. each path, driven once through the matcher with the launch counts
-     reset just before it, launched each of its kernels (the table paths:
-     a scan and a tag per window, two FSMs) and no other, and equals its
+     reset just before it, launched each of its kernels as often as
+     ``kernels.path_launches`` says (once, three times for a chunked post;
+     the table paths: a scan and a tag per window, two FSMs) and no
+     other, and equals its
      plain pipeline on the card (every output, dtypes included); a subset
      equals the numpy oracle (256 strings, 8 for configs[3]); for
      extraction serving the runs equal the oracle's extracted substrings;
@@ -482,7 +487,8 @@ def knob_paths(h2r, bp, kernels, knob_ms, hdr, chars, lengths, main, twins, orac
         out = m(chars, lengths)
         torch.cuda.synchronize()
         launches[path] = {k.name: k.launches for k in kernels.KERNELS}
-        want = {k.name: int(k in kernels.path_kernels(m.plan)) for k in kernels.KERNELS}
+        want = {k.name: 0 for k in kernels.KERNELS}
+        want.update({k.name: n for k, n in kernels.path_launches(m.plan).items()})
         log(f"[5] {path}: launches {launches[path]}")
         if launches[path] != want:
             raise AssertionError(f"{path}: launch counts {launches[path]}, expected {want}")
@@ -555,6 +561,45 @@ def knob_paths(h2r, bp, kernels, knob_ms, hdr, chars, lengths, main, twins, orac
     log(f"[6] end to end scan_planes ({p3.n_defs} calls): {fmt(t)}; card {card}")
     return {"rows": rows, "modes": modes, "times": times, "errs": errs, "launches": launches,
             "match_ok": n_ok}
+
+
+def beyond_staging(h2r, n: int = B, length: int = 64):
+    """The two models past the table kernels' staging limits, each with its
+    matcher and a seeded corpus of ``n`` strings of ``length`` bytes on the
+    card: ``wide_pairs``, a random 300-state table over bytes 97..122
+    whose every transition is a substring transition (one def of 7511
+    pairs; over 256 states, so split), and ``nine_defs``, nine dictionary
+    defs (``zoo.dictionary_config`` at seeds 1..9, monolithic)."""
+    from halo2_regex_tpu_torch.models.defs import AllstrRegexDef, RegexDefs, SubstrRegexDef
+
+    S = 300
+    rng = np.random.default_rng(5)
+    allstr = AllstrRegexDef(first_state_val=0, accepted_state_val=1, largest_state_val=S - 1)
+    line, trans = 3, set()
+    for c in range(97, 123):
+        for s in range(S):
+            nxt = int(rng.integers(0, S))
+            allstr.state_lookup[(c, s)] = (line, nxt)
+            line += 1
+            trans.add((s, nxt))
+    sub = SubstrRegexDef(max_length=length, min_position=0, max_position=length,
+                         valid_state_transitions=trans, start_states=list(range(0, S, 7)),
+                         end_states=list(range(3, S, 5)))
+    wide = h2r.CompiledRegexModel.from_defs([RegexDefs(allstr=allstr, substrs=[sub])],
+                                            max_chars_size=length)
+    cfgs = [h2r.DecomposedRegexConfig.from_json(h2r.zoo.dictionary_config(40, seed=s,
+                                                                        max_byte_size=length))
+            for s in range(1, 10)]
+    nine = h2r.CompiledRegexModel.from_decomposed(cfgs, max_chars_size=length)
+    wide_ch = torch.from_numpy(rng.integers(97, 123, size=(n, length)).astype(np.uint8))
+    wide_ln = torch.from_numpy(rng.integers(0, length + 1, size=n).astype(np.int32))
+    words = [w.encode() for cfg_ in range(1, 10) for w in
+             h2r.zoo.dictionary_config(40, seed=cfg_)["parts"][1]["regex_def"][1:-1].split("|")]
+    nine_ch, nine_ln = (torch.from_numpy(a) for a in dict_corpus(n, length, words, seed=6))
+    dev = torch.device("cuda")
+    return [("wide_pairs", h2r.PallasMatcher(wide, max_pairs=8192), wide_ch.to(dev),
+             wide_ln.to(dev)),
+            ("nine_defs", h2r.PallasMatcher(nine), nine_ch.to(dev), nine_ln.to(dev))]
 
 
 def main() -> dict:
@@ -930,6 +975,44 @@ def main() -> dict:
         nonzero(f"{name} @ B={nb} window", *got)
         del got, want
 
+    # the models past the table kernels' staging: a def of 7511 pairs (the
+    # tag kernel stages 4096 in shared memory and searches the rest in
+    # global memory) and nine monolithic defs (the flat kernel scans them
+    # in two groups); each kernel against its plain version, then the
+    # matcher once with its launches, equal to its plain pipeline
+    for name, m, ch, ln in beyond_staging(h2r):
+        st, ids, sta, ef, fwd, bwd = m.run_planes(ch, ln, plain=True)
+        if m.mode == "split":
+            k = kernels.TABLE_TAG
+            got, want = [torch.full_like(st, -7) for _ in range(3)], (ids, sta, ef)
+            kernels.table_tag_cuda(st, m._firsts(ch.shape[0]), ln, m.pairs, 0, m.L, *got)
+        else:
+            k = kernels.TABLE_FLAT
+            want = (st, ids, sta, ef, fwd, bwd)
+            got = [torch.full_like(t, -7) for t in want]
+            kernels.table_flat_cuda(m.class_map, m.flat_table, m.first_states, ch, ln, *got)
+        torch.cuda.synchronize()
+        err = errs[f"{k.name}@{name}"] = max_abs_err(tuple(got), tuple(want))
+        if err != 0:
+            raise AssertionError(f"{k.name} disagrees with its plain version on {name}")
+        nonzero(f"{k.name} @ {name}", *got[-3:])
+        kernels.reset_launch_counts()
+        out = m(ch, ln)
+        torch.cuda.synchronize()
+        launches = {kk.name: kk.launches for kk in kernels.KERNELS}
+        expected = {kk.name: 0 for kk in kernels.KERNELS}
+        expected.update({kk.name: v for kk, v in kernels.table_path_launches(1, m.mode).items()})
+        if launches != expected:
+            raise AssertionError(f"{name}: launch counts {launches}, expected {expected}")
+        assert_same(name, out, m.finish(ch, ln, st, ids, sta, ef, fwd, bwd))
+        nonzero(f"{name} mask", out.mask)
+        torch.cuda.synchronize()
+        log(f"[4] {k.name} @ {name} ({m.mode}, {m.n_defs} defs, {m.pairs.shape[1]} pairs a "
+            f"def at most, B={ch.shape[0]} x L={m.L}): kernel vs plain max_abs_err={err} "
+            f"(tolerance 0); the matcher once launches {launches} and equals its plain "
+            f"pipeline on every field")
+        del st, ids, sta, ef, fwd, bwd, got, want, out
+
     # [5] each path once through the matcher, with launch counts
     rng = np.random.default_rng(1)
     idx = np.sort(rng.choice(B, size=ORACLE_N, replace=False))
@@ -944,12 +1027,11 @@ def main() -> dict:
         out = m(ch, ln)
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in kernels.KERNELS}
-        expected = {k.name for k in kernels.path_kernels(m.plan)}
+        expected = {k.name: 0 for k in kernels.KERNELS}
+        expected.update({k.name: n for k, n in kernels.path_launches(m.plan).items()})
         log(f"[5] {path}: launches {launches}")
-        wrong = [n for n, v in launches.items() if (v > 0) != (n in expected)]
-        if wrong:
-            raise AssertionError(f"{path}: launch counts wrong for {wrong} "
-                                 f"(expected exactly {sorted(expected)})")
+        if launches != expected:
+            raise AssertionError(f"{path}: launch counts {launches}, expected {expected}")
         assert_same(path, out, bp.run(m.plan, m.tables(), ch, ln, plain=True))
         torch.cuda.synchronize()
         outs[path], path_launches[path] = out, launches
@@ -1098,7 +1180,7 @@ def main() -> dict:
         counters = json.loads(buf.getvalue().strip().splitlines()[-1])
         plan_l = matchers["tiled_match" if layout == "tiled" else "match"].plan
         expected = {k.name: 0 for k in kernels.KERNELS}
-        expected.update({k.name: n_batches for k in kernels.path_kernels(plan_l)})
+        expected.update({k.name: n * n_batches for k, n in kernels.path_launches(plan_l).items()})
         log(f"[5] cli_scan {layout}: {json.dumps(counters)}; launches {launches}")
         if launches != expected:
             raise AssertionError(f"cli_scan {layout}: launches {launches}, expected {expected}")

@@ -33,7 +33,11 @@
 // three per-def planes.  A table too large for shared memory (a raw-bytes
 // def, K = 256, at S = 256 needs 256 KiB, over the 227 KiB a block may
 // have) is read from global memory through the read-only cache instead
-// (smem_bytes = 0).
+// (smem_bytes = 0).  A model of more than kGroupDefs defs runs its scan
+// once per group of kGroupDefs in the same launch (a def's state lives in
+// a register, so the group bounds the registers), summing ids and ORing
+// flags into the parked column, then runs the forward FSM as a pass over
+// it.
 //
 // Layouts (int32 unless stated): chars [B, L] uint8; lengths [B]; cmap
 // [n_defs, 256]; table [n_defs, K, S] packed entries; first [n_defs];
@@ -46,11 +50,16 @@
 namespace {
 
 constexpr int kThreads = 64;
-constexpr int kMaxDefs = 8;
+constexpr int kGroupDefs = 8;  // defs a pass of the scan carries
 constexpr int kStage = 8;  // table loads in flight per thread while staging
 constexpr int kBack = 8;   // positions a backward batch loads before use
 
-template <int kDefs, bool kSmem>
+// kGrouped: more than kGroupDefs defs.  The scan then runs once per group
+// of at most kGroupDefs defs (their states in registers, their row offsets
+// in the static map), each pass adding its id sum and ORing its flags into
+// the parked column; a forward pass over that column follows the last
+// group, then the backward pass as for one group.
+template <int kDefs, bool kSmem, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 table_flat_kernel(const uint8_t* __restrict__ chars, const int32_t* __restrict__ lengths,
                   const int32_t* __restrict__ cmap, const int32_t* __restrict__ table,
@@ -60,9 +69,7 @@ table_flat_kernel(const uint8_t* __restrict__ chars, const int32_t* __restrict__
                   int32_t* __restrict__ bwd, int n_defs, int B, int L, int K, int S, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int32_t* tab = kSmem ? reinterpret_cast<const int32_t*>(smem) : table;
-  __shared__ int row_off[kDefs * 256];  // d * K * S + cls_d(c) * S
-  for (int i = threadIdx.x; i < n_defs * 256; i += blockDim.x)
-    row_off[i] = (i >> 8) * K * S + cmap[i] * S;
+  __shared__ int row_off[kDefs * 256];  // (d * K + cls_d(c)) * S, d in the group
   if (kSmem) {
     int32_t* dst = reinterpret_cast<int32_t*>(smem);
     const int n = n_defs * K * S;
@@ -83,71 +90,110 @@ table_flat_kernel(const uint8_t* __restrict__ chars, const int32_t* __restrict__
     }
     for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(table + i);
   }
-  __syncthreads();
   const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-
+  const bool live = b < B;  // every thread reaches each group's barriers
   const size_t plane = (size_t)L * B;
-  int s[kDefs];
-#pragma unroll
-  for (int d = 0; d < kDefs; ++d) s[d] = d < n_defs ? first[d] : 0;
-  const int len = lengths[b];
-  int prev_ids = 0, prev_ef = 0, x = 0;
+  const int len = live ? lengths[b] : 0;
+  const uint8_t* row = chars + (size_t)b * L;
 
-  // one byte: every def's entry, its outputs, the forward FSM, and the
-  // backward pass's inputs parked in bwd
-  auto step = [&](int c, int p) {
-    const bool en = p < len;
-    int isum = 0, ssum = 0, esum = 0;
+  for (int g0 = 0; g0 < n_defs; g0 += kDefs) {
+    const int nd = n_defs - g0 < kDefs ? n_defs - g0 : kDefs;
+    if (kGrouped && g0 > 0) __syncthreads();  // the last group's offsets are read
+    for (int i = threadIdx.x; i < nd * 256; i += blockDim.x)
+      row_off[i] = ((g0 + (i >> 8)) * K + cmap[g0 * 256 + i]) * S;
+    __syncthreads();
+    if (!live) continue;
+    int s[kDefs];
 #pragma unroll
-    for (int d = 0; d < kDefs; ++d) {
-      if (d < n_defs) {
-        const int idx = row_off[d * 256 + c] + s[d];
-        uint32_t e;
-        if constexpr (kSmem) {
-          e = (uint32_t)tab[idx];
-        } else {
-          e = (uint32_t)__ldg(tab + idx);
+    for (int d = 0; d < kDefs; ++d) s[d] = d < nd ? first[g0 + d] : 0;
+    int prev_ids = 0, prev_ef = 0, x = 0;
+
+    // one byte: every def's entry, its outputs and the backward pass's
+    // inputs parked in bwd; with one group the forward FSM too
+    auto step = [&](int c, int p) {
+      const bool en = p < len;
+      int isum = 0, ssum = 0, esum = 0;
+#pragma unroll
+      for (int d = 0; d < kDefs; ++d) {
+        if (d < nd) {
+          const int idx = row_off[d * 256 + c] + s[d];
+          uint32_t e;
+          if constexpr (kSmem) {
+            e = (uint32_t)tab[idx];
+          } else {
+            e = (uint32_t)__ldg(tab + idx);
+          }
+          s[d] = (int)(e & 0xFFu);
+          const int id = en ? (int)((e >> 8) & 0xFFFFu) : 0;
+          const int st = en ? (int)((e >> 24) & 1u) : 0;
+          const int ef = en ? (int)((e >> 25) & 1u) : 0;
+          const size_t o = (g0 + d) * plane + (size_t)p * B + b;
+          states[o] = s[d];
+          ids[o] = id;
+          start[o] = st;
+          endf[o] = ef;
+          isum += id;
+          ssum += st;
+          esum += ef;
         }
-        s[d] = (int)(e & 0xFFu);
-        const int id = en ? (int)((e >> 8) & 0xFFFFu) : 0;
-        const int st = en ? (int)((e >> 24) & 1u) : 0;
-        const int ef = en ? (int)((e >> 25) & 1u) : 0;
-        const size_t o = d * plane + (size_t)p * B + b;
-        states[o] = s[d];
-        ids[o] = id;
-        start[o] = st;
-        endf[o] = ef;
-        isum += id;
-        ssum += st;
-        esum += ef;
+      }
+      const size_t q = (size_t)p * B + b;
+      int packed = (isum << 2) | (ssum > 0 ? 1 : 0) | (esum > 0 ? 2 : 0);
+      if constexpr (kGrouped) {
+        if (g0 > 0) {  // add this group's id sum, OR its flags
+          const int old = bwd[q];
+          packed = (((old >> 2) + isum) << 2) | ((old | packed) & 3);
+        }
+      } else {
+        // forward FSM (src/lib.rs:598-645)
+        const bool changed = prev_ids != isum;
+        x = ssum > 0 && changed ? 1 : (ssum == 0 && prev_ef > 0 && changed ? 0 : x);
+        fwd[q] = x;
+        prev_ids = isum;
+        prev_ef = esum;
+      }
+      bwd[q] = packed;
+    };
+
+    if (vec) {
+      // 16 bytes a load, the next chunk loaded while this one steps
+      const uint4* row4 = reinterpret_cast<const uint4*>(row);
+      const int n16 = L / 16;
+      uint4 cur = __ldg(row4);
+      for (int i = 0; i < n16; ++i) {
+        const uint4 nxt = __ldg(row4 + (i + 1 < n16 ? i + 1 : i));
+        const uint32_t w[4] = {cur.x, cur.y, cur.z, cur.w};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) step((int)((w[j >> 2] >> (8 * (j & 3))) & 0xFFu), 16 * i + j);
+        cur = nxt;
+      }
+    } else {
+      for (int p = 0; p < L; ++p) step(row[p], p);
+    }
+  }
+  if (!live) return;
+
+  if constexpr (kGrouped) {
+    // forward FSM (src/lib.rs:598-645) over the parked column, ascending
+    int prev_ids = 0, prev_ef = 0, x = 0;
+    for (int p0 = 0; p0 < L; p0 += kBack) {
+      const int n = L - p0 < kBack ? L - p0 : kBack;
+      int v[kBack];
+#pragma unroll
+      for (int k = 0; k < kBack; ++k) v[k] = bwd[(size_t)(p0 + (k < n ? k : n - 1)) * B + b];
+#pragma unroll
+      for (int k = 0; k < kBack; ++k) {
+        if (k < n) {
+          const int isum = v[k] >> 2;
+          const bool st_any = v[k] & 1;
+          const bool changed = prev_ids != isum;
+          x = st_any && changed ? 1 : (!st_any && prev_ef && changed ? 0 : x);
+          fwd[(size_t)(p0 + k) * B + b] = x;
+          prev_ids = isum;
+          prev_ef = (v[k] >> 1) & 1;
+        }
       }
     }
-    // forward FSM (src/lib.rs:598-645)
-    const bool changed = prev_ids != isum;
-    x = ssum > 0 && changed ? 1 : (ssum == 0 && prev_ef > 0 && changed ? 0 : x);
-    const size_t q = (size_t)p * B + b;
-    fwd[q] = x;
-    bwd[q] = (isum << 2) | (ssum > 0 ? 1 : 0) | (esum > 0 ? 2 : 0);
-    prev_ids = isum;
-    prev_ef = esum;
-  };
-
-  const uint8_t* row = chars + (size_t)b * L;
-  if (vec) {
-    // 16 bytes a load, the next chunk loaded while this one steps
-    const uint4* row4 = reinterpret_cast<const uint4*>(row);
-    const int n16 = L / 16;
-    uint4 cur = __ldg(row4);
-    for (int i = 0; i < n16; ++i) {
-      const uint4 nxt = __ldg(row4 + (i + 1 < n16 ? i + 1 : i));
-      const uint32_t w[4] = {cur.x, cur.y, cur.z, cur.w};
-#pragma unroll
-      for (int j = 0; j < 16; ++j) step((int)((w[j >> 2] >> (8 * (j & 3))) & 0xFFu), 16 * i + j);
-      cur = nxt;
-    }
-  } else {
-    for (int p = 0; p < L; ++p) step(row[p], p);
   }
 
   // backward FSM (src/lib.rs:663-714) over the parked column, descending
@@ -175,7 +221,7 @@ table_flat_kernel(const uint8_t* __restrict__ chars, const int32_t* __restrict__
   }
 }
 
-template <int kDefs>
+template <int kDefs, bool kGrouped>
 int launch(bool smem, const void* chars, const void* lengths, const void* cmap,
            const void* table, const void* first, void* states, void* ids, void* start,
            void* endf, void* fwd, void* bwd, int n_defs, int B, int L, int K, int S, int vec,
@@ -188,13 +234,14 @@ int launch(bool smem, const void* chars, const void* lengths, const void* cmap,
   if (smem) {
     if (smem_bytes > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          table_flat_kernel<kDefs, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          table_flat_kernel<kDefs, true, kGrouped>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           smem_bytes);
       if (err != cudaSuccess) return (int)err;
     }
-    table_flat_kernel<kDefs, true><<<grid, kThreads, smem_bytes, stream>>>(H2R_FLAT_ARGS);
+    table_flat_kernel<kDefs, true, kGrouped><<<grid, kThreads, smem_bytes, stream>>>(
+        H2R_FLAT_ARGS);
   } else {
-    table_flat_kernel<kDefs, false><<<grid, kThreads, 0, stream>>>(H2R_FLAT_ARGS);
+    table_flat_kernel<kDefs, false, kGrouped><<<grid, kThreads, 0, stream>>>(H2R_FLAT_ARGS);
   }
 #undef H2R_FLAT_ARGS
   return (int)cudaGetLastError();
@@ -203,24 +250,28 @@ int launch(bool smem, const void* chars, const void* lengths, const void* cmap,
 }  // namespace
 
 // smem_bytes: the table's bytes (staged in shared memory), or 0 (read from
-// global memory).  n_defs: 1..8.
+// global memory).  n_defs: any positive count; beyond kGroupDefs the scan
+// runs in groups.
 extern "C" int h2r_table_flat(const void* chars, const void* lengths, const void* cmap,
                               const void* table, const void* first, void* states, void* ids,
                               void* start, void* endf, void* fwd, void* bwd, int n_defs,
                               int B, int L, int K, int S, int vec, int smem_bytes,
                               void* stream) {
-  if (n_defs < 1 || n_defs > kMaxDefs || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  if (n_defs < 1 || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
   const bool smem = smem_bytes > 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (n_defs == 1)
-    return launch<1>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
+    return launch<1, false>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
                      bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
   if (n_defs == 2)
-    return launch<2>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
+    return launch<2, false>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
                      bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
   if (n_defs <= 4)
-    return launch<4>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
+    return launch<4, false>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
                      bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
-  return launch<8>(smem, chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
-                   bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
+  if (n_defs <= kGroupDefs)
+    return launch<8, false>(smem, chars, lengths, cmap, table, first, states, ids, start, endf,
+                            fwd, bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
+  return launch<kGroupDefs, true>(smem, chars, lengths, cmap, table, first, states, ids, start,
+                                  endf, fwd, bwd, n_defs, B, L, K, S, vec, smem_bytes, st);
 }

@@ -19,8 +19,10 @@
 // one run, so every load and store is one 128-byte line; the pair list
 // sits in shared memory as 64-bit (a, b) keys and packed values, read by
 // every thread of a warp at the same address (a broadcast).  A def with no pairs (P = 0)
-// still writes its zeros, as the TPU kernel does.  The list holds at most
-// kSmemPairs = 4096 pairs (48 KiB): longer lists are refused.
+// still writes its zeros, as the TPU kernel does.  The first kSmemPairs =
+// 4096 pairs (48 KiB) are staged; a longer list's tail is searched in
+// global memory, where every thread of a warp also reads one address
+// (a broadcast through L1), so any list length runs.
 //
 // Layouts (int32): states, ids, start, endf [n_defs, L, B]; prev [n_defs, B]
 // with row stride prev_ds; lengths [B]; pairs [n_defs, P, 5], a = -1 pads.
@@ -47,10 +49,11 @@ table_tag_kernel(const int32_t* __restrict__ states, const int32_t* __restrict__
                  int p0, int LS) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = blockIdx.y;
+  const int PS = P < kSmemPairs ? P : kSmemPairs;  // pairs staged in shared memory
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
-  int* vals = reinterpret_cast<int*>(keys + P);
+  int* vals = reinterpret_cast<int*>(keys + PS);
   const int32_t* pd = pairs + (size_t)d * P * 5;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+  for (int i = threadIdx.x; i < PS; i += blockDim.x) {
     keys[i] = pair_key(pd[5 * i], pd[5 * i + 1]);
     vals[i] = (pd[5 * i + 2] << 2) | ((pd[5 * i + 3] != 0) << 1) | (pd[5 * i + 4] != 0);
   }
@@ -73,10 +76,19 @@ table_tag_kernel(const int32_t* __restrict__ states, const int32_t* __restrict__
     int v = 0;
     if (p0 + p < len) {
       const unsigned long long key = pair_key(prv, nxt[r]);
-      for (int k = 0; k < P; ++k)
+      int k = 0;
+      for (; k < PS; ++k)
         if (keys[k] == key) {
           v = vals[k];
           break;
+        }
+      if (k == PS)  // not among the staged pairs: the tail, in global memory
+        for (; k < P; ++k) {
+          const int32_t* e = pd + 5 * k;
+          if (e[0] == prv && e[1] == nxt[r]) {
+            v = (e[2] << 2) | ((e[3] != 0) << 1) | (e[4] != 0);
+            break;
+          }
         }
     }
     const size_t o = o0 + (size_t)r * B;
@@ -93,10 +105,10 @@ extern "C" int h2r_table_tag(const void* states, const void* prev, long long pre
                              const void* lengths, const void* pairs, int P, void* ids,
                              void* start, void* endf, int n_defs, int B, int L, int p0, int LS,
                              void* stream) {
-  if (P < 0 || P > kSmemPairs) return (int)cudaErrorInvalidValue;
+  if (P < 0) return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)((LS + kRun - 1) / kRun) * B;
   const dim3 grid((unsigned)((n + kThreads - 1) / kThreads), n_defs);
-  const size_t smem = (size_t)P * 12;
+  const size_t smem = (size_t)(P < kSmemPairs ? P : kSmemPairs) * 12;
   table_tag_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)states, (const int32_t*)prev, prev_ds, (const int32_t*)lengths,
       (const int32_t*)pairs, P, (int32_t*)ids, (int32_t*)start, (int32_t*)endf, B, L, p0, LS);

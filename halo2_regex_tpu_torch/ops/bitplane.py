@@ -697,11 +697,10 @@ class _Tags:
     mask: torch.Tensor
 
 
-def _tags_and_masks(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> _Tags:
-    """The body shared by both post modes: each def's tag circuit on its
-    (prev, next) log planes (ids, is_start, is_end, masked by enable), the
-    id sum across defs, and the forward/backward mask FSMs as log-scans
-    (the CUDA kernels run them serially)."""
+def _tags(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
+    """Each def's tag circuit on its (prev, next) log planes (ids,
+    is_start, is_end, masked by enable) and the id sum across defs:
+    (per_def, ids_sum, start_any, endf_any)."""
     zrow = torch.zeros_like(en[:, :1])
     per_def = []
     ids_sum = start_any = endf_any = None
@@ -724,19 +723,33 @@ def _tags_and_masks(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) ->
             ids_sum = plane_add(ids_sum, idp, plan.idb + d.bit_length() + 1)
             start_any = start_any | stp
             endf_any = endf_any | efp
+    return per_def, ids_sum, start_any, endf_any
 
-    # forward FSM (src/lib.rs:598-645)
+
+def _fsm_steps(ids_sum: List[torch.Tensor], start_any: torch.Tensor, endf_any: torch.Tensor):
+    """Each position's step of the two mask FSMs, x' = (x & hold) | set:
+    (hold, set) of the forward FSM (src/lib.rs:598-645) and of the
+    backward FSM (src/lib.rs:663-714)."""
+    zrow = torch.zeros_like(start_any[:, :1])
     changed = _or_reduce(torch.stack([p ^ _shift_down(p, zrow) for p in ids_sum]), 0)
     prev_endf = _shift_down(endf_any, zrow)
     is_set = start_any & changed
     is_reset = ~start_any & prev_endf & changed
-    fwd = _fsm_log_scan(~(is_set | is_reset), is_set, reverse=False)
-    # backward FSM (src/lib.rs:663-714)
     changed_b = _or_reduce(torch.stack([p ^ _shift_up(p) for p in ids_sum]), 0)
     next_start = _shift_up(start_any)
     set_b = endf_any & changed_b
     reset_b = ~endf_any & next_start & changed_b
-    bwd = _fsm_log_scan(~(set_b | reset_b), set_b, reverse=True)
+    return ~(is_set | is_reset), is_set, ~(set_b | reset_b), set_b
+
+
+def _tags_and_masks(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> _Tags:
+    """The body shared by the post modes: the tags and id sum, and the
+    forward/backward mask FSMs as log-scans (the CUDA kernels compose
+    them over chunks of L)."""
+    per_def, ids_sum, start_any, endf_any = _tags(plan, logs, en)
+    hold_f, set_f, hold_b, set_b = _fsm_steps(ids_sum, start_any, endf_any)
+    fwd = _fsm_log_scan(hold_f, set_f, reverse=False)
+    bwd = _fsm_log_scan(hold_b, set_b, reverse=True)
     return _Tags(per_def, ids_sum, start_any, endf_any, fwd, bwd, fwd & bwd)
 
 
@@ -779,6 +792,72 @@ def post_plain(
         raise ValueError("a tiled plan's post takes the quad words, and only it")
     avail = _emission_planes(plan, _tags_and_masks(plan, logs, en), logs, en, tiled)
     return _group_words(plan.wgroups, avail), fb_only_plain(plan, logs, en)
+
+
+def post_chunks_plain(
+    plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor, CL: int,
+    tiled: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked post kernel's phases in torch ops, for tests (no
+    pipeline calls it): ``post_plain``'s contract, with the mask FSMs
+    computed as ``csrc/bitplane_post.cu`` computes them over chunks of
+    ``CL`` positions (the last chunk padded with identity steps).
+    A: each chunk's forward map, composed ascending, and its backward map;
+    B: each chunk's carry-in x (the forward maps before it applied to 0)
+    and y (the backward maps after it); C: each chunk replayed from its
+    carry-ins, x ascending and y descending.  The boundary planes are ORed
+    per chunk, then across chunks (the kernel's atomicOr)."""
+    if plan.tiled != (tiled is not None):
+        raise ValueError("a tiled plan's post takes the quad words, and only it")
+    per_def, ids_sum, start_any, endf_any = _tags(plan, logs, en)
+    NWS, L, _lane = en.shape
+    nch = -(-L // CL)
+
+    def chunks(p: torch.Tensor, fill: int) -> torch.Tensor:  # -> [NWS, nch, CL, LANE]
+        pad = torch.full((NWS, nch * CL - L, LANE), fill, dtype=p.dtype, device=p.device)
+        return torch.cat([p, pad], 1).reshape(NWS, nch, CL, LANE)
+
+    hf, sf, hb, sb = (chunks(p, f) for p, f in zip(
+        _fsm_steps(ids_sum, start_any, endf_any), (-1, 0, -1, 0)))
+    # A: the maps of each chunk
+    fh, fs = torch.full_like(hf[:, :, 0], -1), torch.zeros_like(sf[:, :, 0])
+    bh, bs = fh.clone(), fs.clone()
+    for i in range(CL):
+        fs = (fs & hf[:, :, i]) | sf[:, :, i]
+        fh = fh & hf[:, :, i]
+        bs = (sb[:, :, i] & bh) | bs  # the maps above it after step i
+        bh = bh & hb[:, :, i]
+    # B: the carry-ins, composed across chunks
+    x_in, y_in = [], [None] * nch
+    x = y = torch.zeros_like(fs[:, 0])
+    for c in range(nch):
+        x_in.append(x)
+        x = (x & fh[:, c]) | fs[:, c]
+    for c in range(nch - 1, -1, -1):
+        y_in[c] = y
+        y = (y & bh[:, c]) | bs[:, c]
+    # C: the replay
+    x, y = torch.stack(x_in, 1), torch.stack(y_in, 1)
+    fwd, bwd = [], [None] * CL
+    for i in range(CL):
+        x = (x & hf[:, :, i]) | sf[:, :, i]
+        fwd.append(x)
+    for i in range(CL - 1, -1, -1):
+        y = (y & hb[:, :, i]) | sb[:, :, i]
+        bwd[i] = y
+    fwd = torch.stack(fwd, 2).reshape(NWS, nch * CL, LANE)[:, :L]
+    bwd = torch.stack(bwd, 2).reshape(NWS, nch * CL, LANE)[:, :L]
+    t = _Tags(per_def, ids_sum, start_any, endf_any, fwd, bwd, fwd & bwd)
+    g4 = _group_words(plan.wgroups, _emission_planes(plan, t, logs, en, tiled))
+    # the boundary planes: per chunk an OR over its positions, then across
+    bnd = chunks(en & ~_shift_up(en), 0)
+    fb = torch.zeros((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=logs.device)
+    for d, c in enumerate(plan.circuits):
+        for j in range(c.sb):
+            part = _or_reduce(bnd & chunks(logs[:, plan.sb_off[d] + j], 0), 2)
+            x = _or_reduce(part, 1)
+            fb[:, d, j] = x | ~en[:, 0] if plan.first_bit(d, j) else x
+    return g4, fb
 
 
 def _emission_planes(plan: BitplanePlan, t: _Tags, logs: torch.Tensor, en: torch.Tensor,

@@ -9,7 +9,9 @@ pretiled quad words of the tiled input contract, B6), ``bitplane_scan.cu``
 ``H2R_SCAN_DEF`` one def's scan ``scan_def``, B7), ``bitplane_post.cu``
 (K3 in bytes mode; in planes mode when the header sets
 ``H2R_POST_PLANES``, in its tiled mode when it sets ``H2R_POST_TILED``,
-in direct mode when it sets ``H2R_POST_DIRECT``), ``bitplane_decode.cu``
+in direct mode when it sets ``H2R_POST_DIRECT``; every mode but direct
+runs over chunks of L in three launches, ``CHUNKED_POSTS``),
+``bitplane_decode.cu``
 (the kdecode emission's decode, B14) and ``bitplane_fb.cu`` (the
 match-only boundary reduction, B4).  What they compute per word depends
 on the model and the knobs, so this module emits each def's synthesized
@@ -157,14 +159,15 @@ _ENTRIES = {
     SCAN: [_P, _P, _I, _I, _P],
     SCAN_FPACK: [_P, _P, _I, _I, _P],
     SCAN_DEF: [_P, _P, _I, _I, _P],
-    POST: [_P, _P, _P, _P, _P, _I, _I, _P],
-    POST_PLANES: [_P, _P, _P, _I, _I, _P],
+    # the chunked posts: logs, en, scratch, outputs, NW, L, CL, stream
+    POST: [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    POST_PLANES: [_P, _P, _P, _P, _I, _I, _I, _P],
     POST_DIRECT: [_P, _P, _P, _P, _I, _I, _P],
     # g4, chars (l4), out, NWS, L, stream
     DECODE: [_P, _P, _P, _I, _I, _P],
     FB_ONLY: [_P, _P, _P, _I, _I, _P],
     TPACK: [_P, _P, _P, _P, _I, _I, _P],
-    POST_TILED: [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    POST_TILED: [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # chars, cmap, next, init, init def stride, states, n_defs, B, L, K, S,
     # p0, LS, vec, smem bytes, stream
     TABLE_SCAN: [_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -179,6 +182,14 @@ _ENTRIES = {
     TABLE_FLAT: [_P] * 11 + [_I] * 7 + [_P],
 }
 TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
+# the post modes that run over chunks of L: each call launches the chunk
+# maps (A), the carries (B) and the replay (C), all counted on the kernel
+CHUNKED_POSTS = (POST, POST_TILED, POST_PLANES)
+_CHUNK_ENTRIES = {
+    "h2r_post_maps": [_P, _P, _P, _I, _I, _I, _P],  # logs, en, scratch, NW, L, CL, stream
+    "h2r_post_carry": [_P, _I, _I, _I, _P],  # scratch, NW, L, CL, stream
+}
+POST_CL = 32  # positions a chunk (at most CL_MAX of csrc/bitplane_post.cu)
 
 
 def _tail(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
@@ -201,6 +212,12 @@ def path_kernels(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
         return (SCAN_FPACK,) + _tail(plan)
     front = TPACK if plan.tiled else (QPACK if plan.qpack else PACK_RAW)
     return (front, SCAN) + _tail(plan)
+
+
+def path_launches(plan: BitplanePlan) -> Dict[CudaKernel, int]:
+    """Launches of each kernel in one call of ``plan``'s pipeline: one for
+    each of ``path_kernels``, three for a chunked post."""
+    return {k: 3 if k in CHUNKED_POSTS else 1 for k in path_kernels(plan)}
 
 
 def library_kernels(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
@@ -492,27 +509,29 @@ def _build_library(
     entries: Sequence[CudaKernel],
     includes: Sequence[str] = (),
     header: Optional[str] = None,
+    csrc: Optional[Path] = None,
 ) -> ctypes.CDLL:
     """Build (once per source state) and load the library of ``sources``
-    (files under ``csrc/``; ``includes`` are the headers they include from
-    there, hashed with them; ``header`` the generated
-    ``h2r_circuits.cuh``, if any), and bind ``entries``.  A failed build
-    raises with nvcc's output."""
+    (files under ``csrc``, the package's ``csrc/`` by default; ``includes``
+    are the headers they include from there, hashed with them; ``header``
+    the generated ``h2r_circuits.cuh``, if any), and bind ``entries``.  A
+    failed build raises with nvcc's output."""
+    csrc = csrc or CSRC
     h = hashlib.sha256()
     for name in tuple(sources) + tuple(includes):
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     h.update((header or "").encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     key = h.hexdigest()[:16]
     with _KEY_LOCKS.setdefault(key, threading.Lock()):
         lib = _LIBS.get(key)
         if lib is None:
-            lib = _LIBS[key] = _load(key, tuple(sources), header, entries)
+            lib = _LIBS[key] = _load(key, tuple(sources), header, entries, csrc)
     return lib
 
 
 def _load(key: str, sources: Tuple[str, ...], header: Optional[str],
-          entries: Sequence[CudaKernel]) -> ctypes.CDLL:
+          entries: Sequence[CudaKernel], csrc: Path) -> ctypes.CDLL:
     """Build the library of ``key`` unless the build root holds it (one
     nvcc per source at once, then a link), then load it and bind
     ``entries``."""
@@ -537,8 +556,8 @@ def _load(key: str, sources: Tuple[str, ...], header: Optional[str],
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(sources)) as pool:
             logs = list(pool.map(run, [
-                [nvcc, *NVCC_FLAGS, f"-I{CSRC}", f"-I{out_dir}", "-c", "-o", str(o),
-                 str(CSRC / src)]
+                [nvcc, *NVCC_FLAGS, f"-I{csrc}", f"-I{out_dir}", "-c", "-o", str(o),
+                 str(csrc / src)]
                 for src, o in zip(sources, objs)
             ]))
         tmp = out_dir / f"libh2r.{tag}.so"
@@ -553,9 +572,12 @@ def _load(key: str, sources: Tuple[str, ...], header: Optional[str],
         BUILD_LOG[key] = {"seconds": secs, "dir": str(out_dir), "ptxas": "".join(logs),
                           "defines": defines}
     lib = ctypes.CDLL(str(so))
-    for k in entries:
-        fn = getattr(lib, k.entry)
-        fn.argtypes = _ENTRIES[k]
+    names = {k.entry: _ENTRIES[k] for k in entries}
+    if any(k in CHUNKED_POSTS for k in entries):
+        names.update(_CHUNK_ENTRIES)
+    for name, argtypes in names.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
@@ -625,7 +647,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...
 def _launch(kernel: CudaKernel, fn, *args) -> None:
     err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"{kernel.entry}: launch failed, cudaError {err}")
+        raise RuntimeError(f"{fn.__name__}: launch failed, cudaError {err}")
     kernel.launches += 1
 
 
@@ -745,12 +767,24 @@ def post_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor):
     lib = build(plan)
     dev = logs.device
     with torch.cuda.device(dev):
-        fwd = torch.empty((NWS, L, LANE), dtype=torch.int32, device=dev)
+        scr = _post_front(POST, lib, logs, en)
         g4 = torch.empty((NWS, 8 * plan.n_groups, L, LANE), dtype=torch.int32, device=dev)
-        fb = torch.empty((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
-        _launch(POST, lib.h2r_post, logs.data_ptr(), en.data_ptr(), fwd.data_ptr(),
-                g4.data_ptr(), fb.data_ptr(), NWS * LANE, L, _stream(logs))
+        fb = torch.zeros((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
+        _launch(POST, lib.h2r_post, logs.data_ptr(), en.data_ptr(), scr.data_ptr(),
+                g4.data_ptr(), fb.data_ptr(), NWS * LANE, L, POST_CL, _stream(logs))
     return g4, fb
+
+
+def _post_front(kernel: CudaKernel, lib, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """Launches A and B of a chunked post: the chunk maps into a new
+    [4, NCH, NW] scratch, then each chunk's carry-ins in place; returns
+    the scratch, which launch C reads."""
+    NW, L = logs.shape[0] * LANE, logs.shape[2]
+    scr = torch.empty((4, -(-L // POST_CL), NW), dtype=torch.int32, device=logs.device)
+    _launch(kernel, lib.h2r_post_maps, logs.data_ptr(), en.data_ptr(), scr.data_ptr(), NW, L,
+            POST_CL, _stream(logs))
+    _launch(kernel, lib.h2r_post_carry, scr.data_ptr(), NW, L, POST_CL, _stream(logs))
+    return scr
 
 
 def post_tiled_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor,
@@ -765,12 +799,12 @@ def post_tiled_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor,
     lib = build(plan)
     dev = logs.device
     with torch.cuda.device(dev):
-        fwd = torch.empty((NWS, L, LANE), dtype=torch.int32, device=dev)
+        scr = _post_front(POST_TILED, lib, logs, en)
         g4 = torch.empty((NWS, 8 * plan.n_groups, L, LANE), dtype=torch.int32, device=dev)
-        fb = torch.empty((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
+        fb = torch.zeros((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
         _launch(POST_TILED, lib.h2r_post_tiled, logs.data_ptr(), en.data_ptr(),
-                tiled.data_ptr(), fwd.data_ptr(), g4.data_ptr(), fb.data_ptr(), NWS * LANE, L,
-                _stream(logs))
+                tiled.data_ptr(), scr.data_ptr(), g4.data_ptr(), fb.data_ptr(), NWS * LANE, L,
+                POST_CL, _stream(logs))
     return g4, fb
 
 
@@ -784,9 +818,10 @@ def post_planes_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -
     lib = build(plan)
     dev = logs.device
     with torch.cuda.device(dev):
+        scr = _post_front(POST_PLANES, lib, logs, en)
         out = torch.empty((NWS, plan.p_total, plan.L_pad, LANE), dtype=torch.int32, device=dev)
         _launch(POST_PLANES, lib.h2r_post_planes, logs.data_ptr(), en.data_ptr(),
-                out.data_ptr(), NWS * LANE, plan.L_pad, _stream(logs))
+                scr.data_ptr(), out.data_ptr(), NWS * LANE, plan.L_pad, POST_CL, _stream(logs))
     return out
 
 
@@ -842,7 +877,7 @@ def fb_only_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> to
 # ---------------------------------------------------------------------------
 
 _SMEM_OPTIN: Dict[int, int] = {}
-TABLE_TAG_MAX_PAIRS = 4096  # kSmemPairs of csrc/table_tag.cu
+TABLE_TAG_SMEM_PAIRS = 4096  # kSmemPairs of csrc/table_tag.cu: pairs staged in shared memory
 
 
 def _check_row(t: torch.Tensor, name: str, n: int, B: int, dev: torch.device) -> None:
@@ -880,17 +915,18 @@ def table_smem_bytes(K: int, S: int, dev: torch.device) -> int:
     return need if S <= 65536 and need + 1024 <= _smem_optin(dev) else 0
 
 
-TABLE_FLAT_MAX_DEFS = 8  # kMaxDefs of csrc/table_flat.cu
+FLAT_GROUP_DEFS = 8  # kGroupDefs of csrc/table_flat.cu: defs a pass of its scan carries
 
 
 def flat_smem_bytes(n_defs: int, K: int, S: int, optin: int) -> int:
     """Shared memory the flat kernel stages its packed int32 table in, or
     0 when the table does not fit the card's opt-in limit ``optin`` beside
-    the kernel's static row-offset maps (8 KiB at most) and a margin: then
-    the kernel reads the table from global memory.  A raw-bytes def
-    (K = 256) at S = 256 needs 256 KiB, over the H100's 227 KiB."""
+    the kernel's static row-offset map (one group of defs: 8 KiB at most)
+    and a margin: then the kernel reads the table from global memory.  A
+    raw-bytes def (K = 256) at S = 256 needs 256 KiB, over the H100's
+    227 KiB."""
     need = 4 * n_defs * K * S
-    return need if need + 4 * TABLE_FLAT_MAX_DEFS * 256 + 1024 <= optin else 0
+    return need if need + 4 * FLAT_GROUP_DEFS * 256 + 1024 <= optin else 0
 
 
 def table_scan_cuda(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
@@ -918,15 +954,11 @@ def table_scan_cuda(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
 
 def table_tag_cuda(states, prev, lengths, pairs, p0: int, LS: int, ids, start, endf) -> None:
     """B9/B11 tag (``csrc/table_tag.cu``): same contract as
-    ``pallas_scan.tag_plain``, for at most ``TABLE_TAG_MAX_PAIRS`` pairs
-    per def (the list lives in the kernel's 48 KiB of shared memory)."""
+    ``pallas_scan.tag_plain``, for any number of pairs per def (the first
+    ``TABLE_TAG_SMEM_PAIRS`` in shared memory, the rest read from global
+    memory)."""
     n_defs, L, B = states.shape
     P = pairs.shape[1] if pairs.dim() == 3 else -1
-    if P > TABLE_TAG_MAX_PAIRS:
-        raise NotImplementedError(
-            f"table_tag holds at most {TABLE_TAG_MAX_PAIRS} pairs per def in shared "
-            f"memory; this model has {P}"
-        )
     _check(states, "states", torch.int32, (n_defs, L, B))
     _check(lengths, "lengths", torch.int32, (B,))
     _check(pairs, "pairs", torch.int32, (n_defs, P, 5))
@@ -989,13 +1021,10 @@ def table_fsm_cuda(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
 def table_flat_cuda(cmap, table, first, chars, lengths, states, ids, start, endf,
                     fwd, bwd) -> None:
     """B12 (``csrc/table_flat.cu``): same contract as
-    ``pallas_scan.flat_plain``, one launch for the whole call."""
+    ``pallas_scan.flat_plain``, one launch for the whole call (a model of
+    more than ``FLAT_GROUP_DEFS`` defs is scanned in groups inside it)."""
     n_defs, K, S = table.shape
     B, L = chars.shape
-    if n_defs > TABLE_FLAT_MAX_DEFS:
-        raise NotImplementedError(
-            f"table_flat runs at most {TABLE_FLAT_MAX_DEFS} defs; this model has {n_defs}"
-        )
     _check(cmap, "cmap", torch.int32, (n_defs, 256))
     _check(table, "table", torch.int32, (n_defs, K, S))
     _check(first, "first", torch.int32, (n_defs,))

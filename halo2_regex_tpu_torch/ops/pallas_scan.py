@@ -341,16 +341,21 @@ class PallasMatcher(nn.Module):
     (``"cuda"``, the default, runs the CUDA kernels and raises where CUDA is
     absent; ``"cpu"`` runs their plain versions).  ``batch_tile`` only
     feeds the segmented demotion, as in JAX: the port does not pad the
-    batch.  ``chunk`` and ``slab`` are TPU blocking factors the port has
-    no use for: other values raise ``ValueError``.  ``H2R_VMEM_BUDGET``
-    and ``H2R_SEGMENT`` are read as in JAX, so ``mode``, ``grid_mode``,
-    ``segment`` and ``n_seg`` equal the JAX matcher's for the same model;
-    monolithic mode ignores ``grid_mode`` and runs the whole L in one flat
-    launch, as in JAX.  A split model of more than 4096 pairs per def runs
-    on the CPU only (the tag kernel's list lives in shared memory), and a
-    monolithic one of more than 8 defs (the flat kernel's limit).  The TPU
-    lowerings ``compute``, ``table_dtype`` and ``extract`` raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    batch.  ``H2R_VMEM_BUDGET`` and ``H2R_SEGMENT`` are read as in JAX, so
+    ``mode``, ``grid_mode``, ``segment`` and ``n_seg`` equal the JAX
+    matcher's for the same model; monolithic mode ignores ``grid_mode``
+    and runs the whole L in one flat launch, as in JAX.  ``chunk`` and
+    ``slab`` block the TPU kernels: any value JAX takes is taken, and
+    ``chunk``, ``slab``, ``n_slab``, ``slab_seg`` and ``scan_stride`` are
+    sized from them as JAX sizes them, but the port's kernels run the
+    same windows whatever they are.  ``compute`` ("mxu"/"vpu"),
+    ``table_dtype`` ("bf16"/"int8") and ``extract``
+    ("select"/"take_along") pick TPU lowerings of one gather; the port
+    gathers directly, keeps each as an attribute and computes the same
+    outputs for every value.  Every model the constructor builds runs on
+    the card: the tag kernel reads pair lists beyond its shared-memory
+    stage from global memory, and the flat kernel runs more than 8 defs
+    in groups of 8.
     """
 
     def __init__(
@@ -376,29 +381,25 @@ class PallasMatcher(nn.Module):
             )
         if grid_mode not in ("batch", "segmented"):
             raise ValueError(f"grid_mode={grid_mode!r}: expected batch/segmented")
-        for name, value, default in (("chunk", chunk, 256), ("slab", slab, 8)):
-            if value != default:
-                raise ValueError(
-                    f"{name}={value!r}: a TPU blocking factor; the port launches one "
-                    f"kernel per window and takes only the default ({default})"
-                )
-        for name, value, default in (("extract", extract, "select"),
-                                     ("compute", compute, "mxu"),
-                                     ("table_dtype", table_dtype, "bf16")):
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r} is a TPU lowering with the same outputs; "
-                    f"it waits for ROADMAP A11 (the port gathers directly)"
-                )
         self.model = model
-        self.L = model.max_chars_size
+        # the TPU lowerings of the table gather, kept as JAX keeps them
+        self.extract = extract
+        self.compute = compute
+        self.table_dtype = table_dtype
+        L = self.L = model.max_chars_size
         self.S = model.s_pad
         self.n_defs = model.n_defs
         self.grid_mode = grid_mode
+        if grid_mode == "batch":  # the JAX constructor's chunk sizing
+            chunk = L
+        LC = min(chunk, L)
+        while L % LC != 0:
+            LC //= 2
+        self.chunk = LC
         self._budget = int(float(os.environ.get("H2R_VMEM_BUDGET", 56e6)))
         mode = self._build_tables(mode, max_boundary_terms)
         self._resolve_mode(mode, max_pairs)
-        self._size_tiles(batch_tile)
+        self._size_tiles(batch_tile, slab)
         self._register_tables()
         self.to(resolve_device(device))
 
@@ -477,11 +478,13 @@ class PallasMatcher(nn.Module):
                 pairs[d, : len(plist)] = np.array(plist, np.int64)
         self._pairs = pairs
 
-    def _size_tiles(self, batch_tile: int) -> None:
-        """The parts of the JAX ``_size_tiles`` that change what runs:
-        the batch tile as far as the segmented demotion reads it, then
-        ``segment`` (``H2R_SEGMENT``, halved until it divides L) and
-        ``n_seg``."""
+    def _size_tiles(self, batch_tile: int, slab: int) -> None:
+        """The JAX ``_size_tiles`` sizing: the batch tile as far as the
+        segmented demotion reads it, the scan stride, ``slab`` and
+        ``n_slab``, then ``segment`` (``H2R_SEGMENT``, halved until it
+        divides L), ``slab_seg`` and ``n_seg``.  Only the demotion and the
+        segments change what the port runs; the rest block the TPU kernels
+        and are kept as JAX exposes them."""
         L = self.L
         n_defs = self.n_defs
         split_blocks = max(n_defs + 1, 4 * n_defs, 3 * n_defs + 2)
@@ -493,10 +496,28 @@ class PallasMatcher(nn.Module):
         if (self.mode == "split" and self.grid_mode == "batch"
                 and 2 * L * 4 * split_blocks * batch_tile > self._budget):
             self.grid_mode = "segmented"
+        # stride-2 scanning composes byte pairs of at most 16 classes
+        # (k^2 <= 256) in batch-mode split scans
+        stride = 1
+        if self.mode == "split" and not self.hi_lo and self.grid_mode == "batch":
+            stride = 2 if all(use and tab.shape[0] ** 2 <= 256
+                              for use, _c0, _t, tab in self.class_info) and L % 2 == 0 else 1
+        SLAB = min(slab, L)
+        while L % SLAB != 0:
+            SLAB //= 2
+        self.n_slab = L // SLAB
+        self.slab = SLAB
+        if stride == 2 and L % (2 * SLAB) != 0:
+            stride = 1
+        self.scan_stride = stride
         LS = min(int(os.environ.get("H2R_SEGMENT", 4096)), L)
         while L % LS != 0:
             LS //= 2
+        SLAB_SEG = SLAB
+        while LS % SLAB_SEG != 0:
+            SLAB_SEG //= 2
         self.segment = LS
+        self.slab_seg = SLAB_SEG
         self.n_seg = L // LS
 
     def _register_tables(self) -> None:

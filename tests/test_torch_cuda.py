@@ -125,16 +125,17 @@ def test_matcher_on_card_matches_cpu(dev, columns, name, L):
     """Each column set's result on the card equals the CPU (plain) run,
     including a ragged batch (4099), lengths that are not a multiple of
     the pack kernel's 32-position tile, and L_pad > L; the path's kernels
-    launch once each, and no other kernel does."""
+    launch as ``path_launches`` says (once each, three for a chunked
+    post), and no other kernel does."""
     model = _model(name, L)
     chars, lengths = _corpus(4099, L, 2)
     m = T.BitplaneMatcher(model, columns=columns, device=dev)
     kernels.reset_launch_counts()
     got = m(chars, lengths)
     torch.cuda.synchronize()
-    path = kernels.path_kernels(m.plan)
+    launches = kernels.path_launches(m.plan)
     assert {k.name: k.launches for k in kernels.KERNELS} == {
-        k.name: int(k in path) for k in kernels.KERNELS}
+        k.name: launches.get(k, 0) for k in kernels.KERNELS}
     _assert_same(got, T.BitplaneMatcher(model, columns=columns, device="cpu")(chars, lengths))
 
 
@@ -366,11 +367,11 @@ def test_tiled_matcher_on_card_matches_cpu(dev, columns, name, L):
     kernels.reset_launch_counts()
     got = m(tiled, lengths)
     torch.cuda.synchronize()
-    path = kernels.path_kernels(m.plan)
-    assert {k.name for k in path} == {"tpack", "scan",
-                                      "post_tiled" if columns == "witness" else "fb_only"}
+    launches = kernels.path_launches(m.plan)
+    assert {k.name for k in launches} == {"tpack", "scan",
+                                          "post_tiled" if columns == "witness" else "fb_only"}
     assert {k.name: k.launches for k in kernels.KERNELS} == {
-        k.name: int(k in path) for k in kernels.KERNELS}
+        k.name: launches.get(k, 0) for k in kernels.KERNELS}
     _assert_same(got, T.BitplaneMatcher(model, columns=columns, input_layout="tiled",
                                         device="cpu")(tiled, lengths))
     _assert_same(got, T.BitplaneMatcher(model, columns=columns, device="cpu")(chars, lengths))
@@ -573,9 +574,9 @@ def test_knob_variants_on_card_match_cpu(dev, columns, kw):
     kernels.reset_launch_counts()
     got = m(chars, lengths)
     torch.cuda.synchronize()
-    path = kernels.path_kernels(m.plan)
+    launches = kernels.path_launches(m.plan)
     assert {k.name: k.launches for k in kernels.KERNELS} == {
-        k.name: int(k in path) for k in kernels.KERNELS}
+        k.name: launches.get(k, 0) for k in kernels.KERNELS}
     _assert_same(got, T.BitplaneMatcher(model, columns=columns, device="cpu", **kw)(chars, lengths))
 
 
@@ -593,3 +594,200 @@ def test_scan_planes_on_card(dev):
         got = m.scan_planes(bits, d)
         assert kernels.SCAN_DEF.launches == 1
         assert torch.equal(got, logs[:, m.plan.sb_off[d]: m.plan.sb_off[d] + c.sb])
+
+
+# ---------------------------------------------------------------------------
+# models beyond the table kernels' staging: a def of more pair-list entries
+# than the tag kernel's shared memory holds, and more defs than one pass of
+# the flat kernel's scan carries
+# ---------------------------------------------------------------------------
+
+
+def _wide_pairs_model(S=300, L=MAX_LEN, seed=5):
+    """A random S-state table over bytes 97..122 whose every transition is
+    a substring transition: one def of 7511 (prev, next) pairs, beyond the
+    4096 the tag kernel stages in shared memory (over 256 states, so always
+    split; ``max_pairs`` lets it be)."""
+    from halo2_regex_tpu_torch.models.defs import AllstrRegexDef, RegexDefs, SubstrRegexDef
+
+    rng = np.random.default_rng(seed)
+    allstr = AllstrRegexDef(first_state_val=0, accepted_state_val=1, largest_state_val=S - 1)
+    line, trans = 3, set()
+    for c in range(97, 123):
+        for s in range(S):
+            n = int(rng.integers(0, S))
+            allstr.state_lookup[(c, s)] = (line, n)
+            line += 1
+            trans.add((s, n))
+    sub = SubstrRegexDef(max_length=L, min_position=0, max_position=L,
+                         valid_state_transitions=trans, start_states=list(range(0, S, 7)),
+                         end_states=list(range(3, S, 5)))
+    return T.CompiledRegexModel.from_defs([RegexDefs(allstr=allstr, substrs=[sub])],
+                                          max_chars_size=L)
+
+
+def _nine_def_model(n_words=40, L=MAX_LEN):
+    """Nine dictionary defs (``zoo.dictionary_config`` at seeds 1..9); with
+    40 words each has over 160 pairs, so ``auto`` resolves to monolithic."""
+    cfgs = [T.DecomposedRegexConfig.from_json(T.zoo.dictionary_config(n_words, seed=s,
+                                                                      max_byte_size=L))
+            for s in range(1, 10)]
+    return T.CompiledRegexModel.from_decomposed(cfgs, max_chars_size=L)
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+def test_tag_beyond_shared_memory_on_card(dev, monkeypatch, segmented):
+    """A split model of 7511 pairs in one def: the tag kernel searches the
+    pairs past its shared-memory stage in global memory; the matcher on
+    the card equals the CPU run on every field, with the path's launches."""
+    from halo2_regex_tpu_torch.ops import pallas_scan as ps
+
+    model = _wide_pairs_model()
+    if segmented:
+        monkeypatch.setenv("H2R_SEGMENT", "16")
+    kw = dict(max_pairs=8192, grid_mode="segmented" if segmented else "batch")
+    m = T.PallasMatcher(model, device=dev, **kw)
+    assert m.mode == "split" and m.pairs.shape[1] > kernels.TABLE_TAG_SMEM_PAIRS
+    rng = np.random.default_rng(15)
+    chars = rng.integers(97, 123, size=(4099, MAX_LEN)).astype(np.uint8)
+    lengths = rng.integers(0, MAX_LEN + 1, size=4099).astype(np.int32)
+    ch, ln = torch.from_numpy(chars).to(dev), torch.from_numpy(lengths).to(dev)
+    st = m.run_planes(ch, ln, plain=True)[0]
+    want = [torch.full_like(st, -7) for _ in range(3)]
+    got = [torch.full_like(st, -7) for _ in range(3)]
+    ps.tag_plain(st, m._firsts(4099), ln, m.pairs, 0, MAX_LEN, *want)
+    kernels.table_tag_cuda(st, m._firsts(4099), ln, m.pairs, 0, MAX_LEN, *got)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(want[0].any() and want[1].any() and want[2].any())
+    kernels.reset_launch_counts()
+    res = m(ch, ln)
+    torch.cuda.synchronize()
+    n = m.n_seg if segmented else 1
+    want_counts = {k.name: 0 for k in kernels.KERNELS}
+    want_counts.update({k.name: v for k, v in kernels.table_path_launches(n).items()})
+    assert {k.name: k.launches for k in kernels.KERNELS} == want_counts
+    _assert_same(res, T.PallasMatcher(model, device="cpu", **kw)(chars, lengths))
+
+
+@pytest.mark.parametrize("n_words,smem", [(40, False), (12, True), (12, False)])
+def test_flat_nine_defs_on_card(dev, monkeypatch, n_words, smem):
+    """A monolithic model of nine defs: the flat kernel scans them in two
+    groups in one launch, equal to flat_plain and, through the matcher, to
+    the CPU run on every field; with 40 words a def the table (234 KiB)
+    is read from global memory, with 12 it fits shared memory (and is
+    also sent to global memory)."""
+    from halo2_regex_tpu_torch.ops import pallas_scan as ps
+
+    model = _nine_def_model(n_words)
+    m = T.PallasMatcher(model, device=dev, mode="monolithic")
+    assert m.n_defs == 9 > kernels.FLAT_GROUP_DEFS
+    fits = kernels.flat_smem_bytes(*m.flat_table.shape, kernels._smem_optin(dev)) > 0
+    assert fits == (n_words == 12)
+    if not smem:
+        monkeypatch.setattr(kernels, "flat_smem_bytes", lambda *a: 0)
+    chars, lengths = _flat_corpus("dict40", 4099, 16)
+    ch, ln = torch.from_numpy(chars).to(dev), torch.from_numpy(lengths).to(dev)
+    B = ch.shape[0]
+
+    def outs():
+        return ([torch.full((9, MAX_LEN, B), -7, dtype=torch.int32, device=dev)
+                 for _ in range(4)]
+                + [torch.full((MAX_LEN, B), -7, dtype=torch.int32, device=dev)
+                   for _ in range(2)])
+
+    want, got = outs(), outs()
+    args = (m.class_map, m.flat_table, m.first_states, ch, ln)
+    ps.flat_plain(*args, *want)
+    kernels.table_flat_cuda(*args, *got)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool((want[4] * want[5]).any())
+    kernels.reset_launch_counts()
+    res = m(ch, ln)
+    torch.cuda.synchronize()
+    assert kernels.TABLE_FLAT.launches == 1
+    _assert_same(res, T.PallasMatcher(model, device="cpu", mode="monolithic")(chars, lengths))
+
+
+def test_best_matcher_runs_what_it_returns(dev):
+    """The ladder's table rung on both models returns a matcher whose first
+    call on the card runs and equals the CPU run (no limit is left to raise
+    there)."""
+    from halo2_regex_tpu_torch.ops import best_matcher
+
+    for model, kw, (chars, lengths) in (
+        (_wide_pairs_model(), dict(max_pairs=8192), (np.full((64, MAX_LEN), 97, np.uint8),
+                                                      np.full(64, MAX_LEN, np.int32))),
+        (_nine_def_model(), {}, _flat_corpus("dict40", 64, 17)),
+    ):
+        m, name = best_matcher(model, backend="pallas", device=dev, **kw)
+        assert name == "pallas"
+        res = m(chars, lengths)
+        torch.cuda.synchronize()
+        _assert_same(res, T.PallasMatcher(model, device="cpu", **kw)(chars, lengths))
+
+
+# ---------------------------------------------------------------------------
+# the redesigned scan (the cp.async ring) and chunked post at awkward
+# shapes: NW = 384 words (one and a half of the post's 256-word blocks),
+# L = 128, 1000 (pack_raw, L_pad 1024) and 1024, every unroll, chunk
+# lengths that leave a partial last chunk, every chunked post plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("L", [128, 1000, 1024])
+def test_redesigned_scan_and_post_match_plain(dev, monkeypatch, L):
+    from halo2_regex_tpu_torch.ops.knobs import BitplaneKnobs
+
+    model = _model("from", L)
+    B = 3 * 4096  # NW = 384
+    chars, lengths = _corpus(B, L, 26)
+    ch = torch.from_numpy(chars).to(dev)
+    lw = bp.len_table(torch.from_numpy(lengths).to(dev))
+    plan = bp.make_plan(model, "witness")
+    assert plan.qpack == (L != 1000)
+    quads = bp.raw_quads(ch, plan.L_pad)
+    bits, en = kernels.pack_raw_cuda(plan, quads, lw)
+    logs = bp.scan_plain(plan, bits)
+    for u in (1, 2, 3, 4, 8):
+        pu = bp.make_plan(model, "witness", unroll=u)
+        assert torch.equal(kernels.scan_cuda(pu, bits), logs), u
+    tplan = bp.make_plan(model, "witness", tiled=True)
+    tiled = torch.from_numpy(bp.tile_corpus(chars, tplan.L_pad)).to(dev)
+    cases = [
+        (plan, lambda p: kernels.post_cuda(p, logs, en), lambda p: bp.post_plain(p, logs, en)),
+        (bp.make_plan(model, "witness", knobs=BitplaneKnobs(emit="kdecode")),
+         lambda p: kernels.post_cuda(p, logs, en), lambda p: bp.post_plain(p, logs, en)),
+        (tplan, lambda p: kernels.post_tiled_cuda(p, logs, en, tiled),
+         lambda p: bp.post_plain(p, logs, en, tiled)),
+        (bp.make_plan(model, "witness", knobs=BitplaneKnobs(emit="planes")),
+         lambda p: kernels.post_planes_cuda(p, logs, en),
+         lambda p: bp.post_planes_plain(p, logs, en)),
+        (bp.make_plan(model, "full"), lambda p: kernels.post_planes_cuda(p, logs, en),
+         lambda p: bp.post_planes_plain(p, logs, en)),
+    ]
+    for p, run_k, run_p in cases:
+        want = run_p(p)
+        for cl in (32, 7, 1):
+            monkeypatch.setattr(kernels, "POST_CL", cl)
+            got = run_k(p)
+            torch.cuda.synchronize()
+            if isinstance(want, tuple):
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (p.emit, p.tiled, cl)
+            else:
+                assert torch.equal(got, want), (p.columns, p.emit, cl)
+
+
+def test_post_launches_three_kernels(dev):
+    """A chunked post call launches the chunk maps, the carries and the
+    replay, each counted on the post kernel; ``path_launches`` says so."""
+    model = _model("from", MAX_LEN)
+    for columns, k in (("witness", kernels.POST), ("full", kernels.POST_PLANES)):
+        m = T.BitplaneMatcher(model, columns=columns, device=dev)
+        assert kernels.path_launches(m.plan)[k] == 3
+        kernels.reset_launch_counts()
+        m(*_corpus(4096, MAX_LEN, 27))
+        torch.cuda.synchronize()
+        assert k.launches == 3

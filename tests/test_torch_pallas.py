@@ -169,15 +169,15 @@ def test_tables_match_jax_class_info(models, ports, name):
                                  {"H2R_VMEM_BUDGET": "1e6"}])
 @pytest.mark.parametrize("grid_mode", ["batch", "segmented"])
 def test_sizing_matches_jax(models, monkeypatch, env, grid_mode):
-    """mode, grid_mode (with the segmented demotion), segment and n_seg
-    equal the JAX matcher's for every model, under the same environment."""
+    """mode, grid_mode (with the segmented demotion), segment and n_seg,
+    and the TPU sizing (chunk, slab, scan stride) equal the JAX matcher's
+    for every model, under the same environment."""
     for var, value in env.items():
         monkeypatch.setenv(var, value)
     for n in MODELS:
         jm = JaxPallas(models[n][0], interpret=True, grid_mode=grid_mode)
         m = T.PallasMatcher(models[n][1], grid_mode=grid_mode, device="cpu")
-        got = (m.mode, m.grid_mode, m.segment, m.n_seg, m.batch_tile)
-        assert got == (jm.mode, jm.grid_mode, jm.segment, jm.n_seg, jm.batch_tile), n
+        assert {a: getattr(m, a) for a in SIZING} == {a: getattr(jm, a) for a in SIZING}, n
 
 
 def _config3(pkg_allstr, pkg_defs, pkg_model):
@@ -381,23 +381,73 @@ def test_match_one_matches_oracle(models):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mode="monolithic"), dict(max_pairs=1), dict(compute="vpu"),
-    dict(table_dtype="int8"), dict(extract="take_along"),
-])
-def test_unported_settings_raise(models, kw):
-    """The TPU lowerings wait for their ROADMAP items.  The monolithic
-    mode (B12), asked for or resolved by ``auto`` beyond ``max_pairs``, no
-    longer raises: it runs, equal to the JAX matcher's."""
-    if "mode" in kw or "max_pairs" in kw:
-        m = T.PallasMatcher(models["regex3"][1], device="cpu", **kw)
-        jm = JaxPallas(models["regex3"][0], batch_tile=TB, interpret=True, **kw)
-        assert m.mode == jm.mode == "monolithic"
-        chars, lengths = _corpus("regex3", TB, 30)
-        assert_result_equal(m(chars, lengths), jm(chars, lengths))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.PallasMatcher(models["regex3"][1], device="cpu", **kw)
+# name -> (model, constructor kwargs, H2R_SEGMENT or None): every setting
+# the JAX matcher accepts beyond the defaults, as tests/test_pallas_scan.py
+# runs them (chunk=16 with take_along, int8 tables on a split model and on
+# the segmented >256-state path) and each TPU lowering alone
+SETTINGS = {
+    "monolithic": ("regex3", dict(mode="monolithic"), None),
+    "max_pairs": ("regex3", dict(max_pairs=1), None),
+    "vpu": ("regex3", dict(compute="vpu"), None),
+    "int8": ("regex3", dict(table_dtype="int8"), None),
+    "take_along": ("regex3", dict(extract="take_along"), None),
+    "chunk16_take_along": ("regex3", dict(chunk=16, extract="take_along"), None),
+    "slab4": ("two_def", dict(slab=4), None),
+    "int8_split": ("two_def", dict(mode="split", table_dtype="int8", chunk=128), None),
+    "int8_segmented_hi_lo": ("large", dict(grid_mode="segmented", table_dtype="int8",
+                                           chunk=16, slab=2), SEG),
+    "monolithic_vpu_take_along": ("regex3", dict(mode="monolithic", compute="vpu",
+                                                 extract="take_along", slab=4), None),
+}
+SIZING = ("mode", "grid_mode", "chunk", "slab", "n_slab", "slab_seg", "scan_stride", "segment",
+          "n_seg", "batch_tile", "extract", "compute", "table_dtype")
+
+
+def _with_settings(models, name, jax_side):
+    key, kw, seg = SETTINGS[name]
+    with pytest.MonkeyPatch.context() as mp:
+        if seg is not None:
+            mp.setenv("H2R_SEGMENT", str(seg))
+        if jax_side:
+            return JaxPallas(models[key][0], batch_tile=TB, interpret=True, **kw)
+        return T.PallasMatcher(models[key][1], batch_tile=TB, device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def setting_results(models):
+    """Each setting's JAX RegexResult on one seeded 8-string batch (the
+    interpret-mode kernels take seconds a call: computed once per module)."""
+    out = {}
+    for i, name in enumerate(SETTINGS):
+        chars, lengths = _corpus(SETTINGS[name][0], TB, 30 + i)
+        out[name] = (chars, lengths, _with_settings(models, name, jax_side=True)(chars, lengths))
+    return out
+
+
+@pytest.mark.parametrize("name", ["monolithic", "max_pairs", "vpu", "int8", "take_along"])
+def test_unported_settings_raise(models, setting_results, name):
+    """Settings the port once refused run: the monolithic mode (B12),
+    asked for or resolved by ``auto`` beyond ``max_pairs``, and the TPU
+    lowerings ``compute="vpu"``, ``table_dtype="int8"`` and
+    ``extract="take_along"``, each equal to the JAX matcher with the same
+    argument on every field and dtype."""
+    m = _with_settings(models, name, jax_side=False)
+    chars, lengths, want = setting_results[name]
+    assert m.mode == ("monolithic" if name in ("monolithic", "max_pairs") else "split")
+    assert_result_equal(m(chars, lengths), want)
+
+
+@pytest.mark.parametrize("name", [n for n in SETTINGS if n not in (
+    "monolithic", "max_pairs", "vpu", "int8", "take_along")])
+def test_settings_match_jax(models, setting_results, name):
+    """chunk, slab and the lowerings together, on split, segmented
+    (>256 states) and monolithic models: the port's sizing attributes and
+    its RegexResult equal the JAX matcher's with the same arguments."""
+    m = _with_settings(models, name, jax_side=False)
+    jm = _with_settings(models, name, jax_side=True)
+    assert {a: getattr(m, a) for a in SIZING} == {a: getattr(jm, a) for a in SIZING}
+    chars, lengths, want = setting_results[name]
+    assert_result_equal(m(chars, lengths), want)
 
 
 def test_refusals_match_jax(models):
@@ -411,24 +461,36 @@ def test_refusals_match_jax(models):
         T.PallasMatcher(models["large"][1], mode="monolithic", device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(chunk=128), dict(slab=4)])
+@pytest.mark.parametrize("kw", [dict(chunk=128), dict(slab=4), dict(chunk=0),
+                                dict(chunk=0, grid_mode="segmented"), dict(slab=0)])
 def test_tpu_blocking_factors_raise(models, kw):
     """``chunk`` and ``slab`` only block the TPU kernels: the port takes
-    their defaults and refuses other values rather than ignore them."""
-    assert JaxPallas(models["regex3"][0], interpret=True, **kw).mode == "split"
-    with pytest.raises(ValueError, match="TPU blocking factor"):
-        T.PallasMatcher(models["regex3"][1], device="cpu", **kw)
+    every value JAX takes, sizes ``chunk``, ``slab``, ``n_slab``,
+    ``slab_seg`` and ``scan_stride`` from them as JAX does, and raises
+    where JAX raises, with its exception type (a zero chunk in segmented
+    mode, a zero slab)."""
+    for n in MODELS:
+        try:
+            jm = JaxPallas(models[n][0], interpret=True, **kw)
+        except Exception as e:  # noqa: BLE001 -- the port must raise the same type
+            with pytest.raises(type(e)):
+                T.PallasMatcher(models[n][1], device="cpu", **kw)
+            continue
+        m = T.PallasMatcher(models[n][1], device="cpu", **kw)
+        assert {a: getattr(m, a) for a in SIZING} == {a: getattr(jm, a) for a in SIZING}, n
 
 
 def test_table_tag_refuses_lists_beyond_shared_memory():
-    """The tag kernel keeps a def's pair list in shared memory: a longer
-    list raises before anything is checked or launched."""
+    """The tag kernel stages at most ``TABLE_TAG_SMEM_PAIRS`` pairs of a
+    def's list in shared memory and reads the rest from global memory:
+    a longer list is no longer refused, so the wrapper goes on to its
+    device checks (meta tensors are not CUDA tensors)."""
     from halo2_regex_tpu_torch.ops import kernels
 
-    n = kernels.TABLE_TAG_MAX_PAIRS + 1
+    n = kernels.TABLE_TAG_SMEM_PAIRS + 1
     st = torch.empty((1, MAX_LEN, TB), dtype=torch.int32, device="meta")
     pairs = torch.empty((1, n, ps.PAIR_FIELDS), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match=f"at most {n - 1} pairs"):
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kernels.table_tag_cuda(st, st[:, 0], st[0, 0], pairs, 0, MAX_LEN, st, st, st)
 
 
