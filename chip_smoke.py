@@ -20,8 +20,10 @@ paths:
             1024): pack_raw replaces qpack;
   pallas_large  BASELINE configs[3] at its published size (a 1000-state
             random table, B=64 x L=65536, run_benchmarks.py:352-396's data):
-            PallasMatcher(max_pairs=4096), segmented into 16 x 4096:
-            table_scan, table_tag, table_fsm per segment;
+            PallasMatcher(max_pairs=4096), segmented into 16 x 4096 as in
+            JAX, one pass over L on the card: table_scan and table_fsm in
+            their chunked forms (speculate + repair; maps, carries,
+            replay), table_tag;
   pallas_from  PallasMatcher on the from: corpus in batch mode (bench.py's
             pallas leg, bench.py:195-214);
   tiled_witness, tiled_match  the witness and match paths on the
@@ -54,18 +56,24 @@ and proves on the card that:
      and post kernels, is bit-exact against its plain PyTorch version on
      the same inputs at that size (scan_def also against the fused
      scan's slices) (the table kernels on the
-     first segment of configs[3] and on the whole from: corpus, and on a
-     middle window of its first 4096 strings with carries on both sides,
-     where the FSM runs in chunks; the from: planes must not be all
-     zeros, as configs[3]'s tag and FSM planes are: it has no pairs); the
-     tag kernel also on a def of 7511 pairs (past the 4096 it stages in
-     shared memory) and the flat kernel on nine defs (two groups of its
-     scan), each model then run once through its matcher (``beyond_staging``);
+     whole of configs[3] and of the from: corpus, and on a middle window
+     of its first 4096 strings with carries on both sides, where the FSMs
+     run in chunks; the from: planes must not be all zeros, as configs[3]'s
+     tag and FSM planes are: it has no pairs; the scan and FSMs in both
+     their forms; the chunked scan's repaired positions equal its torch
+     twin's at configs[3] and on a 1000-state DFA that never resyncs (every
+     byte permutes the states: every speculative chunk is repaired) at
+     B=64 x L=65536); the tag, scan and FSM kernels also on a def of 7511
+     pairs (past the 4096 pairs the tag kernel stages in shared memory)
+     and the flat kernel on nine defs (two groups of its scan), each model
+     then run once through its matcher (``beyond_staging``);
   5. each path, driven once through the matcher with the launch counts
      reset just before it, launched each of its kernels as often as
      ``kernels.path_launches`` says (once, three times for a chunked post;
-     the table paths: a scan and a tag per window, two FSMs) and no
-     other, and equals its
+     the table paths as ``kernels.table_path_launches``: one pass over L,
+     the chunked scan two launches, the chunked FSMs three) and no
+     other (configs[3]'s launches per call and repaired positions are
+     printed), and equals its
      plain pipeline on the card (every output, dtypes included); a subset
      equals the numpy oracle (256 strings, 8 for configs[3]); for
      extraction serving the runs equal the oracle's extracted substrings;
@@ -261,6 +269,26 @@ def config3(h2r):
                                              max_chars_size=L3)
     chars = rng.integers(32, 127, size=(B3, L3)).astype(np.uint8)
     return model, chars, np.full((B3,), L3, np.int32)
+
+
+def permutation_dfa(h2r):
+    """configs[3]'s shape with a DFA that never resyncs: 1000 states over
+    bytes 32..126, each byte a random permutation of the states (so two
+    walkers from different states never meet, and every guess of the
+    chunked scan fails), and B3 x L3 chars, from one default_rng(3)."""
+    from halo2_regex_tpu_torch.models.defs import AllstrRegexDef, RegexDefs
+
+    rng = np.random.default_rng(3)
+    allstr = AllstrRegexDef(first_state_val=0, accepted_state_val=1, largest_state_val=S3 - 1)
+    line = 3
+    for c in range(32, 127):
+        for s, t in enumerate(rng.permutation(S3)):
+            allstr.state_lookup[(c, s)] = (line, int(t))
+            line += 1
+    model = h2r.CompiledRegexModel.from_defs([RegexDefs(allstr=allstr, substrs=[])],
+                                             max_chars_size=L3)
+    return (h2r.PallasMatcher(model, max_pairs=4096),
+            rng.integers(32, 127, size=(B3, L3)).astype(np.uint8))
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -700,9 +728,13 @@ def main() -> dict:
         f"class {c.class_prog.n_ops} ops, tag {c.tag_ops} ops, "
         f"groups {[[n for n, _o, _b in g] for g in plan.wgroups]}, "
         f"full post planes {list(matchers['full'].plan.post_off)}")
+    table_io_b = {"pallas_large": B3, "pallas_from": B, "pallas_dict": B}
     for path, m in tables.items():
-        log(f"[3] {path}: S={m.S}, hi_lo={m.hi_lo}, {m.mode}/{m.grid_mode}, window "
-            f"{m.window} x {m.L // m.window}, next table {tuple(m.next_table.shape)}, "
+        nb_ = table_io_b[path]
+        log(f"[3] {path}: S={m.S}, hi_lo={m.hi_lo}, {m.mode}/{m.grid_mode}, JAX's window "
+            f"{m.window} x {m.L // m.window} (the card: one pass over L; at B={nb_} the scan "
+            f"form (C, W) {kernels.table_scan_form(m.n_defs, nb_, m.L, dev)}, the FSMs' chunk "
+            f"{kernels.table_fsm_form(nb_, dev)}), next table {tuple(m.next_table.shape)}, "
             f"pairs {tuple(m.pairs.shape)}, table in shared memory: "
             f"{kernels.table_smem_bytes(*m.next_table.shape[1:], dev)} B")
     t0 = time.perf_counter()
@@ -808,34 +840,40 @@ def main() -> dict:
         log(f"[4] {path}: plain pipeline planes in {t_plain_planes[path]:.1f} s")
 
     def table_stages(path):
+        """The table kernels of one call on the card, each once over the
+        whole L as ``run_planes`` launches them (the scan and the FSMs in
+        the form ``kernels.table_scan_form`` / ``table_fsm_form`` picks),
+        against their plain versions."""
         m = tables[path]
         ch, ln = table_io[path]
         st, ids, sta, ef, fwd, bwd = planes[path]
-        nd, LS, Bt = m.n_defs, m.window, ch.shape[0]
+        nd, LS, Bt = m.n_defs, m.L, ch.shape[0]
         firsts = m._firsts(Bt)
-        carry_b = (bwd[LS], ids[:, LS], sta[:, LS]) if LS < m.L else (None, None, None)
 
-        def scan_with(fn):
+        def scan_with(fn, **kw):
             def go():
                 out = torch.empty_like(st)
-                fn(m.class_map, m.next_table, ch, firsts, 0, LS, out)
-                return out[:, :LS]
+                fn(m.class_map, m.next_table, ch, firsts, 0, LS, out, **kw)
+                return out
             return go
 
         def tag_with(fn):
             def go():
                 outs = [torch.empty_like(st) for _ in range(3)]
                 fn(st, firsts, ln, m.pairs, 0, LS, *outs)
-                return tuple(o[:, :LS] for o in outs)
+                return tuple(outs)
             return go
 
-        def fsm_with(fn):  # one forward and one backward launch
-            def go():
-                f, b = torch.empty_like(fwd), torch.empty_like(bwd)
-                fn(False, ids, sta, ef, None, None, None, 0, LS, f)
-                fn(True, ids, sta, ef, *carry_b, 0, LS, b)
-                return f[:LS], b[:LS]
-            return go
+        def fsm_kernel():  # both FSMs in one call
+            f, b = torch.empty_like(fwd), torch.empty_like(bwd)
+            kernels.table_fsms_cuda(ids, sta, ef, 0, LS, f, b)
+            return f, b
+
+        def fsm_plain():
+            f, b = torch.empty_like(fwd), torch.empty_like(bwd)
+            ps.fsm_plain(False, ids, sta, ef, None, None, None, 0, LS, f)
+            ps.fsm_plain(True, ids, sta, ef, None, None, None, 0, LS, b)
+            return f, b
 
         # the tag kernel's compares: a hit at list index k costs k + 1,
         # a miss the padded list length P, a masked position none
@@ -852,24 +890,28 @@ def main() -> dict:
         cells = nd * LS * Bt
         win = cells * 4
         return {
-            "table_scan": (kernels.TABLE_SCAN, scan_with(kernels.table_scan_cuda),
+            "table_scan": (kernels.TABLE_SCAN,
+                           scan_with(kernels.table_scan_cuda, next16=m.next_table16),
                            scan_with(ps.scan_plain),
-                           bound(Bt * LS + nbytes(firsts, m.class_map, m.next_table) + win,
+                           bound(Bt * LS + nbytes(firsts, m.class_map, m.next_table16) + win,
                                  2 * cells)),
             "table_tag": (kernels.TABLE_TAG, tag_with(kernels.table_tag_cuda),
                           tag_with(ps.tag_plain),
                           bound(4 * win + nbytes(firsts, ln, m.pairs), 2 * compares + 4 * cells)),
-            "table_fsm": (kernels.TABLE_FSM, fsm_with(kernels.table_fsm_cuda),
-                          fsm_with(ps.fsm_plain),
-                          bound(3 * win + 2 * LS * Bt * 4 + nbytes(*carry_b),
-                                2 * LS * Bt * (3 * nd + 6))),
+            "table_fsm": (kernels.TABLE_FSM, fsm_kernel, fsm_plain,
+                          bound(3 * win + 2 * LS * Bt * 4, 2 * LS * Bt * (3 * nd + 6))),
         }
 
     def chain_note(path, name):
+        """The scan's serial chain on the card: W + C steps of the chunked
+        form's speculation, or L of the serial form."""
         if name != "table_scan":
             return ""
-        return (f", dependent-load chain {tables[path].window * SMEM_CHAIN_S * 1e3:.4f} ms "
-                f"(an estimate: 30 cycles a load)")
+        m = tables[path]
+        C, W = kernels.table_scan_form(m.n_defs, table_io[path][0].shape[0], m.L, dev)
+        n = W + C if C else m.L
+        return (f", dependent-load chain of {n} steps ({'C=%d, W=%d' % (C, W) if C else 'serial'})"
+                f" {n * SMEM_CHAIN_S * 1e3:.4f} ms (an estimate: 30 cycles a load)")
 
     def nonzero(what, *ts):
         if not all(bool(t.any()) for t in ts):
@@ -893,6 +935,81 @@ def main() -> dict:
             del got, want
     log("[4] pallas_large has no pairs (P = 0): its tag and FSM planes are zeros, so the "
         "from: checks below hold the chunked FSM on planes that light up")
+
+    # the other form of the scan (serial / chunked) and of the FSMs (one
+    # pass / chunked) on the same inputs; the chunked scan's repaired
+    # positions against its torch twin's, at configs[3] and on a DFA that
+    # never resyncs
+    for path in ("pallas_large", "pallas_from"):
+        m = tables[path]
+        ch, ln = table_io[path]
+        st, ids, sta, ef, fwd, bwd = planes[path]
+        auto = kernels.table_scan_form(m.n_defs, ch.shape[0], m.L, dev)
+        other = (0, 0) if auto[0] else (128, 64)
+        cl = 0 if kernels.table_fsm_form(ch.shape[0], dev) else kernels.TABLE_FSM_CL
+        got = torch.full_like(st, -7)
+        kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(ch.shape[0]), 0, m.L,
+                                got, next16=m.next_table16, form=other)
+        f, b = torch.full_like(fwd, -7), torch.full_like(bwd, -7)
+        kernels.table_fsms_cuda(ids, sta, ef, 0, m.L, f, b, cl=cl)
+        torch.cuda.synchronize()
+        errs[f"table_scan@{path}_other_form"] = e_s = max_abs_err(got, st)
+        errs[f"table_fsm@{path}_other_form"] = e_f = max_abs_err((f, b), (fwd, bwd))
+        log(f"[4] {path}, the other forms: table_scan {'serial' if not other[0] else other} "
+            f"max_abs_err={e_s}, table_fsm {'one pass' if not cl else f'chunks of {cl}'} "
+            f"max_abs_err={e_f} (tolerance 0), against the plain pipeline's planes")
+        if e_s or e_f:
+            raise AssertionError(f"{path}: a table kernel's other form disagrees")
+        del got, f, b
+
+    def repaired_vs_twin(what, m, ch, want):
+        """The chunked scan once, its repaired positions beside the twin's."""
+        C, W = kernels.table_scan_form(m.n_defs, ch.shape[0], m.L, dev)
+        if not C:
+            raise AssertionError(f"{what}: the scan no longer takes its chunked form")
+        firsts = m._firsts(ch.shape[0])
+        got = torch.full_like(want, -7)
+        before = kernels.table_scan_repaired(dev)
+        kernels.table_scan_cuda(m.class_map, m.next_table, ch, firsts, 0, m.L, got,
+                                next16=m.next_table16)
+        n_k = kernels.table_scan_repaired(dev) - before
+        twin = torch.full_like(want, -7)
+        n_t = ps.scan_chunks_plain(m.class_map, m.next_table, ch, firsts, 0, m.L, C, W, twin)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got, want), max_abs_err(twin, want))
+        log(f"[4] table_scan @ {what} (C={C}, W={W}): kernel and twin vs plain max_abs_err={err} "
+            f"(tolerance 0); repaired positions: kernel {n_k}, twin {n_t}, of "
+            f"{ch.shape[0] * m.L}")
+        if err or n_k != n_t:
+            raise AssertionError(f"{what}: the chunked scan disagrees with its twin or plain")
+        return err, n_k, (C, W)
+
+    errs["table_scan@pallas_large_twin"], rec["repaired_configs3_check"], _cw = repaired_vs_twin(
+        "pallas_large", m3, chars3, planes["pallas_large"][0])
+    mp, chars_p = permutation_dfa(h2r)
+    chars_p = torch.from_numpy(chars_p).to(dev)
+    lengths_p = torch.full((B3,), L3, dtype=torch.int32, device=dev)
+    planes_p = mp.run_planes(chars_p, lengths_p, plain=True)
+    err, n_perm, (Cp, Wp) = repaired_vs_twin("permutation", mp, chars_p, planes_p[0])
+    errs["table_scan@permutation"] = err
+    if n_perm < 0.99 * B3 * (L3 - Wp - Cp):
+        raise AssertionError(f"permutation: only {n_perm} positions repaired")
+    kernels.reset_launch_counts()
+    out_p = mp(chars_p, lengths_p)
+    torch.cuda.synchronize()
+    launches_p = {k.name: k.launches for k in kernels.KERNELS}
+    want_p = {k.name: 0 for k in kernels.KERNELS}
+    want_p.update({k.name: v for k, v in kernels.table_path_launches(mp, B3).items()})
+    if launches_p != want_p:
+        raise AssertionError(f"permutation: launch counts {launches_p}, expected {want_p}")
+    assert_same("permutation", out_p, mp.finish(chars_p, lengths_p, *planes_p))
+    torch.cuda.synchronize()
+    rec["repaired_permutation"] = n_perm
+    log(f"[4] permutation: the matcher once launches {launches_p} and equals its plain "
+        f"pipeline on every field; {n_perm} of {B3 * L3} positions repaired (the speculative "
+        f"chunks: every guess fails)")
+    perm_run = (mp, chars_p)
+    del out_p, planes_p
 
     # the flat kernel (monolithic mode) on the whole dictionary corpus: its
     # plain version's output is the plain pipeline's planes
@@ -931,9 +1048,9 @@ def main() -> dict:
     # pipeline's planes over all of L, on planes that are not all zeros
     nb = B_LATENCY
     ch4, ln4 = chars[:nb], lengths[:nb]
-    n_chunks = kernels.table_fsm_chunks(nb, dev)
-    if n_chunks < 2:
-        raise AssertionError(f"B={nb}: table_fsm takes {n_chunks} chunk; the check needs more")
+    n_chunks = kernels.table_fsm_form(nb, dev)
+    if not n_chunks:
+        raise AssertionError(f"B={nb}: table_fsm takes its one-pass form; the check needs chunks")
     planes4 = mf.run_planes(ch4, ln4, plain=True)
     st4, ids4, sta4, ef4, fwd4, bwd4 = planes4
     q0, q1 = WIN0, WIN0 + WIN_LS
@@ -969,7 +1086,7 @@ def main() -> dict:
         errs[f"{name}@from_b{nb}_window"] = err
         log(f"[4] {name} @ from: B={nb}, window [{q0}, {q1}) with carries: kernel vs plain "
             f"max_abs_err={err} (tolerance 0), also vs the plain pipeline's planes"
-            + (f"; {n_chunks} chunks per string" if name == "table_fsm" else ""))
+            + (f"; chunks of {n_chunks} positions" if name == "table_fsm" else ""))
         if err != 0:
             raise AssertionError(f"{name} kernel disagrees with its plain version at B={nb}")
         nonzero(f"{name} @ B={nb} window", *got)
@@ -986,6 +1103,22 @@ def main() -> dict:
             k = kernels.TABLE_TAG
             got, want = [torch.full_like(st, -7) for _ in range(3)], (ids, sta, ef)
             kernels.table_tag_cuda(st, m._firsts(ch.shape[0]), ln, m.pairs, 0, m.L, *got)
+            # the scan and both FSMs in both their forms
+            for form, cl in (((0, 0), 0), ((16, 8), kernels.TABLE_FSM_CL)):
+                s_k = torch.full_like(st, -7)
+                kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(ch.shape[0]), 0,
+                                        m.L, s_k, next16=m.next_table16, form=form)
+                f_k, b_k = torch.full_like(fwd, -7), torch.full_like(bwd, -7)
+                kernels.table_fsms_cuda(ids, sta, ef, 0, m.L, f_k, b_k, cl=cl)
+                torch.cuda.synchronize()
+                e_s = errs[f"table_scan@{name}_{form}"] = max_abs_err(s_k, st)
+                e_f = errs[f"table_fsm@{name}_cl{cl}"] = max_abs_err((f_k, b_k), (fwd, bwd))
+                log(f"[4] table_scan {form} and table_fsm cl={cl} @ {name}: kernel vs plain "
+                    f"max_abs_err={e_s}, {e_f} (tolerance 0)")
+                if e_s or e_f:
+                    raise AssertionError(f"table_scan or table_fsm disagrees on {name}")
+                nonzero(f"table_fsm @ {name}", f_k, b_k)
+                del s_k, f_k, b_k
         else:
             k = kernels.TABLE_FLAT
             want = (st, ids, sta, ef, fwd, bwd)
@@ -1001,7 +1134,8 @@ def main() -> dict:
         torch.cuda.synchronize()
         launches = {kk.name: kk.launches for kk in kernels.KERNELS}
         expected = {kk.name: 0 for kk in kernels.KERNELS}
-        expected.update({kk.name: v for kk, v in kernels.table_path_launches(1, m.mode).items()})
+        expected.update({kk.name: v for kk, v in
+                         kernels.table_path_launches(m, ch.shape[0]).items()})
         if launches != expected:
             raise AssertionError(f"{name}: launch counts {launches}, expected {expected}")
         assert_same(name, out, m.finish(ch, ln, st, ids, sta, ef, fwd, bwd))
@@ -1038,22 +1172,26 @@ def main() -> dict:
         log(f"[5] {path}: equals the plain pipeline on all {len(as_dict(out))} outputs")
     for path, m in tables.items():
         ch, ln = table_io[path]
+        before = kernels.table_scan_repaired(dev)
         kernels.reset_launch_counts()
         out = m(ch, ln)
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in kernels.KERNELS}
+        repaired = kernels.table_scan_repaired(dev) - before
         expected = {k.name: 0 for k in kernels.KERNELS}
-        n_win = m.L // m.window
         expected.update({k.name: v for k, v in
-                         kernels.table_path_launches(n_win, m.mode).items()})
-        log(f"[5] {path}: launches {launches}")
+                         kernels.table_path_launches(m, ch.shape[0]).items()})
+        log(f"[5] {path}: launches {launches}, {sum(launches.values())} custom launches a call; "
+            f"the chunked scan repaired {repaired} positions")
         if launches != expected:
             raise AssertionError(f"{path}: launch counts {launches}, expected {expected}")
         assert_same(path, out, m.finish(ch, ln, *planes[path]))
         torch.cuda.synchronize()
         outs[path], path_launches[path] = out, launches
+        rec.setdefault("repaired", {})[path] = repaired
         log(f"[5] {path}: equals the plain pipeline on all {len(as_dict(out))} fields, "
-            f"dtypes included ({m.mode}; {n_win} windows of {m.window})")
+            f"dtypes included ({m.mode}; one pass over L on the card, the plain pipeline "
+            f"{m.L // m.window} windows of {m.window})")
     for path, want in (("witness", "tiled_witness"), ("match", "tiled_match")):
         assert_same(f"{want} vs {path}", outs[want], outs[path])
         log(f"[5] {want} equals the {path} path on all {len(outs[path])} keys, dtypes included")
@@ -1077,13 +1215,16 @@ def main() -> dict:
     out4 = mf(ch4, ln4)
     torch.cuda.synchronize()
     launches4 = {k.name: k.launches for k in kernels.KERNELS}
-    if launches4 != path_launches["pallas_from"]:
-        raise AssertionError(f"pallas_from at B={nb}: launch counts {launches4}")
+    want4 = {k.name: 0 for k in kernels.KERNELS}
+    want4.update({k.name: v for k, v in kernels.table_path_launches(mf, nb).items()})
+    if launches4 != want4:
+        raise AssertionError(f"pallas_from at B={nb}: launch counts {launches4}, expected "
+                             f"{want4}")
     assert_same(f"pallas_from at B={nb}", out4, mf.finish(ch4, ln4, *planes4))
     nonzero(f"pallas_from at B={nb}", out4.mask, out4.all_substr_ids)
     torch.cuda.synchronize()
-    log(f"[5] pallas_from at B={nb} ({n_chunks} FSM chunks per string) equals its plain "
-        f"pipeline on every field, dtypes included; launches as at B={B}")
+    log(f"[5] pallas_from at B={nb} (FSM chunks of {n_chunks} positions) equals its plain "
+        f"pipeline on every field, dtypes included; launches {launches4}")
     del out4, planes4, st4, ids4, sta4, ef4, fwd4, bwd4, carry_f, carry_b, whole
 
     # the oracle on a 256-string subset of each path
@@ -1219,8 +1360,8 @@ def main() -> dict:
             "library_ms": None,
         })
     del quads_u
-    # the table kernels at both configurations, one window each (the fsm
-    # row is one forward and one backward launch); the line's entry is
+    # the table kernels at both configurations, each as one call launches
+    # it over the whole L (the fsm row is both FSMs); the line's entry is
     # configs[3]'s, with the largest error of any of the kernel's checks;
     # from:'s rides under "configs"
     table_rows = {}
@@ -1255,15 +1396,28 @@ def main() -> dict:
                       "max_abs_err": errs["table_flat"], "ms": tk["median"],
                       "plain_ms": tp["median"], "bound_ms": bd["bound_ms"],
                       "bound_by": bd["bound_by"], "library_ms": None})
-    # the chain measured: configs[3]'s first window for one string (one
-    # thread, table staging included) beside the 64 strings above
+    # the chain measured: configs[3]'s first 4096 positions for one string
+    # (the serial form: one thread, table staging included)
     f1 = m3._firsts(1)
     one = torch.empty((m3.n_defs, m3.L, 1), dtype=torch.int32, device=dev)
     t1 = time_ms(lambda: kernels.table_scan_cuda(m3.class_map, m3.next_table, chars3[:1], f1,
-                                                 0, m3.window, one), flush, device_only=True)
+                                                 0, m3.segment, one, next16=m3.next_table16,
+                                                 form=(0, 0)), flush, device_only=True)
     times["table_scan_one_string@pallas_large"] = {"kernel": t1}
-    log(f"[6] table_scan @ pallas_large, one string: {fmt(t1)} (64 strings: "
+    log(f"[6] table_scan @ pallas_large, one string over {m3.segment} positions (serial form): "
+        f"{fmt(t1)} (64 strings over all {m3.L}: "
         f"{times['table_scan@pallas_large']['kernel']['median']:.4f} ms)")
+    # the worst case of the chunked scan: every speculative chunk repaired
+    mp, chars_p = perm_run
+    fp = mp._firsts(B3)
+    outp = torch.empty((1, L3, B3), dtype=torch.int32, device=dev)
+    tperm = time_ms(lambda: kernels.table_scan_cuda(mp.class_map, mp.next_table, chars_p, fp, 0,
+                                                    L3, outp, next16=mp.next_table16),
+                    flush, device_only=True)
+    times["table_scan@permutation"] = {"kernel": tperm}
+    log(f"[6] table_scan @ permutation (every speculative chunk repaired): {fmt(tperm)}; "
+        f"card {card}")
+    del perm_run, outp
 
     e2e_paths = {
         "witness": (lambda: matchers["witness"](chars, lengths), "witness", inputs[L]),

@@ -168,15 +168,18 @@ _ENTRIES = {
     FB_ONLY: [_P, _P, _P, _I, _I, _P],
     TPACK: [_P, _P, _P, _P, _I, _I, _P],
     POST_TILED: [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # chars, cmap, next, init, init def stride, states, n_defs, B, L, K, S,
-    # p0, LS, vec, smem bytes, stream
-    TABLE_SCAN: [_P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # chars, cmap, next, next16, init, init def stride, states, scratch,
+    # repaired, n_defs, B, L, K, S, p0, LS, C, W, warps, vec, smem bytes,
+    # stream
+    TABLE_SCAN: [_P, _P, _P, _P, _P, _LL, _P, _P, _P] + [_I] * 12 + [_P],
     # states, prev, prev def stride, lengths, pairs, P, ids, start, endf,
     # n_defs, B, L, p0, LS, stream
     TABLE_TAG: [_P, _P, _LL, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # reverse, ids, start, endf, entry, carry ids, carry x, carry def
-    # stride, out, n_defs, B, L, p0, LS, chunks per string, stream
-    TABLE_FSM: [_I, _P, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dirs, ids, start, endf, forward entry / carry ids / carry x / carry
+    # def stride, the same backward, fwd, bwd, scratch, n_defs, B, L, p0,
+    # LS, CL, stream
+    TABLE_FSM: [_I, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P, _P]
+    + [_I] * 6 + [_P],
     # chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
     # bwd, n_defs, B, L, K, S, vec, smem bytes, stream
     TABLE_FLAT: [_P] * 11 + [_I] * 7 + [_P],
@@ -234,14 +237,17 @@ def _sources(kernels_: Sequence[CudaKernel]) -> Tuple[str, ...]:
     return tuple(dict.fromkeys(Path(k.source).name for k in kernels_))
 
 
-def table_path_launches(n_windows: int, mode: str = "split") -> Dict[CudaKernel, int]:
-    """Launches of one ``PallasMatcher`` call: in split mode over
-    ``n_windows`` windows (1 in batch mode, ``n_seg`` segmented), a scan
-    and a tag per window and a forward and a backward FSM per window; in
-    monolithic mode one flat kernel."""
-    if mode == "monolithic":
+def table_path_launches(matcher, B: int) -> Dict[CudaKernel, int]:
+    """Launches of one call of ``matcher`` (a ``PallasMatcher`` on the card)
+    on ``B`` strings: in monolithic mode one flat kernel; in split mode one
+    pass over [0, L) whatever the windows: the scan (one launch, or two in
+    its chunked form), the tag, and both FSMs (one launch each, or three
+    for both in their chunked form)."""
+    if matcher.mode == "monolithic":
         return {TABLE_FLAT: 1}
-    return {TABLE_SCAN: n_windows, TABLE_TAG: n_windows, TABLE_FSM: 2 * n_windows}
+    dev = matcher.device
+    scan = 2 if table_scan_form(matcher.n_defs, B, matcher.L, dev)[0] else 1
+    return {TABLE_SCAN: scan, TABLE_TAG: 1, TABLE_FSM: 3 if table_fsm_form(B, dev) else 2}
 
 
 def reset_launch_counts() -> None:
@@ -644,11 +650,12 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _launch(kernel: CudaKernel, fn, *args) -> None:
+def _launch(kernel: CudaKernel, fn, *args, n: int = 1) -> None:
+    """Call the C entry ``fn``, which launches ``n`` kernels of ``kernel``."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: launch failed, cudaError {err}")
-    kernel.launches += 1
+    kernel.launches += n
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -907,12 +914,12 @@ def _smem_optin(dev: torch.device) -> int:
 
 
 def table_smem_bytes(K: int, S: int, dev: torch.device) -> int:
-    """Shared memory the scan kernel stages its uint16 next-state table in,
-    or 0 when it reads the int32 table from global memory (more than 65536
+    """Shared memory the scan kernel stages its uint16 table (2 * next) in,
+    or 0 when it reads the int32 table from global memory (more than 32768
     states, or a table beyond the card's opt-in limit less the kernel's
     1 KiB of static shared memory)."""
     need = 2 * K * S
-    return need if S <= 65536 and need + 1024 <= _smem_optin(dev) else 0
+    return need if S <= 32768 and need + 1024 <= _smem_optin(dev) else 0
 
 
 FLAT_GROUP_DEFS = 8  # kGroupDefs of csrc/table_flat.cu: defs a pass of its scan carries
@@ -929,9 +936,55 @@ def flat_smem_bytes(n_defs: int, K: int, S: int, optin: int) -> int:
     return need if need + 4 * FLAT_GROUP_DEFS * 256 + 1024 <= optin else 0
 
 
-def table_scan_cuda(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
+# the chunked scan's chunk length C and warm-up W (kernel_ab.py sweeps them
+# at configs[3])
+TABLE_SCAN_C, TABLE_SCAN_W = 512, 8192
+TABLE_FSM_CL = 64  # the chunked FSMs' chunk length (at most kMaxCL of csrc/table_fsm.cu)
+_REPAIRED: Dict[int, torch.Tensor] = {}
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def table_scan_form(n_defs: int, B: int, LS: int, dev: torch.device) -> Tuple[int, int]:
+    """``(C, W)`` of the scan's chunked form, or ``(0, 0)`` for its serial
+    form: chunked when the strings of all defs are fewer than four warps an
+    SM (the serial form would leave the card mostly idle) and the window is
+    longer than twice a chunk's serial length W + C."""
+    C, W = TABLE_SCAN_C, TABLE_SCAN_W
+    if n_defs * -(-B // 32) >= 4 * _sms(dev) or LS <= 2 * (C + W):
+        return 0, 0
+    return C, W
+
+
+def table_fsm_form(B: int, dev: torch.device) -> int:
+    """Chunk length of the FSMs' chunked form, or 0 for the one-pass form
+    when the batch's 32-string groups fill the card four times over."""
+    return 0 if -(-B // 32) >= 4 * _sms(dev) else TABLE_FSM_CL
+
+
+def _index(dev) -> int:
+    dev = torch.device(dev)
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def table_scan_repaired(dev: torch.device) -> int:
+    """Positions the chunked scan's repair pass has overwritten on ``dev``
+    since the process started (reads a device counter: synchronises)."""
+    t = _REPAIRED.get(_index(dev))
+    return 0 if t is None else int(t.item())
+
+
+def table_scan_cuda(cmap, next_tab, chars, init, p0: int, LS: int, out, next16=None,
+                    form: Optional[Tuple[int, int]] = None) -> None:
     """B8/B11 scan (``csrc/table_scan.cu``): same contract as
-    ``pallas_scan.scan_plain``."""
+    ``pallas_scan.scan_plain``.  ``next16``: ``2 * next_tab`` as uint16
+    bits in an int16 tensor, the shared-memory table (the matcher's
+    ``next_table16``; made here when not given).  ``form``: ``(C, W)`` for
+    the chunked form, ``(0, 0)`` for the serial one, ``None`` for
+    ``table_scan_form``'s choice.  The chunked form counts as two launches
+    (speculation, repair)."""
     n_defs, K, S = next_tab.shape
     B, L = chars.shape
     _check(cmap, "cmap", torch.int32, (n_defs, 256))
@@ -940,16 +993,35 @@ def table_scan_cuda(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
     _check(out, "out", torch.int32, (n_defs, L, B))
     _check_row(init, "init", n_defs, B, chars.device)
     _check_window(p0, LS, L)
+    dev = chars.device
+    C, W = table_scan_form(n_defs, B, LS, dev) if form is None else form
+    if C < 0 or W < 0 or (C == 0 and W != 0):
+        raise ValueError(f"form {(C, W)}: expected (0, 0) or (C > 0, W >= 0)")
     if B == 0:
         return
     lib = build_tables()
-    smem = table_smem_bytes(K, S, chars.device)
-    # 16-byte loads when a window holds at least one aligned 16-byte run
-    vec = int(LS >= 16 and L % 16 == 0 and p0 % 16 == 0 and chars.data_ptr() % 16 == 0)
-    with torch.cuda.device(chars.device):
+    smem = table_smem_bytes(K, S, dev)
+    if smem and next16 is None:
+        next16 = (next_tab * 2).to(torch.int16)
+    if next16 is not None:
+        _check(next16, "next16", torch.int16, (n_defs, K, S))
+    scratch = repaired = None
+    warps = 0
+    if C:
+        n_ch = -(-LS // C)
+        scratch = torch.empty((2, n_defs, n_ch, B), dtype=torch.int32, device=dev)
+        repaired = _REPAIRED.get(_index(dev))
+        if repaired is None:
+            repaired = _REPAIRED[_index(dev)] = torch.zeros(1, dtype=torch.int64, device=dev)
+        # S1's warps a block: about one block an SM
+        warps = min(32, max(1, -(-n_ch * -(-B // 32) // _sms(dev))))
+    # 16-byte char loads for the aligned runs of a window
+    vec = int(L % 16 == 0 and chars.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
         _launch(TABLE_SCAN, lib.h2r_table_scan, chars.data_ptr(), cmap.data_ptr(),
-                next_tab.data_ptr(), init.data_ptr(), init.stride(0), out.data_ptr(),
-                n_defs, B, L, K, S, p0, LS, vec, smem, _stream(chars))
+                next_tab.data_ptr(), _ptr(next16), init.data_ptr(), init.stride(0),
+                out.data_ptr(), _ptr(scratch), _ptr(repaired), n_defs, B, L, K, S, p0, LS,
+                C, W, warps, vec, smem, _stream(chars), n=2 if C else 1)
 
 
 def table_tag_cuda(states, prev, lengths, pairs, p0: int, LS: int, ids, start, endf) -> None:
@@ -975,47 +1047,66 @@ def table_tag_cuda(states, prev, lengths, pairs, p0: int, LS: int, ids, start, e
                 start.data_ptr(), endf.data_ptr(), n_defs, B, L, p0, LS, _stream(states))
 
 
-def table_fsm_chunks(B: int, dev: torch.device) -> int:
-    """Chunks per string of the FSM kernel: 1 when the batch's 32-string
-    groups fill the card four times over (each string's window in one
-    pass, the planes read once), else enough for about 8 warps per SM, at
-    most 32."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = -(-B // 32)
-    return 1 if groups >= 4 * sms else min(32, -(-8 * sms // groups))
-
-
-def table_fsm_cuda(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
-                   p0: int, LS: int, out) -> None:
-    """B10/B11 mask FSM (``csrc/table_fsm.cu``): same contract as
-    ``pallas_scan.fsm_plain``; ``None`` carries reach the kernel as null
-    pointers, which it reads as zeros."""
-    n_defs, L, B = ids.shape
-    for name, t in (("ids", ids), ("start", start), ("endf", endf)):
-        _check(t, name, torch.int32, (n_defs, L, B))
-    _check(out, "out", torch.int32, (L, B))
+def _check_carry(carry, n_defs: int, B: int, dev: torch.device):
+    """(entry, carry_ids, carry_x) with ``None`` for zeros -> the same and
+    the carry rows' def stride."""
+    entry, carry_ids, carry_x = carry
     if (carry_ids is None) != (carry_x is None):
         raise ValueError("carry_ids and carry_x are given together or not at all")
     if carry_ids is not None:
-        _check_row(carry_ids, "carry_ids", n_defs, B, ids.device)
-        _check_row(carry_x, "carry_x", n_defs, B, ids.device)
+        _check_row(carry_ids, "carry_ids", n_defs, B, dev)
+        _check_row(carry_x, "carry_x", n_defs, B, dev)
         if carry_x.stride(0) != carry_ids.stride(0):
             raise ValueError("carry_ids and carry_x need the same row stride")
     if entry is not None:
         _check(entry, "entry", torch.int32, (B,))
+    return entry, carry_ids, carry_x, 0 if carry_ids is None else carry_ids.stride(0)
+
+
+def table_fsms_cuda(ids, start, endf, p0: int, LS: int, fwd=None, bwd=None,
+                    fwd_carry=(None, None, None), bwd_carry=(None, None, None),
+                    cl: Optional[int] = None) -> None:
+    """B10/B11 mask FSMs (``csrc/table_fsm.cu``), the forward one into
+    ``fwd`` and the backward one into ``bwd`` (either may be ``None``), in
+    one call: each as ``pallas_scan.fsm_plain`` with its carries
+    ``(entry, carry_ids, carry_x)`` (``None`` reaches the kernel as a null
+    pointer, read as zeros).  ``cl``: the chunk length of the chunked form
+    (three launches), 0 for the one-pass form (one launch a direction),
+    ``None`` for ``table_fsm_form``'s choice."""
+    n_defs, L, B = ids.shape
+    for name, t in (("ids", ids), ("start", start), ("endf", endf)):
+        _check(t, name, torch.int32, (n_defs, L, B))
+    if fwd is None and bwd is None:
+        raise ValueError("neither fwd nor bwd given")
+    for name, t in (("fwd", fwd), ("bwd", bwd)):
+        if t is not None:
+            _check(t, name, torch.int32, (L, B))
+    fc = _check_carry(fwd_carry, n_defs, B, ids.device)
+    bc = _check_carry(bwd_carry, n_defs, B, ids.device)
     _check_window(p0, LS, L)
+    CL = table_fsm_form(B, ids.device) if cl is None else cl
+    if not 0 <= CL <= TABLE_FSM_CL:
+        raise ValueError(f"chunk length {CL}: expected 0..{TABLE_FSM_CL}")
     if B == 0:
         return
     lib = build_tables()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    scratch = (torch.empty((2, -(-LS // CL), B), dtype=torch.int32, device=ids.device)
+               if CL else None)
+    dirs = (fwd is not None) | (bwd is not None) << 1
     with torch.cuda.device(ids.device):
-        _launch(TABLE_FSM, lib.h2r_table_fsm, int(reverse), ids.data_ptr(), start.data_ptr(),
-                endf.data_ptr(), ptr(entry), ptr(carry_ids), ptr(carry_x),
-                0 if carry_ids is None else carry_ids.stride(0), out.data_ptr(),
-                n_defs, B, L, p0, LS, table_fsm_chunks(B, ids.device), _stream(ids))
+        _launch(TABLE_FSM, lib.h2r_table_fsm, dirs, ids.data_ptr(), start.data_ptr(),
+                endf.data_ptr(), *map(_ptr, fc[:3]), fc[3], *map(_ptr, bc[:3]), bc[3],
+                _ptr(fwd), _ptr(bwd), _ptr(scratch), n_defs, B, L, p0, LS, CL, _stream(ids),
+                n=3 if CL else (fwd is not None) + (bwd is not None))
+
+
+def table_fsm_cuda(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
+                   p0: int, LS: int, out, cl: Optional[int] = None) -> None:
+    """One mask FSM (``table_fsms_cuda``): same contract as
+    ``pallas_scan.fsm_plain``."""
+    kw = {"bwd" if reverse else "fwd": out,
+          "bwd_carry" if reverse else "fwd_carry": (entry, carry_ids, carry_x)}
+    table_fsms_cuda(ids, start, endf, p0, LS, cl=cl, **kw)
 
 
 def table_flat_cuda(cmap, table, first, chars, lengths, states, ids, start, endf,

@@ -24,6 +24,10 @@ runs them over ``n_seg`` windows of ``segment`` positions, with the carries
 (the scan's entry state, the tag's previous state row, the FSMs' entry
 value and neighbouring id/flag rows) passed as arguments.  Every output
 window lies in one full-length tensor, so no segment is concatenated.
+The windows are the TPU's VMEM budget: the plain pipeline keeps them, and
+the card runs each stage once over [0, L) (its planes fit device memory),
+the scan and the FSMs spread over chunks of L where the batch alone would
+leave the card idle.
 
 ``mode="monolithic"`` (what ``auto`` resolves to when a def has more than
 ``max_pairs`` pairs, so the tag stage's pair list would be long) runs one
@@ -39,9 +43,11 @@ TPU's matrix unit; the card gathers directly and the integers are the same,
 so they are not carried.
 
 Each stage has a plain PyTorch version here (``scan_plain``, ``tag_plain``,
-``fsm_plain``, ``flat_plain``) and routes by device: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel (or raises).  There is no
-fallback.
+``fsm_plain``, ``flat_plain``) and routes by device (``scan``, ``tag``,
+``fsms``, ``flat``): a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel (or raises).  There is no fallback.  The chunked forms
+of the scan and FSM kernels have torch twins too (``scan_chunks_plain``,
+``fsm_chunks_plain``), which the tests hold to the plain versions.
 """
 
 from __future__ import annotations
@@ -138,12 +144,71 @@ def scan_plain(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
         out[d, p0 : p0 + LS] = torch.stack(rows).to(torch.int32)
 
 
-def scan(cmap, next_tab, chars, init, p0: int, LS: int, out) -> None:
-    """Stage 1, routed by device (module docstring)."""
+def scan(cmap, next_tab, chars, init, p0: int, LS: int, out, next16=None) -> None:
+    """Stage 1, routed by device (module docstring); ``next16`` is the
+    kernel's shared-memory table (``PallasMatcher.next_table16``)."""
     if _on_cuda(cmap, next_tab, chars, init, out):
-        _kernels().table_scan_cuda(cmap, next_tab, chars, init, p0, LS, out)
+        _kernels().table_scan_cuda(cmap, next_tab, chars, init, p0, LS, out, next16=next16)
     else:
         scan_plain(cmap, next_tab, chars, init, p0, LS, out)
+
+
+def scan_chunks_plain(cmap, next_tab, chars, init, p0: int, LS: int, C: int, W: int,
+                      out) -> int:
+    """The chunked form of the table scan kernel (``csrc/table_scan.cu``),
+    vectorised over chunks with torch ops: the same states as
+    ``scan_plain`` in ``out[:, p0:p0 + LS]``, for every DFA.  Returns the
+    positions the repair phase overwrote.
+
+    S1: the window is cut into chunks of ``C`` positions; each starts ``W``
+    positions before its first one (at ``p0`` if that comes first: then it
+    is exact) from the string's entry state ``init[d, b]``, walks the
+    warm-up without storing, records its guess ``g`` (the state it reaches)
+    and walks and stores its chunk, ending in ``e``.  S2: chunk by chunk,
+    where chunk c - 1's true end differs from ``g[c]``, chunk c is walked
+    again from that end, overwriting, until the walk meets the stored
+    state (then the chunk's end is ``e[c]``) or the chunk ends (a new
+    end)."""
+    n_defs, _K, S = next_tab.shape
+    dev = chars.device
+    n_ch = -(-LS // C)
+    cs = torch.arange(n_ch, device=dev) * C  # chunk starts, from p0
+    ce = (cs + C).clamp(max=LS)
+    ws = (cs - W).clamp(min=0)
+    lead = cs - ws  # warm-up steps
+    steps = int((ce - ws).max())
+    repaired = 0
+    for d in range(n_defs):
+        off = (cmap[d].long()[chars[:, p0 : p0 + LS].long()] * S).t()  # [LS, B]
+        flat = next_tab[d].reshape(-1).long()
+        plane = out[d, p0 : p0 + LS]
+        s = init[d].long()[None, :].expand(n_ch, -1).clone()
+        g = s.clone()
+        for t in range(steps):  # S1, all chunks at once
+            pos = ws + t
+            live = (pos < ce)[:, None]
+            g = torch.where((lead == t)[:, None], s, g)
+            s = torch.where(live, flat[off[pos.clamp(max=LS - 1)] + s], s)
+            keep = (pos < ce) & (pos >= cs)  # the chunks storing this step
+            plane[pos[keep]] = s[keep].to(torch.int32)
+        e = s
+        end = e[0]
+        for c in range(1, n_ch):  # S2, chunk by chunk
+            bad = end != g[c]
+            if not bool(bad.any()):
+                end = e[c]
+                continue
+            s = end.clone()
+            for p in range(int(cs[c]), int(ce[c])):
+                s_new = flat[off[p] + s]
+                bad = bad & (s_new != plane[p].long())
+                if not bool(bad.any()):
+                    break
+                plane[p] = torch.where(bad, s_new, plane[p].long()).to(torch.int32)
+                repaired += int(bad.sum())
+                s = torch.where(bad, s_new, s)
+            end = torch.where(bad, s, e[c])
+    return repaired
 
 
 # ---------------------------------------------------------------------------
@@ -247,15 +312,80 @@ def fsm_plain(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
     out[sl] = A * e[None, :] + Bv
 
 
-def fsm(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
-        p0: int, LS: int, out) -> None:
-    """Stage 3, routed by device (module docstring)."""
-    given = [t for t in (ids, start, endf, entry, carry_ids, carry_x, out) if t is not None]
-    if _on_cuda(*given):
-        _kernels().table_fsm_cuda(reverse, ids, start, endf, entry, carry_ids, carry_x,
-                                  p0, LS, out)
+def fsms(ids, start, endf, p0: int, LS: int, fwd, bwd) -> None:
+    """Stage 3, both FSMs over [p0, p0 + LS) with the null carries of the
+    ends of L, routed by device (module docstring): on the card one call
+    (``kernels.table_fsms_cuda``)."""
+    if _on_cuda(ids, start, endf, fwd, bwd):
+        _kernels().table_fsms_cuda(ids, start, endf, p0, LS, fwd, bwd)
     else:
-        fsm_plain(reverse, ids, start, endf, entry, carry_ids, carry_x, p0, LS, out)
+        fsm_plain(False, ids, start, endf, None, None, None, p0, LS, fwd)
+        fsm_plain(True, ids, start, endf, None, None, None, p0, LS, bwd)
+
+
+def fsm_chunks_plain(ids, start, endf, fwd_carry, bwd_carry, p0: int, LS: int, CL: int,
+                     fwd, bwd) -> None:
+    """The chunked form of the FSM kernel (``csrc/table_fsm.cu``) in torch
+    ops: both FSMs of ``fsm_plain`` over [p0, p0 + LS), written into
+    ``fwd`` and ``bwd`` [L, B], each with its carries ``(entry, carry_ids,
+    carry_x)`` (``None`` for zeros).  Each position's op is set (1), reset
+    (0) or hold (-1).  A: each chunk of ``CL`` positions composes its maps
+    -- forward, the last op that is not hold; backward, walked descending,
+    the first.  B: the maps are chained in walk order from the entries
+    (ascending forward, descending backward) into each chunk's carry-in.
+    C: each chunk replays its positions from its carry-ins."""
+    sl = slice(p0, p0 + LS)
+    i32 = torch.int32
+    I, St, E = (t[:, sl].sum(0, dtype=i32) for t in (ids, start, endf))
+    B = I.shape[1]
+    zero = torch.zeros_like(I[0])
+
+    def sums(carry):
+        entry, c_ids, c_x = carry
+        return (zero if entry is None else entry,
+                zero if c_ids is None else c_ids.sum(0, dtype=i32),
+                zero if c_x is None else c_x.sum(0, dtype=i32))
+
+    f_entry, f_ids, f_ef = sums(fwd_carry)
+    b_entry, b_ids, b_st = sums(bwd_carry)
+
+    def op(cur_ids, dec, nb_ids, nb_x):
+        changed = nb_ids != cur_ids
+        return torch.where(changed & (dec > 0), 1, torch.where(changed & (nb_x > 0), 0, -1))
+
+    n_ch = -(-LS // CL)
+    pad = n_ch * CL - LS
+    hold = torch.full((pad, B), -1, dtype=torch.long, device=I.device)
+    f_op = op(I, St, torch.cat([f_ids[None], I[:-1]]), torch.cat([f_ef[None], E[:-1]]))
+    b_op = op(I, E, torch.cat([I[1:], b_ids[None]]), torch.cat([St[1:], b_st[None]]))
+    f_op, b_op = (torch.cat([o.long(), hold]).reshape(n_ch, CL, B) for o in (f_op, b_op))
+    j = torch.arange(CL, device=I.device)[None, :, None]
+    # A: the last (forward) and first (backward) position of a chunk whose
+    # op is not hold
+    f_at = torch.where(f_op >= 0, j, -1)
+    b_at = torch.where(b_op >= 0, j, CL)
+    f_last = f_at.amax(1, keepdim=True)
+    b_first = b_at.amin(1, keepdim=True)
+    f_map = torch.where(f_last >= 0, f_op.gather(1, f_last.clamp(min=0)), -1)[:, 0]
+    b_map = torch.where(b_first < CL, b_op.gather(1, b_first.clamp(max=CL - 1)), -1)[:, 0]
+    # B: carry-ins in walk order
+    f_in, b_in = torch.empty_like(f_map), torch.empty_like(b_map)
+    x, y = f_entry.long(), b_entry.long()
+    for c in range(n_ch):
+        f_in[c], x = x, torch.where(f_map[c] >= 0, f_map[c], x)
+        r = n_ch - 1 - c
+        b_in[r], y = y, torch.where(b_map[r] >= 0, b_map[r], y)
+    # C: each position takes the nearest op that is not hold at or before
+    # it (forward) or at or after it (backward) in its chunk, else the
+    # chunk's carry-in
+    f_last = f_at.cummax(1).values
+    b_next = b_at.flip(1).cummin(1).values.flip(1)
+    xs = torch.where(f_last >= 0, f_op.gather(1, f_last.clamp(min=0)), f_in[:, None])
+    ys = torch.where(b_next < CL, b_op.gather(1, b_next.clamp(max=CL - 1)), b_in[:, None])
+    if fwd is not None:
+        fwd[sl] = xs.reshape(-1, B)[:LS].to(i32)
+    if bwd is not None:
+        bwd[sl] = ys.reshape(-1, B)[:LS].to(i32)
 
 
 # ---------------------------------------------------------------------------
@@ -343,8 +473,9 @@ class PallasMatcher(nn.Module):
     feeds the segmented demotion, as in JAX: the port does not pad the
     batch.  ``H2R_VMEM_BUDGET`` and ``H2R_SEGMENT`` are read as in JAX, so
     ``mode``, ``grid_mode``, ``segment`` and ``n_seg`` equal the JAX
-    matcher's for the same model; monolithic mode ignores ``grid_mode``
-    and runs the whole L in one flat launch, as in JAX.  ``chunk`` and
+    matcher's for the same model; the plain pipeline runs those windows,
+    the card ignores them (one pass over [0, L)).  Monolithic mode ignores
+    ``grid_mode`` and runs the whole L in one flat launch, as in JAX.  ``chunk`` and
     ``slab`` block the TPU kernels: any value JAX takes is taken, and
     ``chunk``, ``slab``, ``n_slab``, ``slab_seg`` and ``scan_stride`` are
     sized from them as JAX sizes them, but the port's kernels run the
@@ -524,6 +655,11 @@ class PallasMatcher(nn.Module):
         model = self.model
         self.register_buffer("class_map", torch.from_numpy(self._cmap))
         self.register_buffer("next_table", torch.from_numpy(self._next))
+        # the scan kernel's shared-memory table, 2 * next (a state's byte
+        # offset in a row) as uint16 bits in int16: made once here rather
+        # than by every launch
+        self.register_buffer("next_table16", torch.from_numpy(
+            (2 * self._next).astype(np.uint16).view(np.int16)) if self.S <= 32768 else None)
         self.register_buffer("pairs", torch.from_numpy(self._pairs))
         self.register_buffer(
             "flat_table", torch.from_numpy(self._flat) if self.mode == "monolithic" else None)
@@ -539,7 +675,10 @@ class PallasMatcher(nn.Module):
 
     @property
     def window(self) -> int:
-        """Positions per launch: ``segment`` when segmented, else L."""
+        """Positions per window of the plain pipeline: ``segment`` when
+        segmented, else L.  ``segment``, ``n_seg`` and this keep the JAX
+        matcher's values (its VMEM budget); the card ignores them and runs
+        each stage once over [0, L) (``run_planes``)."""
         return self.segment if self.grid_mode == "segmented" else self.L
 
     # ----------------------------------------------------------- pipeline
@@ -548,10 +687,15 @@ class PallasMatcher(nn.Module):
         return self.first_states[:, None].expand(self.n_defs, B).contiguous()
 
     def _scan_all(self, chars, init, states, plain: bool) -> None:
+        """The scan from ``init``: on the card one pass over [0, L), else
+        ``scan_plain`` window by window."""
+        if not plain and _on_cuda(chars, init, states):
+            scan(self.class_map, self.next_table, chars, init, 0, self.L, states,
+                 next16=self.next_table16)
+            return
         LS = self.window
-        scan_f = scan_plain if plain else scan
         for p0 in range(0, self.L, LS):
-            scan_f(self.class_map, self.next_table, chars, init, p0, LS, states)
+            scan_plain(self.class_map, self.next_table, chars, init, p0, LS, states)
             init = states[:, p0 + LS - 1]
 
     def run(self, chars: torch.Tensor, lengths: torch.Tensor, plain: bool = False) -> RegexResult:
@@ -562,19 +706,22 @@ class PallasMatcher(nn.Module):
         return self.finish(chars, lengths, *self.run_planes(chars, lengths, plain))
 
     def run_planes(self, chars: torch.Tensor, lengths: torch.Tensor, plain: bool = False):
-        """Split mode: the three stages over ``window``-position launches:
-        every scan, then every tag, the forward FSM ascending and the
-        backward FSM descending (the JAX ``_run_segmented``; batch mode is
-        one window).  Monolithic mode: one flat stage.  Returns the
-        time-major planes states, ids, start, endf [n_defs, L, B] and fwd,
-        bwd [L, B], all int32."""
+        """Split mode: the three stages -- every scan, then every tag, the
+        forward FSM ascending and the backward FSM descending.  On the card
+        each runs once over [0, L), with the null carries of a first window
+        (the scan and both FSMs in their chunked forms where the batch
+        leaves the card idle: ``kernels.table_scan_form``,
+        ``table_fsm_form``); the plain pipeline (``plain``, or the CPU)
+        runs them over ``window``-position windows with carries (the JAX
+        ``_run_segmented``; batch mode is one window).  Monolithic mode:
+        one flat stage.  Returns the time-major planes states, ids, start,
+        endf [n_defs, L, B] and fwd, bwd [L, B], all int32."""
         B, L = chars.shape
         if L != self.L:
             raise ValueError(f"chars are [B, {L}]; the model needs L={self.L}")
         if tuple(lengths.shape) != (B,):
             raise ValueError(f"lengths {tuple(lengths.shape)}: expected ({B},)")
-        n_defs, LS, dev = self.n_defs, self.window, chars.device
-        tag_f, fsm_f = (tag_plain, fsm_plain) if plain else (tag, fsm)
+        n_defs, dev = self.n_defs, chars.device
 
         def plane(*lead):
             return torch.empty((*lead, L, B), dtype=torch.int32, device=dev)
@@ -584,23 +731,29 @@ class PallasMatcher(nn.Module):
             (flat_plain if plain else flat)(self.class_map, self.flat_table, self.first_states,
                                            chars, lengths, *outs)
             return tuple(outs)
+        card = not plain and _on_cuda(chars, lengths)
         firsts = self._firsts(B)
         states = plane(n_defs)
         self._scan_all(chars, firsts, states, plain)
         ids, start, endf = plane(n_defs), plane(n_defs), plane(n_defs)
+        fwd, bwd = plane(), plane()
+        if card:
+            tag(states, firsts, lengths, self.pairs, 0, L, ids, start, endf)
+            fsms(ids, start, endf, 0, L, fwd, bwd)
+            return states, ids, start, endf, fwd, bwd
+        LS = self.window
         prev = firsts
         for p0 in range(0, L, LS):
-            tag_f(states, prev, lengths, self.pairs, p0, LS, ids, start, endf)
+            tag_plain(states, prev, lengths, self.pairs, p0, LS, ids, start, endf)
             prev = states[:, p0 + LS - 1]
-        fwd, bwd = plane(), plane()
         entry = c_ids = c_x = None
         for p0 in range(0, L, LS):
-            fsm_f(False, ids, start, endf, entry, c_ids, c_x, p0, LS, fwd)
+            fsm_plain(False, ids, start, endf, entry, c_ids, c_x, p0, LS, fwd)
             q = p0 + LS - 1
             entry, c_ids, c_x = fwd[q], ids[:, q], endf[:, q]
         entry = c_ids = c_x = None
         for p0 in range(L - LS, -1, -LS):
-            fsm_f(True, ids, start, endf, entry, c_ids, c_x, p0, LS, bwd)
+            fsm_plain(True, ids, start, endf, entry, c_ids, c_x, p0, LS, bwd)
             entry, c_ids, c_x = bwd[p0], ids[:, p0], start[:, p0]
         return states, ids, start, endf, fwd, bwd
 

@@ -214,7 +214,9 @@ def _table_corpus(name, n, seed):
 def test_table_kernels_match_plain(dev, monkeypatch, name, smem):
     """The three table kernels against their plain versions over the whole
     L (batch mode) and on a middle window with carries (segmented), with
-    the next-state table in shared memory and read from global memory."""
+    the next-state table in shared memory and read from global memory; the
+    scan in its serial form and in chunks of 16 with warm-ups of 0 and 8,
+    the FSMs in one pass and in chunks of 5 and 64."""
     from halo2_regex_tpu_torch.ops import pallas_scan as ps
 
     if not smem:
@@ -229,15 +231,20 @@ def test_table_kernels_match_plain(dev, monkeypatch, name, smem):
     def planes(n):
         return [torch.full(shape, -7, dtype=torch.int32, device=dev) for _ in range(n)]
 
-    st_p, st_k = planes(2)
+    st_p = planes(1)[0]
     ps.scan_plain(m.class_map, m.next_table, ch, m._firsts(B), 0, MAX_LEN, st_p)
-    kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(B), 0, MAX_LEN, st_k)
-    torch.cuda.synchronize()
-    assert torch.equal(st_k, st_p)
     q0, LS = 16, 32  # a window with carries on both sides
-    st_w = planes(1)[0]
-    kernels.table_scan_cuda(m.class_map, m.next_table, ch, st_p[:, q0 - 1], q0, LS, st_w)
-    assert torch.equal(st_w[:, q0 : q0 + LS], st_p[:, q0 : q0 + LS])
+    for form in ((0, 0), (16, 0), (16, 8)):
+        st_k = planes(1)[0]
+        kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(B), 0, MAX_LEN, st_k,
+                                next16=m.next_table16, form=form)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k, st_p), form
+        st_w = planes(1)[0]
+        kernels.table_scan_cuda(m.class_map, m.next_table, ch, st_p[:, q0 - 1], q0, LS, st_w,
+                                form=form)
+        assert torch.equal(st_w[:, q0 : q0 + LS], st_p[:, q0 : q0 + LS]), form
+        assert bool((st_w[:, :q0] == -7).all() and (st_w[:, q0 + LS :] == -7).all())
 
     want, got = planes(3), planes(3)
     ps.tag_plain(st_p, m._firsts(B), ln, m.pairs, 0, MAX_LEN, *want)
@@ -250,16 +257,67 @@ def test_table_kernels_match_plain(dev, monkeypatch, name, smem):
         assert torch.equal(a[:, q0 : q0 + LS], b[:, q0 : q0 + LS])
 
     ids, sta, ef = want
-    for reverse, carry in ((False, lambda f: (f[q0 - 1], ids[:, q0 - 1], ef[:, q0 - 1])),
-                           (True, lambda f: (f[q0 + LS], ids[:, q0 + LS], sta[:, q0 + LS]))):
-        f_p = torch.full((MAX_LEN, B), -7, dtype=torch.int32, device=dev)
-        f_k = f_p.clone()
-        ps.fsm_plain(reverse, ids, sta, ef, None, None, None, 0, MAX_LEN, f_p)
-        kernels.table_fsm_cuda(reverse, ids, sta, ef, None, None, None, 0, MAX_LEN, f_k)
-        assert torch.equal(f_k, f_p)
-        f_w = torch.full_like(f_p, -7)
-        kernels.table_fsm_cuda(reverse, ids, sta, ef, *carry(f_p), q0, LS, f_w)
-        assert torch.equal(f_w[q0 : q0 + LS], f_p[q0 : q0 + LS])
+    f_p = torch.full((MAX_LEN, B), -7, dtype=torch.int32, device=dev)
+    b_p = f_p.clone()
+    ps.fsm_plain(False, ids, sta, ef, None, None, None, 0, MAX_LEN, f_p)
+    ps.fsm_plain(True, ids, sta, ef, None, None, None, 0, MAX_LEN, b_p)
+    carry_f = (f_p[q0 - 1], ids[:, q0 - 1], ef[:, q0 - 1])
+    carry_b = (b_p[q0 + LS], ids[:, q0 + LS], sta[:, q0 + LS])
+    for cl in (0, 5, 64):
+        for reverse, want_f, carry in ((False, f_p, carry_f), (True, b_p, carry_b)):
+            f_k = torch.full_like(f_p, -7)
+            kernels.table_fsm_cuda(reverse, ids, sta, ef, None, None, None, 0, MAX_LEN, f_k,
+                                   cl=cl)
+            assert torch.equal(f_k, want_f), (cl, reverse)
+            f_w = torch.full_like(f_p, -7)
+            kernels.table_fsm_cuda(reverse, ids, sta, ef, *carry, q0, LS, f_w, cl=cl)
+            assert torch.equal(f_w[q0 : q0 + LS], want_f[q0 : q0 + LS]), (cl, reverse)
+        both = torch.full_like(f_p, -7), torch.full_like(f_p, -7)
+        kernels.table_fsms_cuda(ids, sta, ef, q0, LS, *both, fwd_carry=carry_f,
+                                bwd_carry=carry_b, cl=cl)
+        assert torch.equal(both[0][q0 : q0 + LS], f_p[q0 : q0 + LS])
+        assert torch.equal(both[1][q0 : q0 + LS], b_p[q0 : q0 + LS])
+        assert bool((both[0][:q0] == -7).all() and (both[1][q0 + LS :] == -7).all())
+
+
+@pytest.mark.parametrize("permutation", [False, True])
+def test_chunked_scan_long_strings(dev, permutation):
+    """The chunked scan where the matcher picks it (64 strings, L = 32768):
+    a random 1000-state table, and one whose every byte permutes the states
+    (it never resyncs, so the repair walks every speculative chunk), equal
+    to the serial scan, with the repair count of ``scan_chunks_plain``."""
+    from halo2_regex_tpu_torch.models.defs import AllstrRegexDef, RegexDefs
+    from halo2_regex_tpu_torch.ops import pallas_scan as ps
+
+    S, L, B = 1000, 32768, 64
+    rng = np.random.default_rng(11)
+    allstr = AllstrRegexDef(first_state_val=0, accepted_state_val=1, largest_state_val=S - 1)
+    line = 3
+    for c in range(32, 127):
+        nxt = rng.permutation(S) if permutation else rng.integers(0, S, size=S)
+        for s_ in range(S):
+            allstr.state_lookup[(c, s_)] = (line, int(nxt[s_]))
+            line += 1
+    model = T.CompiledRegexModel.from_defs([RegexDefs(allstr=allstr, substrs=[])],
+                                           max_chars_size=L)
+    m = T.PallasMatcher(model, max_pairs=4096, device=dev)
+    assert kernels.table_scan_form(1, B, L, dev)[0] > 0
+    ch = torch.from_numpy(rng.integers(32, 127, size=(B, L)).astype(np.uint8)).to(dev)
+    want = torch.empty((1, L, B), dtype=torch.int32, device=dev)
+    kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(B), 0, L, want,
+                            form=(0, 0))
+    C, W = kernels.table_scan_form(1, B, L, dev)
+    twin = torch.full_like(want, -7)
+    n_twin = ps.scan_chunks_plain(m.class_map, m.next_table, ch, m._firsts(B), 0, L, C, W, twin)
+    assert torch.equal(twin, want)
+    before = kernels.table_scan_repaired(dev)
+    got = torch.full_like(want, -7)
+    kernels.table_scan_cuda(m.class_map, m.next_table, ch, m._firsts(B), 0, L, got,
+                            next16=m.next_table16)
+    assert torch.equal(got, want)
+    assert kernels.table_scan_repaired(dev) - before == n_twin
+    if permutation:
+        assert n_twin > 0.99 * B * (L - W - C)
 
 
 @pytest.mark.parametrize("segmented", [False, True])
@@ -267,8 +325,9 @@ def test_table_kernels_match_plain(dev, monkeypatch, name, smem):
 def test_pallas_matcher_on_card_matches_cpu(dev, monkeypatch, name, segmented):
     """The matcher on the card equals the CPU (plain) run on every field
     and dtype, for a ragged batch, chars at an odd address (byte loads),
-    in batch mode and over 4 segments; each window launches one scan, one
-    tag and two FSMs, and no other kernel runs."""
+    in batch mode and over 4 segments (the CPU runs them; the card runs one
+    pass over [0, L)), with the launches ``table_path_launches`` names and
+    no other kernel."""
     model = _table_model(name)
     if segmented:
         monkeypatch.setenv("H2R_SEGMENT", "16")
@@ -284,17 +343,16 @@ def test_pallas_matcher_on_card_matches_cpu(dev, monkeypatch, name, segmented):
         kernels.reset_launch_counts()
         got = m(ch, torch.from_numpy(lengths).to(dev))
         torch.cuda.synchronize()
-        n = m.n_seg if segmented else 1
         want_counts = {k.name: 0 for k in kernels.KERNELS}
-        want_counts.update({k.name: v for k, v in kernels.table_path_launches(n).items()})
+        want_counts.update({k.name: v for k, v in kernels.table_path_launches(m, 4099).items()})
         assert {k.name: k.launches for k in kernels.KERNELS} == want_counts
         _assert_same(got, T.PallasMatcher(model, device="cpu", **kw)(chars, lengths))
 
 
 @pytest.mark.parametrize("name", ["from", "large"])
 def test_pallas_matcher_short_segments_on_card(dev, monkeypatch, name):
-    """Segments of 8 positions, shorter than one 16-byte load: the scan
-    reads its bytes one at a time and the result equals the CPU run."""
+    """Segments of 8 positions, shorter than one 16-byte load: the CPU runs
+    them, the card one pass over [0, L), and the results are equal."""
     monkeypatch.setenv("H2R_SEGMENT", "8")
     model = _table_model(name)
     m = T.PallasMatcher(model, grid_mode="segmented", device=dev)
@@ -663,9 +721,8 @@ def test_tag_beyond_shared_memory_on_card(dev, monkeypatch, segmented):
     kernels.reset_launch_counts()
     res = m(ch, ln)
     torch.cuda.synchronize()
-    n = m.n_seg if segmented else 1
     want_counts = {k.name: 0 for k in kernels.KERNELS}
-    want_counts.update({k.name: v for k, v in kernels.table_path_launches(n).items()})
+    want_counts.update({k.name: v for k, v in kernels.table_path_launches(m, 4099).items()})
     assert {k.name: k.launches for k in kernels.KERNELS} == want_counts
     _assert_same(res, T.PallasMatcher(model, device="cpu", **kw)(chars, lengths))
 
