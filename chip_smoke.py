@@ -32,7 +32,7 @@ paths:
   pallas_dict  PallasMatcher on the 40-word dictionary model
             (``zoo.dictionary_model``: 211 pairs, so ``auto`` resolves to
             the monolithic mode) over a seeded corpus: one table_flat
-            launch;
+            launch (also checked with its table read from global memory);
   cli_scan  ``cli.main(["scan", ...])`` in process over a 100,000-line
             file (the first 50,000 bench.py strings, each split at its
             \r\n into a filler line and a from: line), batch 32768, both
@@ -1012,11 +1012,13 @@ def main() -> dict:
     del out_p, planes_p
 
     # the flat kernel (monolithic mode) on the whole dictionary corpus: its
-    # plain version's output is the plain pipeline's planes
-    def flat_with(fn):
+    # plain version's output is the plain pipeline's planes; the kernel
+    # with its table in shared memory (the matcher's choice) and read from
+    # global memory
+    def flat_with(fn, **kw):
         def go():
             outs = [torch.empty_like(t) for t in planes["pallas_dict"]]
-            fn(md.class_map, md.flat_table, md.first_states, chars_d, lengths_d, *outs)
+            fn(md.class_map, md.flat_table, md.first_states, chars_d, lengths_d, *outs, **kw)
             return tuple(outs)
         return go
 
@@ -1028,18 +1030,21 @@ def main() -> dict:
     flat_stage = (kernels.TABLE_FLAT, flat_with(kernels.table_flat_cuda), flat_with(ps.flat_plain),
                   bound(nbytes(chars_d, lengths_d, md.class_map, md.flat_table, md.first_states,
                                *planes["pallas_dict"]), L * B * (12 * nd_d + 18)))
-    got = flat_stage[1]()
+    flat_global = flat_with(kernels.table_flat_cuda, table_in_smem=False)
+    got, got_g = flat_stage[1](), flat_global()
     torch.cuda.synchronize()
-    errs["table_flat"] = max_abs_err(got, planes["pallas_dict"])
+    errs["table_flat"] = max(max_abs_err(got, planes["pallas_dict"]),
+                             max_abs_err(got_g, planes["pallas_dict"]))
     bd = flat_stage[3]
-    log(f"[4] table_flat @ pallas_dict: kernel vs plain max_abs_err={errs['table_flat']} "
-        f"(tolerance 0, integer outputs); bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; "
-        f"table {tuple(md.flat_table.shape)} in shared memory: "
+    log(f"[4] table_flat @ pallas_dict, table in shared memory and in global memory: kernel "
+        f"vs plain max_abs_err={errs['table_flat']} (tolerance 0, integer outputs); bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; table {tuple(md.flat_table.shape)} in "
+        f"shared memory: "
         f"{kernels.flat_smem_bytes(*md.flat_table.shape, kernels._smem_optin(dev))} B")
     if errs["table_flat"] != 0:
         raise AssertionError("table_flat kernel disagrees with its plain version")
     nonzero("table_flat @ pallas_dict", *got[1:])
-    del got
+    del got, got_g
 
     # the from: corpus at B=4096: table_fsm cuts each string's window into
     # chunks there (the instance configs[3] runs), and a middle window
@@ -1388,9 +1393,12 @@ def main() -> dict:
     k, run_k, run_p, bd = flat_stage
     tk = time_ms(run_k, flush, device_only=True)
     tp = time_ms(run_p, flush, device_only=True, warmup=PLAIN_WARMUP, iters=PLAIN_ITERS)
+    tg = time_ms(flat_global, flush, device_only=True)
     times["table_flat@pallas_dict"] = {"kernel": tk, "plain": tp, **bd}
-    log(f"[6] table_flat @ pallas_dict: kernel {fmt(tk)}, plain {fmt(tp)} over {tp['runs']} "
-        f"runs; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    times["table_flat@pallas_dict_global_table"] = {"kernel": tg}
+    log(f"[6] table_flat @ pallas_dict: kernel {fmt(tk)} (table read from global memory: "
+        f"{fmt(tg)}), plain {fmt(tp)} over {tp['runs']} runs; bound {bd['bound_ms']:.4f} ms "
+        f"by {bd['bound_by']}")
     kern_rows.append({"name": k.name, "route": "cuda", "source": k.source,
                       "replaces": k.replaces, "launches": path_launches["pallas_dict"][k.name],
                       "max_abs_err": errs["table_flat"], "ms": tk["median"],

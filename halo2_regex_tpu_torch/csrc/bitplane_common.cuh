@@ -19,10 +19,11 @@
 //   H2R_SCAN_UNROLL (the scans' position-loop unroll);
 //   H2R_SCAN_FUSED_PACK when the scan reads raw quad rows (no pack);
 //   H2R_SCAN_DEF in the one-def header of scan_def;
-//   witness bytes/kdecode/direct: H2R_NGROUPS (byte groups of the post
-//   emission; direct: one per field), H2R_POST_TILED for tiled input (the
-//   post reads the quad words), H2R_POST_DIRECT for direct emission, and
-//   for kdecode H2R_NFIELDS and H2R_FLAGS_FIELD (the decode's fields);
+//   witness bytes/kdecode: H2R_NGROUPS (byte groups of the post
+//   emission), H2R_POST_TILED for tiled input (the post reads the quad
+//   words), and for kdecode H2R_NFIELDS and H2R_FLAGS_FIELD (the decode's
+//   fields); witness direct: H2R_POST_DIRECT, H2R_DFIELDS (fields) and
+//   H2R_DPLANES (their planes in all);
 //   planes mode (full, and witness planes): H2R_POST_PLANES, H2R_P_TOTAL
 //   (planes of the post output) and the first plane of its fields
 //   H2R_OFF_{IDSUM, MASKED_IDSUM, FWD, BWD, MASK} (full: the per-def
@@ -36,10 +37,14 @@
 //   h2r_first_log(lg[SB_SUM])           log planes of the first states
 //   h2r_tag(prev, next, en, ids[NSUM], start_any, endf_any, dt[NDT])
 //   h2r_fb(acc[SB_SUM], empty, fb[NDEFS*8])
-//   witness bytes/kdecode/direct: h2r_emit(flags[6], midsum[NSUM],
+//   witness bytes/kdecode: h2r_emit(flags[6], midsum[NSUM],
 //                          lg[SB_SUM], en, mcp[8], words[8*NGROUPS])
 //                          (mcp: the masked byte-bit planes, read in tiled
 //                          mode only)
+//   witness direct: h2r_direct_planes(flags[6], midsum[NSUM], lg[SB_SUM],
+//                          en, pl[DPLANES])  every field's planes in order;
+//                   h2r_direct_field(f, off, nb)  field f's first plane
+//                          in pl and its plane count (<= 8)
 //   kdecode: h2r_decode_fields(gw[NGROUPS], fw[NFIELDS])  byte-group words
 //                          of one position -> each field, every byte lane
 #pragma once

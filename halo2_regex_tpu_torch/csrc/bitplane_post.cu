@@ -1,4 +1,4 @@
-// K3: post -- tags, id sum, mask FSMs, then one of three emissions:
+// K3: post -- tags, id sum, mask FSMs, then one of four emissions:
 //   bytes mode (columns="witness", emit bytes or kdecode): dummy splice,
 //     byte-group emission and final-state boundary planes, entry h2r_post;
 //     with tiled input (the generated header sets H2R_POST_TILED) it also
@@ -24,23 +24,23 @@
 //
 // What bounds it on the H100: latency and occupancy, not bytes.  Per
 // position and word the generated tag circuit of every def runs (91 ops
-// for the from: model), the FSM steps and, in bytes mode, an 8x8 bit
-// transpose per byte group; the memory traffic (SB_SUM + 1 planes read,
-// 8 * NGROUPS words or P_TOTAL planes written) takes a few percent of the
-// time.  The only serial dependence along L is the two 1-bit mask FSMs,
-// x' = (x & hold[l]) | set[l], forward and backward.  Walked serially by
-// one thread per word (the earlier design, kept for direct mode below),
-// the whole kernel ran on 1024 threads at B = 32768: one warp on each of
-// 32 SMs, its latency exposed (0.61 ms in bytes mode on an H100, against
-// 0.08 ms for the chunked design below).
+// for the from: model), the FSM steps and an 8x8 bit transpose per byte
+// group or field; the memory traffic (SB_SUM + 1 planes read, 8 * NGROUPS
+// words or P_TOTAL planes or the fields' [B, L] bytes written) takes a
+// few percent of the time.  The only serial dependence along L is the two
+// 1-bit mask FSMs, x' = (x & hold[l]) | set[l], forward and backward.
+// Walked serially by one thread per word (the earlier design), the kernel
+// ran on 1024 threads at B = 32768: one warp on each of 32 SMs, its
+// latency exposed (0.61 ms in bytes mode on an H100, 0.97 ms in direct
+// mode, against 0.08 ms for the chunked design below in bytes mode).
 //
-// Design of the bytes, tiled and planes modes: the FSM maps compose
-// associatively (the JAX kernel's log-scan, _fsm_log_scan :341), so L is
-// cut into chunks of CL positions (CL <= CL_MAX, set by the wrapper) and
-// each (word, chunk) gets a thread; a warp covers 32 consecutive words at
-// one chunk, so loads and stores stay coalesced over words, and at B =
-// 32768, CL = 32 the kernel runs 32768 threads instead of 1024.  Three
-// launches, as blocks run in no order:
+// Design, every mode: the FSM maps compose associatively (the JAX
+// kernel's log-scan, _fsm_log_scan :341), so L is cut into chunks of CL
+// positions (CL <= CL_MAX, set by the wrapper) and each (word, chunk) gets
+// a thread; a warp covers 32 consecutive words at one chunk, so loads and
+// stores stay coalesced over words, and at B = 32768, CL = 32 the kernel
+// runs 32768 threads instead of 1024.  Three launches, as blocks run in
+// no order:
 //   A, h2r_post_maps: each chunk recomputes the tags of positions c0 - 1
 //     .. c1 (it needs the ids and flags on both sides of its edge) and
 //     composes its forward map (hold, set) and its backward map, written
@@ -48,33 +48,39 @@
 //   B, h2r_post_carry: one thread per word composes the chunk maps in
 //     order (forward) and in reverse (backward) and overwrites each
 //     chunk's hold words with its carry-in x and y;
-//   C, h2r_post / h2r_post_tiled / h2r_post_planes: each chunk replays
-//     its positions from its carry-in x, keeping x of each position in
-//     shared memory (CL_MAX words a thread), then walks them again from
-//     the top with y, computes mask = x & y and emits: byte groups through
-//     h2r_emit and the 8x8 transposes, or the named planes.  The boundary
-//     planes, an OR over positions, are ORed across chunks with atomicOr
-//     into an fb the wrapper zeroes.
+//   C, h2r_post / h2r_post_tiled / h2r_post_planes / h2r_post_direct:
+//     each chunk replays its positions from its carry-in x, keeping x of
+//     each position in shared memory (CL_MAX words a thread), then walks
+//     them again from the top with y, computes mask = x & y and emits:
+//     byte groups through h2r_emit and the 8x8 transposes, or the named
+//     planes, or the fields' rows.  The boundary planes, an OR over
+//     positions, are ORed across chunks with atomicOr into an fb the
+//     wrapper zeroes.
 // The tags are computed three times a position (A, and both walks of C),
 // against two in the serial design: ops are cheap here, occupancy is not.
 //
-// Direct mode (one thread per word and a serial walk):
-// the JAX kernel built each field's string-major rows with in-VMEM tile
-// transposes; here the thread that owns word w holds, for each field,
-// transposed word m whose byte lane s belongs to row (m * NWS + nws) *
-// 512 + 4 * lane + s, column l of the field's [B, L] bytes (byte l % 4 of
-// int32 column l / 4).  The words of DP positions are staged in shared
-// memory (dynamic, up to 200 KiB: one warp a block, at most one block an
-// SM at B = 32768, so it costs no occupancy); at each chunk's first
-// position the warp writes the chunk out, 32 bytes of a row per 8 threads
-// after a 4 x 4 byte transpose.  Its forward FSM is a serial pass that
-// writes a scratch fwd plane, read back by the backward pass.
+// Direct mode's launch C: a block is one warp (32 words at one chunk).
+// The JAX kernel built each field's string-major rows with in-VMEM tile
+// transposes; here word w's field planes 8x8-transposed give 8 words m
+// whose byte lane s belongs to row (m * NWS + nws) * 512 + 4 * lane + s,
+// column l of the field's [B, L] bytes (byte l % 4 of int32 column l / 4).
+// A warp stages its 32 lanes' field planes (H2R_DPLANES a position: 12
+// for the from: model's flags, masked id sum and states) for DP positions
+// in dynamic shared memory; at the lowest position of each group the warp
+// transposes and writes the group out (direct_write): DP bytes of a row
+// per DP / 4 threads.  The row segment matters more than the warps an
+// SM: a 32-byte one is a whole sector of the L2, and on an H100 a
+// 16-byte one made the kernel 2.8x slower and an 8-byte one 5.9x, though
+// they fit 2x and 3.5x the warps (an earlier form that staged the
+// transposed words, 8 a field).  So DP = 32 while the stage fits 200 KiB:
+// for the from: model 49.5 KiB, four warps an SM (as words: 99 KiB, two).  Direct mode needs CL
+// and L to be multiples of 4 (a 4-position column is one int32 of a row).
 //
 // Layouts: logs [NWS, SB_SUM, L, 128]; en [NWS, L, 128]; bytes mode g4
 // [NWS, 8 * NGROUPS, L, 128] and fb [NWS, NDEFS, 8, 128]; tiled mode also
 // tiled [NWS, 8, L, 128]; planes mode out [NWS, P_TOTAL, L, 128]; direct
-// mode fwd [NWS, L, 128] and out [NGROUPS, 8, NWS, 512, L / 4] (the
-// fields' [B, L] bytes); the chunk scratch [4, NCH, NW]; all int32.
+// mode out [NGROUPS, 8, NWS, 512, L / 4] (the fields' [B, L] bytes); the
+// chunk scratch [4, NCH, NW]; all int32.
 
 #include "bitplane_common.cuh"
 #include "h2r_circuits.cuh"
@@ -91,170 +97,26 @@
 
 namespace {
 
-#if H2R_POST_DIRECT
-
-constexpr int THREADS = 32;
-
-// Direct mode stages the emission words of DP positions in shared memory
-// (word k of position l % DP and thread t at (k * DP + l % DP) * DPITCH + t) and
-// writes each chunk out row by row.  DP = 32 positions (32-byte row
-// segments, full sectors) while the stage fits 200 KiB, else fewer.
-constexpr int DWORDS = 8 * H2R_NGROUPS;  // emission words per position
-constexpr int DPITCH = THREADS + 1;
-constexpr int DSTAGE_UNIT = DWORDS * DPITCH * 4;  // bytes per staged position
-constexpr int DP = 32 * DSTAGE_UNIT <= 200 * 1024   ? 32
-                   : 16 * DSTAGE_UNIT <= 200 * 1024 ? 16
-                   : 8 * DSTAGE_UNIT <= 200 * 1024  ? 8
-                                                    : 4;
-static_assert(DP * DSTAGE_UNIT <= 227 * 1024, "direct emission: too many fields to stage");
-constexpr int DSTAGE_BYTES = DP * DSTAGE_UNIT;
-
-__global__ void __launch_bounds__(THREADS)
-post_direct_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
-                   int32_t* __restrict__ fwd_buf, int32_t* __restrict__ out, int NW, int L) {
-  const int w = blockIdx.x * THREADS + threadIdx.x;
-  if (w >= NW) return;
-  const int nws = w / H2R_LANE, lane = w % H2R_LANE;
-  const size_t plane = (size_t)L * H2R_LANE;  // stride between planes
-  const int32_t* lg_base = logs + (size_t)nws * H2R_SB_SUM * plane + lane;
-  const int32_t* en_base = en + (size_t)nws * plane + lane;
-  int32_t* fwd_base = fwd_buf + (size_t)nws * plane + lane;
-  extern __shared__ uint32_t stage[];
-  const int t = threadIdx.x;
-  // the block's first row for m = 0 in field 0's [B, L] bytes: thread t's
-  // rows are 4 t + s after it
-  uint8_t* d_base = reinterpret_cast<uint8_t*>(out) + ((size_t)nws * 512 + 4 * (lane - t)) * L;
-  const size_t d_m = (size_t)NW / H2R_LANE * 512 * L;  // next m: NWS * 512 rows
-  const size_t d_field = 8 * d_m;                      // next field: B rows
-
-  uint32_t first[H2R_SB_SUM];
-  h2r_first_log(first);
-  auto LOG = [&](int j, int l) { return (uint32_t)lg_base[j * plane + (size_t)l * H2R_LANE]; };
-  auto EN = [&](int l) { return (uint32_t)en_base[(size_t)l * H2R_LANE]; };
-
-  // pass 1: forward FSM.  The planes of position l + 1 are loaded while
-  // position l computes (one warp per SM cannot hide load latency).
-  {
-    uint32_t prev[H2R_SB_SUM], cur[H2R_SB_SUM], prev_sum[H2R_NSUM];
-#pragma unroll
-    for (int j = 0; j < H2R_SB_SUM; ++j) {
-      prev[j] = first[j];
-      cur[j] = LOG(j, 0);
-    }
-#pragma unroll
-    for (int k = 0; k < H2R_NSUM; ++k) prev_sum[k] = 0;
-    uint32_t e = EN(0), prev_endf = 0, x = 0;
-#pragma unroll 4
-    for (int l = 0; l < L; ++l) {
-      const int ln = l + 1 < L ? l + 1 : l;
-      uint32_t nxt[H2R_SB_SUM];
-#pragma unroll
-      for (int j = 0; j < H2R_SB_SUM; ++j) nxt[j] = LOG(j, ln);
-      const uint32_t e_next = EN(ln);
-      uint32_t ids[H2R_NSUM], sa, ea, dt[H2R_NDT];
-      h2r_tag(prev, cur, e, ids, sa, ea, dt);
-      uint32_t changed = 0;
-#pragma unroll
-      for (int k = 0; k < H2R_NSUM; ++k) changed |= ids[k] ^ prev_sum[k];
-      const uint32_t is_set = sa & changed;
-      const uint32_t is_reset = ~sa & prev_endf & changed;
-      x = (x & ~(is_set | is_reset)) | is_set;
-      fwd_base[(size_t)l * H2R_LANE] = (int32_t)x;
-#pragma unroll
-      for (int k = 0; k < H2R_NSUM; ++k) prev_sum[k] = ids[k];
-#pragma unroll
-      for (int j = 0; j < H2R_SB_SUM; ++j) {
-        prev[j] = cur[j];
-        cur[j] = nxt[j];
-      }
-      prev_endf = ea;
-      e = e_next;
-    }
-  }
-
-  // pass 2: backward FSM and the emission; the planes of position l - 1
-  // (and the prev planes of l - 1, at l - 2) are loaded while position l
-  // computes.
-  uint32_t next_sum[H2R_NSUM], cur[H2R_SB_SUM], prv[H2R_SB_SUM];
-#pragma unroll
-  for (int k = 0; k < H2R_NSUM; ++k) next_sum[k] = 0;
-#pragma unroll
-  for (int j = 0; j < H2R_SB_SUM; ++j) {
-    cur[j] = LOG(j, L - 1);
-    prv[j] = L > 1 ? LOG(j, L - 2) : first[j];
-  }
-  uint32_t e = EN(L - 1), fwd = (uint32_t)fwd_base[(size_t)(L - 1) * H2R_LANE];
-  uint32_t next_start = 0, y = 0;
-#pragma unroll 4
-  for (int l = L - 1; l >= 0; --l) {
-    const int lp = l > 0 ? l - 1 : 0;
-    uint32_t pp[H2R_SB_SUM];
-#pragma unroll
-    for (int j = 0; j < H2R_SB_SUM; ++j) pp[j] = l > 1 ? LOG(j, l - 2) : first[j];
-    const uint32_t e_prev = EN(lp);
-    const uint32_t fwd_prev = (uint32_t)fwd_base[(size_t)lp * H2R_LANE];
-    uint32_t ids[H2R_NSUM], sa, ea, dt[H2R_NDT];
-    h2r_tag(prv, cur, e, ids, sa, ea, dt);
-    uint32_t changed = 0;
-#pragma unroll
-    for (int k = 0; k < H2R_NSUM; ++k) changed |= ids[k] ^ next_sum[k];
-    const uint32_t set_b = ea & changed;
-    const uint32_t reset_b = ~ea & next_start & changed;
-    y = (y & ~(set_b | reset_b)) | set_b;
-    const uint32_t mask = fwd & y;
-    uint32_t midsum[H2R_NSUM];
-#pragma unroll
-    for (int k = 0; k < H2R_NSUM; ++k) midsum[k] = ids[k] & mask;
-    const uint32_t flags[6] = {mask, fwd, y, e, sa, ea};
-    uint32_t mcp[8];  // unread outside tiled mode
-    uint32_t words[8 * H2R_NGROUPS];
-    h2r_emit(flags, midsum, cur, e, mcp, words);
-    // word k = 8 * field + m: byte lane s is string 4 * (w + NW * m) + s,
-    // row 4 t + s of the block's rows; staged, and at a chunk's first
-    // position the chunk [l, l + n) goes out: item (k, t2, g) is the 4 x 4
-    // bytes of rows 4 t2 + s at columns l + 4 g .. + 3, so 8 threads write
-    // a row's 32 bytes and a warp store 4 rows
-    const int dpos = l % DP;
-#pragma unroll
-    for (int k = 0; k < DWORDS; ++k) stage[(k * DP + dpos) * DPITCH + t] = words[k];
-    if (dpos == 0) {
-      __syncwarp();
-      const int g = t % 8, n4 = min(DP, L - l) / 4;
-      if (g < n4) {
-        for (int k = 0; k < DWORDS; ++k) {
-          uint8_t* p = d_base + (k >> 3) * d_field + (k & 7) * d_m + l + 4 * g;
-#pragma unroll
-          for (int i = 0; i < THREADS / 4; ++i) {
-            const int t2 = 4 * i + t / 8;
-            uint32_t v[4], o[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) v[j] = stage[(k * DP + 4 * g + j) * DPITCH + t2];
-            h2r_bytes4x4(v, o);
-#pragma unroll
-            for (int s = 0; s < 4; ++s)
-              *reinterpret_cast<uint32_t*>(p + (size_t)(4 * t2 + s) * L) = o[s];
-          }
-        }
-      }
-      __syncwarp();
-    }
-#pragma unroll
-    for (int k = 0; k < H2R_NSUM; ++k) next_sum[k] = ids[k];
-#pragma unroll
-    for (int j = 0; j < H2R_SB_SUM; ++j) {
-      cur[j] = prv[j];
-      prv[j] = pp[j];
-    }
-    next_start = sa;
-    e = e_prev;
-    fwd = fwd_prev;
-  }
-}
-
-#else  // the chunked design: bytes, tiled and planes modes
-
-constexpr int THREADS = 256;  // words of a block, all at one chunk
+constexpr int THREADS = 256;  // words of a block of A and B, all at one chunk
 constexpr int CL_MAX = 32;    // positions of a chunk at most (x kept in shared memory)
+
+#if H2R_POST_DIRECT
+constexpr int C_THREADS = 32;  // launch C: one warp a block, with its own stage
+// The stage: plane k of the position at slot i of its group and thread t
+// at (k * DP + i) * DPITCH + t (the pitch keeps the writer's column reads
+// free of bank conflicts).
+constexpr int kDirectStage = 200 * 1024;  // bytes of stage a warp at most
+constexpr int DPITCH = C_THREADS + 1;
+constexpr int DSTAGE_UNIT = H2R_DPLANES * DPITCH * 4;  // bytes per staged position
+constexpr int DP = 32 * DSTAGE_UNIT <= kDirectStage   ? 32
+                   : 16 * DSTAGE_UNIT <= kDirectStage ? 16
+                   : 8 * DSTAGE_UNIT <= kDirectStage  ? 8
+                                                      : 4;
+static_assert(DP * DSTAGE_UNIT <= 220 * 1024, "direct emission: too many fields to stage");
+constexpr int DSTAGE_BYTES = DP * DSTAGE_UNIT;
+#else
+constexpr int C_THREADS = THREADS;
+#endif
 
 // One (word, chunk) thread's view of the planes: word w's column of the
 // log planes and the enable plane.
@@ -381,16 +243,60 @@ post_carry_kernel(int32_t* __restrict__ scr, int NW, int NCH) {
   }
 }
 
+#if H2R_POST_DIRECT
+// Direct mode's writer: the staged group [l, l + 4 n4) of a warp (32
+// words at one chunk) out to the fields' [B, L] bytes.  Item (f, t2, g):
+// field f's planes of word t2 at the 4 positions l + 4 g .. + 3, each
+// position's planes 8x8-transposed into 8 words (word m: byte lane s is
+// string 4 * (w + NW * m) + s), each word's 4 positions 4 x 4
+// byte-transposed into rows 4 t2 + s of columns l + 4 g .. + 3.  A
+// thread takes g = t % 8 and t2 = 4 i + t / 8, so n4 threads write a
+// row's 4 n4 bytes and a warp store 4 rows.
+__device__ __forceinline__ void direct_write(const uint32_t* stage, uint8_t* d_base, size_t d_m,
+                                             size_t d_field, int L, int l, int n4, int t) {
+  const int g = t % 8;
+  if (g >= n4) return;
+#pragma unroll
+  for (int f = 0; f < H2R_DFIELDS; ++f) {
+    int off, nb;
+    h2r_direct_field(f, off, nb);
+    uint8_t* p = d_base + f * d_field + l + 4 * g;
+    for (int i = 0; i < C_THREADS / 4; ++i) {
+      const int t2 = 4 * i + t / 8;
+      uint32_t v[8][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t q[8];
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          q[b] = b < nb ? stage[((off + b) * DP + 4 * g + j) * DPITCH + t2] : 0u;
+        h2r_transpose8(q);
+#pragma unroll
+        for (int m = 0; m < 8; ++m) v[m][j] = q[m];
+      }
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        uint32_t o[4];
+        h2r_bytes4x4(v[m], o);
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          *reinterpret_cast<uint32_t*>(p + m * d_m + (size_t)(4 * t2 + s) * L) = o[s];
+      }
+    }
+  }
+}
+#endif
+
 // C: each chunk's replay from its carry-ins and the emission.
 // tiled: the quad words (tiled mode only); fb: zeroed by the caller
-// (bytes and tiled modes).
-__global__ void __launch_bounds__(THREADS)
+// (bytes and tiled modes); out: g4, the planes or the fields' bytes.
+__global__ void __launch_bounds__(C_THREADS)
 post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
             const int32_t* __restrict__ tiled, const int32_t* __restrict__ scr,
             int32_t* __restrict__ out, int32_t* __restrict__ fb, int NW, int L, int CL) {
-  __shared__ uint32_t xs[CL_MAX * THREADS];  // x of each position of the chunk
+  __shared__ uint32_t xs[CL_MAX * C_THREADS];  // x of each position of the chunk
   const int t = threadIdx.x;
-  const int w = blockIdx.x * THREADS + t;
+  const int w = blockIdx.x * C_THREADS + t;
   if (w >= NW) return;
   const int c = blockIdx.y, NCH = gridDim.y;
   const int c0 = c * CL, c1 = min(c0 + CL, L);
@@ -399,6 +305,14 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
   const size_t plane = col.plane;
 #if H2R_POST_PLANES
   int32_t* out_base = out + (size_t)nws * H2R_P_TOTAL * plane + lane;
+#elif H2R_POST_DIRECT
+  extern __shared__ uint32_t stage[];
+  // the block's first row for m = 0 in field 0's [B, L] bytes: thread t's
+  // rows are 4 t + s after it (NW is a multiple of 128, so a warp's words
+  // share one nws)
+  uint8_t* d_base = reinterpret_cast<uint8_t*>(out) + ((size_t)nws * 512 + 4 * (lane - t)) * L;
+  const size_t d_m = (size_t)NW / H2R_LANE * 512 * L;  // next m: NWS * 512 rows
+  const size_t d_field = 8 * d_m;                      // next field: B rows
 #else
   int32_t* g4_base = out + (size_t)nws * 8 * H2R_NGROUPS * plane + lane;
 #endif
@@ -420,7 +334,7 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
     const uint32_t changed = ids_changed(ids, prev_sum);
     const uint32_t set = sa & changed, reset = ~sa & prev_endf & changed;
     x = (x & ~(set | reset)) | set;
-    xs[(l - c0) * THREADS + t] = x;
+    xs[(l - c0) * C_THREADS + t] = x;
 #if H2R_POST_PLANES
     const size_t row = (size_t)l * H2R_LANE;
     out_base[H2R_OFF_FWD * plane + row] = (int32_t)x;
@@ -457,7 +371,7 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
   }
 #pragma unroll
   for (int j = 0; j < H2R_SB_SUM; ++j) cur[j] = prv[j];
-#if !H2R_POST_PLANES
+#if !H2R_POST_PLANES && !H2R_POST_DIRECT
   uint32_t acc[H2R_SB_SUM];
 #pragma unroll
   for (int j = 0; j < H2R_SB_SUM; ++j) acc[j] = 0;
@@ -472,7 +386,7 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
     const uint32_t changed = ids_changed(ids, next_sum);
     const uint32_t set_b = ea & changed, reset_b = ~ea & next_start & changed;
     y = (y & ~(set_b | reset_b)) | set_b;
-    const uint32_t fwd = xs[(l - c0) * THREADS + t];
+    const uint32_t fwd = xs[(l - c0) * C_THREADS + t];
     const uint32_t mask = fwd & y;
     uint32_t midsum[H2R_NSUM];
 #pragma unroll
@@ -484,6 +398,20 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
 #pragma unroll
     for (int k = 0; k < H2R_NSUM; ++k)
       out_base[(H2R_OFF_MASKED_IDSUM + k) * plane + row] = (int32_t)midsum[k];
+#elif H2R_POST_DIRECT
+    // the fields' planes staged; at the lowest position l of a group
+    // [l, l + n) the warp writes the group out
+    const uint32_t flags[6] = {mask, fwd, y, e, sa, ea};
+    uint32_t pl[H2R_DPLANES];
+    h2r_direct_planes(flags, midsum, cur, e, pl);
+    const int slot = (l - c0) & (DP - 1);
+#pragma unroll
+    for (int k = 0; k < H2R_DPLANES; ++k) stage[(k * DP + slot) * DPITCH + t] = pl[k];
+    if (slot == 0) {
+      __syncwarp();
+      direct_write(stage, d_base, d_m, d_field, L, l, min(DP, c1 - l) / 4, t);
+      __syncwarp();
+    }
 #else
     const uint32_t flags[6] = {mask, fwd, y, e, sa, ea};
     uint32_t mcp[8];  // masked byte-bit planes (tiled mode)
@@ -513,7 +441,7 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
     next_start = sa;
     en_next = e;
   }
-#if !H2R_POST_PLANES
+#if !H2R_POST_PLANES && !H2R_POST_DIRECT
   // strings whose first byte is disabled are empty (chunk 0 says so)
   uint32_t fbw[H2R_NDEFS * 8];
   h2r_fb(acc, c == 0 ? ~col.enable(0) : 0u, fbw);
@@ -526,25 +454,11 @@ post_kernel(const int32_t* __restrict__ logs, const int32_t* __restrict__ en,
 #endif
 }
 
-#endif  // H2R_POST_DIRECT
-
 }  // namespace
 
-#if H2R_POST_DIRECT
-extern "C" int h2r_post_direct(const void* logs, const void* en, void* fwd_buf, void* out,
-                               int NW, int L, void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      post_direct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DSTAGE_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  post_direct_kernel<<<(NW + THREADS - 1) / THREADS, THREADS, DSTAGE_BYTES,
-                       (cudaStream_t)stream>>>((const int32_t*)logs, (const int32_t*)en,
-                                               (int32_t*)fwd_buf, (int32_t*)out, NW, L);
-  return (int)cudaGetLastError();
-}
-#else
 // The three launches of one post call, in order: h2r_post_maps, then
 // h2r_post_carry, then the mode's entry.  scr: [4, NCH, NW] int32,
-// NCH = ceil(L / CL), 1 <= CL <= 32.
+// NCH = ceil(L / CL), 1 <= CL <= 32 (direct mode: a multiple of 4).
 extern "C" int h2r_post_maps(const void* logs, const void* en, void* scr, int NW, int L,
                              int CL, void* stream) {
   if (CL < 1 || CL > CL_MAX) return (int)cudaErrorInvalidValue;
@@ -564,8 +478,16 @@ extern "C" int h2r_post_carry(void* scr, int NW, int L, int CL, void* stream) {
 static int launch_post(const void* logs, const void* en, const void* tiled, const void* scr,
                        void* out, void* fb, int NW, int L, int CL, void* stream) {
   if (CL < 1 || CL > CL_MAX) return (int)cudaErrorInvalidValue;
-  const dim3 grid((NW + THREADS - 1) / THREADS, (L + CL - 1) / CL);
-  post_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  int smem = 0;
+#if H2R_POST_DIRECT
+  if (CL % 4 || L % 4 || NW % C_THREADS) return (int)cudaErrorInvalidValue;
+  smem = DSTAGE_BYTES;
+  const cudaError_t err =
+      cudaFuncSetAttribute(post_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+#endif
+  const dim3 grid((NW + C_THREADS - 1) / C_THREADS, (L + CL - 1) / CL);
+  post_kernel<<<grid, C_THREADS, smem, (cudaStream_t)stream>>>(
       (const int32_t*)logs, (const int32_t*)en, (const int32_t*)tiled, (const int32_t*)scr,
       (int32_t*)out, (int32_t*)fb, NW, L, CL);
   return (int)cudaGetLastError();
@@ -582,10 +504,15 @@ extern "C" int h2r_post_tiled(const void* logs, const void* en, const void* tile
                               void* stream) {
   return launch_post(logs, en, tiled, scr, g4, fb, NW, L, CL, stream);
 }
+#elif H2R_POST_DIRECT
+// out: [NGROUPS, 8, NWS, 512, L / 4] int32, every byte written
+extern "C" int h2r_post_direct(const void* logs, const void* en, const void* scr, void* out,
+                               int NW, int L, int CL, void* stream) {
+  return launch_post(logs, en, nullptr, scr, out, nullptr, NW, L, CL, stream);
+}
 #else
 extern "C" int h2r_post(const void* logs, const void* en, const void* scr, void* g4, void* fb,
                         int NW, int L, int CL, void* stream) {
   return launch_post(logs, en, nullptr, scr, g4, fb, NW, L, CL, stream);
 }
-#endif
 #endif

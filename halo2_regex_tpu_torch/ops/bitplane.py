@@ -48,9 +48,12 @@ Each kernel stage has a plain PyTorch version here (``qpack_plain``,
 ``pack_plain``, ``tpack_plain``, ``scan_plain``, ``scan_fpack_plain``,
 ``scan_def_plain``, ``post_plain``, ``post_planes_plain``,
 ``post_direct_plain``, ``decode_plain``, ``fb_only_plain``) and a
-hand-written CUDA kernel in ``csrc/`` (bound by :mod:`.kernels`).  The stage functions without ``_plain`` route by
-device: a CPU tensor takes the plain version, a CUDA tensor launches the
-kernel (or raises).  There is no fallback between the two.
+hand-written CUDA kernel in ``csrc/`` (bound by :mod:`.kernels`).  The
+stage functions without ``_plain`` route by device: a CPU tensor takes
+the plain version, a CUDA tensor launches the kernel (or raises).  There
+is no fallback between the two.  The post kernel's chunked mask FSMs
+have torch twins (``post_chunks_plain``, ``post_direct_chunks_plain``),
+which the tests hold to the plain versions.
 """
 
 from __future__ import annotations
@@ -794,30 +797,27 @@ def post_plain(
     return _group_words(plan.wgroups, avail), fb_only_plain(plan, logs, en)
 
 
-def post_chunks_plain(
-    plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor, CL: int,
-    tiled: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chunked post kernel's phases in torch ops, for tests (no
-    pipeline calls it): ``post_plain``'s contract, with the mask FSMs
-    computed as ``csrc/bitplane_post.cu`` computes them over chunks of
-    ``CL`` positions (the last chunk padded with identity steps).
-    A: each chunk's forward map, composed ascending, and its backward map;
-    B: each chunk's carry-in x (the forward maps before it applied to 0)
-    and y (the backward maps after it); C: each chunk replayed from its
-    carry-ins, x ascending and y descending.  The boundary planes are ORed
-    per chunk, then across chunks (the kernel's atomicOr)."""
-    if plan.tiled != (tiled is not None):
-        raise ValueError("a tiled plan's post takes the quad words, and only it")
+def _chunks(p: torch.Tensor, CL: int, fill: int) -> torch.Tensor:
+    """A plane [NWS, L, LANE] cut into chunks of ``CL`` positions, the last
+    padded with ``fill``: [NWS, ceil(L / CL), CL, LANE]."""
+    NWS, L, _lane = p.shape
+    nch = -(-L // CL)
+    pad = torch.full((NWS, nch * CL - L, LANE), fill, dtype=p.dtype, device=p.device)
+    return torch.cat([p, pad], 1).reshape(NWS, nch, CL, LANE)
+
+
+def _chunked_masks(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor, CL: int) -> _Tags:
+    """``_tags_and_masks`` with the mask FSMs computed as
+    ``csrc/bitplane_post.cu`` computes them over chunks of ``CL`` positions
+    (the last chunk padded with identity steps).  A: each chunk's forward
+    map, composed ascending, and its backward map; B: each chunk's
+    carry-in x (the forward maps before it applied to 0) and y (the
+    backward maps after it); C: each chunk replayed from its carry-ins, x
+    ascending and y descending."""
     per_def, ids_sum, start_any, endf_any = _tags(plan, logs, en)
     NWS, L, _lane = en.shape
     nch = -(-L // CL)
-
-    def chunks(p: torch.Tensor, fill: int) -> torch.Tensor:  # -> [NWS, nch, CL, LANE]
-        pad = torch.full((NWS, nch * CL - L, LANE), fill, dtype=p.dtype, device=p.device)
-        return torch.cat([p, pad], 1).reshape(NWS, nch, CL, LANE)
-
-    hf, sf, hb, sb = (chunks(p, f) for p, f in zip(
+    hf, sf, hb, sb = (_chunks(p, CL, f) for p, f in zip(
         _fsm_steps(ids_sum, start_any, endf_any), (-1, 0, -1, 0)))
     # A: the maps of each chunk
     fh, fs = torch.full_like(hf[:, :, 0], -1), torch.zeros_like(sf[:, :, 0])
@@ -847,14 +847,27 @@ def post_chunks_plain(
         bwd[i] = y
     fwd = torch.stack(fwd, 2).reshape(NWS, nch * CL, LANE)[:, :L]
     bwd = torch.stack(bwd, 2).reshape(NWS, nch * CL, LANE)[:, :L]
-    t = _Tags(per_def, ids_sum, start_any, endf_any, fwd, bwd, fwd & bwd)
+    return _Tags(per_def, ids_sum, start_any, endf_any, fwd, bwd, fwd & bwd)
+
+
+def post_chunks_plain(
+    plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor, CL: int,
+    tiled: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked post kernel's phases in torch ops, for tests (no
+    pipeline calls it): ``post_plain``'s contract, with the mask FSMs of
+    ``_chunked_masks``.  The boundary planes are ORed per chunk, then
+    across chunks (the kernel's atomicOr)."""
+    if plan.tiled != (tiled is not None):
+        raise ValueError("a tiled plan's post takes the quad words, and only it")
+    t = _chunked_masks(plan, logs, en, CL)
     g4 = _group_words(plan.wgroups, _emission_planes(plan, t, logs, en, tiled))
     # the boundary planes: per chunk an OR over its positions, then across
-    bnd = chunks(en & ~_shift_up(en), 0)
-    fb = torch.zeros((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=logs.device)
+    bnd = _chunks(en & ~_shift_up(en), CL, 0)
+    fb = torch.zeros((en.shape[0], plan.n_defs, 8, LANE), dtype=torch.int32, device=logs.device)
     for d, c in enumerate(plan.circuits):
         for j in range(c.sb):
-            part = _or_reduce(bnd & chunks(logs[:, plan.sb_off[d] + j], 0), 2)
+            part = _or_reduce(bnd & _chunks(logs[:, plan.sb_off[d] + j], CL, 0), 2)
             x = _or_reduce(part, 1)
             fb[:, d, j] = x | ~en[:, 0] if plan.first_bit(d, j) else x
     return g4, fb
@@ -901,7 +914,23 @@ def post_direct_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) 
     int32: row (m, nws, 4 * lane + s) is string 4 * (w + NW * m) + s, so
     each field's [B, L_pad] uint8 column is a view.  The JAX ``_make_post``
     kernel in direct mode (pre-dummied states, no boundary planes)."""
-    avail = _emission_planes(plan, _tags_and_masks(plan, logs, en), logs, en)
+    return _direct_rows(plan, _tags_and_masks(plan, logs, en), logs, en)
+
+
+def post_direct_chunks_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor,
+                             CL: int) -> torch.Tensor:
+    """The chunked post kernel's direct mode in torch ops, for tests (no
+    pipeline calls it): ``post_direct_plain``'s contract, with the mask
+    FSMs of ``_chunked_masks`` over chunks of ``CL`` positions (launches A
+    and B, and C's replay; C writes each chunk's columns of the rows, which
+    ``_l4_rows`` lays out here at once)."""
+    return _direct_rows(plan, _chunked_masks(plan, logs, en, CL), logs, en)
+
+
+def _direct_rows(plan: BitplanePlan, t: _Tags, logs: torch.Tensor, en: torch.Tensor
+                 ) -> torch.Tensor:
+    """The direct emission of the tags and masks ``t`` (``post_direct_plain``)."""
+    avail = _emission_planes(plan, t, logs, en)
     out = []
     for name, _nb in plan.dfields:
         planes = avail[name] + [torch.zeros_like(en)] * (8 - len(avail[name]))

@@ -9,8 +9,8 @@ pretiled quad words of the tiled input contract, B6), ``bitplane_scan.cu``
 ``H2R_SCAN_DEF`` one def's scan ``scan_def``, B7), ``bitplane_post.cu``
 (K3 in bytes mode; in planes mode when the header sets
 ``H2R_POST_PLANES``, in its tiled mode when it sets ``H2R_POST_TILED``,
-in direct mode when it sets ``H2R_POST_DIRECT``; every mode but direct
-runs over chunks of L in three launches, ``CHUNKED_POSTS``),
+in direct mode when it sets ``H2R_POST_DIRECT``; every mode runs over
+chunks of L in three launches, ``CHUNKED_POSTS``),
 ``bitplane_decode.cu``
 (the kdecode emission's decode, B14) and ``bitplane_fb.cu`` (the
 match-only boundary reduction, B4).  What they compute per word depends
@@ -61,6 +61,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .bitplane import LANE, TILE, BitplanePlan
+from .pallas_scan import FLAT_GROUP_DEFS
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 HEADERS = ("bitplane_common.cuh", "bitplane_pack_words.cuh")
@@ -162,7 +163,7 @@ _ENTRIES = {
     # the chunked posts: logs, en, scratch, outputs, NW, L, CL, stream
     POST: [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     POST_PLANES: [_P, _P, _P, _P, _I, _I, _I, _P],
-    POST_DIRECT: [_P, _P, _P, _P, _I, _I, _P],
+    POST_DIRECT: [_P, _P, _P, _P, _I, _I, _I, _P],
     # g4, chars (l4), out, NWS, L, stream
     DECODE: [_P, _P, _P, _I, _I, _P],
     FB_ONLY: [_P, _P, _P, _I, _I, _P],
@@ -181,18 +182,19 @@ _ENTRIES = {
     TABLE_FSM: [_I, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _LL, _P, _P, _P]
     + [_I] * 6 + [_P],
     # chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
-    # bwd, n_defs, B, L, K, S, vec, smem bytes, stream
-    TABLE_FLAT: [_P] * 11 + [_I] * 7 + [_P],
+    # bwd, bits, n_defs, B, L, K, S, vec, smem bytes, stream
+    TABLE_FLAT: [_P] * 12 + [_I] * 7 + [_P],
 }
 TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
-# the post modes that run over chunks of L: each call launches the chunk
-# maps (A), the carries (B) and the replay (C), all counted on the kernel
-CHUNKED_POSTS = (POST, POST_TILED, POST_PLANES)
+# the post modes, all over chunks of L: each call launches the chunk maps
+# (A), the carries (B) and the replay (C), all counted on the kernel
+CHUNKED_POSTS = (POST, POST_TILED, POST_PLANES, POST_DIRECT)
 _CHUNK_ENTRIES = {
     "h2r_post_maps": [_P, _P, _P, _I, _I, _I, _P],  # logs, en, scratch, NW, L, CL, stream
     "h2r_post_carry": [_P, _I, _I, _I, _P],  # scratch, NW, L, CL, stream
 }
-POST_CL = 32  # positions a chunk (at most CL_MAX of csrc/bitplane_post.cu)
+# positions a chunk (at most CL_MAX of csrc/bitplane_post.cu; direct mode: a multiple of 4)
+POST_CL = 32
 
 
 def _tail(plan: BitplanePlan) -> Tuple[CudaKernel, ...]:
@@ -325,13 +327,13 @@ def circuits_header(plan: BitplanePlan) -> str:
     if plan.fuse_pack:
         out.append("#define H2R_SCAN_FUSED_PACK 1")
     # the witness emission's byte groups: bytes/kdecode pack fields into
-    # <= 8-bit groups, direct gives each field its own group
+    # <= 8-bit groups; direct stages each field's planes instead
     groups: Tuple = ()
+    direct = plan.columns == "witness" and plan.emit == "direct"
     if plan.columns == "witness" and plan.emit in ("bytes", "kdecode"):
         groups = plan.wgroups
-    elif plan.columns == "witness" and plan.emit == "direct":
-        groups = tuple(((name, 0, nb),) for name, nb in plan.dfields)
-        out.append("#define H2R_POST_DIRECT 1")
+    elif direct:
+        out += ["#define H2R_POST_DIRECT 1", f"#define H2R_DFIELDS {len(plan.dfields)}"]
     if groups:
         out.append(f"#define H2R_NGROUPS {len(groups)}")
         if plan.tiled:
@@ -433,7 +435,7 @@ def circuits_header(plan: BitplanePlan) -> str:
                 v = "0u"
             body.append(f"fb[{8 * d + j}] = {v};")
     out += _fn("h2r_fb(const uint32_t* acc, uint32_t empty, uint32_t* fb)", body)
-    if not groups:
+    if not groups and not direct:
         return "\n".join(out)
     if plan.emit == "kdecode":
         # fw[f] = field f of the byte-group words gw[gi] (every byte lane)
@@ -452,6 +454,24 @@ def circuits_header(plan: BitplanePlan) -> str:
             + (" | ~en" if (plan.dummy_states[d] >> j) & 1 else "")
             for j in range(c.sb)
         ]
+    if direct:
+        # every field's planes of one position, in field order, and where
+        # field f's planes start among them and how many it has
+        planes = [p for name, _nb in plan.dfields for p in avail[name]]
+        out.append(f"#define H2R_DPLANES {len(planes)}")
+        out += _fn(
+            "h2r_direct_planes(const uint32_t* flags, const uint32_t* midsum, "
+            "const uint32_t* lg, uint32_t en, uint32_t* pl)",
+            [f"pl[{k}] = {v};" for k, v in enumerate(planes)],
+        )
+        body, off = ["switch (f) {"], 0
+        for f, (name, _nb) in enumerate(plan.dfields):
+            n = len(avail[name])
+            label = "default" if f == len(plan.dfields) - 1 else f"case {f}"
+            body.append(f"  {label}: off = {off}; nb = {n}; break;  // {name}")
+            off += n
+        out += _fn("h2r_direct_field(int f, int& off, int& nb)", body + ["}"])
+        return "\n".join(out)
     body = []
     for gi, grp in enumerate(groups):
         planes = [p for name, _off, _nb in grp for p in avail[name]]
@@ -834,18 +854,23 @@ def post_planes_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -
 
 def post_direct_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
     """B3's direct mode (``csrc/bitplane_post.cu`` under ``H2R_POST_DIRECT``):
-    same contract as ``post_direct_plain``."""
+    same contract as ``post_direct_plain``.  A chunked post: each chunk
+    writes the columns of its positions, so ``POST_CL`` is a multiple of 4
+    here (a 4-position column is one int32 of a row)."""
     if plan.emit != "direct":
         raise ValueError("post_direct needs a witness plan in direct emission")
+    if POST_CL % 4:
+        raise ValueError(f"direct emission writes 4-position columns: chunk length {POST_CL} "
+                         "is not a multiple of 4")
     NWS = _check_logs_en(plan, logs, en)
     lib = build(plan)
     dev = logs.device
     with torch.cuda.device(dev):
-        fwd = torch.empty((NWS, plan.L_pad, LANE), dtype=torch.int32, device=dev)
+        scr = _post_front(POST_DIRECT, lib, logs, en)
         out = torch.empty((len(plan.dfields), 8, NWS, 4 * LANE, plan.l4), dtype=torch.int32,
                           device=dev)
         _launch(POST_DIRECT, lib.h2r_post_direct, logs.data_ptr(), en.data_ptr(),
-                fwd.data_ptr(), out.data_ptr(), NWS * LANE, plan.L_pad, _stream(logs))
+                scr.data_ptr(), out.data_ptr(), NWS * LANE, plan.L_pad, POST_CL, _stream(logs))
     return out
 
 
@@ -920,9 +945,6 @@ def table_smem_bytes(K: int, S: int, dev: torch.device) -> int:
     1 KiB of static shared memory)."""
     need = 2 * K * S
     return need if S <= 32768 and need + 1024 <= _smem_optin(dev) else 0
-
-
-FLAT_GROUP_DEFS = 8  # kGroupDefs of csrc/table_flat.cu: defs a pass of its scan carries
 
 
 def flat_smem_bytes(n_defs: int, K: int, S: int, optin: int) -> int:
@@ -1110,10 +1132,14 @@ def table_fsm_cuda(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,
 
 
 def table_flat_cuda(cmap, table, first, chars, lengths, states, ids, start, endf,
-                    fwd, bwd) -> None:
+                    fwd, bwd, bits=None, table_in_smem: Optional[bool] = None) -> None:
     """B12 (``csrc/table_flat.cu``): same contract as
     ``pallas_scan.flat_plain``, one launch for the whole call (a model of
-    more than ``FLAT_GROUP_DEFS`` defs is scanned in groups inside it)."""
+    more than ``FLAT_GROUP_DEFS`` defs is scanned in groups inside it).
+    ``bits``: the backward pass's bit words [3, ceil(L / 32), B] int32
+    (``pallas_scan.flat_bits_plain``'s), a new scratch when not given.
+    ``table_in_smem``: False reads the table from global memory even where
+    it fits shared memory; ``None`` is ``flat_smem_bytes``' choice."""
     n_defs, K, S = table.shape
     B, L = chars.shape
     _check(cmap, "cmap", torch.int32, (n_defs, 256))
@@ -1125,13 +1151,20 @@ def table_flat_cuda(cmap, table, first, chars, lengths, states, ids, start, endf
         _check(t, name, torch.int32, (n_defs, L, B))
     _check(fwd, "fwd", torch.int32, (L, B))
     _check(bwd, "bwd", torch.int32, (L, B))
+    if bits is None:
+        bits = torch.empty((3, -(-L // 32), B), dtype=torch.int32, device=chars.device)
+    _check(bits, "bits", torch.int32, (3, -(-L // 32), B))
     if B == 0 or L == 0:
         return
     lib = build_tables()
     smem = flat_smem_bytes(n_defs, K, S, _smem_optin(chars.device))
+    if table_in_smem is False:
+        smem = 0
+    elif table_in_smem and not smem:
+        raise ValueError(f"table {(n_defs, K, S)} does not fit shared memory")
     vec = int(L % 16 == 0 and chars.data_ptr() % 16 == 0)  # 16-byte char loads
     with torch.cuda.device(chars.device):
         _launch(TABLE_FLAT, lib.h2r_table_flat, chars.data_ptr(), lengths.data_ptr(),
                 cmap.data_ptr(), table.data_ptr(), first.data_ptr(), states.data_ptr(),
                 ids.data_ptr(), start.data_ptr(), endf.data_ptr(), fwd.data_ptr(),
-                bwd.data_ptr(), n_defs, B, L, K, S, vec, smem, _stream(chars))
+                bwd.data_ptr(), bits.data_ptr(), n_defs, B, L, K, S, vec, smem, _stream(chars))

@@ -46,8 +46,9 @@ Each stage has a plain PyTorch version here (``scan_plain``, ``tag_plain``,
 ``fsm_plain``, ``flat_plain``) and routes by device (``scan``, ``tag``,
 ``fsms``, ``flat``): a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel (or raises).  There is no fallback.  The chunked forms
-of the scan and FSM kernels have torch twins too (``scan_chunks_plain``,
-``fsm_chunks_plain``), which the tests hold to the plain versions.
+of the scan and FSM kernels and the flat kernel's bit-packed backward
+column have torch twins too (``scan_chunks_plain``, ``fsm_chunks_plain``,
+``flat_bits_plain``), which the tests hold to the plain versions.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ from .bitplane import _kernels, _on_cuda, _round_up, _substr_pairs, resolve_devi
 PAIR_FIELDS = 5  # (a, b, gid, is_start, is_end); a = -1 pads a def's list
 # the flat table's packed entry: next state | substring id | start | end
 FLAT_ID_SHIFT, FLAT_START_SHIFT, FLAT_ENDF_SHIFT = 8, 24, 25
+FLAT_GROUP_DEFS = 8  # kGroupDefs of csrc/table_flat.cu: defs a pass of its scan carries
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +448,88 @@ def flat_plain(cmap, table, first, chars, lengths, states, ids, start, endf, fwd
                         torch.where((esum == 0) & (next_st > 0) & changed, 0, y))
         bwd[p] = y
         next_ids, next_st = isum, ssum
+
+
+def _as_int32(w: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit words held in int64 -> the same bits as int32."""
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def flat_bits_plain(cmap, table, first, chars, lengths, states, ids, start, endf, fwd, bwd,
+                    bits=None) -> torch.Tensor:
+    """The flat kernel's passes in torch ops, for tests (no pipeline calls
+    it): ``flat_plain``'s contract, computed as ``csrc/table_flat.cu``
+    computes it.  The defs are scanned in groups of ``FLAT_GROUP_DEFS``;
+    each group but the last parks its id sum and flags (the kernel's
+    column in bwd), and the last completes them, runs the forward FSM and
+    packs, 32 positions a word, the three bits the backward FSM reads --
+    changed_p (position p's id sum against p + 1's, 0 past L: known one
+    step later), start_any_p and endf_any_p -- into ``bits`` [3, ceil(L /
+    32), B] int32 (bit p - 32 j of word j; a new tensor when not given).
+    The backward FSM then reads only those words.  Returns ``bits``."""
+    n_defs, _K, S = table.shape
+    B, L = chars.shape
+    dev = chars.device
+    if bits is None:
+        bits = torch.empty((3, -(-L // 32), B), dtype=torch.int32, device=dev)
+    lens = lengths.long()
+    zero = torch.zeros(B, dtype=torch.long, device=dev)
+    park = None  # per position (id sum, start_any, endf_any) of the groups so far
+    for g0 in range(0, n_defs, FLAT_GROUP_DEFS):
+        defs = range(g0, min(g0 + FLAT_GROUP_DEFS, n_defs))
+        last = g0 + FLAT_GROUP_DEFS >= n_defs
+        offs = {d: (cmap[d].long()[chars.long()] * S).t() for d in defs}  # [L, B]
+        flats = {d: table[d].reshape(-1).long() for d in defs}
+        s = {d: first[d].long().expand(B) for d in defs}
+        prev_ids, prev_ef, x = zero, zero.bool(), zero
+        ch_w, st_w, ef_w = zero, zero, zero  # the bit words being filled
+        parked = []
+        for p in range(L):
+            en = (p < lens).long()
+            isum, st_any, ef_any = zero, zero.bool(), zero.bool()
+            for d in defs:
+                e = flats[d][offs[d][p] + s[d]]
+                s[d] = e & 0xFF
+                idv = (e >> FLAT_ID_SHIFT & 0xFFFF) * en
+                stv = (e >> FLAT_START_SHIFT & 1) * en
+                efv = (e >> FLAT_ENDF_SHIFT & 1) * en
+                states[d, p], ids[d, p], start[d, p], endf[d, p] = s[d], idv, stv, efv
+                isum, st_any, ef_any = isum + idv, st_any | (stv > 0), ef_any | (efv > 0)
+            if park is not None:
+                isum, st_any, ef_any = (isum + park[p][0], st_any | park[p][1],
+                                        ef_any | park[p][2])
+            if not last:
+                parked.append((isum, st_any, ef_any))
+                continue
+            changed = prev_ids != isum  # forward FSM (src/lib.rs:598-645)
+            x = torch.where(st_any & changed, 1, torch.where(~st_any & prev_ef & changed, 0, x))
+            fwd[p] = x
+            if p > 0:  # changed is position p - 1's backward bit
+                r = (p - 1) % 32
+                ch_w = ch_w | changed.long() << r
+                if r == 31:
+                    bits[0, (p - 1) // 32], ch_w = _as_int32(ch_w), zero
+            r = p % 32
+            st_w, ef_w = st_w | st_any.long() << r, ef_w | ef_any.long() << r
+            if r == 31:
+                bits[1, p // 32], bits[2, p // 32], st_w, ef_w = (
+                    _as_int32(st_w), _as_int32(ef_w), zero, zero)
+            prev_ids, prev_ef = isum, ef_any
+        if last and L:  # position L - 1's changed bit (no sum past L) and the partial words
+            p, r = L - 1, (L - 1) % 32
+            bits[0, p // 32] = _as_int32(ch_w | (prev_ids != 0).long() << r)
+            if r != 31:
+                bits[1, p // 32], bits[2, p // 32] = _as_int32(st_w), _as_int32(ef_w)
+        park = parked
+    y, next_st = zero, zero.bool()
+    for j in range(-(-L // 32) - 1, -1, -1):  # backward FSM (src/lib.rs:663-714)
+        cw, sw, ew = (bits[k, j].long() & 0xFFFFFFFF for k in range(3))
+        for k in range(min(32, L - 32 * j) - 1, -1, -1):
+            changed, ef_any = (cw >> k & 1) > 0, (ew >> k & 1) > 0
+            y = torch.where(ef_any & changed, 1, torch.where(~ef_any & next_st & changed, 0, y))
+            bwd[32 * j + k] = y
+            next_st = (sw >> k & 1) > 0
+    return bits
 
 
 def flat(cmap, table, first, chars, lengths, states, ids, start, endf, fwd, bwd) -> None:

@@ -189,20 +189,20 @@ def _table_model(name):
     return _large_model() if name == "large" else _model(name)
 
 
-def _table_corpus(name, n, seed):
+def _table_corpus(name, n, seed, L=MAX_LEN):
     """``_corpus`` with a sender line in every third string (so the
     from: models' ids and masks light up); random bytes of the table's
     alphabet for the large model."""
-    chars, lengths = _corpus(n, MAX_LEN, seed)
+    chars, lengths = _corpus(n, L, seed)
     rng = np.random.default_rng(seed)
     if name == "large":
-        chars = rng.integers(97, 103, size=(n, MAX_LEN)).astype(np.uint8)
+        chars = rng.integers(97, 103, size=(n, L)).astype(np.uint8)
         chars[::5, 3] = 7  # a byte outside the alphabet: the dead state
         return chars, lengths
     for i in range(1, n, 3):
         user = bytes(rng.choice(list(b"abcxyz."), size=int(rng.integers(1, 8))).astype(np.uint8))
         s = (b"ab c" * int(rng.integers(0, 3)) + b"\r\nfrom:" + (b"Al <" if i % 2 else b"")
-             + user + b"@gmail.com" + (b">" if i % 2 else b"") + b"\r\n")[:MAX_LEN]
+             + user + b"@gmail.com" + (b">" if i % 2 else b"") + b"\r\n")[:L]
         chars[i] = 0
         chars[i, : len(s)] = bytearray(s)
         lengths[i] = len(s)
@@ -439,22 +439,22 @@ def _dict_model(L=MAX_LEN):
     return T.zoo.dictionary_model(40, max_chars_size=L)
 
 
-def _flat_case(name):
+def _flat_case(name, L=MAX_LEN):
     """(model, PallasMatcher kwargs) of the monolithic cases: fixture
     models forced monolithic, the 40-word dictionary (auto resolves to
     monolithic) and a raw-bytes 256-state table (K = 256, read from global
     memory)."""
     if name == "dict40":
-        return _dict_model(), {}
+        return _dict_model(L), {}
     if name == "raw256":
-        return _large_model(S=250), dict(mode="monolithic", max_boundary_terms=0)
-    return _model(name), dict(mode="monolithic")
+        return _large_model(S=250, L=L), dict(mode="monolithic", max_boundary_terms=0)
+    return _model(name, L), dict(mode="monolithic")
 
 
-def _flat_corpus(name, n, seed):
+def _flat_corpus(name, n, seed, L=MAX_LEN):
     if name == "raw256":
-        return _table_corpus("large", n, seed)
-    chars, lengths = _table_corpus("from" if name != "dict40" else "regex3", n, seed)
+        return _table_corpus("large", n, seed, L)
+    chars, lengths = _table_corpus("from" if name != "dict40" else "regex3", n, seed, L)
     if name == "dict40":  # tag:<word>\r\n in every third string
         words = T.zoo.dictionary_config()["parts"][1]["regex_def"][1:-1].split("|")
         rng = np.random.default_rng(seed)
@@ -465,16 +465,19 @@ def _flat_corpus(name, n, seed):
     return chars, lengths
 
 
+@pytest.mark.parametrize("L", [MAX_LEN, 70])
 @pytest.mark.parametrize("smem", [True, False])
 @pytest.mark.parametrize("name", ["regex3", "two_def", "from", "dict40", "raw256"])
-def test_table_flat_matches_plain(dev, monkeypatch, name, smem):
+def test_table_flat_matches_plain(dev, monkeypatch, name, smem, L):
     """table_flat against flat_plain on 4099 strings (a ragged grid), with
-    the packed table in shared memory and read from global memory; the
-    raw-bytes 256-state table does not fit shared memory and always takes
-    the global path."""
+    the packed table in shared memory and read from global memory, at an
+    L that is a multiple of 32 (16-byte char loads) and one that is not;
+    the backward pass's bit words equal flat_bits_plain's.  The raw-bytes
+    256-state table does not fit shared memory and always takes the
+    global path."""
     from halo2_regex_tpu_torch.ops import pallas_scan as ps
 
-    model, kw = _flat_case(name)
+    model, kw = _flat_case(name, L)
     m = T.PallasMatcher(model, device=dev, **kw)
     assert m.mode == "monolithic"
     n_defs, K, S = m.flat_table.shape
@@ -482,24 +485,26 @@ def test_table_flat_matches_plain(dev, monkeypatch, name, smem):
     assert fits == (name != "raw256")
     if not smem:
         monkeypatch.setattr(kernels, "flat_smem_bytes", lambda *a: 0)
-    chars, lengths = _flat_corpus(name, 4099, 13)
+    chars, lengths = _flat_corpus(name, 4099, 13, L)
     ch = torch.from_numpy(chars).to(dev)
     ln = torch.from_numpy(lengths).to(dev)
     B = ch.shape[0]
 
     def outs():
-        return ([torch.full((n_defs, MAX_LEN, B), -7, dtype=torch.int32, device=dev)
+        return ([torch.full((n_defs, L, B), -7, dtype=torch.int32, device=dev)
                  for _ in range(4)]
-                + [torch.full((MAX_LEN, B), -7, dtype=torch.int32, device=dev)
+                + [torch.full((L, B), -7, dtype=torch.int32, device=dev)
                    for _ in range(2)])
 
     want, got = outs(), outs()
     args = (m.class_map, m.flat_table, m.first_states, ch, ln)
     ps.flat_plain(*args, *want)
-    kernels.table_flat_cuda(*args, *got)
+    bits = torch.full((3, -(-L // 32), B), -7, dtype=torch.int32, device=dev)
+    kernels.table_flat_cuda(*args, *got, bits=bits)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert torch.equal(bits, ps.flat_bits_plain(*args, *outs()))
     if name != "raw256":
         assert bool((want[4] * want[5]).any())  # the mask lights up
 
@@ -839,12 +844,43 @@ def test_redesigned_scan_and_post_match_plain(dev, monkeypatch, L):
 
 def test_post_launches_three_kernels(dev):
     """A chunked post call launches the chunk maps, the carries and the
-    replay, each counted on the post kernel; ``path_launches`` says so."""
+    replay, each counted on the post kernel, in every emission;
+    ``path_launches`` says so."""
     model = _model("from", MAX_LEN)
-    for columns, k in (("witness", kernels.POST), ("full", kernels.POST_PLANES)):
-        m = T.BitplaneMatcher(model, columns=columns, device=dev)
+    for columns, k, kw in (("witness", kernels.POST, {}), ("full", kernels.POST_PLANES, {}),
+                           ("witness", kernels.POST_DIRECT, dict(emit="direct"))):
+        m = T.BitplaneMatcher(model, columns=columns, device=dev, **kw)
         assert kernels.path_launches(m.plan)[k] == 3
         kernels.reset_launch_counts()
         m(*_corpus(4096, MAX_LEN, 27))
         torch.cuda.synchronize()
         assert k.launches == 3
+
+
+@pytest.mark.parametrize("L", [36, 100, 1000])
+def test_direct_post_chunks_match_plain(dev, monkeypatch, L):
+    """B3's direct mode, chunked: every field's rows against
+    post_direct_plain at L = 36 and 100 (L_pad = L, a partial last chunk)
+    and 1000 (L_pad 1024), NW = 384 words, chunk lengths 32, 12 and 4; a
+    chunk length that is not a multiple of 4 is refused."""
+    model = _model("from", L)
+    B = 3 * 4096
+    chars, lengths = _corpus(B, L, 28)
+    ch = torch.from_numpy(chars).to(dev)
+    lw = bp.len_table(torch.from_numpy(lengths).to(dev))
+    pd = bp.make_plan(model, "witness", knobs=_knobs(emit="direct"))
+    assert pd.emit == "direct" and kernels.path_launches(pd)[kernels.POST_DIRECT] == 3
+    bits, en = bp.pack_plain(pd, bp.raw_quads(ch, pd.L_pad), lw)
+    logs = kernels.scan_cuda(pd, bits)
+    want = bp.post_direct_plain(pd, logs, en)
+    assert bool(want.any())
+    for cl in (32, 12, 4):
+        monkeypatch.setattr(kernels, "POST_CL", cl)
+        kernels.reset_launch_counts()
+        got = kernels.post_direct_cuda(pd, logs, en)
+        torch.cuda.synchronize()
+        assert kernels.POST_DIRECT.launches == 3
+        assert torch.equal(got, want), cl
+    monkeypatch.setattr(kernels, "POST_CL", 7)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.post_direct_cuda(pd, logs, en)

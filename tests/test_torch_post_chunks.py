@@ -5,9 +5,11 @@ composes its forward and backward FSM maps (launch A), the carry-ins are
 composed across chunks (B), and each chunk replays its positions from them
 (C).  ``bitplane.post_chunks_plain`` runs those phases in torch ops; here
 it is held equal to ``post_plain`` (the log-scan FSMs) on every output
-word, for chunk lengths 1, 3, 32 and L, for L not a multiple of CL, with
-strings that end on a chunk edge, empty strings and matches that span
-chunk edges.  Integer outputs: tolerance 0.  No JAX.
+word, and the direct mode's twin ``post_direct_chunks_plain`` to
+``post_direct_plain`` on every row, for chunk lengths 1, 3, 32 and L, for
+L not a multiple of CL or of 32, with strings that end on a chunk edge,
+empty strings and matches that span chunk edges.  Integer outputs:
+tolerance 0.  No JAX.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 import halo2_regex_tpu_torch as T
 from halo2_regex_tpu_torch.ops import bitplane as bp
+from halo2_regex_tpu_torch.ops.knobs import BitplaneKnobs
 
 from fixtures import CONFIGS
 
@@ -67,7 +70,9 @@ def _corpus(L, seed):
                 ids=lambda p: f"{p[0]}-L{p[1]}")
 def case(request):
     """One model's plan, log planes and enable plane from the plain pack
-    and scan (computed once per case), and the post_plain reference."""
+    and scan (computed once per case), the post_plain reference, and the
+    direct emission's plan (the same scan) with its post_direct_plain
+    reference."""
     name, L = request.param
     model = _model(name, L)
     plan = bp.make_plan(model, "witness")
@@ -76,23 +81,35 @@ def case(request):
     bits, en = bp.pack_plain(plan, bp.raw_quads(torch.from_numpy(chars), plan.L_pad), lw)
     logs = bp.scan_plain(plan, bits)
     want = bp.post_plain(plan, logs, en)
-    return plan, logs, en, want
+    pd = bp.make_plan(model, "witness", knobs=BitplaneKnobs(emit="direct"))
+    assert pd.emit == "direct"
+    return plan, logs, en, want, (pd, bp.post_direct_plain(pd, logs, en))
 
 
 @pytest.mark.parametrize("CL", [1, 3, 32, "L"])
 def test_chunked_post_equals_post_plain(case, CL):
-    plan, logs, en, (g4, fb) = case
+    plan, logs, en, (g4, fb), _direct = case
     cl = plan.L_pad if CL == "L" else CL
     got_g4, got_fb = bp.post_chunks_plain(plan, logs, en, cl)
     assert got_g4.dtype == g4.dtype and torch.equal(got_g4, g4)
     assert got_fb.dtype == fb.dtype and torch.equal(got_fb, fb)
 
 
+@pytest.mark.parametrize("CL", [1, 3, 32, "L"])
+def test_chunked_direct_equals_post_direct_plain(case, CL):
+    """The direct emission from the chunked FSMs: every field's rows."""
+    plan, logs, en, _want, (pd, rows) = case
+    cl = plan.L_pad if CL == "L" else CL
+    got = bp.post_direct_chunks_plain(pd, logs, en, cl)
+    assert got.dtype == rows.dtype and got.shape == rows.shape
+    assert torch.equal(got, rows)
+
+
 def test_chunk_edges_are_exercised(case):
     """The corpus puts masked substrings across the edges of 32-position
     chunks (and so of 1- and 3-position ones) and boundaries of strings on
     them: the FSM carries cross chunks in this test, not only within."""
-    plan, logs, en, _want = case
+    plan, logs, en, _want, _direct = case
     t = bp._tags_and_masks(plan, logs, en)
     if plan.L_pad > 32:
         across = t.mask[:, 31] & t.mask[:, 32]
