@@ -60,7 +60,8 @@ and proves on the card that:
      of its first 4096 strings with carries on both sides, where the FSMs
      run in chunks; the from: planes must not be all zeros, as configs[3]'s
      tag and FSM planes are: it has no pairs; the scan and FSMs in both
-     their forms; the chunked scan's repaired positions equal its torch
+     their forms, the one-pass FSMs also with their backward codes in a
+     global scratch; the chunked scan's repaired positions equal its torch
      twin's at configs[3] and on a 1000-state DFA that never resyncs (every
      byte permutes the states: every speculative chunk is repaired) at
      B=64 x L=65536); the tag, scan and FSM kernels also on a def of 7511
@@ -961,6 +962,22 @@ def main() -> dict:
         if e_s or e_f:
             raise AssertionError(f"{path}: a table kernel's other form disagrees")
         del got, f, b
+    # the one-pass FSMs with their backward codes in a global scratch, the
+    # form windows longer than kernels.TABLE_FSM_SMEM_LS take
+    st, ids, sta, ef, fwd, bwd = planes["pallas_from"]
+    f, b = torch.full_like(fwd, -7), torch.full_like(bwd, -7)
+    smem_ls, kernels.TABLE_FSM_SMEM_LS = kernels.TABLE_FSM_SMEM_LS, 0
+    try:
+        kernels.table_fsms_cuda(ids, sta, ef, 0, tables["pallas_from"].L, f, b, cl=0)
+    finally:
+        kernels.TABLE_FSM_SMEM_LS = smem_ls
+    torch.cuda.synchronize()
+    errs["table_fsm@pallas_from_global_codes"] = e_g = max_abs_err((f, b), (fwd, bwd))
+    log(f"[4] pallas_from, table_fsm one pass with its codes in global memory: fwd and bwd "
+        f"vs the plain pipeline's planes max_abs_err={e_g} (tolerance 0)")
+    if e_g:
+        raise AssertionError("table_fsm with global codes disagrees")
+    del f, b
 
     def repaired_vs_twin(what, m, ch, want):
         """The chunked scan once, its repaired positions beside the twin's."""

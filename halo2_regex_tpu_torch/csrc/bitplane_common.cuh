@@ -58,20 +58,6 @@
 #define H2R_PRAGMA(x) _Pragma(#x)
 #define H2R_PRAGMA_UNROLL(n) H2R_PRAGMA(unroll n)
 
-// The 8 byte-bit planes of one position from its 8 quad words q[m] (bytes
-// s = 0..3 of strings 4 * (w + NW * m) + s): bit 8s + m of plane j is bit
-// j of that string's byte.  Port of the pack kernels' quad-mask OR
-// (halo2_regex_tpu/ops/bitplane.py:1051-1058).
-static __device__ __forceinline__ void h2r_byte_planes(const uint32_t* q, uint32_t* bb) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint32_t acc = 0;
-#pragma unroll
-    for (int m = 0; m < 8; ++m) acc |= ((q[m] >> j) & 0x01010101u) << m;
-    bb[j] = acc;
-  }
-}
-
 // The 4 x 4 byte transpose of the direct and kdecode emissions' row
 // writes: o[s] byte j = v[j] byte s (v[j]: 4 strings' bytes at position
 // j; o[s]: string s's bytes at 4 positions).
@@ -102,4 +88,17 @@ static __device__ __forceinline__ void h2r_transpose8(uint32_t* x) {
       x[i] = a ^ (t << d);
     }
   }
+}
+
+// The 8 byte-bit planes of one position from its 8 quad words q[m] (bytes
+// s = 0..3 of strings 4 * (w + NW * m) + s): bit 8s + m of plane j is bit
+// j of that string's byte.  Port of the pack kernels' quad-mask OR
+// (halo2_regex_tpu/ops/bitplane.py:1051-1058).  That is the 8 x 8 bit
+// transpose within each byte lane (plane j byte s bit m = word m byte s
+// bit j), which h2r_transpose8 is, in about 72 operations for the 256 of
+// the 8 x 8 shift-and-OR.
+static __device__ __forceinline__ void h2r_byte_planes(const uint32_t* q, uint32_t* bb) {
+#pragma unroll
+  for (int m = 0; m < 8; ++m) bb[m] = q[m];
+  h2r_transpose8(bb);
 }

@@ -18,15 +18,23 @@
 // either direction or both (dirs: bit 0 forward, bit 1 backward).
 //
 // What bounds it on the H100: device-memory bytes (3 x n_defs int32 read
-// and one written per position, string and direction) when the strings
-// fill the card; the latency of the loads when they do not (64 strings in
-// the 1K-state stress model: two warps' worth).  Two forms:
+// per position and string, one int32 written per direction) when the
+// strings fill the card; the latency of the loads when they do not (64
+// strings in the 1K-state stress model: two warps' worth).  Two forms:
 //
-// One pass (CL = 0), when the strings alone fill the card: one thread a
-// string walks the window, loading kPassStep positions of the three
-// planes before it uses them, one launch a direction (PR 6's form); a
-// warp on 32 consecutive strings, so its loads and stores at one position
-// are one 128-byte line.
+// One pass (CL = 0), when the strings alone fill the card: one launch for
+// both directions, one thread a string, a warp on 32 consecutive strings
+// (its loads and stores at one position are one 128-byte line).  The
+// forward walk reads the three planes once, kPassStep positions loaded
+// before they are used, writes fwd and packs each position's backward op
+// into 2 bits; the backward walk reads only those codes (16 positions a
+// word: 8 KiB a warp in shared memory at LS = 1024; a global scratch of
+// [ceil(LS / 16), B] words, which stays in L2, for windows longer than
+// 4096).  So the planes cross the bus once, as in the TPU kernel, which
+// computes both directions from one read; a launch a direction read them
+// twice, 32 B a position and string at n_defs = 1 against 20.  Measured on
+// the H100 (kernel_ab.py, the from: planes at B=32768 x L=1024): 0.232 ms
+// against 0.445 for a launch a direction.
 //
 // Chunked (CL > 0), at any window length and batch: each step is a map
 // x -> x, 1 or 0, and maps compose, so the window is cut into chunks of CL
@@ -48,11 +56,13 @@
 //
 // Layouts (int32): ids, start, endf [n_defs, L, B]; entries [B]; carry rows
 // [n_defs, B] with row stride *_ds; fwd, bwd [L, B], rows p0 .. p0 + LS - 1
-// written; scratch [2, NCH, B] (forward, backward; NCH = ceil(LS / CL)).
+// written; scratch: chunked [2, NCH, B] (forward, backward; NCH = ceil(LS /
+// CL)), one pass [ceil(LS / 16), B] (the backward codes) or none.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -60,7 +70,7 @@ constexpr int kLanes = 32;
 constexpr int kMaxCL = 64;   // a chunk's backward ops fit one 64-bit mask
 constexpr int kStep = 8;     // positions loaded before they are used (chunked)
 constexpr int kWarps = 4;    // chunks a block of the chunked launches
-constexpr int kPassStep = 32;  // positions loaded before they are used (one pass)
+constexpr int kPassStep = 16;  // positions loaded before they are used (one pass)
 constexpr int kBatch = 8;      // chunk maps a lane of the carry launch loads at a time
 
 struct Planes {
@@ -109,77 +119,131 @@ __device__ __forceinline__ int op_of(int ids, int dec, int nb_ids, int nb_x) {
 
 // ---------------------------------------------------------------- one pass
 
-// One direction's planes, as the one-pass walk reads them.  This form is
-// PR 6's kernel as it was: rewritten with constant walk bounds and the
-// chunked form's op encoding, nvcc laid its loop out otherwise and it ran
-// at half the rate (kernel_ab.py).
-struct PassPlanes {
-  const int32_t* ids;
-  const int32_t* dec;  // the deciding flag: start forward, endf backward
-  const int32_t* nbr;  // the neighbour's flag: endf forward, start backward
-  size_t plane;
-  int n_defs, B, p0, LS, reverse;
+// The one-pass form's backward ops: 2 bits a position (0 hold, 1 set, 2
+// reset), kCodeSpan positions a 32-bit word; word k of a string holds
+// positions p0 + 16 k .. p0 + 16 k + 15, position p0 + 16 k + i at bits
+// 2 i, 2 i + 1.
+constexpr int kCodeSpan = 16;
+// the most shared memory a warp's codes may take (LS <= 4096); longer
+// windows keep them in a global scratch [ceil(LS / 16), B]
+constexpr int kCodeSmemMax = 32 * 1024;
+// the walk packs codes at constant shifts: its steps start at multiples of 16
+static_assert(kPassStep % kCodeSpan == 0, "kPassStep must be a multiple of kCodeSpan");
 
-  // the position of walk step k (0 = the first position the FSM visits)
-  __device__ __forceinline__ int pos(int k) const {
-    return reverse ? p0 + LS - 1 - k : p0 + k;
+// One warp per group of 32 strings (blockDim 32), the directions of DIRS
+// (bit 0 forward, bit 1 backward) in one launch.  The forward walk reads
+// ids, start and endf once, kPassStep positions loaded before they are
+// used, writes fwd, and encodes the backward op of each position from
+// what it has read: the op of p needs ids and start at p + 1, so it is
+// known one step late, and the last one after the loop from the backward
+// carry.  The backward walk then reads only the codes (shared memory,
+// `codes` null, or the global scratch `codes`), descending from the
+// backward entry, and writes bwd.  No thread reads another's codes: no
+// barrier.  The walk is bound by its instructions as much as by its
+// bytes (eight warps an SM at B = 32768, one thread a string), so the
+// whole batches run without bound checks, the rows are reached by
+// pointer steps, and the directions are template arguments; the last,
+// partial batch clamps its loads and checks each position.
+template <int DIRS>
+__global__ void __launch_bounds__(kLanes)
+table_fsm_pass_kernel(Planes pl, Carry cf, Carry cb, int32_t* __restrict__ fwd,
+                      int32_t* __restrict__ bwd, uint32_t* __restrict__ codes) {
+  constexpr bool kFwd = DIRS & 1, kBwd = DIRS & 2;
+  extern __shared__ uint32_t smem_codes[];
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x * kLanes + lane;
+  if (b >= pl.B) return;
+  const size_t B = pl.B;
+  size_t cstride = B;
+  if (codes) {
+    codes += b;
+  } else {
+    codes = smem_codes + lane;
+    cstride = kLanes;
   }
-};
-
-// Walks steps [k0, k1) of one string from the neighbour sums (nb_ids,
-// nb_x) of step k0 - 1, loading kPassStep positions at a time; each step's
-// x is stored.
-__device__ __forceinline__ void pass_walk(const PassPlanes& pl, int b, int k0, int k1,
-                                          int nb_ids, int nb_x, int& x, int32_t* out) {
-  for (int k = k0; k < k1; k += kPassStep) {
-    int si[kPassStep], sd[kPassStep], sn[kPassStep];
+  // ids and endf of the previous position (the forward carry's before the
+  // first); the op of both directions turns on their change
+  int nb_ids, nb_x;
+  carry_sums(cf, pl.n_defs, b, nb_ids, nb_x);
+  int x = kFwd && cf.entry ? cf.entry[b] : 0;
+  uint32_t cw = 0;  // the code word being filled
+  const size_t o0 = (size_t)pl.p0 * B + b;  // row p0, string b
+  const int32_t* p_ids = pl.ids + o0;
+  const int32_t* p_st = pl.start + o0;
+  const int32_t* p_ef = pl.endf + o0;
+  int32_t* p_fwd = kFwd ? fwd + o0 : nullptr;
+  // one batch from position k (rows p_*): whole (every position < LS) or
+  // the last, clamped and checked
+  auto batch = [&](int k, auto whole) {
+    constexpr bool kWhole = decltype(whole)::value;
+    int si[kPassStep], ss[kPassStep], se[kPassStep];
 #pragma unroll
-    for (int j = 0; j < kPassStep; ++j) si[j] = sd[j] = sn[j] = 0;
-    for (int d = 0; d < pl.n_defs; ++d) {
+    for (int j = 0; j < kPassStep; ++j) {  // def 0; no branch between the loads
+      const size_t o = (size_t)(kWhole ? j : min(j, pl.LS - 1 - k)) * B;
+      si[j] = __ldg(p_ids + o);
+      ss[j] = __ldg(p_st + o);
+      se[j] = __ldg(p_ef + o);
+    }
+    for (int d = 1; d < pl.n_defs; ++d) {
+      const size_t dd = d * pl.plane;
 #pragma unroll
-      for (int j = 0; j < kPassStep; ++j) {  // clamped: no branch between the loads
-        const size_t o = d * pl.plane + (size_t)pl.pos(min(k + j, k1 - 1)) * pl.B + b;
-        si[j] += __ldg(pl.ids + o);
-        sd[j] += __ldg(pl.dec + o);
-        sn[j] += __ldg(pl.nbr + o);
+      for (int j = 0; j < kPassStep; ++j) {
+        const size_t o = dd + (size_t)(kWhole ? j : min(j, pl.LS - 1 - k)) * B;
+        si[j] += __ldg(p_ids + o);
+        ss[j] += __ldg(p_st + o);
+        se[j] += __ldg(p_ef + o);
       }
     }
 #pragma unroll
     for (int j = 0; j < kPassStep; ++j) {
-      if (k + j < k1) {
-        // op: 1 set, 2 reset, 0 hold
-        const int op = nb_ids == si[j] ? 0 : (sd[j] > 0 ? 1 : (nb_x > 0 ? 2 : 0));
-        x = op == 1 ? 1 : (op == 2 ? 0 : x);
-        out[(size_t)pl.pos(k + j) * pl.B + b] = x;
+      if (kWhole || k + j < pl.LS) {
+        const bool changed = nb_ids != si[j];
+        if (kFwd) {
+          x = changed && ss[j] > 0 ? 1 : (changed && nb_x > 0 ? 0 : x);
+          p_fwd[(size_t)j * B] = x;
+        }
+        if (kBwd && (j > 0 || k > 0)) {  // the backward op of position k + j - 1
+          const uint32_t op = changed ? (nb_x > 0 ? 1u : (ss[j] > 0 ? 2u : 0u)) : 0u;
+          cw |= op << (2 * ((j + kCodeSpan - 1) % kCodeSpan));  // k % 16 == 0
+          if (j % kCodeSpan == 0) {  // position k + j - 1 ends a word
+            codes[(size_t)((k + j - 1) / kCodeSpan) * cstride] = cw;
+            cw = 0;
+          }
+        }
         nb_ids = si[j];
-        nb_x = sn[j];
+        nb_x = se[j];
+      }
+    }
+    const size_t step = (size_t)kPassStep * B;
+    p_ids += step;
+    p_st += step;
+    p_ef += step;
+    if (kFwd) p_fwd += step;
+  };
+  const int whole = pl.LS / kPassStep * kPassStep;
+  for (int k = 0; k < whole; k += kPassStep) batch(k, std::true_type{});
+  if (whole < pl.LS) batch(whole, std::false_type{});
+  if (!kBwd) return;
+  {  // the last position's op, from the backward carry (ids, start at p0 + LS)
+    int c_ids, c_st;
+    carry_sums(cb, pl.n_defs, b, c_ids, c_st);
+    const int q = pl.LS - 1;
+    const uint32_t op = nb_ids != c_ids ? (nb_x > 0 ? 1u : (c_st > 0 ? 2u : 0u)) : 0u;
+    codes[(size_t)(q / kCodeSpan) * cstride] = cw | op << (2 * (q % kCodeSpan));
+  }
+  int y = cb.entry ? cb.entry[b] : 0;
+  for (int w = (pl.LS - 1) / kCodeSpan; w >= 0; --w) {
+    const uint32_t c = codes[(size_t)w * cstride];
+    int32_t* out = bwd + (size_t)(pl.p0 + w * kCodeSpan) * B + b;
+#pragma unroll
+    for (int i = kCodeSpan - 1; i >= 0; --i) {
+      if (w * kCodeSpan + i < pl.LS) {
+        const uint32_t op = (c >> (2 * i)) & 3u;
+        y = op == 1u ? 1 : (op == 2u ? 0 : y);
+        out[(size_t)i * B] = y;
       }
     }
   }
-}
-
-// One warp per group of 32 strings (blockDim (32, 1)): the whole window in
-// one direction.
-__global__ void __launch_bounds__(kLanes)
-table_fsm_pass_kernel(PassPlanes pl, const int32_t* __restrict__ entry,
-                      const int32_t* __restrict__ carry_ids,
-                      const int32_t* __restrict__ carry_x, long long carry_ds,
-                      int32_t* __restrict__ out) {
-  const int lane = threadIdx.x, c = threadIdx.y, n_chunks = blockDim.y;
-  const int b = blockIdx.x * kLanes + lane;
-  const bool live = b < pl.B;
-  const int per = (pl.LS + n_chunks - 1) / n_chunks;
-  const int k0 = min(c * per, pl.LS), k1 = min(k0 + per, pl.LS);
-  int nb_ids = 0, nb_x = 0;
-  if (live && k0 == 0 && carry_ids) {
-    for (int d = 0; d < pl.n_defs; ++d) {
-      nb_ids += carry_ids[(size_t)d * carry_ds + b];
-      nb_x += carry_x[(size_t)d * carry_ds + b];
-    }
-  }
-  int x = 0;
-  if (live && entry) x = entry[b];
-  if (live) pass_walk(pl, b, k0, k1, nb_ids, nb_x, x, out);
 }
 
 // ----------------------------------------------------------------- chunked
@@ -352,8 +416,10 @@ table_fsm_replay_kernel(Planes pl, Carry cf, Carry cb, const int32_t* __restrict
 }  // namespace
 
 // dirs: bit 0 forward (into fwd), bit 1 backward (into bwd); CL = 0: the
-// one-pass form (one launch a direction), else chunks of CL <= 64
-// positions (three launches; scratch [2, ceil(LS / CL), B]).
+// one-pass form (one launch for both directions; scratch: null for the
+// backward codes in shared memory, else the global code scratch [ceil(LS /
+// 16), B]), else chunks of CL <= 64 positions (three launches; scratch [2,
+// ceil(LS / CL), B]).
 extern "C" int h2r_table_fsm(int dirs, const void* ids, const void* start, const void* endf,
                              const void* f_entry, const void* f_ids, const void* f_x,
                              long long f_ds, const void* b_entry, const void* b_ids,
@@ -369,18 +435,14 @@ extern "C" int h2r_table_fsm(int dirs, const void* ids, const void* start, const
   int32_t* fo = (dirs & 1) ? (int32_t*)fwd : nullptr;
   int32_t* bo = (dirs & 2) ? (int32_t*)bwd : nullptr;
   const unsigned groups = (unsigned)((B + kLanes - 1) / kLanes);
-  if (CL == 0) {  // one launch a direction
-    for (int dir = 0; dir < 2; ++dir) {
-      if (!((dirs >> dir) & 1)) continue;
-      const PassPlanes pp{pl.ids, dir ? pl.endf : pl.start, dir ? pl.start : pl.endf,
-                          pl.plane, n_defs, B, p0, LS, dir};
-      const Carry& c = dir ? cb : cf;
-      table_fsm_pass_kernel<<<groups, dim3(kLanes, 1), 0, st>>>(pp, c.entry, c.ids, c.x, c.ds,
-                                                                dir ? bo : fo);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    return 0;
+  if (CL == 0) {  // one launch for both directions
+    const size_t smem =
+        bo && !scratch ? (size_t)(LS + kCodeSpan - 1) / kCodeSpan * kLanes * 4 : 0;
+    if (smem > kCodeSmemMax) return (int)cudaErrorInvalidValue;  // under the 48 KiB default
+    auto kernel = dirs == 1 ? table_fsm_pass_kernel<1>
+                  : dirs == 2 ? table_fsm_pass_kernel<2> : table_fsm_pass_kernel<3>;
+    kernel<<<groups, kLanes, smem, st>>>(pl, cf, cb, fo, bo, (uint32_t*)scratch);
+    return (int)cudaGetLastError();
   }
   const int n_ch = (LS + CL - 1) / CL;
   int32_t* scr = (int32_t*)scratch;

@@ -543,15 +543,7 @@ def pack_plain(
     and the enable plane [NWS, L_pad, LANE] (int32; None when en_pack is
     off).  Same function as the JAX ``_make_pack`` kernel."""
     planes = _byte_planes([quads[:, m] for m in range(8)])  # each [L_pad, NWS, LANE]
-    if plan.class_stage:
-        env = {f"byte_bit{j}": planes[j] for j in range(8)}
-        cls = []
-        for c in plan.circuits:
-            out = c.class_prog.run(env)
-            cls += [out[name] for name in c.class_plane_names]
-    else:
-        cls = planes
-    bits_stack = torch.stack(cls, 1).contiguous()
+    bits_stack = _class_planes(plan, planes)
     return bits_stack, enable_plane(len_wb, quads.shape[0]) if plan.en_pack else None
 
 
@@ -562,6 +554,106 @@ def qpack_plain(
     ``pack_plain``: the JAX ``_make_qpack`` kernel computes the pack
     kernel's function from the bytes directly."""
     return pack_plain(plan, raw_quads(chars, chars.shape[1]), len_wb)
+
+
+def _class_planes(plan: BitplanePlan, planes: List[torch.Tensor]) -> torch.Tensor:
+    """The 8 byte-bit planes -> the scan's input planes stacked on dim 1:
+    each def's class planes, or the byte-bit planes with the class stage
+    off."""
+    if plan.class_stage:
+        env = {f"byte_bit{j}": planes[j] for j in range(8)}
+        cls = []
+        for c in plan.circuits:
+            out = c.class_prog.run(env)
+            cls += [out[name] for name in c.class_plane_names]
+    else:
+        cls = planes
+    return torch.stack(cls, 1).contiguous()
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _to_int32(w: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit words held in int64 -> the same bits as int32."""
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:
+    """CUDA's ``__byte_perm(x, y, sel)`` on int64-held words: byte i of the
+    result is byte ``sel >> 4i & 7`` of the eight bytes x[0..3], y[0..3]."""
+    out = torch.zeros_like(x)
+    for i in range(4):
+        k = sel >> 4 * i & 7
+        src = x if k < 4 else y
+        out = out | (src >> 8 * (k & 3) & 0xFF) << 8 * i
+    return out
+
+
+def bytes4x4(v: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``h2r_bytes4x4`` of ``csrc/bitplane_common.cuh``, its __byte_perm
+    steps on int64-held words: o[s] byte j = v[j] byte s."""
+    t0, t1 = byte_perm(v[0], v[1], 0x5140), byte_perm(v[2], v[3], 0x5140)
+    t2, t3 = byte_perm(v[0], v[1], 0x7362), byte_perm(v[2], v[3], 0x7362)
+    return [byte_perm(t0, t1, 0x5410), byte_perm(t0, t1, 0x7632),
+            byte_perm(t2, t3, 0x5410), byte_perm(t2, t3, 0x7632)]
+
+
+def byte_planes_swar(rows: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``_byte_planes`` as the pack kernels compute it (``h2r_byte_planes``):
+    plane j byte s bit m is quad word m byte s bit j, the 8 x 8 bit
+    transpose within each byte lane, which ``transpose8`` is."""
+    return list(transpose8(torch.stack(rows)).unbind(0))
+
+
+def enable_runs(len_wb: torch.Tensor, L_pad: int) -> torch.Tensor:
+    """``enable_plane`` as K1 (``csrc/bitplane_pack.cu``) computes it: for
+    each 32 positions from l0, lane beta of a warp holds string beta's run mask
+    (1 << clamp(len - l0, 0, 32)) - 1 (bit p: position l0 + p is below its
+    length), and five shuffle rounds transpose the warp's 32 x 32 bits, so
+    lane p holds the enable word of position l0 + p (round j swaps bit j
+    of the lane and bit index: a lane whose bit j is clear takes its
+    partner's bits c - j into its bits c with bit j set, the partner the
+    reverse)."""
+    NWS = len_wb.shape[0]
+    dev = len_wb.device
+    n_t = -(-L_pad // 32)
+    lens = len_wb.reshape(-1, 1, 32).long()  # [NW, 1, lane]
+    l0 = 32 * torch.arange(n_t, device=dev)[None, :, None]
+    n = (lens - l0).clamp(0, 32)
+    x = torch.where(n == 32, _U32, (1 << n.clamp(max=31)) - 1)  # [NW, tile, lane]
+    lane = torch.arange(32, device=dev)
+    for j, hi in ((16, 0xFFFF0000), (8, 0xFF00FF00), (4, 0xF0F0F0F0), (2, 0xCCCCCCCC),
+                  (1, 0xAAAAAAAA)):
+        y = x[..., lane ^ j]  # __shfl_xor_sync
+        lo = _U32 ^ hi
+        x = torch.where((lane & j) != 0, (x & hi) | (y >> j & lo), (x & lo) | (y << j & hi))
+    en = _to_int32(x).reshape(NWS, LANE, n_t * 32)[..., :L_pad]
+    return en.transpose(1, 2).contiguous()
+
+
+def qpack_tiles_plain(
+    plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``qpack_plain``'s function as K1 (``csrc/bitplane_pack.cu``) computes
+    it, for tests (no pipeline calls it): the four strings 4 * (w + NW * m)
+    + s (s = 0..3) of each quad, four positions at a time, go through the
+    kernel's 4 x 4 byte transpose (``bytes4x4``) into the quad words of
+    those positions; then ``byte_planes_swar``, the class circuits, and
+    ``enable_runs`` for the enable plane (None with en_pack off)."""
+    B, L = chars.shape
+    NW = B // 32
+    Lq = _round_up(L, 4)
+    x = torch.zeros((B, Lq), dtype=torch.uint8, device=chars.device)
+    x[:, :L] = chars
+    # v[s]: string 4 * (w + NW * m) + s's bytes at positions 4c .. 4c + 3
+    words = x.reshape(8, NW, 4, Lq // 4, 4).long()
+    words = sum(words[..., t] << 8 * t for t in range(4))  # [m, w, s, c]
+    o = bytes4x4([words[:, :, s] for s in range(4)])  # o[j]: position 4c + j, [m, w, c]
+    quads = torch.stack(o, -1).reshape(8, NW, Lq)[..., :L]
+    rows = [_to_int32(quads[m].t()).reshape(L, NW // LANE, LANE) for m in range(8)]
+    bits_stack = _class_planes(plan, byte_planes_swar(rows))
+    return bits_stack, enable_runs(len_wb, L) if plan.en_pack else None
 
 
 def qpack(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):

@@ -243,13 +243,13 @@ def table_path_launches(matcher, B: int) -> Dict[CudaKernel, int]:
     """Launches of one call of ``matcher`` (a ``PallasMatcher`` on the card)
     on ``B`` strings: in monolithic mode one flat kernel; in split mode one
     pass over [0, L) whatever the windows: the scan (one launch, or two in
-    its chunked form), the tag, and both FSMs (one launch each, or three
-    for both in their chunked form)."""
+    its chunked form), the tag, and both FSMs (one launch in their one-pass
+    form, three in their chunked form)."""
     if matcher.mode == "monolithic":
         return {TABLE_FLAT: 1}
     dev = matcher.device
     scan = 2 if table_scan_form(matcher.n_defs, B, matcher.L, dev)[0] else 1
-    return {TABLE_SCAN: scan, TABLE_TAG: 1, TABLE_FSM: 3 if table_fsm_form(B, dev) else 2}
+    return {TABLE_SCAN: scan, TABLE_TAG: 1, TABLE_FSM: 3 if table_fsm_form(B, dev) else 1}
 
 
 def reset_launch_counts() -> None:
@@ -694,7 +694,9 @@ def qpack_cuda(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):
     with torch.cuda.device(chars.device):
         bits = torch.empty((L, plan.kp, NWS, LANE), dtype=torch.int32, device=chars.device)
         en = _en_out(plan, NWS, chars.device)
-        vec = int(L % 4 == 0 and chars.data_ptr() % 4 == 0)  # 32-bit loads
+        # 16-byte loads, else 4-byte loads, where length and address allow
+        vec = next((v for v, n in ((2, 16), (1, 4)) if L % n == 0 and chars.data_ptr() % n == 0),
+                   0)
         _launch(QPACK, lib.h2r_qpack, chars.data_ptr(), len_wb.data_ptr(),
                 bits.data_ptr(), _ptr(en), B, L, vec, _stream(chars))
     return bits, en
@@ -962,6 +964,11 @@ def flat_smem_bytes(n_defs: int, K: int, S: int, optin: int) -> int:
 # at configs[3])
 TABLE_SCAN_C, TABLE_SCAN_W = 512, 8192
 TABLE_FSM_CL = 64  # the chunked FSMs' chunk length (at most kMaxCL of csrc/table_fsm.cu)
+# the one-pass FSMs' backward codes: positions a 32-bit word, and the
+# longest window whose codes the kernel keeps in shared memory (kCodeSpan,
+# kCodeSmemMax of csrc/table_fsm.cu: 32 KiB a warp)
+TABLE_FSM_CODE_SPAN = 16
+TABLE_FSM_SMEM_LS = 32 * 1024 // 128 * TABLE_FSM_CODE_SPAN
 _REPAIRED: Dict[int, torch.Tensor] = {}
 
 
@@ -1093,8 +1100,11 @@ def table_fsms_cuda(ids, start, endf, p0: int, LS: int, fwd=None, bwd=None,
     one call: each as ``pallas_scan.fsm_plain`` with its carries
     ``(entry, carry_ids, carry_x)`` (``None`` reaches the kernel as a null
     pointer, read as zeros).  ``cl``: the chunk length of the chunked form
-    (three launches), 0 for the one-pass form (one launch a direction),
-    ``None`` for ``table_fsm_form``'s choice."""
+    (three launches), 0 for the one-pass form (one launch for both
+    directions), ``None`` for ``table_fsm_form``'s choice.  The one-pass
+    form keeps the backward codes in shared memory up to
+    ``TABLE_FSM_SMEM_LS`` positions, else in a global scratch
+    [ceil(LS / 16), B] int32."""
     n_defs, L, B = ids.shape
     for name, t in (("ids", ids), ("start", start), ("endf", endf)):
         _check(t, name, torch.int32, (n_defs, L, B))
@@ -1112,14 +1122,18 @@ def table_fsms_cuda(ids, start, endf, p0: int, LS: int, fwd=None, bwd=None,
     if B == 0:
         return
     lib = build_tables()
-    scratch = (torch.empty((2, -(-LS // CL), B), dtype=torch.int32, device=ids.device)
-               if CL else None)
+    scratch = None
+    if CL:
+        scratch = torch.empty((2, -(-LS // CL), B), dtype=torch.int32, device=ids.device)
+    elif bwd is not None and LS > TABLE_FSM_SMEM_LS:
+        scratch = torch.empty((-(-LS // TABLE_FSM_CODE_SPAN), B), dtype=torch.int32,
+                              device=ids.device)
     dirs = (fwd is not None) | (bwd is not None) << 1
     with torch.cuda.device(ids.device):
         _launch(TABLE_FSM, lib.h2r_table_fsm, dirs, ids.data_ptr(), start.data_ptr(),
                 endf.data_ptr(), *map(_ptr, fc[:3]), fc[3], *map(_ptr, bc[:3]), bc[3],
                 _ptr(fwd), _ptr(bwd), _ptr(scratch), n_defs, B, L, p0, LS, CL, _stream(ids),
-                n=3 if CL else (fwd is not None) + (bwd is not None))
+                n=3 if CL else 1)
 
 
 def table_fsm_cuda(reverse: bool, ids, start, endf, entry, carry_ids, carry_x,

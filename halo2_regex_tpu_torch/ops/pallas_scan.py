@@ -46,15 +46,17 @@ Each stage has a plain PyTorch version here (``scan_plain``, ``tag_plain``,
 ``fsm_plain``, ``flat_plain``) and routes by device (``scan``, ``tag``,
 ``fsms``, ``flat``): a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel (or raises).  There is no fallback.  The chunked forms
-of the scan and FSM kernels and the flat kernel's bit-packed backward
-column have torch twins too (``scan_chunks_plain``, ``fsm_chunks_plain``,
+of the scan and FSM kernels, the FSM kernel's one-pass form (both
+directions from one read of the planes, the backward ops packed in 2 bits)
+and the flat kernel's bit-packed backward column have torch twins too
+(``scan_chunks_plain``, ``fsm_chunks_plain``, ``fsm_pass_plain``,
 ``flat_bits_plain``), which the tests hold to the plain versions.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +65,7 @@ from torch import nn
 from ..models.compiled import CompiledRegexModel
 from ..witness.result import RegexResult
 from .bitplane import _kernels, _on_cuda, _round_up, _substr_pairs, resolve_device
+from .bitplane import _to_int32 as _as_int32
 
 PAIR_FIELDS = 5  # (a, b, gid, is_start, is_end); a = -1 pads a def's list
 # the flat table's packed entry: next state | substring id | start | end
@@ -390,6 +393,62 @@ def fsm_chunks_plain(ids, start, endf, fwd_carry, bwd_carry, p0: int, LS: int, C
         bwd[sl] = ys.reshape(-1, B)[:LS].to(i32)
 
 
+def fsm_pass_plain(ids, start, endf, fwd_carry, bwd_carry, p0: int, LS: int, fwd, bwd,
+                   codes=None) -> Optional[torch.Tensor]:
+    """The one-pass form of the FSM kernel (``csrc/table_fsm.cu``) in torch
+    ops, for tests (no pipeline calls it): both FSMs of ``fsm_plain`` over
+    [p0, p0 + LS), written into ``fwd`` and ``bwd`` [L, B] (either may be
+    ``None``), each with its carries ``(entry, carry_ids, carry_x)``
+    (``None`` for zeros), computed as the kernel computes them.  The
+    forward walk reads each position's sums once, runs the forward FSM and
+    packs the backward op (0 hold, 1 set, 2 reset) of the position before
+    it -- that op needs the ids and start of the next position, so it is
+    known one step late, and the last one comes from the backward carry
+    after the walk -- 2 bits a position, 16 positions a word: position
+    p0 + 16 k + i at bits 2 i, 2 i + 1 of ``codes[k]`` ([ceil(LS / 16), B]
+    int32; a new tensor when not given).  The backward walk then reads
+    only the codes.  Returns the codes (None without ``bwd``)."""
+    i32 = torch.int32
+    B = ids.shape[2]
+    dev = ids.device
+    zero = torch.zeros(B, dtype=torch.long, device=dev)
+
+    def sums(carry):
+        entry, c_ids, c_x = carry
+        return (zero if entry is None else entry.long(),
+                zero if c_ids is None else c_ids.sum(0).long(),
+                zero if c_x is None else c_x.sum(0).long())
+
+    x, nb_ids, nb_x = sums(fwd_carry)
+    if bwd is not None and codes is None:
+        codes = torch.empty((-(-LS // 16), B), dtype=i32, device=dev)
+    cw = zero
+    for k in range(LS):
+        p = p0 + k
+        si, ss, se = (t[:, p].sum(0).long() for t in (ids, start, endf))
+        changed = nb_ids != si
+        if fwd is not None:
+            x = torch.where(changed & (ss > 0), 1, torch.where(changed & (nb_x > 0), 0, x))
+            fwd[p] = x.to(i32)
+        if bwd is not None and k > 0:  # the backward op of position k - 1
+            op = torch.where(changed & (nb_x > 0), 1, torch.where(changed & (ss > 0), 2, 0))
+            cw = cw | op << 2 * ((k - 1) % 16)
+            if (k - 1) % 16 == 15:
+                codes[(k - 1) // 16], cw = _as_int32(cw), zero
+        nb_ids, nb_x = si, se
+    if bwd is None:
+        return None
+    y, c_ids, c_st = sums(bwd_carry)
+    q = LS - 1
+    op = torch.where(nb_ids != c_ids, torch.where(nb_x > 0, 1, torch.where(c_st > 0, 2, 0)), 0)
+    codes[q // 16] = _as_int32(cw | op << 2 * (q % 16))
+    for q in range(LS - 1, -1, -1):
+        op = (codes[q // 16].long() >> 2 * (q % 16)) & 3
+        y = torch.where(op == 1, 1, torch.where(op == 2, 0, y))
+        bwd[p0 + q] = y.to(i32)
+    return codes
+
+
 # ---------------------------------------------------------------------------
 # Monolithic mode: the flat stage (B12 on the card)
 # ---------------------------------------------------------------------------
@@ -448,11 +507,6 @@ def flat_plain(cmap, table, first, chars, lengths, states, ids, start, endf, fwd
                         torch.where((esum == 0) & (next_st > 0) & changed, 0, y))
         bwd[p] = y
         next_ids, next_st = isum, ssum
-
-
-def _as_int32(w: torch.Tensor) -> torch.Tensor:
-    """Unsigned 32-bit words held in int64 -> the same bits as int32."""
-    return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
 def flat_bits_plain(cmap, table, first, chars, lengths, states, ids, start, endf, fwd, bwd,

@@ -12,24 +12,25 @@ timed in turns, old, new, new, old (CUDA events, L2 flushed;
 chip_smoke's ``time_ms``: device-only windows for kernels, a caller's
 window for walls).
 
-Kernels:
-  post_direct  B3's direct emission on the zk-email ``from:`` model at
-            bench.py's shape (B=32768 x L=1024, bench.py's corpus, the
-            new package's pack and scan): one call of each package; the
-            new one also with its launch C staging 32, 16 and 8 positions
-            (copies of ``csrc/`` with ``kDirectStage`` changed) and at
-            chunk lengths 16 and 32;
-  table_flat  B12 on the 40-word dictionary model at B=32768 x L=1024
-            (chip_smoke's dictionary corpus), its table in shared memory
-            and read from global memory, and on nine dictionary defs
-            (chip_smoke's ``beyond_staging``: two groups of its scan,
-            B=32768 x L=64).
-ptxas' registers, shared memory and spills of both kernels' entries.
+Kernels, on the zk-email ``from:`` model at bench.py's shape (B=32768 x
+L=1024, bench.py's corpus):
+  qpack     K1 in each mode: binary and one-hot class planes, class stage
+            off, en_pack off; the new one against its variants
+            (``QPACK_VARIANTS``: copies of ``csrc/`` with one edit); and at
+            L=36 (where 16-byte loads do not fit), old against new and the
+            new kernel's 4-byte loads against its byte loads;
+  table_fsm  the one-pass mask FSMs of pallas_from (both directions; the
+            new kernel's backward codes in shared memory and in a global
+            scratch) on the planes of the tag kernel;
+  pack_raw, tpack, scan_fpack, post_tiled  the kernels that share K1's
+            byte-plane helper (``h2r_byte_planes``), each in its path's
+            mode.
+ptxas' registers, shared memory and spills of qpack's and the one-pass
+FSM's entries.
 
 Walls, old package against new, with equal outputs, 30 runs each:
-witness_direct and pallas_dict (the paths of the two kernels), and
-witness, witness_kdecode, match, full, pallas_from (B=32768) and
-pallas_large (BASELINE configs[3]).
+witness, witness_direct, match, full, tiled_witness, L1000 witness
+(pack_raw), pallas_from (B=32768) and pallas_large (BASELINE configs[3]).
 
 The record goes to ``chiprun_out/kernel_ab.json``; the last line is a
 JSON summary.  Imports nothing of JAX.
@@ -38,13 +39,12 @@ JSON summary.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import importlib
 import importlib.util
 import json
 import os
 import shutil
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -53,6 +53,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 WALL_ITERS = 30  # the walls move with the host: more runs than a kernel's 10
+QPACK_MODES = {"binary": {}, "onehot": dict(class_stage="onehot"),
+               "off": dict(class_stage=False), "en_off": dict(en_pack=False)}
 
 
 def import_old(old_pkg: Path):
@@ -90,183 +92,332 @@ def ptxas_of(K, keys, kernel: str) -> list:
     return out
 
 
-def direct_ab(h2r, old, cs, K, old_k, dev, card, flush) -> dict:
-    """post_direct, old against new, the stage and chunk-length variants."""
-    from halo2_regex_tpu_torch.ops import bitplane as bp
-    from halo2_regex_tpu_torch.ops.knobs import BitplaneKnobs
+class Pkgs:
+    """The new and the old package's modules, side by side."""
 
-    obp = importlib.import_module("h2r_old.ops.bitplane")
-    oknobs = importlib.import_module("h2r_old.ops.knobs")
-    B, L = cs.B, cs.L
-    model = h2r.zoo.email_headers_model(max_chars_size=L, headers=("from",))
-    pd = bp.make_plan(model, "witness", knobs=BitplaneKnobs(emit="direct"))
-    pd_old = obp.make_plan(old.zoo.email_headers_model(max_chars_size=L, headers=("from",)),
-                           "witness", knobs=oknobs.BitplaneKnobs(emit="direct"))
-    # the stage variants: launch C staging 32, 16 and 8 positions
-    src = (K.CSRC / "bitplane_post.cu").read_text()
-    key = "constexpr int kDirectStage = "
-    cur = src.split(key, 1)[1].split(";", 1)[0]
-    header = K.circuits_header(pd)
-    n_planes = int(header.split("#define H2R_DPLANES ", 1)[1].split()[0])
-    unit = n_planes * 33 * 4  # bytes a staged position
-    budgets = {32: 32 * unit, 16: 16 * unit, 8: 8 * unit}
-    var_dirs = {}
-    for dp, budget in budgets.items():
-        var_dir = K.build_root().parent / f"ab_direct_dp{dp}" / "csrc"
-        if var_dir.exists():
-            shutil.rmtree(var_dir)
-        shutil.copytree(K.CSRC, var_dir)
-        text = src.replace(f"{key}{cur};", f"{key}{budget};")
-        if text == src and str(budget) != cur:
-            raise AssertionError("no kDirectStage to change in csrc/bitplane_post.cu")
-        (var_dir / "bitplane_post.cu").write_text(text)
-        var_dirs[dp] = var_dir
-    before = set(K.BUILD_LOG)
-    with ThreadPoolExecutor(len(var_dirs) + 2) as pool:
-        jobs = {dp: pool.submit(K._build_library, ("bitplane_post.cu",), (), K.HEADERS, header,
-                                d) for dp, d in var_dirs.items()}
-        new_j, old_j = pool.submit(K.build, pd), pool.submit(old_k.build, pd_old)
-        libs = {dp: j.result() for dp, j in jobs.items()}
-        new_j.result()
-        old_j.result()
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for lib in libs.values():
-        lib.h2r_post_maps.argtypes = [P, P, P, I, I, I, P]
-        lib.h2r_post_carry.argtypes = [P, I, I, I, P]
-        lib.h2r_post_direct.argtypes = [P, P, P, P, I, I, I, P]
-    rec = {"ptxas": ptxas_of(K, sorted(set(K.BUILD_LOG) - before), "post_")}
+    def __init__(self, h2r, old, K, old_k):
+        self.h2r, self.old, self.K, self.old_k = h2r, old, K, old_k
+        self.bp = importlib.import_module("halo2_regex_tpu_torch.ops.bitplane")
+        self.knobs = importlib.import_module("halo2_regex_tpu_torch.ops.knobs")
+        self.obp = importlib.import_module("h2r_old.ops.bitplane")
+        self.oknobs = importlib.import_module("h2r_old.ops.knobs")
+
+    def plans(self, L, tiled=False, **kw):
+        """(old plan, new plan) of the from: model's witness path."""
+        out = []
+        for pkg, bp, kn in ((self.old, self.obp, self.oknobs), (self.h2r, self.bp, self.knobs)):
+            model = pkg.zoo.email_headers_model(max_chars_size=L, headers=("from",))
+            out.append(bp.make_plan(model, "witness", knobs=kn.BitplaneKnobs.from_env(**kw),
+                                    tiled=tiled))
+        return tuple(out)
+
+
+def check(cs, name, got, want):
+    torch.cuda.synchronize()
+    if cs.max_abs_err(got, want):
+        raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def variant_csrc(K, name: str, edits) -> Path:
+    """A copy of ``csrc/`` under the build root with ``edits`` (file, text,
+    replacement) applied; each text must be there."""
+    var_dir = K.build_root().parent / f"ab_{name}" / "csrc"
+    if var_dir.exists():
+        shutil.rmtree(var_dir)
+    shutil.copytree(K.CSRC, var_dir)
+    for fname, old, new in edits:
+        text = (var_dir / fname).read_text()
+        if old not in text:
+            raise AssertionError(f"variant {name}: no {old!r} in csrc/{fname}")
+        (var_dir / fname).write_text(text.replace(old, new))
+    return var_dir
+
+
+# qpack's variants: four blocks an SM asked of the register allocator;
+# and, for timing only (their outputs are not qpack's), the kernel without
+# its global loads of the bytes and without its bit work
+QPACK_VARIANTS = {
+    "lb4": [("bitplane_pack.cu", "__launch_bounds__(THREADS, VEC == 0 ? 2 : 3)",
+             "__launch_bounds__(THREADS, 4)")],
+    "no_load": [("bitplane_pack.cu",
+                 "    if (l < L) u = __ldg(reinterpret_cast<const uint4*>(row + l));",
+                 "    u.x = (uint32_t)(size_t)row ^ (uint32_t)l;")],
+    "no_compute": [("bitplane_pack.cu",
+                    "    h2r_byte_planes(q, bb);\n    uint32_t cls[H2R_KP];\n"
+                    "    h2r_class(bb, cls);",
+                    "    uint32_t cls[H2R_KP];\n#pragma unroll\n"
+                    "    for (int k = 0; k < H2R_KP; ++k) cls[k] = q[k % 8];")],
+}
+QPACK_TIMING_ONLY = ("no_load", "no_compute")
+# the one-pass FSMs' loads: batches of 32 positions
+FSM_VARIANTS = {
+    "step32": [("table_fsm.cu", "constexpr int kPassStep = 16;", "constexpr int kPassStep = 32;")],
+}
+
+
+def sass_counts(K, keys, kernel: str) -> list:
+    """The SASS instruction count of each entry whose name holds
+    ``kernel`` in the libraries ``keys`` (cuobjdump), by opcode class."""
+    cuobjdump = Path(K._nvcc()).parent / "cuobjdump"
+    out = []
+    for key in keys:
+        so = Path(str(K.BUILD_LOG[key]["dir"])) / "libh2r.so"
+        res = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True)
+        fn, ops = None, {}
+        for ln in res.stdout.splitlines():
+            if "Function :" in ln:
+                if fn and kernel in fn:
+                    out.append({"function": fn, "instructions": sum(ops.values()), "ops": ops})
+                fn, ops = ln.split("Function :", 1)[1].strip(), {}
+            elif fn and "/*" in ln and ";" in ln:
+                ins = ln.split("*/", 1)[1].strip().split()
+                if ins and ins[0].startswith("@"):
+                    ins = ins[1:]
+                if ins:
+                    op = ins[0].split(".")[0]
+                    ops[op] = ops.get(op, 0) + 1
+        if fn and kernel in fn:
+            out.append({"function": fn, "instructions": sum(ops.values()), "ops": ops})
+    for r in out:
+        top = sorted(r["ops"].items(), key=lambda kv: -kv[1])[:12]
+        print(f"sass {r['function'][-60:]}: {r['instructions']} instructions; {top}", flush=True)
+    return out
+
+
+def qpack_ab(pk: Pkgs, cs, dev, card, flush, chars, len_wb) -> dict:
+    """qpack, old against new, in each mode; the new one against its
+    variants, and without the L2 flush; at L=36, old against new and the
+    load instances (``vec`` 1 against 0) of the new one."""
+    K, old_k, bp = pk.K, pk.old_k, pk.bp
+    plans = {mode: pk.plans(cs.L, **kw) for mode, kw in QPACK_MODES.items()}
+    pn = plans["binary"][1]
+    header = K.circuits_header(pn)
+    var_dirs = {name: variant_csrc(K, f"qpack_{name}", edits)
+                for name, edits in QPACK_VARIANTS.items()}
+    before, before_old = set(K.BUILD_LOG), set(old_k.BUILD_LOG)
+    with ThreadPoolExecutor(12) as pool:
+        jobs = [pool.submit(k.build, p) for po, pn_ in plans.values()
+                for k, p in ((old_k, po), (K, pn_))]
+        var_jobs = {name: pool.submit(K._build_library, ("bitplane_pack.cu",), (K.QPACK,),
+                                      K.HEADERS, header, d) for name, d in var_dirs.items()}
+        for j in jobs:
+            j.result()
+        var_libs = {name: j.result() for name, j in var_jobs.items()}
+    rec = {"ptxas": ptxas_of(K, sorted(set(K.BUILD_LOG) - before), "qpack_kernel")}
     for ln in rec["ptxas"]:
-        print(f"ptxas (post, direct mode): {ln}", flush=True)
+        print(f"ptxas (qpack): {ln}", flush=True)
+    # the 16-byte-load instance of every mode and variant, and the old kernel
+    rec["sass"] = (sass_counts(K, sorted(set(K.BUILD_LOG) - before), "qpack_kernelILi2E")
+                   + sass_counts(old_k, sorted(set(old_k.BUILD_LOG) - before_old),
+                                 "qpack_kernel"))
+    B, L = chars.shape
+    for mode, (po, pn_) in plans.items():
+        want = bp.qpack_plain(pn_, chars, len_wb)
 
-    chars, lengths = (torch.from_numpy(a).to(dev) for a in cs.bench_corpus(B, L))
-    bits, en = K.qpack_cuda(pd, chars, bp.len_table(lengths))
-    logs = K.scan_cuda(pd, bits)
-    NW = B // 32
+        def run_old(po=po):
+            return old_k.qpack_cuda(po, chars, len_wb)
 
-    def with_lib(lib, CL=K.POST_CL):
-        def go():
-            stream = torch.cuda.current_stream().cuda_stream
-            scr = torch.empty((4, -(-L // CL), NW), dtype=torch.int32, device=dev)
-            out = torch.empty((len(pd.dfields), 8, B // 4096, 512, L // 4), dtype=torch.int32,
-                              device=dev)
-            for err in (lib.h2r_post_maps(logs.data_ptr(), en.data_ptr(), scr.data_ptr(), NW, L,
-                                          CL, stream),
-                        lib.h2r_post_carry(scr.data_ptr(), NW, L, CL, stream),
-                        lib.h2r_post_direct(logs.data_ptr(), en.data_ptr(), scr.data_ptr(),
-                                            out.data_ptr(), NW, L, CL, stream)):
-                assert err == 0, err
-            return out
-        return go
+        def run_new(pn_=pn_):
+            return K.qpack_cuda(pn_, chars, len_wb)
 
-    def run_old():
-        return old_k.post_direct_cuda(pd_old, logs, en)
+        check(cs, f"qpack {mode} old", run_old(), want)
+        check(cs, f"qpack {mode} new", run_new(), want)
+        bound = cs.bound(B * L + cs.nbytes(len_wb) + L * (B // 32) * 4 * (pn_.kp + pn_.en_pack),
+                         sum(c.class_prog.n_ops for c in pn_.circuits) * L * (B // 32))
+        rec[mode] = in_turns(cs, f"qpack {mode} (KP={pn_.kp}, B={B} x L={L}; bound "
+                             f"{bound['bound_ms']:.4f} ms by {bound['bound_by']})", run_old,
+                             run_new, flush, card)
+        rec[mode]["bound_ms"] = bound["bound_ms"]
+        del want
 
     def run_new():
-        return K.post_direct_cuda(pd, logs, en)
+        return K.qpack_cuda(pn, chars, len_wb)
 
-    want = bp.post_direct_plain(pd, logs, en)
-    got = {"old": run_old(), "new": run_new()}
-    got.update({f"dp{dp}": with_lib(lib)() for dp, lib in libs.items()})
-    got.update({f"cl{cl}": with_lib(libs[32], cl)() for cl in (16, 32)})
-    torch.cuda.synchronize()
-    for name, g in got.items():
-        if cs.max_abs_err(g, want):
-            raise AssertionError(f"post_direct {name} disagrees with its plain version")
-    del got
-    rec["post_direct"] = in_turns(cs, "post_direct (B=32768 x L=1024, from:)", run_old, run_new,
-                                  flush, card)
-    for dp, lib in libs.items():
-        rec[f"post_direct_dp{dp}"] = in_turns(
-            cs, f"post_direct, launch C staging {dp} positions", run_old, with_lib(lib), flush,
-            card)
-    for cl in (16, 32):
-        t = cs.time_ms(with_lib(libs[32], cl), flush, device_only=True)
-        rec[f"post_direct_cl{cl}"] = t["median"]
-        print(f"post_direct at CL={cl} (32 staged positions): {cs.fmt(t)}; card {card}",
-              flush=True)
+    def with_lib(lib, plan=pn, ch=chars, lw=len_wb, vec=2):
+        def go():
+            Bc, Lc = ch.shape
+            bits = torch.empty((Lc, plan.kp, Bc // 4096, 128), dtype=torch.int32, device=dev)
+            en = torch.empty((Bc // 4096, Lc, 128), dtype=torch.int32, device=dev)
+            err = lib.h2r_qpack(ch.data_ptr(), lw.data_ptr(), bits.data_ptr(), en.data_ptr(),
+                                Bc, Lc, vec, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+            return bits, en
+        return go
+
+    want = bp.qpack_plain(pn, chars, len_wb)
+    for name, lib in var_libs.items():
+        if name not in QPACK_TIMING_ONLY:
+            check(cs, f"qpack variant {name}", with_lib(lib)(), want)
+        rec[f"binary_{name}"] = in_turns(
+            cs, f"qpack binary: the kernel as old, variant {name} as new", run_new, with_lib(lib),
+            flush, card)
+    del want
+    no_flush = torch.empty(1, dtype=torch.uint8, device=dev)
+    t = cs.time_ms(run_new, no_flush, device_only=True)
+    rec["binary_no_flush"] = t["median"]
+    print(f"qpack binary without the L2 flush: {cs.fmt(t)}; card {card}", flush=True)
+
+    # L=36: 4-byte loads where the rows are 4-byte aligned, else byte loads
+    c36, n36 = (torch.from_numpy(a).to(dev) for a in cs.bench_corpus(B, 36))
+    lw36 = bp.len_table(n36)
+    po36, pn36 = pk.plans(36)
+    want = bp.qpack_plain(pn36, c36, lw36)
+    by_vec = {v: with_lib(K.build(pn36), pn36, c36, lw36, v) for v in (0, 1)}
+    for v, fn in by_vec.items():
+        check(cs, f"qpack L=36 vec {v}", fn(), want)
+    check(cs, "qpack L=36 old", old_k.qpack_cuda(po36, c36, lw36), want)
+    rec["L36"] = in_turns(cs, f"qpack binary at B={B} x L=36", lambda: old_k.qpack_cuda(
+        po36, c36, lw36), lambda: K.qpack_cuda(pn36, c36, lw36), flush, card)
+    rec["L36_vec1_vs_vec0"] = in_turns(
+        cs, f"qpack binary at B={B} x L=36: byte loads (vec 0) as old, 4-byte loads (vec 1) "
+        "as new", by_vec[0], by_vec[1], flush, card)
     return rec
 
 
-def flat_ab(h2r, cs, K, old_k, dev, card, flush) -> dict:
-    """table_flat, old against new: dict40 at bench shape (table in shared
-    and in global memory) and the nine-def model."""
-    before = set(K.BUILD_LOG)
-    with ThreadPoolExecutor(2) as pool:
-        for j in [pool.submit(k.build_tables) for k in (K, old_k)]:
+def fsm_ab(pk: Pkgs, cs, dev, card, flush, chars, lengths) -> dict:
+    """The one-pass FSMs of pallas_from, old (a launch a direction)
+    against new (one launch, the codes in shared memory; and in a global
+    scratch); each direction alone; the new one against its look-ahead
+    variants."""
+    K, old_k = pk.K, pk.old_k
+    ps = importlib.import_module("halo2_regex_tpu_torch.ops.pallas_scan")
+    var_dirs = {name: variant_csrc(K, f"fsm_{name}", edits)
+                for name, edits in FSM_VARIANTS.items()}
+    before, before_old = set(K.BUILD_LOG), set(old_k.BUILD_LOG)
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(k.build_tables) for k in (K, old_k)]
+        var_jobs = {name: pool.submit(K._build_library, ("table_fsm.cu",), (K.TABLE_FSM,), (),
+                                      None, d) for name, d in var_dirs.items()}
+        for j in jobs:
             j.result()
-    rec = {"ptxas": ptxas_of(K, set(K.BUILD_LOG) - before, "table_flat_kernel")}
+        var_libs = {name: j.result() for name, j in var_jobs.items()}
+    rec = {"ptxas": ptxas_of(K, set(K.BUILD_LOG) - before, "table_fsm_pass_kernel")}
     for ln in rec["ptxas"]:
-        print(f"ptxas (table_flat): {ln}", flush=True)
-    words = [w.encode() for w in
-             h2r.zoo.dictionary_config(40)["parts"][1]["regex_def"][1:-1].split("|")]
-    ch, ln = (torch.from_numpy(a).to(dev) for a in cs.dict_corpus(cs.B, cs.L, words))
-    cases = {"dict40": (h2r.PallasMatcher(h2r.zoo.dictionary_model(40, max_chars_size=cs.L)),
-                        ch, ln)}
-    name, m9, ch9, ln9 = cs.beyond_staging(h2r)[1]
-    cases[name] = (m9, ch9, ln9)
+        print(f"ptxas (table_fsm one pass): {ln}", flush=True)
+    rec["sass"] = (sass_counts(K, sorted(set(K.BUILD_LOG) - before), "table_fsm_pass_kernel")
+                   + sass_counts(old_k, sorted(set(old_k.BUILD_LOG) - before_old),
+                                 "table_fsm_pass_kernel"))
+    m = pk.h2r.PallasMatcher(pk.h2r.zoo.email_headers_model(max_chars_size=cs.L,
+                                                            headers=("from",)))
+    _st, ids, sta, ef, _f, _b = m.run_planes(chars, lengths)
+    B, L = chars.shape
+    if K.table_fsm_form(B, dev) or old_k.table_fsm_form(B, dev):
+        raise AssertionError(f"B={B}: the FSMs no longer take their one-pass form")
+    want = (torch.empty_like(_f), torch.empty_like(_b))
+    ps.fsm_plain(False, ids, sta, ef, None, None, None, 0, L, want[0])
+    ps.fsm_plain(True, ids, sta, ef, None, None, None, 0, L, want[1])
+    def with_k(k, dirs=3, lib=None, smem_ls=None):
+        """``k``'s one-pass FSMs; ``lib``: a variant's library; ``smem_ls``:
+        0 puts the backward codes in the global scratch."""
+        def go():
+            f = torch.empty_like(want[0]) if dirs & 1 else None
+            b = torch.empty_like(want[1]) if dirs & 2 else None
+            saved = k.build_tables
+            if lib is not None:
+                k.build_tables = lambda: lib
+            if smem_ls is not None:
+                saved_ls, k.TABLE_FSM_SMEM_LS = k.TABLE_FSM_SMEM_LS, smem_ls
+            try:
+                k.table_fsms_cuda(ids, sta, ef, 0, L, f, b, cl=0)
+            finally:
+                k.build_tables = saved
+                if smem_ls is not None:
+                    k.TABLE_FSM_SMEM_LS = saved_ls
+            return tuple(x for x in (f, b) if x is not None)
+        return go
 
-    @contextlib.contextmanager
-    def old_global(on):
-        saved = old_k.flat_smem_bytes
-        if on:
-            old_k.flat_smem_bytes = lambda *a: 0
-        try:
-            yield
-        finally:
-            old_k.flat_smem_bytes = saved
+    def want_of(dirs):
+        return tuple(w for i, w in enumerate(want) if dirs >> i & 1)
 
-    for name, (m, c, n) in cases.items():
-        want = m.run_planes(c, n, plain=True)
-        args = (m.class_map, m.flat_table, m.first_states, c, n)
-        # dict40's table fits shared memory, nine_defs' (234 KiB) does not
-        fits = bool(K.flat_smem_bytes(*m.flat_table.shape, K._smem_optin(dev)))
-        for smem in ((True, False) if fits else (False,)):
-            def run_old(smem=smem):
-                outs = [torch.empty_like(t) for t in want]
-                with old_global(not smem):
-                    old_k.table_flat_cuda(*args, *outs)
-                return tuple(outs)
-
-            def run_new(smem=smem):
-                outs = [torch.empty_like(t) for t in want]
-                K.table_flat_cuda(*args, *outs, table_in_smem=smem)
-                return tuple(outs)
-
-            a, b = run_old(), run_new()
-            torch.cuda.synchronize()
-            if cs.max_abs_err(a, want) or cs.max_abs_err(b, want):
-                raise AssertionError(f"table_flat {name}: old or new disagrees with plain")
-            del a, b
-            where = "shared" if smem else "global"
-            rec[f"{name}_{where}"] = in_turns(
-                cs, f"table_flat {name} (B={c.shape[0]} x L={c.shape[1]}, table in {where} "
-                f"memory)", run_old, run_new, flush, card)
-        del want
+    run_old, run_new = with_k(old_k), with_k(K)
+    runs = {"old": run_old, "new": run_new, "new, global codes": with_k(K, smem_ls=0)}
+    runs.update({f"new {n}": with_k(K, lib=lib) for n, lib in var_libs.items()})
+    for name, fn in runs.items():
+        check(cs, f"table_fsm {name}", fn(), want)
+    for d in (1, 2):
+        for k in (old_k, K):
+            check(cs, f"table_fsm dirs={d}", with_k(k, d)(), want_of(d))
+    bound = cs.bound(3 * cs.nbytes(ids) + 2 * L * B * 4, 2 * L * B * (3 * m.n_defs + 6))
+    rec["pallas_from"] = in_turns(
+        cs, f"table_fsm one pass, pallas_from (B={B} x L={L}; bound {bound['bound_ms']:.4f} ms "
+        f"by {bound['bound_by']})", run_old, run_new, flush, card)
+    rec["pallas_from"]["bound_ms"] = bound["bound_ms"]
+    for name in runs:
+        if name != "old" and name != "new":
+            rec[f"pallas_from ({name})"] = in_turns(
+                cs, f"table_fsm one pass, pallas_from: the kernel as old, {name} as new",
+                run_new, runs[name], flush, card)
+    for d, what in ((1, "forward"), (2, "backward")):
+        rec[f"pallas_from_{what}"] = in_turns(
+            cs, f"table_fsm one pass, pallas_from, the {what} FSM alone", with_k(old_k, d),
+            with_k(K, d), flush, card)
     return rec
 
 
-def walls_ab(h2r, old, cs, K, old_k, dev, card, flush) -> dict:
+def helpers_ab(pk: Pkgs, cs, dev, card, flush, chars_np, chars, len_wb) -> dict:
+    """The kernels that share K1's byte-plane helper, old against new, each
+    against its plain version."""
+    K, old_k, bp = pk.K, pk.old_k, pk.bp
+    B, L = chars.shape
+    raw = pk.plans(L, qpack=False)
+    tiled = pk.plans(L, tiled=True)
+    fpack = pk.plans(L, fuse_pack=True)
+    main = pk.plans(L)[1]
+    with ThreadPoolExecutor(6) as pool:
+        for j in [pool.submit(k.build, p) for pair in (raw, tiled, fpack)
+                  for k, p in zip((old_k, K), pair)]:
+            j.result()
+    quads = bp.raw_quads(chars, L)
+    tl = torch.from_numpy(bp.tile_corpus(chars_np, L)).to(dev)
+    bits, en = K.qpack_cuda(main, chars, len_wb)
+    logs = K.scan_cuda(main, bits)
+    cases = {
+        "pack_raw": (lambda k, p: k.pack_raw_cuda(p, quads, len_wb), raw,
+                     lambda p: bp.pack_plain(p, quads, len_wb)),
+        "tpack": (lambda k, p: k.tpack_cuda(p, tl, len_wb), tiled,
+                  lambda p: bp.tpack_plain(p, tl, len_wb)),
+        "scan_fpack": (lambda k, p: k.scan_fpack_cuda(p, quads), fpack,
+                       lambda p: bp.scan_fpack_plain(p, quads)),
+        "post_tiled": (lambda k, p: k.post_tiled_cuda(p, logs, en, tl), tiled,
+                       lambda p: bp.post_plain(p, logs, en, tl)),
+    }
+    rec = {}
+    for name, (run, (po, pn), plain) in cases.items():
+        want = plain(pn)
+        check(cs, f"{name} old", run(old_k, po), want)
+        check(cs, f"{name} new", run(K, pn), want)
+        del want
+        rec[name] = in_turns(cs, f"{name} (B={B} x L={L})", lambda r=run, p=po: r(old_k, p),
+                             lambda r=run, p=pn: r(K, p), flush, card)
+    return rec
+
+
+def walls_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
     """End-to-end walls, old package against new, in turns, with equal
     outputs."""
+    h2r, old, K, old_k = pk.h2r, pk.old, pk.K, pk.old_k
     model3, chars3_np, _ = cs.config3(h2r)
-    model_f = h2r.zoo.email_headers_model(max_chars_size=cs.L, headers=("from",))
-    model_d = h2r.zoo.dictionary_model(40, max_chars_size=cs.L)
-    words = [w.encode() for w in
-             h2r.zoo.dictionary_config(40)["parts"][1]["regex_def"][1:-1].split("|")]
-    t3 = (torch.from_numpy(chars3_np).to(dev), torch.full((cs.B3,), cs.L3, dtype=torch.int32,
-                                                          device=dev))
+    t3 = (torch.from_numpy(chars3_np).to(dev),
+          torch.full((cs.B3,), cs.L3, dtype=torch.int32, device=dev))
     tf = tuple(torch.from_numpy(a).to(dev) for a in cs.bench_corpus(cs.B, cs.L))
-    td = tuple(torch.from_numpy(a).to(dev) for a in cs.dict_corpus(cs.B, cs.L, words))
+    tu = tuple(torch.from_numpy(a).to(dev) for a in cs.bench_corpus(cs.B, cs.L_UNPADDED))
+    tiled = torch.from_numpy(pk.bp.tile_corpus(tf[0].cpu().numpy(), cs.L)).to(dev)
+
+    def from_model(p, length=cs.L):
+        return p.zoo.email_headers_model(max_chars_size=length, headers=("from",))
+
     paths = {
-        "witness_direct": (lambda p: p.BitplaneMatcher(model_f, columns="witness",
+        "witness": (lambda p: p.BitplaneMatcher(from_model(p), columns="witness"), tf),
+        "witness_direct": (lambda p: p.BitplaneMatcher(from_model(p), columns="witness",
                                                        emit="direct"), tf),
-        "pallas_dict": (lambda p: p.PallasMatcher(model_d), td),
-        "witness": (lambda p: p.BitplaneMatcher(model_f, columns="witness"), tf),
-        "witness_kdecode": (lambda p: p.BitplaneMatcher(model_f, columns="witness",
-                                                        emit="kdecode"), tf),
-        "match": (lambda p: p.BitplaneMatcher(model_f, columns="match"), tf),
-        "full": (lambda p: p.BitplaneMatcher(model_f), tf),
-        "pallas_from": (lambda p: p.PallasMatcher(model_f), tf),
+        "match": (lambda p: p.BitplaneMatcher(from_model(p), columns="match"), tf),
+        "full": (lambda p: p.BitplaneMatcher(from_model(p)), tf),
+        "tiled_witness": (lambda p: p.BitplaneMatcher(from_model(p), columns="witness",
+                                                      input_layout="tiled"),
+                          (tiled, tf[1])),
+        "L1000": (lambda p: p.BitplaneMatcher(from_model(p, cs.L_UNPADDED), columns="witness"),
+                  tu),
+        "pallas_from": (lambda p: p.PallasMatcher(from_model(p)), tf),
         "pallas_large": (lambda p: p.PallasMatcher(model3, max_pairs=4096), t3),
     }
     built = {name: (make(old), make(h2r)) for name, (make, _io) in paths.items()}
@@ -294,6 +445,8 @@ def main() -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True,
                     help="directory of the earlier halo2_regex_tpu_torch/ package")
+    ap.add_argument("--only", default="qpack,fsm,helpers,walls",
+                    help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -303,14 +456,25 @@ def main() -> dict:
     # both packages build into the checkout's build root
     os.environ.setdefault("H2R_TORCH_BUILD_DIR", str(K.build_root()))
     old, old_k = import_old(Path(args.old).resolve())
+    pk = Pkgs(h2r, old, K, old_k)
     dev = torch.device("cuda")
     card = cs.smi()
     print(f"card: {card}", flush=True)
     rec: dict = {"card": card, "versions": cs.versions()}
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
-    out = {"post_direct": direct_ab(h2r, old, cs, K, old_k, dev, card, flush),
-           "table_flat": flat_ab(h2r, cs, K, old_k, dev, card, flush),
-           "walls": walls_ab(h2r, old, cs, K, old_k, dev, card, flush)}
+    chars_np, lengths_np = cs.bench_corpus(cs.B, cs.L)
+    chars, lengths = (torch.from_numpy(a).to(dev) for a in (chars_np, lengths_np))
+    len_wb = pk.bp.len_table(lengths)
+    parts = set(args.only.split(","))
+    out = {}
+    if "qpack" in parts:
+        out["qpack"] = qpack_ab(pk, cs, dev, card, flush, chars, len_wb)
+    if "fsm" in parts:
+        out["table_fsm"] = fsm_ab(pk, cs, dev, card, flush, chars, lengths)
+    if "helpers" in parts:
+        out["helpers"] = helpers_ab(pk, cs, dev, card, flush, chars_np, chars, len_wb)
+    if "walls" in parts:
+        out["walls"] = walls_ab(pk, cs, dev, card, flush)
     rec["ab"] = out
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:

@@ -884,3 +884,120 @@ def test_direct_post_chunks_match_plain(dev, monkeypatch, L):
     monkeypatch.setattr(kernels, "POST_CL", 7)
     with pytest.raises(ValueError, match="multiple of 4"):
         kernels.post_direct_cuda(pd, logs, en)
+
+
+def _fsm_planes(n_defs, L, B, seed):
+    """Seeded ids / start / endf [n_defs, L, B] int32 on the CPU, small ids
+    so neighbours often agree, every seventh string empty (zero columns)."""
+    rng = np.random.default_rng(seed)
+    out = [torch.from_numpy(rng.integers(0, 3, size=(n_defs, L, B)).astype(np.int32)),
+           torch.from_numpy((rng.random((n_defs, L, B)) < 0.3).astype(np.int32)),
+           torch.from_numpy((rng.random((n_defs, L, B)) < 0.3).astype(np.int32))]
+    for t in out:
+        t[..., ::7] = 0
+    return out
+
+
+@pytest.mark.parametrize("n_defs,L", [(1, 70), (4, 70), (1, 4100)])
+def test_one_pass_fsm_both_directions(dev, monkeypatch, n_defs, L):
+    """The one-pass FSMs where ``table_fsm_form`` picks them (17,000
+    strings: a ragged last warp), both directions in one launch, each
+    direction alone, over the whole L and on a window with carries on both
+    sides, the backward codes in shared memory and in a global scratch
+    (which L = 4100 takes by itself, and a ``TABLE_FSM_SMEM_LS`` of 0
+    forces), against ``fsm_plain``."""
+    from halo2_regex_tpu_torch.ops import pallas_scan as ps
+
+    B = 17000
+    assert kernels.table_fsm_form(B, dev) == 0 and B % 32
+    ids, sta, ef = (t.to(dev) for t in _fsm_planes(n_defs, L, B, L + n_defs))
+    q0, LS = (5, 50) if L == 70 else (100, 3900)
+    rng = np.random.default_rng(12)
+    entry = [torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).to(dev) for _ in range(2)]
+    cases = {"whole": (0, L, (None,) * 3, (None,) * 3),
+             "window": (q0, LS, (entry[0], ids[:, q0 - 1], ef[:, q0 - 1]),
+                        (entry[1], ids[:, q0 + LS], sta[:, q0 + LS]))}
+    smem_ls = kernels.TABLE_FSM_SMEM_LS
+    for name, (p0, n, fc, bc) in cases.items():
+        want_f = torch.full((L, B), -7, dtype=torch.int32, device=dev)
+        want_b = want_f.clone()
+        ps.fsm_plain(False, ids, sta, ef, *fc, p0, n, want_f)
+        ps.fsm_plain(True, ids, sta, ef, *bc, p0, n, want_b)
+        for dirs in (1, 2, 3):
+            for smem in ((True, False) if n <= smem_ls else (False,)):
+                monkeypatch.setattr(kernels, "TABLE_FSM_SMEM_LS", smem_ls if smem else 0)
+                f = torch.full_like(want_f, -7) if dirs & 1 else None
+                b = torch.full_like(want_b, -7) if dirs & 2 else None
+                kernels.reset_launch_counts()
+                kernels.table_fsms_cuda(ids, sta, ef, p0, n, f, b, fwd_carry=fc, bwd_carry=bc,
+                                        cl=0)
+                torch.cuda.synchronize()
+                assert kernels.TABLE_FSM.launches == 1
+                for got, want in ((f, want_f), (b, want_b)):
+                    if got is not None:
+                        assert torch.equal(got, want), (name, dirs, smem)
+
+
+def test_fsm_launch_counts_on_card(dev):
+    """``table_path_launches`` counts the one-pass FSMs as one launch and
+    the chunked ones as three, and a matcher call launches that many."""
+    model = _table_model("from")
+    m = T.PallasMatcher(model, device=dev)
+    for n in (17000, 4099):
+        chars, lengths = _table_corpus("from", n, 13)
+        want = kernels.table_path_launches(m, n)
+        assert want[kernels.TABLE_FSM] == (1 if n == 17000 else 3)
+        kernels.reset_launch_counts()
+        got = m(torch.from_numpy(chars).to(dev), torch.from_numpy(lengths).to(dev))
+        torch.cuda.synchronize()
+        assert {k: k.launches for k in kernels.KERNELS if k.launches} == want
+        _assert_same(got, T.PallasMatcher(model, device="cpu")(chars, lengths))
+
+
+@pytest.mark.parametrize("L,odd", [(1024, False), (36, False), (128, False), (128, True)])
+def test_qpack_modes_at_shapes(dev, L, odd):
+    """K1 in all four modes (binary, one-hot, class stage off, en_pack off)
+    at B=32768 x L=1024 (16-byte loads), L = 36 (4-byte loads, a partial
+    tile), L = 128, and chars at an odd address (byte loads), against
+    ``qpack_plain``; lengths include every tile edge; one launch a call."""
+    B = 32768
+    model = _model("from", L)
+    chars, lengths = _corpus(B, L, 23)
+    lengths[:64] = np.resize(np.array([0, 31, 32, 33, L], np.int32), 64)[:64].clip(max=L)
+    ch = torch.from_numpy(chars).to(dev)
+    if odd:
+        buf = torch.zeros(chars.size + 1, dtype=torch.uint8, device=dev)
+        ch = buf[1:].view(chars.shape)
+        ch.copy_(torch.from_numpy(chars))
+        assert ch.data_ptr() % 4
+    lw = bp.len_table(torch.from_numpy(lengths).to(dev))
+    for kw in ({}, dict(class_stage="onehot"), dict(class_stage=False), dict(en_pack=False)):
+        plan = bp.make_plan(model, "witness", knobs=_knobs(**kw))
+        assert plan.qpack and kernels.path_launches(plan)[kernels.QPACK] == 1
+        bits, en = bp.qpack_plain(plan, ch, lw)
+        kernels.reset_launch_counts()
+        kb, ke = kernels.qpack_cuda(plan, ch, lw)
+        torch.cuda.synchronize()
+        assert kernels.QPACK.launches == 1
+        assert torch.equal(kb, bits), kw
+        assert (ke is None) == (en is None) == ("en_pack" in kw)
+        if en is not None:
+            assert torch.equal(ke, en), kw
+
+
+def test_qpack_on_two_devices(dev):
+    """K1 with one plan on two cards of one process, each launch above the
+    48 KiB default of shared memory: the limit is raised on each card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    L = 1024
+    model = _model("from", L)
+    plan = bp.make_plan(model, "witness", knobs=_knobs())
+    chars, lengths = _corpus(bp.TILE, L, 29)
+    for d in ("cuda:0", "cuda:1"):
+        ch = torch.from_numpy(chars).to(d)
+        lw = bp.len_table(torch.from_numpy(lengths).to(d))
+        bits, en = bp.qpack_plain(plan, ch, lw)
+        kb, ke = kernels.qpack_cuda(plan, ch, lw)
+        torch.cuda.synchronize(d)
+        assert kb.device == ch.device and torch.equal(kb, bits) and torch.equal(ke, en), d
