@@ -55,7 +55,9 @@ and proves on the card that:
   4. each of the sixteen kernels, and each knob mode of the pack, scan
      and post kernels, is bit-exact against its plain PyTorch version on
      the same inputs at that size (scan_def also against the fused
-     scan's slices) (the table kernels on the
+     scan's slices; the quad-word pack in both layouts and every mode:
+     pack_raw at L=1000 and, in each mode, on the L=1024 raw quad rows,
+     tpack in each class-stage mode) (the table kernels on the
      whole of configs[3] and of the from: corpus, and on a middle window
      of its first 4096 strings with carries on both sides, where the FSMs
      run in chunks; the from: planes must not be all zeros, as configs[3]'s
@@ -303,6 +305,22 @@ def bound(nbytes: float, ops: float) -> dict:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def fb_bound(plan, en: torch.Tensor) -> dict:
+    """fb_only's bound on this enable plane: it reads the plane once and,
+    where a boundary word (en & ~en_next) is nonzero, that position's log
+    words; the card moves a whole 32-byte sector (8 words of a row) for
+    each, so the log bytes are the distinct sectors the boundary words
+    touch, times the log planes.  Operations: an AND and an OR a boundary
+    log word."""
+    en_next = torch.cat([en[:, 1:], torch.zeros_like(en[:, :1])], 1)
+    bnd = (en & ~en_next) != 0
+    n_bnd = int(bnd.sum())
+    n_sect = int(bnd.reshape(*bnd.shape[:-1], -1, 8).any(-1).sum())
+    words = en.shape[0] * en.shape[2]
+    return bound(nbytes(en) + 32 * n_sect * plan.sb_sum + words * plan.n_defs * 8 * 4,
+                 2 * n_bnd * plan.sb_sum)
 
 
 def host_ms(fn, iters: int = ITERS) -> dict:
@@ -693,6 +711,10 @@ def main() -> dict:
         raise AssertionError("the from: table path is no longer split/batch")
     # the knob paths, and the 3-def email model whose defs scan_planes runs
     knob_ms = {p: h2r.BitplaneMatcher(model, columns=c, **kw) for p, (c, kw) in KNOB_PATHS.items()}
+    # tpack's other class-stage modes (checked in [4]; no path of their own)
+    tiled_modes = {mode: h2r.BitplaneMatcher(model, columns="witness", input_layout="tiled",
+                                             class_stage=cs_).plan
+                   for mode, cs_ in (("class_off", False), ("onehot", "onehot"))}
     hdr = h2r.BitplaneMatcher(h2r.zoo.email_headers_model(max_chars_size=L), columns="match")
     resolved = {p: (m.plan.emit, m.plan.post, m.plan.fuse_pack, m.plan.class_stage, m.plan.kp,
                     m.plan.en_pack, m.plan.unroll) for p, m in knob_ms.items()}
@@ -706,6 +728,7 @@ def main() -> dict:
     t0 = time.perf_counter()
     builds = [lambda p=m.plan: kernels.build(p)
               for m in (*matchers.values(), full32, dict32, *knob_ms.values(), hdr)]
+    builds += [lambda p=p: kernels.build(p) for p in tiled_modes.values()]
     builds += [lambda d=d: kernels.build_scan_def(hdr.plan, d) for d in range(hdr.plan.n_defs)]
     with ThreadPoolExecutor(len(builds) + 1) as pool:
         list(pool.map(lambda f: f(), builds + [kernels.build_tables]))
@@ -791,8 +814,6 @@ def main() -> dict:
     ops_of = {n: sum(f(c) for c in plan.circuits) * plan.L_pad * words
               for n, f in (("class", lambda c: c.class_prog.n_ops),
                            ("step", lambda c: c.step_ops), ("tag", lambda c: c.tag_ops))}
-    en_next = torch.cat([en_p[:, 1:], torch.zeros_like(en_p[:, :1])], 1)
-    n_bnd = int(((en_p & ~en_next) != 0).sum())  # log words fb_only reads
     plane = plan.L_pad * words * 4
     bounds = {
         "qpack": bound(B * L + nbytes(len_wb) + plane * (plan.kp + 1), ops_of["class"]),
@@ -802,8 +823,7 @@ def main() -> dict:
         "post": bound(plane * (plan.sb_sum + 1 + 8 * plan.n_groups)
                       + words * plan.n_defs * 8 * 4, ops_of["tag"]),
         "post_planes": bound(plane * (plan.sb_sum + 1 + pf.p_total), ops_of["tag"]),
-        "fb_only": bound(plane + 4 * n_bnd * pm.sb_sum + words * pm.n_defs * 8 * 4,
-                         n_bnd * pm.sb_sum),
+        "fb_only": fb_bound(pm, en_p),
         "tpack": bound(nbytes(tiled, len_wb) + plane * (pt.kp + 1), ops_of["class"]),
         # the tags, plus the masked characters: 8 byte-bit planes of 8
         # shift-and-or terms each, and 8 ANDs with the mask, per word
@@ -811,7 +831,6 @@ def main() -> dict:
                             + words * pt.n_defs * 8 * 4,
                             ops_of["tag"] + (8 * 8 * 3 + 8) * pt.L_pad * words),
     }
-    del en_next
     errs = {}
     for name, (k, run_k, run_p) in stages.items():
         want = (bits_p, en_p) if name == "qpack" else (logs_p if name == "scan" else run_p())
@@ -826,6 +845,28 @@ def main() -> dict:
         if errs[name] != 0:
             raise AssertionError(f"{name} kernel disagrees with its plain version")
         del got, want
+    # the quad-word pack (pack_raw, tpack: one kernel) in its other modes
+    # and both layouts: pack_raw on the L=1024 corpus's raw quad rows (the
+    # qpack=False route) under the default and knob plans, tpack on the
+    # tiled corpus under tiled plans of each class stage
+    quads_l = bp.raw_quads(chars, L)
+    pack_modes = [(kernels.PACK_RAW, mode, knob_ms[path].plan if path else plan, quads_l)
+                  for mode, path in (("binary", None), ("class_off", "witness_class_off"),
+                                     ("onehot", "witness_onehot"), ("en_off", "match_en_off"))]
+    pack_modes += [(kernels.TPACK, mode, pl, tiled) for mode, pl in tiled_modes.items()]
+    for k, mode, pl, x in pack_modes:
+        run_k, run_p = ((kernels.pack_raw_cuda, bp.pack_plain) if k is kernels.PACK_RAW
+                        else (kernels.tpack_cuda, bp.tpack_plain))
+        got, want = run_k(pl, x, len_wb), run_p(pl, x, len_wb)
+        torch.cuda.synchronize()
+        label = f"{k.name}[{mode}, L={L}]"
+        errs[label] = max_abs_err(got, want)
+        log(f"[4] {label}: kernel vs plain max_abs_err={errs[label]} (tolerance 0, integer "
+            f"outputs)")
+        if errs[label] != 0:
+            raise AssertionError(f"{label} kernel disagrees with its plain version")
+        del got, want
+    del quads_l
 
     # the table kernels on real inputs: the plain pipelines' own planes,
     # the first window of each path (configs[3]: segment 0 of 16, with the

@@ -102,3 +102,20 @@ static __device__ __forceinline__ void h2r_byte_planes(const uint32_t* q, uint32
   for (int m = 0; m < 8; ++m) bb[m] = q[m];
   h2r_transpose8(bb);
 }
+
+// 32 x 32 bit transpose across a warp (the enable planes of K1 and of the
+// quad-word pack): lane r holds row r (bit c = entry (r, c)); afterwards
+// lane r holds column r (bit c = the input's entry (c, r)).  Each round j
+// swaps bit j of the row and column index.
+static __device__ __forceinline__ uint32_t h2r_warp_transpose32(uint32_t x, int lane) {
+#pragma unroll
+  for (int j = 16; j >= 1; j >>= 1) {
+    const uint32_t hi = j == 16 ? 0xFFFF0000u
+                        : j == 8 ? 0xFF00FF00u
+                        : j == 4 ? 0xF0F0F0F0u
+                        : j == 2 ? 0xCCCCCCCCu : 0xAAAAAAAAu;  // columns with bit j
+    const uint32_t y = __shfl_xor_sync(0xFFFFFFFFu, x, j);
+    x = (lane & j) ? (x & hi) | ((y >> j) & ~hi) : (x & ~hi) | ((y << j) & hi);
+  }
+  return x;
+}

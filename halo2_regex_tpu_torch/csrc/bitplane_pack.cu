@@ -91,22 +91,6 @@ __device__ __forceinline__ void load16(const uint8_t* row, int l, int L, uint32_
   }
 }
 
-// 32 x 32 bit transpose across a warp: lane r holds row r (bit c = entry
-// (r, c)); afterwards lane r holds column r (bit c = the input's entry
-// (c, r)).  Each round j swaps bit j of the row and column index.
-__device__ __forceinline__ uint32_t warp_transpose32(uint32_t x, int lane) {
-#pragma unroll
-  for (int j = 16; j >= 1; j >>= 1) {
-    const uint32_t hi = j == 16 ? 0xFFFF0000u
-                        : j == 8 ? 0xFF00FF00u
-                        : j == 4 ? 0xF0F0F0F0u
-                        : j == 2 ? 0xCCCCCCCCu : 0xAAAAAAAAu;  // columns with bit j
-    const uint32_t y = __shfl_xor_sync(0xFFFFFFFFu, x, j);
-    x = (lane & j) ? (x & hi) | ((y >> j) & ~hi) : (x & ~hi) | ((y << j) & hi);
-  }
-  return x;
-}
-
 // three blocks an SM; the byte loads' instance holds more bytes in flight
 template <int VEC>
 __global__ void __launch_bounds__(THREADS, VEC == 0 ? 2 : 3)
@@ -149,7 +133,7 @@ qpack_kernel(const uint8_t* __restrict__ chars, const int32_t* __restrict__ len_
       for (int t = 0; t < TL / 32; ++t) {
         const int n = min(max(len - l0 - 32 * t, 0), 32);  // lane's positions in the run
         const uint32_t run = n == 32 ? 0xFFFFFFFFu : (1u << n) - 1u;
-        ens[(32 * t + lane) * EROW + warp] = warp_transpose32(run, lane);
+        ens[(32 * t + lane) * EROW + warp] = h2r_warp_transpose32(run, lane);
       }
     }
 #endif

@@ -6,16 +6,14 @@
 // bitplane_pack_words.cuh).  The matcher takes it where K1 (qpack) cannot
 // run: L_pad != L (L > 128 and not a multiple of 128), or qpack=False.
 //
-// What bounds it on the H100: device-memory bytes, in principle.  It
-// reads the raw quad rows (1 B per input byte, as a torch transpose of the
-// [B, L] bytes left them: 32 strings x 1 position per 32 B) and writes
-// (KP + 1) * 4 / 32 B per input byte.  Unlike K1, whose strings' bytes sit
-// 4L apart in the [B, L] input and must be staged through shared memory,
-// here row (l, m) holds 128 consecutive words of one position, so a warp's
-// 32 loads are one contiguous 128 B segment and need no staging.  The
-// per-word bit work (8 x 8 quad-bit extractions, the class circuit, 32
-// length compares for the enable bits) is the other cost.  The kernel is
-// bitplane_pack_words.cuh's, shared with tpack (B6).
+// What bounds it on the H100: device-memory bytes.  It reads the raw quad
+// rows (1 B per input byte, as a torch transpose of the [B, L] bytes left
+// them: 32 strings x 1 position per 32 B) and writes (KP + 1) * 4 / 32 B
+// per input byte.  Unlike K1, whose strings' bytes sit 4L apart in the
+// [B, L] input, row (l, m) holds 128 consecutive words of one position: a
+// contiguous 512-byte piece, which the kernel copies to shared memory with
+// cp.async.  The kernel is bitplane_pack_words.cuh's, shared with tpack
+// (B6).
 //
 // Layouts: quads [L_pad, 8, NWS, 128] int32 (row (l, m), word w holds the
 // bytes s = 0..3 of strings 4 * (w + NW * m) + s at position l); len_wb

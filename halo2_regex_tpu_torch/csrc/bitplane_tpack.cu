@@ -8,13 +8,10 @@
 //
 // What bounds it on the H100: device-memory bytes.  It reads 1 B per input
 // byte plus the length table and writes (KP + 1) * 4 / 32 B per input byte
-// (52 MiB in all at B=32768 x L=1024 for the from: model); the per-word bit
-// work (8 x 8 quad-bit extractions, the class circuit, 32 length compares)
-// is the other cost.  The tiled words are the raw quad rows with the word
-// group leading, so a warp's loads are contiguous 128-byte segments, as
-// for pack_raw: the kernel is bitplane_pack_words.cuh's with the tiled
-// strides.  At B=32768 there are only NWS = 8 word groups, so its grid also
-// splits L (64 tiles of 16 positions): 512 blocks for 132 SMs.
+// (52 MiB in all at B=32768 x L=1024 for the from: model).  The tiled
+// words are the raw quad rows with the word group leading: the same
+// 512-byte pieces, so the kernel is bitplane_pack_words.cuh's with the
+// tiled strides.
 //
 // Layouts: tiled [NWS, 8, L_pad, 128] int32; len_wb [NWS, 128, 32] int32;
 // out [L_pad, KP, NWS, 128] int32; en [NWS, L_pad, 128] int32.

@@ -607,8 +607,9 @@ def byte_planes_swar(rows: List[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def enable_runs(len_wb: torch.Tensor, L_pad: int) -> torch.Tensor:
-    """``enable_plane`` as K1 (``csrc/bitplane_pack.cu``) computes it: for
-    each 32 positions from l0, lane beta of a warp holds string beta's run mask
+    """``enable_plane`` as K1 (``csrc/bitplane_pack.cu``) and the quad-word
+    pack (``csrc/bitplane_pack_words.cuh``) compute it: for each 32
+    positions from l0, lane beta of a warp holds string beta's run mask
     (1 << clamp(len - l0, 0, 32)) - 1 (bit p: position l0 + p is below its
     length), and five shuffle rounds transpose the warp's 32 x 32 bits, so
     lane p holds the enable word of position l0 + p (round j swaps bit j
@@ -654,6 +655,49 @@ def qpack_tiles_plain(
     rows = [_to_int32(quads[m].t()).reshape(L, NW // LANE, LANE) for m in range(8)]
     bits_stack = _class_planes(plan, byte_planes_swar(rows))
     return bits_stack, enable_runs(len_wb, L) if plan.en_pack else None
+
+
+PW_TW = PW_TP = 32  # kPwTW, kPwTP of csrc/bitplane_pack_words.cuh: a tile's words, positions
+
+
+def pack_words_tiles_plain(
+    plan: BitplanePlan, quads: torch.Tensor, len_wb: torch.Tensor, tiled: bool = False
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``pack_plain``'s function (``tpack_plain``'s with ``tiled``: the
+    quads are then [NWS, 8, L_pad, LANE]) as the quad-word pack kernel
+    (``csrc/bitplane_pack_words.cuh``) computes it, for tests (no pipeline
+    calls it): each tile of ``PW_TW`` words x ``PW_TP`` positions is
+    staged from the flat quads by the kernel's strides (s_nws, s_m, s_l),
+    as 8 x 32 pieces of 32 words; lane = word, warp wp at positions wp + 8
+    u computes its word from the eight staged words (``byte_planes_swar``,
+    the class circuits); the enable plane is ``enable_runs``'s (the run
+    masks over each tile's 32 positions and the warp bit transpose).
+    Word-positions the mapping missed stay zero."""
+    dev = quads.device
+    if tiled:
+        NWS, _, L, _ = quads.shape
+        s_nws, s_m, s_l = 8 * L * LANE, L * LANE, LANE
+    else:
+        L, _, NWS, _ = quads.shape
+        s_nws, s_m, s_l = LANE, NWS * LANE, 8 * NWS * LANE
+    NW = NWS * LANE
+    n_pt = -(-L // PW_TP)
+    ar = torch.arange
+    # tile t = (word group, position tile); warp wp, step u: position wp + 8 u
+    t = ar(NW // PW_TW * n_pt, device=dev)[:, None, None, None]
+    wp, u = ar(8, device=dev)[:, None, None], ar(PW_TP // 8, device=dev)[:, None]
+    w0, l = t // n_pt * PW_TW, t % n_pt * PW_TP + wp + 8 * u  # [t, wp, u, 1]
+    w = w0 + ar(PW_TW, device=dev)  # [t, 1, 1, lane]
+    l, w = (x.reshape(-1) for x in torch.broadcast_tensors(l, w))
+    keep = l < L
+    l, w = l[keep], w[keep]
+    idx = ((w // LANE) * s_nws + w % LANE + l * s_l)[None, :] + ar(8, device=dev)[:, None] * s_m
+    q = quads.reshape(-1)[idx]  # [m, word-position]
+    cls = _class_planes(plan, byte_planes_swar(list(q.unbind(0))))  # [word-position, KP]
+    out = torch.zeros((L, cls.shape[1], NW), dtype=torch.int32, device=dev)
+    out[l, :, w] = cls
+    out = out.reshape(L, cls.shape[1], NWS, LANE)
+    return out, enable_runs(len_wb, L) if plan.en_pack else None
 
 
 def qpack(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):
@@ -861,6 +905,48 @@ def fb_only_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> t
     for d, c in enumerate(plan.circuits):
         for j in range(c.sb):
             x = _or_reduce(bnd & logs[:, plan.sb_off[d] + j], 1)
+            fb[:, d, j] = x | empty if plan.first_bit(d, j) else x
+    return fb
+
+
+FB_WORDS, FB_GROUPS, FB_PER = 8, 32, 4  # kWords, kGroups, kPer of csrc/bitplane_fb.cu
+
+
+def fb_blocks_plain(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """``fb_only_plain``'s function as the B4 kernel (``csrc/bitplane_fb.cu``)
+    computes it, for tests (no pipeline calls it): a cluster of CS =
+    min(8, ceil(L / 128)) blocks owns 8 words; thread (word wl, group pg)
+    of rank k ORs bnd & log over its 4 positions k * 128 + 4 pg + i * CS *
+    128 + (0..3); lanes (pg % 4) * 8 + wl of warp pg // 4 meet by the
+    shuffle rounds xor 8 and xor 16, lanes 0..7 of the eight warps in
+    shared memory, the ranks in rank 0, which adds the empty-string term
+    (~en[0] on each first-state bit) and maps log planes to the [n_defs,
+    8] slots."""
+    NWS, SB, L, _ = logs.shape
+    step = FB_GROUPS * FB_PER
+    CS = min(8, -(-L // step))
+    n_i = -(-L // (CS * step))
+    Lp = n_i * CS * step
+    dev = logs.device
+    e = torch.zeros((NWS, Lp + 1, LANE), dtype=torch.int32, device=dev)
+    e[:, :L] = en
+    bnd = e[:, :Lp] & ~e[:, 1:]  # thread-local: its positions' enable words and the next
+    lg = torch.zeros((NWS, SB, Lp, LANE), dtype=torch.int32, device=dev)
+    lg[:, :, :L] = logs
+    # l = ((i * CS + rank) * 32 + pg) * 4 + p, pg = 4 warp + lane // 8; word = 8 block + wl
+    terms = (bnd[:, None] & lg).reshape(NWS, SB, n_i, CS, 8, 4, FB_PER, LANE // 8, 8)
+    acc = _or_reduce(_or_reduce(terms, 6), 2)  # [nws, j, rank, warp, lane // 8, block, wl]
+    acc = acc.permute(0, 1, 2, 5, 3, 4, 6).reshape(NWS, SB, CS, LANE // 8, 8, 32)
+    lane = torch.arange(32, device=dev)
+    for x in (8, 16):
+        acc = acc | acc[..., lane ^ x]
+    part = _or_reduce(acc[..., :8], 4)  # lanes 0..7 of each warp, then the warps
+    allp = _or_reduce(part, 2).reshape(NWS, SB, LANE)  # rank 0 reads every rank's
+    empty = ~en[:, 0]
+    fb = torch.zeros((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
+    for d, c in enumerate(plan.circuits):
+        for j in range(c.sb):
+            x = allp[:, plan.sb_off[d] + j]
             fb[:, d, j] = x | empty if plan.first_bit(d, j) else x
     return fb
 

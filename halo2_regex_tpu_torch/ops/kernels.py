@@ -35,9 +35,10 @@ installed package.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (``torch.zeros`` where the kernel ORs into
-them) unless the caller passes them, launches on the current stream
-without synchronising, raises if ``cudaGetLastError`` reports a failed
-launch, and adds one to its kernel's ``launches`` count.  Nothing here
+them: the witness posts' ``fb``) unless the caller passes them, launches
+on the current stream without synchronising, raises if
+``cudaGetLastError`` reports a failed launch, and adds one to its
+kernel's ``launches`` count.  Nothing here
 runs on the CPU: the plain versions live in :mod:`.bitplane` and
 :mod:`.pallas_scan`.
 """
@@ -894,13 +895,13 @@ def decode_cuda(plan: BitplanePlan, g4: torch.Tensor, ch_l4: torch.Tensor) -> to
 
 
 def fb_only_cuda(plan: BitplanePlan, logs: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
-    """B4 (``csrc/bitplane_fb.cu``): same contract as ``fb_only_plain``.
-    The kernel ORs partial reductions into the output, so it starts at 0."""
+    """B4 (``csrc/bitplane_fb.cu``): same contract as ``fb_only_plain``;
+    one launch, each output word written once."""
     NWS = _check_logs_en(plan, logs, en)
     lib = build(plan)
     dev = logs.device
     with torch.cuda.device(dev):
-        fb = torch.zeros((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
+        fb = torch.empty((NWS, plan.n_defs, 8, LANE), dtype=torch.int32, device=dev)
         _launch(FB_ONLY, lib.h2r_fb_only, logs.data_ptr(), en.data_ptr(), fb.data_ptr(),
                 NWS, plan.L_pad, _stream(logs))
     return fb

@@ -12,25 +12,27 @@ timed in turns, old, new, new, old (CUDA events, L2 flushed;
 chip_smoke's ``time_ms``: device-only windows for kernels, a caller's
 window for walls).
 
-Kernels, on the zk-email ``from:`` model at bench.py's shape (B=32768 x
-L=1024, bench.py's corpus):
-  qpack     K1 in each mode: binary and one-hot class planes, class stage
-            off, en_pack off; the new one against its variants
-            (``QPACK_VARIANTS``: copies of ``csrc/`` with one edit); and at
-            L=36 (where 16-byte loads do not fit), old against new and the
-            new kernel's 4-byte loads against its byte loads;
-  table_fsm  the one-pass mask FSMs of pallas_from (both directions; the
-            new kernel's backward codes in shared memory and in a global
-            scratch) on the planes of the tag kernel;
-  pack_raw, tpack, scan_fpack, post_tiled  the kernels that share K1's
-            byte-plane helper (``h2r_byte_planes``), each in its path's
-            mode.
-ptxas' registers, shared memory and spills of qpack's and the one-pass
-FSM's entries.
+Kernels, on the zk-email ``from:`` model with bench.py's corpus, at
+B=32768 and at B=4096 (its first strings):
+  pack_raw  B5 (``csrc/bitplane_pack_words.cuh``) at L=1000 (L_pad 1024,
+            the L1000 path) in each mode: binary and one-hot class
+            planes, class stage off, en_pack off; binary with qpack=False
+            at L=1024;
+  tpack     B6 (the same kernel, tiled strides) on ``tile_corpus`` output
+            at L=1024 in its three class-stage modes;
+  fb_only   B4 (``csrc/bitplane_fb.cu``) on the match path's log and
+            enable planes at L=1024, and at L=1000 (the log planes of
+            the L1000 path);
+and each new kernel against its variants (``PACK_VARIANTS``,
+``FB_VARIANTS``: copies of ``csrc/`` with one edit; those in
+``TIMING_ONLY`` compute something else and are timed, not checked), and
+without the L2 flush.
+ptxas' registers, shared memory and spills, and the SASS instruction
+counts, of both kernels, old and new.
 
-Walls, old package against new, with equal outputs, 30 runs each:
-witness, witness_direct, match, full, tiled_witness, L1000 witness
-(pack_raw), pallas_from (B=32768) and pallas_large (BASELINE configs[3]).
+Walls, old package against new, with equal outputs, 30 runs each, at
+B=32768 and B=4096: match, tiled_match, tiled_witness, L1000 witness
+(pack_raw) and witness (no kernel of this PR on its path).
 
 The record goes to ``chiprun_out/kernel_ab.json``; the last line is a
 JSON summary.  Imports nothing of JAX.
@@ -53,8 +55,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 WALL_ITERS = 30  # the walls move with the host: more runs than a kernel's 10
-QPACK_MODES = {"binary": {}, "onehot": dict(class_stage="onehot"),
-               "off": dict(class_stage=False), "en_off": dict(en_pack=False)}
+PACK_MODES = {"binary": {}, "onehot": dict(class_stage="onehot"),
+              "off": dict(class_stage=False), "en_off": dict(en_pack=False)}
+SIZES = (32768, 4096)  # the headline batch and the latency rows' (chip_smoke B_LATENCY)
 
 
 def import_old(old_pkg: Path):
@@ -102,12 +105,12 @@ class Pkgs:
         self.obp = importlib.import_module("h2r_old.ops.bitplane")
         self.oknobs = importlib.import_module("h2r_old.ops.knobs")
 
-    def plans(self, L, tiled=False, **kw):
-        """(old plan, new plan) of the from: model's witness path."""
+    def plans(self, L, tiled=False, columns="witness", **kw):
+        """(old plan, new plan) of the from: model's ``columns`` path."""
         out = []
         for pkg, bp, kn in ((self.old, self.obp, self.oknobs), (self.h2r, self.bp, self.knobs)):
             model = pkg.zoo.email_headers_model(max_chars_size=L, headers=("from",))
-            out.append(bp.make_plan(model, "witness", knobs=kn.BitplaneKnobs.from_env(**kw),
+            out.append(bp.make_plan(model, columns, knobs=kn.BitplaneKnobs.from_env(**kw),
                                     tiled=tiled))
         return tuple(out)
 
@@ -133,36 +136,59 @@ def variant_csrc(K, name: str, edits) -> Path:
     return var_dir
 
 
-# qpack's variants: four blocks an SM asked of the register allocator;
-# and, for timing only (their outputs are not qpack's), the kernel without
-# its global loads of the bytes and without its bit work
-QPACK_VARIANTS = {
-    "lb4": [("bitplane_pack.cu", "__launch_bounds__(THREADS, VEC == 0 ? 2 : 3)",
-             "__launch_bounds__(THREADS, 4)")],
-    "no_load": [("bitplane_pack.cu",
-                 "    if (l < L) u = __ldg(reinterpret_cast<const uint4*>(row + l));",
-                 "    u.x = (uint32_t)(size_t)row ^ (uint32_t)l;")],
-    "no_compute": [("bitplane_pack.cu",
-                    "    h2r_byte_planes(q, bb);\n    uint32_t cls[H2R_KP];\n"
-                    "    h2r_class(bb, cls);",
-                    "    uint32_t cls[H2R_KP];\n#pragma unroll\n"
-                    "    for (int k = 0; k < H2R_KP; ++k) cls[k] = q[k % 8];")],
+# the quad-word pack's variants: the tile's copies in one commit group and
+# in four (the kernel: two); three and two blocks an SM asked of the
+# register allocator; position tiles varying fastest in the grid; and, for
+# timing only (their outputs are not the pack's), the kernel without its
+# copies of the quads and without its bit work
+PACK_VARIANTS = {
+    "one_group": [("bitplane_pack_words.cuh", "constexpr int kPwGroups = 2;",
+                   "constexpr int kPwGroups = 1;")],
+    "four_groups": [("bitplane_pack_words.cuh", "constexpr int kPwGroups = 2;",
+                     "constexpr int kPwGroups = 4;")],
+    "lb3": [("bitplane_pack_words.cuh", "__launch_bounds__(kPwThreads, 4)",
+             "__launch_bounds__(kPwThreads, 3)")],
+    "lb2": [("bitplane_pack_words.cuh", "__launch_bounds__(kPwThreads, 4)",
+             "__launch_bounds__(kPwThreads, 2)")],
+    "positions_first": [
+        ("bitplane_pack_words.cuh", "const int w0 = blockIdx.x * kPwTW, l0 = blockIdx.y * kPwTP;",
+         "const int w0 = blockIdx.y * kPwTW, l0 = blockIdx.x * kPwTP;"),
+        ("bitplane_pack_words.cuh", "const dim3 grid(NW / kPwTW, (L + kPwTP - 1) / kPwTP);",
+         "const dim3 grid((L + kPwTP - 1) / kPwTP, NW / kPwTW);")],
+    "no_load": [("bitplane_pack_words.cuh",
+                 'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(dst), '
+                 '"l"(src) : "memory");',
+                 "(void)dst;")],
+    "no_compute": [("bitplane_pack_words.cuh",
+                    "      h2r_byte_planes(q, bb);\n      uint32_t cls[H2R_KP];\n"
+                    "      h2r_class(bb, cls);",
+                    "      uint32_t cls[H2R_KP];\n#pragma unroll\n"
+                    "      for (int i = 0; i < H2R_KP; ++i) cls[i] = q[i % 8];")],
 }
-QPACK_TIMING_ONLY = ("no_load", "no_compute")
-# the one-pass FSMs' loads: batches of 32 positions
-FSM_VARIANTS = {
-    "step32": [("table_fsm.cu", "constexpr int kPassStep = 16;", "constexpr int kPassStep = 32;")],
+# fb_only's variants: eight positions a thread (half the blocks), also at
+# four blocks an SM (one wave at B=32768); no cluster, one block over all
+# of L for its 8 words
+FB_VARIANTS = {
+    "per8": [("bitplane_fb.cu", "constexpr int kPer = 4;", "constexpr int kPer = 8;")],
+    "per8_lb4": [("bitplane_fb.cu", "constexpr int kPer = 4;", "constexpr int kPer = 8;"),
+                 ("bitplane_fb.cu", "__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 4)")],
+    "no_cluster": [("bitplane_fb.cu", "const int cs = min(kMaxCluster, (L + kStep - 1) / kStep);",
+                    "const int cs = 1;")],
 }
+TIMING_ONLY = ("no_load", "no_compute")
 
 
 def sass_counts(K, keys, kernel: str) -> list:
     """The SASS instruction count of each entry whose name holds
-    ``kernel`` in the libraries ``keys`` (cuobjdump), by opcode class."""
+    ``kernel`` in the libraries ``keys`` (cuobjdump), by opcode class;
+    each library's SASS goes to ``chiprun_out/sass/<key>.sass``."""
     cuobjdump = Path(K._nvcc()).parent / "cuobjdump"
     out = []
+    (ROOT / "chiprun_out" / "sass").mkdir(parents=True, exist_ok=True)
     for key in keys:
         so = Path(str(K.BUILD_LOG[key]["dir"])) / "libh2r.so"
         res = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True)
+        (ROOT / "chiprun_out" / "sass" / f"{key}.sass").write_text(res.stdout)
         fn, ops = None, {}
         for ln in res.stdout.splitlines():
             if "Function :" in ln:
@@ -184,258 +210,216 @@ def sass_counts(K, keys, kernel: str) -> list:
     return out
 
 
-def qpack_ab(pk: Pkgs, cs, dev, card, flush, chars, len_wb) -> dict:
-    """qpack, old against new, in each mode; the new one against its
-    variants, and without the L2 flush; at L=36, old against new and the
-    load instances (``vec`` 1 against 0) of the new one."""
+def no_flush_ms(cs, fn, dev, name, card) -> float:
+    """``fn``'s median device time with the L2 left as the last run left
+    it (no flush before each run)."""
+    t = cs.time_ms(fn, torch.empty(1, dtype=torch.uint8, device=dev), device_only=True)
+    print(f"{name}, new, without the L2 flush: {cs.fmt(t)}; card {card}", flush=True)
+    return t["median"]
+
+
+def build_variants(K, plan, kernel, source, variants) -> dict:
+    """Each variant's library (``source`` alone, for ``kernel``) of
+    ``plan``'s generated header, built at once."""
+    header = K.circuits_header(plan)
+    dirs = {name: variant_csrc(K, f"{kernel.name}_{name}", edits)
+            for name, edits in variants.items()}
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        jobs = {name: pool.submit(K._build_library, (source,), (kernel,), K.HEADERS, header, d)
+                for name, d in dirs.items()}
+        return {name: j.result() for name, j in jobs.items()}
+
+
+def pack_ab(pk: Pkgs, cs, dev, card, flush, corpora) -> dict:
+    """pack_raw and tpack, old against new, in each mode at both batch
+    sizes; the new kernel against its variants at B=32768."""
     K, old_k, bp = pk.K, pk.old_k, pk.bp
-    plans = {mode: pk.plans(cs.L, **kw) for mode, kw in QPACK_MODES.items()}
-    pn = plans["binary"][1]
-    header = K.circuits_header(pn)
-    var_dirs = {name: variant_csrc(K, f"qpack_{name}", edits)
-                for name, edits in QPACK_VARIANTS.items()}
+    cases = {}  # name -> (kernel, old plan, new plan, L)
+    for mode, kw in PACK_MODES.items():
+        cases[f"pack_raw {mode} L=1000"] = (K.PACK_RAW, *pk.plans(cs.L_UNPADDED, **kw),
+                                            cs.L_UNPADDED)
+    cases["pack_raw binary qpack=False L=1024"] = (K.PACK_RAW, *pk.plans(cs.L, qpack=False),
+                                                   cs.L)
+    for mode in ("binary", "onehot", "off"):
+        cases[f"tpack {mode}"] = (K.TPACK, *pk.plans(cs.L, tiled=True, **PACK_MODES[mode]),
+                                  cs.L)
     before, before_old = set(K.BUILD_LOG), set(old_k.BUILD_LOG)
     with ThreadPoolExecutor(12) as pool:
-        jobs = [pool.submit(k.build, p) for po, pn_ in plans.values()
-                for k, p in ((old_k, po), (K, pn_))]
-        var_jobs = {name: pool.submit(K._build_library, ("bitplane_pack.cu",), (K.QPACK,),
-                                      K.HEADERS, header, d) for name, d in var_dirs.items()}
-        for j in jobs:
+        for j in [pool.submit(k.build, p) for _k, po, pn, _L in cases.values()
+                  for k, p in ((old_k, po), (K, pn))]:
             j.result()
-        var_libs = {name: j.result() for name, j in var_jobs.items()}
-    rec = {"ptxas": ptxas_of(K, sorted(set(K.BUILD_LOG) - before), "qpack_kernel")}
+    pn_raw = cases["pack_raw binary L=1000"][2]
+    var_libs = build_variants(K, pn_raw, K.PACK_RAW, "bitplane_pack_raw.cu", PACK_VARIANTS)
+    new_keys = sorted(set(K.BUILD_LOG) - before)
+    rec = {"ptxas": ptxas_of(K, new_keys, "pack_words_kernel"),
+           "ptxas_old": ptxas_of(old_k, sorted(set(old_k.BUILD_LOG) - before_old),
+                                 "pack_words_kernel")}
     for ln in rec["ptxas"]:
-        print(f"ptxas (qpack): {ln}", flush=True)
-    # the 16-byte-load instance of every mode and variant, and the old kernel
-    rec["sass"] = (sass_counts(K, sorted(set(K.BUILD_LOG) - before), "qpack_kernelILi2E")
+        print(f"ptxas (pack_words): {ln}", flush=True)
+    for ln in rec["ptxas_old"]:
+        print(f"ptxas (pack_words, old): {ln}", flush=True)
+    rec["sass"] = (sass_counts(K, new_keys, "pack_words_kernel")
                    + sass_counts(old_k, sorted(set(old_k.BUILD_LOG) - before_old),
-                                 "qpack_kernel"))
-    B, L = chars.shape
-    for mode, (po, pn_) in plans.items():
-        want = bp.qpack_plain(pn_, chars, len_wb)
+                                 "pack_words_kernel"))
+    for B in SIZES:
+        chars_np, lengths_np = (a[:B] for a in corpora[cs.L])
+        raw_np, raw_len = (a[:B] for a in corpora[cs.L_UNPADDED])
+        ins = {}
+        for Lc, (c_np, l_np) in ((cs.L, (chars_np, lengths_np)),
+                                 (cs.L_UNPADDED, (raw_np, raw_len))):
+            ch = torch.from_numpy(c_np).to(dev)
+            ins[Lc] = (ch, bp.len_table(torch.from_numpy(l_np).to(dev)))
+        tiled = torch.from_numpy(bp.tile_corpus(chars_np, cs.L)).to(dev)
+        for name, (k, po, pn, Lc) in cases.items():
+            ch, lw = ins[Lc]
+            if k is K.TPACK:
+                x = tiled
+                want = bp.tpack_plain(pn, x, lw)
 
-        def run_old(po=po):
-            return old_k.qpack_cuda(po, chars, len_wb)
+                def run_old(po=po, x=x, lw=lw):
+                    return old_k.tpack_cuda(po, x, lw)
 
-        def run_new(pn_=pn_):
-            return K.qpack_cuda(pn_, chars, len_wb)
+                def run_new(pn=pn, x=x, lw=lw):
+                    return K.tpack_cuda(pn, x, lw)
+            else:
+                x = bp.raw_quads(ch, pn.L_pad)
+                want = bp.pack_plain(pn, x, lw)
 
-        check(cs, f"qpack {mode} old", run_old(), want)
-        check(cs, f"qpack {mode} new", run_new(), want)
-        bound = cs.bound(B * L + cs.nbytes(len_wb) + L * (B // 32) * 4 * (pn_.kp + pn_.en_pack),
-                         sum(c.class_prog.n_ops for c in pn_.circuits) * L * (B // 32))
-        rec[mode] = in_turns(cs, f"qpack {mode} (KP={pn_.kp}, B={B} x L={L}; bound "
-                             f"{bound['bound_ms']:.4f} ms by {bound['bound_by']})", run_old,
-                             run_new, flush, card)
-        rec[mode]["bound_ms"] = bound["bound_ms"]
-        del want
+                def run_old(po=po, x=x, lw=lw):
+                    return old_k.pack_raw_cuda(po, x, lw)
 
-    def run_new():
-        return K.qpack_cuda(pn, chars, len_wb)
-
-    def with_lib(lib, plan=pn, ch=chars, lw=len_wb, vec=2):
-        def go():
-            Bc, Lc = ch.shape
-            bits = torch.empty((Lc, plan.kp, Bc // 4096, 128), dtype=torch.int32, device=dev)
-            en = torch.empty((Bc // 4096, Lc, 128), dtype=torch.int32, device=dev)
-            err = lib.h2r_qpack(ch.data_ptr(), lw.data_ptr(), bits.data_ptr(), en.data_ptr(),
-                                Bc, Lc, vec, torch.cuda.current_stream().cuda_stream)
-            assert err == 0, err
-            return bits, en
-        return go
-
-    want = bp.qpack_plain(pn, chars, len_wb)
-    for name, lib in var_libs.items():
-        if name not in QPACK_TIMING_ONLY:
-            check(cs, f"qpack variant {name}", with_lib(lib)(), want)
-        rec[f"binary_{name}"] = in_turns(
-            cs, f"qpack binary: the kernel as old, variant {name} as new", run_new, with_lib(lib),
-            flush, card)
-    del want
-    no_flush = torch.empty(1, dtype=torch.uint8, device=dev)
-    t = cs.time_ms(run_new, no_flush, device_only=True)
-    rec["binary_no_flush"] = t["median"]
-    print(f"qpack binary without the L2 flush: {cs.fmt(t)}; card {card}", flush=True)
-
-    # L=36: 4-byte loads where the rows are 4-byte aligned, else byte loads
-    c36, n36 = (torch.from_numpy(a).to(dev) for a in cs.bench_corpus(B, 36))
-    lw36 = bp.len_table(n36)
-    po36, pn36 = pk.plans(36)
-    want = bp.qpack_plain(pn36, c36, lw36)
-    by_vec = {v: with_lib(K.build(pn36), pn36, c36, lw36, v) for v in (0, 1)}
-    for v, fn in by_vec.items():
-        check(cs, f"qpack L=36 vec {v}", fn(), want)
-    check(cs, "qpack L=36 old", old_k.qpack_cuda(po36, c36, lw36), want)
-    rec["L36"] = in_turns(cs, f"qpack binary at B={B} x L=36", lambda: old_k.qpack_cuda(
-        po36, c36, lw36), lambda: K.qpack_cuda(pn36, c36, lw36), flush, card)
-    rec["L36_vec1_vs_vec0"] = in_turns(
-        cs, f"qpack binary at B={B} x L=36: byte loads (vec 0) as old, 4-byte loads (vec 1) "
-        "as new", by_vec[0], by_vec[1], flush, card)
+                def run_new(pn=pn, x=x, lw=lw):
+                    return K.pack_raw_cuda(pn, x, lw)
+            check(cs, f"{name} old", run_old(), want)
+            check(cs, f"{name} new", run_new(), want)
+            words = B // 32
+            bound = cs.bound(cs.nbytes(x) + cs.nbytes(lw) * pn.en_pack
+                             + pn.L_pad * words * 4 * (pn.kp + pn.en_pack),
+                             sum(c.class_prog.n_ops for c in pn.circuits) * pn.L_pad * words
+                             * bool(pn.class_stage))
+            key = f"{name} B={B}"
+            rec[key] = in_turns(cs, f"{key} (KP={pn.kp}; bound {bound['bound_ms']:.4f} ms by "
+                                f"{bound['bound_by']})", run_old, run_new, flush, card)
+            rec[key]["bound_ms"] = bound["bound_ms"]
+            if name == "pack_raw binary L=1000":
+                rec[f"{key} no_flush"] = no_flush_ms(cs, run_new, dev, key, card)
+                for vname, lib in var_libs.items():
+                    def run_var(lib=lib, x=x, lw=lw):
+                        bits = torch.empty_like(want[0])
+                        en = torch.empty_like(want[1])
+                        err = lib.h2r_pack_raw(x.data_ptr(), lw.data_ptr(), bits.data_ptr(),
+                                               en.data_ptr(), B // 32, pn.L_pad,
+                                               torch.cuda.current_stream().cuda_stream)
+                        assert err == 0, err
+                        return bits, en
+                    if vname not in TIMING_ONLY:
+                        check(cs, f"pack_raw variant {vname}", run_var(), want)
+                    rec[f"{key} {vname}"] = in_turns(
+                        cs, f"{key}: the kernel as old, variant {vname} as new", run_new,
+                        run_var, flush, card)
+            del want
     return rec
 
 
-def fsm_ab(pk: Pkgs, cs, dev, card, flush, chars, lengths) -> dict:
-    """The one-pass FSMs of pallas_from, old (a launch a direction)
-    against new (one launch, the codes in shared memory; and in a global
-    scratch); each direction alone; the new one against its look-ahead
-    variants."""
-    K, old_k = pk.K, pk.old_k
-    ps = importlib.import_module("halo2_regex_tpu_torch.ops.pallas_scan")
-    var_dirs = {name: variant_csrc(K, f"fsm_{name}", edits)
-                for name, edits in FSM_VARIANTS.items()}
+def fb_ab(pk: Pkgs, cs, dev, card, flush, corpora) -> dict:
+    """fb_only, old against new, on the match path's planes at both batch
+    sizes (L=1024, and L=1000's L_pad 1024 with its shorter strings); the
+    new kernel against its variants."""
+    K, old_k, bp = pk.K, pk.old_k, pk.bp
+    plans = {Lc: pk.plans(Lc, columns="match") for Lc in (cs.L, cs.L_UNPADDED)}
     before, before_old = set(K.BUILD_LOG), set(old_k.BUILD_LOG)
     with ThreadPoolExecutor(4) as pool:
-        jobs = [pool.submit(k.build_tables) for k in (K, old_k)]
-        var_jobs = {name: pool.submit(K._build_library, ("table_fsm.cu",), (K.TABLE_FSM,), (),
-                                      None, d) for name, d in var_dirs.items()}
-        for j in jobs:
+        for j in [pool.submit(k.build, p) for po, pn in plans.values()
+                  for k, p in ((old_k, po), (K, pn))]:
             j.result()
-        var_libs = {name: j.result() for name, j in var_jobs.items()}
-    rec = {"ptxas": ptxas_of(K, set(K.BUILD_LOG) - before, "table_fsm_pass_kernel")}
-    for ln in rec["ptxas"]:
-        print(f"ptxas (table_fsm one pass): {ln}", flush=True)
-    rec["sass"] = (sass_counts(K, sorted(set(K.BUILD_LOG) - before), "table_fsm_pass_kernel")
-                   + sass_counts(old_k, sorted(set(old_k.BUILD_LOG) - before_old),
-                                 "table_fsm_pass_kernel"))
-    m = pk.h2r.PallasMatcher(pk.h2r.zoo.email_headers_model(max_chars_size=cs.L,
-                                                            headers=("from",)))
-    _st, ids, sta, ef, _f, _b = m.run_planes(chars, lengths)
-    B, L = chars.shape
-    if K.table_fsm_form(B, dev) or old_k.table_fsm_form(B, dev):
-        raise AssertionError(f"B={B}: the FSMs no longer take their one-pass form")
-    want = (torch.empty_like(_f), torch.empty_like(_b))
-    ps.fsm_plain(False, ids, sta, ef, None, None, None, 0, L, want[0])
-    ps.fsm_plain(True, ids, sta, ef, None, None, None, 0, L, want[1])
-    def with_k(k, dirs=3, lib=None, smem_ls=None):
-        """``k``'s one-pass FSMs; ``lib``: a variant's library; ``smem_ls``:
-        0 puts the backward codes in the global scratch."""
-        def go():
-            f = torch.empty_like(want[0]) if dirs & 1 else None
-            b = torch.empty_like(want[1]) if dirs & 2 else None
-            saved = k.build_tables
-            if lib is not None:
-                k.build_tables = lambda: lib
-            if smem_ls is not None:
-                saved_ls, k.TABLE_FSM_SMEM_LS = k.TABLE_FSM_SMEM_LS, smem_ls
-            try:
-                k.table_fsms_cuda(ids, sta, ef, 0, L, f, b, cl=0)
-            finally:
-                k.build_tables = saved
-                if smem_ls is not None:
-                    k.TABLE_FSM_SMEM_LS = saved_ls
-            return tuple(x for x in (f, b) if x is not None)
-        return go
+    var_libs = build_variants(K, plans[cs.L][1], K.FB_ONLY, "bitplane_fb.cu", FB_VARIANTS)
+    new_keys = sorted(set(K.BUILD_LOG) - before)
+    rec = {"ptxas": ptxas_of(K, new_keys, "fb_kernel"),
+           "ptxas_old": ptxas_of(old_k, sorted(set(old_k.BUILD_LOG) - before_old), "fb_kernel")}
+    for ln in rec["ptxas"] + rec["ptxas_old"]:
+        print(f"ptxas (fb_kernel): {ln}", flush=True)
+    rec["sass"] = (sass_counts(K, new_keys, "fb_kernel")
+                   + sass_counts(old_k, sorted(set(old_k.BUILD_LOG) - before_old), "fb_kernel"))
+    for B in SIZES:
+        for Lc, (po, pn) in plans.items():
+            c_np, l_np = (a[:B] for a in corpora[Lc])
+            ch = torch.from_numpy(c_np).to(dev)
+            lw = bp.len_table(torch.from_numpy(l_np).to(dev))
+            bits, en = (bp.qpack(pn, ch, lw) if pn.qpack
+                        else bp.pack(pn, bp.raw_quads(ch, pn.L_pad), lw))
+            logs = K.scan_cuda(pn, bits)
+            want = bp.fb_only_plain(pn, logs, en)
 
-    def want_of(dirs):
-        return tuple(w for i, w in enumerate(want) if dirs >> i & 1)
+            def run_old(po=po, logs=logs, en=en):
+                return old_k.fb_only_cuda(po, logs, en)
 
-    run_old, run_new = with_k(old_k), with_k(K)
-    runs = {"old": run_old, "new": run_new, "new, global codes": with_k(K, smem_ls=0)}
-    runs.update({f"new {n}": with_k(K, lib=lib) for n, lib in var_libs.items()})
-    for name, fn in runs.items():
-        check(cs, f"table_fsm {name}", fn(), want)
-    for d in (1, 2):
-        for k in (old_k, K):
-            check(cs, f"table_fsm dirs={d}", with_k(k, d)(), want_of(d))
-    bound = cs.bound(3 * cs.nbytes(ids) + 2 * L * B * 4, 2 * L * B * (3 * m.n_defs + 6))
-    rec["pallas_from"] = in_turns(
-        cs, f"table_fsm one pass, pallas_from (B={B} x L={L}; bound {bound['bound_ms']:.4f} ms "
-        f"by {bound['bound_by']})", run_old, run_new, flush, card)
-    rec["pallas_from"]["bound_ms"] = bound["bound_ms"]
-    for name in runs:
-        if name != "old" and name != "new":
-            rec[f"pallas_from ({name})"] = in_turns(
-                cs, f"table_fsm one pass, pallas_from: the kernel as old, {name} as new",
-                run_new, runs[name], flush, card)
-    for d, what in ((1, "forward"), (2, "backward")):
-        rec[f"pallas_from_{what}"] = in_turns(
-            cs, f"table_fsm one pass, pallas_from, the {what} FSM alone", with_k(old_k, d),
-            with_k(K, d), flush, card)
+            def run_new(pn=pn, logs=logs, en=en):
+                return K.fb_only_cuda(pn, logs, en)
+
+            check(cs, f"fb_only L={Lc} old", run_old(), want)
+            check(cs, f"fb_only L={Lc} new", run_new(), want)
+            bound = cs.fb_bound(pn, en)
+            key = f"fb_only L={Lc} B={B}"
+            rec[key] = in_turns(cs, f"{key} (bound {bound['bound_ms']:.4f} ms by "
+                                f"{bound['bound_by']})", run_old, run_new, flush, card)
+            rec[key]["bound_ms"] = bound["bound_ms"]
+            if Lc == cs.L:
+                rec[f"{key} no_flush"] = no_flush_ms(cs, run_new, dev, key, card)
+                for vname, lib in var_libs.items():
+                    def run_var(lib=lib, logs=logs, en=en):
+                        fb = torch.empty_like(want)
+                        err = lib.h2r_fb_only(logs.data_ptr(), en.data_ptr(), fb.data_ptr(),
+                                              B // 4096, Lc,
+                                              torch.cuda.current_stream().cuda_stream)
+                        assert err == 0, err
+                        return fb
+                    check(cs, f"fb_only variant {vname}", run_var(), want)
+                    rec[f"{key} {vname}"] = in_turns(
+                        cs, f"{key}: the kernel as old, variant {vname} as new", run_new,
+                        run_var, flush, card)
+            del want, bits, en, logs
     return rec
 
 
-def helpers_ab(pk: Pkgs, cs, dev, card, flush, chars_np, chars, len_wb) -> dict:
-    """The kernels that share K1's byte-plane helper, old against new, each
-    against its plain version."""
-    K, old_k, bp = pk.K, pk.old_k, pk.bp
-    B, L = chars.shape
-    raw = pk.plans(L, qpack=False)
-    tiled = pk.plans(L, tiled=True)
-    fpack = pk.plans(L, fuse_pack=True)
-    main = pk.plans(L)[1]
-    with ThreadPoolExecutor(6) as pool:
-        for j in [pool.submit(k.build, p) for pair in (raw, tiled, fpack)
-                  for k, p in zip((old_k, K), pair)]:
-            j.result()
-    quads = bp.raw_quads(chars, L)
-    tl = torch.from_numpy(bp.tile_corpus(chars_np, L)).to(dev)
-    bits, en = K.qpack_cuda(main, chars, len_wb)
-    logs = K.scan_cuda(main, bits)
-    cases = {
-        "pack_raw": (lambda k, p: k.pack_raw_cuda(p, quads, len_wb), raw,
-                     lambda p: bp.pack_plain(p, quads, len_wb)),
-        "tpack": (lambda k, p: k.tpack_cuda(p, tl, len_wb), tiled,
-                  lambda p: bp.tpack_plain(p, tl, len_wb)),
-        "scan_fpack": (lambda k, p: k.scan_fpack_cuda(p, quads), fpack,
-                       lambda p: bp.scan_fpack_plain(p, quads)),
-        "post_tiled": (lambda k, p: k.post_tiled_cuda(p, logs, en, tl), tiled,
-                       lambda p: bp.post_plain(p, logs, en, tl)),
-    }
-    rec = {}
-    for name, (run, (po, pn), plain) in cases.items():
-        want = plain(pn)
-        check(cs, f"{name} old", run(old_k, po), want)
-        check(cs, f"{name} new", run(K, pn), want)
-        del want
-        rec[name] = in_turns(cs, f"{name} (B={B} x L={L})", lambda r=run, p=po: r(old_k, p),
-                             lambda r=run, p=pn: r(K, p), flush, card)
-    return rec
-
-
-def walls_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
+def walls_ab(pk: Pkgs, cs, dev, card, flush, corpora) -> dict:
     """End-to-end walls, old package against new, in turns, with equal
-    outputs."""
+    outputs, at both batch sizes."""
     h2r, old, K, old_k = pk.h2r, pk.old, pk.K, pk.old_k
-    model3, chars3_np, _ = cs.config3(h2r)
-    t3 = (torch.from_numpy(chars3_np).to(dev),
-          torch.full((cs.B3,), cs.L3, dtype=torch.int32, device=dev))
-    tf = tuple(torch.from_numpy(a).to(dev) for a in cs.bench_corpus(cs.B, cs.L))
-    tu = tuple(torch.from_numpy(a).to(dev) for a in cs.bench_corpus(cs.B, cs.L_UNPADDED))
-    tiled = torch.from_numpy(pk.bp.tile_corpus(tf[0].cpu().numpy(), cs.L)).to(dev)
 
     def from_model(p, length=cs.L):
         return p.zoo.email_headers_model(max_chars_size=length, headers=("from",))
 
     paths = {
-        "witness": (lambda p: p.BitplaneMatcher(from_model(p), columns="witness"), tf),
-        "witness_direct": (lambda p: p.BitplaneMatcher(from_model(p), columns="witness",
-                                                       emit="direct"), tf),
-        "match": (lambda p: p.BitplaneMatcher(from_model(p), columns="match"), tf),
-        "full": (lambda p: p.BitplaneMatcher(from_model(p)), tf),
+        "match": (lambda p: p.BitplaneMatcher(from_model(p), columns="match"), cs.L, False),
+        "tiled_match": (lambda p: p.BitplaneMatcher(from_model(p), columns="match",
+                                                    input_layout="tiled"), cs.L, True),
         "tiled_witness": (lambda p: p.BitplaneMatcher(from_model(p), columns="witness",
-                                                      input_layout="tiled"),
-                          (tiled, tf[1])),
+                                                      input_layout="tiled"), cs.L, True),
         "L1000": (lambda p: p.BitplaneMatcher(from_model(p, cs.L_UNPADDED), columns="witness"),
-                  tu),
-        "pallas_from": (lambda p: p.PallasMatcher(from_model(p)), tf),
-        "pallas_large": (lambda p: p.PallasMatcher(model3, max_pairs=4096), t3),
+                  cs.L_UNPADDED, False),
+        "witness": (lambda p: p.BitplaneMatcher(from_model(p), columns="witness"), cs.L, False),
     }
-    built = {name: (make(old), make(h2r)) for name, (make, _io) in paths.items()}
-    with ThreadPoolExecutor(8) as pool:  # every library of both packages at once
-        jobs = [pool.submit(k.build_tables) for k in (old_k, K)]
-        jobs += [pool.submit(k.build, m.plan) for pair in built.values()
-                 for m, k in zip(pair, (old_k, K)) if hasattr(m, "plan")]
-        for j in jobs:
+    built = {name: (make(old), make(h2r)) for name, (make, _L, _t) in paths.items()}
+    with ThreadPoolExecutor(10) as pool:  # every library of both packages at once
+        for j in [pool.submit(k.build, m.plan) for pair in built.values()
+                  for m, k in zip(pair, (old_k, K))]:
             j.result()
     out = {}
-    for name, (_make, (ch, ln)) in paths.items():
-        mo, mn = built[name]
-        a, b = mo(ch, ln), mn(ch, ln)
-        torch.cuda.synchronize()
-        cs.assert_same(f"{name} old vs new", b, a)
-        del a, b
-        out[name] = in_turns(cs, f"wall {name}", lambda: mo(ch, ln), lambda: mn(ch, ln), flush,
-                             card, device_only=False, iters=WALL_ITERS)
+    for B in SIZES:
+        for name, (_make, Lc, tiled) in paths.items():
+            c_np, l_np = (a[:B] for a in corpora[Lc])
+            ln = torch.from_numpy(l_np).to(dev)
+            ch = (torch.from_numpy(pk.bp.tile_corpus(c_np, Lc)).to(dev) if tiled
+                  else torch.from_numpy(c_np).to(dev))
+            mo, mn = built[name]
+            a, b = mo(ch, ln), mn(ch, ln)
+            torch.cuda.synchronize()
+            cs.assert_same(f"{name} old vs new", b, a)
+            del a, b
+            out[f"{name} B={B}"] = in_turns(
+                cs, f"wall {name} B={B}", lambda mo=mo, ch=ch, ln=ln: mo(ch, ln),
+                lambda mn=mn, ch=ch, ln=ln: mn(ch, ln), flush, card, device_only=False,
+                iters=WALL_ITERS)
     return out
 
 
@@ -445,7 +429,7 @@ def main() -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True,
                     help="directory of the earlier halo2_regex_tpu_torch/ package")
-    ap.add_argument("--only", default="qpack,fsm,helpers,walls",
+    ap.add_argument("--only", default="pack,fb,walls",
                     help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -462,19 +446,15 @@ def main() -> dict:
     print(f"card: {card}", flush=True)
     rec: dict = {"card": card, "versions": cs.versions()}
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
-    chars_np, lengths_np = cs.bench_corpus(cs.B, cs.L)
-    chars, lengths = (torch.from_numpy(a).to(dev) for a in (chars_np, lengths_np))
-    len_wb = pk.bp.len_table(lengths)
+    corpora = {Lc: cs.bench_corpus(cs.B, Lc) for Lc in (cs.L, cs.L_UNPADDED)}
     parts = set(args.only.split(","))
     out = {}
-    if "qpack" in parts:
-        out["qpack"] = qpack_ab(pk, cs, dev, card, flush, chars, len_wb)
-    if "fsm" in parts:
-        out["table_fsm"] = fsm_ab(pk, cs, dev, card, flush, chars, lengths)
-    if "helpers" in parts:
-        out["helpers"] = helpers_ab(pk, cs, dev, card, flush, chars_np, chars, len_wb)
+    if "pack" in parts:
+        out["pack"] = pack_ab(pk, cs, dev, card, flush, corpora)
+    if "fb" in parts:
+        out["fb_only"] = fb_ab(pk, cs, dev, card, flush, corpora)
     if "walls" in parts:
-        out["walls"] = walls_ab(pk, cs, dev, card, flush)
+        out["walls"] = walls_ab(pk, cs, dev, card, flush, corpora)
     rec["ab"] = out
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:

@@ -11,6 +11,8 @@ machine need not have; this file imports no JAX.)  Bit-exact: integer
 outputs, tolerance 0.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1001,3 +1003,125 @@ def test_qpack_on_two_devices(dev):
         kb, ke = kernels.qpack_cuda(plan, ch, lw)
         torch.cuda.synchronize(d)
         assert kb.device == ch.device and torch.equal(kb, bits) and torch.equal(ke, en), d
+
+
+# ---------------------------------------------------------------------------
+# the quad-word pack (B5 pack_raw, B6 tpack: csrc/bitplane_pack_words.cuh)
+# and B4 fb_only, at both batch sizes
+# ---------------------------------------------------------------------------
+
+PACK_MODES = [{}, dict(class_stage="onehot"), dict(class_stage=False), dict(en_pack=False)]
+
+
+def _edge_corpus(n, L, seed):
+    """``_corpus`` with the lengths 0, 31, 32, 33 and L among the first."""
+    chars, lengths = _corpus(n, L, seed)
+    lengths[:64] = np.resize(np.array([0, 31, 32, 33, L], np.int32), 64)
+    return chars, lengths
+
+
+@pytest.mark.parametrize("B", [4096, 32768])
+@pytest.mark.parametrize("L,offset", [(1000, 0), (1024, 0), (36, 0), (100, 0), (100, 1)])
+def test_pack_raw_modes_at_shapes(dev, B, L, offset):
+    """B5 in all four modes (binary, one-hot, class stage off, en_pack off)
+    at B=4096 (NWS = 1) and B=32768, at L = 1000 (L_pad 1024) and with
+    qpack=False at L = 1024, 36 and 100 (partial tiles), and on quads one
+    int32 past a 16-byte boundary (4-byte copies), against ``pack_plain``;
+    one launch a call."""
+    model = _model("from", L)
+    chars, lengths = _edge_corpus(B, L, 31)
+    ch = torch.from_numpy(chars).to(dev)
+    lw = bp.len_table(torch.from_numpy(lengths).to(dev))
+    for kw in PACK_MODES:
+        plan = bp.make_plan(model, "witness", knobs=_knobs(qpack=False, **kw))
+        assert not plan.qpack and kernels.path_launches(plan)[kernels.PACK_RAW] == 1
+        quads = bp.raw_quads(ch, plan.L_pad)
+        if offset:
+            buf = torch.empty(quads.numel() + offset, dtype=torch.int32, device=dev)
+            moved = buf[offset:].view(quads.shape)
+            moved.copy_(quads)
+            quads = moved
+            assert quads.data_ptr() % 16
+        bits, en = bp.pack_plain(plan, quads, lw)
+        kernels.reset_launch_counts()
+        kb, ke = kernels.pack_raw_cuda(plan, quads, lw)
+        torch.cuda.synchronize()
+        assert kernels.PACK_RAW.launches == 1
+        assert torch.equal(kb, bits), kw
+        assert (ke is None) == (en is None) == ("en_pack" in kw)
+        if en is not None:
+            assert torch.equal(ke, en), kw
+
+
+@pytest.mark.parametrize("B", [4096, 32768])
+@pytest.mark.parametrize("L", [1024, 1000, 36, 100])
+def test_tpack_modes_at_shapes(dev, B, L):
+    """B6 in its three class-stage modes on ``tile_corpus`` output at both
+    batch sizes, against ``tpack_plain`` and ``pack_plain`` on the same
+    strings' raw quad rows; one launch a call."""
+    model = _model("from", L)
+    chars, lengths = _edge_corpus(B, L, 33)
+    ch = torch.from_numpy(chars).to(dev)
+    lw = bp.len_table(torch.from_numpy(lengths).to(dev))
+    for kw in PACK_MODES[:3]:
+        plan = bp.make_plan(model, "witness", knobs=_knobs(**kw), tiled=True)
+        assert kernels.path_launches(plan)[kernels.TPACK] == 1
+        tiled = torch.from_numpy(bp.tile_corpus(chars, plan.L_pad)).to(dev)
+        bits, en = bp.tpack_plain(plan, tiled, lw)
+        kernels.reset_launch_counts()
+        kb, ke = kernels.tpack_cuda(plan, tiled, lw)
+        torch.cuda.synchronize()
+        assert kernels.TPACK.launches == 1
+        assert torch.equal(kb, bits) and torch.equal(ke, en), kw
+        rb, re_ = bp.pack_plain(plan, bp.raw_quads(ch, plan.L_pad), lw)
+        assert torch.equal(kb, rb) and torch.equal(ke, re_), kw
+
+
+@pytest.mark.parametrize("B", [4096, 32768])
+@pytest.mark.parametrize("name,L,first", [("from", 1024, None), ("from", 1000, None),
+                                          ("two_def", 36, None), ("two_def", 100, 0b10101),
+                                          ("two_def", 1024, None), ("from", 1024, 0b10101)])
+def test_fb_only_at_shapes(dev, B, name, L, first):
+    """B4 at both batch sizes (clusters of 8 blocks over L_pad = 1024, of
+    1 at L = 36 and 100), on a 2-def model too, with random log planes
+    and the enable plane of edge lengths, against ``fb_only_plain``; with
+    ``first``, the plan's first states set to 0b10101 (the compiled
+    models' are 0, so the empty-string term shows only there).  The
+    output lands in memory the allocator has just freed full of ones, so
+    every word must be written (no zero fill); one launch."""
+    plan = bp.make_plan(_model(name, L), "match")
+    if first is not None:
+        plan = dataclasses.replace(plan, first_states=(first,) * plan.n_defs)
+    _chars, lengths = _edge_corpus(B, L, 37)
+    NWS = B // bp.TILE
+    en = bp.enable_plane(bp.len_table(torch.from_numpy(lengths)), plan.L_pad).to(dev)
+    rng = np.random.default_rng(L)
+    logs = torch.from_numpy(rng.integers(-2**31, 2**31, size=(NWS, plan.sb_sum, plan.L_pad, 128))
+                            .astype(np.int32)).to(dev)
+    want = bp.fb_only_plain(plan, logs, en)
+    junk = torch.full_like(want, -1)
+    del junk
+    kernels.reset_launch_counts()
+    got = kernels.fb_only_cuda(plan, logs, en)
+    torch.cuda.synchronize()
+    assert kernels.FB_ONLY.launches == 1
+    assert torch.equal(got, want)
+
+
+def test_fb_only_runs_one_kernel(dev):
+    """A call of fb_only runs its kernel and nothing else on the card (no
+    zero fill of its output): the profiler's device events of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plan = bp.make_plan(_model("from", 1024), "match")
+    _chars, lengths = _edge_corpus(bp.TILE, 1024, 39)
+    en = bp.enable_plane(bp.len_table(torch.from_numpy(lengths)), plan.L_pad).to(dev)
+    logs = torch.zeros((1, plan.sb_sum, plan.L_pad, 128), dtype=torch.int32, device=dev)
+    kernels.fb_only_cuda(plan, logs, en)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kernels.fb_only_cuda(plan, logs, en)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "fb_kernel" in names[0], names
