@@ -6,8 +6,9 @@ Drives ``halo2_regex_tpu_torch.BitplaneMatcher(model, columns=...)`` on the
 zk-email ``from:`` header model at bench.py's shape (B=32768 strings x
 L=1024 bytes, bench.py's synthetic corpus, seed 0), the table-driven
 ``PallasMatcher`` on that corpus, on BASELINE configs[3] and on the
-40-word dictionary model, and the corpus-scan CLI, through each of these
-paths:
+40-word dictionary model, the portable scan ``BatchMatcher`` on the
+corpus and on configs[3], the corpus-scan CLI and the device-expand
+``ScanJob``, through each of these paths:
 
   witness   columns="witness" (bench.py's headline): K1 qpack, K2 scan,
             K3 post;
@@ -33,6 +34,15 @@ paths:
             (``zoo.dictionary_model``: 211 pairs, so ``auto`` resolves to
             the monolithic mode) over a seeded corpus: one table_flat
             launch (also checked with its table read from global memory);
+  xla       ``best_matcher(model, backend="xla")`` (the portable scan,
+            ``BatchMatcher``: halo2_regex_tpu/__init__.py:23's usage) on
+            the from: corpus: table_scan (serial) and torch ops;
+  xla_large  ``BatchMatcher`` on BASELINE configs[3] at its published size
+            (run_benchmarks.py:385's fallback): table_scan (chunked);
+  device_expand  ``ScanJob(device_expand=True)`` over cli_scan's file with
+            the match and tiled match matchers: each chunk's raw bytes
+            uploaded once, the rows gathered on the card (``expand_rows``,
+            ``tile_corpus_device``);
   cli_scan  ``cli.main(["scan", ...])`` in process over a 100,000-line
             file (the first 50,000 bench.py strings, each split at its
             \r\n into a filler line and a from: line), batch 32768, both
@@ -69,22 +79,29 @@ and proves on the card that:
      B=64 x L=65536); the tag, scan and FSM kernels also on a def of 7511
      pairs (past the 4096 pairs the tag kernel stages in shared memory)
      and the flat kernel on nine defs (two groups of its scan), each model
-     then run once through its matcher (``beyond_staging``);
+     then run once through its matcher (``beyond_staging``); the table
+     scan also on the portable scan's own tables (the class map of
+     ``model.transition``'s rows) at both of its paths' shapes;
   5. each path, driven once through the matcher with the launch counts
      reset just before it, launched each of its kernels as often as
      ``kernels.path_launches`` says (once, three times for a chunked post;
      the table paths as ``kernels.table_path_launches``: one pass over L,
-     the chunked scan two launches, the chunked FSMs three) and no
+     the chunked scan two launches, the chunked FSMs three; the portable
+     paths as ``kernels.scan_path_launches``: the table scan alone) and no
      other (configs[3]'s launches per call and repaired positions are
      printed), and equals its
      plain pipeline on the card (every output, dtypes included); a subset
      equals the numpy oracle (256 strings, 8 for configs[3]); for
      extraction serving the runs equal the oracle's extracted substrings;
      pallas_from and pallas_dict equal BitplaneMatcher(compact=False) on
-     every field, pallas_from at B=4096 its plain pipeline; the tiled
-     paths equal the [B, L] paths on every key; cli_scan's counters are
+     every field, pallas_from at B=4096 its plain pipeline; xla equals
+     pallas_from and BitplaneMatcher(compact=False) on every field, and
+     xla and xla_large equal the C++ host oracle
+     (``native.match_substrs_native``) on every string of the batch; the
+     tiled paths equal the [B, L] paths on every key; cli_scan's counters are
      equal between the layouts and count the match path's verdicts on the
-     same packed lines; each knob path equals its plain pipeline, the
+     same packed lines, and the device-expand jobs count what the
+     host-packed jobs count; each knob path equals its plain pipeline, the
      default path of its column set on every key and the oracle's
      subset; scan_planes the oracle's states of each def;
   6. timings with CUDA events (2 warm-ups, 10 timed runs, median and
@@ -98,7 +115,11 @@ and proves on the card that:
      2 + 10 runs, the others with PLAIN_WARMUP + PLAIN_ITERS); the tiled
      and [B, L] walls side by side at B=32768 and B=4096 with the host's
      tile_corpus time per batch; pallas_dict beside its split-mode
-     equivalent (max_pairs=4096); cli_scan's bytes per second per layout;
+     equivalent (max_pairs=4096); the portable paths' walls (xla at
+     B=32768 and B=4096, xla_large) each beside PallasMatcher's on the
+     same inputs, with their plain pipelines and the table scan under
+     them; cli_scan's bytes per second per layout, and the ScanJob's
+     host-packed and device-expand bytes per second;
      the knob paths' kernels and walls (their plain scans and pipelines
      over 1 run, seconds each).
 
@@ -709,6 +730,16 @@ def main() -> dict:
         raise AssertionError("configs[3] no longer sizes as in JAX (16 x 4096, 96 classes)")
     if (mf.mode, mf.grid_mode) != ("split", "batch"):
         raise AssertionError("the from: table path is no longer split/batch")
+    # the portable scan: best_matcher's third rung on the from: model, and
+    # BatchMatcher on configs[3] (run_benchmarks.py's bench3 fallback)
+    xla, xla_name = h2r.best_matcher(model, backend="xla")
+    xla_large = h2r.BatchMatcher(model3)
+    portable = {"xla": xla, "xla_large": xla_large}
+    if xla_name != "xla" or not isinstance(xla, h2r.BatchMatcher) or any(
+            m.device.type != "cuda" for m in portable.values()):
+        raise AssertionError("best_matcher(backend='xla') is not a BatchMatcher on the card")
+    if tuple(xla_large.next_table.shape) != (1, 96, 1008):
+        raise AssertionError("configs[3]'s portable class table is no longer 96 x 1008")
     # the knob paths, and the 3-def email model whose defs scan_planes runs
     knob_ms = {p: h2r.BitplaneMatcher(model, columns=c, **kw) for p, (c, kw) in KNOB_PATHS.items()}
     # tpack's other class-stage modes (checked in [4]; no path of their own)
@@ -761,6 +792,12 @@ def main() -> dict:
             f"{kernels.table_fsm_form(nb_, dev)}), next table {tuple(m.next_table.shape)}, "
             f"pairs {tuple(m.pairs.shape)}, table in shared memory: "
             f"{kernels.table_smem_bytes(*m.next_table.shape[1:], dev)} B")
+    for path, m in portable.items():
+        nb_ = B3 if path == "xla_large" else B
+        log(f"[3] {path}: BatchMatcher, S={m.model.s_pad}, class table "
+            f"{tuple(m.next_table.shape)} (the rows of model.transition), in shared memory: "
+            f"{kernels.table_smem_bytes(*m.next_table.shape[1:], dev)} B; at B={nb_} the scan "
+            f"form (C, W) {kernels.table_scan_form(m.n_defs, nb_, m.L, dev)}")
     t0 = time.perf_counter()
     corpora = {L: bench_corpus(B, L), L_UNPADDED: bench_corpus(B, L_UNPADDED)}
     log(f"[3] corpora B={B} x L={L} and L={L_UNPADDED} built in "
@@ -977,6 +1014,43 @@ def main() -> dict:
             del got, want
     log("[4] pallas_large has no pairs (P = 0): its tag and FSM planes are zeros, so the "
         "from: checks below hold the chunked FSM on planes that light up")
+
+    # the table scan on the portable scan's own tables (the class map of
+    # model.transition's rows) at the shapes its paths give it: serial on
+    # the from: corpus, chunked on configs[3]
+    portable_io = {"xla": (chars, lengths), "xla_large": (chars3, lengths3)}
+
+    def portable_scan(path, fn, **kw):
+        m = portable[path]
+        ch = portable_io[path][0]
+        firsts = m.first_states[:, None].expand(m.n_defs, ch.shape[0]).contiguous()
+
+        def go():
+            out = torch.empty((m.n_defs, m.L, ch.shape[0]), dtype=torch.int32, device=dev)
+            fn(m.class_map, m.next_table, ch, firsts, 0, m.L, out, **kw)
+            return out
+        return go
+
+    pstages = {}
+    for path, m in portable.items():
+        ch = portable_io[path][0]
+        cells = m.n_defs * m.L * ch.shape[0]
+        pstages[path] = (portable_scan(path, kernels.table_scan_cuda, next16=m.next_table16),
+                         portable_scan(path, ps.scan_plain),
+                         bound(ch.numel() + nbytes(m.first_states, m.class_map, m.next_table16)
+                               + 4 * cells, 2 * cells))
+        run_k, run_p, bd = pstages[path]
+        want = run_p()
+        got = run_k()
+        torch.cuda.synchronize()
+        errs[f"table_scan@{path}"] = err = max_abs_err(got, want)
+        C, W = kernels.table_scan_form(m.n_defs, ch.shape[0], m.L, dev)
+        log(f"[4] table_scan @ {path} (the portable scan's tables, "
+            f"{'C=%d, W=%d' % (C, W) if C else 'serial'}): kernel vs plain max_abs_err={err} "
+            f"(tolerance 0, integer outputs); bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+        if err != 0:
+            raise AssertionError(f"table_scan disagrees with its plain version on {path}")
+        del got, want
 
     # the other form of the scan (serial / chunked) and of the FSMs (one
     # pass / chunked) on the same inputs; the chunked scan's repaired
@@ -1255,6 +1329,51 @@ def main() -> dict:
         log(f"[5] {path}: equals the plain pipeline on all {len(as_dict(out))} fields, "
             f"dtypes included ({m.mode}; one pass over L on the card, the plain pipeline "
             f"{m.L // m.window} windows of {m.window})")
+    # the portable scan's paths: the table scan alone (serial at the from:
+    # bench shape, chunked on configs[3]) and torch ops
+    t_plain_portable = {}
+    for path, m in portable.items():
+        ch, ln = portable_io[path]
+        kernels.reset_launch_counts()
+        out = m(ch, ln)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        expected = {k.name: 0 for k in kernels.KERNELS}
+        expected.update({k.name: v for k, v in kernels.scan_path_launches(m, ch.shape[0]).items()})
+        log(f"[5] {path}: launches {launches}")
+        if launches != expected or launches["table_scan"] != (2 if path == "xla_large" else 1):
+            raise AssertionError(f"{path}: launch counts {launches}, expected {expected}")
+        t0 = time.perf_counter()
+        want = m.run(ch, ln, plain=True)
+        torch.cuda.synchronize()
+        t_plain_portable[path] = time.perf_counter() - t0
+        assert_same(path, out, want)
+        outs[path], path_launches[path] = out, launches
+        log(f"[5] {path}: equals its plain pipeline (plain scan on the card, "
+            f"{t_plain_portable[path]:.1f} s) on all {len(as_dict(out))} fields, dtypes included")
+        del want
+    for ref_name, ref in (("pallas_from", outs["pallas_from"]),
+                          ("BitplaneMatcher(compact=False)", full32(chars, lengths))):
+        assert_same(f"xla vs {ref_name}", outs["xla"], ref)
+        torch.cuda.synchronize()
+        log(f"[5] xla equals {ref_name} on every field, dtypes included")
+    # the C++ host oracle on the whole batch of each portable path
+    if not native.available():
+        raise AssertionError("the native oracle (g++) is not available on this host")
+    rec["native_oracle_s"] = {}
+    for path, (c_np, l_np) in (("xla", corpora[L]), ("xla_large", (chars3_np, lengths3_np))):
+        t0 = time.perf_counter()
+        nat = native.match_substrs_native(portable[path].model, c_np, l_np)
+        rec["native_oracle_s"][path] = t_nat = time.perf_counter() - t0
+        got = as_dict(outs[path])
+        for key, v in nat.items():
+            g = got[key].cpu().numpy()
+            if g.dtype != v.dtype or not np.array_equal(g, v):
+                raise AssertionError(f"{path}[{key}] differs from the native oracle")
+        log(f"[5] {path}: all {c_np.shape[0]} strings equal the native C++ oracle on its "
+            f"{len(nat)} columns; oracle host time {t_nat:.3f} s on {native.num_threads()} "
+            f"threads")
+        del nat, got
     for path, want in (("witness", "tiled_witness"), ("match", "tiled_match")):
         assert_same(f"{want} vs {path}", outs[want], outs[path])
         log(f"[5] {want} equals the {path} path on all {len(outs[path])} keys, dtypes included")
@@ -1309,16 +1428,19 @@ def main() -> dict:
         oracle_equal(path, outs[path], keys, rows, idx)
         log(f"[5] {path}: {ORACLE_N} strings equal the numpy oracle on {list(keys)}")
     idx3 = np.sort(rng.choice(B3, size=ORACLE_N3, replace=False))
+    rows3 = oracle(model3, chars3_np, lengths3_np, idx3)
     for path, rows, sub in (
         ("pallas_from", oracle_rows, idx),
-        ("pallas_large", oracle(model3, chars3_np, lengths3_np, idx3), idx3),
+        ("pallas_large", rows3, idx3),
         ("pallas_dict", oracle(model_d, *dict_np, idx), idx),
+        ("xla", oracle_rows, idx),
+        ("xla_large", rows3, idx3),
     ):
         oracle_equal(path, outs[path], checks["full"], rows, sub)
         log(f"[5] {path}: {len(sub)} strings equal the numpy oracle on every field")
     n_ok = {p: int(as_dict(o)["match_ok"].sum().item()) for p, o in outs.items()}
     rec["match_ok"] = n_ok
-    log(f"[5] match_ok per path {n_ok} (of {B}; pallas_large of {B3}); full states "
+    log(f"[5] match_ok per path {n_ok} (of {B}; pallas_large and xla_large of {B3}); full states "
         f"{tuple(outs['full'].states.shape)} {outs['full'].states.dtype}")
 
     # extraction serving: runs on the card == runs on the plain output ==
@@ -1399,6 +1521,32 @@ def main() -> dict:
     rec["cli_scan"] = cli_runs
     log(f"[5] cli_scan: both layouts count {want_ok} matches of {2 * N_CLI} lines in "
         f"{n_batches} batches, as the match path does; launches per batch as its paths")
+    # device_expand: the same file through ScanJob with each chunk's raw
+    # bytes uploaded once and the rows gathered on the card, in turns with
+    # the host-packed job (host, device, device, host) for each layout
+    dx_runs = {}
+    for layout in ("bl", "tiled"):
+        m = matchers["tiled_match" if layout == "tiled" else "match"]
+        for dx in (False, True, True, False):
+            kernels.reset_launch_counts()
+            job = h2r.ScanJob(m, [str(corpus_file)], batch_size=B, keep_newline=True,
+                              device_expand=dx)
+            counters = json.loads(job.run().to_json())
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in kernels.KERNELS}
+            expected = {k.name: 0 for k in kernels.KERNELS}
+            expected.update({k.name: n * n_batches
+                             for k, n in kernels.path_launches(m.plan).items()})
+            what = f"device_expand {layout} ({'device' if dx else 'host'}-packed)"
+            if launches != expected:
+                raise AssertionError(f"{what}: launches {launches}, expected {expected}")
+            if any(counters[k] != cli_runs["bl"][0][k] for k in keys):
+                raise AssertionError(f"{what}: counters {counters} differ from cli_scan's")
+            dx_runs.setdefault(f"{layout}_{'device' if dx else 'host'}", []).append(counters)
+    rec["device_expand"] = dx_runs
+    log(f"[5] device_expand: ScanJob(device_expand=True) counts what the host-packed job and "
+        f"cli_scan count ({want_ok} of {2 * N_CLI} in {n_batches} batches) in both layouts, "
+        f"with the match paths' launches per batch")
     for f in (corpus_file, model_file):
         f.unlink()
     work.rmdir()
@@ -1447,6 +1595,19 @@ def main() -> dict:
                                     "configs": {}}
             else:
                 table_rows[name]["configs"][path] = row
+    # the table scan as the portable scan's paths launch it (its tables)
+    for path, (run_k, run_p, bd) in pstages.items():
+        tk = time_ms(run_k, flush, device_only=True)
+        tp = time_ms(run_p, flush, device_only=True, warmup=PLAIN_WARMUP, iters=PLAIN_ITERS)
+        times[f"table_scan@{path}"] = {"kernel": tk, "plain": tp, **bd}
+        log(f"[6] table_scan @ {path}: kernel {fmt(tk)}, plain {fmt(tp)} over {tp['runs']} "
+            f"runs; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; card {card}")
+        table_rows["table_scan"]["configs"][path] = {
+            "launches": path_launches[path]["table_scan"],
+            "max_abs_err": errs[f"table_scan@{path}"], "ms": tk["median"],
+            "plain_ms": tp["median"], "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "library_ms": None}
+    del pstages
     kern_rows += list(table_rows.values())
     k, run_k, run_p, bd = flat_stage
     tk = time_ms(run_k, flush, device_only=True)
@@ -1516,6 +1677,29 @@ def main() -> dict:
         log(f"[6] end to end {path}: {fmt(t)}, {gbs:.3f} GB/s of input, host enqueue "
             f"{enq['median']:.4f} ms; plain pipeline {fmt(tp)} over {tp['runs']} runs; "
             f"peak memory {peak / 2**20:.1f} MiB; card {card}")
+    # the portable scan's walls, each beside PallasMatcher's on the same
+    # inputs (taken right after it), with its plain pipeline's
+    for path, m, pm, (ch, ln) in (
+        ("xla", xla, mf, (chars, lengths)),
+        (f"xla_b{B_LATENCY}", xla, mf, (chars[:B_LATENCY], lengths[:B_LATENCY])),
+        ("xla_large", xla_large, m3, (chars3, lengths3)),
+    ):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time_ms(lambda: m(ch, ln), flush, device_only=False)
+        peak = torch.cuda.max_memory_allocated()
+        tpm = time_ms(lambda: pm(ch, ln), flush, device_only=False)
+        enq = host_ms(lambda: m(ch, ln))
+        tp = time_ms(lambda: m.run(ch, ln, plain=True), flush, device_only=False,
+                     warmup=PLAIN_WARMUP, iters=PLAIN_ITERS)
+        gbs = ch.numel() / (t["median"] * 1e-3) / 1e9
+        times[f"end_to_end_{path}"] = {"kernel": t, "plain": tp, "pallas": tpm,
+                                       "peak_bytes": peak, "input_gb_per_s": gbs,
+                                       "host_enqueue": enq}
+        log(f"[6] end to end {path} (B={ch.shape[0]}): {fmt(t)}, {gbs:.3f} GB/s of input, host "
+            f"enqueue {enq['median']:.4f} ms; PallasMatcher on the same inputs {fmt(tpm)}; "
+            f"plain pipeline {fmt(tp)} over {tp['runs']} runs; peak memory "
+            f"{peak / 2**20:.1f} MiB; card {card}")
     for path, (fn, mk, (ch, ln)) in e2e_paths.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1562,10 +1746,15 @@ def main() -> dict:
         log(f"[6] cli_scan {layout}: bytes_per_sec {[r['bytes_per_sec'] for r in runs_]}, "
             f"wall_seconds {[r['wall_seconds'] for r in runs_]} (two runs in process; file "
             f"reads, host packing and copies included); card {card}")
+    for key, runs_ in dx_runs.items():
+        log(f"[6] ScanJob {key}-packed: bytes_per_sec {[r['bytes_per_sec'] for r in runs_]}, "
+            f"wall_seconds {[r['wall_seconds'] for r in runs_]} (runs 1 and 2 of the turns "
+            f"host, device, device, host; file reads and copies included); card {card}")
 
-    # [7] where the time goes on the table paths (profiler; walls above)
-    for path, m in tables.items():
-        ch, ln = table_io[path]
+    # [7] where the time goes on the table and portable paths (profiler;
+    # walls above)
+    for path, m in (*tables.items(), *portable.items()):
+        ch, ln = (portable_io if path in portable else table_io)[path]
         prof = profile_call(lambda: m(ch, ln))
         wall = times[f"end_to_end_{path}"]["kernel"]["median"]
         prof["idle_share"] = 1 - prof["busy_ms"] / wall

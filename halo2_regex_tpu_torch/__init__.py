@@ -1,11 +1,12 @@
 """halo2_regex_tpu_torch — the PyTorch + CUDA port of ``halo2_regex_tpu``.
 
 The port runs the bit-sliced matcher (``BitplaneMatcher(model, columns=
-"full" | "witness" | "match", input_layout="bl" | "tiled")``) and the
+"full" | "witness" | "match", input_layout="bl" | "tiled")``), the
 table-driven matcher (``PallasMatcher``, split and monolithic, for large
-DFAs and long inputs) on an NVIDIA H100 through hand-written CUDA kernels
-(``csrc/``, built with nvcc at first use), and on the CPU through the
-kernels' plain PyTorch versions when the caller passes ``device="cpu"``;
+DFAs and long inputs) and the portable scan (``BatchMatcher``, any model,
+on the table scan kernel) on an NVIDIA H100 through hand-written CUDA
+kernels (``csrc/``, built with nvcc at first use), and on the CPU through
+the kernels' plain PyTorch versions when the caller passes ``device="cpu"``;
 ``extract_runs`` decodes the masked runs of a result where it lies.  The
 corpus-scan entry point is the CLI (``python -m halo2_regex_tpu_torch
 scan ...``) over ``ScanJob``, with ``best_matcher`` picking the backend
@@ -17,14 +18,15 @@ importing any submodule of the JAX package runs that package's
 
 Quick start::
 
-    from halo2_regex_tpu_torch import (BitplaneMatcher, PallasMatcher, extract_runs,
-                                       tile_corpus, zoo)
+    from halo2_regex_tpu_torch import (BatchMatcher, BitplaneMatcher, PallasMatcher,
+                                       extract_runs, pack_batch, tile_corpus, zoo)
 
     model = zoo.email_headers_model(max_chars_size=1024, headers=("from",))
     matcher = BitplaneMatcher(model)  # on the card; device="cpu" for the CPU
     res = matcher(chars, lengths)  # [B, 1024] uint8, [B] int32 -> RegexResult
     runs = extract_runs(res.all_substr_ids, res.masked_characters, max_len=32)
     res = PallasMatcher(model)(chars, lengths)  # the same RegexResult
+    res = BatchMatcher(model)(*pack_batch([b"from:bob@x.yz\r\n"], 1024))  # likewise
     tl = BitplaneMatcher(model, columns="match", input_layout="tiled")
     verdicts = tl(tile_corpus(chars_np, tl.L_pad), lengths)  # host-pretiled
 """
@@ -43,13 +45,16 @@ from .ops import best_matcher
 from .ops.bitplane import BitplaneMatcher, tile_corpus
 from .ops.extract import extract_runs, runs_to_python
 from .ops.pallas_scan import PallasMatcher
+from .ops.scan_torch import BatchMatcher
 from .ops.reference import extract_substrings, match_substrs
+from .utils.io import pack_batch
 from .utils.jobs import ScanJob
 from .witness.result import RegexResult
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "BatchMatcher",
     "BitplaneMatcher",
     "CompiledRegexModel",
     "DecomposedRegexConfig",
@@ -62,6 +67,7 @@ __all__ = [
     "extract_runs",
     "extract_substrings",
     "match_substrs",
+    "pack_batch",
     "runs_to_python",
     "tile_corpus",
     "zoo",

@@ -380,6 +380,22 @@ def tile_corpus(chars: np.ndarray, L_pad: int) -> np.ndarray:
     return np.ascontiguousarray(words.reshape(L_pad, 8, Bp // TILE, LANE).transpose(2, 1, 0, 3))
 
 
+def tile_corpus_device(chars: torch.Tensor, L_pad: int) -> torch.Tensor:
+    """``tile_corpus`` of [B, L] uint8 chars on their device (the JAX
+    ``tile_corpus_jax``, halo2_regex_tpu/ops/bitplane.py:151): ``raw_quads``
+    of the batch padded to a multiple of 32*LANE strings, with the
+    word-group axis moved first -> [NWS, 8, L_pad, LANE] int32, equal to
+    the host packer's array.  For rows that already lie on the card (the
+    device-expand ``ScanJob``); it pays the transpose that host tiling
+    exists to avoid."""
+    B, L = chars.shape
+    if L > L_pad:
+        raise ValueError(f"chars are [B, {L}]: longer than L_pad={L_pad}")
+    if B % TILE:
+        chars = torch.cat([chars, chars.new_zeros((TILE - B % TILE, L))])
+    return raw_quads(chars, L_pad).permute(2, 1, 0, 3).contiguous()
+
+
 def transpose8(x: torch.Tensor) -> torch.Tensor:
     """SWAR 8x8 bit-block transpose of eight stacked int32 planes
     [8, ...]: output word ``O_b`` holds, in byte lane ``s`` bit ``j``, the

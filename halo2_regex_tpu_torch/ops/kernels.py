@@ -253,6 +253,14 @@ def table_path_launches(matcher, B: int) -> Dict[CudaKernel, int]:
     return {TABLE_SCAN: scan, TABLE_TAG: 1, TABLE_FSM: 3 if table_fsm_form(B, dev) else 1}
 
 
+def scan_path_launches(matcher, B: int) -> Dict[CudaKernel, int]:
+    """Launches of one call of ``matcher`` (a ``BatchMatcher`` on the card)
+    on ``B`` strings: the table scan alone, one launch in its serial form
+    and two in its chunked form; the rest of the call is torch ops."""
+    C = table_scan_form(matcher.n_defs, B, matcher.L, matcher.device)[0]
+    return {TABLE_SCAN: 2 if C else 1}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0

@@ -596,6 +596,65 @@ def flat(cmap, table, first, chars, lengths, states, ids, start, endf, fwd, bwd)
 
 
 # ---------------------------------------------------------------------------
+# The finish (torch ops, shared with the portable scan)
+# ---------------------------------------------------------------------------
+
+
+def finish_planes(first, dummy, dead, accept_mask, chars, lengths, states_tm, ids_tm, start_tm,
+                  endf_tm, fwd_tm, bwd_tm) -> RegexResult:
+    """The JAX ``_core`` tail (halo2_regex_tpu/ops/pallas_scan.py:1405),
+    the same as the tail of ``_match_core`` (ops/scan_jax.py:117-218):
+    the dummy state past each length, the final state read at the length,
+    the sums over defs and the mask, with the JAX values and dtypes.
+    ``first``, ``dummy``, ``dead`` [n_defs] int32 and ``accept_mask``
+    [n_defs, S] bool are the model's constants; the planes are time-major
+    (states, ids, start, endf [n_defs, L, B] and fwd, bwd [L, B], int32),
+    with ids, start and endf already masked by the enable, so start_enable
+    and end_enable are the start and endf planes themselves.  The columns
+    are computed time-major and returned as [B, ...] views of those
+    buffers."""
+    B, L = chars.shape
+    n_defs, dev, i32 = first.shape[0], chars.device, torch.int32
+    pos = torch.arange(L + 1, dtype=i32, device=dev)
+    enable = (pos[None, :L] < lengths[:, None]).to(i32)  # [B, L]
+    chars_i32 = chars.to(i32) * enable
+    raw = torch.empty((n_defs, L + 1, B), dtype=i32, device=dev)
+    raw[:, 0] = first[:, None]
+    raw[:, 1:] = states_tm
+    in_range = pos[:, None] <= lengths[None, :]  # [L + 1, B]
+    states = torch.where(in_range, raw, dummy[:, None, None])
+    idx = lengths.long()[None, None, :].expand(n_defs, 1, B)
+    final = torch.gather(raw, 1, idx)[:, 0].t()  # [B, n_defs]
+    accepted = accept_mask[torch.arange(n_defs, device=dev)[None, :], final.long()]
+    has_dead = final == dead[None, :]
+    ids_sum = ids_tm.sum(0, dtype=i32)  # [L, B]
+    mask = fwd_tm * bwd_tm
+    start_sum = torch.zeros((L + 1, B), dtype=i32, device=dev)
+    start_sum[:L] = start_tm.sum(0, dtype=i32)
+    end_sum = torch.zeros((L + 1, B), dtype=i32, device=dev)
+    end_sum[1:] = endf_tm.sum(0, dtype=i32)
+    return RegexResult(
+        all_enable_flags=enable,
+        all_characters=chars_i32,
+        all_substr_ids=(mask * ids_sum).t(),
+        masked_characters=mask.t() * chars_i32,
+        states=states.permute(2, 0, 1),
+        substr_ids_per_def=ids_tm.permute(2, 0, 1),
+        start_enable=start_tm.permute(2, 0, 1),
+        end_enable=endf_tm.permute(2, 0, 1),
+        is_start_sum=start_sum.t(),
+        is_end_sum=end_sum.t(),
+        substr_id_sum=ids_sum.t(),
+        fwd_mask=fwd_tm.t(),
+        bwd_mask=bwd_tm.t(),
+        mask=mask.t(),
+        accepted=accepted,
+        has_dead=has_dead,
+        match_ok=accepted.all(1) & ~has_dead.any(1),
+    )
+
+
+# ---------------------------------------------------------------------------
 # The matcher
 # ---------------------------------------------------------------------------
 
@@ -896,52 +955,11 @@ class PallasMatcher(nn.Module):
         return states, ids, start, endf, fwd, bwd
 
     def finish(self, chars, lengths, states_tm, ids_tm, start_tm, endf_tm, fwd_tm, bwd_tm):
-        """The JAX ``_core`` tail (halo2_regex_tpu/ops/pallas_scan.py:1405):
-        the dummy state past each length, the final state read at the
-        length, the sums over defs and the mask, with the JAX values and
-        dtypes.  The columns are computed time-major, where the stages left
-        them, and returned as [B, ...] views of those buffers; the tag
-        stage masks ids/start/endf by the enable already, so start_enable
-        and end_enable are the start and endf planes themselves."""
-        B, L = chars.shape
-        n_defs, dev, i32 = self.n_defs, chars.device, torch.int32
-        pos = torch.arange(L + 1, dtype=i32, device=dev)
-        enable = (pos[None, :L] < lengths[:, None]).to(i32)  # [B, L]
-        chars_i32 = chars.to(i32) * enable
-        raw = torch.empty((n_defs, L + 1, B), dtype=i32, device=dev)
-        raw[:, 0] = self.first_states[:, None]
-        raw[:, 1:] = states_tm
-        in_range = pos[:, None] <= lengths[None, :]  # [L + 1, B]
-        states = torch.where(in_range, raw, self.dummy_states[:, None, None])
-        idx = lengths.long()[None, None, :].expand(n_defs, 1, B)
-        final = torch.gather(raw, 1, idx)[:, 0].t()  # [B, n_defs]
-        accepted = self.accept_mask[torch.arange(n_defs, device=dev)[None, :], final.long()]
-        has_dead = final == self.dead_states[None, :]
-        ids_sum = ids_tm.sum(0, dtype=i32)  # [L, B]
-        mask = fwd_tm * bwd_tm
-        start_sum = torch.zeros((L + 1, B), dtype=i32, device=dev)
-        start_sum[:L] = start_tm.sum(0, dtype=i32)
-        end_sum = torch.zeros((L + 1, B), dtype=i32, device=dev)
-        end_sum[1:] = endf_tm.sum(0, dtype=i32)
-        return RegexResult(
-            all_enable_flags=enable,
-            all_characters=chars_i32,
-            all_substr_ids=(mask * ids_sum).t(),
-            masked_characters=mask.t() * chars_i32,
-            states=states.permute(2, 0, 1),
-            substr_ids_per_def=ids_tm.permute(2, 0, 1),
-            start_enable=start_tm.permute(2, 0, 1),
-            end_enable=endf_tm.permute(2, 0, 1),
-            is_start_sum=start_sum.t(),
-            is_end_sum=end_sum.t(),
-            substr_id_sum=ids_sum.t(),
-            fwd_mask=fwd_tm.t(),
-            bwd_mask=bwd_tm.t(),
-            mask=mask.t(),
-            accepted=accepted,
-            has_dead=has_dead,
-            match_ok=accepted.all(1) & ~has_dead.any(1),
-        )
+        """The JAX ``_core`` tail (halo2_regex_tpu/ops/pallas_scan.py:1405)
+        on this model's constants: ``finish_planes``."""
+        return finish_planes(self.first_states, self.dummy_states, self.dead_states,
+                             self.accept_mask, chars, lengths, states_tm, ids_tm, start_tm,
+                             endf_tm, fwd_tm, bwd_tm)
 
     @torch.no_grad()
     def forward(self, chars, lengths) -> RegexResult:

@@ -1,14 +1,14 @@
 """The PyTorch port's corpus-scan entry point against the JAX package.
 
 Mirrors tests/test_cli.py (less ``gen-circom``, which waits for the circom
-module of a later slice) and tests/test_io.py (less ``device_expand``,
-which waits for the portable scan): the port's CLI prints the JAX CLI's
-stdout for ``gen-halo2-texts``, ``compile``, ``match``, ``explain`` and
-``scan`` in both input layouts (less the wall-clock fields); the corpus
-loader and ``ScanJob`` (checkpoint and resume, oversize lines, prefetch
-parity and errors); ``Counters`` on torch tensors; and the
-``best_matcher`` ladder.  Every matcher here runs on the CPU
-(``--device cpu`` / ``device="cpu"``); the JAX CLI runs on the CPU too.
+module of a later slice) and tests/test_io.py: the port's CLI prints the
+JAX CLI's stdout for ``gen-halo2-texts``, ``compile``, ``match`` (each
+backend), ``explain`` and ``scan`` in both input layouts (less the
+wall-clock fields); the corpus loader and ``ScanJob`` (checkpoint and
+resume, oversize lines, prefetch parity and errors, the device-expand
+form); ``Counters`` on torch tensors; and the ``best_matcher`` ladder.
+Every matcher here runs on the CPU (``--device cpu`` / ``device="cpu"``);
+the JAX CLI runs on the CPU too.
 """
 
 import contextlib
@@ -93,7 +93,7 @@ def test_compile_and_match(tmp_path, config_path):
     assert (rc, out) == run(jax_main, ["match", "--model", str(tmp_path / "m.npz"), *MATCH_ARGS])
 
 
-@pytest.mark.parametrize("backend", ["bitplane", "pallas"])
+@pytest.mark.parametrize("backend", ["bitplane", "pallas", "xla"])
 def test_match_backends_print_the_same(model_paths, backend):
     t, j = model_paths
     got = run(main, ["match", "--model", str(t), "--device", "cpu", "--backend", backend,
@@ -173,11 +173,14 @@ def test_scan_tiled_refusals(tmp_path, model_paths):
 
 
 def test_cli_device_and_backend_refusals(model_paths, monkeypatch):
-    """``--backend xla`` waits for the portable scan (an error, exit 2);
-    ``--device cuda`` (the default) raises where CUDA is absent."""
+    """``--backend xla`` (the portable scan) runs and prints what the
+    bitplane backend prints; ``--device cuda`` (the default) raises where
+    CUDA is absent."""
     t, _j = model_paths
-    rc, _ = run(main, ["match", "--model", str(t), "--device", "cpu", "--backend", "xla", "x"])
-    assert rc == 2
+    args = ["match", "--model", str(t), "--device", "cpu", "x", *MATCH_ARGS]
+    rc, out = run(main, [*args, "--backend", "xla"])
+    assert rc == 0 and len(out.splitlines()) == 3
+    assert (rc, out) == run(main, [*args, "--backend", "bitplane"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(main, ["match", "--model", str(t), "x"])
@@ -190,6 +193,22 @@ def test_bench(model_paths):
     rec = json.loads(out)
     assert rc == 0 and rec["platform"] == "cpu" and rec["backend"] == "bitplane"
     assert rec["batch"] == 16 and rec["bytes_per_sec"] > 0
+
+
+def test_scan_and_bench_on_the_portable_scan(tmp_path, model_paths):
+    """``scan`` and ``bench`` with ``--backend xla``: the scan counts what
+    the JAX CLI counts."""
+    t, j = model_paths
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(b"\n".join([b"email was meant for @y.", b"nope"] * 9) + b"\n")
+    args = ["--batch", "8", "--backend", "xla", str(corpus)]
+    rc, out = run(main, ["scan", "--model", str(t), "--device", "cpu", *args])
+    jrc, jout = run(jax_main, ["scan", "--model", str(j), *args])
+    assert rc == jrc == 0 and _counters(out) == _counters(jout)
+    rc, out = run(main, ["bench", "--model", str(t), "--device", "cpu", "--batch", "8",
+                         "--iters", "1", "--backend", "xla"])
+    rec = json.loads(out)
+    assert rc == 0 and rec["backend"] == "xla" and rec["bytes_per_sec"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -393,10 +412,20 @@ def test_scan_job_tiled_warns_below_throughput_batch(tmp_path, capsys):
     assert "batch_size=16" in capsys.readouterr().err
 
 
-def test_scan_job_device_expand_waits_for_portable_scan():
-    matcher = T.BitplaneMatcher(_regex3(), columns="match", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        ScanJob(matcher, [], device_expand=True)
+def test_scan_job_device_expand_waits_for_portable_scan(tmp_path):
+    """The device-expand job (raw chunk upload, rows gathered by
+    ``expand_rows``; tiled words by ``tile_corpus_device``) counts what the
+    host-packed job counts, with a bitplane matcher in both layouts."""
+    model = _regex3()
+    corpus = tmp_path / "c.txt"
+    corpus.write_bytes(b"\n".join([b"from:a@b.cd\r", b"nope", b"x" * 40, b""] * 9) + b"\n")
+    for m in (T.BitplaneMatcher(model, columns="match", device="cpu"),
+              T.BitplaneMatcher(model, columns="match", input_layout="tiled", device="cpu")):
+        outs = [_stable(ScanJob(m, [str(corpus)], batch_size=8, keep_newline=True,
+                                chunk_bytes=64, device_expand=dx).run())
+                for dx in (False, True)]
+        assert outs[0] == outs[1]
+        assert (outs[0]["strings"], outs[0]["matched"]) == (36, 9)
 
 
 # ---------------------------------------------------------------------------
@@ -424,8 +453,9 @@ def test_counters_on_torch_tensors():
 
 def test_best_matcher_ladder(monkeypatch):
     """auto: bitplane first, the table-driven matcher when the bitplane
-    constructor refuses the model; a missing CUDA device is not a refusal."""
-    from halo2_regex_tpu_torch.ops import bitplane
+    constructor refuses the model, the portable scan when both refuse; a
+    missing CUDA device is not a refusal."""
+    from halo2_regex_tpu_torch.ops import bitplane, pallas_scan
 
     model = _regex3()
     m, name = best_matcher(model, device="cpu", columns="match")
@@ -439,8 +469,11 @@ def test_best_matcher_ladder(monkeypatch):
     assert name == "pallas" and isinstance(m, T.PallasMatcher)
     with pytest.raises(NotImplementedError, match="refused"):
         best_matcher(model, backend="bitplane", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        best_matcher(model, backend="xla", device="cpu")
+    m, name = best_matcher(model, backend="xla", device="cpu", columns="match")
+    assert name == "xla" and isinstance(m, T.BatchMatcher)
+    monkeypatch.setattr(pallas_scan, "PallasMatcher", refuse)
+    m, name = best_matcher(model, device="cpu", columns="match")
+    assert name == "xla" and isinstance(m, T.BatchMatcher)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         best_matcher(model)

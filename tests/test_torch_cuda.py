@@ -1125,3 +1125,77 @@ def test_fb_only_runs_one_kernel(dev):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(names) == 1 and "fb_kernel" in names[0], names
+
+
+# ---------------------------------------------------------------------------
+# the portable scan (BatchMatcher) and the device-expand corpus path
+# ---------------------------------------------------------------------------
+
+
+def _past_length(chars, lengths, seed):
+    """Nonzero bytes past each length (the scan reads them, as JAX's)."""
+    rng = np.random.default_rng(seed)
+    chars = chars.copy()
+    for i in range(chars.shape[0]):
+        chars[i, lengths[i]:] = rng.integers(1, 256, size=chars.shape[1] - lengths[i])
+    return chars
+
+
+@pytest.mark.parametrize("name,L,B", [("regex3", MAX_LEN, 4099), ("two_def", MAX_LEN, 4099),
+                                      ("from", MAX_LEN, 4099), ("large", MAX_LEN, 4099),
+                                      ("large", 18432, 64)])
+def test_batch_matcher_on_card_matches_plain(dev, name, L, B):
+    """BatchMatcher on the card (the table scan kernel: serial at 4099
+    strings, chunked at 64 strings of 18432 bytes) equals its plain
+    pipeline on the card and the CPU run on every field and dtype, with
+    nonzero bytes past each length; the table scan launches as
+    ``scan_path_launches`` says (1 or 2) and no other kernel does."""
+    if name == "large":
+        model = _large_model(L=L)
+        rng = np.random.default_rng(3)
+        chars = rng.integers(97, 103, size=(B, L)).astype(np.uint8)
+        chars[::5, 3] = 7
+        lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
+        lengths[0] = L
+    else:
+        model = _model(name)
+        chars, lengths = _table_corpus(name, B, 9)
+    chars = _past_length(chars, lengths, 4)
+    m = T.BatchMatcher(model, device=dev)
+    ch, ln = torch.from_numpy(chars).to(dev), torch.from_numpy(lengths).to(dev)
+    kernels.reset_launch_counts()
+    got = m(ch, ln)
+    torch.cuda.synchronize()
+    want_counts = {k.name: 0 for k in kernels.KERNELS}
+    want_counts.update({k.name: v for k, v in kernels.scan_path_launches(m, B).items()})
+    assert {k.name: k.launches for k in kernels.KERNELS} == want_counts
+    assert want_counts["table_scan"] == (2 if L > MAX_LEN else 1)
+    _assert_same(got, m.run(ch, ln, plain=True).map(lambda t: t.cpu()))
+    if L == MAX_LEN:
+        _assert_same(got, T.BatchMatcher(model, device="cpu")(chars, lengths))
+
+
+@pytest.mark.parametrize("B,L", [(37, 64), (4099, 1000)])
+def test_tile_corpus_device_on_card(dev, B, L):
+    chars, _lengths = _corpus(B, L, 12)
+    got = bp.tile_corpus_device(torch.from_numpy(chars).to(dev), 1024)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(),
+                                                     torch.from_numpy(T.tile_corpus(chars, 1024)))
+
+
+def test_device_expand_scan_job_on_card(dev, tmp_path):
+    """The device-expand ScanJob (raw chunk upload, rows gathered on the
+    card) counts what the host-packed job counts, for the bitplane match
+    matcher in both layouts and the portable scan."""
+    model = _model("regex3", 32)
+    corpus = tmp_path / "c.txt"
+    corpus.write_bytes(b"\n".join([b"from:a@b.cd\r", b"nope", b"x" * 40, b""] * 300) + b"\n")
+    for m in (T.BitplaneMatcher(model, columns="match", device=dev),
+              T.BitplaneMatcher(model, columns="match", input_layout="tiled", device=dev),
+              T.BatchMatcher(model, device=dev)):
+        outs = []
+        for dx in (False, True):
+            c = T.ScanJob(m, [str(corpus)], batch_size=256, keep_newline=True, chunk_bytes=4096,
+                          device_expand=dx).run()
+            outs.append({k: v for k, v in c.snapshot().items() if k != "wall_seconds"})
+        assert outs[0] == outs[1] and (outs[0]["strings"], outs[0]["matched"]) == (1200, 300)

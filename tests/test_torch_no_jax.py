@@ -5,8 +5,10 @@ check runs the port in a fresh interpreter: import it with its CLI, corpus
 utilities and native packers, run a tiny match of each column set, a
 direct-emission and an in-scan-pack witness, a run extraction, a tiled
 match, the table-driven ``PallasMatcher`` (batch,
-segmented and monolithic) and a CLI scan on the CPU, and assert that
-neither JAX nor the JAX package was loaded along the way.
+segmented and monolithic), the portable scan ``BatchMatcher``, the native
+oracle ``match_substrs_native``, a CLI scan and a device-expand
+``ScanJob`` on the CPU, and assert that neither JAX nor the JAX package
+was loaded along the way.
 """
 
 import os
@@ -56,6 +58,11 @@ for kw in (dict(emit="direct"), dict(fuse_pack=True)):
     v = h2r.BitplaneMatcher(model, columns="witness", device="cpu", **kw)(chars, lengths)
     assert v["match_ok"].tolist() == [True, False], (kw, v)
     assert bytes(v["masked_characters"][0][v["all_substr_ids"][0] > 0]) == b"1234", (kw, v)
+portable = h2r.BatchMatcher(model, device="cpu")(chars, lengths)
+assert portable.all_substr_ids.tolist() == res.all_substr_ids.tolist()
+if halo2_regex_tpu_torch.native.available():
+    host = halo2_regex_tpu_torch.native.match_substrs_native(model, chars, lengths)
+    assert host["mask"].tolist() == res.mask.tolist(), host
 tl = h2r.BitplaneMatcher(model, columns="match", input_layout="tiled", device="cpu")
 assert tl(h2r.tile_corpus(chars, tl.L_pad), lengths)["match_ok"].tolist() == [True, False]
 with tempfile.TemporaryDirectory() as d:
@@ -65,6 +72,9 @@ with tempfile.TemporaryDirectory() as d:
     assert halo2_regex_tpu_torch.cli.main(
         ["scan", "--model", os.path.join(d, "m.npz"), "--device", "cpu",
          "--input-layout", "tiled", os.path.join(d, "c.txt")]) == 0
+    job = h2r.ScanJob(h2r.BatchMatcher(model, device="cpu"), [os.path.join(d, "c.txt")],
+                      device_expand=True).run()
+    assert (job.strings, job.matched) == (2, 1), job
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu"))
 assert not bad, bad
