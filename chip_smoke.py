@@ -53,7 +53,23 @@ corpus and on configs[3], the corpus-scan CLI and the device-expand
             match with en_pack off, unroll 1, 2, 4, 8): post_direct,
             decode, scan_fpack and the pack, scan and post kernels' modes;
   scan_planes  ``BitplaneMatcher.scan_planes(bits, d)`` for each def of
-            the 3-def email model (from, to, subject) at L=1024: scan_def.
+            the 3-def email model (from, to, subject) at L=1024: scan_def;
+  prover    the prover's flow on the from: corpus: the witness on the card
+            (qpack, scan, post), ``expand_witness`` and
+            ``check_witness_batch`` on the host, ``save_witness`` /
+            ``load_witness`` on 256 rows, one matching row's hand-off
+            dump (``verify_handoff`` and the C++ ``handoff_check``); the
+            ``compact=False`` full result (qpack, scan, post_planes)
+            through the checker too;
+  parallel  the sharded matchers on a mesh of the one card repeated
+            (``[cuda:0] * 4``: the shards run one after another):
+            ``DistributedMatcher`` xla and pallas (4 x 1) and
+            ``SeqShardedMatcher`` (1 x 4) on the from: corpus (table_scan;
+            table_tag and table_fsm for pallas),
+            ``SpeculativeSeqMatcher(per_shard="pallas")`` (1 x 4) on
+            configs[3] and on the permutation DFA (table_scan), and
+            ``python -m halo2_regex_tpu_torch.parallel.launch`` at world
+            size 1 over nccl on cli_scan's file (a subprocess).
 
 and proves on the card that:
 
@@ -121,7 +137,25 @@ and proves on the card that:
      them; cli_scan's bytes per second per layout, and the ScanJob's
      host-packed and device-expand bytes per second;
      the knob paths' kernels and walls (their plain scans and pipelines
-     over 1 run, seconds each).
+     over 1 run, seconds each);
+  8. the prover's flow: its launches as the witness and full paths'; the
+     expanded witness equals the C++ oracle's columns of the whole batch
+     (``native.native_result``; dtypes as JAX's ``expand_witness``: the
+     three sums int64) and the card's full result equals them with
+     dtypes; the checker's verdicts on the expanded witness, on the
+     oracle's columns, on the full result and ``match_ok`` are equal;
+     the npz round-trips; the hand-off dump of the card row equals the
+     oracle row's, verifies, passes ``handoff_check`` and a tampered copy
+     fails it; ``expand_witness`` and ``check_witness_batch`` host times
+     (median and IQR of 3);
+  9. each sharded matcher, driven once with the launch counts reset,
+     launched the table kernels as its shards' calls say (speculation:
+     its rounds x shards) and equals the unsharded card matcher on every
+     field, dtypes included (``DistributedMatcher``'s stats equal the
+     sums of the unsharded result, int32); the permutation DFA needs all
+     4 rounds; launch's totals equal cli_scan's; walls in turns with the
+     unsharded matcher (unsharded, sharded, sharded, unsharded) and
+     launch's bytes/s in turns with ``ScanJob`` on ``BatchMatcher``.
 
 Prints one JSON line of per-kernel results (the knob modes of a kernel
 under its ``modes``), then the nvidia-smi line, then
@@ -153,6 +187,7 @@ ORACLE_N = 256
 B3, L3, S3 = 64, 65536, 1000  # BASELINE configs[3] (run_benchmarks.py:352-396)
 ORACLE_N3 = 8
 N_CLI = 50000  # bench.py strings in cli_scan's file: two lines each
+LAUNCH_REPEAT = 32  # launch's file: cli_scan's, this many times over
 # bounds: H100 SXM HBM3 rate; int32 rate = 132 SMs x 64 INT32 lanes x the
 # 1.98 GHz boost clock (Hopper white paper); for the log lines only, an
 # estimate of the table scan's chain: one shared-memory load of it taken
@@ -344,9 +379,12 @@ def fb_bound(plan, en: torch.Tensor) -> dict:
                  2 * n_bnd * plan.sb_sum)
 
 
-def host_ms(fn, iters: int = ITERS) -> dict:
-    """Median host time to enqueue one call (no synchronise inside)."""
-    fn()
+def host_ms(fn, iters: int = ITERS, warmup: int = 1) -> dict:
+    """Median and IQR of the host time of ``iters`` calls after ``warmup``
+    untimed ones (no synchronise inside a call): the time to enqueue a
+    card call, or the whole time of a host function."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     ms = []
     for _ in range(iters):
@@ -354,7 +392,8 @@ def host_ms(fn, iters: int = ITERS) -> dict:
         fn()
         ms.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-    return {"median": float(np.median(ms)), "all": ms}
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    return {"median": float(med), "iqr": [float(q1), float(q3)], "all": ms, "runs": iters}
 
 
 def profile_call(fn, n: int = 5) -> dict:
@@ -405,14 +444,20 @@ def as_dict(out) -> dict:
     return out if isinstance(out, dict) else vars(out)
 
 
-def assert_same(path: str, got, want) -> None:
+def assert_same(path: str, got, want, dtypes=None) -> None:
+    """Two outputs (dicts or RegexResults, of tensors or of numpy arrays)
+    are equal field by field, shapes and dtypes included; ``dtypes`` names
+    a field's dtype in ``got`` where it is not ``want``'s."""
     got, want = as_dict(got), as_dict(want)
     if set(got) != set(want):
         raise AssertionError(f"{path}: keys {sorted(got)} vs {sorted(want)}")
     for key in want:
         a, b = got[key], want[key]
-        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
-            raise AssertionError(f"{path}[{key}] differs from the plain pipeline")
+        dt = (dtypes or {}).get(key, b.dtype)
+        equal = np.array_equal if isinstance(b, np.ndarray) else torch.equal
+        if a.shape != b.shape or a.dtype != dt or not equal(a, b):
+            raise AssertionError(f"{path}[{key}]: {a.dtype}{tuple(a.shape)} differs from "
+                                 f"{dt}{tuple(b.shape)}")
 
 
 def fmt(t: dict) -> str:
@@ -554,7 +599,7 @@ def knob_paths(h2r, bp, kernels, knob_ms, hdr, chars, lengths, main, twins, orac
         kernels.reset_launch_counts()
         out = m(chars, lengths)
         torch.cuda.synchronize()
-        launches[path] = {k.name: k.launches for k in kernels.KERNELS}
+        launches[path] = counts(kernels)
         want = {k.name: 0 for k in kernels.KERNELS}
         want.update({k.name: n for k, n in kernels.path_launches(m.plan).items()})
         log(f"[5] {path}: launches {launches[path]}")
@@ -573,7 +618,7 @@ def knob_paths(h2r, bp, kernels, knob_ms, hdr, chars, lengths, main, twins, orac
     kernels.reset_launch_counts()
     got = [hdr.scan_planes(bits3, d) for d in range(p3.n_defs)]
     torch.cuda.synchronize()
-    launches["scan_planes"] = {k.name: k.launches for k in kernels.KERNELS}
+    launches["scan_planes"] = counts(kernels)
     log(f"[5] scan_planes: launches {launches['scan_planes']}")
     if launches["scan_planes"] != {k.name: p3.n_defs * (k is kernels.SCAN_DEF)
                                    for k in kernels.KERNELS}:
@@ -668,6 +713,294 @@ def beyond_staging(h2r, n: int = B, length: int = 64):
     return [("wide_pairs", h2r.PallasMatcher(wide, max_pairs=8192), wide_ch.to(dev),
              wide_ln.to(dev)),
             ("nine_defs", h2r.PallasMatcher(nine), nine_ch.to(dev), nine_ln.to(dev))]
+
+
+def counts(kernels) -> dict:
+    return {k.name: k.launches for k in kernels.KERNELS}
+
+
+def expect(kernels, *parts) -> dict:
+    """Launch counts a path should show: zero for every kernel, plus the
+    sum of ``parts`` (dicts of kernel -> launches)."""
+    want = {k.name: 0 for k in kernels.KERNELS}
+    for part in parts:
+        for k, n in part.items():
+            want[k.name] += n
+    return want
+
+
+# expand_witness returns the sums over defs as numpy sums them (int64),
+# as the JAX package's does; every other column keeps its int32 / bool
+EXPAND_DTYPES = {k: np.dtype(np.int64) for k in ("is_start_sum", "is_end_sum", "substr_id_sum")}
+
+
+def prover_phase(h2r, kernels, native, model, wm, fm, chars, lengths, c_np, l_np, card) -> dict:
+    """[8] The prover's flow on the from: model at B x L (bench.py:175's
+    witness, then the host layer): ``BitplaneMatcher(columns="witness")``
+    on the card (qpack, scan, post), ``expand_witness`` and
+    ``check_witness_batch`` on the host, both timed (median and IQR of 3);
+    the same verdicts from the C++ oracle's columns of the whole batch
+    (``native.native_result``) and from the card's ``columns="full"``
+    result (``compact=False``: JAX's int32 columns; the checker's gates
+    read the compact result's uint8 enable column as wrapping); ``save_witness`` / ``load_witness`` on a slice of rows; the
+    hand-off dump of one matching row of the card's result (its tensors
+    passed as they are), ``verify_handoff`` and the C++ ``handoff_check``
+    on it.  Every output is held bit for bit, dtypes included."""
+    from halo2_regex_tpu_torch.witness import handoff
+
+    rec, launches = {}, {}
+    kernels.reset_launch_counts()
+    w = wm(chars, lengths)
+    torch.cuda.synchronize()
+    launches["prover_witness"] = got = counts(kernels)
+    if got != expect(kernels, kernels.path_launches(wm.plan)):
+        raise AssertionError(f"prover witness: launches {got}")
+    log(f"[8] prover: BitplaneMatcher(columns='witness') on the card, launches {got}")
+    # the card's witness dict and raw bytes go to the host layer unchanged
+    last = {}  # the runs are the work: no warm-up
+    t_exp = host_ms(lambda: last.update(full=h2r.expand_witness(model, w, chars)), 3, warmup=0)
+    full = last["full"]
+    t_chk = host_ms(lambda: last.update(ok=h2r.check_witness_batch(model.regex_defs, full)), 3,
+                    warmup=0)
+    ok = last["ok"]
+    t0 = time.perf_counter()
+    nat = native.native_result(model, c_np, l_np)
+    t_nat = time.perf_counter() - t0
+    ok_nat = h2r.check_witness_batch(model.regex_defs, nat)
+    assert_same("prover: expand_witness vs the native oracle", full, nat, EXPAND_DTYPES)
+    kernels.reset_launch_counts()
+    res = fm(chars, lengths)
+    torch.cuda.synchronize()
+    launches["prover_full"] = got = counts(kernels)
+    if got != expect(kernels, kernels.path_launches(fm.plan)):
+        raise AssertionError(f"prover full: launches {got}")
+    res_np = res.to_numpy()
+    assert_same("prover: the card's full result vs the native oracle", res_np, nat)
+    ok_full = h2r.check_witness_batch(model.regex_defs, res_np)
+    for what, v in (("the native oracle's columns", ok_nat), ("the full result", ok_full),
+                    ("match_ok", nat.match_ok)):
+        if v.dtype != ok.dtype or not np.array_equal(v, ok):
+            raise AssertionError(f"prover: the checker's verdicts differ on {what}")
+    n_ok = int(ok.sum())
+    if not 0 < n_ok:
+        raise AssertionError("prover: no witness verifies")
+    rec.update(expand_ms=t_exp, check_ms=t_chk, native_s=t_nat, verified=n_ok,
+               rejected=int(ok.size - n_ok))
+    log(f"[8] prover: expand_witness {fmt(t_exp)}, check_witness_batch {fmt(t_chk)} on the "
+        f"host for B={ok.size} x L={c_np.shape[1]} (3 runs each); verdicts {n_ok} verified, "
+        f"{ok.size - n_ok} rejected, equal to the checker's on the native oracle's columns "
+        f"({t_nat:.3f} s), on the card's full result and to match_ok; the expanded columns "
+        f"equal the oracle's; card {card}")
+    # the npz artifact on a slice of rows
+    work = kernels.build_root() / "prover"
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "witness.npz"
+    part = res.map(lambda a: a[:ORACLE_N])  # card tensors
+    t0 = time.perf_counter()
+    h2r.save_witness(path, model.regex_defs, part)
+    defs, back, _tables = h2r.load_witness(path)
+    rec["npz"] = {"rows": ORACLE_N, "bytes": path.stat().st_size,
+                  "seconds": time.perf_counter() - t0}
+    assert_same("prover: load_witness(save_witness)", back, part.to_numpy())
+    if [d.allstr.to_text() for d in defs] != [d.allstr.to_text() for d in model.regex_defs]:
+        raise AssertionError("prover: the npz's defs differ")
+    # the hand-off of one matching row of the card's result
+    i = int(np.flatnonzero(ok)[0])
+    meta = {"model": "from", "row": str(i), "max_chars_size": str(c_np.shape[1])}
+    text = handoff.dump_prover_rows(model.regex_defs, res.map(lambda a: a[i]), meta=meta)
+    if text != handoff.dump_prover_rows(model.regex_defs, nat.map(lambda a: a[i]), meta=meta):
+        raise AssertionError("prover: the hand-off dump differs from the native oracle's")
+    errs = handoff.verify_handoff(handoff.load_prover_rows(text))
+    dump = work / "handoff.txt"
+    dump.write_text(text)
+    r = native.handoff_check(dump)
+    lines = text.splitlines()
+    k = lines.index("[advice states def=0]") + 4
+    lines[k] = str(int(lines[k]) + 1)
+    dump.write_text("\n".join(lines) + "\n")
+    r_bad = native.handoff_check(dump)
+    if errs or r.returncode != 0 or "clean" not in r.stdout or r_bad.returncode != 1:
+        raise AssertionError(f"prover: hand-off of row {i}: {errs[:3]}, handoff_check "
+                             f"{r.returncode} {r.stdout!r}, tampered {r_bad.returncode}")
+    for f in (path, dump):
+        f.unlink()
+    work.rmdir()
+    rec["handoff_lines"] = len(lines)
+    log(f"[8] prover: save/load_witness of {ORACLE_N} card rows round-trips "
+        f"({rec['npz']['bytes']} B); the hand-off dump of row {i} ({len(lines)} lines) equals "
+        f"the oracle row's, verify_handoff clean, handoff_check clean and rejects a tampered "
+        f"state")
+    return {"rec": rec, "launches": launches}
+
+
+def scan_launches(kernels, n_defs: int, rows: int, Ls: int, dev) -> int:
+    """The table scan's launches for one call over ``rows`` strings of
+    ``Ls`` bytes: two in its chunked form, one in its serial form."""
+    return 2 if kernels.table_scan_form(n_defs, rows, Ls, dev)[0] else 1
+
+
+def parallel_phase(h2r, kernels, model, model3, xla, mf, m3, mp, chars, lengths,
+                   chars3, lengths3, chars_p, lengths_p, corpus_file, model_file, cli_counts,
+                   flush, card, dev) -> dict:
+    """[9] The sharded matchers on the one card, each driven once with the
+    launch counts reset and held bit for bit (dtypes included) to the
+    unsharded card matcher on the same inputs, then timed in turns with
+    it: ``DistributedMatcher`` (xla and pallas) at B x L on the from:
+    corpus over a 4 x 1 mesh of the card (``[cuda:0] * 4``: one process,
+    the shards one after another), ``SeqShardedMatcher`` there over 1 x 4,
+    ``SpeculativeSeqMatcher(per_shard="pallas")`` on configs[3] and on the
+    permutation DFA over 1 x 4 (its rounds printed), and
+    ``parallel.launch`` at world size 1 over nccl on cli_scan's file, in
+    turns with ``ScanJob`` on the portable scan."""
+    from halo2_regex_tpu_torch.parallel import seq_parallel as sp
+
+    rec, launches, times = {}, {}, {}
+    mesh_d = h2r.make_mesh(data=4, devices=[dev] * 4)
+    mesh_s = h2r.make_mesh(data=1, seq=4, devices=[dev] * 4)
+    dm_x = h2r.DistributedMatcher(model, mesh_d)
+    dm_p = h2r.DistributedMatcher(model, mesh_d, backend="pallas")
+    seq = h2r.SeqShardedMatcher(model, mesh_s)
+    spec3 = sp.SpeculativeSeqMatcher(model3, mesh_s, per_shard="pallas")
+    spec_p = sp.SpeculativeSeqMatcher(mp.model, mesh_s, per_shard="pallas")
+    Bs, Ls, Ls3 = B // 4, L // 4, L3 // 4
+    S = model.s_pad
+    group = max(1, min(B, sp.PASS1_BYTES // (model.n_defs * Ls * S * 4)))
+    pass1 = sum(scan_launches(kernels, model.n_defs, min(group, B - b0) * S, Ls, dev)
+                for b0 in range(0, B, group))
+    ts = kernels.TABLE_SCAN
+    expected = {
+        "dp_xla": {ts: 4 * scan_launches(kernels, model.n_defs, Bs, L, dev)},
+        "dp_pallas": {k: 4 * n for k, n in
+                      kernels.table_path_launches(dm_p.pallas[mesh_d.device(0)], Bs).items()},
+        "seq": {ts: 4 * (pass1 + scan_launches(kernels, model.n_defs, B, Ls, dev))},
+    }
+    refs = {"dp_xla": (xla, chars, lengths), "dp_pallas": (mf, chars, lengths),
+            "seq": (xla, chars, lengths), "spec_configs3": (m3, chars3, lengths3),
+            "spec_permutation": (mp, chars_p, lengths_p)}
+    runs = {"dp_xla": (dm_x, model, chars, lengths), "dp_pallas": (dm_p, model, chars, lengths),
+            "seq": (seq, model, chars, lengths), "spec_configs3": (spec3, model3, chars3, lengths3),
+            "spec_permutation": (spec_p, mp.model, chars_p, lengths_p)}
+    for path, (m, mdl, ch, ln) in runs.items():
+        kernels.reset_launch_counts()
+        out = m(ch, ln)
+        torch.cuda.synchronize()
+        launches[path] = got = counts(kernels)
+        ref_m, rch, rln = refs[path]
+        ref = ref_m(rch, rln)
+        if path.startswith("dp"):
+            res, stats = out
+            want = {"n_matched": ref.match_ok.sum(), "n_failed": (~ref.match_ok).sum(),
+                    "n_dead": ref.has_dead.any(1).sum(), "bytes_scanned": rln.sum(),
+                    "extracted_bytes": (ref.mask * ref.all_enable_flags).sum()}
+            for k, v in want.items():
+                if stats[k].dtype != np.int32 or int(stats[k]) != int(v):
+                    raise AssertionError(f"{path}: stats[{k}] {stats[k]!r}, expected {int(v)}")
+            rec[f"{path}_stats"] = {k: int(v) for k, v in stats.items()}
+        else:
+            out = dict(out)
+            rounds = out.pop("spec_rounds", None)
+            res = sp._assemble_result(mdl, out, ch, ln)
+            if rounds is not None:
+                rounds = int(rounds[0])
+                rec[f"{path}_rounds"] = rounds
+                expected[path] = {ts: rounds * 4 * scan_launches(kernels, 1, B3, Ls3, dev)}
+        if got != expect(kernels, expected[path]):
+            raise AssertionError(f"{path}: launches {got}, expected {expected[path]}")
+        assert_same(f"{path} vs the unsharded matcher", res, ref)
+        torch.cuda.synchronize()
+        log(f"[9] {path}: launches {got}; equals {type(ref_m).__name__} on the same inputs on "
+            f"every field, dtypes included"
+            + (f"; spec_rounds {rounds}" if path.startswith("spec") else "")
+            + (f"; stats {rec[f'{path}_stats']}" if path.startswith("dp") else ""))
+        del out, res, ref
+    if rec["spec_permutation_rounds"] != 4:
+        raise AssertionError("spec_permutation: every guess is wrong, so it needs 4 rounds")
+    # walls in turns: unsharded, sharded, sharded, unsharded
+    for path, (m, mdl, ch, ln) in runs.items():
+        ref_m, rch, rln = refs[path]
+        order = [("unsharded", lambda: ref_m(rch, rln)), ("sharded", lambda: m(ch, ln))]
+        seqs = {}
+        for name, fn in order + order[::-1]:
+            seqs.setdefault(name, []).append(time_ms(fn, flush, device_only=False))
+        # where the sharded wall goes: the kernels' busy time in a trace
+        prof = profile_call(lambda: m(ch, ln), n=3)
+        seqs["profile"] = prof
+        times[path] = seqs
+        wall = float(np.median([t["median"] for t in seqs["sharded"]]))
+        log(f"[9] {path} wall: sharded {', '.join(fmt(t) for t in seqs['sharded'])}; "
+            f"unsharded {type(ref_m).__name__} {', '.join(fmt(t) for t in seqs['unsharded'])} "
+            f"(in turns); card {card}")
+        log(f"[9] {path} profile (3 calls): device busy {prof['busy_ms']:.4f} ms a call, "
+            f"{100 * prof['busy_ms'] / wall:.1f} % of the sharded wall's median, "
+            f"{prof['n_kernels']:.0f} kernels a call; kernels (ms a call): "
+            + "; ".join(f"{n} {v:.4f}" for n, v in prof["kernels"])
+            + "; host (ms a call): " + "; ".join(f"{n} {v:.4f}" for n, v in prof["host"]))
+    # launch at world size 1 (nccl), in turns with ScanJob on the portable
+    # scan: on cli_scan's file, and on that file LAUNCH_REPEAT times over,
+    # where the launcher's start-up inside its timed window (its first
+    # calls and first collective, in a fresh process) is a small share;
+    # the two files' walls give its rate past that start-up
+    import socket
+
+    def run(what, path):
+        if what == "scan_job":
+            c = json.loads(h2r.ScanJob(xla, [str(path)], batch_size=B,
+                                       keep_newline=True).run().to_json())
+            return {"n_matched": c["matched"], "strings": c["strings"],
+                    "bytes_scanned": c["bytes_scanned"], "n_dead": c["dead"],
+                    "bytes_per_sec": c["bytes_per_sec"], "wall_seconds": c["wall_seconds"]}
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        r = subprocess.run(
+            [sys.executable, "-m", "halo2_regex_tpu_torch.parallel.launch", "--model",
+             str(model_file), "--corpus", str(path), "--batch-per-host", str(B),
+             "--keep-newline", "--device", "cuda", "--coordinator", f"127.0.0.1:{port}",
+             "--num-processes", "1", "--process-id", "0"],
+            env=env, capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"launch exited {r.returncode}: {r.stderr[-2000:]}")
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    big = corpus_file.with_name("corpus_repeated.txt")
+    data = corpus_file.read_bytes()
+    with open(big, "wb") as f:
+        for _ in range(LAUNCH_REPEAT):
+            f.write(data)
+    lruns = {}
+    for size, path, reps, turns in (
+            ("small", corpus_file, 1, ("scan_job", "launch")),
+            ("repeated", big, LAUNCH_REPEAT, ("scan_job", "launch", "launch", "scan_job"))):
+        want = {"n_matched": cli_counts["matched"], "strings": cli_counts["strings"],
+                "bytes_scanned": cli_counts["bytes_scanned"], "n_dead": cli_counts["dead"]}
+        want = {k: reps * v for k, v in want.items()}
+        for what in turns:
+            got = run(what, path)
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"{what} on the {size} file: totals {got}, {reps} x "
+                                     f"cli_scan's {want}")
+            lruns.setdefault(size, {}).setdefault(what, []).append(got)
+    big.unlink()
+    small_l, big_l = lruns["small"]["launch"][0], lruns["repeated"]["launch"]
+    wall_big = float(np.mean([r["wall_seconds"] for r in big_l]))
+    rate = ((big_l[0]["bytes_scanned"] - small_l["bytes_scanned"])
+            / (wall_big - small_l["wall_seconds"]))
+    startup = small_l["wall_seconds"] - small_l["bytes_scanned"] / rate
+    rec["launch"] = dict(lruns, repeat=LAUNCH_REPEAT, past_startup_bytes_per_sec=rate,
+                         startup_seconds=startup)
+    log(f"[9] launch (world size 1, nccl) counts what cli_scan counts, on its file "
+        f"({cli_counts['matched']} of {cli_counts['strings']}) and on it {LAUNCH_REPEAT} times "
+        f"over ({big_l[0]['bytes_scanned']} bytes); bytes_per_sec on the file "
+        f"{small_l['bytes_per_sec']} against ScanJob(BatchMatcher)'s "
+        f"{lruns['small']['scan_job'][0]['bytes_per_sec']}; on the repeated file "
+        f"{[r['bytes_per_sec'] for r in big_l]} against "
+        f"{[r['bytes_per_sec'] for r in lruns['repeated']['scan_job']]} (turns: job, launch, "
+        f"launch, job; file reads, packing and copies included); from the two files' walls, "
+        f"launch's rate past its start-up {rate:.1f} B/s and its start-up "
+        f"{startup:.3f} s; card {card}")
+    return {"rec": rec, "launches": launches, "times": times}
 
 
 def main() -> dict:
@@ -1129,7 +1462,7 @@ def main() -> dict:
     kernels.reset_launch_counts()
     out_p = mp(chars_p, lengths_p)
     torch.cuda.synchronize()
-    launches_p = {k.name: k.launches for k in kernels.KERNELS}
+    launches_p = counts(kernels)
     want_p = {k.name: 0 for k in kernels.KERNELS}
     want_p.update({k.name: v for k, v in kernels.table_path_launches(mp, B3).items()})
     if launches_p != want_p:
@@ -1297,7 +1630,7 @@ def main() -> dict:
         kernels.reset_launch_counts()
         out = m(ch, ln)
         torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in kernels.KERNELS}
+        launches = counts(kernels)
         expected = {k.name: 0 for k in kernels.KERNELS}
         expected.update({k.name: n for k, n in kernels.path_launches(m.plan).items()})
         log(f"[5] {path}: launches {launches}")
@@ -1313,7 +1646,7 @@ def main() -> dict:
         kernels.reset_launch_counts()
         out = m(ch, ln)
         torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in kernels.KERNELS}
+        launches = counts(kernels)
         repaired = kernels.table_scan_repaired(dev) - before
         expected = {k.name: 0 for k in kernels.KERNELS}
         expected.update({k.name: v for k, v in
@@ -1337,7 +1670,7 @@ def main() -> dict:
         kernels.reset_launch_counts()
         out = m(ch, ln)
         torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in kernels.KERNELS}
+        launches = counts(kernels)
         expected = {k.name: 0 for k in kernels.KERNELS}
         expected.update({k.name: v for k, v in kernels.scan_path_launches(m, ch.shape[0]).items()})
         log(f"[5] {path}: launches {launches}")
@@ -1396,7 +1729,7 @@ def main() -> dict:
     kernels.reset_launch_counts()
     out4 = mf(ch4, ln4)
     torch.cuda.synchronize()
-    launches4 = {k.name: k.launches for k in kernels.KERNELS}
+    launches4 = counts(kernels)
     want4 = {k.name: 0 for k in kernels.KERNELS}
     want4.update({k.name: v for k, v in kernels.table_path_launches(mf, nb).items()})
     if launches4 != want4:
@@ -1500,7 +1833,7 @@ def main() -> dict:
             rc = cli.main(["scan", "--model", str(model_file), "--batch", str(B),
                            "--keep-newline", "--input-layout", layout, str(corpus_file)])
         torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in kernels.KERNELS}
+        launches = counts(kernels)
         if rc != 0:
             raise AssertionError(f"cli scan --input-layout {layout} exited {rc}")
         counters = json.loads(buf.getvalue().strip().splitlines()[-1])
@@ -1533,7 +1866,7 @@ def main() -> dict:
                               device_expand=dx)
             counters = json.loads(job.run().to_json())
             torch.cuda.synchronize()
-            launches = {k.name: k.launches for k in kernels.KERNELS}
+            launches = counts(kernels)
             expected = {k.name: 0 for k in kernels.KERNELS}
             expected.update({k.name: n * n_batches
                              for k, n in kernels.path_launches(m.plan).items()})
@@ -1547,9 +1880,6 @@ def main() -> dict:
     log(f"[5] device_expand: ScanJob(device_expand=True) counts what the host-packed job and "
         f"cli_scan count ({want_ok} of {2 * N_CLI} in {n_batches} batches) in both layouts, "
         f"with the match paths' launches per batch")
-    for f in (corpus_file, model_file):
-        f.unlink()
-    work.rmdir()
     del data, p_chars, p_lens
 
     # [6] timings
@@ -1644,7 +1974,7 @@ def main() -> dict:
     times["table_scan@permutation"] = {"kernel": tperm}
     log(f"[6] table_scan @ permutation (every speculative chunk repaired): {fmt(tperm)}; "
         f"card {card}")
-    del perm_run, outp
+    del outp
 
     e2e_paths = {
         "witness": (lambda: matchers["witness"](chars, lengths), "witness", inputs[L]),
@@ -1779,6 +2109,21 @@ def main() -> dict:
     errs.update(kp_rec["errs"])
     path_launches.update(kp_rec["launches"])
     rec["match_ok"].update(kp_rec["match_ok"])
+    # [8] the prover's flow and [9] the sharded matchers
+    pv = prover_phase(h2r, kernels, native, model, matchers["witness"], full32, chars, lengths,
+                      *corpora[L], card)
+    mp, chars_p = perm_run
+    pl = parallel_phase(h2r, kernels, model, model3, xla, mf, m3, mp, chars, lengths, chars3,
+                        lengths3, chars_p, lengths_p, corpus_file, model_file,
+                        cli_runs["bl"][0], flush, card, dev)
+    del perm_run
+    for f in (corpus_file, model_file):
+        f.unlink()
+    work.rmdir()
+    rec.update(prover=pv["rec"], parallel=pl["rec"])
+    path_launches.update(pv["launches"])
+    path_launches.update(pl["launches"])
+    times.update({f"parallel_{k}": v for k, v in pl["times"].items()})
     if sorted(r["name"] for r in kern_rows) != sorted(k.name for k in kernels.KERNELS):
         raise AssertionError("the kernels line does not list every kernel once")
 

@@ -1,20 +1,22 @@
 """Command-line interface of the PyTorch port (the JAX package's
-``halo2_regex_tpu.cli`` less ``gen-circom`` and ``handoff``, which wait for
-the circom and hand-off modules of a later slice; ROADMAP A12).
+``halo2_regex_tpu.cli``: the same commands, flags, messages and exit codes).
 
 Reference parity (src/bin/vrm.rs:21-88):
   gen-halo2-texts  decomposed JSON -> allstr.txt + substr{i}.txt tables
+  gen-circom       decomposed JSON -> circom template
 
 Device commands:
   compile          decomposed JSON(s) -> dense .npz model artifact
   match            run the batched matcher over input strings and print
                    extracted substrings / acceptance
+  handoff          dump the prover hand-off rows of one input (the
+                   matcher's full witness) and re-verify them from the text
   explain          per-byte trace of one match (the numpy oracle)
   scan             stream a newline-delimited corpus through the matcher
                    (resumable ScanJob) and print match statistics
   bench            quick throughput measurement on one backend
 
-``--device`` (match, scan, bench) is ``cuda`` by default, which raises
+``--device`` (match, handoff, scan, bench) is ``cuda`` by default, which raises
 where CUDA is absent; ``--device cpu`` runs the kernels' plain versions
 (the port's counterpart of ``JAX_PLATFORMS=cpu``).
 
@@ -44,6 +46,16 @@ def _cmd_gen_halo2_texts(args) -> int:
     return 0
 
 
+def _cmd_gen_circom(args) -> int:
+    from .compiler.circom import gen_circom
+    from .compiler.decomposed import DecomposedRegexConfig
+
+    cfg = DecomposedRegexConfig.from_json_file(args.decomposed_regex_path)
+    gen_circom(cfg, args.circom_file_path, args.template_name)
+    print(f"wrote {args.circom_file_path}")
+    return 0
+
+
 def _cmd_compile(args) -> int:
     from .compiler.decomposed import DecomposedRegexConfig
     from .models.compiled import CompiledRegexModel
@@ -57,12 +69,6 @@ def _cmd_compile(args) -> int:
         f"-> {args.output}"
     )
     return 0
-
-
-def _host_rows(res):
-    """A RegexResult on any device -> the same columns as numpy, fetched
-    from the device once for the whole batch."""
-    return res.map(lambda a: a.cpu().numpy())
 
 
 def _cmd_match(args) -> int:
@@ -82,7 +88,7 @@ def _cmd_match(args) -> int:
         return 2
     matcher, _ = best_matcher(model, backend=args.backend, device=args.device)
     chars, lengths = pack_batch(strings, model.max_chars_size)
-    res = _host_rows(matcher(chars, lengths))
+    res = matcher(chars, lengths).to_numpy()  # one fetch for the batch
     ok = res.match_ok
     n_bad = 0
     for i, s in enumerate(strings):
@@ -99,6 +105,46 @@ def _cmd_match(args) -> int:
             ],
         }))
     return 1 if (args.strict and n_bad) else 0
+
+
+def _cmd_handoff(args) -> int:
+    """Prover hand-off: dump tables + assigned witness columns for one
+    input as the self-describing row artifact (witness/handoff.py), then
+    re-verify it from the text alone."""
+    from .models.compiled import CompiledRegexModel
+    from .ops import best_matcher
+    from .utils.io import pack_batch
+    from .witness.handoff import dump_prover_rows, load_prover_rows, verify_handoff
+
+    model = CompiledRegexModel.load(args.model)
+    s = args.string.encode("latin-1")
+    if len(s) > model.max_chars_size:  # the numpy oracle's error in JAX's command
+        raise ValueError(f"input length {len(s)} exceeds max_chars_size {model.max_chars_size}")
+    # JAX's int32 columns (compact=False), one row of a batch of one
+    matcher, _ = best_matcher(model, device=args.device, compact=False)
+    result = matcher(*pack_batch([s], model.max_chars_size)).to_numpy().map(lambda a: a[0])
+    if not bool(result.match_ok) and not args.allow_nonmatch:
+        print("input does not match; pass --allow-nonmatch to dump anyway")
+        return 1
+    text = dump_prover_rows(
+        model.regex_defs,
+        result,
+        meta={
+            "model": args.model,
+            "input": args.string.encode("unicode_escape").decode(),
+            "max_chars_size": str(model.max_chars_size),
+        },
+    )
+    Path(args.output).write_text(text)
+    errors = verify_handoff(load_prover_rows(text))
+    if errors:
+        print(f"VERIFY FAILED: {errors[:3]}")
+        return 1
+    print(
+        f"wrote {args.output} ({len(text.splitlines())} lines), "
+        f"external-style verification clean"
+    )
+    return 0
 
 
 def _cmd_explain(args) -> int:
@@ -172,7 +218,7 @@ def _cmd_scan(args) -> int:
     def _print_matches(res, chars, lengths, n_valid):
         if not args.print_matches:
             return
-        res = _host_rows(res)
+        res = res.to_numpy()
         for i in np.nonzero(res.match_ok[:n_valid])[0]:
             if lengths[i] == 0:
                 continue
@@ -266,6 +312,12 @@ def main(argv=None) -> int:
     p.add_argument("--substrs-dir-path", required=True)
     p.set_defaults(fn=_cmd_gen_halo2_texts)
 
+    p = sub.add_parser("gen-circom", help="decomposed JSON -> circom template")
+    p.add_argument("--decomposed-regex-path", required=True)
+    p.add_argument("--circom-file-path", required=True)
+    p.add_argument("--template-name", required=True)
+    p.set_defaults(fn=_cmd_gen_circom)
+
     p = sub.add_parser("compile", help="decomposed JSON(s) -> .npz model artifact")
     p.add_argument("decomposed_regex_paths", nargs="+")
     p.add_argument("--max-chars-size", type=int, default=1024)
@@ -281,6 +333,14 @@ def main(argv=None) -> int:
     p.add_argument("--backend", default="auto", choices=BACKENDS)
     device_arg(p)
     p.set_defaults(fn=_cmd_match)
+
+    p = sub.add_parser("handoff", help="dump prover hand-off rows for one input")
+    p.add_argument("--model", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--allow-nonmatch", action="store_true")
+    p.add_argument("string")
+    device_arg(p)
+    p.set_defaults(fn=_cmd_handoff)
 
     p = sub.add_parser("explain", help="per-byte trace of one match")
     p.add_argument("--model", required=True)

@@ -1,17 +1,21 @@
 """ctypes bindings for the port's native host code: the corpus packers
-(``pack.cpp``) and the host oracle (``scan.cpp``).
+(``pack.cpp``), the host oracle (``scan.cpp``) and the standalone prover
+hand-off verifier (``handoff_check.cpp``).
 
 ``pack_lines`` splits a newline-delimited buffer into a padded batch and
 ``tile_corpus`` packs a batch into the tiled input contract's quad words.
 ``scan_states``, ``substr_scan`` and ``mask_fsm`` are the per-def DFA
 scan, the substring tagging and the mask FSMs on the model's dense tables,
 and ``match_substrs_native`` combines them into the witness columns of a
-whole batch: a conformance oracle (chip_smoke holds the card's outputs to
-it), never a path of the device.  All are multithreaded C++ (OpenMP),
+whole batch (``native_result``: the whole ``RegexResult``): a conformance
+oracle (chip_smoke holds the card's outputs to it), never a path of the
+device.  All are multithreaded C++ (OpenMP),
 copied from the JAX package's ``native/scan.cpp``.  One library is built
 from both sources with g++ at first use under the port's build root
 (``ops.kernels.build_root()``, keyed by a hash of the sources and flags),
-never inside the package.
+never inside the package.  ``handoff_check`` runs the hand-off verifier,
+a program of its own that reads a ``witness.handoff`` dump and depends on
+nothing of the package, built with g++ at first use beside that library.
 
 ``available()`` is False only where no g++ exists; callers then take the
 numpy packers (``utils.io.pack_lines``, ``ops.bitplane.tile_corpus``) and
@@ -189,12 +193,10 @@ def mask_fsm(id_sum: np.ndarray, is_start_sum: np.ndarray,
     return fwd, bwd, msk
 
 
-def match_substrs_native(model, chars: np.ndarray, lengths: np.ndarray) -> dict:
-    """Witness generation for a ``CompiledRegexModel`` on the host, from
-    the per-def native passes: the columns of ``ops.reference`` bit for bit
-    (all of ``RegexResult``'s but start_enable and end_enable), as a dict of
-    numpy arrays.  ``accepted`` is the final state against the def's
-    accepted state, as in the JAX package."""
+def _native_passes(model, chars: np.ndarray, lengths: np.ndarray):
+    """The per-def native passes of a whole batch: the columns of
+    ``match_substrs_native`` and, per def, the start flags [B, L+1] and
+    the right-shifted end flags [B, L+1] of ``substr_scan``."""
     chars = np.ascontiguousarray(chars, np.uint8)
     lengths = _i32(lengths)
     B, L = chars.shape
@@ -204,7 +206,7 @@ def match_substrs_native(model, chars: np.ndarray, lengths: np.ndarray) -> dict:
     ies_sum = np.zeros((B, L + 1), np.int32)
     accepted = np.zeros((B, n_defs), bool)
     has_dead = np.zeros((B, n_defs), bool)
-    states_all, ids_all = [], []
+    states_all, ids_all, starts, ends = [], [], [], []
     for d in range(n_defs):
         raw = scan_states(chars, lengths, model.transition[d], int(model.first_states[d]),
                           int(model.dummy_states[d]))
@@ -219,10 +221,12 @@ def match_substrs_native(model, chars: np.ndarray, lengths: np.ndarray) -> dict:
         ies_sum += ieo
         states_all.append(raw)
         ids_all.append(ids)
+        starts.append(iso)
+        ends.append(ieo)
     fwd, bwd, msk = mask_fsm(id_sum, iss_sum, ies_sum)
     enable = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
     chars_i32 = chars.astype(np.int32) * enable
-    return dict(
+    cols = dict(
         all_enable_flags=enable,
         all_characters=chars_i32,
         all_substr_ids=msk * id_sum,
@@ -239,3 +243,66 @@ def match_substrs_native(model, chars: np.ndarray, lengths: np.ndarray) -> dict:
         has_dead=has_dead,
         match_ok=accepted.all(1) & ~has_dead.any(1),
     )
+    return cols, starts, ends
+
+
+def match_substrs_native(model, chars: np.ndarray, lengths: np.ndarray) -> dict:
+    """Witness generation for a ``CompiledRegexModel`` on the host, from
+    the per-def native passes: the columns of ``ops.reference`` bit for bit
+    (all of ``RegexResult``'s but start_enable and end_enable), as a dict of
+    numpy arrays.  ``accepted`` is the final state against the def's
+    accepted state, as in the JAX package."""
+    return _native_passes(model, chars, lengths)[0]
+
+
+def native_result(model, chars: np.ndarray, lengths: np.ndarray):
+    """``match_substrs_native``'s columns with the per-def start_enable
+    (the start flag at each enabled position) and end_enable (the end flag
+    of each enabled position, unshifted): a whole ``RegexResult`` of
+    numpy arrays from the native passes, such as the constraint checker
+    (``witness.checker.check_witness_batch``) takes."""
+    from ..witness.result import RegexResult
+
+    cols, starts, ends = _native_passes(model, chars, lengths)
+    enable = cols["all_enable_flags"]
+    L = enable.shape[1]
+    return RegexResult(
+        **cols,
+        start_enable=np.stack([enable * s[:, :L] for s in starts], 1),
+        end_enable=np.stack([enable * e[:, 1:] for e in ends], 1),
+    )
+
+
+@functools.cache
+def handoff_check_binary() -> Path:
+    """The standalone C++ hand-off verifier (``handoff_check.cpp``), built
+    with g++ at first use under the build root, keyed by a hash of its
+    source and flags.  Raises where no g++ exists or the build fails."""
+    from ..ops.kernels import build_root
+
+    if not available():
+        raise RuntimeError("handoff_check needs g++ on PATH")
+    src = Path(__file__).resolve().parent / "handoff_check.cpp"
+    flags = ("-O2", "-std=c++17")
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    exe = build_root() / "native" / key / "handoff_check"
+    with _LOCK:
+        if not exe.exists():
+            exe.parent.mkdir(parents=True, exist_ok=True)
+            tmp = exe.with_name(f"handoff_check.{os.getpid()}.{threading.get_ident()}")
+            cmd = ["g++", *flags, str(src), "-o", str(tmp)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"g++ failed ({res.returncode}) building {exe}:\n{' '.join(cmd)}\n{res.stderr}"
+                )
+            os.replace(tmp, exe)
+    return exe
+
+
+def handoff_check(path) -> subprocess.CompletedProcess:
+    """Run the C++ hand-off verifier on the dump at ``path``: return code 0
+    and "clean" on stdout for a dump that verifies, 1 with the violations
+    on stderr for one that does not, 2 for a malformed file."""
+    return subprocess.run([str(handoff_check_binary()), str(path)], capture_output=True,
+                          text=True)

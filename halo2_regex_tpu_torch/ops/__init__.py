@@ -24,8 +24,8 @@ def best_matcher(model, backend: str = "auto", device="cuda", **kwargs):
     than the witness emission, a knob the port does not run) passes to the
     next; any other error, such as the ``RuntimeError`` of a missing CUDA
     device or a failed build, propagates.  ``kwargs`` go to the chosen
-    matcher's constructor (``PallasMatcher`` takes no ``columns``,
-    ``BatchMatcher`` none of them, as in JAX)."""
+    matcher's constructor (``PallasMatcher`` takes no ``columns`` and no
+    ``compact``, ``BatchMatcher`` none of them, as in JAX)."""
     from .bitplane import BitplaneMatcher
     from .pallas_scan import PallasMatcher
     from .scan_torch import BatchMatcher
@@ -39,7 +39,7 @@ def best_matcher(model, backend: str = "auto", device="cuda", **kwargs):
             if name == "bitplane":
                 return BitplaneMatcher(model, device=device, **kwargs), name
             if name == "pallas":
-                kw = {k: v for k, v in kwargs.items() if k != "columns"}
+                kw = {k: v for k, v in kwargs.items() if k not in ("columns", "compact")}
                 return PallasMatcher(model, device=device, **kw), name
             return BatchMatcher(model, device=device), name
         except (ValueError, NotImplementedError) as e:  # the next rung

@@ -74,6 +74,11 @@ def _model_arrays(model: CompiledRegexModel) -> dict:
     return arrays
 
 
+def arrays_on(arrays: dict, device) -> dict:
+    """A dict of ``_model_arrays`` with each tensor moved to ``device``."""
+    return {k: None if v is None else v.to(device) for k, v in arrays.items()}
+
+
 def _scan_tm(arrays: dict, chars: torch.Tensor, init: torch.Tensor, plain: bool) -> torch.Tensor:
     """States [n_defs, L, B] int32 after each byte of ``chars`` [B, L]
     uint8 from ``init`` [n_defs, B] int32 (the bytes past each length are

@@ -15,6 +15,18 @@ from dataclasses import dataclass, fields
 from typing import Any
 
 import numpy as np
+import torch
+
+
+def host(a) -> np.ndarray:
+    """``a`` as a numpy array on the host, its dtype kept: a tensor on any
+    device is copied to the CPU first (``np.asarray`` of a CUDA tensor
+    raises), in C order as JAX's arrays come (a transposed view would
+    otherwise save as a Fortran-order npy); anything else goes through
+    ``np.asarray``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().contiguous().cpu().numpy()
+    return np.asarray(a)
 
 
 @dataclass
@@ -55,4 +67,6 @@ class RegexResult:
         return RegexResult(**{f.name: fn(getattr(self, f.name)) for f in fields(self)})
 
     def to_numpy(self) -> "RegexResult":
-        return self.map(np.asarray)
+        """Every field as a numpy array (``host``): a result on the card
+        comes to the host, dtypes kept."""
+        return self.map(host)

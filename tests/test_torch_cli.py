@@ -1,10 +1,10 @@
 """The PyTorch port's corpus-scan entry point against the JAX package.
 
-Mirrors tests/test_cli.py (less ``gen-circom``, which waits for the circom
-module of a later slice) and tests/test_io.py: the port's CLI prints the
-JAX CLI's stdout for ``gen-halo2-texts``, ``compile``, ``match`` (each
-backend), ``explain`` and ``scan`` in both input layouts (less the
-wall-clock fields); the corpus loader and ``ScanJob`` (checkpoint and
+Mirrors tests/test_cli.py, tests/test_handoff.py's CLI test and
+tests/test_io.py: the port's CLI prints the JAX CLI's stdout for
+``gen-halo2-texts``, ``gen-circom``, ``compile``, ``match`` (each
+backend), ``handoff``, ``explain`` and ``scan`` in both input layouts
+(less the wall-clock fields), with the same exit codes and files; the corpus loader and ``ScanJob`` (checkpoint and
 resume, oversize lines, prefetch parity and errors, the device-expand
 form); ``Counters`` on torch tensors; and the ``best_matcher`` ladder.
 Every matcher here runs on the CPU (``--device cpu`` / ``device="cpu"``);
@@ -28,6 +28,7 @@ from halo2_regex_tpu_torch.ops import best_matcher
 from halo2_regex_tpu_torch.utils.io import CorpusLoader, batch_iterator, pack_batch, pack_lines
 from halo2_regex_tpu_torch.utils.jobs import ScanJob
 from halo2_regex_tpu_torch.utils.trace import Counters
+from halo2_regex_tpu_torch.witness.handoff import load_prover_rows, verify_handoff
 
 from fixtures import CONFIGS, EXPECTED_SHA256, sha256_text
 
@@ -127,6 +128,43 @@ def test_explain(model_paths):
     assert rc == 0
     assert "match_ok: True" in out and "extracted: [(21, 'y', 1)" in out
     assert (rc, out) == run(jax_main, ["explain", "--model", str(j), MATCH_ARGS[0]])
+
+
+def test_gen_circom_matches_jax(tmp_path, config_path):
+    outs = []
+    for fn, d in ((main, "t"), (jax_main, "j")):
+        path = tmp_path / f"{d}.circom"
+        rc, out = run(fn, ["gen-circom", "--decomposed-regex-path", str(config_path),
+                           "--circom-file-path", str(path), "--template-name", "Test1Regex"])
+        assert rc == 0
+        outs.append((out.replace(f"{d}.circom", "_.circom"), path.read_text()))
+    assert outs[0] == outs[1]
+    assert "template Test1Regex(msg_bytes)" in outs[0][1]
+
+
+@pytest.mark.parametrize("args", [["email was meant for @y."], ["nope"],
+                                  ["--allow-nonmatch", "nope"]],
+                         ids=["match", "refused", "allow_nonmatch"])
+def test_handoff_matches_jax(tmp_path, model_paths, args):
+    """Both CLIs dump the same hand-off file for one model file, with the
+    same message and exit code (0, or 1 for a non-matching input without
+    --allow-nonmatch, which writes nothing); the port's row comes from its
+    matcher on the CPU, JAX's from its numpy oracle."""
+    _t, j = model_paths
+    got = []
+    for fn, d, dev in ((main, "t", ["--device", "cpu"]), (jax_main, "j", [])):
+        out_path = tmp_path / f"{d}.txt"
+        rc, out = run(fn, ["handoff", "--model", str(j), "--output", str(out_path), *args,
+                           *dev])
+        got.append((rc, out.replace(f"{d}.txt", "_.txt"),
+                    out_path.read_text() if out_path.exists() else None))
+    assert got[0] == got[1]
+    rc, out, text = got[0]
+    if args == ["nope"]:
+        assert (rc, text) == (1, None) and "--allow-nonmatch" in out
+    else:
+        assert rc == 0 and "verification clean" in out
+        assert verify_handoff(load_prover_rows(text)) == []
 
 
 def _counters(out):

@@ -1199,3 +1199,174 @@ def test_device_expand_scan_job_on_card(dev, tmp_path):
                           device_expand=dx).run()
             outs.append({k: v for k, v in c.snapshot().items() if k != "wall_seconds"})
         assert outs[0] == outs[1] and (outs[0]["strings"], outs[0]["matched"]) == (1200, 300)
+
+
+# ---------------------------------------------------------------------------
+# The prover's host layer (fault C9) and the sharded matchers on the card
+# ---------------------------------------------------------------------------
+
+
+def _host_equal(got, want):
+    """Two results (RegexResults or dicts) equal column by column on the
+    host, dtypes included."""
+    got = got if isinstance(got, dict) else vars(got)
+    want = want if isinstance(want, dict) else vars(want)
+    assert list(got) == list(want)
+    for k, w in want.items():
+        g = got[k].cpu() if isinstance(got[k], torch.Tensor) else torch.from_numpy(np.asarray(got[k]))
+        w = w.cpu() if isinstance(w, torch.Tensor) else torch.from_numpy(np.asarray(w))
+        assert g.dtype == w.dtype and torch.equal(g, w), k
+
+
+def test_card_results_reach_the_host_layer(dev, tmp_path):
+    """C9: ``np.asarray`` of a CUDA tensor raises, so ``RegexResult.to_numpy``
+    and the witness functions failed on a card result.  Now a card result and
+    a card witness dict go through ``to_numpy``, ``check_witness_batch``,
+    ``expand_witness``, ``save_witness`` and ``dump_prover_rows`` unchanged,
+    with the CPU run's outputs."""
+    from halo2_regex_tpu_torch.witness.handoff import dump_prover_rows
+
+    model = _model("from")
+    chars, lengths = T.pack_batch([b"from:alice@gmail.com\r\n", b"xx\r\nfrom:bob@x.yz\r\n",
+                                   b"from:bob@x.yz", b""] * 256, MAX_LEN)
+    full = T.BitplaneMatcher(model, compact=False, device=dev)(chars, lengths)
+    with pytest.raises((TypeError, RuntimeError)):
+        np.asarray(full.match_ok)  # the fault's cause
+    cpu = T.BitplaneMatcher(model, compact=False, device="cpu")(chars, lengths)
+    host = full.to_numpy()
+    _host_equal(host, cpu.to_numpy())
+    ok = T.check_witness_batch(model.regex_defs, full)
+    assert np.array_equal(ok, T.check_witness_batch(model.regex_defs, cpu))
+    assert np.array_equal(ok, host.match_ok) and ok.sum() == 512
+    w = T.BitplaneMatcher(model, columns="witness", device=dev)(chars, lengths)
+    wc = T.BitplaneMatcher(model, columns="witness", device="cpu")(chars, lengths)
+    ex = T.expand_witness(model, w, torch.from_numpy(chars).to(dev))
+    _host_equal(ex, T.expand_witness(model, wc, chars))
+    T.save_witness(tmp_path / "w.npz", model.regex_defs, full)
+    _host_equal(T.load_witness(tmp_path / "w.npz")[1], host)
+    i = int(np.flatnonzero(ok)[0])
+    assert (dump_prover_rows(model.regex_defs, full.map(lambda a: a[i]))
+            == dump_prover_rows(model.regex_defs, cpu.map(lambda a: a[i])))
+
+
+def test_cli_handoff_on_card(dev, tmp_path):
+    """The ``handoff`` command's row comes from the card's matcher (the
+    default ``--device cuda``) and dumps the text that ``--device cpu``
+    dumps, with the same message and exit code."""
+    import contextlib
+    import io
+
+    from halo2_regex_tpu_torch.cli import main
+
+    path = tmp_path / "from.npz"
+    _model("from").save(path)
+    got = []
+    for d in ("cuda", "cpu"):
+        out = tmp_path / f"{d}.txt"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(["handoff", "--model", str(path), "--output", str(out), "--device", d,
+                       "from:alice@gmail.com\r\n"])
+        got.append((rc, buf.getvalue().replace(f"{d}.txt", "_.txt"), out.read_text()))
+    assert got[0] == got[1] and got[0][0] == 0 and "verification clean" in got[0][1]
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_distributed_matcher_on_card(dev, backend):
+    """Four data shards on one card equal the unsharded card matcher and the
+    CPU mesh's run, stats included."""
+    model = _model("from")
+    chars, lengths = _corpus(4096, MAX_LEN, 22)
+    mesh = T.make_mesh(data=4, devices=[dev] * 4)
+    got, stats = T.DistributedMatcher(model, mesh, backend=backend)(chars, lengths)
+    assert got.match_ok.device.type == "cuda"
+    ref = (T.BatchMatcher if backend == "xla" else T.PallasMatcher)(model, device=dev)
+    _host_equal(got, ref(chars, lengths))
+    cpu_mesh = T.make_mesh(data=4, devices=[torch.device("cpu")] * 4)
+    want, want_stats = T.DistributedMatcher(model, cpu_mesh, backend=backend)(chars, lengths)
+    _host_equal(got, want)
+    _host_equal(stats, want_stats)
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_seq_sharded_on_card(dev, shape):
+    model = _model("regex3", 256)
+    chars, lengths = _corpus(2048, 256, 23)
+    mesh = T.make_mesh(*shape, devices=[dev] * 4)
+    sm = T.SeqShardedMatcher(model, mesh)
+    _host_equal(sm.match(chars, lengths), T.BatchMatcher(model, device=dev)(chars, lengths))
+    cpu = T.SeqShardedMatcher(model, T.make_mesh(*shape, devices=[torch.device("cpu")] * 4))
+    _host_equal(sm(chars, lengths), cpu(chars, lengths))
+
+
+@pytest.mark.parametrize("per_shard", ["xla", "pallas"])
+def test_speculative_on_card(dev, per_shard):
+    """Speculation on the card: the same columns and rounds as on the CPU
+    mesh, on a resyncing model and on a permutation DFA (every guess
+    wrong: one round a shard)."""
+    from halo2_regex_tpu_torch.models.defs import AllstrRegexDef, RegexDefs
+    from halo2_regex_tpu_torch.parallel.seq_parallel import SpeculativeSeqMatcher
+
+    rng = np.random.default_rng(24)
+    S, Lp = 300, 4096
+    allstr = AllstrRegexDef(first_state_val=0, accepted_state_val=1, largest_state_val=S - 1)
+    line = 3
+    for c in range(97, 107):
+        for s, t in enumerate(rng.permutation(S)):
+            allstr.state_lookup[(c, s)] = (line, int(t))
+            line += 1
+    perm = T.CompiledRegexModel.from_defs([RegexDefs(allstr=allstr, substrs=[])],
+                                          max_chars_size=Lp)
+    cases = [(_model("regex3", 256), *_corpus(256, 256, 25)),
+             (perm, rng.integers(97, 107, size=(8, Lp)).astype(np.uint8),
+              np.full((8,), Lp, np.int32))]
+    for model, chars, lengths in cases:
+        got = SpeculativeSeqMatcher(model, T.make_mesh(1, 4, devices=[dev] * 4),
+                                    per_shard=per_shard)(chars, lengths)
+        want = SpeculativeSeqMatcher(model, T.make_mesh(1, 4, devices=[torch.device("cpu")] * 4),
+                                     per_shard=per_shard)(chars, lengths)
+        _host_equal(got, want)
+        if model is perm:
+            assert int(got["spec_rounds"][0]) == 4
+
+
+def test_launch_on_card_over_nccl(dev, tmp_path):
+    """``parallel.launch`` at world size 1 over nccl counts what ScanJob
+    counts on the same file."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    model = _model("from")
+    model.save(tmp_path / "m.npz")
+    corpus = tmp_path / "c.txt"
+    corpus.write_bytes(b"\n".join([b"from:a@b.cd\r", b"nope", b"x" * 40] * 300) + b"\n")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "halo2_regex_tpu_torch.parallel.launch", "--model",
+         str(tmp_path / "m.npz"), "--corpus", str(corpus), "--batch-per-host", "256",
+         "--keep-newline", "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+         "--process-id", "0"], env={**os.environ, "PYTHONPATH": repo}, capture_output=True,
+        text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    c = T.ScanJob(T.BatchMatcher(model, device=dev), [str(corpus)], batch_size=256,
+                  keep_newline=True).run()
+    assert (got["strings"], got["n_matched"], got["bytes_scanned"], got["n_dead"]) == (
+        c.strings, c.matched, c.bytes_scanned, c.dead)
+    assert got["n_matched"] == 300
+
+
+def test_make_mesh_default_on_card(dev):
+    m = T.make_mesh()
+    assert list(m.devices.flat) == [torch.device("cuda", i)
+                                    for i in range(torch.cuda.device_count())]
+    # "cuda" names the current device, as the tensors moved there report it
+    assert list(T.make_mesh(devices=["cuda"] * 2).devices.flat) == [
+        torch.device("cuda", torch.cuda.current_device())] * 2

@@ -7,8 +7,13 @@ direct-emission and an in-scan-pack witness, a run extraction, a tiled
 match, the table-driven ``PallasMatcher`` (batch,
 segmented and monolithic), the portable scan ``BatchMatcher``, the native
 oracle ``match_substrs_native``, a CLI scan and a device-expand
-``ScanJob`` on the CPU, and assert that neither JAX nor the JAX package
-was loaded along the way.
+``ScanJob`` on the CPU, the prover's host layer (``expand_witness``,
+``check_witness_batch``, ``save_witness`` / ``load_witness``, the hand-off
+dump and its C++ verifier, ``gen_circom``, the CLI's ``gen-circom`` and
+``handoff``) and the sharded matchers (``DistributedMatcher``,
+``SeqShardedMatcher``, ``SpeculativeSeqMatcher`` on a mesh of repeated CPU
+devices; ``parallel.launch`` at one process), and assert that neither JAX
+nor the JAX package was loaded along the way.
 """
 
 import os
@@ -18,21 +23,27 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import os, sys, tempfile
+import json, os, sys, tempfile
 import numpy as np
 import halo2_regex_tpu_torch as h2r
 import halo2_regex_tpu_torch.cli, halo2_regex_tpu_torch.native
 import halo2_regex_tpu_torch.utils.io, halo2_regex_tpu_torch.utils.jobs
 import halo2_regex_tpu_torch.utils.trace
+import halo2_regex_tpu_torch.parallel.launch
+import torch
+from halo2_regex_tpu_torch.compiler.circom_sim import CircomSim
+from halo2_regex_tpu_torch.parallel.seq_parallel import SpeculativeSeqMatcher
+from halo2_regex_tpu_torch.witness import handoff
 
-cfg = h2r.DecomposedRegexConfig.from_json({
+cfg_json = {
     "max_byte_size": 32,
     "parts": [
         {"is_public": False, "regex_def": "id: ", "max_size": 4},
         {"is_public": True, "regex_def": "(0|1|2|3|4|5|6|7|8|9)+", "max_size": 8},
         {"is_public": False, "regex_def": ".", "max_size": 1},
     ],
-})
+}
+cfg = h2r.DecomposedRegexConfig.from_json(cfg_json)
 model = h2r.CompiledRegexModel.from_decomposed(cfg)
 m = h2r.BitplaneMatcher(model, columns="witness", device="cpu")
 out = m.match_one(b"id: 1234.")
@@ -75,6 +86,41 @@ with tempfile.TemporaryDirectory() as d:
     job = h2r.ScanJob(h2r.BatchMatcher(model, device="cpu"), [os.path.join(d, "c.txt")],
                       device_expand=True).run()
     assert (job.strings, job.matched) == (2, 1), job
+w = h2r.BitplaneMatcher(model, columns="witness", device="cpu")(chars, lengths)
+full = h2r.expand_witness(model, w, chars)
+assert h2r.check_witness_batch(model.regex_defs, full).tolist() == [True, False]
+text = handoff.dump_prover_rows(model.regex_defs, full.map(lambda a: a[0]))
+assert handoff.verify_handoff(handoff.load_prover_rows(text)) == []
+circom = h2r.gen_circom(cfg, None, "T")
+assert CircomSim(circom, b"id: 1234.", 32).out == 1
+mesh = h2r.make_mesh(data=2, seq=2, devices=[torch.device("cpu")] * 4)
+dm, stats = h2r.DistributedMatcher(model, mesh)(chars, lengths)
+assert dm.match_ok.tolist() == [True, False] and int(stats["n_matched"]) == 1
+seq = h2r.SeqShardedMatcher(model, mesh).match(chars, lengths)
+assert seq.all_substr_ids.tolist() == res.all_substr_ids.tolist()
+spec = SpeculativeSeqMatcher(model, mesh, per_shard="pallas")(chars, lengths)
+assert spec["all_substr_ids"].tolist() == res.all_substr_ids.tolist()
+with tempfile.TemporaryDirectory() as d:
+    h2r.save_witness(os.path.join(d, "w.npz"), model.regex_defs, full)
+    assert h2r.load_witness(os.path.join(d, "w.npz"))[1].mask.tolist() == full.mask.tolist()
+    with open(os.path.join(d, "h.txt"), "w") as f:
+        f.write(text)
+    if halo2_regex_tpu_torch.native.available():
+        assert halo2_regex_tpu_torch.native.handoff_check(os.path.join(d, "h.txt")).returncode == 0
+    with open(os.path.join(d, "cfg.json"), "w") as f:
+        json.dump(cfg_json, f)
+    model.save(os.path.join(d, "m.npz"))
+    assert halo2_regex_tpu_torch.cli.main(
+        ["gen-circom", "--decomposed-regex-path", os.path.join(d, "cfg.json"),
+         "--circom-file-path", os.path.join(d, "t.circom"), "--template-name", "T"]) == 0
+    assert halo2_regex_tpu_torch.cli.main(
+        ["handoff", "--model", os.path.join(d, "m.npz"), "--output",
+         os.path.join(d, "h2.txt"), "--device", "cpu", "id: 1234."]) == 0
+    with open(os.path.join(d, "c.txt"), "wb") as f:
+        f.write(b"id: 1234.\nnope\n")
+    assert halo2_regex_tpu_torch.parallel.launch.main(
+        ["--model", os.path.join(d, "m.npz"), "--corpus", os.path.join(d, "c.txt"),
+         "--device", "cpu", "--batch-per-host", "4"]) == 0
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu"))
 assert not bad, bad
