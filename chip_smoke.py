@@ -69,7 +69,12 @@ corpus and on configs[3], the corpus-scan CLI and the device-expand
             ``SpeculativeSeqMatcher(per_shard="pallas")`` (1 x 4) on
             configs[3] and on the permutation DFA (table_scan), and
             ``python -m halo2_regex_tpu_torch.parallel.launch`` at world
-            size 1 over nccl on cli_scan's file (a subprocess).
+            size 1 over nccl on cli_scan's file (a subprocess);
+  probes    the serial-scan probes of tools/ (``probes/``): the ``run``
+            of ``halo2_regex_tpu_torch.probes.probe_tpu9`` (loop_floor,
+            slab_scan), ``.probe_tpu20`` (bitop_scan) and ``.probe_tpu56``
+            (chains), which their ``python -m`` entry points call, at
+            [10]'s widths.
 
 and proves on the card that:
 
@@ -78,7 +83,8 @@ and proves on the card that:
      library per bitplane path and one for the table kernels, every
      source compiled at once);
   3. the models compile and the corpora are built;
-  4. each of the sixteen kernels, and each knob mode of the pack, scan
+  4. each of the sixteen kernels of the matchers (twenty with [10]'s
+     four probe kernels), and each knob mode of the pack, scan
      and post kernels, is bit-exact against its plain PyTorch version on
      the same inputs at that size (scan_def also against the fused
      scan's slices; the quad-word pack in both layouts and every mode:
@@ -155,10 +161,23 @@ and proves on the card that:
      sums of the unsharded result, int32); the permutation DFA needs all
      4 rounds; launch's totals equal cli_scan's; walls in turns with the
      unsharded matcher (unsharded, sharded, sharded, unsharded) and
-     launch's bytes/s in turns with ``ScanJob`` on ``BatchMatcher``.
+     launch's bytes/s in turns with ``ScanJob`` on ``BatchMatcher``;
+ 10. the probe scripts' runs, driven with the launch counts reset,
+     launched every probe kernel and no other; in each measurement one
+     call launched its kernel once and nothing else (every count read
+     around it), and its line names this card; each probe kernel is
+     bit-exact against its plain version (int32, tolerance 0) at
+     loop_floor (slab 1 and 8) [1024, 256], [1024, 1024], [65536, 64];
+     slab_scan [1024, 256], [65536, 64]; bitop_scan n_ops 96, 192, 384,
+     768 at [1024, 12, 8, 128] from seeded start planes (its outputs not
+     all zero); chains C = 1, 2, 4 at blocks of 32 and of 1024 threads;
+     each timed (2 + 10 runs; ns and cycles a serial step at 1.98 GHz;
+     the plain version once; ``torch.cumsum`` beside loop_floor), and
+     K2's and configs[3]'s table scan's steps set beside those curves.
 
-Prints one JSON line of per-kernel results (the knob modes of a kernel
-under its ``modes``), then the nvidia-smi line, then
+Prints the wall seconds of each phase, one JSON line of per-kernel
+results (the knob modes of a kernel under its ``modes``, a probe
+kernel's widths under its ``configs``), then the nvidia-smi line, then
 as its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits nonzero without that line, as does a machine without CUDA.  A full
 record goes to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX.
@@ -189,12 +208,19 @@ ORACLE_N3 = 8
 N_CLI = 50000  # bench.py strings in cli_scan's file: two lines each
 LAUNCH_REPEAT = 32  # launch's file: cli_scan's, this many times over
 # bounds: H100 SXM HBM3 rate; int32 rate = 132 SMs x 64 INT32 lanes x the
-# 1.98 GHz boost clock (Hopper white paper); for the log lines only, an
-# estimate of the table scan's chain: one shared-memory load of it taken
-# as 30 cycles at that clock
+# 1.98 GHz boost clock (Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-SMEM_CHAIN_S = 30 / 1.98e9
+# [10]'s widths: the probe's own, the bitplane scan's word count (B=32768:
+# 1024 words) and configs[3]'s strings x L (the table scan's serial shape)
+FLOOR_WIDTHS = ((1024, 256), (1024, 1024), (L3, B3))
+SLAB_WIDTHS = ((1024, 256), (L3, B3))
+BITOP_L, BITOP_NWS = 1024, 8  # the probe's [L, 12, 8, 128]: B=32768 strings
+# K2's circuit-only variant (the scan loop reading its input from shared
+# memory): cycles a position on an H100 80GB HBM3 at 700 W, by kernel_ab.py
+# in the tree that gave the scan its cp.async ring (git history; PERF.md
+# §6); quoted beside [10]'s curves, not measured here
+K2_CIRCUIT_ONLY_CYCLES = 197
 WIN0, WIN_LS = 256, 512  # the B=4096 from: window checks: [256, 768) of L
 EXTRACT = dict(max_runs=4, max_len=32)  # run_benchmarks._extract_serving
 KEYS = ("states", "all_substr_ids", "masked_characters", "flags", "mask",
@@ -217,7 +243,15 @@ ORACLE_KEYS = {"witness": ("states", "all_substr_ids", "masked_characters", "mas
                "match": ("accepted", "has_dead", "match_ok")}
 
 
+PHASE_S: dict = {}  # wall seconds a phase: the time before each log line, by its "[N]" tag
+_LAST_LOG = [time.perf_counter()]
+
+
 def log(msg: str) -> None:
+    now = time.perf_counter()
+    tag = msg.split(" ", 1)[0] if msg.startswith("[") else "other"
+    PHASE_S[tag] = PHASE_S.get(tag, 0.0) + now - _LAST_LOG[0]
+    _LAST_LOG[0] = now
     print(msg, flush=True)
 
 
@@ -1003,6 +1037,107 @@ def parallel_phase(h2r, kernels, model, model3, xla, mf, m3, mp, chars, lengths,
     return {"rec": rec, "launches": launches, "times": times}
 
 
+def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> dict:
+    """[10] The serial-scan probes of tools/ (``probes/``): each probe
+    script's ``run`` at [10]'s widths, the launch counts reset just before
+    and read just after.  Each of their lines holds a kernel against its
+    plain version (``harness.measure``: one call with every kernel's count
+    read around it, 2 + 10 timed runs with the L2 flushed, the last output
+    against the plain version's, which runs once; ``torch.cumsum`` beside
+    loop_floor); then the two serial scans are set on the measured curves:
+    K2's step-circuit ops a position and cycles a position against
+    bitop_scan's sweep, configs[3]'s table-scan chain step against
+    loop_floor and slab_scan at [65536, 64]."""
+    from halo2_regex_tpu_torch.probes import harness, probe_tpu9, probe_tpu20, probe_tpu56
+
+    dev = torch.device("cuda")
+    clock = harness.CLOCK_HZ
+    kernels.reset_launch_counts()
+    recs = (probe_tpu9.run(dev, FLOOR_WIDTHS, SLAB_WIDTHS)
+            + probe_tpu20.run(dev, BITOP_L, BITOP_NWS)
+            + probe_tpu56.run(dev))
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in kernels.KERNELS + kernels.PROBE_KERNELS}
+    if (any(got[k.name] for k in kernels.KERNELS)
+            or not all(got[k.name] for k in kernels.PROBE_KERNELS)):
+        raise AssertionError(f"[10] the probe scripts' launches {got}")
+    log(f"[10] probe scripts (probe_tpu9.run, probe_tpu20.run, probe_tpu56.run), launches "
+        f"{dict((k, v) for k, v in got.items() if v)}")
+
+    def label(r) -> str:
+        at = "x".join(map(str, r["shape"]))
+        return {"A_loop_floor": f"slab 1, {at}", "B_slab8_floor": f"slab 8, {at}",
+                "C_slab8_scan": at, "A_bitop_scan": f"n_ops {r.get('n_ops')}",
+                "A_chains": f"C {r.get('C')}, {r.get('threads')} threads a block"}[r["probe"]]
+
+    rows, tms, errs, configs = {}, {}, {}, {}
+    for r in recs:
+        name, lab = r["kernel"], label(r)
+        errs[f"{name}[{lab}]"] = r["max_abs_err"]
+        if r["device"] != "cuda" or r["card"] != card or r["launches"] != 1 or r["max_abs_err"]:
+            raise AssertionError(f"[10] {name} [{lab}]: {r}")
+        if r["probe"] == "A_bitop_scan" and not r["nonzero_share"] > 0:
+            raise AssertionError(f"[10] bitop_scan [{lab}]: the timed output is all zero")
+        bd = bound(r["nbytes"], r["int32_ops"])
+        tms[f"{name}[{lab}]"] = {"kernel": {"median": r["ms"], "iqr": r["iqr"]},
+                                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"], **bd,
+                                 "ns_per_step": r["ns_per_step"],
+                                 "cycles_per_step": r["cycles_per_step"]}
+        lib = r["library_ms"]
+        log(f"[10] {name} [{lab}]: kernel vs plain max_abs_err={r['max_abs_err']} (tolerance 0, "
+            f"int32); kernel {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-{r['iqr'][1]:.4f}), "
+            f"{r['ns_per_step']:.3f} ns = {r['cycles_per_step']:.1f} cycles a step at "
+            f"{clock / 1e9:.2f} GHz over {r['steps']} steps; plain {r['plain_ms']:.4f} ms (1 run)"
+            + (f"; torch.cumsum {lib:.4f} ms" if lib is not None else "")
+            + f"; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; {r['launches']} launch a "
+            f"call (counted); card {card}")
+        entry = {"launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": bd["bound_ms"],
+                 "bound_by": bd["bound_by"], "library_ms": lib, "ns_per_step": r["ns_per_step"]}
+        configs.setdefault(name, {})[lab] = entry
+        if name not in rows:  # the first width is the row's
+            k = next(k for k in kernels.PROBE_KERNELS if k.name == name)
+            rows[name] = {"name": name, "route": "cuda", "source": k.source,
+                          "replaces": k.replaces, **entry, "launches": got[name],
+                          "configs": configs[name]}
+
+    # the bitplane scan (K2) on the bitop_scan curve
+    k2_ops = sum(c.step_prog.n_ops for c in plan.circuits)
+    k2_ms = times["scan"]["kernel"]["median"]
+    k2_cyc = k2_ms * 1e-3 * clock / plan.L_pad
+    sweep = [(n, tms[f"bitop_scan[n_ops {n}]"]["cycles_per_step"]) for n in probe_tpu20.N_OPS]
+    slope, icpt = np.polyfit([n for n, _ in sweep], [c for _, c in sweep], 1)
+    near = min(sweep, key=lambda nc: abs(nc[0] - k2_ops))
+    log(f"[10] K2 (the from: witness plan's scan) has {k2_ops} step-circuit ops a position "
+        f"(its circuits' step programs) and took {k2_ms:.4f} ms = {k2_cyc:.1f} cycles a "
+        f"position in [6] of this run (its circuit-only variant: {K2_CIRCUIT_ONLY_CYCLES} "
+        f"cycles, kernel_ab.py, PERF.md §6); bitop_scan at the nearest n_ops {near[0]}: "
+        f"{near[1]:.1f} cycles a step; the sweep {', '.join(f'{n}: {c:.1f}' for n, c in sweep)} "
+        f"fits {slope:.3f} cycles an op + {icpt:.1f}, {slope * k2_ops + icpt:.1f} at {k2_ops} "
+        f"ops; card {card}")
+    # configs[3]'s table-scan chain beside the loop step and the probe's table step
+    C3, W3 = chain3
+    n3 = W3 + C3 if C3 else L3
+    t3 = times["table_scan@pallas_large"]["kernel"]["median"]
+    t1 = times["table_scan_one_string@pallas_large"]["kernel"]["median"]
+    at = f"{L3}x{B3}"
+    probe_ns = {name: tms[name]["ns_per_step"] for name in
+                (f"loop_floor[slab 1, {at}]", f"loop_floor[slab 8, {at}]", f"slab_scan[{at}]")}
+    log(f"[10] configs[3]'s table scan: {t3 * 1e6 / n3:.3f} ns a chain step ({t3:.4f} ms over "
+        f"its {n3}-step chain, C={C3}, W={W3}); one string in the serial form "
+        f"{t1 * 1e6 / segment:.3f} ns a step ({segment} steps); at {at}, ns a step of "
+        "loop_floor (a rolled loop, its row read from shared memory) and of "
+        "slab_scan (the probe's table step: a dependent load, 3 more loads, 4 stores): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in probe_ns.items()) + f"; card {card}")
+    placement = {"k2_step_ops": k2_ops, "k2_cycles_a_position": k2_cyc,
+                 "bitop_sweep_cycles": dict(sweep), "bitop_fit": [float(slope), float(icpt)],
+                 "table_scan_ns_a_chain_step": t3 * 1e6 / n3, "chain_steps": n3,
+                 "table_scan_one_string_ns_a_step": t1 * 1e6 / segment, "probe_ns": probe_ns}
+    return {"rows": list(rows.values()), "times": tms, "errs": errs,
+            "launches": {"probes": got},
+            "rec": {"scripts": recs, "placement": placement}}
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1094,8 +1229,9 @@ def main() -> dict:
               for m in (*matchers.values(), full32, dict32, *knob_ms.values(), hdr)]
     builds += [lambda p=p: kernels.build(p) for p in tiled_modes.values()]
     builds += [lambda d=d: kernels.build_scan_def(hdr.plan, d) for d in range(hdr.plan.n_defs)]
-    with ThreadPoolExecutor(len(builds) + 1) as pool:
-        list(pool.map(lambda f: f(), builds + [kernels.build_tables]))
+    builds += [kernels.build_tables, kernels.build_probes]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda f: f(), builds))
     t_build = time.perf_counter() - t0
     regs = []  # per library: its header's defines, then each entry's registers and spills
     for key, info in kernels.BUILD_LOG.items():
@@ -1322,8 +1458,8 @@ def main() -> dict:
         m = tables[path]
         C, W = kernels.table_scan_form(m.n_defs, table_io[path][0].shape[0], m.L, dev)
         n = W + C if C else m.L
-        return (f", dependent-load chain of {n} steps ({'C=%d, W=%d' % (C, W) if C else 'serial'})"
-                f" {n * SMEM_CHAIN_S * 1e3:.4f} ms (an estimate: 30 cycles a load)")
+        return (f", dependent-load chain of {n} steps ({'C=%d, W=%d' % (C, W) if C else 'serial'};"
+                f" [10] sets it beside the probes' steps)")
 
     def nonzero(what, *ts):
         if not all(bool(t.any()) for t in ts):
@@ -2124,10 +2260,22 @@ def main() -> dict:
     path_launches.update(pv["launches"])
     path_launches.update(pl["launches"])
     times.update({f"parallel_{k}": v for k, v in pl["times"].items()})
-    if sorted(r["name"] for r in kern_rows) != sorted(k.name for k in kernels.KERNELS):
+    # [10] the serial-scan probes and the scans' place on their curves
+    chain3 = kernels.table_scan_form(m3.n_defs, B3, m3.L, dev)
+    pr = probe_phase(kernels, plan, times, chain3, m3.segment, card)
+    kern_rows += pr["rows"]
+    times.update(pr["times"])
+    errs.update(pr["errs"])
+    path_launches.update(pr["launches"])
+    rec["probes"] = pr["rec"]
+    if sorted(r["name"] for r in kern_rows) != sorted(
+            k.name for k in kernels.KERNELS + kernels.PROBE_KERNELS):
         raise AssertionError("the kernels line does not list every kernel once")
 
-    rec.update(times=times, launches=path_launches, kernels=kern_rows, max_abs_err=errs)
+    log(f"phase walls (s, the time before each line by its tag): "
+        f"{json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}")
+    rec.update(times=times, launches=path_launches, kernels=kern_rows, max_abs_err=errs,
+               phase_s=PHASE_S)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1)

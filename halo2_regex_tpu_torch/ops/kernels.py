@@ -22,7 +22,9 @@ templates include: one library per plan (model, column set, input layout
 and knobs).  The table-driven matcher's kernels
 (``table_scan.cu``, ``table_tag.cu``, ``table_fsm.cu`` of split mode and
 ``table_flat.cu`` of monolithic mode; :mod:`.pallas_scan`) take their
-tables as data and need no header: one library for every model.
+tables as data and need no header: one library for every model.  So do
+the serial-scan probes of ``tools/`` (``probe_tpu9.cu``, ``probe_tpu20.cu``,
+``probe_tpu56.cu``; their wrappers are in :mod:`..probes`).
 
 At first use each library's sources are compiled by nvcc for ``sm_90a``,
 one nvcc per source, all at once, and linked into one shared library with a
@@ -39,8 +41,8 @@ them: the witness posts' ``fb``) unless the caller passes them, launches
 on the current stream without synchronising, raises if
 ``cudaGetLastError`` reports a failed launch, and adds one to its
 kernel's ``launches`` count.  Nothing here
-runs on the CPU: the plain versions live in :mod:`.bitplane` and
-:mod:`.pallas_scan`.
+runs on the CPU: the plain versions live in :mod:`.bitplane`,
+:mod:`.pallas_scan` and the probe modules.
 """
 
 from __future__ import annotations
@@ -152,6 +154,25 @@ DECODE = CudaKernel(
 KERNELS = (QPACK, PACK_RAW, SCAN, POST, POST_PLANES, FB_ONLY,
            TABLE_SCAN, TABLE_TAG, TABLE_FSM, TPACK, POST_TILED, TABLE_FLAT,
            SCAN_FPACK, SCAN_DEF, POST_DIRECT, DECODE)
+# the serial-scan probes of tools/ (``probes/``): one library, no model
+LOOP_FLOOR = CudaKernel(
+    "loop_floor", "h2r_loop_floor", "halo2_regex_tpu_torch/csrc/probe_tpu9.cu",
+    "tools/probe_tpu9.py:62, :92 (ka :53, kb :79)",
+)
+SLAB_SCAN = CudaKernel(
+    "slab_scan", "h2r_slab_scan", "halo2_regex_tpu_torch/csrc/probe_tpu9.cu",
+    "tools/probe_tpu9.py:164 (kc :120)",
+)
+BITOP_SCAN = CudaKernel(
+    "bitop_scan", "h2r_bitop_scan", "halo2_regex_tpu_torch/csrc/probe_tpu20.cu",
+    "tools/probe_tpu20.py:74 (make_scan_probe :42)",
+)
+CHAINS = CudaKernel(
+    "chains", "h2r_chains", "halo2_regex_tpu_torch/csrc/probe_tpu56.cu",
+    "tools/probe_tpu56.py:71 (make_chains_kernel :61)",
+)
+PROBE_KERNELS = (LOOP_FLOOR, SLAB_SCAN, BITOP_SCAN, CHAINS)
+PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu")
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
@@ -185,6 +206,14 @@ _ENTRIES = {
     # chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
     # bwd, bits, n_defs, B, L, K, S, vec, smem bytes, stream
     TABLE_FLAT: [_P] * 12 + [_I] * 7 + [_P],
+    # x, out, slab, L, TB, stream
+    LOOP_FLOOR: [_P, _P, _I, _I, _I, _P],
+    # tk, classes, x, four outputs, L, TB, K, S, stream
+    SLAB_SCAN: [_P] * 7 + [_I] * 4 + [_P],
+    # cls, st0, out, n_ops, NW, L, LC, stream
+    BITOP_SCAN: [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out, C, NW, n_steps, threads a block, stream
+    CHAINS: [_P, _P, _I, _I, _I, _I, _P],
 }
 TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
 # the post modes, all over chunks of L: each call launches the chunk maps
@@ -262,7 +291,7 @@ def scan_path_launches(matcher, B: int) -> Dict[CudaKernel, int]:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + PROBE_KERNELS:
         k.launches = 0
 
 
@@ -666,6 +695,12 @@ def build_tables() -> ctypes.CDLL:
     lib.h2r_smem_optin.argtypes = []
     lib.h2r_smem_optin.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def build_probes() -> ctypes.CDLL:
+    """The probe kernels' library (``probes/``; one for every caller)."""
+    return _build_library(PROBE_SOURCES, PROBE_KERNELS, includes=("probe_ring.cuh",))
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...]):

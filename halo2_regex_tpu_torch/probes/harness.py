@@ -1,0 +1,157 @@
+"""What the probe scripts share: the device choice, timing and reports.
+
+A probe measures on the card or not at all: ``--device cuda`` (the
+default) raises where CUDA is absent rather than fall back to the CPU, and
+a CPU run reports host milliseconds (``host_ms``), never a card time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import kernels
+
+CLOCK_HZ = 1.98e9  # the H100 SXM's boost clock: cycles a step are quoted at it
+FLUSH_BYTES = 128 * 1024 * 1024  # more than the 50 MB L2
+WARMUP, ITERS = 2, 10  # untimed calls, then timed ones (median and IQR)
+
+
+def parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (the default) runs the kernels; cpu the plain versions")
+    return p
+
+
+def device(name: str) -> torch.device:
+    if name == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is false: run with --device cpu for the "
+                         "plain versions")
+    return torch.device(name)
+
+
+def card(dev: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, or "cpu"."""
+    if dev.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Times calls on one device: on the card with CUDA events, the L2
+    flushed before each call and a device spin queued ahead of the window
+    (so it holds device time only, no host launch overhead); on the CPU
+    with the host clock."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+                      if dev.type == "cuda" else None)
+
+    def __call__(self, fn: Callable[[], object], warmup: Optional[int] = None,
+                 iters: Optional[int] = None) -> Dict[str, object]:
+        """Median and IQR of ``fn``'s ms, and the last call's output ("out");
+        ``warmup`` and ``iters`` default to ``WARMUP`` and ``ITERS``."""
+        warmup = WARMUP if warmup is None else warmup
+        iters = ITERS if iters is None else iters
+        for _ in range(warmup):
+            fn()
+        ms: List[float] = []
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+            pairs = []
+            for _ in range(iters):
+                self.flush.zero_()
+                torch.cuda._sleep(2_000_000)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn()
+                b.record()
+                pairs.append((a, b))
+            torch.cuda.synchronize(self.dev)
+            ms = [a.elapsed_time(b) for a, b in pairs]
+        else:
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                out = fn()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        q1, med, q3 = np.percentile(ms, [25, 50, 75])
+        return {"median": float(med), "iqr": [float(q1), float(q3)], "runs": len(ms), "out": out}
+
+
+def max_abs_err(a, b) -> int:
+    """The largest difference of two outputs (tensors or tuples of them) as
+    integers; a shape or dtype that differs raises."""
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
+                             f"{tuple(b.shape)} {b.dtype}")
+    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+def measure(timer: Timer, card_: str, probe: str, kernel: kernels.CudaKernel,
+            fn: Callable[[], object], steps: int, plain, library=None, nbytes: int = 0,
+            int32_ops: int = 0, **kw) -> Tuple[Dict[str, object], object]:
+    """One report line and ``fn``'s last output.
+
+    On the card ``fn`` is the kernel's entry point: the launches of its
+    first call are read around it from every kernel's count (it must launch
+    ``kernel`` once and nothing else), then it is timed, and its last
+    timed output is held against the plain version's (``plain``: a call,
+    timed once here, or its (output, ms) already taken).  ``library``: one
+    PyTorch call of the same function, held to the same output and timed
+    beside it.  ``nbytes`` and ``int32_ops`` are the work a bound reads.
+    On the CPU ``fn`` runs the plain version itself, timed on the host."""
+    rec: Dict[str, object] = {"probe": probe, "kernel": kernel.name, "device": timer.dev.type,
+                              "card": card_, **kw}
+    if timer.dev.type != "cuda":
+        t = timer(fn)
+        rec.update(host_ms=t["median"], runs=t["runs"], steps=steps)
+        return rec, t["out"]
+    every = kernels.KERNELS + kernels.PROBE_KERNELS
+    before = [k.launches for k in every]
+    fn()
+    launched = {k.name: k.launches - n for k, n in zip(every, before) if k.launches != n}
+    if launched != {kernel.name: 1}:
+        raise AssertionError(f"{probe}: one call launched {launched}, not {kernel.name} once")
+    t = timer(fn)
+    if isinstance(plain, tuple):
+        want, plain_ms = plain
+    else:
+        tp = timer(plain, 0, 1)
+        want, plain_ms = tp["out"], tp["median"]
+    lib_ms = None
+    if library is not None:
+        tl = timer(library)
+        if max_abs_err(tl["out"], want):
+            raise AssertionError(f"{probe}: the library call disagrees with the plain version")
+        lib_ms = tl["median"]
+    ns = t["median"] * 1e6 / steps
+    rec.update(ms=t["median"], iqr=t["iqr"], runs=t["runs"], steps=steps, ns_per_step=ns,
+               cycles_per_step=ns * 1e-9 * CLOCK_HZ, cycles_at_hz=CLOCK_HZ,
+               launches=launched[kernel.name], max_abs_err=max_abs_err(t["out"], want),
+               plain_ms=plain_ms, library_ms=lib_ms, nbytes=nbytes, int32_ops=int32_ops)
+    return rec, t["out"]
+
+
+def emit(records: List[Dict[str, object]]) -> None:
+    for r in records:
+        print(json.dumps(r), flush=True)
+
+
+def status(records: List[Dict[str, object]]) -> int:
+    """A script's exit code: 1 where a kernel disagreed with its plain
+    version, else 0."""
+    return int(any(r.get("max_abs_err") for r in records))

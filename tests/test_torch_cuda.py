@@ -1370,3 +1370,95 @@ def test_make_mesh_default_on_card(dev):
     # "cuda" names the current device, as the tensors moved there report it
     assert list(T.make_mesh(devices=["cuda"] * 2).devices.flat) == [
         torch.device("cuda", torch.cuda.current_device())] * 2
+
+
+# ---------------------------------------------------------------------------
+# the serial-scan probes of tools/ (probes/): kernel against plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("slab", [1, 8])
+@pytest.mark.parametrize("L,TB,hi", [(1024, 256, 256), (72, 40, 256), (64, 33, 2**31)])
+def test_probe_loop_floor_matches_plain(dev, L, TB, hi, slab):
+    """Ragged column counts; sums that wrap at hi = 2**31."""
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+
+    rng = np.random.default_rng(L + TB)
+    x = torch.from_numpy(rng.integers(0, hi, size=(L, TB), dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    got = p9.loop_floor(x, slab)
+    assert torch.equal(got, p9.loop_floor_plain(x, slab))
+    if hi == 256:
+        assert torch.equal(got, torch.cumsum(x, 0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("L", [5, 67, 200])
+def test_probe_loop_floor_ragged_rows(dev, L):
+    """Slab 1 at L not a multiple of the ring's groups of eight rows (L = 5:
+    fewer rows than one group)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+
+    x = torch.from_numpy(np.random.default_rng(L).integers(0, 256, size=(L, 70))
+                         .astype(np.int32)).to(dev)
+    assert torch.equal(p9.loop_floor(x, 1), torch.cumsum(x, 0, dtype=torch.int32))
+
+
+def test_probe_measure_counts_one_launch(dev):
+    """A measurement on the card reads the launches of one call around it
+    (not a literal), holds the output against the plain version and
+    refuses an entry point that launches nothing."""
+    from halo2_regex_tpu_torch.ops import kernels
+    from halo2_regex_tpu_torch.probes import harness
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+
+    x = p9.inputs(64, 32, dev=dev)[0]
+    timer = harness.Timer(dev)
+    n0 = kernels.LOOP_FLOOR.launches
+    rec, out = harness.measure(timer, "card", "A_loop_floor", kernels.LOOP_FLOOR,
+                               lambda: p9.loop_floor(x, 1), 64, lambda: p9.loop_floor_plain(x, 1),
+                               library=lambda: torch.cumsum(x, 0, dtype=torch.int32))
+    assert rec["launches"] == 1 and rec["max_abs_err"] == 0 and rec["library_ms"] > 0
+    # the counted call, the warm-ups, the timed calls
+    assert kernels.LOOP_FLOOR.launches - n0 == 1 + harness.WARMUP + harness.ITERS
+    assert torch.equal(out, torch.cumsum(x, 0, dtype=torch.int32))
+    with pytest.raises(AssertionError, match="launched"):
+        harness.measure(timer, "card", "A_loop_floor", kernels.LOOP_FLOOR,
+                        lambda: p9.loop_floor_plain(x, 1), 64, lambda: p9.loop_floor_plain(x, 1))
+
+
+@pytest.mark.parametrize("L,TB,lo,hi", [(1024, 256, 0, 256), (40, 33, -300, 600),
+                                        (64, 96, 0, 256)])
+def test_probe_slab_scan_matches_plain(dev, L, TB, lo, hi):
+    """L = 40: a group of AHEAD slabs cut short; bytes outside [0, 256)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+
+    x, classes, tk = p9.inputs(L, TB, seed=L, dev=dev)
+    x = torch.from_numpy(np.random.default_rng(TB).integers(lo, hi, size=(L, TB))
+                         .astype(np.int32)).to(dev)
+    got, want = p9.slab_scan(tk, classes, x), p9.slab_scan_plain(tk, classes, x)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("L,lc", [(256, 128), (256, 7), (10, 4)])
+@pytest.mark.parametrize("n_ops", [96, 192, 384, 768])
+def test_probe_bitop_scan_matches_plain(dev, n_ops, L, lc):
+    """L = 10: fewer steps than the kernel's ring holds."""
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+
+    cls, st0 = p20.inputs(L, 2, seed=n_ops, dev=dev)
+    got = p20.bitop_scan(cls, st0, n_ops, lc=lc)
+    assert torch.equal(got, p20.bitop_scan_plain(cls, st0, n_ops, lc=lc))
+    assert bool(got.any())
+    zeros = torch.zeros_like(st0)  # the probe's own start: all zero out
+    assert not bool(p20.bitop_scan(cls, zeros, n_ops, lc=lc).any())
+
+
+@pytest.mark.parametrize("threads", [32, 1024])
+@pytest.mark.parametrize("n_steps", [0, 7, 4096])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_probe_chains_matches_plain(dev, C, n_steps, threads):
+    from halo2_regex_tpu_torch.probes import probe_tpu56 as p56
+
+    x = p56.inputs(C, seed=C, dev=dev)
+    assert torch.equal(p56.chains(x, n_steps, threads), p56.chains_plain(x, n_steps))

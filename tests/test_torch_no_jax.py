@@ -12,8 +12,9 @@ oracle ``match_substrs_native``, a CLI scan and a device-expand
 dump and its C++ verifier, ``gen_circom``, the CLI's ``gen-circom`` and
 ``handoff``) and the sharded matchers (``DistributedMatcher``,
 ``SeqShardedMatcher``, ``SpeculativeSeqMatcher`` on a mesh of repeated CPU
-devices; ``parallel.launch`` at one process), and assert that neither JAX
-nor the JAX package was loaded along the way.
+devices; ``parallel.launch`` at one process), the serial-scan probes'
+plain versions (``probes/``), and assert that neither JAX, the JAX package
+nor ``tools/`` was loaded along the way.
 """
 
 import os
@@ -121,8 +122,17 @@ with tempfile.TemporaryDirectory() as d:
     assert halo2_regex_tpu_torch.parallel.launch.main(
         ["--model", os.path.join(d, "m.npz"), "--corpus", os.path.join(d, "c.txt"),
          "--device", "cpu", "--batch-per-host", "4"]) == 0
+from halo2_regex_tpu_torch.probes import probe_tpu9, probe_tpu20, probe_tpu56
+x, classes, tk = probe_tpu9.inputs(64, 16)
+for slab in (1, 8):
+    assert torch.equal(probe_tpu9.loop_floor(x, slab), torch.cumsum(x, 0, dtype=torch.int32))
+assert [tuple(o.shape) for o in probe_tpu9.slab_scan(tk, classes, x)] == [(64, 16)] * 4
+cls, st0 = probe_tpu20.inputs(256, 1)
+assert bool(probe_tpu20.bitop_scan(cls, st0, 96).any())
+assert not bool(probe_tpu20.bitop_scan(cls, torch.zeros_like(st0), 96).any())
+assert int((probe_tpu56.chains(probe_tpu56.inputs(1), 64) != 0).sum()) == 123
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu", "tools"))
 assert not bad, bad
 print("NO_JAX_OK")
 """
