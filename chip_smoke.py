@@ -74,7 +74,14 @@ corpus and on configs[3], the corpus-scan CLI and the device-expand
             of ``halo2_regex_tpu_torch.probes.probe_tpu9`` (loop_floor,
             slab_scan), ``.probe_tpu20`` (bitop_scan) and ``.probe_tpu56``
             (chains), which their ``python -m`` entry points call, at
-            [10]'s widths.
+            [10]'s widths;
+  table probes  the table-kernel probes of tools/ (``probes/``): the
+            ``run`` of ``.probe_tpu`` (lane_gather, dfa_step),
+            ``.probe_tpu2`` (nop, dfa_step time-major, the lone gather
+            chain, onehot_count; with the from: batch, B=32768 x L=1024,
+            for dfa_step lookup, class_mma and onehot_mma), ``.probe_tpu3``,
+            ``.probe_tpu17`` (int8_mma) and ``.probe_tpu18``
+            (slab_anatomy) at their own widths.
 
 and proves on the card that:
 
@@ -83,8 +90,8 @@ and proves on the card that:
      library per bitplane path and one for the table kernels, every
      source compiled at once);
   3. the models compile and the corpora are built;
-  4. each of the sixteen kernels of the matchers (twenty with [10]'s
-     four probe kernels), and each knob mode of the pack, scan
+  4. each of the sixteen kernels of the matchers (twenty-six with [10]'s
+     four probe kernels and [11]'s six), and each knob mode of the pack, scan
      and post kernels, is bit-exact against its plain PyTorch version on
      the same inputs at that size (scan_def also against the fused
      scan's slices; the quad-word pack in both layouts and every mode:
@@ -173,7 +180,21 @@ and proves on the card that:
      all zero); chains C = 1, 2, 4 at blocks of 32 and of 1024 threads;
      each timed (2 + 10 runs; ns and cycles a serial step at 1.98 GHz;
      the plain version once; ``torch.cumsum`` beside loop_floor), and
-     K2's and configs[3]'s table scan's steps set beside those curves.
+     K2's and configs[3]'s table scan's steps set beside those curves;
+ 11. the table-kernel probe scripts' runs, driven with the launch counts
+     reset, launched every table probe kernel and no other; each
+     measurement as in [10], each kernel bit-exact against its plain
+     version (int32, tolerance 0): lane_gather (k3, k4, k5, k1, 1024-step
+     chains at [256, 128] and [1, 128], the row in shared memory and in
+     registers), dfa_step (lookup, onehot_mma with both picks, class_mma;
+     batch- and time-major, the probes' widths and the from: batch),
+     slab_anatomy (1, 2, 4 outputs, from: tables, [1024, 4096]), nop,
+     onehot_count and int8_mma (128^3, 4096^3); library calls beside them
+     (``torch.gather``, ``x + 1``, ``torch._int_mm``) and the scripts'
+     torch lines (the copy rate, bf16 products) timed; the lone chain set
+     beside configs[3]'s table-scan chain step of this run; the SASS holds
+     HMMA in the four tensor-core instances of dfa_step, IMMA in int8_mma
+     and at least 256 ISETP in onehot_count.
 
 Prints the wall seconds of each phase, one JSON line of per-kernel
 results (the knob modes of a kernel under its ``modes``, a probe
@@ -1037,6 +1058,52 @@ def parallel_phase(h2r, kernels, model, model3, xla, mf, m3, mp, chars, lengths,
     return {"rec": rec, "launches": launches, "times": times}
 
 
+def probe_lines(kernels, recs, group, got: dict, label, tag: str, card: str):
+    """The kernel lines of a probe phase: each record of a kernel in
+    ``group`` held to this card, one launch a measured call and
+    ``max_abs_err`` 0; its bound (bytes, int32 ops and, for a tensor-core
+    line, its mma flops over the dense peak), a log line, and the
+    per-width entry.  Returns (rows: the first width's entry a kernel,
+    with the phase's launches ``got`` and every width under ``configs``;
+    times; errs)."""
+    from halo2_regex_tpu_torch.probes import harness
+
+    rows, tms, errs, configs = {}, {}, {}, {}
+    for r in recs:
+        name, lab = r["kernel"], label(r)
+        errs[f"{name}[{lab}]"] = r["max_abs_err"]
+        if r["device"] != "cuda" or r["card"] != card or r["launches"] != 1 or r["max_abs_err"]:
+            raise AssertionError(f"{tag} {name} [{lab}]: {r}")
+        bd = bound(r["nbytes"], r["int32_ops"])
+        if r.get("mma_flops"):
+            t_m = r["mma_flops"] / r["mma_peak"] * 1e3
+            if t_m > bd["bound_ms"]:
+                bd.update(bound_ms=t_m, bound_by="operations")
+            bd["mma_flops"] = float(r["mma_flops"])
+        lib = r["library_ms"]
+        tms[f"{name}[{lab}]"] = {"kernel": {"median": r["ms"], "iqr": r["iqr"]},
+                                 "plain_ms": r["plain_ms"], "library_ms": lib, **bd,
+                                 "ns_per_step": r["ns_per_step"],
+                                 "cycles_per_step": r["cycles_per_step"]}
+        log(f"{tag} {name} [{lab}]: kernel vs plain max_abs_err={r['max_abs_err']} (tolerance 0, "
+            f"int32); kernel {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-{r['iqr'][1]:.4f}), "
+            f"{r['ns_per_step']:.3f} ns = {r['cycles_per_step']:.1f} cycles a step at "
+            f"{harness.CLOCK_HZ / 1e9:.2f} GHz over {r['steps']} steps; plain "
+            f"{r['plain_ms']:.4f} ms (1 run)" + (f"; library {lib:.4f} ms" if lib is not None else "")
+            + f"; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; {r['launches']} launch a "
+            f"call (counted); card {card}")
+        entry = {"launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": bd["bound_ms"],
+                 "bound_by": bd["bound_by"], "library_ms": lib, "ns_per_step": r["ns_per_step"]}
+        configs.setdefault(name, {})[lab] = entry
+        if name not in rows:  # the first width is the row's
+            k = next(k for k in group if k.name == name)
+            rows[name] = {"name": name, "route": "cuda", "source": k.source,
+                          "replaces": k.replaces, **entry, "launches": got[name],
+                          "configs": configs[name]}
+    return rows, tms, errs
+
+
 def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> dict:
     """[10] The serial-scan probes of tools/ (``probes/``): each probe
     script's ``run`` at [10]'s widths, the launch counts reset just before
@@ -1058,8 +1125,8 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
             + probe_tpu56.run(dev))
     torch.cuda.synchronize()
     got = {k.name: k.launches for k in kernels.KERNELS + kernels.PROBE_KERNELS}
-    if (any(got[k.name] for k in kernels.KERNELS)
-            or not all(got[k.name] for k in kernels.PROBE_KERNELS)):
+    if (any(got[k.name] for k in kernels.KERNELS + kernels.TABLE_PROBES)
+            or not all(got[k.name] for k in kernels.SERIAL_PROBES)):
         raise AssertionError(f"[10] the probe scripts' launches {got}")
     log(f"[10] probe scripts (probe_tpu9.run, probe_tpu20.run, probe_tpu56.run), launches "
         f"{dict((k, v) for k, v in got.items() if v)}")
@@ -1070,36 +1137,10 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
                 "C_slab8_scan": at, "A_bitop_scan": f"n_ops {r.get('n_ops')}",
                 "A_chains": f"C {r.get('C')}, {r.get('threads')} threads a block"}[r["probe"]]
 
-    rows, tms, errs, configs = {}, {}, {}, {}
     for r in recs:
-        name, lab = r["kernel"], label(r)
-        errs[f"{name}[{lab}]"] = r["max_abs_err"]
-        if r["device"] != "cuda" or r["card"] != card or r["launches"] != 1 or r["max_abs_err"]:
-            raise AssertionError(f"[10] {name} [{lab}]: {r}")
         if r["probe"] == "A_bitop_scan" and not r["nonzero_share"] > 0:
-            raise AssertionError(f"[10] bitop_scan [{lab}]: the timed output is all zero")
-        bd = bound(r["nbytes"], r["int32_ops"])
-        tms[f"{name}[{lab}]"] = {"kernel": {"median": r["ms"], "iqr": r["iqr"]},
-                                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"], **bd,
-                                 "ns_per_step": r["ns_per_step"],
-                                 "cycles_per_step": r["cycles_per_step"]}
-        lib = r["library_ms"]
-        log(f"[10] {name} [{lab}]: kernel vs plain max_abs_err={r['max_abs_err']} (tolerance 0, "
-            f"int32); kernel {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-{r['iqr'][1]:.4f}), "
-            f"{r['ns_per_step']:.3f} ns = {r['cycles_per_step']:.1f} cycles a step at "
-            f"{clock / 1e9:.2f} GHz over {r['steps']} steps; plain {r['plain_ms']:.4f} ms (1 run)"
-            + (f"; torch.cumsum {lib:.4f} ms" if lib is not None else "")
-            + f"; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; {r['launches']} launch a "
-            f"call (counted); card {card}")
-        entry = {"launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"], "bound_ms": bd["bound_ms"],
-                 "bound_by": bd["bound_by"], "library_ms": lib, "ns_per_step": r["ns_per_step"]}
-        configs.setdefault(name, {})[lab] = entry
-        if name not in rows:  # the first width is the row's
-            k = next(k for k in kernels.PROBE_KERNELS if k.name == name)
-            rows[name] = {"name": name, "route": "cuda", "source": k.source,
-                          "replaces": k.replaces, **entry, "launches": got[name],
-                          "configs": configs[name]}
+            raise AssertionError(f"[10] bitop_scan [{label(r)}]: the timed output is all zero")
+    rows, tms, errs = probe_lines(kernels, recs, kernels.SERIAL_PROBES, got, label, "[10]", card)
 
     # the bitplane scan (K2) on the bitop_scan curve
     k2_ops = sum(c.step_prog.n_ops for c in plan.circuits)
@@ -1136,6 +1177,113 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
     return {"rows": list(rows.values()), "times": tms, "errs": errs,
             "launches": {"probes": got},
             "rec": {"scripts": recs, "placement": placement}}
+
+
+def sass_ops(lib_path: str, names: dict) -> dict:
+    """Counts of the opcodes in ``names`` (function substring -> opcodes)
+    in each matching function of a built library's SASS (cuobjdump, from
+    nvcc's directory); the SASS goes to chiprun_out/sass/probes.sass."""
+    from halo2_regex_tpu_torch.ops import kernels
+
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                         check=True)
+    os.makedirs(os.path.join("chiprun_out", "sass"), exist_ok=True)
+    with open(os.path.join("chiprun_out", "sass", "probes.sass"), "w") as f:
+        f.write(res.stdout)
+    out, fn = {}, None
+    for ln in res.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            key = next((k for k in names if k in fn), None)
+            if key is not None:
+                out[fn] = {op: 0 for op in names[key]}
+        elif fn in out and "/*" in ln and ";" in ln:
+            ins = ln.split("*/", 1)[1].split()
+            ins = ins[1:] if ins and ins[0].startswith("@") else ins
+            op = ins[0].split(".")[0] if ins else ""
+            if op in out[fn]:
+                out[fn][op] += 1
+    return out
+
+
+def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
+    """[11] The table-kernel probes of tools/ (``probes/``: probe_tpu,
+    probe_tpu2, probe_tpu3, probe_tpu17, probe_tpu18): each script's ``run``
+    at its own widths (probe_tpu2's with the from: batch, B=32768 x L=1024
+    time-major, for dfa_step lookup, class_mma and onehot_mma), the launch
+    counts reset just before and read just after.  Each kernel line holds a
+    kernel against its plain version (``harness.measure``: one call with
+    every count read around it, 2 + 10 timed runs, the last output against
+    the plain version's; a library call beside it where one computes the
+    same function); the scripts' torch lines are timed as they are.  Then
+    the lone chain of dependent gathers (lane_gather, [1, 128], one warp)
+    is set beside configs[3]'s table-scan chain step of this run, and the
+    SASS shows mma.sync (HMMA, IMMA) in the tensor-core kernels and 256
+    compares (ISETP) a byte in onehot_count."""
+    from halo2_regex_tpu_torch.probes import (harness, probe_tpu, probe_tpu2, probe_tpu3,
+                                              probe_tpu17, probe_tpu18)
+
+    dev = torch.device("cuda")
+    kernels.reset_launch_counts()
+    recs = (probe_tpu.run(dev) + probe_tpu2.run(dev, big=True) + probe_tpu3.run(dev)
+            + probe_tpu17.run(dev) + probe_tpu18.run(dev))
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in kernels.KERNELS + kernels.PROBE_KERNELS}
+    if (any(got[k.name] for k in kernels.KERNELS + kernels.SERIAL_PROBES)
+            or not all(got[k.name] for k in kernels.TABLE_PROBES)):
+        raise AssertionError(f"[11] the probe scripts' launches {got}")
+    log(f"[11] probe scripts (probe_tpu, probe_tpu2, probe_tpu3, probe_tpu17, probe_tpu18 "
+        f"run), launches {dict((k, v) for k, v in got.items() if v)}")
+
+    def label(r) -> str:
+        parts = [r["probe"], "x".join(map(str, r.get("shape", [])))]
+        parts += [str(r[k]) for k in ("store", "form", "pick", "layout") if r.get(k)]
+        return ", ".join(p for p in parts if p)
+
+    tms = {}
+    for r in recs:
+        lab = label(r)
+        if r["kernel"] is None:  # the scripts' torch lines
+            extra = "".join(f"; {k} {r[k]:.1f}" for k in ("tflops", "gbytes_per_sec") if k in r)
+            log(f"[11] torch {lab}: {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-{r['iqr'][1]:.4f})"
+                + extra + (f"; rel_err {r['rel_err']:.5f}" if "rel_err" in r else "")
+                + f"; card {card}")
+            tms[f"torch[{lab}]"] = {"ms": r["ms"], "iqr": r["iqr"],
+                                    **{k: r[k] for k in ("tflops", "gbytes_per_sec") if k in r}}
+        elif r["probe"] == "A_dispatch_nop":
+            log(f"[11] nop host: {r['host_us_a_call']:.2f} us a call over {r['host_calls']} "
+                f"back-to-back calls then one synchronize (x + 1: "
+                f"{r['torch_host_us_a_call']:.2f}); card {card}")
+    rows, ktms, errs = probe_lines(kernels, [r for r in recs if r["kernel"] is not None],
+                                   kernels.TABLE_PROBES, got, label, "[11]", card)
+    tms.update(ktms)
+
+    # the lone chain beside configs[3]'s table-scan chain step ([10], this run)
+    lone = {r["store"]: r for r in recs if r["probe"] == "E_take_along_loop_1x128"}
+    sh, rg = lone["shared"], lone["regs"]
+    log(f"[11] the lone chain of dependent gathers (lane_gather [1, 128], one warp, "
+        f"{sh['steps']} steps): shared memory {sh['ns_per_step']:.3f} ns = "
+        f"{sh['cycles_per_step']:.1f} cycles a step at {harness.CLOCK_HZ / 1e9:.2f} GHz, "
+        f"registers (shuffles) {rg['ns_per_step']:.3f} ns = {rg['cycles_per_step']:.1f}; "
+        f"configs[3]'s table scan {chain_ns:.3f} ns a chain step ([10]): "
+        f"{chain_ns / sh['ns_per_step']:.3f}x the shared-memory chain; card {card}")
+    # the SASS: mma.sync in the tensor-core forms, 256 compares a byte in onehot_count
+    sass = sass_ops(kernels.build_probes()._name,
+                    {"dfa_kernel": ("HMMA", "LDS", "ISETP"), "int8_mma_kernel": ("IMMA",),
+                     "onehot_count_kernel": ("ISETP", "LDS")})
+    for fn, ops in sass.items():
+        log(f"[11] sass {fn[-60:]}: {ops}")
+    mma = {fn: ops for fn, ops in sass.items() if "dfa_kernelILi1" in fn or "dfa_kernelILi2" in fn}
+    if (len(mma) != 4 or not all(ops["HMMA"] for ops in mma.values())
+            or not all(ops["IMMA"] for fn, ops in sass.items() if "int8_mma" in fn)
+            or not all(ops["ISETP"] >= 256 for fn, ops in sass.items() if "onehot_count" in fn)):
+        raise AssertionError(f"[11] the SASS lacks mma.sync or the 256 compares: {sass}")
+    placement = {"lone_chain_ns": sh["ns_per_step"], "lone_chain_cycles": sh["cycles_per_step"],
+                 "lone_chain_regs_ns": rg["ns_per_step"], "table_scan_ns_a_chain_step": chain_ns}
+    return {"rows": list(rows.values()), "times": tms, "errs": errs,
+            "launches": {"table_probes": got},
+            "rec": {"scripts": recs, "placement": placement, "sass": sass}}
 
 
 def main() -> dict:
@@ -2268,6 +2416,13 @@ def main() -> dict:
     errs.update(pr["errs"])
     path_launches.update(pr["launches"])
     rec["probes"] = pr["rec"]
+    # [11] the table-kernel probes, the lone chain beside configs[3]'s step
+    tp = table_probe_phase(kernels, pr["rec"]["placement"]["table_scan_ns_a_chain_step"], card)
+    kern_rows += tp["rows"]
+    times.update(tp["times"])
+    errs.update(tp["errs"])
+    path_launches.update(tp["launches"])
+    rec["table_probes"] = tp["rec"]
     if sorted(r["name"] for r in kern_rows) != sorted(
             k.name for k in kernels.KERNELS + kernels.PROBE_KERNELS):
         raise AssertionError("the kernels line does not list every kernel once")

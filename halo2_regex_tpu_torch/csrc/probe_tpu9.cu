@@ -21,7 +21,7 @@
 // s = v_0, from s = 0; eight rows a loop step.  The probe picks the
 // columns with a one-hot bf16 product and a select: exact for table values
 // in [0, S) (the wrapper's precondition), so this gather is the same
-// function.
+// function.  Its kernel is probe_slab.cuh's slab_kernel<4> from state 0.
 //
 // What bounds them on the H100: latency, not bytes or operations.  One
 // thread owns one column (a string) and walks its rows in order, blocks of
@@ -42,13 +42,13 @@
 #include <cuda_runtime.h>
 
 #include "probe_ring.cuh"
+#include "probe_slab.cuh"
 
 namespace {
 
 constexpr int THREADS = 32;
-constexpr int SCAN_SLAB = 8;  // probe C's SB: rows a group of the ring
-constexpr int RING = 8;       // slab_scan's ring: groups of eight rows (RING - 1 in flight)
-constexpr int FLOOR_RING = 16;  // loop_floor's: its steps are shorter, so more are in flight
+constexpr int SCAN_SLAB = 8;  // rows a group of loop_floor's ring (probe C's SB)
+constexpr int FLOOR_RING = 16;  // groups in flight: its steps are short
 
 template <int SLAB>
 __global__ void __launch_bounds__(THREADS)
@@ -83,56 +83,6 @@ loop_floor_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ o, int L,
   probe_ring::wait_all();
 }
 
-__global__ void __launch_bounds__(THREADS)
-slab_scan_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ classes,
-                 const int32_t* __restrict__ x, int32_t* __restrict__ o0,
-                 int32_t* __restrict__ o1, int32_t* __restrict__ o2, int32_t* __restrict__ o3,
-                 int L, int TB, int K, int S) {
-  extern __shared__ int32_t smem[];
-  int32_t* cmap = smem;        // [256]
-  int32_t* tab = smem + 256;   // [K, 4S]
-  __shared__ uint32_t ring[RING][SCAN_SLAB][THREADS];  // slab p's bytes in slot p % RING
-  const int row = 4 * S;
-  for (int i = threadIdx.x; i < 256; i += THREADS) cmap[i] = classes[i];
-  for (int i = threadIdx.x; i < K * row; i += THREADS) tab[i] = tk[i];
-  __syncthreads();
-  const int t = threadIdx.x;
-  const int b = blockIdx.x * THREADS + t;
-  if (b >= TB) return;
-  const int n_slabs = L / SCAN_SLAB;
-  auto fetch = [&](int p) {  // an empty group past L
-    if (p < n_slabs) {
-#pragma unroll
-      for (int j = 0; j < SCAN_SLAB; ++j)
-        probe_ring::copy4(&ring[p % RING][j][t], x + (size_t)(p * SCAN_SLAB + j) * TB + b);
-    }
-    probe_ring::commit();
-  };
-  for (int p = 0; p < RING - 1; ++p) fetch(p);
-  int s = 0;
-#pragma unroll 1
-  for (int p = 0; p < n_slabs; ++p) {
-    fetch(p + RING - 1);  // into slot (p - 1) % RING, read at p - 1
-    probe_ring::wait_oldest<RING>();
-    const int32_t* base[SCAN_SLAB];
-#pragma unroll
-    for (int j = 0; j < SCAN_SLAB; ++j)
-      base[j] = tab + cmap[min(max((int)ring[p % RING][j][t], 0), 255)] * row;
-#pragma unroll
-    for (int j = 0; j < SCAN_SLAB; ++j) {
-      const int32_t* r = base[j] + s;
-      const int32_t v0 = r[0], v1 = r[S], v2 = r[2 * S], v3 = r[3 * S];
-      s = v0;
-      const size_t at = (size_t)(p * SCAN_SLAB + j) * TB + b;
-      o0[at] = v0;
-      o1[at] = v1;
-      o2[at] = v2;
-      o3[at] = v3;
-    }
-  }
-  probe_ring::wait_all();
-}
-
 }  // namespace
 
 extern "C" int h2r_loop_floor(const void* x, void* o, int slab, int L, int TB, void* stream) {
@@ -150,11 +100,6 @@ extern "C" int h2r_loop_floor(const void* x, void* o, int slab, int L, int TB, v
 extern "C" int h2r_slab_scan(const void* tk, const void* classes, const void* x, void* o0,
                              void* o1, void* o2, void* o3, int L, int TB, int K, int S,
                              void* stream) {
-  if (L % SCAN_SLAB) return (int)cudaErrorInvalidValue;
-  const size_t smem = (256 + (size_t)K * 4 * S) * sizeof(int32_t);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // no opt-in: the probe's is 9 KiB
-  slab_scan_kernel<<<(TB + THREADS - 1) / THREADS, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)tk, (const int32_t*)classes, (const int32_t*)x, (int32_t*)o0,
-      (int32_t*)o1, (int32_t*)o2, (int32_t*)o3, L, TB, K, S);
-  return (int)cudaGetLastError();
+  void* const outs[4] = {o0, o1, o2, o3};
+  return probe_slab::launch<4>(tk, classes, x, outs, L, TB, K, S, 0, (cudaStream_t)stream);
 }

@@ -23,8 +23,10 @@ and knobs).  The table-driven matcher's kernels
 (``table_scan.cu``, ``table_tag.cu``, ``table_fsm.cu`` of split mode and
 ``table_flat.cu`` of monolithic mode; :mod:`.pallas_scan`) take their
 tables as data and need no header: one library for every model.  So do
-the serial-scan probes of ``tools/`` (``probe_tpu9.cu``, ``probe_tpu20.cu``,
-``probe_tpu56.cu``; their wrappers are in :mod:`..probes`).
+the probes of ``tools/`` (the serial scans ``probe_tpu9.cu``,
+``probe_tpu20.cu``, ``probe_tpu56.cu``; the table kernels'
+``probe_gather.cu``, ``probe_dfa_step.cu``, ``probe_tpu18.cu``,
+``probe_units.cu``; their wrappers are in :mod:`..probes`).
 
 At first use each library's sources are compiled by nvcc for ``sm_90a``,
 one nvcc per source, all at once, and linked into one shared library with a
@@ -154,7 +156,7 @@ DECODE = CudaKernel(
 KERNELS = (QPACK, PACK_RAW, SCAN, POST, POST_PLANES, FB_ONLY,
            TABLE_SCAN, TABLE_TAG, TABLE_FSM, TPACK, POST_TILED, TABLE_FLAT,
            SCAN_FPACK, SCAN_DEF, POST_DIRECT, DECODE)
-# the serial-scan probes of tools/ (``probes/``): one library, no model
+# the probes of tools/ (``probes/``): one library, no model; first the serial scans
 LOOP_FLOOR = CudaKernel(
     "loop_floor", "h2r_loop_floor", "halo2_regex_tpu_torch/csrc/probe_tpu9.cu",
     "tools/probe_tpu9.py:62, :92 (ka :53, kb :79)",
@@ -171,8 +173,39 @@ CHAINS = CudaKernel(
     "chains", "h2r_chains", "halo2_regex_tpu_torch/csrc/probe_tpu56.cu",
     "tools/probe_tpu56.py:71 (make_chains_kernel :61)",
 )
-PROBE_KERNELS = (LOOP_FLOOR, SLAB_SCAN, BITOP_SCAN, CHAINS)
-PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu")
+SERIAL_PROBES = (LOOP_FLOOR, SLAB_SCAN, BITOP_SCAN, CHAINS)
+# the table-kernel probes of tools/ (probe_tpu, 2, 3, 17, 18)
+LANE_GATHER = CudaKernel(
+    "lane_gather", "h2r_lane_gather", "halo2_regex_tpu_torch/csrc/probe_gather.cu",
+    "tools/probe_tpu.py:98, :118, :142 (k3, k4, k5); tools/probe_tpu2.py:208 (E k3); "
+    "tools/probe_tpu3.py:47 (k1, k3)",
+)
+DFA_STEP = CudaKernel(
+    "dfa_step", "h2r_dfa_step", "halo2_regex_tpu_torch/csrc/probe_dfa_step.cu",
+    "tools/probe_tpu.py:180, :224 (k6, k7); tools/probe_tpu2.py:118, :169 (C k, D k2); "
+    "tools/probe_tpu3.py:47 (make_scan_fullwidth, make_scan_select)",
+)
+SLAB_ANATOMY = CudaKernel(
+    "slab_anatomy", "h2r_slab_anatomy", "halo2_regex_tpu_torch/csrc/probe_tpu18.cu",
+    "tools/probe_tpu18.py:97 (kernel of build :51)",
+)
+NOP = CudaKernel(
+    "nop", "h2r_nop", "halo2_regex_tpu_torch/csrc/probe_units.cu",
+    "tools/probe_tpu2.py:59 (A knop)",
+)
+ONEHOT_COUNT = CudaKernel(
+    "onehot_count", "h2r_onehot_count", "halo2_regex_tpu_torch/csrc/probe_units.cu",
+    "tools/probe_tpu2.py:247 (F k4)",
+)
+INT8_MMA = CudaKernel(
+    "int8_mma", "h2r_int8_mma", "halo2_regex_tpu_torch/csrc/probe_units.cu",
+    "tools/probe_tpu17.py:83 (k)",
+)
+TABLE_PROBES = (LANE_GATHER, DFA_STEP, SLAB_ANATOMY, NOP, ONEHOT_COUNT, INT8_MMA)
+PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES
+PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu", "probe_gather.cu",
+                 "probe_dfa_step.cu", "probe_tpu18.cu", "probe_units.cu")
+PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh")
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
@@ -214,6 +247,18 @@ _ENTRIES = {
     BITOP_SCAN: [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, out, C, NW, n_steps, threads a block, stream
     CHAINS: [_P, _P, _I, _I, _I, _I, _P],
+    # g (or t), f (or c), out, R, steps, form, stream
+    LANE_GATHER: [_P, _P, _P, _I, _I, _I, _P],
+    # T (or Tk), classes, chars, out, TB, LB, time_major, form, pick, K, stream
+    DFA_STEP: [_P] * 4 + [_I] * 6 + [_P],
+    # tk, classes, x, four outputs, L, TB, K, S, first, n_out, stream
+    SLAB_ANATOMY: [_P] * 7 + [_I] * 6 + [_P],
+    # x, out, n, stream
+    NOP: [_P, _P, _I, _P],
+    # c, out, LB, TB, stream
+    ONEHOT_COUNT: [_P, _P, _I, _I, _P],
+    # a, b, c, M, N, K, stream
+    INT8_MMA: [_P, _P, _P, _I, _I, _I, _P],
 }
 TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
 # the post modes, all over chunks of L: each call launches the chunk maps
@@ -700,7 +745,7 @@ def build_tables() -> ctypes.CDLL:
 @functools.cache
 def build_probes() -> ctypes.CDLL:
     """The probe kernels' library (``probes/``; one for every caller)."""
-    return _build_library(PROBE_SOURCES, PROBE_KERNELS, includes=("probe_ring.cuh",))
+    return _build_library(PROBE_SOURCES, PROBE_KERNELS, includes=PROBE_HEADERS)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...]):

@@ -1,7 +1,7 @@
-"""The serial-scan probes of ``tools/`` as H100 kernels.
+"""The hardware probes of ``tools/`` as H100 kernels.
 
 Each module keeps the name of the TPU script it ports, so a reader finds
-its counterpart:
+its counterpart.  The serial-scan probes:
 
 - :mod:`.probe_tpu9`: ``loop_floor`` (A and B, the floor of a serial loop,
   one row or eight a step) and ``slab_scan`` (C, the table scan's step);
@@ -10,8 +10,23 @@ its counterpart:
 - :mod:`.probe_tpu56`: ``chains`` (A, the issue width: 1, 2 or 4
   independent chains).
 
+The table-kernel probes:
+
+- :mod:`.probe_tpu`: ``lane_gather`` (k3, k4; k5's rows mode
+  ``row_gather``), the row in shared memory or registers, and
+  ``dfa_step`` (k6, k7: the DFA step by a lookup or a one-hot product on
+  the tensor cores);
+- :mod:`.probe_tpu2`: ``nop`` (A, the dispatch cost), ``dfa_step``
+  time-major (C; D's class-factored product), the lone chain of dependent
+  gathers (E) and ``onehot_count`` (F, the compare rate);
+- :mod:`.probe_tpu3`: ``lane_gather`` by a [TB, 1] index and the gather
+  loop, ``dfa_step``'s two picks (full-width gather, select sum);
+- :mod:`.probe_tpu17`: ``int8_mma`` (an int8 product with int32 sums);
+- :mod:`.probe_tpu18`: ``slab_anatomy`` (the table step with 1, 2 or 4
+  picks and stores).
+
 Every probe has a plain PyTorch version (``*_plain``), a kernel wrapper
-(``*_cuda``, ``csrc/probe_tpu*.cu`` built with the other kernels by
+(``*_cuda``, ``csrc/probe_*.cu`` built with the other kernels by
 :mod:`..ops.kernels`) and an entry point that picks one by the device of
 its input: the kernel on a CUDA tensor, the plain version on a CPU one.
 ``python -m halo2_regex_tpu_torch.probes.probe_tpu9`` (and the others)

@@ -146,6 +146,40 @@ def measure(timer: Timer, card_: str, probe: str, kernel: kernels.CudaKernel,
     return rec, t["out"]
 
 
+def torch_line(timer: Timer, card_: str, probe: str, fn: Callable[[], object],
+               **kw) -> Tuple[Dict[str, object], object]:
+    """One report line of a torch op that a probe script timed beside its
+    kernels (the TPU scripts' lines with no Pallas kernel): ``"kernel":
+    None``, device ms on the card (and the rates of the ``flops`` or
+    ``nbytes`` given), host ms on the CPU; and ``fn``'s last output."""
+    rec: Dict[str, object] = {"probe": probe, "kernel": None, "device": timer.dev.type,
+                              "card": card_, **kw}
+    t = timer(fn)
+    if timer.dev.type == "cuda":
+        rec.update(ms=t["median"], iqr=t["iqr"], runs=t["runs"])
+        if "flops" in kw:
+            rec["tflops"] = kw["flops"] / (t["median"] * 1e-3) / 1e12
+        if "nbytes" in kw:
+            rec["gbytes_per_sec"] = kw["nbytes"] / (t["median"] * 1e-3) / 1e9
+    else:
+        rec.update(host_ms=t["median"], runs=t["runs"])
+    return rec, t["out"]
+
+
+def host_us(dev: torch.device, fn: Callable[[], object], n: int = 50) -> float:
+    """Host microseconds a call over ``n`` back-to-back calls of ``fn``,
+    then one synchronize (the TPU probes' dispatch timing)."""
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
 def emit(records: List[Dict[str, object]]) -> None:
     for r in records:
         print(json.dumps(r), flush=True)

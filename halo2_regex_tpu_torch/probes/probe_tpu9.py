@@ -96,22 +96,32 @@ def _check_x(x: torch.Tensor) -> Tuple[int, int]:
     return x.shape[0], x.shape[1]
 
 
-def slab_scan_plain(tk: torch.Tensor, classes: torch.Tensor, x: torch.Tensor):
-    """The probe's C step by step: one gather of the state column a
-    position along L, then the four columns at every position at once.
-    A byte outside [0, 256) takes the class of 0 or 255, as the probe's
-    thresholds give it.  It checks the tables' ranges (``check_ranges``)."""
-    _k, s_ = check_ranges(tk, classes)
+def slab_plain(tk: torch.Tensor, classes: torch.Tensor, x: torch.Tensor, first: int = 0,
+               n_out: int = 4):
+    """The slab kernel's scan (``csrc/probe_slab.cuh``) step by step: one
+    gather of the state column a position along L, from state ``first``,
+    then the first ``n_out`` columns at every position at once.  A byte
+    outside [0, 256) takes the class of 0 or 255, as the probes' thresholds
+    give it.  The state column must keep a state in [0, S), as the
+    callers' checks make sure."""
+    _k, s_ = check_table(tk, classes)
     L_, TB_ = _check_x(x)
     flat = tk.reshape(-1).to(torch.int64)
     base = classes[x.clamp(0, 255).long()].to(torch.int64) * (4 * s_)  # [L, TB]
-    s = torch.zeros(TB_, dtype=torch.int64, device=x.device)
+    s = torch.full((TB_,), first, dtype=torch.int64, device=x.device)
     states = [s]  # the state before each step
     for i in range(L_ - 1):
         s = flat[base[i] + s]
         states.append(s)
     prev = torch.stack(states)
-    return tuple(flat[base + j * s_ + prev].to(torch.int32) for j in range(4))
+    return tuple(flat[base + j * s_ + prev].to(torch.int32) for j in range(n_out))
+
+
+def slab_scan_plain(tk: torch.Tensor, classes: torch.Tensor, x: torch.Tensor):
+    """The probe's C (``slab_plain`` from state 0, four outputs).  It
+    checks the tables' ranges (``check_ranges``)."""
+    check_ranges(tk, classes)
+    return slab_plain(tk, classes, x)
 
 
 def slab_scan_cuda(tk: torch.Tensor, classes: torch.Tensor, x: torch.Tensor):

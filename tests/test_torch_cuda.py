@@ -1462,3 +1462,111 @@ def test_probe_chains_matches_plain(dev, C, n_steps, threads):
 
     x = p56.inputs(C, seed=C, dev=dev)
     assert torch.equal(p56.chains(x, n_steps, threads), p56.chains_plain(x, n_steps))
+
+
+# ---------------------------------------------------------------------------
+# the table-kernel probes of tools/ (probes/): kernel against plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("store", ["shared", "regs"])
+@pytest.mark.parametrize("R,steps", [(8, 1), (256, 1), (256, 1024), (1, 1024), (3, 7), (5, 0)])
+def test_probe_lane_gather_matches_plain(dev, R, steps, store):
+    from halo2_regex_tpu_torch.probes import probe_tpu as p1
+
+    g, f = p1.gather_inputs(R, seed=R + steps, dev=dev)
+    assert torch.equal(p1.lane_gather(g, f, steps, store), p1.lane_gather_plain(g, f, steps, store))
+
+
+@pytest.mark.parametrize("RT,R", [(256, 8), (3, 70)])
+def test_probe_row_gather_matches_plain(dev, RT, R):
+    from halo2_regex_tpu_torch.probes import probe_tpu as p1
+
+    t = torch.from_numpy(np.random.default_rng(R).integers(-2**31, 2**31, size=(RT, 128),
+                                                            dtype=np.int64).astype(np.int32))
+    c = torch.from_numpy(np.random.default_rng(RT).integers(0, RT, size=R).astype(np.int32))
+    t, c = t.to(dev), c.to(dev)
+    assert torch.equal(p1.row_gather(t, c), p1.row_gather_plain(t, c))
+
+
+@pytest.mark.parametrize("time_major", [True, False])
+@pytest.mark.parametrize("TB,LB", [(256, 256), (37, 13), (100, 1024)])
+@pytest.mark.parametrize("form,pick", [("lookup", "gather"), ("onehot_mma", "gather"),
+                                       ("onehot_mma", "sum"), ("class_mma", "gather"),
+                                       ("class_mma", "sum")])
+def test_probe_dfa_step_matches_plain(dev, form, pick, TB, LB, time_major):
+    """Ragged strings (37, 100: a warp's 16 or 32 cut short) and steps (13:
+    a ring group of 8 cut short); class_mma with K = 16 and K = 5."""
+    from halo2_regex_tpu_torch.probes import probe_tpu as p1
+    from halo2_regex_tpu_torch.probes import probe_tpu2 as p2
+
+    shape = (LB, TB) if time_major else (TB, LB)
+    c = p1.bytes_(*shape, seed=TB + LB, dev=dev)
+    classes = None
+    T = p1.table(seed=TB).to(dev)
+    if form == "class_mma":
+        classes, T = p2.class_inputs(seed=LB, dev=dev)
+        if TB == 37:
+            classes, T = classes % 5, T[:5].contiguous()
+    got = p1.dfa_step(T, c, form, time_major, pick, classes)
+    assert torch.equal(got, p1.dfa_step_plain(T, c, form, time_major, pick, classes))
+
+
+@pytest.mark.parametrize("L,B", [(1024, 4096), (64, 100)])
+@pytest.mark.parametrize("n_out", [1, 2, 4])
+def test_probe_slab_anatomy_matches_plain(dev, n_out, L, B):
+    from halo2_regex_tpu_torch.probes import probe_tpu18 as p18
+
+    model = T.zoo.email_headers_model(max_chars_size=L, headers=("from",))
+    tab, classes, first = p18.slab_tables(model)
+    x = torch.from_numpy(_corpus(B, L, seed=B)[0].T.astype(np.int32).copy()).to(dev)
+    x[:, ::7] = p18.inputs(L, B, seed=1, dev=dev)[:, ::7] * 5 - 300  # outside [0, 256) too
+    got = p18.slab_anatomy(tab.to(dev), classes.to(dev), x, first, n_out)
+    want = p18.slab_anatomy_plain(tab.to(dev), classes.to(dev), x, first, n_out)
+    assert len(got) == n_out and all(torch.equal(g, w) for g, w in zip(got, want))
+    assert len(torch.unique(got[0])) > 4
+
+
+def test_probe_units_match_plain(dev):
+    """nop (the wrap), onehot_count (bytes outside [0, 256), ragged TB)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu2 as p2
+
+    x = torch.tensor([[2**31 - 1, -1, 0, 5]], dtype=torch.int32, device=dev)
+    assert torch.equal(p2.nop(x), p2.nop_plain(x))
+    for shape in ((1024, 512), (33, 130)):
+        c = torch.from_numpy(np.random.default_rng(shape[1]).integers(-300, 600, size=shape)
+                             .astype(np.int32)).to(dev)
+        assert torch.equal(p2.onehot_count(c), p2.onehot_count_plain(c))
+
+
+@pytest.mark.parametrize("M,N,K", [(128, 128, 128), (4096, 4096, 4096), (100, 70, 50)])
+def test_probe_int8_mma_matches_plain(dev, M, N, K):
+    from halo2_regex_tpu_torch.probes import probe_tpu17 as p17
+
+    a, b = p17.inputs(M, N, K, seed=M + K, dev=dev)
+    got = p17.int8_mma(a, b)
+    assert torch.equal(got, p17.int8_mma_plain(a, b))
+    if M % 16 == 0 and N % 8 == 0 and K % 8 == 0:
+        assert torch.equal(got, torch._int_mm(a, b))
+
+
+def test_probe_table_entry_points_raise_on_bad_shapes(dev):
+    from halo2_regex_tpu_torch.probes import probe_tpu as p1
+    from halo2_regex_tpu_torch.probes import probe_tpu2 as p2
+    from halo2_regex_tpu_torch.probes import probe_tpu17 as p17
+    from halo2_regex_tpu_torch.probes import probe_tpu18 as p18
+
+    g, f = p1.gather_inputs(4, dev=dev)
+    Tt, c = p1.table().to(dev), p1.bytes_(8, 16, dev=dev)
+    a, b = p17.inputs(8, 8, 8, dev=dev)
+    tab, classes, first = p18.slab_tables(T.zoo.email_headers_model(max_chars_size=16,
+                                                                    headers=("from",)))
+    bad = [lambda: p1.lane_gather(g, f[:, :64]), lambda: p1.row_gather(Tt[:, :64], c[0]),
+           lambda: p1.dfa_step(Tt[:, :64].contiguous(), c), lambda: p2.nop(c.long()),
+           lambda: p2.onehot_count(c[0]),
+           lambda: p17.int8_mma(a, b[:4]),
+           lambda: p18.slab_anatomy(tab.to(dev), classes.to(dev),
+                                    p18.inputs(12, 8, dev=dev), first, 1)]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
