@@ -81,7 +81,17 @@ corpus and on configs[3], the corpus-scan CLI and the device-expand
             chain, onehot_count; with the from: batch, B=32768 x L=1024,
             for dfa_step lookup, class_mma and onehot_mma), ``.probe_tpu3``,
             ``.probe_tpu17`` (int8_mma) and ``.probe_tpu18``
-            (slab_anatomy) at their own widths.
+            (slab_anatomy) at their own widths;
+  emit probes  the emission and decode probes of tools/ (``probes/``):
+            the ``run`` of ``.probe_tpu47`` (tile_move: the int32 tile
+            transpose and copy), ``.probe_tpu48`` (l4_pack: the direct
+            [B, L] emission; the copy, then the library's decode),
+            ``.probe_tpu64`` (tile_move and every l4_pack form at [64,
+            1024, 128]; on the from: batch the torch tails, B14 and
+            field_decode mma_pack; qpack alone) and ``.probe_tpu68``
+            (field_decode mma_select and swap beside B14 on the from:
+            batch's g4; the witness pipeline with each decode form in turns
+            with the shipped bytes, kdecode and direct witness).
 
 and proves on the card that:
 
@@ -90,8 +100,8 @@ and proves on the card that:
      library per bitplane path and one for the table kernels, every
      source compiled at once);
   3. the models compile and the corpora are built;
-  4. each of the sixteen kernels of the matchers (twenty-six with [10]'s
-     four probe kernels and [11]'s six), and each knob mode of the pack, scan
+  4. each of the sixteen kernels of the matchers (twenty-nine with [10]'s
+     four probe kernels, [11]'s six and [12]'s three), and each knob mode of the pack, scan
      and post kernels, is bit-exact against its plain PyTorch version on
      the same inputs at that size (scan_def also against the fused
      scan's slices; the quad-word pack in both layouts and every mode:
@@ -194,7 +204,22 @@ and proves on the card that:
      torch lines (the copy rate, bf16 products) timed; the lone chain set
      beside configs[3]'s table-scan chain step of this run; the SASS holds
      HMMA in the four tensor-core instances of dfa_step, IMMA in int8_mma
-     and at least 256 ISETP in onehot_count.
+     and at least 256 ISETP in onehot_count;
+ 12. the emission and decode probe scripts' runs, driven with the launch
+     counts reset, launched every emit probe kernel and, of the others,
+     only the matcher kernels their witness fronts and walls run; each
+     measurement as in [10], each kernel bit-exact against its plain
+     version (int32, tolerance 0): tile_move (copy and transpose at [8, 8,
+     1024, 128] and [64, 1024, 128]; ``x.clone()`` and
+     ``x.transpose(-2, -1).contiguous()`` beside them), l4_pack (permute
+     at [8, 8, 1024, 128], every form at [64, 1024, 128]), field_decode
+     (mma_pack, mma_select, swap on the from: batch's g4, B=32768 x
+     L=1024), B14 decode and qpack there too; every decode form equals
+     the torch tail's columns and B14's on the same g4; each probe_tpu68
+     pipeline's witness keys equal the shipped witness's; B14's ms, each
+     decode form's and each witness wall are logged side by side; the
+     SASS holds HMMA in the four mma instances of the emit kernel and in
+     none of the others.
 
 Prints the wall seconds of each phase, one JSON line of per-kernel
 results (the knob modes of a kernel under its ``modes``, a probe
@@ -1125,7 +1150,7 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
             + probe_tpu56.run(dev))
     torch.cuda.synchronize()
     got = {k.name: k.launches for k in kernels.KERNELS + kernels.PROBE_KERNELS}
-    if (any(got[k.name] for k in kernels.KERNELS + kernels.TABLE_PROBES)
+    if (any(got[k.name] for k in kernels.KERNELS + kernels.TABLE_PROBES + kernels.EMIT_PROBES)
             or not all(got[k.name] for k in kernels.SERIAL_PROBES)):
         raise AssertionError(f"[10] the probe scripts' launches {got}")
     log(f"[10] probe scripts (probe_tpu9.run, probe_tpu20.run, probe_tpu56.run), launches "
@@ -1230,7 +1255,7 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
             + probe_tpu17.run(dev) + probe_tpu18.run(dev))
     torch.cuda.synchronize()
     got = {k.name: k.launches for k in kernels.KERNELS + kernels.PROBE_KERNELS}
-    if (any(got[k.name] for k in kernels.KERNELS + kernels.SERIAL_PROBES)
+    if (any(got[k.name] for k in kernels.KERNELS + kernels.SERIAL_PROBES + kernels.EMIT_PROBES)
             or not all(got[k.name] for k in kernels.TABLE_PROBES)):
         raise AssertionError(f"[11] the probe scripts' launches {got}")
     log(f"[11] probe scripts (probe_tpu, probe_tpu2, probe_tpu3, probe_tpu17, probe_tpu18 "
@@ -1284,6 +1309,110 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     return {"rows": list(rows.values()), "times": tms, "errs": errs,
             "launches": {"table_probes": got},
             "rec": {"scripts": recs, "placement": placement, "sass": sass}}
+
+
+def emit_probe_phase(kernels, card: str) -> dict:
+    """[12] The emission and decode probes of tools/ (``probes/``:
+    probe_tpu47, probe_tpu48, probe_tpu64, probe_tpu68): each script's
+    ``run`` at its own widths (47 and 48 at [8, 8, 1024, 128], 64's A at
+    [64, 1024, 128], 64's B and C and 68 on the from: batch, B=32768 x
+    L=1024), the launch counts reset just before and read just after.
+    Each kernel line holds a kernel against its plain version
+    (``harness.measure``: one call with every count read around it, 2 + 10
+    timed runs, the last output against the plain version's, tolerance 0;
+    the library call beside tile_move); the scripts hold every decode form
+    against the torch tail and B14's ``decode`` on the same g4, and each
+    witness pipeline's keys against the shipped witness, and raise where
+    one differs.  The matcher kernels the scripts run (the witness fronts:
+    qpack or pack_raw, scan, post; B14 decode; the shipped kdecode and
+    direct walls' post_direct) are the only others launched.  Then B14's
+    ms, each field_decode form's and each witness wall are logged side by
+    side, and the SASS shows HMMA in the four mma instances of the emit
+    kernel and none in the others."""
+    from halo2_regex_tpu_torch.probes import (harness, probe_tpu47, probe_tpu48, probe_tpu64,
+                                              probe_tpu68)
+
+    dev = torch.device("cuda")
+    kernels.reset_launch_counts()
+    recs = (probe_tpu47.run(dev) + probe_tpu48.run(dev) + probe_tpu64.run(dev)
+            + probe_tpu68.run(dev))
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in kernels.KERNELS + kernels.PROBE_KERNELS}
+    path = (kernels.QPACK, kernels.PACK_RAW, kernels.SCAN, kernels.POST, kernels.POST_DIRECT,
+            kernels.DECODE)
+    if (any(got[k.name] for k in kernels.KERNELS + kernels.SERIAL_PROBES + kernels.TABLE_PROBES
+            if k not in path) or not all(got[k.name] for k in kernels.EMIT_PROBES + path)):
+        raise AssertionError(f"[12] the probe scripts' launches {got}")
+    log(f"[12] probe scripts (probe_tpu47, probe_tpu48, probe_tpu64, probe_tpu68 run), "
+        f"launches {dict((k, v) for k, v in got.items() if v)}")
+
+    def label(r) -> str:
+        parts = [r["probe"], "x".join(map(str, r.get("shape", []))), r.get("form") or ""]
+        return ", ".join(p for p in parts if p)
+
+    tms, errs = {}, {}
+    emit_names = {k.name for k in kernels.EMIT_PROBES}
+    for r in recs:
+        lab = label(r)
+        if r["kernel"] is None:  # the scripts' torch lines and witness walls
+            if r["device"] != "cuda" or r["card"] != card:
+                raise AssertionError(f"[12] torch {lab}: {r}")
+            rate = next((f"; {k} {r[k]:.1f}" for k in ("gbytes_per_sec", "input_gbps")
+                         if k in r), "")
+            rounds = f"; rounds {[round(v, 4) for v in r['round_ms']]}" if "round_ms" in r else ""
+            log(f"[12] torch {lab}: {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-{r['iqr'][1]:.4f})"
+                + rate + rounds + f"; card {card}")
+            tms[f"torch[{lab}]"] = {k: r[k] for k in ("ms", "iqr", "gbytes_per_sec", "input_gbps",
+                                                      "round_ms") if k in r}
+        elif r["kernel"] not in emit_names:  # B14 and qpack, matcher kernels timed as probes
+            if (r["device"] != "cuda" or r["card"] != card or r["launches"] != 1
+                    or r["max_abs_err"]):
+                raise AssertionError(f"[12] {r['kernel']} [{lab}]: {r}")
+            bd = bound(r["nbytes"], r.get("int32_ops", 0))
+            errs[f"{r['kernel']}[{lab}]"] = r["max_abs_err"]
+            tms[f"{r['kernel']}[{lab}]"] = {"kernel": {"median": r["ms"], "iqr": r["iqr"]},
+                                            "plain_ms": r["plain_ms"], **bd}
+            log(f"[12] {r['kernel']} [{lab}]: kernel vs plain max_abs_err={r['max_abs_err']} "
+                f"(tolerance 0, int32); kernel {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-"
+                f"{r['iqr'][1]:.4f}); plain {r['plain_ms']:.4f} ms (1 run); bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; 1 launch a call (counted); "
+                f"card {card}")
+    rows, ktms, kerrs = probe_lines(kernels, [r for r in recs if r["kernel"] in emit_names],
+                                    kernels.EMIT_PROBES, got, label, "[12]", card)
+    tms.update(ktms)
+    errs.update(kerrs)
+
+    # side by side: B14, each field_decode form and each witness wall
+    by = {r["probe"]: r for r in recs}
+    dec = {"B14 decode (64 b1)": by["b1_kdecode"]["ms"],
+           "B14 decode (68 a)": by["a_b14_decode"]["ms"],
+           "field_decode mma_pack (64 b2)": by["b2_mxdecode"]["ms"],
+           "field_decode mma_select (68 a)": by["a_mma_select_decode"]["ms"],
+           "field_decode swap (68 a)": by["a_swap_decode"]["ms"],
+           "torch tail (64 b0)": by["b0_xla_tail"]["ms"],
+           "one byte transpose (64 b3)": by["b3_xla_onetrans"]["ms"]}
+    walls = {r["probe"]: r["ms"] for r in recs if r["probe"].startswith("b_")}
+    log(f"[12] decode at B={B} x L={L} (ms): "
+        + "; ".join(f"{k} {v:.4f}" for k, v in dec.items())
+        + f" (bound {tms['decode[b1_kdecode, 32768x1024]']['bound_ms']:.4f}); witness walls "
+        f"(ms, in turns): " + "; ".join(f"{k} {v:.4f}" for k, v in walls.items())
+        + f"; tile transpose {by['pallas_tile_T']['ms']:.4f} against copy "
+        f"{by['pallas_copy']['ms']:.4f} at 33.5 MB; card {card}")
+    # the SASS: mma.sync (HMMA) in the four tensor-core instances only
+    sass = sass_ops(kernels.build_probes()._name,
+                    {"emit_kernel": ("HMMA", "PRMT", "LDS", "STS"),
+                     "tile_move_kernel": ("LDS", "STS", "LDG", "STG")})
+    for fn, ops in sass.items():
+        log(f"[12] sass {fn[-60:]}: {ops}")
+    mma = {fn: ops for fn, ops in sass.items()
+           if "emit_kernelILi2" in fn or "emit_kernelILi3" in fn}
+    if (len(mma) != 4 or not all(ops["HMMA"] for ops in mma.values())
+            or any(ops["HMMA"] for fn, ops in sass.items() if "emit_kernel" in fn and fn not in mma)
+            or len([fn for fn in sass if "tile_move" in fn]) != 2):
+        raise AssertionError(f"[12] the SASS lacks mma.sync in the mma forms: {sass}")
+    return {"rows": list(rows.values()), "times": tms, "errs": errs,
+            "launches": {"emit_probes": got},
+            "rec": {"scripts": recs, "decode_ms": dec, "walls_ms": walls, "sass": sass}}
 
 
 def main() -> dict:
@@ -1376,6 +1505,10 @@ def main() -> dict:
     builds = [lambda p=m.plan: kernels.build(p)
               for m in (*matchers.values(), full32, dict32, *knob_ms.values(), hdr)]
     builds += [lambda p=p: kernels.build(p) for p in tiled_modes.values()]
+    # [12]'s from: witness front with the pack from raw quads and the torch
+    # enable plane (probe_tpu64's B: en_pack=False, qpack=False)
+    builds += [lambda: kernels.build(h2r.BitplaneMatcher(
+        model, columns="witness", emit="bytes", en_pack=False, qpack=False).plan)]
     builds += [lambda d=d: kernels.build_scan_def(hdr.plan, d) for d in range(hdr.plan.n_defs)]
     builds += [kernels.build_tables, kernels.build_probes]
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -2423,6 +2556,13 @@ def main() -> dict:
     errs.update(tp["errs"])
     path_launches.update(tp["launches"])
     rec["table_probes"] = tp["rec"]
+    # [12] the emission and decode probes, B14 beside the decode forms
+    ep = emit_probe_phase(kernels, card)
+    kern_rows += ep["rows"]
+    times.update(ep["times"])
+    errs.update(ep["errs"])
+    path_launches.update(ep["launches"])
+    rec["emit_probes"] = ep["rec"]
     if sorted(r["name"] for r in kern_rows) != sorted(
             k.name for k in kernels.KERNELS + kernels.PROBE_KERNELS):
         raise AssertionError("the kernels line does not list every kernel once")

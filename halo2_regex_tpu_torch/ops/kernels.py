@@ -202,9 +202,25 @@ INT8_MMA = CudaKernel(
     "tools/probe_tpu17.py:83 (k)",
 )
 TABLE_PROBES = (LANE_GATHER, DFA_STEP, SLAB_ANATOMY, NOP, ONEHOT_COUNT, INT8_MMA)
-PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES
+# the emission and decode probes of tools/ (probe_tpu47, 48, 64, 68)
+TILE_MOVE = CudaKernel(
+    "tile_move", "h2r_tile_move", "halo2_regex_tpu_torch/csrc/probe_tile_move.cu",
+    "tools/probe_tpu47.py:44, :60 (kern_t, kern_c); tools/probe_tpu48.py:84 (kern_id); "
+    "tools/probe_tpu64.py:161 (kern_copy :128, kern_swap :131)",
+)
+L4_PACK = CudaKernel(
+    "l4_pack", "h2r_l4_pack", "halo2_regex_tpu_torch/csrc/probe_emit.cu",
+    "tools/probe_tpu48.py:65 (kern_direct); tools/probe_tpu64.py:161 (kern_mxu :134)",
+)
+FIELD_DECODE = CudaKernel(
+    "field_decode", "h2r_field_decode", "halo2_regex_tpu_torch/csrc/probe_emit.cu",
+    "tools/probe_tpu64.py:316 (make_mxdecode); tools/probe_tpu68.py:152 (make_decode)",
+)
+EMIT_PROBES = (TILE_MOVE, L4_PACK, FIELD_DECODE)
+PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES + EMIT_PROBES
 PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu", "probe_gather.cu",
-                 "probe_dfa_step.cu", "probe_tpu18.cu", "probe_units.cu")
+                 "probe_dfa_step.cu", "probe_tpu18.cu", "probe_units.cu",
+                 "probe_tile_move.cu", "probe_emit.cu")
 PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh")
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -259,6 +275,12 @@ _ENTRIES = {
     ONEHOT_COUNT: [_P, _P, _I, _I, _P],
     # a, b, c, M, N, K, stream
     INT8_MMA: [_P, _P, _P, _I, _I, _I, _P],
+    # x, y, N, R, C, form, stream
+    TILE_MOVE: [_P, _P, _I, _I, _I, _I, _P],
+    # words, out, A, M, L, form, stream
+    L4_PACK: [_P, _P, _I, _I, _I, _I, _P],
+    # g4, ch, out, fields (host ints), n_fields, NWS, G, L, form, stream
+    FIELD_DECODE: [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
 # the post modes, all over chunks of L: each call launches the chunk maps

@@ -25,6 +25,20 @@ The table-kernel probes:
 - :mod:`.probe_tpu18`: ``slab_anatomy`` (the table step with 1, 2 or 4
   picks and stores).
 
+The emission and decode probes:
+
+- :mod:`.probe_tpu47`: ``tile_move`` (the int32 tile transpose and copy);
+- :mod:`.probe_tpu48`: ``l4_pack`` (byte-lane words to string-major
+  l4-packed rows by byte permutes, an int32 tile transpose or the tensor
+  cores: the direct [B, L] emission), beside the copy and the library's
+  decode;
+- :mod:`.probe_tpu64`: ``field_decode`` (B14's decode with the fields
+  given, by an int32 tile transpose or the tensor cores) beside B14 and
+  the torch tails, the primitives at the decode's block shapes, qpack
+  alone;
+- :mod:`.probe_tpu68`: the decode forms on the from: batch's g4 and the
+  witness with each, in turns with the shipped emissions.
+
 Every probe has a plain PyTorch version (``*_plain``), a kernel wrapper
 (``*_cuda``, ``csrc/probe_*.cu`` built with the other kernels by
 :mod:`..ops.kernels`) and an entry point that picks one by the device of

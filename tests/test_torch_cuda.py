@@ -1570,3 +1570,93 @@ def test_probe_table_entry_points_raise_on_bad_shapes(dev):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the emission and decode probes of tools/ (probes/): kernel against plain
+# version, and field_decode against B14
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("form", ["copy", "transpose"])
+@pytest.mark.parametrize("shape", [(8, 8, 1024, 128), (3, 64, 64), (2, 68, 132), (1, 4, 4)])
+def test_probe_tile_move_matches_plain(dev, shape, form):
+    """Whole tiles, ragged tiles (68 x 132: edges of 4 and 4 words) and a
+    single chunk."""
+    from halo2_regex_tpu_torch.probes import probe_tpu47 as p47
+
+    x = p47.words(shape, seed=len(shape), dev=dev)
+    assert torch.equal(p47.tile_move(x, form), p47.tile_move_plain(x, form))
+
+
+@pytest.mark.parametrize("form", ["permute", "swap", "mma_pack", "mma_select"])
+@pytest.mark.parametrize("shape", [(8, 8, 1024, 128), (1, 64, 1024, 128), (2, 3, 64, 128)])
+def test_probe_l4_pack_matches_plain(dev, shape, form):
+    from halo2_regex_tpu_torch.probes import probe_tpu48 as p48
+    from halo2_regex_tpu_torch.probes import probe_tpu47 as p47
+
+    w = p47.words(shape, seed=shape[1], dev=dev)
+    got = p48.l4_pack(w, form)
+    assert torch.equal(got, p48.l4_pack_plain(w, form))
+    if shape[:2] == (8, 8):
+        assert torch.equal(p48.direct_full(got), p48.status_quo(w))
+
+
+@pytest.mark.parametrize("form", ["swap", "mma_pack", "mma_select"])
+@pytest.mark.parametrize("kind,L", [("random", 256), ("random", 64), ("real", 1024)])
+def test_probe_field_decode_matches_plain_and_b14(dev, form, kind, L):
+    """Random words (every bit of every field) and the g4 of the from:
+    witness front; B14's ``decode`` on the same g4 gives the same words."""
+    from halo2_regex_tpu_torch.probes import probe_tpu64 as p64
+    from halo2_regex_tpu_torch.probes import probe_tpu68 as p68
+
+    m = T.BitplaneMatcher(p64.from_model(L), columns="witness")
+    kplan = T.BitplaneMatcher(p64.from_model(L), columns="witness", emit="kdecode").plan
+    fields = p64.fields_of(m.plan)
+    if kind == "real":
+        chars, lengths = p64.batch(8192, L, dev)
+        g4, _fb = p68.front(m.plan, chars, lengths)
+        ch_l4 = p64.chars_l4(chars)
+    else:
+        rng = np.random.default_rng(L)
+        g4 = torch.from_numpy(rng.integers(-2**31, 2**31, size=(2, 8 * m.plan.n_groups, L, 128),
+                                           dtype=np.int64).astype(np.int32)).to(dev)
+        ch_l4 = torch.from_numpy(rng.integers(-2**31, 2**31, size=(8192, L // 4), dtype=np.int64)
+                                 .astype(np.int32)).to(dev)
+    got = p64.field_decode(g4, ch_l4, fields, form)
+    assert torch.equal(got, p64.field_decode_plain(g4, ch_l4, fields, form))
+    assert torch.equal(got, bp.decode(kplan, g4, ch_l4))
+
+
+@pytest.mark.parametrize("form", ["swap", "mma_pack", "mma_select"])
+def test_probe_witness_pipeline_matches_matcher(dev, form):
+    from halo2_regex_tpu_torch.probes import probe_tpu64 as p64
+    from halo2_regex_tpu_torch.probes import probe_tpu68 as p68
+
+    m = T.BitplaneMatcher(p64.from_model(1024), columns="witness")
+    chars, lengths = p64.batch(8192, 1024, dev)
+    p68.same_witness(form, p68.witness_pipeline(m, chars, lengths, form), m(chars, lengths))
+
+
+def test_probe_emit_entry_points_raise(dev):
+    """Bad shapes on the card, and CPU tensors handed to a ``*_cuda``."""
+    from halo2_regex_tpu_torch.probes import probe_tpu47 as p47
+    from halo2_regex_tpu_torch.probes import probe_tpu48 as p48
+    from halo2_regex_tpu_torch.probes import probe_tpu64 as p64
+
+    x = p47.words((2, 64, 64), dev=dev)
+    w = p47.words((1, 2, 96, 128), dev=dev)  # L not a multiple of 64
+    g4 = torch.zeros((1, 16, 96, 128), dtype=torch.int32, device=dev)
+    ch = torch.zeros((4096, 24), dtype=torch.int32, device=dev)
+    bad = [lambda: p47.tile_move(p47.words((2, 6, 64), dev=dev)),
+           lambda: p47.tile_move(x.long()), lambda: p47.tile_move(x, "swap"),
+           lambda: p48.l4_pack(w), lambda: p48.l4_pack(w[..., :64].contiguous()),
+           lambda: p64.field_decode(g4, ch, ((0, 0, 6),), "swap"),
+           lambda: p64.field_decode(g4[:, :, :64].contiguous(), ch[:, :16].contiguous(),
+                                    ((0, 0, 6),), "permute"),
+           lambda: p47.tile_move_cuda(x.cpu()), lambda: p48.l4_pack_cuda(w.cpu()),
+           lambda: p64.field_decode_cuda(g4[:, :, :64].cpu(), ch[:, :16].cpu(),
+                                         ((0, 0, 6),), "swap")]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()

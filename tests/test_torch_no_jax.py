@@ -13,9 +13,9 @@ dump and its C++ verifier, ``gen_circom``, the CLI's ``gen-circom`` and
 ``handoff``) and the sharded matchers (``DistributedMatcher``,
 ``SeqShardedMatcher``, ``SpeculativeSeqMatcher`` on a mesh of repeated CPU
 devices; ``parallel.launch`` at one process), the serial-scan probes'
-plain versions and the table-kernel probe scripts on the CPU
-(``probes/``), and assert that neither JAX, the JAX package nor ``tools/``
-was loaded along the way.
+plain versions, the table-kernel and the emission and decode probe
+scripts on the CPU (``probes/``), and assert that neither JAX, the JAX
+package nor ``tools/`` was loaded along the way.
 """
 
 import os
@@ -133,8 +133,10 @@ assert bool(probe_tpu20.bitop_scan(cls, st0, 96).any())
 assert not bool(probe_tpu20.bitop_scan(cls, torch.zeros_like(st0), 96).any())
 assert int((probe_tpu56.chains(probe_tpu56.inputs(1), 64) != 0).sum()) == 123
 from halo2_regex_tpu_torch.probes import (probe_tpu, probe_tpu2, probe_tpu3, probe_tpu17,
-                                          probe_tpu18)
-for mod in (probe_tpu, probe_tpu2, probe_tpu3, probe_tpu17, probe_tpu18):
+                                          probe_tpu18, probe_tpu47, probe_tpu48, probe_tpu64,
+                                          probe_tpu68)
+for mod in (probe_tpu, probe_tpu2, probe_tpu3, probe_tpu17, probe_tpu18, probe_tpu47,
+            probe_tpu48, probe_tpu64, probe_tpu68):
     assert mod.main(["--device", "cpu"]) == 0, mod.__name__
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu", "tools"))
