@@ -49,7 +49,7 @@
 // issues all its loads (16 words, and 16 chars where it writes the masked
 // characters) before its first product: over 64 positions, or with the
 // chars loaded as each byte lane is written, the loads wait in turn
-// (kernel_ab.py's EMIT_VARIANTS time both; PERF.md §6).
+// (PERF.md §6).
 //
 // What bounds it on the H100: device-memory bytes (the words in, the rows
 // out; field_decode also reads the chars and writes n_fields + 1 arrays:
@@ -63,10 +63,13 @@
 // characters where the group holds the flags (their chars read ahead of
 // the transpose).  The first design ran a cell's groups in one block, one
 // after the other, and read the chars as it wrote, and lost to B14 in
-// every form (PERF.md §6); SWAP keeps 64 positions (EMIT_VARIANTS' swap32).
+// every form (PERF.md §6); SWAP keeps 64 positions (over 32 it is slower,
+// PERF.md §6).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "bitplane_common.cuh"  // h2r_bytes4x4, B14's 4 x 4 byte transpose
 
 namespace {
 
@@ -147,16 +150,6 @@ __device__ __forceinline__ void chars(const Geo& geo, bool mc, int row, int q, u
   if (mc) load<N>(geo.ch + (size_t)row * geo.l4 + q, c);
 }
 
-// 4 x 4 byte transpose: o[s] byte j = v[j] byte s (bitplane_common.cuh's h2r_bytes4x4)
-__device__ __forceinline__ void bytes4x4(const uint32_t* v, uint32_t* o) {
-  const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140), t1 = __byte_perm(v[2], v[3], 0x5140);
-  const uint32_t t2 = __byte_perm(v[0], v[1], 0x7362), t3 = __byte_perm(v[2], v[3], 0x7362);
-  o[0] = __byte_perm(t0, t1, 0x5410);
-  o[1] = __byte_perm(t0, t1, 0x7632);
-  o[2] = __byte_perm(t2, t3, 0x5410);
-  o[3] = __byte_perm(t2, t3, 0x7632);
-}
-
 // byte s of two words as a pair of bf16 (lo in the low half), exact:
 // 0x4B0000xx is the float 2^23 + xx, and xx < 256 keeps the bf16 bits
 __device__ __forceinline__ uint32_t bf16x2_bytes(uint32_t lo, uint32_t hi, int s) {
@@ -223,7 +216,7 @@ emit_kernel(const int32_t* __restrict__ w, const int32_t* __restrict__ ch,
       uint32_t v[4], o[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = (uint32_t)__ldg(src + (size_t)(4 * qq + j) * LANE + lane);
-      bytes4x4(v, o);
+      h2r_bytes4x4(v, o);
 #pragma unroll
       for (int s = 0; s < 4; ++s) tile[s * SPLANE + lane * (TQ + 1) + qq] = o[s];
     }
@@ -349,10 +342,11 @@ int launch(const void* w, const void* ch, void* out, const Fields& fl, int A, in
 }  // namespace
 
 // words [A, M, L, 128] int32 -> rows [M, A, 512, L/4]; form 0 permute,
-// 1 swap, 2 mma_pack, 3 mma_select; L a multiple of 64
+// 1 swap, 2 mma_pack, 3 mma_select; L a multiple of 64; out 8-byte aligned
 extern "C" int h2r_l4_pack(const void* words, void* out, int A, int M, int L, int form,
                            void* stream) {
-  if (A <= 0 || M <= 0 || L <= 0 || L % TP || L / 32 > 65535) return (int)cudaErrorInvalidValue;
+  if (A <= 0 || M <= 0 || L <= 0 || L % TP || L / 32 > 65535 || ((uintptr_t)out & 7))
+    return (int)cudaErrorInvalidValue;
   Fields fl{};
   fl.n = 1;
   fl.mask[0] = 0xFFFFFFFFu;
@@ -369,11 +363,11 @@ extern "C" int h2r_l4_pack(const void* words, void* out, int A, int M, int L, in
 // g4 [NWS, 8G, L, 128] int32, ch [NWS * 4096, L/4] int32 -> out
 // [n_fields + 1, NWS * 4096, L/4]; fields: host ints (group, first bit,
 // bit count) a field, field 0 the flags; form 1 swap, 2 mma_pack,
-// 3 mma_select; L a multiple of 64
+// 3 mma_select; L a multiple of 64; ch and out 8-byte aligned
 extern "C" int h2r_field_decode(const void* g4, const void* ch, void* out, const int* fields,
                                 int n_fields, int NWS, int G, int L, int form, void* stream) {
   if (NWS <= 0 || G <= 0 || L <= 0 || L % TP || L / 32 > 65535 || n_fields < 1 ||
-      n_fields > MAXF)
+      n_fields > MAXF || (((uintptr_t)ch | (uintptr_t)out) & 7))
     return (int)cudaErrorInvalidValue;
   Fields fl{};
   fl.n = n_fields;

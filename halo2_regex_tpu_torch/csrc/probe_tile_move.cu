@@ -90,7 +90,8 @@ tile_move_kernel(const int4* __restrict__ x, int4* __restrict__ y, int R, int C)
 // R and C multiples of 4, N at most 65535, both pointers 16-byte aligned
 extern "C" int h2r_tile_move(const void* x, void* y, int N, int R, int C, int form,
                              void* stream) {
-  if (N <= 0 || N > 65535 || R <= 0 || C <= 0 || R % 4 || C % 4 || form < 0 || form > 1)
+  if (N <= 0 || N > 65535 || R <= 0 || C <= 0 || R % 4 || C % 4 || form < 0 || form > 1 ||
+      (((uintptr_t)x | (uintptr_t)y) & 15))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((C + T - 1) / T, (R + T - 1) / T, N);
   cudaStream_t st = (cudaStream_t)stream;

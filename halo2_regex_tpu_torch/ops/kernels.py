@@ -221,7 +221,7 @@ PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES + EMIT_PROBES
 PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu", "probe_gather.cu",
                  "probe_dfa_step.cu", "probe_tpu18.cu", "probe_units.cu",
                  "probe_tile_move.cu", "probe_emit.cu")
-PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh")
+PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh", "bitplane_common.cuh")
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
@@ -779,6 +779,15 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _check_aligned(t: torch.Tensor, name: str, nbytes: int):
+    """Raise where ``t``'s first element is not ``nbytes``-aligned (a
+    contiguous view at an odd storage offset), which a kernel's vector
+    loads and stores need."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: expected a {nbytes}-byte aligned tensor (storage offset "
+                         f"{t.storage_offset()})")
 
 
 def _launch(kernel: CudaKernel, fn, *args, n: int = 1) -> None:

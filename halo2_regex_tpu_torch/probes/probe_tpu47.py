@@ -52,12 +52,14 @@ def tile_move_plain(x: torch.Tensor, form: str = "transpose") -> torch.Tensor:
 
 
 def tile_move_cuda(x: torch.Tensor, form: str = "transpose") -> torch.Tensor:
-    """The ``tile_move`` kernel: 64 x 64-word tiles through shared memory."""
+    """The ``tile_move`` kernel: 64 x 64-word tiles through shared memory,
+    16-byte loads (x must be 16-byte aligned)."""
     N, R, C = _check_move(x, form)
     if R % 4 or C % 4 or N > 65535:
         raise ValueError(f"x {tuple(x.shape)}: tile_move needs R and C multiples of 4 and "
                          f"at most 65535 matrices")
     kernels._check(x, "x", torch.int32, tuple(x.shape))
+    kernels._check_aligned(x, "x", 16)
     shape = x.shape if form == "copy" else (*x.shape[:-2], C, R)
     out = torch.empty(shape, dtype=torch.int32, device=x.device)
     lib = kernels.build_probes()

@@ -17,9 +17,11 @@ the library's ops".
   the card.
 
 The probe's A (kern_direct) is ``l4_pack`` in its permute form at W [NWS=8,
-M=8, L=1024, LANE=128]; its kern_id is ``tile_move``'s copy
-(:mod:`.probe_tpu47`), and its status quo (kern_id, then the bitcast and
-transpose to [B, L]) is timed as torch ops beside it, ``"kernel": null``.
+M=8, L=1024, LANE=128], with the library's strided copy of the same rows
+(``l4_pack_library``) timed beside it; its kern_id is ``tile_move``'s
+copy (:mod:`.probe_tpu47`), and its status quo (kern_id, then the bitcast
+and transpose to [B, L]) is timed as torch ops beside it, ``"kernel":
+null``.
 The direct column must equal the status quo's, as the probe asserts.  The
 kernel is ``csrc/probe_emit.cu``.  Run on the card::
 
@@ -62,6 +64,15 @@ def l4_pack_plain(w: torch.Tensor, form: str = "permute") -> torch.Tensor:
     return _l4_rows(w).transpose(0, 1).contiguous()
 
 
+def l4_pack_library(w: torch.Tensor) -> torch.Tensor:
+    """The same rows by one strided copy of the library (``contiguous`` of
+    the words' bytes permuted to [M, A, lane, s, l]), viewed as int32:
+    the library call timed beside ``l4_pack``, never the port."""
+    A, M, L = _check_pack(w, "permute")
+    u8 = w.view(torch.uint8).reshape(A, M, L, LANE, 4).permute(1, 0, 3, 4, 2).contiguous()
+    return u8.view(torch.int32).reshape(M, A, 4 * LANE, L // 4)
+
+
 def l4_pack_cuda(w: torch.Tensor, form: str = "permute") -> torch.Tensor:
     """The ``l4_pack`` kernel in ``form``."""
     A, M, L = _check_pack(w, form)
@@ -90,14 +101,16 @@ def mma_count(planes: int, L: int, form: str) -> int:
 
 def pack_line(timer, card, probe: str, w: torch.Tensor, form: str):
     """An ``l4_pack`` measurement (the words in, the rows out; an mma form
-    also carries its tensor-core flops and peak), and its last output."""
+    also carries its tensor-core flops and peak) with its library call
+    (``l4_pack_library``), and its last output."""
     A, M, L = _check_pack(w, form)
     extra = {}
     n_mma = mma_count(A * M, L, form)
     if n_mma:
         extra = dict(mma_flops=n_mma * MMA_FLOPS, mma_peak=BF16_PEAK)
     return harness.measure(timer, card, probe, kernels.L4_PACK, lambda: l4_pack(w, form), A * M,
-                           lambda: l4_pack_plain(w, form), nbytes=2 * w.numel() * 4,
+                           lambda: l4_pack_plain(w, form), library=lambda: l4_pack_library(w),
+                           nbytes=2 * w.numel() * 4,
                            shape=list(w.shape), form=form, **extra)
 
 

@@ -108,12 +108,14 @@ def field_decode_plain(g4: torch.Tensor, ch_l4: torch.Tensor, fields: Sequence,
 
 def field_decode_cuda(g4: torch.Tensor, ch_l4: torch.Tensor, fields: Sequence,
                       form: str = "mma_pack") -> torch.Tensor:
-    """The ``field_decode`` kernel in ``form``: one launch."""
+    """The ``field_decode`` kernel in ``form``: one launch (the mma forms
+    read the chars 8 bytes at a time: ch_l4 must be 8-byte aligned)."""
     NWS, G, L = _check_decode(g4, ch_l4, fields, form)
     if L % TP:
         raise ValueError(f"g4 {tuple(g4.shape)}: field_decode needs L a multiple of {TP}")
     kernels._check(g4, "g4", torch.int32, tuple(g4.shape))
     kernels._check(ch_l4, "ch_l4", torch.int32, tuple(ch_l4.shape))
+    kernels._check_aligned(ch_l4, "ch_l4", 8)
     flat = [int(v) for f in fields for v in f]
     out = torch.empty((len(fields) + 1, NWS * TILE, L // 4), dtype=torch.int32, device=g4.device)
     lib = kernels.build_probes()

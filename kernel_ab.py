@@ -34,11 +34,6 @@ Walls, old package against new, with equal outputs, 30 runs each, at
 B=32768 and B=4096: match, tiled_match, tiled_witness, L1000 witness
 (pack_raw) and witness (no kernel of this PR on its path).
 
-The emission probes (``emit``; they have no earlier form, so ``--old`` is
-not run there): B14's decode against each ``field_decode`` form on the
-from: batch's g4, each form against its variants (``EMIT_VARIANTS``),
-and l4_pack's mma forms against the 64-position variant, in turns.
-
 The record goes to ``chiprun_out/kernel_ab.json``; the last line is a
 JSON summary.  Imports nothing of JAX.
 """
@@ -181,33 +176,6 @@ FB_VARIANTS = {
                     "const int cs = 1;")],
 }
 TIMING_ONLY = ("no_load", "no_compute")
-# the emission probes' variants (csrc/probe_emit.cu): the mma forms over 64
-# positions (both position pairs' words and chars loaded first), the same
-# with each byte lane's chars loaded just before its products, and the
-# swap form over 32 positions
-_MMA64 = ("probe_emit.cu", "return FORM == PERMUTE ? TP : FORM == SWAP ? TPS : 32;",
-          "return FORM == PERMUTE ? TP : FORM == SWAP ? TPS : 64;")
-EMIT_VARIANTS = {
-    "mma64": [_MMA64],
-    "mma64_chars_late": [
-        _MMA64,
-        ("probe_emit.cu",
-         "    uint32_t cc[NJ][4][2][2];  // the chars: [j][s][row of lane g, g + 8][2 columns]\n"
-         "#pragma unroll\n"
-         "    for (int j = 0; j < NJ; ++j)\n"
-         "#pragma unroll\n"
-         "      for (int s = 0; s < 4; ++s) {\n"
-         "        chars<2>(geo, mc, 4 * (m0 + g) + s, q0 + 8 * j + 2 * t, cc[j][s][0]);\n"
-         "        chars<2>(geo, mc, 4 * (m0 + g + 8) + s, q0 + 8 * j + 2 * t, cc[j][s][1]);\n"
-         "      }\n", ""),
-        ("probe_emit.cu",
-         "        const uint32_t(&c_lo)[2] = cc[j][s][0];\n"
-         "        const uint32_t(&c_hi)[2] = cc[j][s][1];\n",
-         "        uint32_t c_lo[2], c_hi[2];\n"
-         "        chars<2>(geo, mc, 4 * (m0 + g) + s, q, c_lo);\n"
-         "        chars<2>(geo, mc, 4 * (m0 + g + 8) + s, q, c_hi);\n")],
-    "swap32": [("probe_emit.cu", "constexpr int TPS = 64;", "constexpr int TPS = 32;")],
-}
 
 
 def sass_counts(K, keys, kernel: str) -> list:
@@ -413,81 +381,6 @@ def fb_ab(pk: Pkgs, cs, dev, card, flush, corpora) -> dict:
     return rec
 
 
-def emit_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
-    """The decode on the from: batch's g4 (probe_tpu68's front): B14 against
-    each field_decode form, and each form against its variants
-    (``EMIT_VARIANTS``), in turns; l4_pack's forms at [64, 1024, 128]
-    against the mma64 variant.  No old package: the probes are new."""
-    K, bp = pk.K, pk.bp
-    from halo2_regex_tpu_torch.probes import probe_tpu48 as p48
-    from halo2_regex_tpu_torch.probes import probe_tpu64 as p64
-    from halo2_regex_tpu_torch.probes import probe_tpu68 as p68
-
-    model = p64.from_model(cs.L)
-    m = bp.BitplaneMatcher(model, columns="witness", device=dev)
-    kplan = bp.BitplaneMatcher(model, columns="witness", emit="kdecode", device=dev).plan
-    before = set(K.BUILD_LOG)
-    with ThreadPoolExecutor(3) as pool:
-        for j in [pool.submit(f) for f in (K.build_probes, lambda: K.build(m.plan),
-                                           lambda: K.build(kplan))]:
-            j.result()
-    dirs = {name: variant_csrc(K, f"emit_{name}", edits) for name, edits in EMIT_VARIANTS.items()}
-    with ThreadPoolExecutor(len(dirs)) as pool:
-        jobs = {name: pool.submit(K._build_library, ("probe_emit.cu",),
-                                  (K.L4_PACK, K.FIELD_DECODE), (), None, d)
-                for name, d in dirs.items()}
-        var_libs = {name: j.result() for name, j in jobs.items()}
-    rec = {"ptxas": ptxas_of(K, sorted(set(K.BUILD_LOG) - before), "emit_kernel")}
-    for ln in rec["ptxas"]:
-        print(f"ptxas (emit_kernel): {ln}", flush=True)
-
-    def via(lib, fn):  # fn with the probes' entries taken from ``lib``
-        def go():
-            saved, K.build_probes = K.build_probes, (lambda: lib)
-            try:
-                return fn()
-            finally:
-                K.build_probes = saved
-        return go
-
-    chars, lengths = p64.batch(cs.B, cs.L, dev)
-    g4, _fb = p68.front(m.plan, chars, lengths)
-    ch = p64.chars_l4(chars)
-    fields = p64.fields_of(m.plan)
-    want = bp.decode_plain(kplan, g4, ch)
-
-    def b14():
-        return K.decode_cuda(kplan, g4, ch)
-
-    check(cs, "B14", b14(), want)
-    for form in p64.FORMS:
-        def run(form=form):
-            return p64.field_decode_cuda(g4, ch, fields, form)
-
-        check(cs, f"field_decode {form}", run(), want)
-        rec[f"decode {form}"] = in_turns(
-            cs, f"decode at B={cs.B}: B14 as old, field_decode {form} as new", b14, run,
-            flush, card)
-        for vname, lib in var_libs.items():
-            if vname.startswith("mma") == form.startswith("mma"):
-                check(cs, f"field_decode {form} {vname}", via(lib, run)(), want)
-                rec[f"decode {form} {vname}"] = in_turns(
-                    cs, f"field_decode {form}: the kernel as old, variant {vname} as new", run,
-                    via(lib, run), flush, card)
-    w = p64.words((1, 64, cs.L, 128), lo=0, hi=2**31, dev=dev)
-    for form in ("mma_pack", "mma_select"):
-        def run(form=form):
-            return p48.l4_pack_cuda(w, form)
-
-        check(cs, f"l4_pack {form}", run(), p48.l4_pack_plain(w, form))
-        check(cs, f"l4_pack {form} mma64", via(var_libs["mma64"], run)(),
-              p48.l4_pack_plain(w, form))
-        rec[f"l4_pack {form} mma64"] = in_turns(
-            cs, f"l4_pack {form} [64, 1024, 128]: the kernel as old, variant mma64 as new", run,
-            via(var_libs["mma64"], run), flush, card)
-    return rec
-
-
 def walls_ab(pk: Pkgs, cs, dev, card, flush, corpora) -> dict:
     """End-to-end walls, old package against new, in turns, with equal
     outputs, at both batch sizes."""
@@ -536,7 +429,7 @@ def main() -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True,
                     help="directory of the earlier halo2_regex_tpu_torch/ package")
-    ap.add_argument("--only", default="pack,fb,walls,emit",
+    ap.add_argument("--only", default="pack,fb,walls",
                     help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -562,8 +455,6 @@ def main() -> dict:
         out["fb_only"] = fb_ab(pk, cs, dev, card, flush, corpora)
     if "walls" in parts:
         out["walls"] = walls_ab(pk, cs, dev, card, flush, corpora)
-    if "emit" in parts:
-        out["emit"] = emit_ab(pk, cs, dev, card, flush)
     rec["ab"] = out
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:

@@ -1657,6 +1657,13 @@ def test_probe_emit_entry_points_raise(dev):
            lambda: p47.tile_move_cuda(x.cpu()), lambda: p48.l4_pack_cuda(w.cpu()),
            lambda: p64.field_decode_cuda(g4[:, :, :64].cpu(), ch[:, :16].cpu(),
                                          ((0, 0, 6),), "swap")]
+    # contiguous views at an odd storage offset: the vector loads need
+    # 16-byte (tile_move) and 8-byte (field_decode's chars) alignment
+    flat = p47.words((1 + 4096 * 16,), dev=dev)
+    bad += [lambda: p47.tile_move(flat[1:1 + 2 * 64 * 64].view(2, 64, 64)),
+            lambda: p47.tile_move(flat[2:2 + 2 * 64 * 64].view(2, 64, 64), "copy"),
+            lambda: p64.field_decode(g4[:, :, :64].contiguous(), flat[1:].view(4096, 16),
+                                     ((0, 0, 6),), "mma_pack")]
     for call in bad:
         with pytest.raises(ValueError):
             call()

@@ -152,6 +152,37 @@ def test_l4_pack_equals_kern_direct(form):
     assert torch.equal(p48.direct_full(got), p48.status_quo(w))
 
 
+def test_l4_pack_library_equals_kern_direct():
+    """The library call timed beside l4_pack (one strided copy) computes
+    the probe's rows too, and tells the byte lanes apart."""
+    w = p47.words((2, 3, 128, LANE), seed=6)
+    NWS, M, Lx, _ = w.shape
+    kern = _load("probe_tpu48.py", "kern_direct", M=M, L4=Lx // 4, LANE=LANE)
+    call = pl.pallas_call(
+        kern, grid=(NWS,),
+        in_specs=[pl.BlockSpec((1, M, Lx, LANE), lambda b: (b, 0, 0, 0), **VMEM)],
+        out_specs=pl.BlockSpec((M, 1, LANE * 4, Lx // 4), lambda b: (0, b, 0, 0), **VMEM),
+        out_shape=_i32(M, NWS, LANE * 4, Lx // 4), interpret=True)
+    want = np.asarray(call(jnp.asarray(w.numpy())))
+    got = p48.l4_pack_library(w)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert not np.array_equal(_swap_s(got).numpy(), want)
+
+
+def test_check_aligned():
+    """The wrappers' alignment check: a contiguous view at an odd storage
+    offset is refused (the vector loads of tile_move and field_decode)."""
+    from halo2_regex_tpu_torch.ops import kernels
+
+    flat = torch.zeros(1 + 4 * 64, dtype=torch.int32)
+    base = flat[4 - flat.data_ptr() % 16 // 4:][:4 * 32]  # 16-byte aligned
+    kernels._check_aligned(base, "x", 16)
+    kernels._check_aligned(base[2:], "x", 8)
+    for view, n in ((base[1:], 8), (base[1:], 16), (base[2:], 16), (base[3:], 4 * 2)):
+        with pytest.raises(ValueError, match="aligned"):
+            kernels._check_aligned(view, "x", n)
+
+
 @pytest.mark.parametrize("form", p48.FORMS)
 def test_l4_pack_equals_kern_mxu(mkk64, form):
     x, mkk, kerns, pmat = mkk64
