@@ -91,7 +91,18 @@ corpus and on configs[3], the corpus-scan CLI and the device-expand
             field_decode mma_pack; qpack alone) and ``.probe_tpu68``
             (field_decode mma_select and swap beside B14 on the from:
             batch's g4; the witness pipeline with each decode form in turns
-            with the shipped bytes, kdecode and direct witness).
+            with the shipped bytes, kdecode and direct witness);
+  t2 probes  the launch, accumulate, carry, class-chain and configs[3]
+            table-step probes of tools/ (``probes/``): the ``run`` of
+            ``.probe_tpu21`` (mma_accum), ``.probe_tpu20``'s D and E
+            (``run_de``: mma_accum, bitop_carry), ``.probe_tpu6`` (k1
+            loop_floor, k2 dfa_wide, k3 slab_anatomy, k4 class_chain),
+            ``.probe_tpu67`` (a launch's cost past its bytes: chains of
+            tile_move copies; the witness at B = 32768, 65536, 131072),
+            ``.probe_tpu7``, ``.probe_tpu28``, ``.probe_tpu30``,
+            ``.probe_tpu31`` and ``.probe_tpu32`` (dfa_wide), and the
+            widened step at configs[3]'s batch beside B8's table scan
+            (``probe_tpu28.configs3_lines``).
 
 and proves on the card that:
 
@@ -100,10 +111,12 @@ and proves on the card that:
      library per bitplane path and one for the table kernels, every
      source compiled at once);
   3. the models compile and the corpora are built;
-  4. each of the sixteen kernels of the matchers (twenty-nine with [10]'s
-     four probe kernels, [11]'s six and [12]'s three), and each knob mode of the pack, scan
-     and post kernels, is bit-exact against its plain PyTorch version on
-     the same inputs at that size (scan_def also against the fused
+  4. each of the sixteen kernels of the matchers (thirty-three with [10]'s
+     four probe kernels, [11]'s six, [12]'s three and [13]'s four), and
+     each knob mode of the pack, scan and post kernels, is bit-exact
+     against its plain PyTorch version on the same inputs at that size
+     ([13]'s mma_accum within its stated tolerance on N(0, 1) inputs;
+     scan_def also against the fused
      scan's slices; the quad-word pack in both layouts and every mode:
      pack_raw at L=1000 and, in each mode, on the L=1024 raw quad rows,
      tpack in each class-stage mode) (the table kernels on the
@@ -219,7 +232,24 @@ and proves on the card that:
      pipeline's witness keys equal the shipped witness's; B14's ms, each
      decode form's and each witness wall are logged side by side; the
      SASS holds HMMA in the four mma instances of the emit kernel and in
-     none of the others.
+     none of the others;
+ 13. the t2 probe scripts' runs, driven with the launch counts reset,
+     launched every t2 probe kernel and, of the others, only loop_floor,
+     slab_anatomy, tile_move, the witness kernels (qpack, scan, post) and
+     the table scan; each measurement as in [10], each kernel against its
+     plain version: int32 outputs bit-exact (bitop_carry at one position
+     a chunk from a zero and a seeded start and at every position;
+     class_chain in both forms at [64, 128] and [1024, 32768]; dfa_wide
+     lookup, onehot_mma and count at the probes' (K, S) from 32 x 256 to
+     1024 x 128 and at configs[3]'s B=64 x L=65536, where B8's table scan
+     equals it too), mma_accum bit-exact on integer inputs and within 2e-5
+     x sum |a b| on N(0, 1) ones ([4, 2, 128, 128], [4, 8, 1024, 1024]);
+     the library calls beside them (``torch.matmul(a, b).float().cumsum(1)``,
+     ``((c[..., None] >= b) * delta).sum(-1)``, ``torch.cumsum``,
+     ``x.clone()``); probe_tpu67's chains give a launch's wall and device
+     slope and its cost past its bytes, and its witness batches agree on
+     the rows they share; the SASS holds HMMA in mma_accum and in
+     dfa_wide's product instance, none in its lookup.
 
 Prints the wall seconds of each phase, one JSON line of per-kernel
 results (the knob modes of a kernel under its ``modes``, a probe
@@ -1097,7 +1127,8 @@ def probe_lines(kernels, recs, group, got: dict, label, tag: str, card: str):
     for r in recs:
         name, lab = r["kernel"], label(r)
         errs[f"{name}[{lab}]"] = r["max_abs_err"]
-        if r["device"] != "cuda" or r["card"] != card or r["launches"] != 1 or r["max_abs_err"]:
+        if (r["device"] != "cuda" or r["card"] != card or r["launches"] != r.get("calls", 1)
+                or (r["max_abs_err"] and not r.get("within_tolerance"))):
             raise AssertionError(f"{tag} {name} [{lab}]: {r}")
         bd = bound(r["nbytes"], r["int32_ops"])
         if r.get("mma_flops"):
@@ -1110,13 +1141,15 @@ def probe_lines(kernels, recs, group, got: dict, label, tag: str, card: str):
                                  "plain_ms": r["plain_ms"], "library_ms": lib, **bd,
                                  "ns_per_step": r["ns_per_step"],
                                  "cycles_per_step": r["cycles_per_step"]}
-        log(f"{tag} {name} [{lab}]: kernel vs plain max_abs_err={r['max_abs_err']} (tolerance 0, "
-            f"int32); kernel {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-{r['iqr'][1]:.4f}), "
+        tol = ("within the elementwise tolerance" if "within_tolerance" in r
+               else "tolerance 0")
+        log(f"{tag} {name} [{lab}]: kernel vs plain max_abs_err={r['max_abs_err']} ({tol}); "
+            f"kernel {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-{r['iqr'][1]:.4f}), "
             f"{r['ns_per_step']:.3f} ns = {r['cycles_per_step']:.1f} cycles a step at "
             f"{harness.CLOCK_HZ / 1e9:.2f} GHz over {r['steps']} steps; plain "
             f"{r['plain_ms']:.4f} ms (1 run)" + (f"; library {lib:.4f} ms" if lib is not None else "")
-            + f"; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; {r['launches']} launch a "
-            f"call (counted); card {card}")
+            + f"; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; {r['launches']} launch(es) "
+            f"a call (counted); card {card}")
         entry = {"launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": bd["bound_ms"],
                  "bound_by": bd["bound_by"], "library_ms": lib, "ns_per_step": r["ns_per_step"]}
@@ -1413,6 +1446,135 @@ def emit_probe_phase(kernels, card: str) -> dict:
     return {"rows": list(rows.values()), "times": tms, "errs": errs,
             "launches": {"emit_probes": got},
             "rec": {"scripts": recs, "decode_ms": dec, "walls_ms": walls, "sass": sass}}
+
+
+def t2_probe_phase(kernels, m3, chars3, card: str) -> dict:
+    """[13] The launch, accumulate, carry, class-chain and configs[3]
+    table-step probes of tools/ (``probes/``: probe_tpu21, 20 D and E, 6,
+    67, 7, 28, 30, 31, 32): each script's ``run`` at its own widths, and the
+    widened step (dfa_wide, lookup and onehot_mma) at configs[3]'s batch
+    (B=64 x L=65536, its 96 x 1008 table) beside B8's table scan on the
+    same table, the launch counts reset just before and read just after.
+    Each kernel line holds a kernel against its plain version
+    (``harness.measure``: one call with every count read around it, 2 + 10
+    timed runs, the last output against the plain version's: int32 outputs
+    exactly, mma_accum exactly on integer inputs and within 2e-5 x sum |a b|
+    on N(0, 1) inputs; a library call beside it where one computes the same
+    function).  Of the other kernels only those the scripts reuse run:
+    loop_floor (k1), slab_anatomy (k3), tile_move (probe_tpu67's A), the
+    witness kernels (its C) and the table scan (B8 at configs[3]).  Then
+    the launch cost past the bytes, the forms of each family and B8 are
+    logged side by side, and the SASS shows HMMA in mma_accum and in
+    dfa_wide's product instance and none in its lookup."""
+    from halo2_regex_tpu_torch.probes import (harness, probe_tpu6, probe_tpu7, probe_tpu20,
+                                              probe_tpu21, probe_tpu28, probe_tpu30, probe_tpu31,
+                                              probe_tpu32, probe_tpu67)
+
+    dev = torch.device("cuda")
+    kernels.reset_launch_counts()
+    scripts = (
+        ("probe_tpu28", lambda: probe_tpu28.configs3_lines(
+            dev, m3.next_table[0], m3.class_map[0], chars3, int(m3.first_states[0]))),
+        ("probe_tpu21", lambda: probe_tpu21.run(dev)),
+        ("probe_tpu20", lambda: probe_tpu20.run_de(dev)),
+        ("probe_tpu6", lambda: probe_tpu6.run(dev)),
+        ("probe_tpu67", lambda: probe_tpu67.run(dev)),
+        ("probe_tpu7", lambda: probe_tpu7.run(dev)),
+        ("probe_tpu28", lambda: probe_tpu28.run(dev)),
+        ("probe_tpu30", lambda: probe_tpu30.run(dev)),
+        ("probe_tpu31", lambda: probe_tpu31.run(dev)),
+        ("probe_tpu32", lambda: probe_tpu32.run(dev)),
+    )
+    recs = []
+    for script, fn in scripts:
+        recs += [dict(r, script=script) for r in fn()]
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in kernels.KERNELS + kernels.PROBE_KERNELS}
+    reused = (kernels.LOOP_FLOOR, kernels.SLAB_ANATOMY, kernels.TILE_MOVE, kernels.TABLE_SCAN,
+              kernels.QPACK, kernels.SCAN, kernels.POST)
+    every = kernels.KERNELS + kernels.PROBE_KERNELS
+    if (any(got[k.name] for k in every if k not in kernels.T2_PROBES + reused)
+            or not all(got[k.name] for k in kernels.T2_PROBES + reused)):
+        raise AssertionError(f"[13] the probe scripts' launches {got}")
+    log(f"[13] probe scripts (probe_tpu28.configs3_lines, probe_tpu21, probe_tpu20.run_de, "
+        f"probe_tpu6, probe_tpu67, probe_tpu7, probe_tpu28, probe_tpu30, probe_tpu31, "
+        f"probe_tpu32 run), launches {dict((k, v) for k, v in got.items() if v)}")
+
+    def label(r) -> str:
+        parts = [r["script"], r["probe"], "x".join(map(str, r.get("shape", [])))]
+        parts += [str(r[k]) for k in ("form", "inputs", "start", "table") if r.get(k)]
+        if r.get("reads"):
+            parts.append(f"reads {r['reads']}")
+        return ", ".join(p for p in parts if p)
+
+    tms, errs = {}, {}
+    t2_names = {k.name for k in kernels.T2_PROBES}
+    for r in recs:
+        lab = label(r)
+        if r["kernel"] is None:  # probe_tpu67's witness walls
+            if r["device"] != "cuda" or r["card"] != card:
+                raise AssertionError(f"[13] torch {lab}: {r}")
+            log(f"[13] torch {lab}: {r['ms']:.4f} ms a call (IQR {r['iqr'][0]:.4f}-"
+                f"{r['iqr'][1]:.4f}; the wall slope of {r['ks']} chained calls, host enqueue "
+                f"included; device slope {r['device_slope_ms']['median']:.4f}); "
+                f"{r['input_gbps']:.1f} GB/s of input; card {card}")
+            tms[f"torch[{lab}]"] = {k: r[k] for k in ("ms", "iqr", "input_gbps", "wall_ms",
+                                                      "device_slope_ms")}
+        elif r["kernel"] not in t2_names:  # the kernels of earlier slices the scripts reuse
+            if (r["device"] != "cuda" or r["card"] != card or r["launches"] != r.get("calls", 1)
+                    or r["max_abs_err"]):
+                raise AssertionError(f"[13] {r['kernel']} [{lab}]: {r}")
+            bd = bound(r["nbytes"], r.get("int32_ops", 0))
+            errs[f"{r['kernel']}[{lab}]"] = r["max_abs_err"]
+            tms[f"{r['kernel']}[{lab}]"] = {"kernel": {"median": r["ms"], "iqr": r["iqr"]},
+                                            "plain_ms": r["plain_ms"],
+                                            "library_ms": r["library_ms"], **bd}
+            lib = r["library_ms"]
+            log(f"[13] {r['kernel']} [{lab}]: kernel vs plain max_abs_err={r['max_abs_err']} "
+                f"(tolerance 0, int32); kernel {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-"
+                f"{r['iqr'][1]:.4f}); plain {r['plain_ms']:.4f} ms (1 run)"
+                + (f"; library {lib:.4f} ms" if lib is not None else "")
+                + f"; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; {r['launches']} "
+                f"launch(es) a call (counted); card {card}")
+    for r in recs:
+        if r["kernel"] == "mma_accum" and "library_max_abs_err" in r:
+            log(f"[13] mma_accum [{label(r)}]: the library (bf16 products) differs from the "
+                f"plain version by {r['library_max_abs_err']:.6g} (recorded, not held)")
+    rows, ktms, kerrs = probe_lines(kernels, [r for r in recs if r["kernel"] in t2_names],
+                                    kernels.T2_PROBES, got, label, "[13]", card)
+    tms.update(ktms)
+    errs.update(kerrs)
+
+    # side by side: a launch past its bytes, the step's forms beside B8
+    for r in recs:
+        if r["probe"].startswith("a_copy"):
+            for name in ("chain", "clone_chain"):
+                c = r[name]
+                log(f"[13] {r['probe']} {name} (K = {c['ks'][0]} and {c['ks'][1]}, L2 flushed, "
+                    f"no spin): wall slope {c['slope_ms']['median'] * 1e3:.2f} us a call (IQR "
+                    f"{c['slope_ms']['iqr'][0] * 1e3:.2f}-{c['slope_ms']['iqr'][1] * 1e3:.2f}), "
+                    f"less the bytes at {c['copy_gbps']} GB/s ({c['bytes_ms'] * 1e3:.2f} us): "
+                    f"{c['fixed_ms'] * 1e3:.2f} us; device slope "
+                    f"{c['device_slope_ms']['median'] * 1e3:.2f} us (fixed "
+                    f"{c['device_fixed_ms'] * 1e3:.2f} us); card {card}")
+    c3 = {r["form"]: r["ms"] for r in recs if r["probe"] in ("configs3", "configs3_b8")}
+    log(f"[13] configs[3]'s step at B={B3} x L={L3} (ms): "
+        + "; ".join(f"{k} {v:.4f}" for k, v in c3.items()) + f"; card {card}")
+    # the SASS: mma.sync (HMMA) in mma_accum and dfa_wide's product instance only
+    sass = sass_ops(kernels.build_probes()._name,
+                    {"mma_accum_kernel": ("HMMA", "LDS"), "wide_mma_kernel": ("HMMA", "LDG"),
+                     "wide_lookup_kernel": ("HMMA", "LDS", "LDG"),
+                     "class_chain_kernel": ("ISETP", "LDS"), "bitop_carry_kernel": ("LOP3",)})
+    for fn, ops in sass.items():
+        log(f"[13] sass {fn[-60:]}: {ops}")
+    hmma = {k: [bool(ops["HMMA"]) for fn, ops in sass.items() if k in fn]
+            for k in ("mma_accum_kernel", "wide_mma_kernel", "wide_lookup_kernel")}
+    if hmma != {"mma_accum_kernel": [True], "wide_mma_kernel": [True],
+                "wide_lookup_kernel": [False, False]}:
+        raise AssertionError(f"[13] the SASS lacks mma.sync in mma_accum or dfa_wide: {sass}")
+    return {"rows": list(rows.values()), "times": tms, "errs": errs,
+            "launches": {"t2_probes": got},
+            "rec": {"scripts": recs, "configs3_ms": c3, "sass": sass}}
 
 
 def main() -> dict:
@@ -2563,6 +2725,13 @@ def main() -> dict:
     errs.update(ep["errs"])
     path_launches.update(ep["launches"])
     rec["emit_probes"] = ep["rec"]
+    # [13] the launch, accumulate, carry, class-chain and configs[3] step probes
+    t2 = t2_probe_phase(kernels, m3, chars3, card)
+    kern_rows += t2["rows"]
+    times.update(t2["times"])
+    errs.update(t2["errs"])
+    path_launches.update(t2["launches"])
+    rec["t2_probes"] = t2["rec"]
     if sorted(r["name"] for r in kern_rows) != sorted(
             k.name for k in kernels.KERNELS + kernels.PROBE_KERNELS):
         raise AssertionError("the kernels line does not list every kernel once")

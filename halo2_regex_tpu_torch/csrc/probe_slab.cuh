@@ -13,7 +13,10 @@
 // the N_OUT stores hang off it.
 //
 // Layouts: tk [K, 4S] int32; classes [256] int32; x [L, TB] int32 and
-// each output [L, TB] int32, L % 8 == 0.
+// each output [L, TB] int32, L % 8 == 0.  The table and class map take
+// (256 + 4 K S) * 4 bytes of dynamic shared memory: past 48 KiB the launch
+// opts in, up to the card's limit (probe_tpu6's k3, P4 [256, 128] with the
+// identity class map, is slab_anatomy<2>).
 
 #pragma once
 
@@ -90,8 +93,20 @@ int launch(const void* tk, const void* classes, const void* x, void* const* outs
            int TB, int K, int S, int first, cudaStream_t st) {
   if (L % SLAB) return (int)cudaErrorInvalidValue;
   const size_t smem = (256 + (size_t)K * 4 * S) * sizeof(int32_t);
-  // no opt-in: the probes' tables are under 10 KiB
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  // past the 48 KiB default, up to the card's opt-in less the static ring
+  // (probe_tpu6's k3: a [256, 128] table, 132 KiB)
+  if (smem > 48 * 1024) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (smem + sizeof(uint32_t) * RING * SLAB * THREADS > (size_t)optin)
+      return (int)cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(slab_kernel<N_OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   Outs<N_OUT> o;
   for (int j = 0; j < N_OUT; ++j) o.o[j] = (int32_t*)outs[j];
   slab_kernel<N_OUT><<<(TB + THREADS - 1) / THREADS, THREADS, smem, st>>>(

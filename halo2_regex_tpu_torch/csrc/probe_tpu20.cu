@@ -28,6 +28,20 @@
 //
 // Layouts: cls [L, K, NWS, 128] int32; st0 [SB, NWS, 128] int32; out [L,
 // 1, NWS, 128] int32; NW = NWS * 128 words.
+//
+// bitop_carry, the carry mode, replaces probe_tpu20.py's E (kern2 :246,
+// pallas_call at :267): per string group b and word w, a state carried
+// across the chunks of LC positions, st ^= c & st for `steps` positions at
+// the start of each chunk (the probe as written reads one, the first: its
+// loop runs cls_ref.shape[0] = 1 trip), out[b, w] = st after the last
+// chunk.  The probe starts each b from its zeroed scratch, which the op
+// keeps at zero; here the start st0 [NW] is an input, as bitop_scan's.
+// steps = LC is the carry scan the probe meant: every position in order.
+// The TPU carried st in VMEM scratch across the grid's chunk axis; here
+// one thread owns one (b, w) and walks its chunks itself, the positions'
+// words in flight through the same ring.  What bounds it: the chain, one
+// LOP3 a position.  Layouts: cls [NB, L, NW] int32 (the probe's [NB, L, 1,
+// NWS, 128]); st0 [NW]; out [NB, NW]; L % LC == 0, 1 <= steps <= LC.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -93,7 +107,45 @@ int launch(const void* cls, const void* st0, void* out, int NW, int L, int LC,
   return (int)cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(THREADS)
+bitop_carry_kernel(const int32_t* __restrict__ cls, const int32_t* __restrict__ st0,
+                   int32_t* __restrict__ out, int NW, int L, int LC, int steps) {
+  __shared__ uint32_t ring[RING][THREADS];  // position p's word in slot p % RING
+  const int t = threadIdx.x, b = blockIdx.y;
+  const int w = blockIdx.x * THREADS + t;
+  if (w >= NW) return;
+  const int n_pos = L / LC * steps;
+  const int32_t* base = cls + (size_t)b * L * NW + w;
+  auto fetch = [&](int p) {  // the p-th position read: chunk p / steps, its (p % steps)-th
+    if (p < n_pos)
+      probe_ring::copy4(&ring[p % RING][t], base + ((size_t)(p / steps) * LC + p % steps) * NW);
+    probe_ring::commit();
+  };
+  for (int p = 0; p < RING - 1; ++p) fetch(p);
+  uint32_t st = (uint32_t)st0[w];
+#pragma unroll 1
+  for (int p = 0; p < n_pos; ++p) {
+    fetch(p + RING - 1);  // into slot (p - 1) % RING, read at p - 1
+    probe_ring::wait_oldest<RING>();
+    const uint32_t c = ring[p % RING][t];
+    st ^= c & st;
+  }
+  out[(size_t)b * NW + w] = (int32_t)st;
+  probe_ring::wait_all();
+}
+
 }  // namespace
+
+extern "C" int h2r_bitop_carry(const void* cls, const void* st0, void* out, int NB, int NW,
+                               int L, int LC, int steps, void* stream) {
+  if (NB <= 0 || NB > 65535 || NW <= 0 || LC < 1 || L < LC || L % LC || steps < 1 ||
+      steps > LC)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((NW + THREADS - 1) / THREADS, NB);
+  bitop_carry_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cls, (const int32_t*)st0, (int32_t*)out, NW, L, LC, steps);
+  return (int)cudaGetLastError();
+}
 
 // the probe's sweep: n_ops in {96, 192, 384, 768}, sb = 5, k = 12
 extern "C" int h2r_bitop_scan(const void* cls, const void* st0, void* out, int n_ops, int NW,

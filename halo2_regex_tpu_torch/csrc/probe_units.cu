@@ -1,5 +1,5 @@
-// nop, onehot_count and int8_mma -- three unit probes of tools/ as H100
-// kernels:
+// nop, onehot_count, int8_mma, mma_accum and class_chain -- five unit
+// probes of tools/ as H100 kernels:
 //
 // nop replaces probe_tpu2.py's A (knop, pallas_call at :59): o = x + 1 on
 // [8, 128] int32 (wrapping), the dispatch cost.  Its time is the launch;
@@ -23,7 +23,37 @@
 // rate at 128^3 and 4096^3 only in principle; this first form loads its
 // tiles with no double buffering, so its loads and barriers are exposed.
 // Sums wrap in int32 (exact while K * 128 * 128 < 2^31).
+//
+// mma_accum replaces probe_tpu21.py's D (mm_kern :97, pallas_call at :112)
+// and probe_tpu20.py's D (mm_kern :211, pallas_call at :226, whose block
+// shapes make it raise; probe_tpu21 corrected them): out[i, l] = sum over
+// l' <= l of a[i, l'] @ b[i, l'], bf16 a [NI, NL, M, K] and b [NI, NL, K,
+// N], f32 out [NI, NL, M, N], the accumulator carried over l (the probe's
+// second grid axis, its scratch).  The TPU carried the sum across grid
+// steps in VMEM scratch; here a block owns one 64 x 64 tile of one i,
+// loops over l itself and keeps its f32 accumulators in registers across
+// l, storing each l's running sum.  mma.sync.m16n8k16 bf16 x bf16 -> f32,
+// 4 warps of 16 rows x 64 columns, K 32 a step through shared memory (a as
+// [m][k], b transposed to [n][k], rows padded to 40 halves: each fragment
+// register one conflict-free 32-bit load), as int8_mma does.  What bounds
+// it: at the probe's [4, 2, 128, 128] a launch; at large tiles the bf16
+// tensor-core rate in principle, but this first form has no double
+// buffering, so its loads and barriers are exposed.  The products of bf16
+// values are exact in f32; the sums are exact for integer values under
+// 2^24, and otherwise differ from a sequential f32 sum by rounding.
+//
+// class_chain replaces probe_tpu6.py's k4 (:174, pallas_call at :186): a
+// byte's class as a chain of compares, cls = sum_t delta_t * (c >= b_t)
+// over up to 32 (b_t, delta_t) terms, elementwise on c int32.  Two forms:
+// CHAIN, the compares of every term unrolled (the terms are a launch
+// argument, so they sit in the constant bank), and TABLE, the chain
+// evaluated once for each of the 256 bytes into shared memory, then one
+// lookup an element, at the byte clamped to [0, 255] (equal to the chain
+// for every c when every b_t lies in [1, 255], which the wrapper checks).
+// What bounds it: bytes (an int32 read and written an element), 16-byte
+// accesses, four elements a thread; at the probe's [64, 128] a launch.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -131,6 +161,113 @@ int8_mma_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
+constexpr int ACC_WARPS = 4;
+constexpr int ACC_TILE = 64;  // out's tile: ACC_TILE x ACC_TILE
+constexpr int ACC_KSTEP = 32;  // k a step: two m16n8k16
+constexpr int AKS = ACC_KSTEP + 8;  // shared row stride (halves): conflict-free fragment loads
+
+__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// grid (N / 64, M / 64, NI); M and N multiples of 64, K of 32, a and b
+// 16-byte aligned (the wrapper checks)
+__global__ void __launch_bounds__(ACC_WARPS * 32)
+mma_accum_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
+                 float* __restrict__ c, int NL, int M, int N, int K) {
+  __shared__ __align__(16) uint16_t as[ACC_TILE * AKS];  // [m][k]
+  __shared__ __align__(16) uint16_t bs[ACC_TILE * AKS];  // [n][k]
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31, g = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * ACC_TILE, m0 = blockIdx.y * ACC_TILE, i = blockIdx.z;
+  float acc[ACC_TILE / 8][4] = {};
+  const int r = w * 16 + g;
+#pragma unroll 1
+  for (int l = 0; l < NL; ++l) {
+    const uint16_t* A = a + ((size_t)i * NL + l) * M * K;
+    const uint16_t* B = b + ((size_t)i * NL + l) * K * N;
+#pragma unroll 1
+    for (int k0 = 0; k0 < K; k0 += ACC_KSTEP) {
+#pragma unroll
+      for (int e = t; e < ACC_TILE * ACC_KSTEP / 8; e += ACC_WARPS * 32) {
+        // a: row e / 4, 8 halves at k (e % 4) * 8
+        const int ra = e >> 2, ka = (e & 3) * 8;
+        *(int4*)&as[ra * AKS + ka] = *(const int4*)&A[(size_t)(m0 + ra) * K + k0 + ka];
+        // b: row k e / 8, 8 halves at n (e % 8) * 8, written transposed
+        const int kb = e >> 3, nb = (e & 7) * 8;
+        const int4 v = *(const int4*)&B[(size_t)(k0 + kb) * N + n0 + nb];
+        const uint16_t* h = (const uint16_t*)&v;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) bs[(nb + q) * AKS + kb] = h[q];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < ACC_KSTEP; ks += 16) {
+        const uint32_t a0 = *(const uint32_t*)&as[r * AKS + ks + tig * 2];
+        const uint32_t a1 = *(const uint32_t*)&as[(r + 8) * AKS + ks + tig * 2];
+        const uint32_t a2 = *(const uint32_t*)&as[r * AKS + ks + 8 + tig * 2];
+        const uint32_t a3 = *(const uint32_t*)&as[(r + 8) * AKS + ks + 8 + tig * 2];
+#pragma unroll
+        for (int nt = 0; nt < ACC_TILE / 8; ++nt) {
+          const int n = nt * 8 + g;
+          const uint32_t b0 = *(const uint32_t*)&bs[n * AKS + ks + tig * 2];
+          const uint32_t b1 = *(const uint32_t*)&bs[n * AKS + ks + 8 + tig * 2];
+          mma_bf16(acc[nt], a0, a1, a2, a3, b0, b1);
+        }
+      }
+      __syncthreads();
+    }
+    // l's running sum
+    float* C = c + ((size_t)i * NL + l) * M * N;
+#pragma unroll
+    for (int nt = 0; nt < ACC_TILE / 8; ++nt) {
+      const int col = n0 + nt * 8 + tig * 2;
+      *(float2*)&C[(size_t)(m0 + r) * N + col] = make_float2(acc[nt][0], acc[nt][1]);
+      *(float2*)&C[(size_t)(m0 + r + 8) * N + col] = make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+constexpr int MAX_TERMS = 32;
+constexpr int CHAIN_THREADS = 256;
+
+struct Terms {
+  int n;
+  int b[MAX_TERMS];
+  int d[MAX_TERMS];
+};
+
+__device__ __forceinline__ int chain_class(int v, const Terms& t) {
+  int acc = 0;
+#pragma unroll
+  for (int k = 0; k < MAX_TERMS; ++k)
+    if (k < t.n) acc += v >= t.b[k] ? t.d[k] : 0;
+  return acc;
+}
+
+// form 0 CHAIN, 1 TABLE; c and o 16-byte aligned (the wrapper checks)
+__global__ void __launch_bounds__(CHAIN_THREADS)
+class_chain_kernel(const int32_t* __restrict__ c, int32_t* __restrict__ o, long long n,
+                   const Terms terms, int form) {
+  __shared__ int tab[256];
+  if (form == 1) {
+    for (int i = threadIdx.x; i < 256; i += CHAIN_THREADS) tab[i] = chain_class(i, terms);
+    __syncthreads();
+  }
+  auto cls = [&](int v) { return form == 1 ? tab[min(max(v, 0), 255)] : chain_class(v, terms); };
+  const long long n4 = n / 4, stride = (long long)gridDim.x * CHAIN_THREADS;
+  for (long long q = (long long)blockIdx.x * CHAIN_THREADS + threadIdx.x; q < n4; q += stride) {
+    const int4 v = ((const int4*)c)[q];
+    ((int4*)o)[q] = make_int4(cls(v.x), cls(v.y), cls(v.z), cls(v.w));
+  }
+  for (long long q = n4 * 4 + (long long)blockIdx.x * CHAIN_THREADS + threadIdx.x; q < n;
+       q += stride)
+    o[q] = cls(c[q]);
+}
+
 }  // namespace
 
 extern "C" int h2r_nop(const void* x, void* o, int n, void* stream) {
@@ -155,5 +292,36 @@ extern "C" int h2r_int8_mma(const void* a, const void* b, void* c, int M, int N,
   const dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
   int8_mma_kernel<<<grid, MM_WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const int8_t*)a, (const int8_t*)b, (int32_t*)c, M, N, K, full);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h2r_mma_accum(const void* a, const void* b, void* c, int NI, int NL, int M, int N,
+                             int K, void* stream) {
+  if (NI <= 0 || NI > 65535 || NL <= 0 || M <= 0 || N <= 0 || K <= 0 || M % ACC_TILE ||
+      N % ACC_TILE || K % ACC_KSTEP || M / ACC_TILE > 65535 ||
+      ((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) % 16)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(N / ACC_TILE, M / ACC_TILE, NI);
+  mma_accum_kernel<<<grid, ACC_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const uint16_t*)a, (const uint16_t*)b, (float*)c, NL, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// the terms' thresholds and deltas are host ints (n_terms of each)
+extern "C" int h2r_class_chain(const void* c, void* o, long long n, const int* tb, const int* td,
+                               int n_terms, int form, void* stream) {
+  if (n <= 0 || n_terms < 0 || n_terms > MAX_TERMS || (form != 0 && form != 1) ||
+      ((uintptr_t)c | (uintptr_t)o) % 16)
+    return (int)cudaErrorInvalidValue;
+  Terms t{};
+  t.n = n_terms;
+  for (int k = 0; k < n_terms; ++k) {
+    t.b[k] = tb[k];
+    t.d[k] = td[k];
+  }
+  const long long work = (n + 3) / 4;
+  const int blocks = (int)std::min<long long>((work + CHAIN_THREADS - 1) / CHAIN_THREADS, 132 * 16);
+  class_chain_kernel<<<blocks, CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)c, (int32_t*)o, n, t, form);
   return (int)cudaGetLastError();
 }

@@ -217,10 +217,32 @@ FIELD_DECODE = CudaKernel(
     "tools/probe_tpu64.py:316 (make_mxdecode); tools/probe_tpu68.py:152 (make_decode)",
 )
 EMIT_PROBES = (TILE_MOVE, L4_PACK, FIELD_DECODE)
-PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES + EMIT_PROBES
+# the launch, accumulate, carry, class-chain and configs[3] table-step probes
+# of tools/ (probe_tpu67, 21, 20 D-E, 6, 7, 28, 30, 31, 32)
+MMA_ACCUM = CudaKernel(
+    "mma_accum", "h2r_mma_accum", "halo2_regex_tpu_torch/csrc/probe_units.cu",
+    "tools/probe_tpu21.py:112 (D mm_kern :97); tools/probe_tpu20.py:226 (D mm_kern :211)",
+)
+BITOP_CARRY = CudaKernel(
+    "bitop_carry", "h2r_bitop_carry", "halo2_regex_tpu_torch/csrc/probe_tpu20.cu",
+    "tools/probe_tpu20.py:267 (E kern2 :246)",
+)
+CLASS_CHAIN = CudaKernel(
+    "class_chain", "h2r_class_chain", "halo2_regex_tpu_torch/csrc/probe_units.cu",
+    "tools/probe_tpu6.py:186 (k4 :174)",
+)
+DFA_WIDE = CudaKernel(
+    "dfa_wide", "h2r_dfa_wide", "halo2_regex_tpu_torch/csrc/probe_dfa_wide.cu",
+    "tools/probe_tpu6.py:98 (k2 :72); tools/probe_tpu7.py:80 (scan_kernel :28); "
+    "tools/probe_tpu28.py:40 (try_variant :32: v1 :66, v2 :92); tools/probe_tpu30.py:76, :104 "
+    "(w1 :65, w2 :99); tools/probe_tpu31.py:56 (build :24); tools/probe_tpu32.py:82, :115 "
+    "(build :26)",
+)
+T2_PROBES = (MMA_ACCUM, BITOP_CARRY, CLASS_CHAIN, DFA_WIDE)
+PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES + EMIT_PROBES + T2_PROBES
 PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu", "probe_gather.cu",
                  "probe_dfa_step.cu", "probe_tpu18.cu", "probe_units.cu",
-                 "probe_tile_move.cu", "probe_emit.cu")
+                 "probe_tile_move.cu", "probe_emit.cu", "probe_dfa_wide.cu")
 PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh", "bitplane_common.cuh")
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -281,6 +303,14 @@ _ENTRIES = {
     L4_PACK: [_P, _P, _I, _I, _I, _I, _P],
     # g4, ch, out, fields (host ints), n_fields, NWS, G, L, form, stream
     FIELD_DECODE: [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, b, c, NI, NL, M, N, K, stream
+    MMA_ACCUM: [_P, _P, _P] + [_I] * 5 + [_P],
+    # cls, st0, out, NB, NW, L, LC, steps, stream
+    BITOP_CARRY: [_P, _P, _P] + [_I] * 5 + [_P],
+    # c, out, n, thresholds and deltas (host ints), n_terms, form, stream
+    CLASS_CHAIN: [_P, _P, _LL, _P, _P, _I, _I, _P],
+    # T, frags, chars, entry, out, TB, L, K, W, hilo, cmod, smod, form, in_smem, stream
+    DFA_WIDE: [_P] * 5 + [_I] * 9 + [_P],
 }
 TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
 # the post modes, all over chunks of L: each call launches the chunk maps

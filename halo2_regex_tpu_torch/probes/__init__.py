@@ -39,6 +39,24 @@ The emission and decode probes:
 - :mod:`.probe_tpu68`: the decode forms on the from: batch's g4 and the
   witness with each, in turns with the shipped emissions.
 
+The launch, accumulate, carry, class-chain and configs[3] table-step
+probes:
+
+- :mod:`.probe_tpu67`: a launch's cost past its bytes (chains of
+  ``tile_move`` copies, timed with the host's enqueue) and the witness's
+  batch scaling;
+- :mod:`.probe_tpu21`: ``mma_accum`` (a bf16 product accumulated in f32
+  over a grid axis); :mod:`.probe_tpu20`'s D and E (``mma_accum``, and
+  ``bitop_carry``: a state carried across chunks);
+- :mod:`.probe_tpu6`: k1 (``loop_floor``), k2 (``dfa_wide``), k3 (the slab
+  kernel, a packed table's second column), k4 (``class_chain``: a byte's
+  class by a chain of compares or a 256-entry table);
+- :mod:`.probe_tpu28`: ``dfa_wide`` (the DFA step on tables of up to 256 x
+  1024, hi/lo, modulos, an entry state; lookup, one-hot products or v1's
+  count) and the step at configs[3]'s batch beside B8;
+  :mod:`.probe_tpu7`, :mod:`.probe_tpu30`, :mod:`.probe_tpu31`,
+  :mod:`.probe_tpu32`: its bisects (S 32 to 1024, chunked and chained).
+
 Every probe has a plain PyTorch version (``*_plain``), a kernel wrapper
 (``*_cuda``, ``csrc/probe_*.cu`` built with the other kernels by
 :mod:`..ops.kernels`) and an entry point that picks one by the device of

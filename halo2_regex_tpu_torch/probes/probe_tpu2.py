@@ -15,7 +15,8 @@ chain of dependent gathers, and the one-hot compare rate.
   in registers.
 - F ``onehot_count(c)``: ``o[0, j] = sum_i sum_k [c[i, j] == k]`` over k
   < 256, c [1024, 512] int32 time-major: the count of each column's bytes
-  in [0, 256) by 256 compares a byte.
+  in [0, 256) by 256 compares a byte; its library call is the range test
+  ``((c >= 0) & (c < 256)).sum(0, dtype=torch.int32, keepdim=True)``.
 
 ``lane_gather`` and ``dfa_step`` are :mod:`.probe_tpu`'s; ``nop`` and
 ``onehot_count`` are ``csrc/probe_units.cu``'s.  The script's B
@@ -174,7 +175,9 @@ def run(dev: torch.device, small: bool = False, big: bool = False) -> List[dict]
     cf = bytes_(*f_shape, seed=5, dev=dev)
     recs.append(harness.measure(
         timer, card, "F_vpu_onehot_count", kernels.ONEHOT_COUNT, lambda: onehot_count(cf),
-        f_shape[0], lambda: onehot_count_plain(cf), nbytes=(cf.numel() + f_shape[1]) * 4,
+        f_shape[0], lambda: onehot_count_plain(cf),
+        library=lambda: ((cf >= 0) & (cf < NB)).sum(0, dtype=torch.int32, keepdim=True),
+        nbytes=(cf.numel() + f_shape[1]) * 4,
         int32_ops=2 * NB * cf.numel(), shape=list(f_shape))[0])
     return recs
 

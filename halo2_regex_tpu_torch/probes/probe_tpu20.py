@@ -1,5 +1,6 @@
-"""tools/probe_tpu20.py's A on the H100: a serial bit-op scan, swept over
-ops a step, at the bitplane scan's geometry.
+"""tools/probe_tpu20.py's A, D and E on the H100: a serial bit-op scan,
+swept over ops a step, at the bitplane scan's geometry; a product
+accumulated over a grid axis; a state carried across chunks.
 
 ``bitop_scan(cls, st0, n_ops, sb=5, k=12, lc=128)``: per word (32
 strings) and step i of L, ``n_ops`` and/or/xor ops on ``sb`` state planes
@@ -18,22 +19,41 @@ planes ``st0`` [sb, NWS, 128] are an input (zeros reproduce the probe).
 
 Layouts: cls [L, k, NWS, 128] int32, out [L, 1, NWS, 128] int32.  The
 kernel (``csrc/probe_tpu20.cu``) is built for the probe's sweep: n_ops in
-``N_OPS``, sb = 5, k = 12.  Run on the card::
+``N_OPS``, sb = 5, k = 12.
 
-    python -m halo2_regex_tpu_torch.probes.probe_tpu20
+D (``mm_kern`` :211) is probe_tpu21's D with block shapes that make it
+raise: ``a_ref[0]`` is [1, 128, 128], so its ``jnp.dot`` gives [1, 128, 1,
+128] and the store refuses it.  The port runs the corrected body,
+:mod:`.probe_tpu21`'s ``mma_accum``, at the probe's [4, 2, 128, 128].
 
-(``--device cpu`` runs the plain version at L=256, NWS=1, n_ops 96).
+E (``kern2`` :246): ``bitop_carry(cls, st0, lc, steps)``: per string
+group b and word w, ``st ^= cls[b, j * lc + i] & st`` for i < ``steps`` at
+each chunk j of ``lc`` positions, st carried across the chunks from
+``st0`` [1, NWS, 128], out [NB, 1, 1, NWS, 128] the last st.  The probe as
+written reads one position a chunk (its loop runs ``cls_ref.shape[0]`` =
+1 trip: ``steps=1``) from its zeroed scratch, so every output is zero;
+``steps=lc`` is the carry scan it meant.  cls [NB, L, 1, NWS, 128] int32.
+Its kernel is ``bitop_scan``'s carry mode (``bitop_carry``, the same
+source).  Run on the card::
+
+    python -m halo2_regex_tpu_torch.probes.probe_tpu20 --sections ADE
+
+(``--sections`` picks the sections, A alone by default; ``--device cpu``
+runs the plain versions at L=256, NWS=1, n_ops 96).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import kernels
 from . import harness
+from .probe_tpu21 import SHAPE as D_SHAPE
+from .probe_tpu21 import accum_line
+from .probe_tpu21 import inputs as d_inputs
 
 L, NWS, LANE = 1024, 8, 128  # the probe's shape: 8 x 128 words, B = 32768 strings
 N_OPS = (96, 192, 384, 768)  # the probe's sweep, the kernel's instances
@@ -134,13 +154,113 @@ def run(dev: torch.device, L_: int = L, nws: int = NWS,
     return recs
 
 
+# ------------------------------------------------------------ E: bitop_carry
+
+E_NB = 2  # E's string groups (its grid's first axis)
+
+
+def _check_carry(cls: torch.Tensor, st0: torch.Tensor, lc: int, steps: int
+                 ) -> Tuple[int, int, int]:
+    """Shapes and dtypes; returns (NB, L, NWS)."""
+    if (cls.dim() != 5 or cls.shape[2] != 1 or cls.shape[4] != LANE or cls.dtype != torch.int32
+            or 0 in cls.shape):
+        raise ValueError(f"cls: expected [NB, L, 1, NWS, {LANE}] int32, got "
+                         f"{cls.dtype}{tuple(cls.shape)}")
+    NB, L_, _one, nws, _lane = cls.shape
+    if tuple(st0.shape) != (1, nws, LANE) or st0.dtype != torch.int32:
+        raise ValueError(f"st0: expected [1, {nws}, {LANE}] int32, got "
+                         f"{st0.dtype}{tuple(st0.shape)}")
+    if lc < 1 or L_ % lc or not 1 <= steps <= lc:
+        raise ValueError(f"lc {lc} must divide L = {L_}, and steps {steps} lie in [1, lc]")
+    return NB, L_, nws
+
+
+def bitop_carry_plain(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC,
+                      steps: int = 1) -> torch.Tensor:
+    """E's recurrence, every string group and word at once: a torch op a
+    position read."""
+    NB, L_, nws = _check_carry(cls, st0, lc, steps)
+    st = st0[0].expand(NB, nws, LANE)
+    for j in range(L_ // lc):
+        for i in range(steps):
+            st = st ^ (cls[:, j * lc + i, 0] & st)
+    return st.reshape(NB, 1, 1, nws, LANE).contiguous()
+
+
+def bitop_carry_cuda(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC,
+                     steps: int = 1) -> torch.Tensor:
+    """The ``bitop_carry`` kernel: a thread a (b, word)."""
+    NB, L_, nws = _check_carry(cls, st0, lc, steps)
+    kernels._check(cls, "cls", torch.int32, (NB, L_, 1, nws, LANE))
+    kernels._check(st0, "st0", torch.int32, (1, nws, LANE))
+    out = torch.empty((NB, 1, 1, nws, LANE), dtype=torch.int32, device=cls.device)
+    lib = kernels.build_probes()
+    kernels._launch(kernels.BITOP_CARRY, lib.h2r_bitop_carry, cls.data_ptr(), st0.data_ptr(),
+                    out.data_ptr(), NB, nws * LANE, L_, lc, steps, kernels._stream(cls))
+    return out
+
+
+def bitop_carry(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC,
+                steps: int = 1) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU ones."""
+    if cls.device.type == "cpu":
+        return bitop_carry_plain(cls, st0, lc, steps)
+    return bitop_carry_cuda(cls, st0, lc, steps)
+
+
+def carry_inputs(L_: int, nws: int, seed: int = 0, dev: Optional[torch.device] = None):
+    """E's classes [E_NB, L, 1, NWS, 128] (31 random bits a word, as the
+    probe's) and a start [1, NWS, 128] over the whole int32 range."""
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 2**31, size=(E_NB, L_, 1, nws, LANE)).astype(np.int32)
+    st0 = rng.integers(-(2**31), 2**31, size=(1, nws, LANE), dtype=np.int64).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev or "cpu") for a in (cls, st0))
+
+
+def run_de(dev: torch.device, L_: int = L, nws: int = NWS, lc: int = LC) -> List[dict]:
+    """D (``mma_accum`` at the probe's [4, 2, 128, 128], its all-ones
+    inputs) and E (``bitop_carry`` at [2, L, 1, NWS, 128]: one position a
+    chunk from the zero start, as written; from a seeded start; every
+    position, ``steps = lc``): a line each (``harness.measure``).  E's
+    lines carry the share of output words that are not zero."""
+    timer, card = harness.Timer(dev), harness.card(dev)
+    a, b = d_inputs(D_SHAPE, "ones", dev=dev)
+    recs = [accum_line(timer, card, "D_mxu_2dgrid_scratch", a, b, "ones")]
+    cls, st0 = carry_inputs(L_, nws, dev=dev)
+    zero = torch.zeros_like(st0)
+    for start, s0, steps in (("zero", zero, 1), ("seeded", st0, 1), ("seeded", st0, lc)):
+        n_pos = L_ // lc * steps
+        rec, out = harness.measure(
+            timer, card, "E_2dgrid_bitops_scratch", kernels.BITOP_CARRY,
+            lambda: bitop_carry(cls, s0, lc, steps), n_pos,
+            lambda: bitop_carry_plain(cls, s0, lc, steps),
+            nbytes=(E_NB * n_pos * nws * LANE + s0.numel() + E_NB * nws * LANE) * 4,
+            int32_ops=E_NB * n_pos * nws * LANE, shape=list(cls.shape), lc=lc, reads=steps,
+            start=start)
+        rec["nonzero_share"] = float((out != 0).float().mean())
+        recs.append(rec)
+    return recs
+
+
 def main(argv=None) -> int:
     p = harness.parser("tools/probe_tpu20.py's A: the serial bit-op scan, n_ops "
                        f"{', '.join(map(str, N_OPS))} at [{L}, {K}, {NWS}, {LANE}] (the CPU: "
-                       f"96 at [256, {K}, 1, {LANE}])")
+                       f"96 at [256, {K}, 1, {LANE}]); D: mma_accum at [4, 2, 128, 128]; E: "
+                       f"bitop_carry at [2, {L}, 1, {NWS}, {LANE}] (the CPU: [2, 256, 1, 1, "
+                       f"{LANE}], chunks of 64)")
+    p.add_argument("--sections", default="A",
+                   help="the sections to run, any of A, D and E (default: A)")
     a = p.parse_args(argv)
+    if not a.sections or set(a.sections) - set("ADE"):
+        p.error(f"--sections {a.sections!r}: expected letters of ADE")
     dev = harness.device(a.device)
-    recs = run(dev, 256, 1, (96,)) if dev.type == "cpu" else run(dev)
+    cpu = dev.type == "cpu"
+    recs = []
+    if "A" in a.sections:
+        recs += run(dev, 256, 1, (96,)) if cpu else run(dev)
+    if "D" in a.sections or "E" in a.sections:
+        recs += [r for r in (run_de(dev, 256, 1, 64) if cpu else run_de(dev))
+                 if r["probe"][0] in a.sections]
     harness.emit(recs)
     return harness.status(recs)
 

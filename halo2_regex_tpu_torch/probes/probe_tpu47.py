@@ -51,9 +51,11 @@ def tile_move_plain(x: torch.Tensor, form: str = "transpose") -> torch.Tensor:
     return x.clone() if form == "copy" else x.transpose(-2, -1).contiguous()
 
 
-def tile_move_cuda(x: torch.Tensor, form: str = "transpose") -> torch.Tensor:
+def tile_move_cuda(x: torch.Tensor, form: str = "transpose",
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The ``tile_move`` kernel: 64 x 64-word tiles through shared memory,
-    16-byte loads (x must be 16-byte aligned)."""
+    16-byte loads and stores (x and ``out``, when given, 16-byte
+    aligned)."""
     N, R, C = _check_move(x, form)
     if R % 4 or C % 4 or N > 65535:
         raise ValueError(f"x {tuple(x.shape)}: tile_move needs R and C multiples of 4 and "
@@ -61,16 +63,26 @@ def tile_move_cuda(x: torch.Tensor, form: str = "transpose") -> torch.Tensor:
     kernels._check(x, "x", torch.int32, tuple(x.shape))
     kernels._check_aligned(x, "x", 16)
     shape = x.shape if form == "copy" else (*x.shape[:-2], C, R)
-    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    kernels._check(out, "out", torch.int32, tuple(shape))
+    kernels._check_aligned(out, "out", 16)
+    if out.device != x.device:
+        raise ValueError(f"out: expected a tensor on {x.device}, got {out.device}")
     lib = kernels.build_probes()
     kernels._launch(kernels.TILE_MOVE, lib.h2r_tile_move, x.data_ptr(), out.data_ptr(), N, R, C,
                     FORMS.index(form), kernels._stream(x))
     return out
 
 
-def tile_move(x: torch.Tensor, form: str = "transpose") -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
-    return tile_move_plain(x, form) if x.device.type == "cpu" else tile_move_cuda(x, form)
+def tile_move(x: torch.Tensor, form: str = "transpose",
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one; into
+    ``out`` where it is given."""
+    if x.device.type != "cpu":
+        return tile_move_cuda(x, form, out)
+    y = tile_move_plain(x, form)
+    return y if out is None else out.copy_(y)
 
 
 def words(shape, seed: int = 0, lo: int = -(2**31), hi: int = 2**31 - 1,

@@ -1667,3 +1667,170 @@ def test_probe_emit_entry_points_raise(dev):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the launch, accumulate, carry, class-chain and configs[3] table-step probes
+# of tools/ (probes/): kernel against plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["ones", "ints", "normal"])
+@pytest.mark.parametrize("shape", [(4, 2, 128, 128), (2, 3, 64, 192), (1, 5, 256, 64)])
+def test_probe_mma_accum_matches_plain(dev, shape, kind):
+    """Bit-exact on integer inputs (the probe's all-ones, [-8, 8]); within
+    2e-5 x sum |a b| on N(0, 1) inputs (f32 sums in another order)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu21 as p21
+
+    a, b = p21.inputs(shape, kind, seed=shape[1], dev=dev)
+    got, want = p21.mma_accum(a, b), p21.mma_accum_plain(a, b)
+    if kind == "normal":
+        assert (got - want).abs().le(p21.tolerance(a, b)).all()
+    else:
+        assert torch.equal(got, want)
+    if kind == "ones":  # K a sum, carried: K (l + 1)
+        assert torch.equal(got[:, :, 0, 0].cpu(), torch.tensor(
+            [[shape[3] * (l + 1) for l in range(shape[1])]] * shape[0], dtype=torch.float32))
+
+
+@pytest.mark.parametrize("steps", [1, 8, 64])
+@pytest.mark.parametrize("L,nws,lc,start", [(256, 1, 64, "zero"), (1024, 8, 128, "seeded"),
+                                            (96, 3, 32, "seeded")])
+def test_probe_bitop_carry_matches_plain(dev, L, nws, lc, start, steps):
+    """One position a chunk (the probe as written), eight, and every
+    position (steps = lc where lc = 64); a word count that is not a
+    multiple of the block (nws = 3); the zero start stays zero."""
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+
+    steps = min(steps, lc)
+    cls, st0 = p20.carry_inputs(L, nws, seed=L, dev=dev)
+    if start == "zero":
+        st0 = torch.zeros_like(st0)
+    got = p20.bitop_carry(cls, st0, lc, steps)
+    assert torch.equal(got, p20.bitop_carry_plain(cls, st0, lc, steps))
+    assert bool(got.any()) == (start != "zero")
+
+
+@pytest.mark.parametrize("form", ["chain", "table"])
+@pytest.mark.parametrize("shape,lo,hi", [((64, 128), 0, 256), ((37, 11), -300, 600),
+                                         ((1024, 4096), -2**31, 2**31)])
+def test_probe_class_chain_matches_plain(dev, shape, lo, hi, form):
+    """The probe's terms, bytes, ints far outside [0, 256) (the table form
+    clamps: the same class), and an element count with a tail of 3."""
+    from halo2_regex_tpu_torch.probes import probe_tpu6 as p6
+
+    terms = p6.inputs()["terms"]
+    c = torch.from_numpy(np.random.default_rng(shape[0]).integers(lo, hi, size=shape,
+                                                                   dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    got = p6.class_chain(c, terms, form)
+    assert torch.equal(got, p6.class_chain_plain(c, terms, form))
+    assert torch.equal(got, p6.chain_library(c, terms)())
+
+
+@pytest.mark.parametrize("form", ["lookup", "onehot_mma"])
+@pytest.mark.parametrize("K,S,hilo,cmod,smod", [
+    (96, 1008, True, True, True), (200, 1008, True, False, False),
+    (128, 1024, True, False, True), (96, 1008, False, False, False),
+    (16, 24, False, False, False), (256, 1024, False, False, False),
+    (100, 77, True, True, False)])
+def test_probe_dfa_wide_matches_plain(dev, K, S, hilo, cmod, smod, form):
+    """The probes' (K, S), hi/lo or not, modulos, the lookup's table in
+    shared memory and (past 227 KiB: 200, 128 and 256 classes) in global
+    memory, K and S that fill no tile; classes past K and a seeded entry
+    with states past S (both give state 0); 70 strings (a partial warp), L
+    = 300 (a partial ring group)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu28 as p28
+
+    rng = np.random.default_rng(K + S)
+    hi = 256 if hilo else S + 2
+    tbl = p28.as_table(rng.integers(0, hi, size=(K, 2 * S if hilo else S)).astype(np.float32))
+    chars = torch.from_numpy(rng.integers(-5, K + 9, size=(300, 70)).astype(np.int32))
+    entry = torch.from_numpy(rng.integers(0, S + 3, size=70).astype(np.int32))
+    want = p28.dfa_wide_plain(tbl, chars, hilo, cmod, smod, entry)
+    tbl, chars, entry = tbl.to(dev), chars.to(dev), entry.to(dev)
+    got = p28.dfa_wide_cuda(tbl, chars, hilo, cmod, smod, entry, form)
+    assert torch.equal(got.cpu(), want)
+    if form == "lookup":
+        assert p28.table_in_smem(K, S, dev) == (K * S <= 96 * 1024)
+    assert len(torch.unique(want)) > 8
+
+
+def test_probe_dfa_wide_count_and_chain(dev):
+    """v1's count form; two launches chained at the first's last row equal
+    one (w3)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu28 as p28
+    from halo2_regex_tpu_torch.probes import probe_tpu30 as p30
+
+    tbl, chars = p28.probe_inputs(512, 64, dev=dev)
+    t1 = tbl[:, :p28.S].contiguous()
+    assert torch.equal(p28.dfa_wide(t1, chars, cmod=True, form="count"),
+                       p28.dfa_wide_plain(t1, chars, cmod=True, form="count"))
+    tbl, chars, entry = p30.probe_inputs(512, 64, dev=dev)
+    one = p28.dfa_wide(tbl, chars, entry=entry, **p30.FLAGS)
+    for form in ("lookup", "onehot_mma"):
+        assert torch.equal(p30.chained(tbl, chars, entry, form), one)
+
+
+def test_probe_configs3_step_equals_b8(dev):
+    """The widened step on configs[3]'s own table and a slice of its batch
+    equals B8's table scan there."""
+    from halo2_regex_tpu_torch.probes import probe_tpu28 as p28
+
+    rng = np.random.default_rng(3)
+    nt = torch.from_numpy(rng.integers(0, 1008, size=(96, 1008)).astype(np.int32)).to(dev)
+    cmap = torch.from_numpy(rng.integers(0, 96, size=256).astype(np.int32)).to(dev)
+    chars = torch.from_numpy(rng.integers(32, 127, size=(64, 2048)).astype(np.uint8)).to(dev)
+    recs = p28.configs3_lines(dev, nt, cmap, chars, 0)
+    assert [r["max_abs_err"] for r in recs] == [0, 0, 0]
+
+
+def test_probe_slab_opts_in_past_48k(dev):
+    """probe_tpu6's k3: slab_anatomy on a [256, 128] table (132 KiB of
+    shared memory, past the 48 KiB default)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu6 as p6
+    from halo2_regex_tpu_torch.probes import probe_tpu18 as p18
+
+    t = p6.inputs(dev=dev)
+    ident = torch.arange(256, dtype=torch.int32, device=dev)
+    for got, want in zip(p18.slab_anatomy(t["P4"], ident, t["x3"], 0, 2),
+                         p18.slab_anatomy_plain(t["P4"], ident, t["x3"], 0, 2)):
+        assert torch.equal(got, want)
+
+
+def test_probe_t2_entry_points_raise(dev):
+    """Bad shapes, misaligned views, out-of-range options on the card, and
+    CPU tensors handed to a ``*_cuda``."""
+    from halo2_regex_tpu_torch.probes import probe_tpu6 as p6
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+    from halo2_regex_tpu_torch.probes import probe_tpu21 as p21
+    from halo2_regex_tpu_torch.probes import probe_tpu28 as p28
+    from halo2_regex_tpu_torch.probes import probe_tpu47 as p47
+
+    a, b = p21.inputs((1, 1, 128, 128), "ints", dev=dev)
+    cls, st0 = p20.carry_inputs(128, 1, dev=dev)
+    c = torch.zeros((64, 128), dtype=torch.int32, device=dev)
+    flat = torch.zeros(1 + 64 * 128, dtype=torch.int32, device=dev)
+    tbl, chars = p28.probe_inputs(64, 16, dev=dev)
+    terms = p6.inputs()["terms"]
+    bad = [lambda: p21.mma_accum(a[..., :80].contiguous(),  # K not a multiple of 32
+                                 b[:, :, :80].contiguous()),
+           lambda: p21.mma_accum(a[:, :, :96].contiguous(), b),  # M not a multiple of 64
+           lambda: p21.mma_accum(a.float(), b),
+           lambda: p20.bitop_carry(cls, st0, 48), lambda: p20.bitop_carry(cls, st0, 64, 65),
+           lambda: p6.class_chain(flat[1:].view(64, 128), terms),
+           lambda: p6.class_chain(c, [(0, 1)], "table"),
+           lambda: p6.class_chain(c, terms * 2),
+           lambda: p28.dfa_wide(tbl.float(), chars),
+           lambda: p28.dfa_wide(tbl[:, :7].contiguous(), chars, hilo=True),
+           lambda: p28.dfa_wide(tbl, chars.t()),
+           lambda: p28.dfa_wide(tbl, chars, entry=chars[0, :8].contiguous()),
+           lambda: p47.tile_move(p47.words((2, 64, 64), dev=dev), "copy",
+                                 out=torch.empty((2, 64, 32), dtype=torch.int32, device=dev)),
+           lambda: p21.mma_accum_cuda(a.cpu(), b.cpu()),
+           lambda: p20.bitop_carry_cuda(cls.cpu(), st0.cpu()),
+           lambda: p6.class_chain_cuda(c.cpu(), terms),
+           lambda: p28.dfa_wide_cuda(tbl.cpu(), chars.cpu())]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()

@@ -138,6 +138,12 @@ from halo2_regex_tpu_torch.probes import (probe_tpu, probe_tpu2, probe_tpu3, pro
 for mod in (probe_tpu, probe_tpu2, probe_tpu3, probe_tpu17, probe_tpu18, probe_tpu47,
             probe_tpu48, probe_tpu64, probe_tpu68):
     assert mod.main(["--device", "cpu"]) == 0, mod.__name__
+from halo2_regex_tpu_torch.probes import (probe_tpu6, probe_tpu7, probe_tpu21, probe_tpu28,
+                                          probe_tpu30, probe_tpu31, probe_tpu32, probe_tpu67)
+for mod in (probe_tpu6, probe_tpu7, probe_tpu21, probe_tpu28, probe_tpu30, probe_tpu31,
+            probe_tpu32, probe_tpu67):
+    assert mod.main(["--device", "cpu"]) == 0, mod.__name__
+assert probe_tpu20.main(["--device", "cpu", "--sections", "ADE"]) == 0
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu", "tools"))
 assert not bad, bad

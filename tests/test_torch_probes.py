@@ -40,6 +40,15 @@ TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VMEM = pl.BlockSpec(memory_space=pltpu.VMEM)
 
 
+def _spec(shape, index):
+    """A VMEM block spec of ``shape`` at ``index``, as the probes write them."""
+    return pl.BlockSpec(shape, index, memory_space=pltpu.VMEM)
+
+
+def _i32(*shape):
+    return jax.ShapeDtypeStruct(shape, jnp.int32)
+
+
 class _Interpret:
     """``pl`` with ``pallas_call`` in interpret mode, for one namespace."""
 
@@ -76,15 +85,26 @@ class _HashStart:
         return _hash_like(x)
 
 
-def _load(script: str, name: str, **free):
-    """The function ``name`` of ``tools/<script>`` (at any depth), defined
-    in a namespace of jax, jnp, an interpret-mode pl, pltpu and ``free``."""
+def _load(script: str, name: str, line=None, **free):
+    """The function ``name`` of ``tools/<script>`` (at any depth; where the
+    name repeats, the one defined at ``line``), defined in a namespace of
+    jax, jnp, an interpret-mode pl, pltpu and ``free``.  With ``name``
+    ``"lambda"``, the lambda written at ``line`` (a body passed straight to
+    its ``pallas_call``).  A function that makes its call (probe_tpu32's
+    ``build``, probe_tpu7's ``scan_kernel``, probe_tpu28's ``try_variant``)
+    loads whole: its inner kernels and its ``pallas_call`` run in the same
+    namespace."""
     path = os.path.join(TOOLS, script)
     with open(path) as f:
         tree = ast.parse(f.read())
-    nodes = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == name]
-    assert len(nodes) == 1, (script, name, len(nodes))
     ns = {"jax": jax, "jnp": jnp, "pl": _Interpret(), "pltpu": pltpu, **free}
+    if name == "lambda":
+        nodes = [n for n in ast.walk(tree) if isinstance(n, ast.Lambda) and n.lineno == line]
+        assert len(nodes) == 1, (script, line, len(nodes))
+        return eval(compile(ast.Expression(body=nodes[0]), path, "eval"), ns)
+    nodes = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == name
+             and (line is None or n.lineno == line)]
+    assert len(nodes) == 1, (script, name, line, len(nodes))
     exec(compile(ast.Module(body=nodes, type_ignores=[]), path, "exec"), ns)
     return ns[name]
 
