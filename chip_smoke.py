@@ -102,7 +102,15 @@ corpus and on configs[3], the corpus-scan CLI and the device-expand
             ``.probe_tpu7``, ``.probe_tpu28``, ``.probe_tpu30``,
             ``.probe_tpu31`` and ``.probe_tpu32`` (dfa_wide), and the
             widened step at configs[3]'s batch beside B8's table scan
-            (``probe_tpu28.configs3_lines``).
+            (``probe_tpu28.configs3_lines``);
+  marker probes  the marker-stream probes of tools/ (``probes/``): the
+            ``run`` of ``.probe_tpu57`` (B and C: marker_match serial and
+            chunked, its plain version and K2 on the from: batch at
+            B=32768 and 4096 x L=1024; D: the from: model at 4096 x 65536,
+            BitplaneMatcher witness beside PallasMatcher; E: the 200-word
+            model's witness at 32768 x 1024 in two plans) and
+            ``.probe_tpu61`` (C: the same verdicts and K2 by the slope of
+            chained calls).
 
 and proves on the card that:
 
@@ -111,8 +119,9 @@ and proves on the card that:
      library per bitplane path and one for the table kernels, every
      source compiled at once);
   3. the models compile and the corpora are built;
-  4. each of the sixteen kernels of the matchers (thirty-three with [10]'s
-     four probe kernels, [11]'s six, [12]'s three and [13]'s four), and
+  4. each of the sixteen kernels of the matchers (thirty-four with [10]'s
+     four probe kernels, [11]'s six, [12]'s three, [13]'s four and [14]'s
+     one), and
      each knob mode of the pack, scan and post kernels, is bit-exact
      against its plain PyTorch version on the same inputs at that size
      ([13]'s mma_accum within its stated tolerance on N(0, 1) inputs;
@@ -249,7 +258,18 @@ and proves on the card that:
      ``x.clone()``); probe_tpu67's chains give a launch's wall and device
      slope and its cost past its bytes, and its witness batches agree on
      the rows they share; the SASS holds HMMA in mma_accum and in
-     dfa_wide's product instance, none in its lookup.
+     dfa_wide's product instance, none in its lookup;
+ 14. the marker probe scripts' runs, driven with the launch counts reset,
+     launched marker_match and, of the others, only the matcher kernels
+     they reuse (pack_raw, scan, qpack, post, decode, the table kernels);
+     each marker_match measurement as in [10], bit-exact against its plain
+     version (int32, tolerance 0) serial and at every chunk length, at
+     B=32768 and 4096 x L=1024, and every verdict equal to Python re's;
+     K2 with the probe's plan bit-exact against its plain scan; D's two
+     matchers and E's two witness plans equal the C++ oracle's match_ok
+     and masked characters on 64 rows; the verdict's forms are logged
+     beside K2 and the match path's wall of this run, and probe_tpu61's
+     chain slopes (rounds under the copy-rate floor discarded) beside them.
 
 Prints the wall seconds of each phase, one JSON line of per-kernel
 results (the knob modes of a kernel under its ``modes``, a probe
@@ -1577,6 +1597,110 @@ def t2_probe_phase(kernels, m3, chars3, card: str) -> dict:
             "rec": {"scripts": recs, "configs3_ms": c3, "sass": sass}}
 
 
+def t2c_probe_phase(kernels, times: dict, card: str) -> dict:
+    """[14] The marker-stream probes of tools/ (``probes/``: probe_tpu57 B,
+    C, D, E and probe_tpu61 C), the launch counts reset just before and
+    read just after.  Each marker_match line holds the kernel (serial and
+    at each chunk length) against its plain version (``harness.measure``:
+    one call with every count read around it, 2 + 10 timed runs, the last
+    output against the plain verdict, tolerance 0) and the scripts hold
+    every verdict against Python ``re``'s; K2 with the probe's plan is held
+    against its plain scan; D's two matchers (the from: model at 64 KB) and
+    E's two witness plans (the 200-word model) against the C++ oracle's
+    rows.  Of the other kernels only those the scripts reuse run: pack_raw
+    and the scan (B, C), the path kernels of D's and E's witness plans
+    (``kernels.path_kernels``), the table kernels (D's PallasMatcher).  Then the
+    verdict's forms are logged beside K2 and the match path's wall of this
+    run ([4], [6]), and probe_tpu61's chain slopes beside them."""
+    from halo2_regex_tpu_torch.probes import probe_tpu57, probe_tpu57_lib, probe_tpu61
+
+    dev = torch.device("cuda")
+    kernels.reset_launch_counts()
+    recs = [dict(r, script="probe_tpu57") for r in probe_tpu57.run(dev)]
+    recs += [dict(r, script="probe_tpu61") for r in probe_tpu61.run(dev)]
+    torch.cuda.synchronize()
+    got = {k.name: k.launches for k in kernels.KERNELS + kernels.PROBE_KERNELS}
+    plans = [probe_tpu57.d_matchers(probe_tpu57.D_SHAPE[1], dev)["bitplane"].plan]
+    plans += [m.plan for m in probe_tpu57.e_matchers(dev).values()]
+    reused = tuple(dict.fromkeys(
+        (kernels.PACK_RAW, kernels.SCAN, kernels.TABLE_SCAN, kernels.TABLE_TAG,
+         kernels.TABLE_FSM) + sum((kernels.path_kernels(p) for p in plans), ())))
+    every = kernels.KERNELS + kernels.PROBE_KERNELS
+    if (any(got[k.name] for k in every if k not in kernels.T2C_PROBES + reused)
+            or not all(got[k.name] for k in kernels.T2C_PROBES + reused)):
+        raise AssertionError(f"[14] the probe scripts' launches {got}")
+    log(f"[14] probe scripts (probe_tpu57, probe_tpu61 run), launches "
+        f"{dict((k, v) for k, v in got.items() if v)}")
+
+    def label(r) -> str:
+        parts = [r["script"], r["probe"], "x".join(map(str, r.get("shape", []))), r.get("form")]
+        return ", ".join(p for p in parts if p)
+
+    tms, errs = {}, {}
+    for r in recs:
+        lab = label(r)
+        if r["device"] != "cuda" or r["card"] != card:
+            raise AssertionError(f"[14] {lab}: {r}")
+        if "ks" in r:  # probe_tpu61's chain slopes
+            if not r.get("kept"):
+                raise AssertionError(f"[14] {lab}: no round above the floor: {r}")
+            sl = r["device_slope_ms"]
+            log(f"[14] slope {lab}: median {r['median_ms']:.4f} ms, best {r['best_ms']:.4f} "
+                f"({r['kept']} of {r['runs']} rounds over the floor {r['floor_ms']:.4f} ms at "
+                f"{r['copy_gbps']} GB/s; device slopes {[round(v, 4) for v in sl['all']]}; "
+                f"chains of {r['ks']} over {r['copies']} copies; wall slope "
+                f"{r['slope_ms']['median']:.4f}); card {card}")
+            tms[f"slope[{lab}]"] = {k: r[k] for k in ("median_ms", "best_ms", "floor_ms", "kept",
+                                                      "device_slope_ms", "slope_ms")}
+        elif r["kernel"] is None:  # the plain verdict, D's and E's walls
+            rate = f"; {r['input_gbps']:.3f} GB/s of input" if "input_gbps" in r else ""
+            held = ("equals re" if r.get("equals_re")
+                    else f"{r['equals_oracle_rows']} rows equal the C++ oracle")
+            log(f"[14] torch {lab}: {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-{r['iqr'][1]:.4f})"
+                f"{rate}; {held}; card {card}")
+            tms[f"torch[{lab}]"] = {k: r[k] for k in ("ms", "iqr", "input_gbps") if k in r}
+        elif r["kernel"] != kernels.MARKER_MATCH.name:  # K2 with the probe's plan
+            if r["launches"] != 1 or r["max_abs_err"]:
+                raise AssertionError(f"[14] {r['kernel']} [{lab}]: {r}")
+            bd = bound(r["nbytes"], r.get("int32_ops", 0))
+            errs[f"{r['kernel']}[{lab}]"] = r["max_abs_err"]
+            tms[f"{r['kernel']}[{lab}]"] = {"kernel": {"median": r["ms"], "iqr": r["iqr"]},
+                                            "plain_ms": r["plain_ms"], **bd}
+            log(f"[14] {r['kernel']} [{lab}]: kernel vs plain max_abs_err={r['max_abs_err']} "
+                f"(tolerance 0, int32); kernel {r['ms']:.4f} ms (IQR {r['iqr'][0]:.4f}-"
+                f"{r['iqr'][1]:.4f}); plain {r['plain_ms']:.4f} ms (1 run); bound "
+                f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; 1 launch a call (counted); "
+                f"card {card}")
+    rows, ktms, kerrs = probe_lines(
+        kernels, [r for r in recs if r["kernel"] == kernels.MARKER_MATCH.name and "ks" not in r],
+        kernels.T2C_PROBES, got, label, "[14]", card)
+    tms.update(ktms)
+    errs.update(kerrs)
+
+    # side by side: the verdict's forms, K2 and the match path's wall
+    by = {(r["script"], r["probe"]): r for r in recs}
+    side = {}
+    for tag, nb in (("b", B), ("c", B_LATENCY)):
+        v = {f: by[("probe_tpu57", f"{tag}_marker_{f}")]["ms"]
+             for f in ["serial"] + [f"chunk{c}" for c in probe_tpu57_lib.CHUNKS]}
+        v["plain"] = by[("probe_tpu57", f"{tag}_marker_plain")]["ms"]
+        v["K2 (the probe's plan)"] = by[("probe_tpu57", f"{tag}_scan_kernel")]["ms"]
+        side[nb] = v
+        bd = bound(10 * L * nb // 32 * 4 + nb // 32 * 4, 0)
+        log(f"[14] the verdict at B={nb} x L={L} (ms): "
+            + "; ".join(f"{k} {x:.4f}" for k, x in v.items())
+            + (f"; K2 ([4], the default plan) {times['scan']['kernel']['median']:.4f}; the match "
+               f"path's wall ([6]) {times['end_to_end_match']['kernel']['median']:.4f}"
+               if nb == B else "")
+            + f"; the marker's bound {bd['bound_ms']:.4f} ({bd['bound_by']}); card {card}")
+    d = {r["probe"]: r["ms"] for r in recs if r["probe"].startswith(("d_", "e_"))}
+    log(f"[14] D (from: at 4096 x 65536) and E (the 200-word model at {B} x {L}) walls (ms): "
+        + "; ".join(f"{k} {x:.4f}" for k, x in d.items()) + f"; card {card}")
+    return {"rows": list(rows.values()), "times": tms, "errs": errs,
+            "launches": {"t2c_probes": got},
+            "rec": {"scripts": recs, "verdict_ms": side, "walls_ms": d}}
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1672,6 +1796,18 @@ def main() -> dict:
     builds += [lambda: kernels.build(h2r.BitplaneMatcher(
         model, columns="witness", emit="bytes", en_pack=False, qpack=False).plan)]
     builds += [lambda d=d: kernels.build_scan_def(hdr.plan, d) for d in range(hdr.plan.n_defs)]
+    # [14]'s matchers: D's witness at 64 KB, E's two witness plans (the
+    # 200-word model compiles here, beside the nvcc builds)
+    from halo2_regex_tpu_torch.probes import probe_tpu57
+    builds += [lambda: kernels.build(probe_tpu57.d_matchers(probe_tpu57.D_SHAPE[1],
+                                                            dev)["bitplane"].plan)]
+
+    def build_e():
+        ms = probe_tpu57.e_matchers(dev)
+        with ThreadPoolExecutor(len(ms)) as pool:
+            list(pool.map(lambda m: kernels.build(m.plan), ms.values()))
+
+    builds.append(build_e)
     builds += [kernels.build_tables, kernels.build_probes]
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda f: f(), builds))
@@ -2732,6 +2868,13 @@ def main() -> dict:
     errs.update(t2["errs"])
     path_launches.update(t2["launches"])
     rec["t2_probes"] = t2["rec"]
+    # [14] the marker-stream verdict beside K2; the 64 KB and 200-word matchers
+    t2c = t2c_probe_phase(kernels, times, card)
+    kern_rows += t2c["rows"]
+    times.update(t2c["times"])
+    errs.update(t2c["errs"])
+    path_launches.update(t2c["launches"])
+    rec["t2c_probes"] = t2c["rec"]
     if sorted(r["name"] for r in kern_rows) != sorted(
             k.name for k in kernels.KERNELS + kernels.PROBE_KERNELS):
         raise AssertionError("the kernels line does not list every kernel once")

@@ -343,17 +343,47 @@ def len_table(lengths: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _quad_rows(chars: torch.Tensor, L_pad: int) -> torch.Tensor:
+    """[B, L] uint8 (B a multiple of 32) -> [L_pad, 8, B//32] int32 quad
+    rows: row (l, m, w) holds bytes s = 0..3 of strings 4*(w + NW*m) + s at
+    position l (zeros past L)."""
+    B, L = chars.shape
+    if B % 32 or L > L_pad:
+        raise ValueError(f"chars are [{B}, {L}]: expected B a multiple of 32 and L <= {L_pad}")
+    x = chars.t()
+    if L_pad != L:
+        x = torch.cat([x, x.new_zeros((L_pad - L, B))])
+    # flat first: a size-1 dim may keep any stride, which view(int32) refuses
+    return x.contiguous().reshape(-1).view(torch.int32).reshape(L_pad, 8, B // 32)
+
+
 def raw_quads(chars: torch.Tensor, L_pad: int) -> torch.Tensor:
     """[B, L] uint8 -> raw quad rows [L_pad, 8, NWS, LANE] int32: the
     transpose, zero pad and bitcast of the JAX ``raw_quads``
     (halo2_regex_tpu/ops/bitplane.py:108).  Row (l, m, w) holds bytes
     s = 0..3 of strings 4*(w + NW*m) + s at position l."""
-    B, L = chars.shape
-    x = chars.t()
-    if L_pad != L:
-        x = torch.cat([x, x.new_zeros((L_pad - L, B))])
-    # flat first: a size-1 dim may keep any stride, which view(int32) refuses
-    return x.contiguous().reshape(-1).view(torch.int32).reshape(L_pad, 8, B // TILE, LANE)
+    B = chars.shape[0]
+    return _quad_rows(chars, L_pad).reshape(L_pad, 8, B // TILE, LANE)
+
+
+def pack_bytes(chars: torch.Tensor, L_pad: int) -> List[torch.Tensor]:
+    """[B, L] uint8 (B a multiple of 32) -> the 8 byte-bit planes [L_pad,
+    B//32] int32, zeros past L: bit 8s + m of plane j at word w is bit j
+    of string 4*(w + NW*m) + s (the JAX ``pack_bytes``,
+    halo2_regex_tpu/ops/bitplane.py:168).  Torch ops on the input's device."""
+    R = _quad_rows(chars, L_pad)
+    return _byte_planes([R[:, m] for m in range(8)])
+
+
+def pack_bool(col: torch.Tensor, L_pad: int) -> torch.Tensor:
+    """[B, L] bool or 0/1 (B a multiple of 32) -> one plane [L_pad, B//32]
+    int32 in ``pack_bytes``' mapping (the JAX ``pack_bool``,
+    halo2_regex_tpu/ops/bitplane.py:192)."""
+    R = _quad_rows(col.to(torch.uint8), L_pad) & _QUAD_MASK
+    acc = R[:, 0]
+    for m in range(1, 8):
+        acc = acc | (R[:, m] << m)
+    return acc
 
 
 def tile_corpus(chars: np.ndarray, L_pad: int) -> np.ndarray:

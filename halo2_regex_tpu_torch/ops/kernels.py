@@ -26,7 +26,9 @@ tables as data and need no header: one library for every model.  So do
 the probes of ``tools/`` (the serial scans ``probe_tpu9.cu``,
 ``probe_tpu20.cu``, ``probe_tpu56.cu``; the table kernels'
 ``probe_gather.cu``, ``probe_dfa_step.cu``, ``probe_tpu18.cu``,
-``probe_units.cu``; their wrappers are in :mod:`..probes`).
+``probe_units.cu``; the emission, table-step and marker probes'
+``probe_tile_move.cu``, ``probe_emit.cu``, ``probe_dfa_wide.cu``,
+``probe_marker.cu``; their wrappers are in :mod:`..probes`).
 
 At first use each library's sources are compiled by nvcc for ``sm_90a``,
 one nvcc per source, all at once, and linked into one shared library with a
@@ -239,11 +241,18 @@ DFA_WIDE = CudaKernel(
     "(build :26)",
 )
 T2_PROBES = (MMA_ACCUM, BITOP_CARRY, CLASS_CHAIN, DFA_WIDE)
-PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES + EMIT_PROBES + T2_PROBES
+# the marker-stream matcher of tools/ (probe_tpu57 B-C, probe_tpu61 C)
+MARKER_MATCH = CudaKernel(
+    "marker_match", "h2r_marker_match", "halo2_regex_tpu_torch/csrc/probe_marker.cu",
+    "tools/probe_tpu57.py:198, tools/probe_tpu61.py:237 (make_marker_kernel :190, :228)",
+)
+T2C_PROBES = (MARKER_MATCH,)
+PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES + EMIT_PROBES + T2_PROBES + T2C_PROBES
 PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu", "probe_gather.cu",
                  "probe_dfa_step.cu", "probe_tpu18.cu", "probe_units.cu",
-                 "probe_tile_move.cu", "probe_emit.cu", "probe_dfa_wide.cu")
-PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh", "bitplane_common.cuh")
+                 "probe_tile_move.cu", "probe_emit.cu", "probe_dfa_wide.cu", "probe_marker.cu")
+PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh", "bitplane_common.cuh",
+                 "probe_marker_class.cuh")
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
@@ -311,6 +320,8 @@ _ENTRIES = {
     CLASS_CHAIN: [_P, _P, _LL, _P, _P, _I, _I, _P],
     # T, frags, chars, entry, out, TB, L, K, W, hilo, cmod, smod, form, in_smem, stream
     DFA_WIDE: [_P] * 5 + [_I] * 9 + [_P],
+    # stack, out, NW, L, chunk (0: serial), words a block, stream
+    MARKER_MATCH: [_P, _P, _I, _I, _I, _I, _P],
 }
 TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
 # the post modes, all over chunks of L: each call launches the chunk maps

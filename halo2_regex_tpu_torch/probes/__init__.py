@@ -57,6 +57,17 @@ probes:
   :mod:`.probe_tpu7`, :mod:`.probe_tpu30`, :mod:`.probe_tpu31`,
   :mod:`.probe_tpu32`: its bisects (S 32 to 1024, chunked and chained).
 
+The marker-stream probes:
+
+- :mod:`.probe_tpu57_lib`: the restricted from: verdict as bitstream
+  operations (``marker_match``: serial, or in chunks whose summaries
+  compose), its plain versions and its inputs;
+- :mod:`.probe_tpu57`: the verdict beside K2 at B = 32768 and 4096 (B,
+  C), the from: model at 64 KB strings on the bitplane and table paths
+  (D) and a 200-word model's witness (E);
+- :mod:`.probe_tpu61`: the same verdicts and K2 by the slope of chained
+  calls (C).
+
 Every probe has a plain PyTorch version (``*_plain``), a kernel wrapper
 (``*_cuda``, ``csrc/probe_*.cu`` built with the other kernels by
 :mod:`..ops.kernels`) and an entry point that picks one by the device of

@@ -171,14 +171,16 @@ def measure(timer: Timer, card_: str, probe: str, kernel: kernels.CudaKernel,
 
 
 def torch_line(timer: Timer, card_: str, probe: str, fn: Callable[[], object],
+               warmup: Optional[int] = None, iters: Optional[int] = None,
                **kw) -> Tuple[Dict[str, object], object]:
     """One report line of a torch op that a probe script timed beside its
     kernels (the TPU scripts' lines with no Pallas kernel): ``"kernel":
     None``, device ms on the card (and the rates of the ``flops`` or
-    ``nbytes`` given), host ms on the CPU; and ``fn``'s last output."""
+    ``nbytes`` given), host ms on the CPU; and ``fn``'s last output
+    (``warmup`` and ``iters`` as ``Timer``'s)."""
     rec: Dict[str, object] = {"probe": probe, "kernel": None, "device": timer.dev.type,
                               "card": card_, **kw}
-    t = timer(fn)
+    t = timer(fn, warmup, iters)
     if timer.dev.type == "cuda":
         rec.update(ms=t["median"], iqr=t["iqr"], runs=t["runs"])
         if "flops" in kw:
@@ -215,8 +217,8 @@ def wall_slope(dev: torch.device, chain: Callable[[int], object], ks: Tuple[int,
     spin queued ahead of it (CUDA events: the device's own time a call,
     launch gaps included, the host's enqueue hidden); on the CPU the host
     clock alone.  Returns each k's wall and enqueue ms (median and IQR over
-    ``runs``), the slope a call (ms, from each run's pair: median and IQR)
-    and, on the card, the device slope."""
+    ``runs``), the slope a call (ms, from each run's pair: median, IQR and
+    every run's, "all") and, on the card, the device slope."""
     k0, k1 = ks
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev) if dev.type == "cuda" else None
     chain(k0)  # warm
@@ -248,19 +250,20 @@ def wall_slope(dev: torch.device, chain: Callable[[int], object], ks: Tuple[int,
                 torch.cuda.synchronize(dev)
                 dev_ms[k].append(a.elapsed_time(b))
 
-    def stats(v: List[float]) -> Dict[str, object]:
+    def stats(v: List[float], every: bool = False) -> Dict[str, object]:
         q1, med, q3 = np.percentile(v, [25, 50, 75])
-        return {"median": float(med), "iqr": [float(q1), float(q3)]}
+        return {"median": float(med), "iqr": [float(q1), float(q3)],
+                **({"all": [float(x) for x in v]} if every else {})}
 
     out: Dict[str, object] = {
         "ks": [k0, k1], "runs": runs,
         "wall_ms": {str(k): stats(v) for k, v in walls.items()},
         "enqueue_ms": {str(k): stats(v) for k, v in enqueue.items()},
-        "slope_ms": stats([(b - a) / (k1 - k0) for a, b in zip(walls[k0], walls[k1])])}
+        "slope_ms": stats([(b - a) / (k1 - k0) for a, b in zip(walls[k0], walls[k1])], True)}
     if flush is not None:
         out["device_ms"] = {str(k): stats(v) for k, v in dev_ms.items()}
         out["device_slope_ms"] = stats([(b - a) / (k1 - k0)
-                                        for a, b in zip(dev_ms[k0], dev_ms[k1])])
+                                        for a, b in zip(dev_ms[k0], dev_ms[k1])], True)
     return out
 
 

@@ -34,6 +34,13 @@ Walls, old package against new, with equal outputs, 30 runs each, at
 B=32768 and B=4096: match, tiled_match, tiled_witness, L1000 witness
 (pack_raw) and witness (no kernel of this PR on its path).
 
+marker (needs no ``--old``): the marker-stream probe kernel
+(``csrc/probe_marker.cu``, chunked form) against its variants
+(``MARKER_VARIANTS``) at each chunk length, on the probes' corpus at
+B=32768 and B=4096 x L=1024, in turns (kernel, variant, variant, kernel):
+
+    python3 kernel_ab.py --only marker
+
 The record goes to ``chiprun_out/kernel_ab.json``; the last line is a
 JSON summary.  Imports nothing of JAX.
 """
@@ -174,6 +181,44 @@ FB_VARIANTS = {
                  ("bitplane_fb.cu", "__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 4)")],
     "no_cluster": [("bitplane_fb.cu", "const int cs = min(kMaxCluster, (L + kStep - 1) / kStep);",
                     "const int cs = 1;")],
+}
+# marker_match's variants (csrc/probe_marker.cu, the chunked form): the
+# next position's words loaded before the current position's step; blocks
+# of up to 1024 threads (twice the words a block); and, for timing only,
+# the kernel without its loads (a hash of the indices in their place) and
+# without its program (an XOR of the words)
+MARKER_VARIANTS = {
+    "prefetch": [
+        ("probe_marker.cu", "template <int C>\n__global__ void __launch_bounds__(kMaxThreads)",
+         "__device__ __forceinline__ void load(uint32_t* p, const int32_t* __restrict__ q,\n"
+         "                                     size_t plane) {\n#pragma unroll\n"
+         "  for (int j = 0; j < kPlanes; ++j) p[j] = (uint32_t)__ldg(q + j * plane);\n}\n\n"
+         "template <int C>\n__global__ void __launch_bounds__(kMaxThreads)"),
+        ("probe_marker.cu",
+         "  walk<kHalo>(s, st, plane, NW, w, max(0, s0 - HALO), s0);\n"
+         "  walk<kMain>(s, st, plane, NW, w, s0, s0 + C);\n"
+         "  walk<kAhead>(s, st, plane, NW, w, s0 + C, min(s0 + C + AHEAD, L));",
+         "  const int h0 = max(0, s0 - HALO), h1 = min(s0 + C + AHEAD, L);\n"
+         "  const int32_t* q = st + (size_t)h0 * NW + w;\n  uint32_t nx[kPlanes];\n"
+         "  load(nx, q, plane);\n#pragma unroll 1\n  for (int i = h0; i < h1; ++i) {\n"
+         "    uint32_t p[kPlanes];\n#pragma unroll\n"
+         "    for (int j = 0; j < kPlanes; ++j) p[j] = nx[j];\n    q += NW;\n"
+         "    if (i + 1 < h1) load(nx, q, plane);\n"
+         "    if (i < s0) step<kHalo>(s, p, i == 0);\n"
+         "    else if (i < s0 + C) step<kMain>(s, p, i == 0);\n"
+         "    else step<kAhead>(s, p, false);\n  }")],
+    "t1024": [("probe_marker.cu", "constexpr int kMaxThreads = 512;",
+               "constexpr int kMaxThreads = 1024;")],
+    "no_load": [("probe_marker.cu",
+                 "p[j] = (uint32_t)__ldg(st + j * plane + (size_t)i * NW + w);",
+                 "p[j] = (uint32_t)((i * 2654435761u) ^ (w * 40503u) ^ (j * 97u)) + "
+                 "(uint32_t)(size_t)st;")],
+    "no_compute": [("probe_marker.cu",
+                    "__device__ __forceinline__ void step(Walk& s, const uint32_t* p, bool first) {\n",
+                    "__device__ __forceinline__ void step(Walk& s, const uint32_t* p, bool first) {\n"
+                    "  if (true) {\n    uint32_t x = first;\n"
+                    "    for (int j = 0; j < kPlanes; ++j) x ^= p[j];\n    s.o0 ^= x;\n"
+                    "    return;\n  }\n")],
 }
 TIMING_ONLY = ("no_load", "no_compute")
 
@@ -423,15 +468,71 @@ def walls_ab(pk: Pkgs, cs, dev, card, flush, corpora) -> dict:
     return out
 
 
+def marker_ab(cs, dev, card, flush) -> dict:
+    """marker_match's chunked form (``csrc/probe_marker.cu``) against each
+    of ``MARKER_VARIANTS`` at every chunk length, on the probes' corpus at
+    B=32768 and 4096 x L=1024: kernel, variant, variant, kernel."""
+    from halo2_regex_tpu_torch.ops import kernels as K
+    from halo2_regex_tpu_torch.probes import probe_tpu57_lib as lib
+    from halo2_regex_tpu_torch.probes.probe_tpu64 import batch
+
+    dirs = {name: variant_csrc(K, f"marker_{name}", edits)
+            for name, edits in MARKER_VARIANTS.items()}
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        jobs = {name: pool.submit(K._build_library, ("probe_marker.cu",), (K.MARKER_MATCH,),
+                                  K.PROBE_HEADERS, None, d) for name, d in dirs.items()}
+        libs = {name: j.result() for name, j in jobs.items()}
+    K.build_probes()
+    out: dict = {"ptxas": ptxas_of(K, list(K.BUILD_LOG), "marker")}
+    for ln in out["ptxas"]:
+        print(ln, flush=True)
+    L = 1024
+    for B in SIZES:
+        chars, lengths = batch(B, L, dev)
+        st = lib.marker_stack(chars, lengths)
+        want = lib.marker_match_reduced_plain(st)
+        NW = B // 32
+        for chunk in lib.CHUNKS:
+            check(cs, f"marker chunk {chunk}", lib.marker_match(st, chunk), want)
+            for vname, vlib in libs.items():
+                wb, threads = 32, 1024 if vname == "t1024" else lib.MAX_THREADS
+                while wb * (L // chunk) > threads:
+                    wb //= 2
+                got = torch.empty(NW, dtype=torch.int32, device=dev)
+
+                def run_var(vlib=vlib, got=got, wb=wb, chunk=chunk):
+                    if vlib.h2r_marker_match(st.data_ptr(), got.data_ptr(), NW, L, chunk, wb,
+                                             K._stream(st)):
+                        raise RuntimeError("marker variant: launch failed")
+                    return got
+
+                if vname not in TIMING_ONLY:
+                    check(cs, f"marker {vname}", run_var(), want)
+                t = [cs.time_ms(f, flush, device_only=True)
+                     for f in (lambda c=chunk: lib.marker_match(st, c), run_var, run_var,
+                               lambda c=chunk: lib.marker_match(st, c))]
+                name = f"marker B={B} chunk {chunk} {vname}"
+                print(f"{name}: kernel {t[0]['median']:.4f} / {t[3]['median']:.4f} ms, variant "
+                      f"{t[1]['median']:.4f} / {t[2]['median']:.4f} ms (kernel, variant, variant, "
+                      f"kernel); card {card}", flush=True)
+                out[name] = {"kernel": [t[0]["median"], t[3]["median"]],
+                             "variant": [t[1]["median"], t[2]["median"]],
+                             "iqr": [x["iqr"] for x in t]}
+    return out
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs an NVIDIA GPU")
     ap = argparse.ArgumentParser()
-    ap.add_argument("--old", required=True,
-                    help="directory of the earlier halo2_regex_tpu_torch/ package")
-    ap.add_argument("--only", default="pack,fb,walls",
+    ap.add_argument("--old", help="directory of the earlier halo2_regex_tpu_torch/ package "
+                    "(every part but marker)")
+    ap.add_argument("--only", default="pack,fb,walls,marker",
                     help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
+    parts = set(args.only.split(","))
+    if parts - {"marker"} and not args.old:
+        ap.error("--old is needed for the pack, fb and walls parts")
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import halo2_regex_tpu_torch as h2r
@@ -439,15 +540,16 @@ def main() -> dict:
 
     # both packages build into the checkout's build root
     os.environ.setdefault("H2R_TORCH_BUILD_DIR", str(K.build_root()))
-    old, old_k = import_old(Path(args.old).resolve())
-    pk = Pkgs(h2r, old, K, old_k)
+    pk = None
+    if args.old:
+        old, old_k = import_old(Path(args.old).resolve())
+        pk = Pkgs(h2r, old, K, old_k)
     dev = torch.device("cuda")
     card = cs.smi()
     print(f"card: {card}", flush=True)
     rec: dict = {"card": card, "versions": cs.versions()}
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     corpora = {Lc: cs.bench_corpus(cs.B, Lc) for Lc in (cs.L, cs.L_UNPADDED)}
-    parts = set(args.only.split(","))
     out = {}
     if "pack" in parts:
         out["pack"] = pack_ab(pk, cs, dev, card, flush, corpora)
@@ -455,6 +557,8 @@ def main() -> dict:
         out["fb_only"] = fb_ab(pk, cs, dev, card, flush, corpora)
     if "walls" in parts:
         out["walls"] = walls_ab(pk, cs, dev, card, flush, corpora)
+    if "marker" in parts:
+        out["marker"] = marker_ab(cs, dev, card, flush)
     rec["ab"] = out
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:
@@ -464,7 +568,8 @@ def main() -> dict:
         got = {}
         for k, v in d.items():
             if isinstance(v, dict):
-                sub = {"old": v["old"], "new": v["new"]} if "new" in v else pairs_of(v)
+                sub = ({key: v[key] for key in ("old", "new", "kernel", "variant") if key in v}
+                       if "new" in v or "variant" in v else pairs_of(v))
                 if sub:
                     got[k] = sub
         return got

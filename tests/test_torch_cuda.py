@@ -1834,3 +1834,44 @@ def test_probe_t2_entry_points_raise(dev):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+@pytest.mark.parametrize("L", [96, 1024])
+@pytest.mark.parametrize("B", [4096, 32768])
+def test_probe_marker_match_matches_plain(dev, B, L):
+    """marker_match serial and at each chunk length against the plain
+    verdict (and re's) on the probes' corpus; one launch a call."""
+    from halo2_regex_tpu_torch.probes import probe_tpu57_lib as lib
+    from halo2_regex_tpu_torch.probes.probe_tpu64 import probe_corpus
+
+    chars, lengths = probe_corpus(B, max(L, 128))
+    chars, lengths = chars[:, :L].copy(), lengths.clip(max=L)
+    st = lib.marker_stack(torch.from_numpy(chars).to(dev), torch.from_numpy(lengths).to(dev))
+    want = lib.marker_match_reduced_plain(st)
+    assert torch.equal(want, lib.expected_plane(lib.expected(chars, lengths), dev))
+    for chunk in (L,) + tuple(c for c in lib.CHUNKS if L % c == 0):
+        kernels.reset_launch_counts()
+        got = lib.marker_match(st, chunk)
+        torch.cuda.synchronize()
+        assert kernels.MARKER_MATCH.launches == 1 and torch.equal(got, want), chunk
+        if chunk != L:
+            assert torch.equal(lib.marker_chunks_plain(st, chunk), want)
+
+
+def test_probe_marker_entry_points_raise(dev):
+    """A word count not a multiple of 32, a chunk that does not divide L or
+    that the kernel is not built for, int64, a strided view (the kernel
+    reads 4-byte words: every int32 view is aligned for it), a CPU stack to
+    the kernel's wrapper."""
+    from halo2_regex_tpu_torch.probes import probe_tpu57_lib as lib
+
+    st = torch.zeros((10, 1024, 128), dtype=torch.int32, device=dev)
+    wide = torch.zeros((10, 1024, 256), dtype=torch.int32, device=dev)
+    bad = [lambda: lib.marker_match(st[:, :, :48].contiguous(), 16),
+           lambda: lib.marker_match(st, 24), lambda: lib.marker_match(st, 128),
+           lambda: lib.marker_match(st.long(), 16),
+           lambda: lib.marker_match(wide[:, :, ::2], 16),
+           lambda: lib.marker_match_cuda(st.cpu(), 16)]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()

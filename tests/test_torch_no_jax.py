@@ -13,8 +13,9 @@ dump and its C++ verifier, ``gen_circom``, the CLI's ``gen-circom`` and
 ``handoff``) and the sharded matchers (``DistributedMatcher``,
 ``SeqShardedMatcher``, ``SpeculativeSeqMatcher`` on a mesh of repeated CPU
 devices; ``parallel.launch`` at one process), the serial-scan probes'
-plain versions, the table-kernel and the emission and decode probe
-scripts on the CPU (``probes/``), and assert that neither JAX, the JAX
+plain versions, the table-kernel, the emission and decode and the
+marker-stream probe scripts on the CPU (``probes/``: probe_tpu57's D at
+64 x 512 and E at 64 x 1024 held against the C++ oracle), and assert that neither JAX, the JAX
 package nor ``tools/`` was loaded along the way.
 """
 
@@ -144,6 +145,9 @@ for mod in (probe_tpu6, probe_tpu7, probe_tpu21, probe_tpu28, probe_tpu30, probe
             probe_tpu32, probe_tpu67):
     assert mod.main(["--device", "cpu"]) == 0, mod.__name__
 assert probe_tpu20.main(["--device", "cpu", "--sections", "ADE"]) == 0
+from halo2_regex_tpu_torch.probes import probe_tpu57, probe_tpu61
+assert probe_tpu57.main(["--device", "cpu"]) == 0  # B-C vs re, D and E vs the C++ oracle
+assert probe_tpu61.main(["--device", "cpu"]) == 0
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu", "tools"))
 assert not bad, bad
