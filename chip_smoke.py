@@ -226,7 +226,8 @@ and proves on the card that:
      torch lines (the copy rate, bf16 products) timed; the lone chain set
      beside configs[3]'s table-scan chain step of this run; the SASS holds
      HMMA in the four tensor-core instances of dfa_step, IMMA in int8_mma
-     and at least 256 ISETP in onehot_count;
+     and at least 256 compares a byte in onehot_count (an ISETP one, an
+     HSET2 or HSETP2 two);
  12. the emission and decode probe scripts' runs, driven with the launch
      counts reset, launched every emit probe kernel and, of the others,
      only the matcher kernels their witness fronts and walls run; each
@@ -257,8 +258,8 @@ and proves on the card that:
      ``((c[..., None] >= b) * delta).sum(-1)``, ``torch.cumsum``,
      ``x.clone()``); probe_tpu67's chains give a launch's wall and device
      slope and its cost past its bytes, and its witness batches agree on
-     the rows they share; the SASS holds HMMA in mma_accum and in
-     dfa_wide's product instance, none in its lookup;
+     the rows they share; the SASS holds HGMMA (wgmma) in mma_accum, HMMA
+     in dfa_wide's product instance and none in its lookup;
  14. the marker probe scripts' runs, driven with the launch counts reset,
      launched marker_match and, of the others, only the matcher kernels
      they reuse (pack_raw, scan, qpack, post, decode, the table kernels);
@@ -285,6 +286,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1285,6 +1287,23 @@ def sass_ops(lib_path: str, names: dict) -> dict:
     return out
 
 
+def probe_spills(kernels, name: str) -> dict:
+    """Spill bytes (stores + loads) that ptxas reported for each entry of
+    the probes library whose mangled name holds ``name``; None where the
+    library was not built by this process (no ptxas log)."""
+    info = kernels.BUILD_LOG.get(os.path.basename(os.path.dirname(kernels.build_probes()._name)))
+    if info is None:
+        return None
+    out, fn = {}, None
+    for ln in str(info["ptxas"]).splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if name in ln else None
+        elif fn and "spill stores" in ln:
+            nums = re.findall(r"(\d+) bytes spill", ln)
+            out[fn] = sum(int(x) for x in nums)
+    return out
+
+
 def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     """[11] The table-kernel probes of tools/ (``probes/``: probe_tpu,
     probe_tpu2, probe_tpu3, probe_tpu17, probe_tpu18): each script's ``run``
@@ -1298,7 +1317,7 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     the lone chain of dependent gathers (lane_gather, [1, 128], one warp)
     is set beside configs[3]'s table-scan chain step of this run, and the
     SASS shows mma.sync (HMMA, IMMA) in the tensor-core kernels and 256
-    compares (ISETP) a byte in onehot_count."""
+    compares a byte in onehot_count (ISETP, or HSET2 two at once)."""
     from halo2_regex_tpu_torch.probes import (harness, probe_tpu, probe_tpu2, probe_tpu3,
                                               probe_tpu17, probe_tpu18)
 
@@ -1346,16 +1365,25 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
         f"registers (shuffles) {rg['ns_per_step']:.3f} ns = {rg['cycles_per_step']:.1f}; "
         f"configs[3]'s table scan {chain_ns:.3f} ns a chain step ([10]): "
         f"{chain_ns / sh['ns_per_step']:.3f}x the shared-memory chain; card {card}")
-    # the SASS: mma.sync in the tensor-core forms, 256 compares a byte in onehot_count
+    # the SASS: mma.sync in the tensor-core forms, 256 compares a byte in
+    # onehot_count: its loop body holds R bytes a thread (its first template
+    # argument), an ISETP one compare, an HSET2 or HSETP2 two
     sass = sass_ops(kernels.build_probes()._name,
                     {"dfa_kernel": ("HMMA", "LDS", "ISETP"), "int8_mma_kernel": ("IMMA",),
-                     "onehot_count_kernel": ("ISETP", "LDS")})
+                     "onehot_count_kernel": ("ISETP", "HSET2", "HSETP2", "LDS")})
     for fn, ops in sass.items():
         log(f"[11] sass {fn[-60:]}: {ops}")
     mma = {fn: ops for fn, ops in sass.items() if "dfa_kernelILi1" in fn or "dfa_kernelILi2" in fn}
+    per_byte = {fn: (ops["ISETP"] + 2 * (ops["HSET2"] + ops["HSETP2"]))
+                / int(re.search(r"onehot_count_kernelILi(\d+)E", fn).group(1))
+                for fn, ops in sass.items() if "onehot_count" in fn}
+    spills = probe_spills(kernels, "onehot_count_kernel")
+    log(f"[11] onehot_count compares a byte in the SASS: {per_byte}; ptxas spill bytes {spills}")
+    if spills is not None and (not spills or any(spills.values())):
+        raise AssertionError(f"[11] onehot_count spills: {spills}")
     if (len(mma) != 4 or not all(ops["HMMA"] for ops in mma.values())
             or not all(ops["IMMA"] for fn, ops in sass.items() if "int8_mma" in fn)
-            or not all(ops["ISETP"] >= 256 for fn, ops in sass.items() if "onehot_count" in fn)):
+            or not per_byte or not all(v >= 256 for v in per_byte.values())):
         raise AssertionError(f"[11] the SASS lacks mma.sync or the 256 compares: {sass}")
     placement = {"lone_chain_ns": sh["ns_per_step"], "lone_chain_cycles": sh["cycles_per_step"],
                  "lone_chain_regs_ns": rg["ns_per_step"], "table_scan_ns_a_chain_step": chain_ns}
@@ -1484,7 +1512,7 @@ def t2_probe_phase(kernels, m3, chars3, card: str) -> dict:
     loop_floor (k1), slab_anatomy (k3), tile_move (probe_tpu67's A), the
     witness kernels (its C) and the table scan (B8 at configs[3]).  Then
     the launch cost past the bytes, the forms of each family and B8 are
-    logged side by side, and the SASS shows HMMA in mma_accum and in
+    logged side by side, and the SASS shows HGMMA in mma_accum, HMMA in
     dfa_wide's product instance and none in its lookup."""
     from halo2_regex_tpu_torch.probes import (harness, probe_tpu6, probe_tpu7, probe_tpu20,
                                               probe_tpu21, probe_tpu28, probe_tpu30, probe_tpu31,
@@ -1580,18 +1608,26 @@ def t2_probe_phase(kernels, m3, chars3, card: str) -> dict:
     c3 = {r["form"]: r["ms"] for r in recs if r["probe"] in ("configs3", "configs3_b8")}
     log(f"[13] configs[3]'s step at B={B3} x L={L3} (ms): "
         + "; ".join(f"{k} {v:.4f}" for k, v in c3.items()) + f"; card {card}")
-    # the SASS: mma.sync (HMMA) in mma_accum and dfa_wide's product instance only
+    # the SASS: wgmma (HGMMA) in both tile widths of mma_accum, mma.sync
+    # (HMMA) in dfa_wide's product instance only
     sass = sass_ops(kernels.build_probes()._name,
-                    {"mma_accum_kernel": ("HMMA", "LDS"), "wide_mma_kernel": ("HMMA", "LDG"),
+                    {"mma_accum_tma_kernel": ("HGMMA", "HMMA"),
+                     "wide_mma_kernel": ("HMMA", "LDG"),
                      "wide_lookup_kernel": ("HMMA", "LDS", "LDG"),
                      "class_chain_kernel": ("ISETP", "LDS"), "bitop_carry_kernel": ("LOP3",)})
     for fn, ops in sass.items():
         log(f"[13] sass {fn[-60:]}: {ops}")
     hmma = {k: [bool(ops["HMMA"]) for fn, ops in sass.items() if k in fn]
-            for k in ("mma_accum_kernel", "wide_mma_kernel", "wide_lookup_kernel")}
-    if hmma != {"mma_accum_kernel": [True], "wide_mma_kernel": [True],
-                "wide_lookup_kernel": [False, False]}:
-        raise AssertionError(f"[13] the SASS lacks mma.sync in mma_accum or dfa_wide: {sass}")
+            for k in ("wide_mma_kernel", "wide_lookup_kernel")}
+    hgmma = [bool(ops["HGMMA"]) for fn, ops in sass.items() if "mma_accum_tma_kernel" in fn]
+    spills = probe_spills(kernels, "mma_accum_tma_kernel")
+    log(f"[13] mma_accum ptxas spill bytes {spills}")
+    if spills is not None and (not spills or any(spills.values())):
+        raise AssertionError(f"[13] mma_accum spills: {spills}")
+    if hmma != {"wide_mma_kernel": [True], "wide_lookup_kernel": [False, False]} \
+            or len(hgmma) != 2 or not all(hgmma):
+        raise AssertionError(f"[13] the SASS lacks wgmma in mma_accum or mma.sync in dfa_wide: "
+                             f"{sass}")
     return {"rows": list(rows.values()), "times": tms, "errs": errs,
             "launches": {"t2_probes": got},
             "rec": {"scripts": recs, "configs3_ms": c3, "sass": sass}}

@@ -1,5 +1,5 @@
-// nop, onehot_count, int8_mma, mma_accum and class_chain -- five unit
-// probes of tools/ as H100 kernels:
+// nop, onehot_count, int8_mma and class_chain -- four unit probes of tools/
+// as H100 kernels (mma_accum is csrc/probe_mma_accum.cu's):
 //
 // nop replaces probe_tpu2.py's A (knop, pallas_call at :59): o = x + 1 on
 // [8, 128] int32 (wrapping), the dispatch cost.  Its time is the launch;
@@ -9,10 +9,22 @@
 // o[0, j] = sum_i sum_k [c[i, j] == k] over k < 256, c [LB, TB] int32
 // time-major, o [1, TB] int32: the count of each column's bytes in
 // [0, 256), by 256 compares a byte, as the probe builds the one-hot.  The
-// compare values come from a shared-memory row that the kernel writes, so
-// nvcc cannot fold the compares into a range test: it is the compare
-// rate that is measured.  What bounds it: operations (256 compares and
-// adds a byte, and the 64 16-byte loads of the row), a thread a column.
+// keys come from a shared-memory row that the kernel writes and reads
+// with volatile 16-byte loads, so nvcc can neither fold the compares into
+// a range test nor hold the row in registers: it is the compare rate that
+// is measured.  What bounds it: operations (256 compares and their sums a
+// byte).  Design: a block owns 32 adjacent columns (a warp reads a
+// 128-byte row piece) and a cluster of up to 16 blocks splits the rows;
+// each thread holds kCountRows bytes of its column, so one key load serves
+// that many independent compare chains.  Compares on half2 (HALF, the
+// default): each byte converted once to fp16 and duplicated, HSET2 against
+// two keys at once (1.0 where equal), HADD2 into the byte's pair of sums.
+// Every int in [-2048, 2048] is exact in fp16 and rounding is monotone,
+// so no other int32 becomes a value in 0..255: the count is exact.  Or on
+// the int pipe: ISETP and a sum.  The partials go through the block's
+// shared memory and then rank 0's (distributed shared memory): one writer
+// a column, no zero fill, no atomics (kCountAtomic: atomics after a zero
+// fill, for timing the two reductions).
 //
 // int8_mma replaces probe_tpu17.py's k (pallas_call at :83): c = a @ b in
 // int32 of int8 a [M, K] and b [K, N], row-major.  mma.sync.m16n8k32
@@ -23,24 +35,6 @@
 // rate at 128^3 and 4096^3 only in principle; this first form loads its
 // tiles with no double buffering, so its loads and barriers are exposed.
 // Sums wrap in int32 (exact while K * 128 * 128 < 2^31).
-//
-// mma_accum replaces probe_tpu21.py's D (mm_kern :97, pallas_call at :112)
-// and probe_tpu20.py's D (mm_kern :211, pallas_call at :226, whose block
-// shapes make it raise; probe_tpu21 corrected them): out[i, l] = sum over
-// l' <= l of a[i, l'] @ b[i, l'], bf16 a [NI, NL, M, K] and b [NI, NL, K,
-// N], f32 out [NI, NL, M, N], the accumulator carried over l (the probe's
-// second grid axis, its scratch).  The TPU carried the sum across grid
-// steps in VMEM scratch; here a block owns one 64 x 64 tile of one i,
-// loops over l itself and keeps its f32 accumulators in registers across
-// l, storing each l's running sum.  mma.sync.m16n8k16 bf16 x bf16 -> f32,
-// 4 warps of 16 rows x 64 columns, K 32 a step through shared memory (a as
-// [m][k], b transposed to [n][k], rows padded to 40 halves: each fragment
-// register one conflict-free 32-bit load), as int8_mma does.  What bounds
-// it: at the probe's [4, 2, 128, 128] a launch; at large tiles the bf16
-// tensor-core rate in principle, but this first form has no double
-// buffering, so its loads and barriers are exposed.  The products of bf16
-// values are exact in f32; the sums are exact for integer values under
-// 2^24, and otherwise differ from a sequential f32 sum by rounding.
 //
 // class_chain replaces probe_tpu6.py's k4 (:174, pallas_call at :186): a
 // byte's class as a chain of compares, cls = sum_t delta_t * (c >= b_t)
@@ -54,8 +48,12 @@
 // accesses, four elements a thread; at the probe's [64, 128] a launch.
 
 #include <algorithm>
+#include <cooperative_groups.h>
 #include <cstdint>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -64,27 +62,122 @@ __global__ void nop_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ 
   if (i < n) o[i] = (int32_t)((uint32_t)x[i] + 1u);
 }
 
-constexpr int COUNT_THREADS = 128;
+constexpr int kCountWarps = 16;    // a block: 32 columns x 16 warps
+constexpr int kCountRows = 4;      // bytes a thread holds, rows kCountWarps apart
+constexpr int kCountCluster = 16;  // blocks over the rows (past the portable 8: opted in)
+constexpr bool kCountHalf = true;  // compares on half2 (else on the int pipe)
+constexpr bool kCountAtomic = false;  // partials by atomics after a zero fill
 
-__global__ void __launch_bounds__(COUNT_THREADS)
-onehot_count_kernel(const int32_t* __restrict__ c, int32_t* __restrict__ o, int LB, int TB) {
-  __shared__ int4 keys[64];  // 0..255, written here
-  for (int i = threadIdx.x; i < 256; i += COUNT_THREADS) ((int*)keys)[i] = i;
+// a 16-byte shared-memory load that nvcc may neither drop nor hoist
+__device__ __forceinline__ uint4 lds128(const void* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"((uint32_t)__cvta_generic_to_shared(p))
+               : "memory");
+  return v;
+}
+
+// acc + (h == k) on each half of a half2 (1.0 where equal): HSET2, HADD2
+__device__ __forceinline__ uint32_t count2(uint32_t acc, uint32_t h, uint32_t k) {
+  uint32_t e;
+  asm("set.eq.f16x2.f16x2 %0, %1, %2;\n" : "=r"(e) : "r"(h), "r"(k));
+  asm("add.rn.f16x2 %0, %1, %2;\n" : "=r"(acc) : "r"(acc), "r"(e));
+  return acc;
+}
+
+__device__ __forceinline__ uint32_t half2_bits(__half2 h) { return *(uint32_t*)&h; }
+
+// grid: ceil(TB / 32) column tiles x `split` blocks over the rows (a
+// cluster of `split` unless kCountAtomic)
+template <int R, bool HALF>
+__global__ void __launch_bounds__(kCountWarps * 32)
+onehot_count_kernel(const int32_t* __restrict__ c, int32_t* __restrict__ o, int LB, int TB,
+                    int split) {
+  __shared__ __align__(16) uint32_t keys[HALF ? 128 : 256];  // 0..255 (half2: 2k, 2k + 1)
+  __shared__ int part[kCountWarps][32];
+  __shared__ int parts[kCountCluster][32];  // rank 0's: every rank's
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int rank = blockIdx.x % split;
+  if (!kCountAtomic) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  for (int k = tid; k < (HALF ? 128 : 256); k += kCountWarps * 32)
+    keys[k] = HALF ? half2_bits(__halves2half2(__int2half_rn(2 * k), __int2half_rn(2 * k + 1)))
+                   : (uint32_t)k;
   __syncthreads();
-  const int j = blockIdx.x * COUNT_THREADS + threadIdx.x;
-  if (j >= TB) return;
-  uint32_t acc = 0;
+  const int j = (blockIdx.x / split) * 32 + lane;
+  const bool col = j < TB;
+  constexpr int kStep = kCountWarps * R;
+  int total = 0;
 #pragma unroll 1
-  for (int i = 0; i < LB; ++i) {
-    const int v = c[(size_t)i * TB + j];
+  for (int i0 = rank * kStep; i0 < LB; i0 += split * kStep) {
+    int v[R];
 #pragma unroll
-    for (int q = 0; q < 64; ++q) {
-      const int4 k = keys[q];
-      acc += (uint32_t)(v == k.x) + (uint32_t)(v == k.y) + (uint32_t)(v == k.z) +
-             (uint32_t)(v == k.w);
+    for (int r = 0; r < R; ++r) {
+      const int row = i0 + r * kCountWarps + w;
+      v[r] = col && row < LB ? __ldg(c + (size_t)row * TB + j) : -1;
+    }
+    if (HALF) {
+      uint32_t h[R], acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const __half x = __int2half_rn(v[r]);
+        h[r] = half2_bits(__halves2half2(x, x));
+        acc[r] = 0;
+      }
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        const uint4 k = lds128(&keys[4 * q]);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          acc[r] = count2(acc[r], h[r], k.x);
+          acc[r] = count2(acc[r], h[r], k.y);
+          acc[r] = count2(acc[r], h[r], k.z);
+          acc[r] = count2(acc[r], h[r], k.w);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {  // each half at most 128: exact in fp16
+        const float2 f = __half22float2(*(__half2*)&acc[r]);
+        total += (int)(f.x + f.y);
+      }
+    } else {
+      int acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0;
+#pragma unroll
+      for (int q = 0; q < 64; ++q) {
+        const uint4 k = lds128(&keys[4 * q]);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[r] += (v[r] == (int)k.x) + (v[r] == (int)k.y) + (v[r] == (int)k.z) +
+                    (v[r] == (int)k.w);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) total += acc[r];
     }
   }
-  o[j] = (int32_t)acc;
+  part[w][lane] = total;
+  __syncthreads();
+  int sum = 0;
+  if (tid < 32) {
+#pragma unroll
+    for (int k = 0; k < kCountWarps; ++k) sum += part[k][tid];
+  }
+  if (kCountAtomic) {
+    if (tid < 32 && col) atomicAdd(&o[j], sum);
+    return;
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank has started
+  cg::cluster_group cluster = cg::this_cluster();
+  if (tid < 32) cluster.map_shared_rank(&parts[0][0], 0)[rank * 32 + tid] = sum;
+  cluster.sync();  // every rank's partial is in rank 0's memory
+  if (rank == 0 && tid < 32 && col) {
+    int all = 0;
+#pragma unroll
+    for (int r = 0; r < kCountCluster; ++r)
+      if (r < split) all += parts[r][tid];
+    o[j] = all;
+  }
 }
 
 constexpr int MM_WARPS = 4;
@@ -161,76 +254,6 @@ int8_mma_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
-constexpr int ACC_WARPS = 4;
-constexpr int ACC_TILE = 64;  // out's tile: ACC_TILE x ACC_TILE
-constexpr int ACC_KSTEP = 32;  // k a step: two m16n8k16
-constexpr int AKS = ACC_KSTEP + 8;  // shared row stride (halves): conflict-free fragment loads
-
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// grid (N / 64, M / 64, NI); M and N multiples of 64, K of 32, a and b
-// 16-byte aligned (the wrapper checks)
-__global__ void __launch_bounds__(ACC_WARPS * 32)
-mma_accum_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
-                 float* __restrict__ c, int NL, int M, int N, int K) {
-  __shared__ __align__(16) uint16_t as[ACC_TILE * AKS];  // [m][k]
-  __shared__ __align__(16) uint16_t bs[ACC_TILE * AKS];  // [n][k]
-  const int t = threadIdx.x, w = t >> 5, lane = t & 31, g = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * ACC_TILE, m0 = blockIdx.y * ACC_TILE, i = blockIdx.z;
-  float acc[ACC_TILE / 8][4] = {};
-  const int r = w * 16 + g;
-#pragma unroll 1
-  for (int l = 0; l < NL; ++l) {
-    const uint16_t* A = a + ((size_t)i * NL + l) * M * K;
-    const uint16_t* B = b + ((size_t)i * NL + l) * K * N;
-#pragma unroll 1
-    for (int k0 = 0; k0 < K; k0 += ACC_KSTEP) {
-#pragma unroll
-      for (int e = t; e < ACC_TILE * ACC_KSTEP / 8; e += ACC_WARPS * 32) {
-        // a: row e / 4, 8 halves at k (e % 4) * 8
-        const int ra = e >> 2, ka = (e & 3) * 8;
-        *(int4*)&as[ra * AKS + ka] = *(const int4*)&A[(size_t)(m0 + ra) * K + k0 + ka];
-        // b: row k e / 8, 8 halves at n (e % 8) * 8, written transposed
-        const int kb = e >> 3, nb = (e & 7) * 8;
-        const int4 v = *(const int4*)&B[(size_t)(k0 + kb) * N + n0 + nb];
-        const uint16_t* h = (const uint16_t*)&v;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) bs[(nb + q) * AKS + kb] = h[q];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < ACC_KSTEP; ks += 16) {
-        const uint32_t a0 = *(const uint32_t*)&as[r * AKS + ks + tig * 2];
-        const uint32_t a1 = *(const uint32_t*)&as[(r + 8) * AKS + ks + tig * 2];
-        const uint32_t a2 = *(const uint32_t*)&as[r * AKS + ks + 8 + tig * 2];
-        const uint32_t a3 = *(const uint32_t*)&as[(r + 8) * AKS + ks + 8 + tig * 2];
-#pragma unroll
-        for (int nt = 0; nt < ACC_TILE / 8; ++nt) {
-          const int n = nt * 8 + g;
-          const uint32_t b0 = *(const uint32_t*)&bs[n * AKS + ks + tig * 2];
-          const uint32_t b1 = *(const uint32_t*)&bs[n * AKS + ks + 8 + tig * 2];
-          mma_bf16(acc[nt], a0, a1, a2, a3, b0, b1);
-        }
-      }
-      __syncthreads();
-    }
-    // l's running sum
-    float* C = c + ((size_t)i * NL + l) * M * N;
-#pragma unroll
-    for (int nt = 0; nt < ACC_TILE / 8; ++nt) {
-      const int col = n0 + nt * 8 + tig * 2;
-      *(float2*)&C[(size_t)(m0 + r) * N + col] = make_float2(acc[nt][0], acc[nt][1]);
-      *(float2*)&C[(size_t)(m0 + r + 8) * N + col] = make_float2(acc[nt][2], acc[nt][3]);
-    }
-  }
-}
-
 constexpr int MAX_TERMS = 32;
 constexpr int CHAIN_THREADS = 256;
 
@@ -279,8 +302,37 @@ extern "C" int h2r_nop(const void* x, void* o, int n, void* stream) {
 
 extern "C" int h2r_onehot_count(const void* c, void* o, int LB, int TB, void* stream) {
   if (LB < 0 || TB <= 0) return (int)cudaErrorInvalidValue;
-  onehot_count_kernel<<<(TB + COUNT_THREADS - 1) / COUNT_THREADS, COUNT_THREADS, 0,
-                        (cudaStream_t)stream>>>((const int32_t*)c, (int32_t*)o, LB, TB);
+  constexpr int kStep = kCountWarps * kCountRows;
+  const int groups = max(1, LB / kStep + (LB % kStep != 0));
+  const int split = min(kCountAtomic ? 32 : kCountCluster, groups);
+  const int blocks = (TB + 31) / 32 * split;
+  auto kernel = onehot_count_kernel<kCountRows, kCountHalf>;
+  if (kCountAtomic) {
+    cudaError_t e = cudaMemsetAsync(o, 0, (size_t)TB * 4, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<blocks, kCountWarps * 32, 0, (cudaStream_t)stream>>>((const int32_t*)c,
+                                                                  (int32_t*)o, LB, TB, split);
+    return (int)cudaGetLastError();
+  }
+  if (kCountCluster > 8) {  // past the portable cluster size
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kCountWarps * 32);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, (const int32_t*)c, (int32_t*)o, LB, TB, split);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -292,18 +344,6 @@ extern "C" int h2r_int8_mma(const void* a, const void* b, void* c, int M, int N,
   const dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
   int8_mma_kernel<<<grid, MM_WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const int8_t*)a, (const int8_t*)b, (int32_t*)c, M, N, K, full);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int h2r_mma_accum(const void* a, const void* b, void* c, int NI, int NL, int M, int N,
-                             int K, void* stream) {
-  if (NI <= 0 || NI > 65535 || NL <= 0 || M <= 0 || N <= 0 || K <= 0 || M % ACC_TILE ||
-      N % ACC_TILE || K % ACC_KSTEP || M / ACC_TILE > 65535 ||
-      ((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) % 16)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / ACC_TILE, M / ACC_TILE, NI);
-  mma_accum_kernel<<<grid, ACC_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const uint16_t*)a, (const uint16_t*)b, (float*)c, NL, M, N, K);
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,10 @@ the probes of ``tools/`` (the serial scans ``probe_tpu9.cu``,
 ``probe_gather.cu``, ``probe_dfa_step.cu``, ``probe_tpu18.cu``,
 ``probe_units.cu``; the emission, table-step and marker probes'
 ``probe_tile_move.cu``, ``probe_emit.cu``, ``probe_dfa_wide.cu``,
-``probe_marker.cu``; their wrappers are in :mod:`..probes`).
+``probe_marker.cu``; the accumulate probe's ``probe_mma_accum.cu`` on
+``hopper_mma.cuh``, whose tensor maps come from the driver's
+``cuTensorMapEncodeTiled`` through the runtime's entry-point query, so the
+link needs no libcuda; their wrappers are in :mod:`..probes`).
 
 At first use each library's sources are compiled by nvcc for ``sm_90a``,
 one nvcc per source, all at once, and linked into one shared library with a
@@ -222,7 +225,7 @@ EMIT_PROBES = (TILE_MOVE, L4_PACK, FIELD_DECODE)
 # the launch, accumulate, carry, class-chain and configs[3] table-step probes
 # of tools/ (probe_tpu67, 21, 20 D-E, 6, 7, 28, 30, 31, 32)
 MMA_ACCUM = CudaKernel(
-    "mma_accum", "h2r_mma_accum", "halo2_regex_tpu_torch/csrc/probe_units.cu",
+    "mma_accum", "h2r_mma_accum", "halo2_regex_tpu_torch/csrc/probe_mma_accum.cu",
     "tools/probe_tpu21.py:112 (D mm_kern :97); tools/probe_tpu20.py:226 (D mm_kern :211)",
 )
 BITOP_CARRY = CudaKernel(
@@ -250,9 +253,10 @@ T2C_PROBES = (MARKER_MATCH,)
 PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES + EMIT_PROBES + T2_PROBES + T2C_PROBES
 PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu", "probe_gather.cu",
                  "probe_dfa_step.cu", "probe_tpu18.cu", "probe_units.cu",
-                 "probe_tile_move.cu", "probe_emit.cu", "probe_dfa_wide.cu", "probe_marker.cu")
+                 "probe_tile_move.cu", "probe_emit.cu", "probe_dfa_wide.cu", "probe_marker.cu",
+                 "probe_mma_accum.cu")
 PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh", "bitplane_common.cuh",
-                 "probe_marker_class.cuh")
+                 "probe_marker_class.cuh", "hopper_mma.cuh")
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {

@@ -41,6 +41,16 @@ B=32768 and B=4096 x L=1024, in turns (kernel, variant, variant, kernel):
 
     python3 kernel_ab.py --only marker
 
+units (needs ``--old``): the compare-rate probe ``onehot_count``
+(``csrc/probe_units.cu``) at [1024, 512] and the accumulate probe
+``mma_accum`` (``csrc/probe_mma_accum.cu``) at [4, 2, 128, 128] and
+[4, 8, 1024, 1024], the old package's forms against the new (old, new,
+new, old), the library call against the kernel (kernel, library,
+library, kernel; the range test, ``torch.matmul(a, b).float().cumsum(1)``)
+and each of ``COUNT_VARIANTS`` and ``MMA_VARIANTS`` against the kernel:
+
+    python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only units
+
 The record goes to ``chiprun_out/kernel_ab.json``; the last line is a
 JSON summary.  Imports nothing of JAX.
 """
@@ -220,7 +230,45 @@ MARKER_VARIANTS = {
                     "    for (int j = 0; j < kPlanes; ++j) x ^= p[j];\n    s.o0 ^= x;\n"
                     "    return;\n  }\n")],
 }
-TIMING_ONLY = ("no_load", "no_compute")
+TIMING_ONLY = ("no_load", "no_compute", "no_store")
+# onehot_count's variants (csrc/probe_units.cu): the compares on the int
+# pipe (ISETP and a sum) in place of half2; the partials by atomics after
+# a zero fill in place of the cluster's shared memory, over up to 32
+# blocks of rows or, as the cluster, 16; eight bytes a thread in blocks of
+# eight warps; two bytes a thread; clusters of up to 8 blocks (the
+# portable size: the first redesign); and one block an SM (120 KiB of
+# shared memory asked for, unused), so that a cluster's blocks do not
+# share SMs
+COUNT_VARIANTS = {
+    "int": [("probe_units.cu", "constexpr bool kCountHalf = true;",
+             "constexpr bool kCountHalf = false;")],
+    "atomic": [("probe_units.cu", "constexpr bool kCountAtomic = false;",
+                "constexpr bool kCountAtomic = true;")],
+    "atomic16": [("probe_units.cu", "constexpr bool kCountAtomic = false;",
+                  "constexpr bool kCountAtomic = true;"),
+                 ("probe_units.cu", "min(kCountAtomic ? 32 : kCountCluster, groups)",
+                  "min(kCountCluster, groups)")],
+    "rows8": [("probe_units.cu", "constexpr int kCountWarps = 16;", "constexpr int kCountWarps = 8;"),
+              ("probe_units.cu", "constexpr int kCountRows = 4;", "constexpr int kCountRows = 8;")],
+    "rows2": [("probe_units.cu", "constexpr int kCountRows = 4;", "constexpr int kCountRows = 2;")],
+    "cluster8": [("probe_units.cu", "constexpr int kCountCluster = 16;",
+                  "constexpr int kCountCluster = 8;")],
+    "spread": [("probe_units.cu", "  cfg.stream = (cudaStream_t)stream;\n  cudaLaunchAttribute",
+                "  cfg.stream = (cudaStream_t)stream;\n"
+                "  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,"
+                " 120 * 1024);\n  cfg.dynamicSmemBytes = 120 * 1024;\n  cudaLaunchAttribute")],
+}
+# mma_accum's variants (csrc/probe_mma_accum.cu): a ring of three stages
+# at 128 columns; 128 x 128 tiles for every N (the first redesign: 256 x
+# 128 is taken where N > 128); each l's sum stored from the registers
+# (float2) in place of TMA stores; and, for timing only, no stores at all
+MMA_VARIANTS = {
+    "stages3": [("probe_mma_accum.cu", "kStages = BN == 128 ? 4 : 3;", "kStages = 3;")],
+    "bn128": [("probe_mma_accum.cu", "const bool wide = N > 128;", "const bool wide = false;")],
+    "direct_store": [("probe_mma_accum.cu", "constexpr bool kTmaStore = true;",
+                      "constexpr bool kTmaStore = false;")],
+    "no_store": [("probe_mma_accum.cu", "if (t == 0 && r0 < M) {", "if (t == 0 && r0 < 0) {")],
+}
 
 
 def sass_counts(K, keys, kernel: str) -> list:
@@ -521,18 +569,125 @@ def marker_ab(cs, dev, card, flush) -> dict:
     return out
 
 
+def units_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
+    """onehot_count (P10) at [1024, 512] and mma_accum (P15) at [4, 2, 128,
+    128] and [4, 8, 1024, 1024] (integer inputs): the first forms (the
+    ``--old`` package's) against the new ones (old, new, new, old), the
+    library call against the kernel (kernel, library, library, kernel) and
+    each of ``COUNT_VARIANTS`` / ``MMA_VARIANTS`` against the kernel
+    (kernel, variant, variant, kernel); ptxas and the SASS of both kernels,
+    old and new."""
+    K, old_k = pk.K, pk.old_k
+    p2, p21 = (importlib.import_module(f"halo2_regex_tpu_torch.probes.{m}")
+               for m in ("probe_tpu2", "probe_tpu21"))
+    o2, o21 = (importlib.import_module(f"h2r_old.probes.{m}") for m in ("probe_tpu2", "probe_tpu21"))
+    before, before_old = set(K.BUILD_LOG), set(old_k.BUILD_LOG)
+    K.build_probes()
+    old_k.build_probes()
+    libs = {}
+    for kernel, source, variants in ((K.ONEHOT_COUNT, "probe_units.cu", COUNT_VARIANTS),
+                                     (K.MMA_ACCUM, "probe_mma_accum.cu", MMA_VARIANTS)):
+        dirs = {name: variant_csrc(K, f"{kernel.name}_{name}", edits)
+                for name, edits in variants.items()}
+        with ThreadPoolExecutor(len(dirs)) as pool:
+            jobs = {name: pool.submit(K._build_library, (source,), (kernel,), K.PROBE_HEADERS,
+                                      None, d) for name, d in dirs.items()}
+            libs[kernel.name] = {name: j.result() for name, j in jobs.items()}
+    keys, okeys = sorted(set(K.BUILD_LOG) - before), sorted(set(old_k.BUILD_LOG) - before_old)
+    rec = {}
+    for name, fn in (("onehot_count", "onehot_count_kernel"),
+                     ("mma_accum", "mma_accum")):
+        rec[f"{name} ptxas"] = ptxas_of(K, keys, name)
+        rec[f"{name} ptxas_old"] = ptxas_of(old_k, okeys, name)
+        for ln in rec[f"{name} ptxas"] + rec[f"{name} ptxas_old"]:
+            print(ln, flush=True)
+        rec[f"{name} sass"] = sass_counts(K, keys, fn)
+        rec[f"{name} sass_old"] = sass_counts(old_k, okeys, fn)
+
+    def turns(name, first, second, labels):
+        t = [cs.time_ms(f, flush, device_only=True) for f in (first, second, second, first)]
+        print(f"{name}: {labels[0]} {t[0]['median']:.4f} / {t[3]['median']:.4f} ms, {labels[1]} "
+              f"{t[1]['median']:.4f} / {t[2]['median']:.4f} ms ({labels[0]}, {labels[1]}, "
+              f"{labels[1]}, {labels[0]}); card {card}", flush=True)
+        return {labels[0]: [t[0]["median"], t[3]["median"]],
+                labels[1]: [t[1]["median"], t[2]["median"]], "iqr": [x["iqr"] for x in t]}
+
+    c = p2.bytes_(*p2.F_SHAPE, seed=5, dev=dev)
+    want = p2.onehot_count_plain(c)
+    check(cs, "onehot_count", p2.onehot_count(c), want)
+    check(cs, "onehot_count old", o2.onehot_count(c), want)
+    rec["onehot_count old/new"] = in_turns(cs, f"onehot_count {list(c.shape)}",
+                                           lambda: o2.onehot_count(c), lambda: p2.onehot_count(c),
+                                           flush, card)
+    rec["onehot_count library"] = turns(
+        "onehot_count vs the range test", lambda: p2.onehot_count(c),
+        lambda: ((c >= 0) & (c < 256)).sum(0, dtype=torch.int32, keepdim=True),
+        ("kernel", "library"))
+    for vname, vlib in libs["onehot_count"].items():
+        got = torch.empty_like(want)
+
+        def run_var(vlib=vlib, got=got):
+            if vlib.h2r_onehot_count(c.data_ptr(), got.data_ptr(), c.shape[0], c.shape[1],
+                                     K._stream(c)):
+                raise RuntimeError("onehot_count variant: launch failed")
+            return got
+
+        check(cs, f"onehot_count {vname}", run_var(), want)
+        rec[f"onehot_count {vname}"] = turns(f"onehot_count variant {vname}",
+                                             lambda: p2.onehot_count(c), run_var,
+                                             ("kernel", "variant"))
+    for shape in (p21.SHAPE, p21.BIG):
+        a, b = p21.inputs(shape, "ints", seed=2, dev=dev)
+        want = p21.mma_accum_plain(a, b)
+        check(cs, "mma_accum", p21.mma_accum(a, b), want)
+        check(cs, "mma_accum old", o21.mma_accum(a, b), want)
+        rec[f"mma_accum {list(shape)} old/new"] = in_turns(
+            cs, f"mma_accum {list(shape)}", lambda: o21.mma_accum(a, b),
+            lambda: p21.mma_accum(a, b), flush, card)
+        if shape == p21.SHAPE:  # the host's share: the tensor maps are encoded each call
+            from halo2_regex_tpu_torch.probes import harness
+            fns = {"new": lambda: p21.mma_accum(a, b), "old": lambda: o21.mma_accum(a, b),
+                   "library": lambda: p21.mma_accum_library(a, b)}
+            order = ["new", "old", "library", "library", "old", "new"]
+            us = [harness.host_us(dev, fns[k], 200) for k in order]
+            host = {k: [u for o, u in zip(order, us) if o == k] for k in fns}
+            print(f"mma_accum {list(shape)} host us a call over 200 back-to-back calls, then "
+                  f"one synchronize (new, old, library, library, old, new): {host}; card {card}",
+                  flush=True)
+            rec[f"mma_accum {list(shape)} host_us_a_call"] = host
+        rec[f"mma_accum {list(shape)} library"] = turns(
+            f"mma_accum {list(shape)} vs the library", lambda: p21.mma_accum(a, b),
+            lambda: p21.mma_accum_library(a, b), ("kernel", "library"))
+        for vname, vlib in libs["mma_accum"].items():
+            got = torch.empty_like(want)
+
+            def run_var(vlib=vlib, got=got, a=a, b=b):
+                NI, NL, M, K_, N = p21._check(a, b)
+                if vlib.h2r_mma_accum(a.data_ptr(), b.data_ptr(), got.data_ptr(), NI, NL, M, N,
+                                      K_, K._stream(a)):
+                    raise RuntimeError("mma_accum variant: launch failed")
+                return got
+
+            if vname not in TIMING_ONLY:
+                check(cs, f"mma_accum {vname}", run_var(), want)
+            rec[f"mma_accum {list(shape)} {vname}"] = turns(
+                f"mma_accum {list(shape)} variant {vname}", lambda: p21.mma_accum(a, b),
+                run_var, ("kernel", "variant"))
+    return rec
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs an NVIDIA GPU")
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", help="directory of the earlier halo2_regex_tpu_torch/ package "
                     "(every part but marker)")
-    ap.add_argument("--only", default="pack,fb,walls,marker",
+    ap.add_argument("--only", default="pack,fb,walls,marker,units",
                     help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
     if parts - {"marker"} and not args.old:
-        ap.error("--old is needed for the pack, fb and walls parts")
+        ap.error("--old is needed for the pack, fb, walls and units parts")
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import halo2_regex_tpu_torch as h2r
@@ -559,6 +714,8 @@ def main() -> dict:
         out["walls"] = walls_ab(pk, cs, dev, card, flush, corpora)
     if "marker" in parts:
         out["marker"] = marker_ab(cs, dev, card, flush)
+    if "units" in parts:
+        out["units"] = units_ab(pk, cs, dev, card, flush)
     rec["ab"] = out
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:
@@ -568,8 +725,9 @@ def main() -> dict:
         got = {}
         for k, v in d.items():
             if isinstance(v, dict):
-                sub = ({key: v[key] for key in ("old", "new", "kernel", "variant") if key in v}
-                       if "new" in v or "variant" in v else pairs_of(v))
+                sub = ({key: v[key] for key in ("old", "new", "kernel", "variant", "library")
+                        if key in v}
+                       if "new" in v or "variant" in v or "library" in v else pairs_of(v))
                 if sub:
                     got[k] = sub
         return got

@@ -1528,15 +1528,22 @@ def test_probe_slab_anatomy_matches_plain(dev, n_out, L, B):
 
 
 def test_probe_units_match_plain(dev):
-    """nop (the wrap), onehot_count (bytes outside [0, 256), ragged TB)."""
+    """nop (the wrap), onehot_count (bytes outside [0, 256), ragged TB; no
+    rows, one row, rows that fill no cluster step, 32768 columns)."""
     from halo2_regex_tpu_torch.probes import probe_tpu2 as p2
 
     x = torch.tensor([[2**31 - 1, -1, 0, 5]], dtype=torch.int32, device=dev)
     assert torch.equal(p2.nop(x), p2.nop_plain(x))
-    for shape in ((1024, 512), (33, 130)):
+    shapes = [(1024, 512), (33, 130)] + [(LB, TB) for LB in (0, 1, 1000, 1023)
+                                         for TB in (16, 500, 32768)]
+    for shape in shapes:
         c = torch.from_numpy(np.random.default_rng(shape[1]).integers(-300, 600, size=shape)
                              .astype(np.int32)).to(dev)
-        assert torch.equal(p2.onehot_count(c), p2.onehot_count_plain(c))
+        assert torch.equal(p2.onehot_count(c), p2.onehot_count_plain(c)), shape
+    edges = torch.tensor([-2**31, -65520, -2049, -1, 0, 255, 256, 2048, 2049, 65504, 65520,
+                          2**31 - 1], dtype=torch.int32, device=dev)
+    c = edges.repeat(64, 3)  # the half2 compares on int32's edges
+    assert torch.equal(p2.onehot_count(c), p2.onehot_count_plain(c))
 
 
 @pytest.mark.parametrize("M,N,K", [(128, 128, 128), (4096, 4096, 4096), (100, 70, 50)])
@@ -1676,7 +1683,8 @@ def test_probe_emit_entry_points_raise(dev):
 
 
 @pytest.mark.parametrize("kind", ["ones", "ints", "normal"])
-@pytest.mark.parametrize("shape", [(4, 2, 128, 128), (2, 3, 64, 192), (1, 5, 256, 64)])
+@pytest.mark.parametrize("shape", [(4, 2, 128, 128), (2, 3, 64, 192), (1, 5, 256, 64),
+                                   (1, 8, 192, 96), (2, 1, 64, 32), (1, 2, 320, 64)])
 def test_probe_mma_accum_matches_plain(dev, shape, kind):
     """Bit-exact on integer inputs (the probe's all-ones, [-8, 8]); within
     2e-5 x sum |a b| on N(0, 1) inputs (f32 sums in another order)."""
@@ -1691,6 +1699,21 @@ def test_probe_mma_accum_matches_plain(dev, shape, kind):
     if kind == "ones":  # K a sum, carried: K (l + 1)
         assert torch.equal(got[:, :, 0, 0].cpu(), torch.tensor(
             [[shape[3] * (l + 1) for l in range(shape[1])]] * shape[0], dtype=torch.float32))
+
+
+@pytest.mark.parametrize("NI,NL,M,K,N", [(2, 3, 128, 64, 256), (1, 2, 256, 96, 64),
+                                         (3, 2, 64, 128, 192)])
+def test_probe_mma_accum_n_ne_m(dev, NI, NL, M, K, N):
+    """N != M, b built directly (integers in [-8, 8]: exact), against the
+    plain version and the tile walk's twin."""
+    from halo2_regex_tpu_torch.probes import probe_tpu21 as p21
+
+    rng = np.random.default_rng(M + N)
+    a, b = (torch.from_numpy(rng.integers(-8, 9, size=s).astype(np.float32))
+            .to(dev, torch.bfloat16) for s in ((NI, NL, M, K), (NI, NL, K, N)))
+    got = p21.mma_accum(a, b)
+    assert got.shape == (NI, NL, M, N) and torch.equal(got, p21.mma_accum_plain(a, b))
+    assert torch.equal(got, p21.mma_accum_tiles_plain(a, b))
 
 
 @pytest.mark.parametrize("steps", [1, 8, 64])
