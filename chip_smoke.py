@@ -226,8 +226,8 @@ and proves on the card that:
      torch lines (the copy rate, bf16 products) timed; the lone chain set
      beside configs[3]'s table-scan chain step of this run; the SASS holds
      HMMA in the four tensor-core instances of dfa_step, IMMA in int8_mma
-     and at least 256 compares a byte in onehot_count (an ISETP one, an
-     HSET2 or HSETP2 two);
+     and at least 256 compares a byte in onehot_count (an HSET2 or HSETP2
+     two; ptxas' log beside the library shows no spills there);
  12. the emission and decode probe scripts' runs, driven with the launch
      counts reset, launched every emit probe kernel and, of the others,
      only the matcher kernels their witness fronts and walls run; each
@@ -306,9 +306,13 @@ ORACLE_N3 = 8
 N_CLI = 50000  # bench.py strings in cli_scan's file: two lines each
 LAUNCH_REPEAT = 32  # launch's file: cli_scan's, this many times over
 # bounds: H100 SXM HBM3 rate; int32 rate = 132 SMs x 64 INT32 lanes x the
-# 1.98 GHz boost clock (Hopper white paper)
+# 1.98 GHz boost clock (Hopper white paper); half2 instructions (HSET2,
+# HADD2, HFMA2) = 132 SMs x 128 lanes x 1.98 GHz, the white paper's fp16
+# rate outside the tensor cores (twice float32's 67 TFLOP/s, two halves an
+# instruction)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+HALF2_INSTRS_PER_S = 132 * 128 * 1.98e9
 # [10]'s widths: the probe's own, the bitplane scan's word count (B=32768:
 # 1024 words) and configs[3]'s strings x L (the table scan's serial shape)
 FLOOR_WIDTHS = ((1024, 256), (1024, 1024), (L3, B3))
@@ -482,13 +486,17 @@ def permutation_dfa(h2r):
             rng.integers(32, 127, size=(B3, L3)).astype(np.uint8))
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, half2: float = 0) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the int32 operations over the int32 rate."""
+    the memory rate, the int32 operations over the int32 rate and the
+    half2 instructions over theirs (the two pipes side by side)."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / INT32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
-            "bytes": float(nbytes), "ops": float(ops)}
+    t_o = max(ops / INT32_OPS_PER_S, half2 / HALF2_INSTRS_PER_S) * 1e3
+    out = {"bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+           "bytes": float(nbytes), "ops": float(ops)}
+    if half2:
+        out["half2_instructions"] = float(half2)
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -1152,7 +1160,7 @@ def probe_lines(kernels, recs, group, got: dict, label, tag: str, card: str):
         if (r["device"] != "cuda" or r["card"] != card or r["launches"] != r.get("calls", 1)
                 or (r["max_abs_err"] and not r.get("within_tolerance"))):
             raise AssertionError(f"{tag} {name} [{lab}]: {r}")
-        bd = bound(r["nbytes"], r["int32_ops"])
+        bd = bound(r["nbytes"], r["int32_ops"], r.get("half2_ops", 0))
         if r.get("mma_flops"):
             t_m = r["mma_flops"] / r["mma_peak"] * 1e3
             if t_m > bd["bound_ms"]:
@@ -1289,18 +1297,24 @@ def sass_ops(lib_path: str, names: dict) -> dict:
 
 def probe_spills(kernels, name: str) -> dict:
     """Spill bytes (stores + loads) that ptxas reported for each entry of
-    the probes library whose mangled name holds ``name``; None where the
-    library was not built by this process (no ptxas log)."""
-    info = kernels.BUILD_LOG.get(os.path.basename(os.path.dirname(kernels.build_probes()._name)))
-    if info is None:
-        return None
+    the probes library whose mangled name holds ``name``, read from the
+    build log kept beside the library (``build.log``: there whether this
+    process built it or found it built).  Raises where the log or the
+    entry is missing: an unknown spill count is no pass."""
+    log_path = os.path.join(os.path.dirname(kernels.build_probes()._name), "build.log")
+    if not os.path.exists(log_path):
+        raise AssertionError(f"no ptxas log beside the probes library ({log_path})")
+    with open(log_path) as f:
+        text = f.read()
     out, fn = {}, None
-    for ln in str(info["ptxas"]).splitlines():
+    for ln in text.splitlines():
         if "Compiling entry function" in ln:
             fn = ln.split("'")[1] if name in ln else None
         elif fn and "spill stores" in ln:
             nums = re.findall(r"(\d+) bytes spill", ln)
             out[fn] = sum(int(x) for x in nums)
+    if not out:
+        raise AssertionError(f"the ptxas log {log_path} reports no entry holding {name}")
     return out
 
 
@@ -1317,7 +1331,8 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     the lone chain of dependent gathers (lane_gather, [1, 128], one warp)
     is set beside configs[3]'s table-scan chain step of this run, and the
     SASS shows mma.sync (HMMA, IMMA) in the tensor-core kernels and 256
-    compares a byte in onehot_count (ISETP, or HSET2 two at once)."""
+    compares a byte in onehot_count (HSET2 or HSETP2, two at once), and
+    ptxas' log no spills there."""
     from halo2_regex_tpu_torch.probes import (harness, probe_tpu, probe_tpu2, probe_tpu3,
                                               probe_tpu17, probe_tpu18)
 
@@ -1366,20 +1381,22 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
         f"configs[3]'s table scan {chain_ns:.3f} ns a chain step ([10]): "
         f"{chain_ns / sh['ns_per_step']:.3f}x the shared-memory chain; card {card}")
     # the SASS: mma.sync in the tensor-core forms, 256 compares a byte in
-    # onehot_count: its loop body holds R bytes a thread (its first template
-    # argument), an ISETP one compare, an HSET2 or HSETP2 two
+    # onehot_count: its loop body holds R bytes a thread (its template
+    # argument), each compared on half2, two keys an HSET2 or HSETP2 (the
+    # ISETPs there are the loops' and the bounds', not compares of a byte)
     sass = sass_ops(kernels.build_probes()._name,
                     {"dfa_kernel": ("HMMA", "LDS", "ISETP"), "int8_mma_kernel": ("IMMA",),
-                     "onehot_count_kernel": ("ISETP", "HSET2", "HSETP2", "LDS")})
+                     "onehot_count_kernel": ("ISETP", "HSET2", "HSETP2", "HADD2", "LDS")})
     for fn, ops in sass.items():
         log(f"[11] sass {fn[-60:]}: {ops}")
     mma = {fn: ops for fn, ops in sass.items() if "dfa_kernelILi1" in fn or "dfa_kernelILi2" in fn}
-    per_byte = {fn: (ops["ISETP"] + 2 * (ops["HSET2"] + ops["HSETP2"]))
+    per_byte = {fn: 2 * (ops["HSET2"] + ops["HSETP2"])
                 / int(re.search(r"onehot_count_kernelILi(\d+)E", fn).group(1))
                 for fn, ops in sass.items() if "onehot_count" in fn}
     spills = probe_spills(kernels, "onehot_count_kernel")
-    log(f"[11] onehot_count compares a byte in the SASS: {per_byte}; ptxas spill bytes {spills}")
-    if spills is not None and (not spills or any(spills.values())):
+    log(f"[11] onehot_count compares a byte in the SASS (HSET2 and HSETP2, two each): "
+        f"{per_byte}; ptxas spill bytes {spills}")
+    if any(spills.values()):
         raise AssertionError(f"[11] onehot_count spills: {spills}")
     if (len(mma) != 4 or not all(ops["HMMA"] for ops in mma.values())
             or not all(ops["IMMA"] for fn, ops in sass.items() if "int8_mma" in fn)
@@ -1622,7 +1639,7 @@ def t2_probe_phase(kernels, m3, chars3, card: str) -> dict:
     hgmma = [bool(ops["HGMMA"]) for fn, ops in sass.items() if "mma_accum_tma_kernel" in fn]
     spills = probe_spills(kernels, "mma_accum_tma_kernel")
     log(f"[13] mma_accum ptxas spill bytes {spills}")
-    if spills is not None and (not spills or any(spills.values())):
+    if any(spills.values()):
         raise AssertionError(f"[13] mma_accum spills: {spills}")
     if hmma != {"wide_mma_kernel": [True], "wide_lookup_kernel": [False, False]} \
             or len(hgmma) != 2 or not all(hgmma):

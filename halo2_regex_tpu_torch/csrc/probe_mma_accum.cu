@@ -44,7 +44,6 @@ namespace {
 
 constexpr int kBM = 128;        // a tile's rows: two consumer warpgroups of 64
 constexpr int kBK = 64;         // k a stage: 128 bytes of bf16, the swizzle's width
-constexpr bool kTmaStore = true;  // each l's sum by TMA stores (else float2 stores)
 constexpr int kThreads = 384;   // producer warpgroup + two consumers
 constexpr int kABytes = kBM * kBK * 2;              // 16 KiB
 constexpr int kBPiece = kBK * 64 * 2;               // 8 KiB: [64 k][64 n]
@@ -62,8 +61,8 @@ struct Tile {
   static_assert(BN == 128 || BN == 256, "wgmma m64n128 or m64n256");
   static constexpr int kStages = BN == 128 ? 4 : 3;
   static constexpr int kStageBytes = kABytes + kBPiece * (BN / 64);
-  static constexpr int kSmem = kStages * kStageBytes + (kTmaStore ? 2 * kOutBytes : 0) +
-                               2 * kStages * 8 + 1024;  // + barriers, + alignment slack
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kOutBytes + 2 * kStages * 8 +
+                               1024;  // + barriers, + alignment slack
   static_assert(kSmem <= 232448, "more shared memory than a block may have");
 };
 
@@ -71,8 +70,7 @@ template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 mma_accum_tma_kernel(const __grid_constant__ CUtensorMap ma,
                      const __grid_constant__ CUtensorMap mb,
-                     const __grid_constant__ CUtensorMap mo, float* __restrict__ c, int NL,
-                     int M, int N, int K) {
+                     const __grid_constant__ CUtensorMap mo, int NL, int M, int N, int K) {
   constexpr int kBN = BN, kStages = Tile<BN>::kStages, kStageBytes = Tile<BN>::kStageBytes;
   extern __shared__ uint8_t raw[];
   // 1024-byte aligned (the swizzle's period), kept a shared pointer so
@@ -80,7 +78,7 @@ mma_accum_tma_kernel(const __grid_constant__ CUtensorMap ma,
   uint8_t* sm = raw + ((1024 - (hopper::smem_u32(raw) & 1023)) & 1023);
   uint8_t* stage0 = sm;
   float* staged = (float*)(sm + kStages * kStageBytes);
-  uint64_t* full = (uint64_t*)(sm + kStages * kStageBytes + (kTmaStore ? 2 * kOutBytes : 0));
+  uint64_t* full = (uint64_t*)(sm + kStages * kStageBytes + 2 * kOutBytes);
   uint64_t* empty = full + kStages;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, i = blockIdx.z;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
@@ -164,58 +162,43 @@ mma_accum_tma_kernel(const __grid_constant__ CUtensorMap ma,
     // l's running sum
     const int z = i * NL + l;
     const int r0 = m0 + cw * 64;
-    if (kTmaStore) {
 #pragma unroll
-      for (int c0 = 0; c0 < kBN; c0 += kOutCols) {  // one round unless kBN is 256
-        if (t == 0) hopper::bulk_wait_read<0>();  // the last stores have read `my`
-        hopper::named_sync(1 + cw, 128);
+    for (int c0 = 0; c0 < kBN; c0 += kOutCols) {  // one round unless kBN is 256
+      if (t == 0) hopper::bulk_wait_read<0>();  // the last stores have read `my`
+      hopper::named_sync(1 + cw, 128);
 #pragma unroll
-        for (int j = c0 / 8; j < (c0 + kOutCols) / 8; ++j) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = 16 * w + g + 8 * h;
-            const int u = 2 * (j % 4) + q / 2;  // the 16-byte unit in the box's 128-byte row
-            float* dst = my + (j % (kOutCols / 8) / 4) * (64 * kOutBox) + row * kOutBox +
-                         ((u ^ (row & 7)) * 4) + (q & 1) * 2;
-            *(float2*)dst = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-          }
-        }
-        hopper::fence_proxy_async();
-        hopper::named_sync(1 + cw, 128);
-        if (t == 0 && r0 < M) {
-          for (int p = 0; p < kOutCols / kOutBox; ++p)
-            if (n0 + c0 + p * kOutBox < N)
-              hopper::tma_store_3d(&mo, my + p * (64 * kOutBox), n0 + c0 + p * kOutBox, r0, z);
-          hopper::bulk_commit();
-        }
-      }
-    } else {
-      float* C = c + (size_t)z * M * N;
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = c0 / 8; j < (c0 + kOutCols) / 8; ++j) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int row = r0 + 16 * w + g + 8 * h, col = n0 + 8 * j + 2 * q;
-          if (row < M && col < N)
-            *(float2*)&C[(size_t)row * N + col] =
-                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          const int row = 16 * w + g + 8 * h;
+          const int u = 2 * (j % 4) + q / 2;  // the 16-byte unit in the box's 128-byte row
+          float* dst = my + (j % (kOutCols / 8) / 4) * (64 * kOutBox) + row * kOutBox +
+                       ((u ^ (row & 7)) * 4) + (q & 1) * 2;
+          *(float2*)dst = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + cw, 128);
+      if (t == 0 && r0 < M) {
+        for (int p = 0; p < kOutCols / kOutBox; ++p)
+          if (n0 + c0 + p * kOutBox < N)
+            hopper::tma_store_3d(&mo, my + p * (64 * kOutBox), n0 + c0 + p * kOutBox, r0, z);
+        hopper::bulk_commit();
       }
     }
   }
-  if (kTmaStore && t == 0) hopper::bulk_wait<0>();
+  if (t == 0) hopper::bulk_wait<0>();
 }
 
 template <int BN>
-int launch(const CUtensorMap& ma, const CUtensorMap& mb, const CUtensorMap& mo, void* c, int NI,
-           int NL, int M, int N, int K, cudaStream_t stream) {
+int launch(const CUtensorMap& ma, const CUtensorMap& mb, const CUtensorMap& mo, int NI, int NL,
+           int M, int N, int K, cudaStream_t stream) {
   // past the 48 KiB default: the opt-in (a per-device attribute, set each call)
   const cudaError_t optin = cudaFuncSetAttribute(
       mma_accum_tma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::kSmem);
   if (optin != cudaSuccess) return (int)optin;
   const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM, NI);
-  mma_accum_tma_kernel<BN><<<grid, kThreads, Tile<BN>::kSmem, stream>>>(ma, mb, mo, (float*)c,
-                                                                         NL, M, N, K);
+  mma_accum_tma_kernel<BN><<<grid, kThreads, Tile<BN>::kSmem, stream>>>(ma, mb, mo, NL, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -237,6 +220,6 @@ extern "C" int h2r_mma_accum(const void* a, const void* b, void* c, int NI, int 
       !hopper::encode_3d(&mo, c, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, M, Z, kOutBox, 64))
     return (int)cudaErrorInvalidValue;
   const bool wide = N > 128;  // 128 x 256 tiles: 85 flops a byte from the L2, not 64
-  return wide ? launch<256>(ma, mb, mo, c, NI, NL, M, N, K, (cudaStream_t)stream)
-              : launch<128>(ma, mb, mo, c, NI, NL, M, N, K, (cudaStream_t)stream);
+  return wide ? launch<256>(ma, mb, mo, NI, NL, M, N, K, (cudaStream_t)stream)
+              : launch<128>(ma, mb, mo, NI, NL, M, N, K, (cudaStream_t)stream);
 }

@@ -16,15 +16,15 @@
 // byte).  Design: a block owns 32 adjacent columns (a warp reads a
 // 128-byte row piece) and a cluster of up to 16 blocks splits the rows;
 // each thread holds kCountRows bytes of its column, so one key load serves
-// that many independent compare chains.  Compares on half2 (HALF, the
-// default): each byte converted once to fp16 and duplicated, HSET2 against
-// two keys at once (1.0 where equal), HADD2 into the byte's pair of sums.
-// Every int in [-2048, 2048] is exact in fp16 and rounding is monotone,
-// so no other int32 becomes a value in 0..255: the count is exact.  Or on
-// the int pipe: ISETP and a sum.  The partials go through the block's
-// shared memory and then rank 0's (distributed shared memory): one writer
-// a column, no zero fill, no atomics (kCountAtomic: atomics after a zero
-// fill, for timing the two reductions).
+// that many independent compare chains.  The compares are on half2: each
+// byte converted once to fp16 and duplicated, HSET2 against two keys at
+// once (1.0 where equal), HADD2 into the byte's pair of sums.  Every int
+// in [-2048, 2048] is exact in fp16 and rounding is monotone, so no other
+// int32 becomes a value in 0..255: the count is exact.  The partials go
+// through the block's shared memory and then rank 0's (distributed shared
+// memory): one writer a column, so the output needs no zero fill and a
+// call stays one launch (kernel_ab.py's variants time atomics after a
+// fill, and the compares on the int pipe).
 //
 // int8_mma replaces probe_tpu17.py's k (pallas_call at :83): c = a @ b in
 // int32 of int8 a [M, K] and b [K, N], row-major.  mma.sync.m16n8k32
@@ -65,8 +65,6 @@ __global__ void nop_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ 
 constexpr int kCountWarps = 16;    // a block: 32 columns x 16 warps
 constexpr int kCountRows = 4;      // bytes a thread holds, rows kCountWarps apart
 constexpr int kCountCluster = 16;  // blocks over the rows (past the portable 8: opted in)
-constexpr bool kCountHalf = true;  // compares on half2 (else on the int pipe)
-constexpr bool kCountAtomic = false;  // partials by atomics after a zero fill
 
 // a 16-byte shared-memory load that nvcc may neither drop nor hoist
 __device__ __forceinline__ uint4 lds128(const void* p) {
@@ -88,21 +86,26 @@ __device__ __forceinline__ uint32_t count2(uint32_t acc, uint32_t h, uint32_t k)
 
 __device__ __forceinline__ uint32_t half2_bits(__half2 h) { return *(uint32_t*)&h; }
 
-// grid: ceil(TB / 32) column tiles x `split` blocks over the rows (a
-// cluster of `split` unless kCountAtomic)
-template <int R, bool HALF>
+// the count of a pair of fp16 sums (each at most 128: exact)
+__device__ __forceinline__ int count_of(uint32_t acc) {
+  const float2 f = __half22float2(*(__half2*)&acc);
+  return (int)(f.x + f.y);
+}
+
+// grid: ceil(TB / 32) column tiles x `split` blocks over the rows, a
+// cluster of `split`
+template <int R>
 __global__ void __launch_bounds__(kCountWarps * 32)
 onehot_count_kernel(const int32_t* __restrict__ c, int32_t* __restrict__ o, int LB, int TB,
                     int split) {
-  __shared__ __align__(16) uint32_t keys[HALF ? 128 : 256];  // 0..255 (half2: 2k, 2k + 1)
+  __shared__ __align__(16) uint32_t keys[128];  // half2 (2k, 2k + 1)
   __shared__ int part[kCountWarps][32];
   __shared__ int parts[kCountCluster][32];  // rank 0's: every rank's
   const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
   const int rank = blockIdx.x % split;
-  if (!kCountAtomic) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  for (int k = tid; k < (HALF ? 128 : 256); k += kCountWarps * 32)
-    keys[k] = HALF ? half2_bits(__halves2half2(__int2half_rn(2 * k), __int2half_rn(2 * k + 1)))
-                   : (uint32_t)k;
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  for (int k = tid; k < 128; k += kCountWarps * 32)
+    keys[k] = half2_bits(__halves2half2(__int2half_rn(2 * k), __int2half_rn(2 * k + 1)));
   __syncthreads();
   const int j = (blockIdx.x / split) * 32 + lane;
   const bool col = j < TB;
@@ -110,51 +113,27 @@ onehot_count_kernel(const int32_t* __restrict__ c, int32_t* __restrict__ o, int 
   int total = 0;
 #pragma unroll 1
   for (int i0 = rank * kStep; i0 < LB; i0 += split * kStep) {
-    int v[R];
+    uint32_t h[R], acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int row = i0 + r * kCountWarps + w;
-      v[r] = col && row < LB ? __ldg(c + (size_t)row * TB + j) : -1;
+      const __half x = __int2half_rn(col && row < LB ? __ldg(c + (size_t)row * TB + j) : -1);
+      h[r] = half2_bits(__halves2half2(x, x));
+      acc[r] = 0;
     }
-    if (HALF) {
-      uint32_t h[R], acc[R];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const uint4 k = lds128(&keys[4 * q]);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const __half x = __int2half_rn(v[r]);
-        h[r] = half2_bits(__halves2half2(x, x));
-        acc[r] = 0;
+        acc[r] = count2(acc[r], h[r], k.x);
+        acc[r] = count2(acc[r], h[r], k.y);
+        acc[r] = count2(acc[r], h[r], k.z);
+        acc[r] = count2(acc[r], h[r], k.w);
       }
-#pragma unroll
-      for (int q = 0; q < 32; ++q) {
-        const uint4 k = lds128(&keys[4 * q]);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          acc[r] = count2(acc[r], h[r], k.x);
-          acc[r] = count2(acc[r], h[r], k.y);
-          acc[r] = count2(acc[r], h[r], k.z);
-          acc[r] = count2(acc[r], h[r], k.w);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {  // each half at most 128: exact in fp16
-        const float2 f = __half22float2(*(__half2*)&acc[r]);
-        total += (int)(f.x + f.y);
-      }
-    } else {
-      int acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0;
-#pragma unroll
-      for (int q = 0; q < 64; ++q) {
-        const uint4 k = lds128(&keys[4 * q]);
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          acc[r] += (v[r] == (int)k.x) + (v[r] == (int)k.y) + (v[r] == (int)k.z) +
-                    (v[r] == (int)k.w);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) total += acc[r];
     }
+#pragma unroll
+    for (int r = 0; r < R; ++r) total += count_of(acc[r]);
   }
   part[w][lane] = total;
   __syncthreads();
@@ -162,10 +141,6 @@ onehot_count_kernel(const int32_t* __restrict__ c, int32_t* __restrict__ o, int 
   if (tid < 32) {
 #pragma unroll
     for (int k = 0; k < kCountWarps; ++k) sum += part[k][tid];
-  }
-  if (kCountAtomic) {
-    if (tid < 32 && col) atomicAdd(&o[j], sum);
-    return;
   }
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank has started
   cg::cluster_group cluster = cg::this_cluster();
@@ -304,23 +279,15 @@ extern "C" int h2r_onehot_count(const void* c, void* o, int LB, int TB, void* st
   if (LB < 0 || TB <= 0) return (int)cudaErrorInvalidValue;
   constexpr int kStep = kCountWarps * kCountRows;
   const int groups = max(1, LB / kStep + (LB % kStep != 0));
-  const int split = min(kCountAtomic ? 32 : kCountCluster, groups);
-  const int blocks = (TB + 31) / 32 * split;
-  auto kernel = onehot_count_kernel<kCountRows, kCountHalf>;
-  if (kCountAtomic) {
-    cudaError_t e = cudaMemsetAsync(o, 0, (size_t)TB * 4, (cudaStream_t)stream);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<blocks, kCountWarps * 32, 0, (cudaStream_t)stream>>>((const int32_t*)c,
-                                                                  (int32_t*)o, LB, TB, split);
-    return (int)cudaGetLastError();
-  }
+  const int split = min(kCountCluster, groups);
+  auto kernel = onehot_count_kernel<kCountRows>;
   if (kCountCluster > 8) {  // past the portable cluster size
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
+  cfg.gridDim = dim3((TB + 31) / 32 * split);
   cfg.blockDim = dim3(kCountWarps * 32);
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];

@@ -112,7 +112,8 @@ def within(got: torch.Tensor, want: torch.Tensor, tolerance: torch.Tensor) -> bo
 
 def measure(timer: Timer, card_: str, probe: str, kernel: kernels.CudaKernel,
             fn: Callable[[], object], steps: int, plain, library=None, nbytes: int = 0,
-            int32_ops: int = 0, calls: int = 1, tolerance: Optional[torch.Tensor] = None,
+            int32_ops: int = 0, half2_ops: int = 0, calls: int = 1,
+            tolerance: Optional[torch.Tensor] = None,
             library_exact: bool = True, warmup: Optional[int] = None,
             iters: Optional[int] = None, **kw) -> Tuple[Dict[str, object], object]:
     """One report line and ``fn``'s last output.
@@ -127,8 +128,8 @@ def measure(timer: Timer, card_: str, probe: str, kernel: kernels.CudaKernel,
     (``within_tolerance``).  ``library``: one PyTorch call of the same
     function, held to the same output and timed beside it; with
     ``library_exact`` False its difference is recorded
-    (``library_max_abs_err``), not held.  ``nbytes`` and ``int32_ops`` are
-    the work a bound reads.  On the CPU ``fn`` runs the plain version
+    (``library_max_abs_err``), not held.  ``nbytes``, ``int32_ops`` and
+    ``half2_ops`` (fp16x2 instructions) are the work a bound reads.  On the CPU ``fn`` runs the plain version
     itself, timed on the host."""
     rec: Dict[str, object] = {"probe": probe, "kernel": kernel.name, "device": timer.dev.type,
                               "card": card_, **kw}
@@ -163,6 +164,8 @@ def measure(timer: Timer, card_: str, probe: str, kernel: kernels.CudaKernel,
                cycles_per_step=ns * 1e-9 * CLOCK_HZ, cycles_at_hz=CLOCK_HZ,
                launches=launched[kernel.name], max_abs_err=max_abs_err(t["out"], want),
                plain_ms=plain_ms, library_ms=lib_ms, nbytes=nbytes, int32_ops=int32_ops)
+    if half2_ops:
+        rec["half2_ops"] = half2_ops
     if calls != 1:
         rec["calls"] = calls
     if tolerance is not None:

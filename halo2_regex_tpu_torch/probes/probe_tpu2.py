@@ -93,35 +93,6 @@ def onehot_count_plain(c: torch.Tensor) -> torch.Tensor:
     return ((c >= 0) & (c < NB)).sum(0, dtype=torch.int32).unsqueeze(0)
 
 
-# csrc/probe_units.cu's kCountWarps, kCountRows, kCountCluster: a block
-# step covers COUNT_WARPS x COUNT_ROWS rows, up to COUNT_CLUSTER blocks
-# split the rows
-COUNT_WARPS, COUNT_ROWS, COUNT_CLUSTER = 16, 4, 16
-
-
-def onehot_count_slices_plain(c: torch.Tensor, warps: int = COUNT_WARPS,
-                              rows: int = COUNT_ROWS, cluster: int = COUNT_CLUSTER,
-                              half: bool = True, twice: bool = False) -> torch.Tensor:
-    """The kernel's decomposition in torch: the rows split over ``split =
-    min(cluster, ceil(LB / (warps * rows)))`` ranks, rank r taking the
-    steps r, r + split, ... of ``warps * rows`` rows; each rank's slice
-    counted by 256 compares a byte (in fp16, bytes and keys converted, where
-    ``half``), the ranks' partials summed.  ``twice`` counts rank 0's slice
-    twice (a mutation the tests tell apart)."""
-    LB_, TB_ = _check_count(c)
-    step = warps * rows
-    split = min(cluster, max(1, -(-LB_ // step)))
-    keys = torch.arange(NB, dtype=torch.int32, device=c.device)
-    x, k = (c.to(torch.float16), keys.to(torch.float16)) if half else (c, keys)
-    total = torch.zeros(TB_, dtype=torch.int32, device=c.device)
-    for rank in range(split):
-        idx = [i for i0 in range(rank * step, LB_, split * step)
-               for i in range(i0, min(i0 + step, LB_))]
-        part = (x[idx][:, :, None] == k).sum((0, 2), dtype=torch.int32)
-        total += part * (2 if twice and rank == 0 else 1)
-    return total.unsqueeze(0)
-
-
 def onehot_count_cuda(c: torch.Tensor) -> torch.Tensor:
     """The ``onehot_count`` kernel: 256 compares a byte (on half2, two a
     compare instruction), the rows split over a cluster of blocks."""
@@ -208,7 +179,7 @@ def run(dev: torch.device, small: bool = False, big: bool = False) -> List[dict]
         f_shape[0], lambda: onehot_count_plain(cf),
         library=lambda: ((cf >= 0) & (cf < NB)).sum(0, dtype=torch.int32, keepdim=True),
         nbytes=(cf.numel() + f_shape[1]) * 4,
-        int32_ops=2 * NB * cf.numel(), shape=list(f_shape))[0])
+        half2_ops=NB * cf.numel(), shape=list(f_shape))[0])  # HSET2 + HADD2 a key pair
     return recs
 
 

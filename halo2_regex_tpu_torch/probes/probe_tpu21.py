@@ -8,11 +8,11 @@ accumulator carried over the second grid axis.
   kernel with block shapes that make it raise (:mod:`.probe_tpu20`).
 
 The kernel is ``csrc/probe_mma_accum.cu``'s ``mma_accum`` (128 x 128
-tiles by bf16 ``wgmma`` from a TMA ring, the accumulators carried across
-l in registers, each l's sum out by TMA stores); M and N multiples of 64
-and K of 32 on the card (a tile past a matrix's edge is zero-filled and
-clipped by its 3-D tensor maps).  The library call
-beside it is ``torch.matmul(a, b).float().cumsum(1)`` (its products are
+tiles, 128 x 256 where N > 128, by bf16 ``wgmma`` from a TMA ring, the
+accumulators carried across l in registers, each l's sum out by TMA
+stores); M and N multiples of 64 and K of 32 on the card (a tile past a
+matrix's edge is zero-filled and clipped by its 3-D tensor maps).  The
+library call beside it is ``torch.matmul(a, b).float().cumsum(1)`` (its products are
 rounded to bf16, so it is timed and its difference recorded, not held).
 The tolerance: bit-exact on integer-valued inputs (the probe's all-ones,
 and integers in [-8, 8]: every partial sum an integer under 2^24); on
@@ -62,48 +62,6 @@ def mma_accum_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         acc = acc + torch.matmul(a[:, l].float(), b[:, l].float())
         outs.append(acc)
     return torch.stack(outs, 1)
-
-
-# csrc/probe_mma_accum.cu's kBM, its two tile widths and kBK: a block's
-# tile (128 x 256 where N > 128) and k a stage
-TILE_M, TILE_N, TILE_N_WIDE, TILE_K = 128, 128, 256, 64
-
-
-def tile_n(N: int) -> int:
-    """The kernel's tile width for ``N`` columns."""
-    return TILE_N_WIDE if N > TILE_N else TILE_N
-
-
-def mma_accum_tiles_plain(a: torch.Tensor, b: torch.Tensor, tm: int = TILE_M,
-                          tn: Optional[int] = None, tk: int = TILE_K,
-                          reset: bool = False) -> torch.Tensor:
-    """The kernel's tile walk in torch: for each i and each ``tm`` x ``tn``
-    tile (``tn`` the kernel's ``tile_n(N)`` by default; tiles may hang past
-    M and N), one f32 accumulator carried over
-    every l, fed by [tm, tk] boxes of a and [tk, tn] boxes of b zero-filled
-    past the matrix's own rows, columns and K, and stored at each l clipped
-    to the matrix.  ``reset`` zeroes the accumulator at each l (a mutation
-    the tests tell apart)."""
-    NI, NL, M, K, N = _check(a, b)
-    tn = tn or tile_n(N)
-    out = torch.empty((NI, NL, M, N), dtype=torch.float32, device=a.device)
-    for i in range(NI):
-        for m0 in range(0, M, tm):
-            for n0 in range(0, N, tn):
-                rows, cols = min(tm, M - m0), min(tn, N - n0)
-                acc = torch.zeros((tm, tn), dtype=torch.float32, device=a.device)
-                for l in range(NL):
-                    if reset:
-                        acc = torch.zeros_like(acc)
-                    for k0 in range(0, K, tk):
-                        ks = min(tk, K - k0)
-                        A = torch.zeros((tm, tk), dtype=torch.float32, device=a.device)
-                        B = torch.zeros((tk, tn), dtype=torch.float32, device=a.device)
-                        A[:rows, :ks] = a[i, l, m0:m0 + rows, k0:k0 + ks].float()
-                        B[:ks, :cols] = b[i, l, k0:k0 + ks, n0:n0 + cols].float()
-                        acc = acc + A @ B
-                    out[i, l, m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
-    return out
 
 
 def mma_accum_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

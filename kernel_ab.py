@@ -231,43 +231,152 @@ MARKER_VARIANTS = {
                     "    return;\n  }\n")],
 }
 TIMING_ONLY = ("no_load", "no_compute", "no_store")
-# onehot_count's variants (csrc/probe_units.cu): the compares on the int
-# pipe (ISETP and a sum) in place of half2; the partials by atomics after
-# a zero fill in place of the cluster's shared memory, over up to 32
-# blocks of rows or, as the cluster, 16; eight bytes a thread in blocks of
-# eight warps; two bytes a thread; clusters of up to 8 blocks (the
-# portable size: the first redesign); and one block an SM (120 KiB of
-# shared memory asked for, unused), so that a cluster's blocks do not
-# share SMs
+# onehot_count's variants (csrc/probe_units.cu), code that each inserts:
+# - int: the compares on the int pipe (ISETP and a sum) against int keys;
+# - atomic: the partials by atomics after a zero fill (cudaMemsetAsync) in
+#   place of the cluster's shared memory, the same 16 blocks of rows;
+# - int_sums: HSET2's 1.0s summed as integers (IADD3, on the int pipe:
+#   at most one key matches a byte, so each half's sum stays under 2^16)
+#   in place of HADD2, beside the compares on the fp16 pipe;
+# - rows8, rows2: eight bytes a thread in blocks of eight warps; two bytes;
+# - cluster8: clusters of up to 8 blocks (the portable size);
+# - spread: one block an SM (120 KiB of shared memory asked for, unused),
+#   so that a cluster's blocks do not share SMs;
+# - timing only: no_compute (no compares: the launch, the loads and the
+#   reduction)
+_COUNT_BODY = """    uint32_t h[R], acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = i0 + r * kCountWarps + w;
+      const __half x = __int2half_rn(col && row < LB ? __ldg(c + (size_t)row * TB + j) : -1);
+      h[r] = half2_bits(__halves2half2(x, x));
+      acc[r] = 0;
+    }
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const uint4 k = lds128(&keys[4 * q]);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[r] = count2(acc[r], h[r], k.x);
+        acc[r] = count2(acc[r], h[r], k.y);
+        acc[r] = count2(acc[r], h[r], k.z);
+        acc[r] = count2(acc[r], h[r], k.w);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) total += count_of(acc[r]);
+"""
+_COUNT_INT_BODY = """    int v[R], acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = i0 + r * kCountWarps + w;
+      v[r] = col && row < LB ? __ldg(c + (size_t)row * TB + j) : -1;
+      acc[r] = 0;
+    }
+#pragma unroll
+    for (int q = 0; q < 64; ++q) {
+      const uint4 k = lds128(&keys[4 * q]);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        acc[r] += (v[r] == (int)k.x) + (v[r] == (int)k.y) + (v[r] == (int)k.z) +
+                  (v[r] == (int)k.w);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) total += acc[r];
+"""
+_COUNT_CLUSTER_TAIL = """  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");  // every rank has started
+  cg::cluster_group cluster = cg::this_cluster();
+  if (tid < 32) cluster.map_shared_rank(&parts[0][0], 0)[rank * 32 + tid] = sum;
+  cluster.sync();  // every rank's partial is in rank 0's memory
+  if (rank == 0 && tid < 32 && col) {
+    int all = 0;
+#pragma unroll
+    for (int r = 0; r < kCountCluster; ++r)
+      if (r < split) all += parts[r][tid];
+    o[j] = all;
+  }
+"""
+_COUNT_CLUSTER_LAUNCH = """  if (kCountCluster > 8) {  // past the portable cluster size
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+"""
+_COUNT_ATOMIC_LAUNCH = """  {
+    const cudaError_t e = cudaMemsetAsync(o, 0, (size_t)TB * 4, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<(TB + 31) / 32 * split, kCountWarps * 32, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)c, (int32_t*)o, LB, TB, split);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+"""
+_U = "probe_units.cu"
 COUNT_VARIANTS = {
-    "int": [("probe_units.cu", "constexpr bool kCountHalf = true;",
-             "constexpr bool kCountHalf = false;")],
-    "atomic": [("probe_units.cu", "constexpr bool kCountAtomic = false;",
-                "constexpr bool kCountAtomic = true;")],
-    "atomic16": [("probe_units.cu", "constexpr bool kCountAtomic = false;",
-                  "constexpr bool kCountAtomic = true;"),
-                 ("probe_units.cu", "min(kCountAtomic ? 32 : kCountCluster, groups)",
-                  "min(kCountCluster, groups)")],
-    "rows8": [("probe_units.cu", "constexpr int kCountWarps = 16;", "constexpr int kCountWarps = 8;"),
-              ("probe_units.cu", "constexpr int kCountRows = 4;", "constexpr int kCountRows = 8;")],
-    "rows2": [("probe_units.cu", "constexpr int kCountRows = 4;", "constexpr int kCountRows = 2;")],
-    "cluster8": [("probe_units.cu", "constexpr int kCountCluster = 16;",
-                  "constexpr int kCountCluster = 8;")],
-    "spread": [("probe_units.cu", "  cfg.stream = (cudaStream_t)stream;\n  cudaLaunchAttribute",
+    "int": [(_U, "__shared__ __align__(16) uint32_t keys[128];  // half2 (2k, 2k + 1)",
+             "__shared__ __align__(16) uint32_t keys[256];"),
+            (_U, "  for (int k = tid; k < 128; k += kCountWarps * 32)\n"
+                 "    keys[k] = half2_bits(__halves2half2(__int2half_rn(2 * k), "
+                 "__int2half_rn(2 * k + 1)));",
+             "  for (int k = tid; k < 256; k += kCountWarps * 32) keys[k] = k;"),
+            (_U, _COUNT_BODY, _COUNT_INT_BODY)],
+    "atomic": [(_U, '  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" ::: "memory");\n',
+                ""),
+               (_U, _COUNT_CLUSTER_TAIL, "  if (tid < 32 && col) atomicAdd(&o[j], sum);\n"),
+               (_U, _COUNT_CLUSTER_LAUNCH, _COUNT_ATOMIC_LAUNCH)],
+    "int_sums": [(_U, '  asm("add.rn.f16x2 %0, %1, %2;\\n" : "=r"(acc) : "r"(acc), "r"(e));',
+                  "  acc += e;"),
+                 (_U, "  const float2 f = __half22float2(*(__half2*)&acc);\n"
+                      "  return (int)(f.x + f.y);",
+                  "  return (int)((acc & 0xffffu) / 0x3c00u + (acc >> 16) / 0x3c00u);")],
+    "rows8": [(_U, "constexpr int kCountWarps = 16;", "constexpr int kCountWarps = 8;"),
+              (_U, "constexpr int kCountRows = 4;", "constexpr int kCountRows = 8;")],
+    "rows2": [(_U, "constexpr int kCountRows = 4;", "constexpr int kCountRows = 2;")],
+    "cluster8": [(_U, "constexpr int kCountCluster = 16;", "constexpr int kCountCluster = 8;")],
+    "spread": [(_U, "  cfg.stream = (cudaStream_t)stream;\n  cudaLaunchAttribute",
                 "  cfg.stream = (cudaStream_t)stream;\n"
                 "  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,"
                 " 120 * 1024);\n  cfg.dynamicSmemBytes = 120 * 1024;\n  cudaLaunchAttribute")],
+    "no_compute": [(_U, "    for (int q = 0; q < 32; ++q) {\n      const uint4 k = lds128(&keys[4 * q]);",
+                    "    for (int q = 0; q < 0; ++q) {\n      const uint4 k = lds128(&keys[4 * q]);")],
 }
 # mma_accum's variants (csrc/probe_mma_accum.cu): a ring of three stages
-# at 128 columns; 128 x 128 tiles for every N (the first redesign: 256 x
-# 128 is taken where N > 128); each l's sum stored from the registers
-# (float2) in place of TMA stores; and, for timing only, no stores at all
+# at 128 columns; 128 x 128 tiles for every N (128 x 256 is taken where N
+# > 128); each l's sum stored from the registers (float2 stores, the TMA
+# store rounds run none) in place of TMA stores; and, for timing only, no
+# stores at all
+_M = "probe_mma_accum.cu"
+_MMA_DIRECT_STORE = """    {
+      float* C = c + (size_t)z * M * N;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 16 * w + g + 8 * h, col = n0 + 8 * j + 2 * q;
+          if (row < M && col < N)
+            *(float2*)&C[(size_t)row * N + col] =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c0 = 0; c0 < 0; c0 += kOutCols) {
+"""
 MMA_VARIANTS = {
-    "stages3": [("probe_mma_accum.cu", "kStages = BN == 128 ? 4 : 3;", "kStages = 3;")],
-    "bn128": [("probe_mma_accum.cu", "const bool wide = N > 128;", "const bool wide = false;")],
-    "direct_store": [("probe_mma_accum.cu", "constexpr bool kTmaStore = true;",
-                      "constexpr bool kTmaStore = false;")],
-    "no_store": [("probe_mma_accum.cu", "if (t == 0 && r0 < M) {", "if (t == 0 && r0 < 0) {")],
+    "stages3": [(_M, "kStages = BN == 128 ? 4 : 3;", "kStages = 3;")],
+    "bn128": [(_M, "const bool wide = N > 128;", "const bool wide = false;")],
+    "direct_store": [
+        (_M, "const __grid_constant__ CUtensorMap mo, int NL, int M, int N, int K) {",
+         "const __grid_constant__ CUtensorMap mo, int NL, int M, int N, int K,\n"
+         "                     float* __restrict__ c) {"),
+        (_M, "int M, int N, int K, cudaStream_t stream) {",
+         "int M, int N, int K, cudaStream_t stream, void* c) {"),
+        (_M, "(ma, mb, mo, NL, M, N, K);", "(ma, mb, mo, NL, M, N, K, (float*)c);"),
+        (_M, "K, (cudaStream_t)stream)", "K, (cudaStream_t)stream, c)"),
+        (_M, "#pragma unroll\n    for (int c0 = 0; c0 < kBN; c0 += kOutCols) {"
+             "  // one round unless kBN is 256\n", _MMA_DIRECT_STORE)],
+    "no_store": [(_M, "if (t == 0 && r0 < M) {", "if (t == 0 && r0 < 0) {")],
 }
 
 
@@ -632,7 +741,8 @@ def units_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
                 raise RuntimeError("onehot_count variant: launch failed")
             return got
 
-        check(cs, f"onehot_count {vname}", run_var(), want)
+        if vname not in TIMING_ONLY:
+            check(cs, f"onehot_count {vname}", run_var(), want)
         rec[f"onehot_count {vname}"] = turns(f"onehot_count variant {vname}",
                                              lambda: p2.onehot_count(c), run_var,
                                              ("kernel", "variant"))

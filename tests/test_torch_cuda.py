@@ -1705,7 +1705,8 @@ def test_probe_mma_accum_matches_plain(dev, shape, kind):
                                          (3, 2, 64, 128, 192)])
 def test_probe_mma_accum_n_ne_m(dev, NI, NL, M, K, N):
     """N != M, b built directly (integers in [-8, 8]: exact), against the
-    plain version and the tile walk's twin."""
+    plain version (which the tile walk's twin equals on these inputs:
+    tests/test_torch_probes_redesign.py)."""
     from halo2_regex_tpu_torch.probes import probe_tpu21 as p21
 
     rng = np.random.default_rng(M + N)
@@ -1713,7 +1714,6 @@ def test_probe_mma_accum_n_ne_m(dev, NI, NL, M, K, N):
             .to(dev, torch.bfloat16) for s in ((NI, NL, M, K), (NI, NL, K, N)))
     got = p21.mma_accum(a, b)
     assert got.shape == (NI, NL, M, N) and torch.equal(got, p21.mma_accum_plain(a, b))
-    assert torch.equal(got, p21.mma_accum_tiles_plain(a, b))
 
 
 @pytest.mark.parametrize("steps", [1, 8, 64])
