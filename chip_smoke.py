@@ -215,7 +215,8 @@ and proves on the card that:
      K2's and configs[3]'s table scan's steps set beside those curves;
  11. the table-kernel probe scripts' runs, driven with the launch counts
      reset, launched every table probe kernel and no other; each
-     measurement as in [10], each kernel bit-exact against its plain
+     measurement as in [10] (an int8_mma call launches twice: its staging
+     pass, then its product kernel), each kernel bit-exact against its plain
      version (int32, tolerance 0): lane_gather (k3, k4, k5, k1, 1024-step
      chains at [256, 128] and [1, 128], the row in shared memory and in
      registers), dfa_step (lookup, onehot_mma with both picks, class_mma;
@@ -225,9 +226,12 @@ and proves on the card that:
      (``torch.gather``, ``x + 1``, ``torch._int_mm``) and the scripts'
      torch lines (the copy rate, bf16 products) timed; the lone chain set
      beside configs[3]'s table-scan chain step of this run; the SASS holds
-     HMMA in the four tensor-core instances of dfa_step, IMMA in int8_mma
-     and at least 256 compares a byte in onehot_count (an HSET2 or HSETP2
-     two; ptxas' log beside the library shows no spills there);
+     wgmma (HGMMA) in the four tensor-core instances of dfa_step and no
+     mma.sync (HMMA), integer wgmma (IGMMA) in both tile widths of
+     int8_mma and at least 256 compares a byte in onehot_count (an HSET2
+     or HSETP2 two); ptxas' log beside the library shows no spills in
+     onehot_count, int8_mma (its staging pass and product kernel) or
+     dfa_step;
  12. the emission and decode probe scripts' runs, driven with the launch
      counts reset, launched every emit probe kernel and, of the others,
      only the matcher kernels their witness fronts and walls run; each
@@ -1330,9 +1334,11 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     same function); the scripts' torch lines are timed as they are.  Then
     the lone chain of dependent gathers (lane_gather, [1, 128], one warp)
     is set beside configs[3]'s table-scan chain step of this run, and the
-    SASS shows mma.sync (HMMA, IMMA) in the tensor-core kernels and 256
-    compares a byte in onehot_count (HSET2 or HSETP2, two at once), and
-    ptxas' log no spills there."""
+    SASS shows wgmma in the tensor-core kernels (HGMMA in dfa_step's
+    products, IGMMA in int8_mma) and 256 compares a byte in onehot_count
+    (HSET2 or HSETP2, two at once), and ptxas' log no spills in
+    onehot_count, int8_mma and dfa_step.  int8_mma's measurements count
+    two launches a call (the staging pass, then the product kernel)."""
     from halo2_regex_tpu_torch.probes import (harness, probe_tpu, probe_tpu2, probe_tpu3,
                                               probe_tpu17, probe_tpu18)
 
@@ -1380,28 +1386,32 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
         f"registers (shuffles) {rg['ns_per_step']:.3f} ns = {rg['cycles_per_step']:.1f}; "
         f"configs[3]'s table scan {chain_ns:.3f} ns a chain step ([10]): "
         f"{chain_ns / sh['ns_per_step']:.3f}x the shared-memory chain; card {card}")
-    # the SASS: mma.sync in the tensor-core forms, 256 compares a byte in
-    # onehot_count: its loop body holds R bytes a thread (its template
-    # argument), each compared on half2, two keys an HSET2 or HSETP2 (the
-    # ISETPs there are the loops' and the bounds', not compares of a byte)
+    # the SASS: wgmma in the tensor-core forms (HGMMA for f16, IGMMA for
+    # s8; mma.sync would be HMMA), 256 compares a byte in onehot_count:
+    # its loop body holds R bytes a thread (its template argument), each
+    # compared on half2, two keys an HSET2 or HSETP2 (the ISETPs there are
+    # the loops' and the bounds', not compares of a byte)
     sass = sass_ops(kernels.build_probes()._name,
-                    {"dfa_kernel": ("HMMA", "LDS", "ISETP"), "int8_mma_kernel": ("IMMA",),
+                    {"dfa_kernel": ("HGMMA", "HMMA", "HSET2", "LDS", "ISETP"),
+                     "int8_mma_kernel": ("IGMMA", "IMMA", "UTMALDG", "UTMASTG"),
                      "onehot_count_kernel": ("ISETP", "HSET2", "HSETP2", "HADD2", "LDS")})
     for fn, ops in sass.items():
         log(f"[11] sass {fn[-60:]}: {ops}")
     mma = {fn: ops for fn, ops in sass.items() if "dfa_kernelILi1" in fn or "dfa_kernelILi2" in fn}
+    int8 = {fn: ops for fn, ops in sass.items() if "int8_mma_kernel" in fn}
     per_byte = {fn: 2 * (ops["HSET2"] + ops["HSETP2"])
                 / int(re.search(r"onehot_count_kernelILi(\d+)E", fn).group(1))
                 for fn, ops in sass.items() if "onehot_count" in fn}
-    spills = probe_spills(kernels, "onehot_count_kernel")
+    spills = {k: v for name in ("onehot_count_kernel", "int8_", "dfa_kernel")
+              for k, v in probe_spills(kernels, name).items()}
     log(f"[11] onehot_count compares a byte in the SASS (HSET2 and HSETP2, two each): "
-        f"{per_byte}; ptxas spill bytes {spills}")
+        f"{per_byte}; ptxas spill bytes (onehot_count, int8_mma, dfa_step) {spills}")
     if any(spills.values()):
-        raise AssertionError(f"[11] onehot_count spills: {spills}")
-    if (len(mma) != 4 or not all(ops["HMMA"] for ops in mma.values())
-            or not all(ops["IMMA"] for fn, ops in sass.items() if "int8_mma" in fn)
+        raise AssertionError(f"[11] spills: {spills}")
+    if (len(mma) != 4 or not all(ops["HGMMA"] and not ops["HMMA"] for ops in mma.values())
+            or len(int8) != 2 or not all(ops["IGMMA"] and not ops["IMMA"] for ops in int8.values())
             or not per_byte or not all(v >= 256 for v in per_byte.values())):
-        raise AssertionError(f"[11] the SASS lacks mma.sync or the 256 compares: {sass}")
+        raise AssertionError(f"[11] the SASS lacks wgmma or the 256 compares: {sass}")
     placement = {"lone_chain_ns": sh["ns_per_step"], "lone_chain_cycles": sh["cycles_per_step"],
                  "lone_chain_regs_ns": rg["ns_per_step"], "table_scan_ns_a_chain_step": chain_ns}
     return {"rows": list(rows.values()), "times": tms, "errs": errs,

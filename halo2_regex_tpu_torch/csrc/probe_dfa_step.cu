@@ -10,21 +10,32 @@
 // [TB, LB] or time-major [LB, TB], out the same layout, int32.  The forms:
 //   LOOKUP:     T in shared memory as bytes (32 KiB; its values fit one),
 //               one thread a string, s = T[c, s] by one LDS (k7).
-//   ONEHOT_MMA: a warp takes 16 strings; each step forms the one-hot of
-//               their 16 bytes as bf16 A fragments and multiplies it by
-//               the whole T (bf16 B fragments in shared memory, 64 KiB)
-//               with mma.sync.m16n8k16 and fp32 accumulators: 16 k-tiles x
-//               16 n-tiles, the probe's whole K = 256 x N = 128 (k6, C,
-//               fullwidth, select).  Then it picks column s of each row.
-//   CLASS_MMA:  the same warp and one-hot, then two products: onehot(c) @
-//               C, C [256, 16] the one-hot of the byte classes, whose fp32
-//               sums are the bf16 class one-hot as A fragments (an
-//               accumulator of m16n8 is an A fragment of m16n8k16), then
-//               @ Tk [16, 128] (D): T = Tk[classes].
+//   ONEHOT_MMA: a warpgroup takes 64 strings; each step forms the one-hot
+//               of their 64 bytes in registers, as wgmma's A operand (a
+//               warp's 16 rows, mma.sync's m16k16 A fragment) in f16, and
+//               multiplies it by the whole T (the B operand: f16, K-major,
+//               resident in shared memory under the 128-byte swizzle, 64
+//               KiB) with 16 wgmma m64n128k16 and f32 sums: the probe's
+//               whole K = 256 x N = 128 (k6, C, fullwidth, select).  Then
+//               it picks column s of each row.
+//   CLASS_MMA:  the same warpgroup and one-hot, then two products: 16 wgmma
+//               m64n16k16 by C [256, 16], the one-hot of the byte classes
+//               (one chain of k16 slices, f32 sums), whose sum,
+//               converted, is the class one-hot
+//               as the next A operand (an m64n16 accumulator is a k16 A
+//               fragment), then one m64n128k16 by Tk [16, 128] (D): T =
+//               Tk[classes].
+// The one-hot is built on the fp16 pipe: each byte, less (2 q, 2 q + 1)
+// for the thread's column pair q, as a half2, compared (HSET2: two compares
+// an instruction, 1.0 or 0.0, the fragment's own format) with (16 kt, 16
+// kt) and (16 kt + 8, 16 kt + 8): 64 compares a thread a step, 128 a string
+// (its 256 compares, two an instruction).  Every value is an integer under
+// 2048, exact in fp16.
 // The two picks of the products:
-//   PICK_GATHER: the accumulators [16, 128] as int32 through shared
-//                memory, each row's column s read back (the probes'
-//                take_along_axis, fullwidth's full-width gather);
+//   PICK_GATHER: the accumulators [16, 128] of a warp through shared
+//                memory (their f32 bits), each row's column s read back
+//                and made int32 (the probes' take_along_axis, fullwidth's
+//                full-width gather);
 //   PICK_SUM:    each thread's accumulators masked by column == s, summed,
 //                then summed across the 4 threads of its row (select's
 //                one-hot sum).
@@ -33,17 +44,30 @@
 //
 // What bounds it on the H100.  LOOKUP: the chain of dependent LDS a step,
 // or the bytes at a large batch (int32 bytes in, int32 states out).  The
-// products: 256 (ONEHOT_MMA) or 48 (CLASS_MMA) mma.sync a warp-step and
-// the B fragments they read from shared memory (256 B each), none of it
-// on the state's chain, which is the pick alone.  Bytes come through a
-// ring of cp.async copies (probe_ring.cuh), 8 steps of a warp's strings a
-// group, so a step does not wait on device memory; states are staged a
-// group at a time and stored with the layout's contiguous axis across
-// lanes.  Blocks of 4 warps share the table.
+// products: the f16 tensor-core rate (ONEHOT_MMA: 2 x 256 x 128 flops a
+// string a step) or the one-hot's 256 compares a string (CLASS_MMA), none
+// of it on the state's chain, which is the pick alone.  So a warpgroup
+// issues position t's products (the step's wgmmas, asynchronous) and only
+// then picks an earlier position from the other of two accumulators, while
+// t's products run: ONEHOT_MMA position t - 1; CLASS_MMA, whose step also
+// issues t - 1's last product from its landed class sums, t - 2.  Every
+// pick reads sums that the step's first wait (wait_group 0) landed: ptxas
+// serialises a warpgroup's wgmmas where an accumulator is read after a
+// partial wait.  Two warpgroups a block (one block an SM by registers)
+// fill each other's gaps (the one-hot's build, the waits).  CLASS_MMA's
+// 16 m64n16k16 a step run far under the tensor cores' rate (an m64n16
+// wgmma takes about a quarter of an m64n128 one's time, not an eighth):
+// they, not its compares, bound it (kernel_ab.py's class_no_products).  Bytes come through a ring
+// of cp.async copies (probe_ring.cuh), 8 steps of a warp's strings a
+// group, so a step does not wait on device memory; states are staged two
+// groups at a time (the pick lags one or two steps) and stored with the
+// layout's contiguous axis across lanes.
 
 #include <cstdint>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_mma.cuh"
 #include "probe_ring.cuh"
 
 namespace {
@@ -51,96 +75,101 @@ namespace {
 constexpr int NB = 256;    // bytes: rows of T
 constexpr int NS = 128;    // states: columns of T
 constexpr int KC = 16;     // CLASS_MMA's classes (fewer padded to 16)
-constexpr int WARPS = 4;   // a block
-constexpr int GROUP = 8;   // steps a ring group
+constexpr int GROUP = 8;   // steps a ring group (even: position t's sums in acc[t & 1])
 constexpr int RING = 8;    // groups (RING - 1 in flight)
 constexpr int PROW = NS + 8;  // the pick buffer's row stride (words): conflict-free 64-bit stores
 
 enum Form { LOOKUP = 0, ONEHOT_MMA = 1, CLASS_MMA = 2 };
 enum Pick { PICK_GATHER = 0, PICK_SUM = 1 };
 
-constexpr uint32_t BF16_ONE = 0x3F80u;
-
-// bf16 bits of a small integer (exact: < 2^8 fits its mantissa)
-__device__ __forceinline__ uint32_t bf16_int(int v) {
-  return __float_as_uint((float)v) >> 16;
-}
-
-// a pair of bf16 one-hot values: (c == k) low, (c == k + 1) high
-__device__ __forceinline__ uint32_t onehot2(int c, int k) {
-  return (c == k ? BF16_ONE : 0u) | (c == k + 1 ? BF16_ONE << 16 : 0u);
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+// the products' operands in shared memory (f16, K-major, SW128): T as
+// [128 n][256 k] (four 16 KiB chunks of 64 k); C as [16 n][256 k] (four of
+// 2 KiB), then Tk as [128 n][16 k] (rows of 128 bytes, the first 32 used)
+constexpr int kTBytes = NS * NB * 2;
+constexpr int kCBytes = KC * NB * 2;
+constexpr int kTkBytes = NS * 128;
 
 template <int FORM>
 struct Geo {
   static constexpr int STRINGS = FORM == LOOKUP ? 32 : 16;  // a warp's
-  static constexpr int TABLE = FORM == LOOKUP ? NB * NS                     // bytes
-                               : FORM == ONEHOT_MMA ? NB / 16 * NS / 8 * 32 * 8
-                                                    : (NB / 16 * KC / 8 + NS / 8) * 32 * 8;
+  static constexpr int WARPS = FORM == LOOKUP ? 4 : 8;      // a block's (the products: 2 warpgroups)
+  static constexpr int TABLE = FORM == LOOKUP ? NB * NS                      // bytes
+                               : FORM == ONEHOT_MMA ? kTBytes : kCBytes + kTkBytes;
+  static constexpr int OBUF = FORM == LOOKUP ? 1 : 2;  // groups of states staged (the lagged pick)
 };
 
 template <int FORM, int PICK>
 __host__ __device__ constexpr int warp_bytes() {
-  return (RING * GROUP + GROUP) * Geo<FORM>::STRINGS * 4 +
+  return (RING * GROUP + Geo<FORM>::OBUF * GROUP) * Geo<FORM>::STRINGS * 4 +
          (FORM != LOOKUP && PICK == PICK_GATHER ? 16 * PROW * 4 : 0);
 }
 
 template <int FORM, int PICK>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return Geo<FORM>::TABLE + (size_t)WARPS * warp_bytes<FORM, PICK>();
+  return 1024 + Geo<FORM>::TABLE +  // + the alignment of the operands (the swizzle's period)
+         (size_t)Geo<FORM>::WARPS * warp_bytes<FORM, PICK>();
 }
 
-// B fragment (m16n8k16, bf16) of a [K, N] matrix at k-tile kt, n-tile nt
-// for lane l: rows kt*16 + (l&3)*2 + {0, 1} and + 8, column nt*8 + l/4
+// fp16 bits of a small non-negative integer (exact under 2048)
+__host__ __device__ constexpr uint32_t f16_bits(int v) {
+  int e = 0;
+  while (v >> (e + 1)) ++e;
+  return v == 0 ? 0u : (uint32_t)(((e + 15) << 10) | ((v << (10 - e)) & 0x3FF));
+}
+
+__device__ __forceinline__ uint32_t h2_bits(__half2 h) { return *(uint32_t*)&h; }
+
+// (x == k) on each half of a half2: 1.0 or 0.0 (HSET2)
+__device__ __forceinline__ uint32_t eq2(uint32_t x, uint32_t k) {
+  uint32_t e;
+  asm("set.eq.f16x2.f16x2 %0, %1, %2;\n" : "=r"(e) : "r"(x), "r"(k));
+  return e;
+}
+
+// a K-major f16 operand [N][K] into shared memory at `dst` (SW128), 8 k a
+// 16-byte unit: at(k, n) its value
 template <typename At>
-__device__ __forceinline__ uint2 bfrag(At at, int kt, int nt, int l) {
-  const int k = kt * 16 + (l & 3) * 2, n = nt * 8 + (l >> 2);
-  return make_uint2(bf16_int(at(k, n)) | bf16_int(at(k + 1, n)) << 16,
-                    bf16_int(at(k + 8, n)) | bf16_int(at(k + 9, n)) << 16);
+__device__ __forceinline__ void stage_kmajor(unsigned char* dst, int N, int K, At at) {
+  for (int u = threadIdx.x; u < N * (K / 8); u += blockDim.x) {
+    const int n = u / (K / 8), k = u % (K / 8) * 8;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = __half_as_ushort(__int2half_rn(at(k + 2 * e, n))) |
+             (uint32_t)__half_as_ushort(__int2half_rn(at(k + 2 * e + 1, n))) << 16;
+    *(uint4*)(dst + hopper::sw128_kmajor(n, k, N)) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
 }
 
 template <int FORM, int PICK>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(Geo<FORM>::WARPS * 32)
 dfa_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ classes,
            const int32_t* __restrict__ chars, int32_t* __restrict__ out, int TB, int LB,
            int time_major, int K) {
-  constexpr int STR = Geo<FORM>::STRINGS;
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int STR = Geo<FORM>::STRINGS, WARPS = Geo<FORM>::WARPS;
+  extern __shared__ __align__(16) unsigned char raw[];
+  unsigned char* smem = raw + ((1024 - (hopper::smem_u32(raw) & 1023)) & 1023);
   // the table
   if constexpr (FORM == LOOKUP) {
     uint8_t* t8 = smem;
     for (int i = threadIdx.x; i < NB * NS; i += blockDim.x) t8[i] = (uint8_t)T[i];
   } else if constexpr (FORM == ONEHOT_MMA) {
-    uint2* bt = (uint2*)smem;  // [16 kt][16 nt][32 lanes]
-    auto at = [&](int k, int n) { return T[k * NS + n]; };
-    for (int i = threadIdx.x; i < 16 * 16 * 32; i += blockDim.x)
-      bt[i] = bfrag(at, i / (16 * 32), i / 32 % 16, i % 32);
+    stage_kmajor(smem, NS, NB, [&](int k, int n) { return T[k * NS + n]; });
   } else {
-    uint2* bc = (uint2*)smem;            // C: [16 kt][2 nt][32 lanes]
-    uint2* bk = bc + 16 * 2 * 32;        // Tk: [16 nt][32 lanes]
-    auto atc = [&](int k, int n) { return (int)(classes[k] == n); };
-    auto atk = [&](int k, int n) { return k < K ? T[k * NS + n] : 0; };
-    for (int i = threadIdx.x; i < 16 * 2 * 32; i += blockDim.x)
-      bc[i] = bfrag(atc, i / 64, i / 32 % 2, i % 32);
-    for (int i = threadIdx.x; i < 16 * 32; i += blockDim.x) bk[i] = bfrag(atk, 0, i / 32, i % 32);
+    stage_kmajor(smem, KC, NB, [&](int k, int n) { return (int)(classes[k] == n); });
+    stage_kmajor(smem + kCBytes, NS, KC, [&](int k, int n) { return k < K ? T[k * NS + n] : 0; });
   }
   __syncthreads();
 
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   unsigned char* wbase = smem + Geo<FORM>::TABLE + (size_t)w * warp_bytes<FORM, PICK>();
-  uint32_t* ring = (uint32_t*)wbase;                   // [RING][GROUP][STR]
-  int32_t* obuf = (int32_t*)(ring + RING * GROUP * STR);  // [GROUP][STR]
-  int32_t* pick = obuf + GROUP * STR;                   // [16][PROW] (PICK_GATHER)
+  uint32_t* ring = (uint32_t*)wbase;                       // [RING][GROUP][STR]
+  int32_t* obuf = (int32_t*)(ring + RING * GROUP * STR);   // [OBUF][GROUP][STR]
+  float* pick = (float*)(obuf + Geo<FORM>::OBUF * GROUP * STR);  // [16][PROW] (PICK_GATHER)
   const int b0 = (blockIdx.x * WARPS + w) * STR;
-  if (b0 >= TB) return;
+  // a lookup warp leaves past TB; a product warp runs while its warpgroup
+  // has a string (wgmma is the warpgroup's), its strings past TB unstored
+  if ((FORM == LOOKUP ? b0 : (blockIdx.x * WARPS + (w & ~3)) * STR) >= TB) return;
   const size_t sb = time_major ? 1 : (size_t)LB, si = time_major ? (size_t)TB : 1;
   const int n_groups = (LB + GROUP - 1) / GROUP;
   // item q of a group: (string m, step j), the layout's contiguous axis across lanes
@@ -160,111 +189,167 @@ dfa_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ classes,
     }
     probe_ring::commit();
   };
+  auto flush = [&](int p) {  // group p's staged states to out
+    __syncwarp();
+    const int32_t* ob = obuf + (p % Geo<FORM>::OBUF) * GROUP * STR;
+    for (int q = lane; q < GROUP * STR; q += 32) {
+      int m, j;
+      item(q, m, j);
+      const int b = b0 + m, i = p * GROUP + j;
+      if (b < TB && i < LB) out[b * sb + i * si] = ob[j * STR + m];
+    }
+  };
   for (int p = 0; p < RING - 1; ++p) fetch(p);
 
-  const int g = lane >> 2, tig = lane & 3;
-  int s = 0, s_lo = 0, s_hi = 0;  // LOOKUP: lane's string; the products: rows g and g + 8
+  if constexpr (FORM == LOOKUP) {
+    int s = 0;  // the lane's string
 #pragma unroll 1
-  for (int p = 0; p < n_groups; ++p) {
-    __syncwarp();  // every lane is done with slot (p - 1) % RING
-    fetch(p + RING - 1);
-    probe_ring::wait_oldest<RING>();
-    __syncwarp();  // group p's bytes from every lane have landed
-    const uint32_t* grp = ring + (p % RING) * GROUP * STR;
-    if constexpr (FORM == LOOKUP) {
+    for (int p = 0; p < n_groups; ++p) {
+      __syncwarp();  // every lane is done with slot (p - 1) % RING
+      fetch(p + RING - 1);
+      probe_ring::wait_oldest<RING>();
+      __syncwarp();  // group p's bytes from every lane have landed
+      const uint32_t* grp = ring + (p % RING) * GROUP * STR;
       const uint8_t* t8 = smem;
 #pragma unroll
       for (int j = 0; j < GROUP; ++j) {
         s = t8[(grp[j * STR + lane] & 255) * NS + s];
         obuf[j * STR + lane] = s;
       }
-    } else {
+      flush(p);
+    }
+  } else {
+    const uint32_t tab = hopper::smem_u32(smem);
+    constexpr int LAG = FORM == ONEHOT_MMA ? 1 : 2;  // steps from a position's bytes to its pick
+    const int g = lane >> 2, tig = lane & 3;
+    // a byte less (2 tig, 2 tig + 1): equal to (16 kt, 16 kt) where the
+    // one-hot is 1 at columns 16 kt + 2 tig + {0, 1} of the k16 slice kt
+    const __half2 off = __floats2half2_rn((float)(2 * tig), (float)(2 * tig + 1));
+    // position t's sums in acc[t & 1], rows g, g + 8 at [4 j + 2 h + e];
+    // CLASS_MMA's class one-hot [64, 16] of the last position issued
+    float acc[2][NS / 2], kacc[KC / 2];
+    uint32_t a[NB / 16][4], ak[4];  // the A fragments: the one-hot's 16 k16 slices; the classes'
+#pragma unroll
+    for (int e = 0; e < NS / 2; ++e) acc[0][e] = acc[1][e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < KC / 2; ++e) kacc[e] = 0.f;
+    int s_lo = 0, s_hi = 0;  // rows g and g + 8
+
+    // position t's products, asynchronous, one commit group: the one-hot of
+    // the bytes c_lo, c_hi (rows g, g + 8) as A, times T into d
+    // (ONEHOT_MMA) or times C into the class sums (CLASS_MMA)
+    auto issue = [&](float* d, int c_lo, int c_hi) {
+      const uint32_t xl = h2_bits(__hsub2(__half2half2(__int2half_rn(c_lo)), off));
+      const uint32_t xh = h2_bits(__hsub2(__half2half2(__int2half_rn(c_hi)), off));
+#pragma unroll
+      for (int kt = 0; kt < NB / 16; ++kt) {
+        const uint32_t k0 = f16_bits(16 * kt) * 0x10001u, k8 = f16_bits(16 * kt + 8) * 0x10001u;
+        a[kt][0] = eq2(xl, k0);
+        a[kt][1] = eq2(xh, k0);
+        a[kt][2] = eq2(xl, k8);
+        a[kt][3] = eq2(xh, k8);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < NB / 16; ++kt) {
+        if constexpr (FORM == ONEHOT_MMA)
+          hopper::wgmma_m64n128k16_f16_rs(
+              d, a[kt], hopper::sw128_desc(tab + hopper::sw128_kmajor(0, 16 * kt, NS), 16, 1024),
+              kt > 0);
+        else
+          hopper::wgmma_m64n16k16_f16_rs(
+              kacc, a[kt], hopper::sw128_desc(tab + hopper::sw128_kmajor(0, 16 * kt, KC), 16, 1024),
+              kt > 0);
+      }
+      hopper::wgmma_commit();
+    };
+    // CLASS_MMA's last product into d from landed class sums: as f16 (0.0
+    // and 1.0 are exact), they are the k16 A fragment of m64n128k16 by Tk
+    auto finish = [&](float* d) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ak[r] = h2_bits(__floats2half2_rn(kacc[2 * r], kacc[2 * r + 1]));
+      hopper::wgmma_fence();
+      hopper::wgmma_m64n128k16_f16_rs(d, ak, hopper::sw128_desc(tab + kCBytes, 16, 1024), 0);
+      hopper::wgmma_commit();
+    };
+    // position t's states from its sums d: column s_lo of row g, s_hi of row g + 8
+    auto pick_step = [&](const float* d, int t) {
+      if constexpr (PICK == PICK_GATHER) {  // the sums as f32; the picked one to int32
+#pragma unroll
+        for (int j = 0; j < NS / 8; ++j) {
+          const int n = j * 8 + tig * 2;
+          *(float2*)&pick[g * PROW + n] = make_float2(d[4 * j], d[4 * j + 1]);
+          *(float2*)&pick[(g + 8) * PROW + n] = make_float2(d[4 * j + 2], d[4 * j + 3]);
+        }
+        __syncwarp();
+        s_lo = (int)pick[g * PROW + s_lo];
+        s_hi = (int)pick[(g + 8) * PROW + s_hi];
+        __syncwarp();  // read before the next step's stores
+      } else {
+        float lo = 0.f, hi = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS / 8; ++j) {
+          const int n = j * 8 + tig * 2;
+          lo += (n == s_lo ? d[4 * j] : 0.f) + (n + 1 == s_lo ? d[4 * j + 1] : 0.f);
+          hi += (n == s_hi ? d[4 * j + 2] : 0.f) + (n + 1 == s_hi ? d[4 * j + 3] : 0.f);
+        }
+        lo += __shfl_xor_sync(0xffffffffu, lo, 1);
+        lo += __shfl_xor_sync(0xffffffffu, lo, 2);
+        hi += __shfl_xor_sync(0xffffffffu, hi, 1);
+        hi += __shfl_xor_sync(0xffffffffu, hi, 2);
+        s_lo = (int)lo;
+        s_hi = (int)hi;
+      }
+      if (tig == 0) {
+        int32_t* ob = obuf + (t % (2 * GROUP)) * STR;
+        ob[g] = s_lo;
+        ob[g + 8] = s_hi;
+      }
+    };
+    // the groups committed so far have landed: every operand is free
+    auto land = [&]() {
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < NS / 2; ++e) {
+        hopper::fence_operand(acc[0][e]);
+        hopper::fence_operand(acc[1][e]);
+      }
+      if constexpr (FORM == CLASS_MMA) {
+#pragma unroll
+        for (int e = 0; e < KC / 2; ++e) hopper::fence_operand(kacc[e]);
+      }
+#pragma unroll
+      for (int kt = 0; kt < NB / 16; ++kt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) hopper::fence_operand(a[kt][r]);
+    };
+    // a step: position t's products are issued before the pick of
+    // position t - LAG, which reads sums that landed at the step's start:
+    // ONEHOT_MMA's products of t - 1; CLASS_MMA's last product of t - 2
+    // (that of t - 1 is issued here, from its landed class sums)
+    auto step = [&](int t, int j, const uint32_t* grp) {
+      land();
+      if (FORM == CLASS_MMA && t >= 1 && t - 1 < LB) finish(acc[(j + 1) & 1]);
+      if (t < LB)  // the same for the warpgroup
+        issue(acc[j & 1], (int)grp[j * STR + g], (int)grp[j * STR + g + 8]);
+      if (t >= LAG && t - LAG < LB) pick_step(acc[(j + LAG) & 1], t - LAG);
+    };
 #pragma unroll 1
+    for (int p = 0; p < n_groups; ++p) {
+      __syncwarp();  // every lane is done with slot (p - 1) % RING
+      fetch(p + RING - 1);
+      probe_ring::wait_oldest<RING>();
+      __syncwarp();  // group p's bytes from every lane have landed
+      const uint32_t* grp = ring + (p % RING) * GROUP * STR;
+#pragma unroll
       for (int j = 0; j < GROUP; ++j) {
-        const int c0 = (int)grp[j * STR + g], c1 = (int)grp[j * STR + g + 8];
-        float acc[NS / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < NS / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-        if constexpr (FORM == ONEHOT_MMA) {
-          const uint2* bt = (const uint2*)smem;
-#pragma unroll
-          for (int kt = 0; kt < NB / 16; ++kt) {
-            const int k = kt * 16 + tig * 2;
-            const uint32_t a0 = onehot2(c0, k), a1 = onehot2(c1, k), a2 = onehot2(c0, k + 8),
-                           a3 = onehot2(c1, k + 8);
-#pragma unroll
-            for (int nt = 0; nt < NS / 8; ++nt) {
-              const uint2 b = bt[(kt * 16 + nt) * 32 + lane];
-              mma_bf16(acc[nt], a0, a1, a2, a3, b.x, b.y);
-            }
-          }
-        } else {
-          const uint2* bc = (const uint2*)smem;
-          const uint2* bk = bc + 16 * 2 * 32;
-          float kacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-          for (int kt = 0; kt < NB / 16; ++kt) {
-            const int k = kt * 16 + tig * 2;
-            const uint32_t a0 = onehot2(c0, k), a1 = onehot2(c1, k), a2 = onehot2(c0, k + 8),
-                           a3 = onehot2(c1, k + 8);
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              const uint2 b = bc[(kt * 2 + nt) * 32 + lane];
-              mma_bf16(kacc[nt], a0, a1, a2, a3, b.x, b.y);
-            }
-          }
-          // the class one-hot [16, 16] as an A fragment: 0.0 and 1.0 are exact in bf16
-          auto h = [](float x) { return __float_as_uint(x) >> 16; };
-          const uint32_t a0 = h(kacc[0][0]) | h(kacc[0][1]) << 16;
-          const uint32_t a1 = h(kacc[0][2]) | h(kacc[0][3]) << 16;
-          const uint32_t a2 = h(kacc[1][0]) | h(kacc[1][1]) << 16;
-          const uint32_t a3 = h(kacc[1][2]) | h(kacc[1][3]) << 16;
-#pragma unroll
-          for (int nt = 0; nt < NS / 8; ++nt) {
-            const uint2 b = bk[nt * 32 + lane];
-            mma_bf16(acc[nt], a0, a1, a2, a3, b.x, b.y);
-          }
-        }
-        // the pick: column s_lo of row g, s_hi of row g + 8
-        if constexpr (PICK == PICK_GATHER) {
-#pragma unroll
-          for (int nt = 0; nt < NS / 8; ++nt) {
-            const int n = nt * 8 + tig * 2;
-            *(int2*)&pick[g * PROW + n] = make_int2((int)acc[nt][0], (int)acc[nt][1]);
-            *(int2*)&pick[(g + 8) * PROW + n] = make_int2((int)acc[nt][2], (int)acc[nt][3]);
-          }
-          __syncwarp();
-          s_lo = pick[g * PROW + s_lo];
-          s_hi = pick[(g + 8) * PROW + s_hi];
-          __syncwarp();  // read before the next step's stores
-        } else {
-          float lo = 0.f, hi = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < NS / 8; ++nt) {
-            const int n = nt * 8 + tig * 2;
-            lo += (n == s_lo ? acc[nt][0] : 0.f) + (n + 1 == s_lo ? acc[nt][1] : 0.f);
-            hi += (n == s_hi ? acc[nt][2] : 0.f) + (n + 1 == s_hi ? acc[nt][3] : 0.f);
-          }
-          lo += __shfl_xor_sync(0xffffffffu, lo, 1);
-          lo += __shfl_xor_sync(0xffffffffu, lo, 2);
-          hi += __shfl_xor_sync(0xffffffffu, hi, 1);
-          hi += __shfl_xor_sync(0xffffffffu, hi, 2);
-          s_lo = (int)lo;
-          s_hi = (int)hi;
-        }
-        if (tig == 0) {
-          obuf[j * STR + g] = s_lo;
-          obuf[j * STR + g + 8] = s_hi;
-        }
+        step(p * GROUP + j, j, grp);
+        if (j == LAG - 1 && p > 0) flush(p - 1);  // after its last position's pick
       }
     }
-    __syncwarp();  // the group's states are staged
-    for (int q = lane; q < GROUP * STR; q += 32) {
-      int m, j;
-      item(q, m, j);
-      const int b = b0 + m, i = p * GROUP + j;
-      if (b < TB && i < LB) out[b * sb + i * si] = obuf[j * STR + m];
-    }
+#pragma unroll
+    for (int j = 0; j < LAG; ++j) step(n_groups * GROUP + j, j, ring);  // the last picks
+    flush(n_groups - 1);
   }
   probe_ring::wait_all();
 }
@@ -277,8 +362,8 @@ int launch(const void* T, const void* classes, const void* chars, void* out, int
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int per_block = WARPS * Geo<FORM>::STRINGS;
-  kern<<<(TB + per_block - 1) / per_block, WARPS * 32, smem, st>>>(
+  const int per_block = Geo<FORM>::WARPS * Geo<FORM>::STRINGS;
+  kern<<<(TB + per_block - 1) / per_block, Geo<FORM>::WARPS * 32, smem, st>>>(
       (const int32_t*)T, (const int32_t*)classes, (const int32_t*)chars, (int32_t*)out, TB, LB,
       time_major, K);
   return (int)cudaGetLastError();

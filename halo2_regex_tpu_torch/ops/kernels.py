@@ -28,8 +28,9 @@ the probes of ``tools/`` (the serial scans ``probe_tpu9.cu``,
 ``probe_gather.cu``, ``probe_dfa_step.cu``, ``probe_tpu18.cu``,
 ``probe_units.cu``; the emission, table-step and marker probes'
 ``probe_tile_move.cu``, ``probe_emit.cu``, ``probe_dfa_wide.cu``,
-``probe_marker.cu``; the accumulate probe's ``probe_mma_accum.cu`` on
-``hopper_mma.cuh``, whose tensor maps come from the driver's
+``probe_marker.cu``; the accumulate and int8 product probes'
+``probe_mma_accum.cu`` and ``probe_int8_mma.cu`` on ``hopper_mma.cuh``,
+whose tensor maps come from the driver's
 ``cuTensorMapEncodeTiled`` through the runtime's entry-point query, so the
 link needs no libcuda; their wrappers are in :mod:`..probes`).
 
@@ -203,7 +204,7 @@ ONEHOT_COUNT = CudaKernel(
     "tools/probe_tpu2.py:247 (F k4)",
 )
 INT8_MMA = CudaKernel(
-    "int8_mma", "h2r_int8_mma", "halo2_regex_tpu_torch/csrc/probe_units.cu",
+    "int8_mma", "h2r_int8_mma", "halo2_regex_tpu_torch/csrc/probe_int8_mma.cu",
     "tools/probe_tpu17.py:83 (k)",
 )
 TABLE_PROBES = (LANE_GATHER, DFA_STEP, SLAB_ANATOMY, NOP, ONEHOT_COUNT, INT8_MMA)
@@ -254,7 +255,7 @@ PROBE_KERNELS = SERIAL_PROBES + TABLE_PROBES + EMIT_PROBES + T2_PROBES + T2C_PRO
 PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu", "probe_gather.cu",
                  "probe_dfa_step.cu", "probe_tpu18.cu", "probe_units.cu",
                  "probe_tile_move.cu", "probe_emit.cu", "probe_dfa_wide.cu", "probe_marker.cu",
-                 "probe_mma_accum.cu")
+                 "probe_mma_accum.cu", "probe_int8_mma.cu")
 PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh", "bitplane_common.cuh",
                  "probe_marker_class.cuh", "hopper_mma.cuh")
 # entry points of each library: (kernel, ctypes argument kinds)
@@ -308,8 +309,8 @@ _ENTRIES = {
     NOP: [_P, _P, _I, _P],
     # c, out, LB, TB, stream
     ONEHOT_COUNT: [_P, _P, _I, _I, _P],
-    # a, b, c, M, N, K, stream
-    INT8_MMA: [_P, _P, _P, _I, _I, _I, _P],
+    # a, b, c, scratch, M, N, K, stream
+    INT8_MMA: [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, y, N, R, C, form, stream
     TILE_MOVE: [_P, _P, _I, _I, _I, _I, _P],
     # words, out, A, M, L, form, stream
@@ -755,6 +756,9 @@ def _load(key: str, sources: Tuple[str, ...], header: Optional[str],
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    if INT8_MMA in entries:  # a, M, N, K -> the scratch bytes of an int8_mma call
+        fn = lib.h2r_int8_mma_scratch
+        fn.argtypes, fn.restype = [_P, _I, _I, _I], ctypes.c_longlong
     return lib
 
 

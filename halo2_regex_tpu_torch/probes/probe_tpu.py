@@ -13,7 +13,8 @@ gather by byte, and the DFA step by a one-hot product or a lookup.
   128), bytes in [0, 256), batch-major [TB, LB] or time-major [LB, TB].
   ``form``: ``"lookup"`` (k7: T in shared memory), ``"onehot_mma"`` (k6,
   probe_tpu2's C, probe_tpu3's fullwidth and select: the one-hot of the
-  bytes times the whole T on the tensor cores, ``mma.sync``), or
+  bytes, built in registers, times the whole T on the tensor cores,
+  ``wgmma`` with A from registers), or
   ``"class_mma"`` (probe_tpu2's D: one-hot @ C [256, 16] @ Tk [16, 128],
   T = Tk[classes]; ``T`` is then Tk [K, 128], K <= 16).  ``pick``: how the
   products pick column s, ``"gather"`` (through shared memory, the
@@ -250,14 +251,17 @@ def dfa_step(T: torch.Tensor, chars: torch.Tensor, form: str = "lookup",
 
 
 def dfa_work(TB: int, LB: int, form: str, K: int = KC) -> dict:
-    """The bytes, int32 operations and tensor-core flops a bound reads: the
-    bytes and states in int32, the table once; a lookup a state, or 256
-    compares a one-hot row and its products."""
+    """The bytes, operations and tensor-core flops a bound reads: the bytes
+    and states in int32, the table once; a lookup (int32) a state; for the
+    products also a one-hot row's 256 compares, two a half2 instruction as
+    the kernel builds it (HSET2), and its products (f16, whose dense rate
+    is bf16's)."""
     table = (K * NS + NB) * 4 if form == "class_mma" else NB * NS * 4
     work = dict(nbytes=2 * TB * LB * 4 + table, int32_ops=TB * LB, shape=[TB, LB])
     if form != "lookup":
         per = NB * NS if form == "onehot_mma" else NB * KC + KC * NS
-        work.update(int32_ops=TB * LB * NB, mma_flops=2 * TB * LB * per, mma_peak=BF16_PEAK)
+        work.update(half2_ops=TB * LB * NB // 2, mma_flops=2 * TB * LB * per,
+                    mma_peak=BF16_PEAK)
     return work
 
 

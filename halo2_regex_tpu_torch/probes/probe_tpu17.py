@@ -3,9 +3,11 @@ with int32 sums.
 
 - ``int8_mma(a, b)``: ``a @ b`` in int32 of int8 a [M, K] and b [K, N]
   (the probe's ``k``: ``dot_general`` with ``preferred_element_type=
-  int32``), by ``mma.sync.m16n8k32`` s8 x s8 -> s32 (``csrc/
-  probe_units.cu``).  Timed at the probe's 128^3 (a in [0, 2), b in [0,
-  100), as it drew them) and at 4096^3 over the whole int8 range, beside
+  int32``), by wgmma m64nNk32 s8 x s8 -> s32 fed by TMA (``csrc/
+  probe_int8_mma.cu``): two launches a call, a staging pass that writes
+  b^T into scratch (wgmma reads int8 only K-major), then the product
+  kernel.  Timed at the probe's 128^3 (a in [0, 2), b in [0, 100), as it
+  drew them) and at 4096^3 over the whole int8 range, beside
   ``torch._int_mm``.
 
 The script's other two lines, ``L1024_full_correct`` and
@@ -32,6 +34,7 @@ from . import harness
 
 WIDTHS = (128, 4096)  # M = N = K
 MAX_K = (2**31 - 1) // (128 * 128)  # int32 sums exact: |a b| <= 2^14 a term
+LAUNCHES = 2  # a call: the staging pass, then the product kernel
 INT8_PEAK = 1979e12  # the H100 SXM's dense int8 tensor-core rate (data sheet)
 
 
@@ -55,14 +58,19 @@ def int8_mma_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def int8_mma_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The ``int8_mma`` kernel."""
+    """The ``int8_mma`` kernel: the staging pass writes b^T (and, where
+    TMA cannot read a in place, a padded copy of a) into scratch that this
+    wrapper allocates, then the product kernel."""
     M, N, K = _check(a, b)
     kernels._check(a, "a", torch.int8, (M, K))
     kernels._check(b, "b", torch.int8, (K, N))
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     lib = kernels.build_probes()
+    scratch = torch.empty(lib.h2r_int8_mma_scratch(a.data_ptr(), M, N, K), dtype=torch.int8,
+                          device=a.device)
     kernels._launch(kernels.INT8_MMA, lib.h2r_int8_mma, a.data_ptr(), b.data_ptr(),
-                    out.data_ptr(), M, N, K, kernels._stream(a))
+                    out.data_ptr(), scratch.data_ptr(), M, N, K, kernels._stream(a),
+                    n=LAUNCHES)
     return out
 
 
@@ -90,7 +98,7 @@ def run(dev: torch.device, widths: Sequence[int] = WIDTHS) -> List[dict]:
         a, b = inputs(n, n, n, seed=n, probe=i == 0, dev=dev)
         recs.append(harness.measure(
             timer, card, f"int8_matmul_{n}", kernels.INT8_MMA, lambda: int8_mma(a, b), 1,
-            lambda: int8_mma_plain(a, b), library=lambda: torch._int_mm(a, b),
+            lambda: int8_mma_plain(a, b), library=lambda: torch._int_mm(a, b), calls=LAUNCHES,
             nbytes=2 * n * n + 4 * n * n, int32_ops=0, mma_flops=2 * n**3, mma_peak=INT8_PEAK,
             shape=[n, n, n], ranges="probe" if i == 0 else "int8")[0])
     return recs

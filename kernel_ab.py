@@ -42,12 +42,19 @@ B=32768 and B=4096 x L=1024, in turns (kernel, variant, variant, kernel):
     python3 kernel_ab.py --only marker
 
 units (needs ``--old``): the compare-rate probe ``onehot_count``
-(``csrc/probe_units.cu``) at [1024, 512] and the accumulate probe
+(``csrc/probe_units.cu``) at [1024, 512], the accumulate probe
 ``mma_accum`` (``csrc/probe_mma_accum.cu``) at [4, 2, 128, 128] and
-[4, 8, 1024, 1024], the old package's forms against the new (old, new,
-new, old), the library call against the kernel (kernel, library,
-library, kernel; the range test, ``torch.matmul(a, b).float().cumsum(1)``)
-and each of ``COUNT_VARIANTS`` and ``MMA_VARIANTS`` against the kernel:
+[4, 8, 1024, 1024], the int8 product ``int8_mma``
+(``csrc/probe_int8_mma.cu``) at 128^3 (the probe's ranges) and 4096^3
+(the whole int8 range), and the DFA step's product forms ``dfa_step``
+(``csrc/probe_dfa_step.cu``: onehot_mma and class_mma, both picks) on
+the from: batch (32768 x 1024, time-major) and at the probes' own widths
+(k6, C, D, fullwidth, select), the old package's forms
+against the new (old, new, new, old), the library call against the
+kernel (kernel, library, library, kernel; the range test,
+``torch.matmul(a, b).float().cumsum(1)``, ``torch._int_mm``) and each of
+``COUNT_VARIANTS``, ``MMA_VARIANTS``, ``INT8_VARIANTS`` and
+``DFA_VARIANTS`` against the kernel:
 
     python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only units
 
@@ -230,7 +237,8 @@ MARKER_VARIANTS = {
                     "    for (int j = 0; j < kPlanes; ++j) x ^= p[j];\n    s.o0 ^= x;\n"
                     "    return;\n  }\n")],
 }
-TIMING_ONLY = ("no_load", "no_compute", "no_store")
+TIMING_ONLY = ("no_load", "no_compute", "no_store", "no_stage", "class_half_products",
+               "class_no_products")
 # onehot_count's variants (csrc/probe_units.cu), code that each inserts:
 # - int: the compares on the int pipe (ISETP and a sum) against int keys;
 # - atomic: the partials by atomics after a zero fill (cudaMemsetAsync) in
@@ -377,6 +385,70 @@ MMA_VARIANTS = {
         (_M, "#pragma unroll\n    for (int c0 = 0; c0 < kBN; c0 += kOutCols) {"
              "  // one round unless kBN is 256\n", _MMA_DIRECT_STORE)],
     "no_store": [(_M, "if (t == 0 && r0 < M) {", "if (t == 0 && r0 < 0) {")],
+}
+# int8_mma's variants (csrc/probe_int8_mma.cu): one block a tile in place
+# of the persistent grid (a tile's epilogue then overlaps nothing of its
+# block's); the product kernel launched after the staging pass ends (no
+# programmatic dependent launch); and, for timing only, the product
+# kernel without the staging
+# pass before it (it multiplies whatever the fresh scratch holds): the
+# most that transposing b inside the product kernel could save
+_I8 = "probe_int8_mma.cu"
+INT8_VARIANTS = {
+    "tile_a_block": [(_I8, "const int grid = (int)(tiles < sms ? tiles : sms);",
+                      "const int grid = (int)tiles;")],
+    "no_pdl": [(_I8, "programmaticStreamSerializationAllowed = 1;",
+                "programmaticStreamSerializationAllowed = 0;")],
+    "no_stage": [(_I8, "  int8_stage_kernel<<<(unsigned)(tb + ta), 256, 0, st>>>(",
+                  "  if (tb < 0) int8_stage_kernel<<<(unsigned)(tb + ta), 256, 0, st>>>(")],
+}
+# dfa_step's variants (csrc/probe_dfa_step.cu), for the product forms: each
+# step waits for its own products before its pick (no overlap of a pick
+# with the next products inside a warpgroup); one warpgroup a block (its
+# table and rings then leave one warpgroup an SM where the table is T's 64
+# KiB); for class_mma, the class products as two or four independent
+# chains of k16 slices (the kernel: one), added before the last product;
+# and, for timing only, class_mma with 8 of its 16 class products, or none
+# (the final product then reads stale class sums)
+_D = "probe_dfa_step.cu"
+_CLASS_WGMMA = "        else\n          hopper::wgmma_m64n16k16_f16_rs("
+
+
+def _class_chains(n: int) -> list:
+    """The edits that give class_mma ``n`` chains: kacc and n - 1 more
+    sums (kx), slice kt into chain kt % n, their total converted."""
+    return [
+        (_D, "float acc[2][NS / 2], kacc[KC / 2];",
+         f"float acc[2][NS / 2], kacc[KC / 2], kx[{n - 1}][KC / 2];"),
+        (_D, "    for (int e = 0; e < KC / 2; ++e) kacc[e] = 0.f;\n",
+         f"    for (int e = 0; e < KC / 2; ++e) {{\n      kacc[e] = 0.f;\n"
+         f"#pragma unroll\n      for (int c = 0; c < {n - 1}; ++c) kx[c][e] = 0.f;\n    }}\n"),
+        (_D, "              kacc, a[kt], hopper::sw128_desc(tab + hopper::sw128_kmajor(0, 16 * kt, "
+             "KC), 16, 1024),\n              kt > 0);",
+         f"              kt % {n} ? kx[kt % {n} - 1] : kacc, a[kt],\n"
+         f"              hopper::sw128_desc(tab + hopper::sw128_kmajor(0, 16 * kt, KC), 16, 1024),"
+         f"\n              kt >= {n});"),
+        (_D, "ak[r] = h2_bits(__floats2half2_rn(kacc[2 * r], kacc[2 * r + 1]));",
+         f"{{\n        float lo = kacc[2 * r], hi = kacc[2 * r + 1];\n"
+         f"#pragma unroll\n        for (int c = 0; c < {n - 1}; ++c)\n"
+         f"          lo += kx[c][2 * r], hi += kx[c][2 * r + 1];\n"
+         f"        ak[r] = h2_bits(__floats2half2_rn(lo, hi));\n      }}"),
+        (_D, "        for (int e = 0; e < KC / 2; ++e) hopper::fence_operand(kacc[e]);\n",
+         f"        for (int e = 0; e < KC / 2; ++e) {{\n          hopper::fence_operand(kacc[e]);\n"
+         f"#pragma unroll\n          for (int c = 0; c < {n - 1}; ++c)\n"
+         f"            hopper::fence_operand(kx[c][e]);\n"
+         f"        }}\n")]
+
+
+DFA_VARIANTS = {
+    "no_overlap": [(_D, "      if (t >= LAG && t - LAG < LB) pick_step(",
+                    "      hopper::wgmma_wait<0>();\n"
+                    "      if (t >= LAG && t - LAG < LB) pick_step(")],
+    "one_warpgroup": [(_D, "WARPS = FORM == LOOKUP ? 4 : 8;", "WARPS = FORM == LOOKUP ? 4 : 4;")],
+    "class_chains2": _class_chains(2),
+    "class_chains4": _class_chains(4),
+    "class_half_products": [(_D, _CLASS_WGMMA, _CLASS_WGMMA.replace("else", "else if (kt < 8)"))],
+    "class_no_products": [(_D, _CLASS_WGMMA, _CLASS_WGMMA.replace("else", "else if (kt < 0)"))],
 }
 
 
@@ -679,23 +751,27 @@ def marker_ab(cs, dev, card, flush) -> dict:
 
 
 def units_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
-    """onehot_count (P10) at [1024, 512] and mma_accum (P15) at [4, 2, 128,
-    128] and [4, 8, 1024, 1024] (integer inputs): the first forms (the
-    ``--old`` package's) against the new ones (old, new, new, old), the
-    library call against the kernel (kernel, library, library, kernel) and
-    each of ``COUNT_VARIANTS`` / ``MMA_VARIANTS`` against the kernel
-    (kernel, variant, variant, kernel); ptxas and the SASS of both kernels,
-    old and new."""
+    """onehot_count (P10) at [1024, 512], mma_accum (P15) at [4, 2, 128,
+    128] and [4, 8, 1024, 1024] (integer inputs), int8_mma (P11) at 128^3
+    and 4096^3 and dfa_step's product forms (P7) on the from: batch: the
+    ``--old`` package's forms against the new ones (old, new, new, old),
+    the library call against the kernel (kernel, library, library, kernel)
+    and each of ``COUNT_VARIANTS`` / ``MMA_VARIANTS`` / ``INT8_VARIANTS`` /
+    ``DFA_VARIANTS`` against the kernel (kernel, variant, variant, kernel);
+    ptxas and the SASS of the kernels, old and new."""
     K, old_k = pk.K, pk.old_k
-    p2, p21 = (importlib.import_module(f"halo2_regex_tpu_torch.probes.{m}")
-               for m in ("probe_tpu2", "probe_tpu21"))
-    o2, o21 = (importlib.import_module(f"h2r_old.probes.{m}") for m in ("probe_tpu2", "probe_tpu21"))
+    p1, p2, p17, p21 = (importlib.import_module(f"halo2_regex_tpu_torch.probes.{m}")
+                        for m in ("probe_tpu", "probe_tpu2", "probe_tpu17", "probe_tpu21"))
+    o1, o2, o17, o21 = (importlib.import_module(f"h2r_old.probes.{m}")
+                        for m in ("probe_tpu", "probe_tpu2", "probe_tpu17", "probe_tpu21"))
     before, before_old = set(K.BUILD_LOG), set(old_k.BUILD_LOG)
     K.build_probes()
     old_k.build_probes()
     libs = {}
     for kernel, source, variants in ((K.ONEHOT_COUNT, "probe_units.cu", COUNT_VARIANTS),
-                                     (K.MMA_ACCUM, "probe_mma_accum.cu", MMA_VARIANTS)):
+                                     (K.MMA_ACCUM, "probe_mma_accum.cu", MMA_VARIANTS),
+                                     (K.INT8_MMA, "probe_int8_mma.cu", INT8_VARIANTS),
+                                     (K.DFA_STEP, "probe_dfa_step.cu", DFA_VARIANTS)):
         dirs = {name: variant_csrc(K, f"{kernel.name}_{name}", edits)
                 for name, edits in variants.items()}
         with ThreadPoolExecutor(len(dirs)) as pool:
@@ -704,8 +780,8 @@ def units_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
             libs[kernel.name] = {name: j.result() for name, j in jobs.items()}
     keys, okeys = sorted(set(K.BUILD_LOG) - before), sorted(set(old_k.BUILD_LOG) - before_old)
     rec = {}
-    for name, fn in (("onehot_count", "onehot_count_kernel"),
-                     ("mma_accum", "mma_accum")):
+    for name, fn in (("onehot_count", "onehot_count_kernel"), ("mma_accum", "mma_accum"),
+                     ("int8_mma", "int8_"), ("dfa_step", "dfa_kernel")):
         rec[f"{name} ptxas"] = ptxas_of(K, keys, name)
         rec[f"{name} ptxas_old"] = ptxas_of(old_k, okeys, name)
         for ln in rec[f"{name} ptxas"] + rec[f"{name} ptxas_old"]:
@@ -783,6 +859,86 @@ def units_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
             rec[f"mma_accum {list(shape)} {vname}"] = turns(
                 f"mma_accum {list(shape)} variant {vname}", lambda: p21.mma_accum(a, b),
                 run_var, ("kernel", "variant"))
+    for i, n in enumerate(p17.WIDTHS):
+        a, b = p17.inputs(n, n, n, seed=n, probe=i == 0, dev=dev)
+        want = p17.int8_mma_plain(a, b)
+        check(cs, "int8_mma", p17.int8_mma(a, b), want)
+        check(cs, "int8_mma old", o17.int8_mma(a, b), want)
+        rec[f"int8_mma {n}^3 old/new"] = in_turns(cs, f"int8_mma {n}^3", lambda: o17.int8_mma(a, b),
+                                                  lambda: p17.int8_mma(a, b), flush, card)
+        rec[f"int8_mma {n}^3 library"] = turns(
+            f"int8_mma {n}^3 vs torch._int_mm", lambda: p17.int8_mma(a, b),
+            lambda: torch._int_mm(a, b), ("kernel", "library"))
+        for vname, vlib in libs["int8_mma"].items():
+            got = torch.empty_like(want)
+
+            def run_var(vlib=vlib, got=got, a=a, b=b, n=n):
+                scratch = torch.empty(vlib.h2r_int8_mma_scratch(a.data_ptr(), n, n, n),
+                                      dtype=torch.int8, device=dev)
+                if vlib.h2r_int8_mma(a.data_ptr(), b.data_ptr(), got.data_ptr(),
+                                     scratch.data_ptr(), n, n, n, K._stream(a)):
+                    raise RuntimeError("int8_mma variant: launch failed")
+                return got
+
+            if vname not in TIMING_ONLY:
+                check(cs, f"int8_mma {vname}", run_var(), want)
+            rec[f"int8_mma {n}^3 {vname}"] = turns(f"int8_mma {n}^3 variant {vname}",
+                                                   lambda: p17.int8_mma(a, b), run_var,
+                                                   ("kernel", "variant"))
+    T = p1.table().to(dev)
+    classes, tk = p2.class_inputs(dev=dev)
+    # the probes' own widths (their scripts' inputs): k6, C, D, fullwidth, select
+    p3 = importlib.import_module("halo2_regex_tpu_torch.probes.probe_tpu3")
+    widths = [("k6", T, p1.bytes_(256, 256, seed=6, dev=dev), "onehot_mma", False, "gather",
+               None)]
+    widths += [(f"C {tb}", T, p1.bytes_(p2.LB, tb, seed=tb, dev=dev), "onehot_mma", True,
+                "gather", None) for tb in p2.C_TB]
+    widths.append(("D", tk, p1.bytes_(p2.LB, p2.D_TB, seed=p2.D_TB + 1, dev=dev), "class_mma",
+                   True, "gather", classes))
+    widths += [(f"{name} {tb}", T, p1.bytes_(p3.LB, tb, seed=tb + 11, dev=dev), "onehot_mma",
+                True, pick, None)
+               for name, pick, tbs in (("fullwidth", "gather", p3.FULL_TB),
+                                       ("select", "sum", p3.SELECT_TB)) for tb in tbs]
+    for name, t_, c, form, tm, pick, cl in widths:
+        want = p1.dfa_step_plain(t_, c, form, tm, pick, cl)
+        check(cs, f"dfa_step {name}", p1.dfa_step(t_, c, form, tm, pick, cl), want)
+        check(cs, f"dfa_step {name} old", o1.dfa_step(t_, c, form, tm, pick, cl), want)
+        rec[f"dfa_step {name} {list(c.shape)} old/new"] = in_turns(
+            cs, f"dfa_step {name} {list(c.shape)} {form} {pick}",
+            lambda: o1.dfa_step(t_, c, form, tm, pick, cl),
+            lambda: p1.dfa_step(t_, c, form, tm, pick, cl), flush, card)
+    TB, LB = p2.BIG
+    cb = p1.bytes_(LB, TB, seed=7, dev=dev)  # probe_tpu2's from: batch lines' bytes
+    for form in ("onehot_mma", "class_mma"):
+        t_, cl = (tk, classes) if form == "class_mma" else (T, None)
+        for pick in ("gather", "sum"):
+            want = p1.dfa_step_plain(t_, cb, form, True, pick, cl)
+            check(cs, f"dfa_step {form} {pick}", p1.dfa_step(t_, cb, form, True, pick, cl), want)
+            check(cs, f"dfa_step {form} {pick} old", o1.dfa_step(t_, cb, form, True, pick, cl),
+                  want)
+            lab = f"dfa_step {form} {pick} {TB}x{LB}"
+            rec[f"{lab} old/new"] = in_turns(
+                cs, lab, lambda: o1.dfa_step(t_, cb, form, True, pick, cl),
+                lambda: p1.dfa_step(t_, cb, form, True, pick, cl), flush, card)
+            for vname, vlib in libs["dfa_step"].items():
+                if vname.startswith("class_") and form != "class_mma":
+                    continue
+                got = torch.empty_like(want)
+
+                def run_var(vlib=vlib, got=got, t_=t_, cl=cl, form=form, pick=pick):
+                    if vlib.h2r_dfa_step(t_.data_ptr(), None if cl is None else cl.data_ptr(),
+                                         cb.data_ptr(), got.data_ptr(), TB, LB, 1,
+                                         p1.FORMS.index(form), p1.PICKS.index(pick),
+                                         t_.shape[0] if form == "class_mma" else 1,
+                                         K._stream(cb)):
+                        raise RuntimeError("dfa_step variant: launch failed")
+                    return got
+
+                if vname not in TIMING_ONLY:
+                    check(cs, f"dfa_step {vname}", run_var(), want)
+                rec[f"{lab} {vname}"] = turns(
+                    f"{lab} variant {vname}", lambda: p1.dfa_step(t_, cb, form, True, pick, cl),
+                    run_var, ("kernel", "variant"))
     return rec
 
 

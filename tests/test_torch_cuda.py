@@ -1557,6 +1557,23 @@ def test_probe_int8_mma_matches_plain(dev, M, N, K):
         assert torch.equal(got, torch._int_mm(a, b))
 
 
+@pytest.mark.parametrize("M,N,K", [(64, 256, 96), (300, 260, 129), (1, 3, 5), (257, 384, 4096)])
+def test_probe_int8_mma_unaligned_and_ragged(dev, M, N, K):
+    """a at an odd address (the staging pass copies it to [M, Kp]), K not a
+    multiple of 16, N not a multiple of 4 (direct stores), one row, N past
+    one 256-column tile; the whole int8 range, -128 included."""
+    from halo2_regex_tpu_torch.probes import probe_tpu17 as p17
+
+    a, b = p17.inputs(M, N, K, seed=M + N, dev=dev)
+    a.view(-1)[:2] = -128
+    odd = torch.empty(M * K + 1, dtype=torch.int8, device=dev)[1:].view(M, K)
+    odd.copy_(a)
+    assert odd.data_ptr() % 16
+    want = p17.int8_mma_plain(a, b)
+    assert torch.equal(p17.int8_mma(odd, b), want)
+    assert torch.equal(p17.int8_mma(a, b), want)
+
+
 def test_probe_table_entry_points_raise_on_bad_shapes(dev):
     from halo2_regex_tpu_torch.probes import probe_tpu as p1
     from halo2_regex_tpu_torch.probes import probe_tpu2 as p2

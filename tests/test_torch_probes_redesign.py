@@ -1,5 +1,6 @@
-"""The redesigned onehot_count and mma_accum kernels' decompositions, as
-torch twins, against the probes themselves and the plain versions.
+"""The redesigned onehot_count, mma_accum, int8_mma and dfa_step kernels'
+decompositions, as torch twins, against the probes themselves and the
+plain versions.
 
 - ``onehot_count_slices``: the rows split over the ranks of a cluster in
   steps of warps x rows (slices that do not divide LB), each slice
@@ -13,12 +14,29 @@ torch twins, against the probes themselves and the plain versions.
   its grid and block specs at each shape) and ``mma_accum_plain``: exact
   on integer inputs, within 2e-5 x sum |a b| on N(0, 1) inputs.
 
+- ``int8_mma_tiles``: b staged K-major (b^T [N, Kp], Kp = K rounded up
+  to 16, zeros past K), a copied to [M, Kp] where TMA cannot read it in
+  place, the persistent blocks' tile walk (128 x 256 tiles past 128
+  columns, else 128 x 128), k stages of 128 split into k32 slices, boxes
+  past M, N and Kp zero-filled, int32 sums that wrap; against
+  probe_tpu17.py's ``k`` (interpret mode) and ``int8_mma_plain`` on the
+  probe's ranges and the whole int8 range (-128 included).
+- ``dfa_step_warpgroups``: the strings in rows of 64 (a warpgroup's, four
+  warps of 16), each step's one-hot built as the kernel's half2 compares
+  (a byte less (2 q, 2 q + 1) against (16 kt, 16 kt) and (16 kt + 8, 16 kt
+  + 8), in fp16), the products (one-hot @ T, or one-hot @ C, the f32 class
+  one-hot converted to f16 and fed back as A, @ Tk) into two accumulators,
+  position t's in acc[t % 2], and each pick made one step late from the
+  other; against the DFA-step probes of tests/test_torch_probes_table.py
+  (k6, k7, C, D, fullwidth, select) and ``dfa_step_plain``.
+
 The twins' geometry is read from the kernels' sources (``csrc/``), so a
 change there is a change here.  Each twin has one mutation (a slice
-counted twice; the accumulator reset at each l) that the probe's output
-tells apart, and the half2 form's claim (every int32 converts to fp16 as
-a value in 0..255 only if it is that value) is checked on the int32
-edges.  The kernels themselves run only on the card
+counted twice; the accumulator reset at each l; a k32 slice read one byte
+off; a pick taken from the position after its own) that the probe's
+output tells apart, and the half2 form's claim (every int32 converts to
+fp16 as a value in 0..255 only if it is that value) is checked on the
+int32 edges.  The kernels themselves run only on the card
 (tests/test_torch_cuda.py).
 """
 
@@ -33,12 +51,13 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from halo2_regex_tpu_torch.ops import kernels
+from halo2_regex_tpu_torch.probes import probe_tpu as p1
 from halo2_regex_tpu_torch.probes import probe_tpu2 as p2
+from halo2_regex_tpu_torch.probes import probe_tpu17 as p17
 from halo2_regex_tpu_torch.probes import probe_tpu21 as p21
 
-from test_torch_probes import _Interpret, _load, _spec
-from test_torch_probes_table import _call, _i32
-
+from test_torch_probes import _Interpret, _load, _spec, _t
+from test_torch_probes_table import _call, _i32, scans  # noqa: F401 (scans: a fixture)
 
 
 def _cu_int(source: str, pattern: str) -> int:
@@ -266,3 +285,248 @@ def test_mma_accum_tiles_equal_plain_n_ne_m(NI, NL, M, K, N):
     a, b = (torch.from_numpy(rng.integers(-8, 9, size=s).astype(np.float32))
             .to(torch.bfloat16) for s in ((NI, NL, M, K), (NI, NL, K, N)))
     assert torch.equal(mma_accum_tiles(a, b), p21.mma_accum_plain(a, b))
+
+
+# ----------------------------------------------------------------- int8_mma
+
+# csrc/probe_int8_mma.cu's geometry: K padded to KPAD in the staged copies;
+# a tile's TILE8_M rows, TILE8_N columns (TILE8_N_WIDE where N >
+# WIDE8_PAST); k a stage TILE8_K bytes, in SLICE8 slices (wgmma's k32)
+KPAD = _cu_int("probe_int8_mma.cu", r"constexpr int kPad = (\d+);")
+TILE8_M = _cu_int("probe_int8_mma.cu", r"constexpr int kBM = (\d+);")
+TILE8_K = _cu_int("probe_int8_mma.cu", r"constexpr int kBK = (\d+);")
+SLICE8 = _cu_int("probe_int8_mma.cu", r"for \(int kk = 0; kk < kBK / (\d+); \+\+kk\)")
+WIDE8_PAST = _cu_int("probe_int8_mma.cu", r"const bool wide = N > (\d+);")
+TILE8_N_WIDE = _cu_int("probe_int8_mma.cu", r"return wide \? launch<(\d+)>")
+TILE8_N = _cu_int("probe_int8_mma.cu", r"\s: launch<(\d+)>\(ma")
+SMS = 132  # the H100 SXM's SMs: the persistent grid's blocks at most
+
+
+def int8_mma_tiles(a: torch.Tensor, b: torch.Tensor, sms: int = SMS, in_place=None,
+                   shift: int = 0) -> torch.Tensor:
+    """The kernel's decomposition in torch: the staging pass (b^T [N, Kp]
+    zero-padded; a copied to [M, Kp] unless ``in_place``, by default where
+    K is a multiple of KPAD), then ``min(tiles, sms)`` persistent blocks,
+    block i taking tiles i, i + sms, ... (m varying fastest), each tile's
+    k stages of TILE8_K split into SLICE8 slices read from the staged
+    copies (zeros past M, N and Kp), the sums in int32 that wrap.
+    ``shift`` reads every k slice that many bytes further (a mutation the
+    tests tell apart)."""
+    M, N, K = p17._check(a, b)
+    Kp = -(-K // KPAD) * KPAD
+    bt = torch.zeros((N, Kp), dtype=torch.int64)
+    bt[:, :K] = b.t().long()
+    in_place = K % KPAD == 0 if in_place is None else in_place
+    ak = a.long() if in_place else torch.cat([a.long(), torch.zeros((M, Kp - K), dtype=torch.int64)], 1)
+    tm, tn = TILE8_M, TILE8_N_WIDE if N > WIDE8_PAST else TILE8_N
+    mt, nt = -(-M // tm), -(-N // tn)
+    kb = -(-K // TILE8_K)
+
+    def box(x, r0, rows, k0):  # [rows, SLICE8] at (r0, k0), zeros outside x
+        out = torch.zeros((rows, SLICE8), dtype=torch.int64)
+        r1, k1 = min(r0 + rows, x.shape[0]), min(max(k0, 0) + SLICE8, x.shape[1])
+        if k0 < x.shape[1]:
+            out[: r1 - r0, : k1 - k0] = x[r0:r1, k0:k1]
+        return out
+
+    c = torch.empty((M, N), dtype=torch.int32)
+    for blk in range(min(mt * nt, sms)):
+        for tile in range(blk, mt * nt, sms):
+            m0, n0 = tile % mt * tm, tile // mt * tn
+            acc = torch.zeros((tm, tn), dtype=torch.int64)
+            for s in range(kb):
+                for kk in range(TILE8_K // SLICE8):
+                    k0 = s * TILE8_K + kk * SLICE8 + shift
+                    acc += box(ak, m0, tm, k0) @ box(bt, n0, tn, k0).t()
+            acc = (acc + 2**31) % 2**32 - 2**31  # int32 that wraps
+            rows, cols = min(tm, M - m0), min(tn, N - n0)
+            c[m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols].to(torch.int32)
+    return c
+
+
+# (M, N, K, ranges): the probe's 128^3, the table test's ragged int8 case,
+# N past one wide tile, K over one stage and not a multiple of 16, one row
+INT8_SHAPES = [(128, 128, 128, "probe"), (48, 96, 40, "int8"), (130, 300, 129, "int8"),
+               (64, 257, 272, "int8"), (1, 3, 5, "int8")]
+
+
+@pytest.fixture(scope="module")
+def k_outs():
+    """probe_tpu17.py's k on each shape: (a, b, output); the int8 cases
+    carry -128 and 127 in a's first row and b's first column."""
+    out = {}
+    for M, N, K, ranges in INT8_SHAPES:
+        a, b = (t.numpy() for t in p17.inputs(M, N, K, seed=M + N, probe=ranges == "probe"))
+        if ranges == "int8":
+            a[0, :4] = [-128, 127, -128, 127][: min(4, K)]
+            b[: min(4, K), 0] = [-128, -128, 127, 127][: min(4, K)]
+        out[(M, N, K)] = (a, b, _call(_load("probe_tpu17.py", "k"), _i32(M, N), a, b))
+    return out
+
+
+@pytest.mark.parametrize("sms", [SMS, 1, 3])
+@pytest.mark.parametrize("shape", [s[:3] for s in INT8_SHAPES])
+def test_int8_mma_tiles_equal_k(k_outs, shape, sms):
+    a, b, want = k_outs[shape]
+    got = int8_mma_tiles(_t(a), _t(b), sms=sms)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(got, p17.int8_mma_plain(_t(a), _t(b)))
+    # a staged or read in place: the same sums
+    assert torch.equal(int8_mma_tiles(_t(a), _t(b), in_place=False), got)
+
+
+def test_int8_mma_tiles_exact_at_max_k():
+    """At the wrapper's MAX_K the largest sums (-128 x -128 in every term,
+    and -128 x 127) stay inside int32: the twin's int32 equals the exact
+    sum."""
+    K = p17.MAX_K
+    a = torch.full((2, K), -128, dtype=torch.int8)
+    b = torch.full((K, 3), -128, dtype=torch.int8)
+    b[:, 1] = 127
+    want = torch.tensor([K * 2**14, -K * 128 * 127, K * 2**14], dtype=torch.int64)
+    assert K * 2**14 < 2**31
+    assert torch.equal(int8_mma_tiles(a, b), want.expand(2, 3).to(torch.int32))
+
+
+def test_int8_mma_slice_shift_is_told_apart(k_outs):
+    for shape in [s[:3] for s in INT8_SHAPES[:4]]:
+        a, b, want = k_outs[shape]
+        assert not np.array_equal(int8_mma_tiles(_t(a), _t(b), shift=1).numpy(), want)
+
+
+# ----------------------------------------------------------------- dfa_step
+
+# csrc/probe_dfa_step.cu's geometry for the products: a warp's strings, a
+# block's warps (two warpgroups of four), a ring group's steps (even: the
+# two accumulators alternate with the step's parity)
+DFA_WARP_STRINGS = _cu_int("probe_dfa_step.cu", r"STRINGS = FORM == LOOKUP \? \d+ : (\d+);")
+DFA_WARPS = _cu_int("probe_dfa_step.cu", r"WARPS = FORM == LOOKUP \? \d+ : (\d+);")
+DFA_GROUP = _cu_int("probe_dfa_step.cu", r"constexpr int GROUP = (\d+);")
+# steps from a position's bytes to its pick (one-hot, class forms)
+DFA_LAG = {form: _cu_int("probe_dfa_step.cu",
+                         r"LAG = FORM == ONEHOT_MMA \? " + pat + r";")
+           for form, pat in (("onehot_mma", r"(\d+) : \d+"), ("class_mma", r"\d+ : (\d+)"))}
+WG_ROWS = 4 * DFA_WARP_STRINGS  # wgmma's M: a warpgroup's strings
+
+
+def onehot_half2(c: torch.Tensor) -> torch.Tensor:
+    """The one-hot [R, 256] of bytes c [R] as the kernel builds it: column
+    k = 16 kt + kk (k16 slice kt) is held by the thread of column pair q =
+    (kk % 8) // 2 as half e = kk % 2 of its register for kk < 8 (kk >= 8:
+    the next register); the byte less 2 q + e on fp16, compared with 16 kt
+    + 8 (kk // 8): 1.0 or 0.0 in fp16."""
+    k = torch.arange(p1.NB)
+    kt, kk = k // 16, k % 16
+    sub = (2 * ((kk % 8) // 2) + kk % 2).to(torch.float16)
+    key = (16 * kt + 8 * (kk // 8)).to(torch.float16)
+    x = c.to(torch.float16)[:, None] - sub[None, :]
+    return (x == key[None, :]).to(torch.float16)
+
+
+def dfa_step_warpgroups(T: torch.Tensor, chars: torch.Tensor, form: str = "onehot_mma",
+                        time_major: bool = False, pick: str = "gather",
+                        classes=None, late: bool = False) -> torch.Tensor:
+    """The kernel's product forms in torch: rows of WG_ROWS strings (strings
+    past TB padded with byte 0, never stored); step t issues position t's
+    products of the one-hot of the row's bytes (``onehot_half2``): times T
+    into acc[t % 2] (f32 sums), or times C into the class sums (one sum
+    over the k16 slices in order), which, converted to f16, times Tk
+    padded to 16 rows is issued at step t + 1 into acc[t % 2]; then it
+    picks position t - LAG (one-hot 1, class 2) from acc[(t - LAG) % 2],
+    column s of each row by ``pick`` (gather:
+    the sums, column s taken as int32; sum: the sums masked by column ==
+    s, summed); LAG more steps after the last position.  ``late`` picks
+    from the other accumulator, the position after its own (a mutation
+    the tests tell apart)."""
+    assert DFA_GROUP % 2 == 0 and WG_ROWS == 64 and DFA_WARPS % 4 == 0
+    p1._check_dfa(T, chars, form, pick, classes)
+    c = (chars if time_major else chars.t()).long()  # [LB, TB]
+    LB, TB = c.shape
+    if form == "class_mma":
+        C = torch.zeros((p1.NB, p1.KC), dtype=torch.float16)
+        C[torch.arange(p1.NB), classes.long()] = 1
+        Tk = torch.zeros((p1.KC, p1.NS), dtype=torch.float16)
+        Tk[: T.shape[0]] = T.to(torch.float16)
+    else:
+        Tf = T.to(torch.float16)
+    out = torch.empty((LB, TB), dtype=torch.int32)
+    cols = torch.arange(p1.NS)
+    for r0 in range(0, TB, WG_ROWS):
+        rows = min(WG_ROWS, TB - r0)
+        cr = torch.zeros((LB, WG_ROWS), dtype=torch.int64)
+        cr[:, :rows] = c[:, r0:r0 + rows]
+        acc = [torch.zeros((WG_ROWS, p1.NS)), torch.zeros((WG_ROWS, p1.NS))]
+        kacc = torch.zeros((WG_ROWS, p1.KC))
+        s = torch.zeros(WG_ROWS, dtype=torch.int64)
+        lag = DFA_LAG[form]
+
+        def pick_from(d, t):
+            nonlocal s
+            if pick == "gather":
+                s = d.gather(1, s[:, None])[:, 0].to(torch.int32).long()
+            else:
+                s = (d * (cols[None, :] == s[:, None])).sum(1).long()
+            out[t, r0:r0 + rows] = s[:rows].to(torch.int32)
+
+        for t in range(LB + lag):
+            if form == "class_mma" and 1 <= t <= LB:  # t - 1's last product
+                acc[(t - 1) % 2] = kacc.to(torch.float16).float() @ Tk.float()
+            if t < LB:
+                A = onehot_half2(cr[t]).float()
+                if form == "onehot_mma":
+                    acc[t % 2] = A @ Tf.float()
+                else:
+                    kacc = sum(A[:, 16 * kt:16 * kt + 16] @ C[16 * kt:16 * kt + 16].float()
+                               for kt in range(p1.NB // 16))
+            if t >= lag:
+                pick_from(acc[(t - lag + late) % 2], t - lag)
+    return out if time_major else out.t().contiguous()
+
+
+DFA_PROBES = ["k6", "k7", "C", "D", "make_scan_fullwidth", "make_scan_select"]
+
+
+@pytest.mark.parametrize("pick", ["gather", "sum"])
+@pytest.mark.parametrize("name", DFA_PROBES)
+def test_dfa_step_warpgroups_equal_probe(scans, name, pick):
+    """Each DFA-step probe's output by the product forms' decomposition
+    (k7, the lookup, by the one-hot product: every form is one function)."""
+    T, c, form, tm, _pick, classes, want = scans[name]
+    form = "onehot_mma" if form == "lookup" else form
+    cl = None if classes is None else _t(classes)
+    got = dfa_step_warpgroups(_t(T), _t(c), form, tm, pick, cl)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(got, p1.dfa_step_plain(_t(T), _t(c), form, tm, pick, cl))
+
+
+@pytest.mark.parametrize("form", ["onehot_mma", "class_mma"])
+@pytest.mark.parametrize("TB,LB,tm", [(100, 21, True), (37, 13, False), (130, 8, True)])
+def test_dfa_step_warpgroups_ragged(form, TB, LB, tm):
+    """Rows of 64 cut short (37, 100, 130 strings), steps that fill no ring
+    group (13, 21) or one exactly (8); class_mma with K = 5 classes."""
+    shape = (LB, TB) if tm else (TB, LB)
+    c = p1.bytes_(*shape, seed=TB + LB)
+    classes, T = None, p1.table(seed=TB)
+    if form == "class_mma":
+        classes, T = p2.class_inputs(seed=LB)
+        classes, T = classes % 5, T[:5].contiguous()
+    want = p1.dfa_step_plain(T, c, form, tm, "gather", classes)
+    for pick in ("gather", "sum"):
+        assert torch.equal(dfa_step_warpgroups(T, c, form, tm, pick, classes), want), pick
+
+
+def test_onehot_half2_is_the_one_hot():
+    """The half2 compares give the one-hot exactly for every byte (and no
+    1.0 for values outside [0, 256), as garbage bytes past TB may be)."""
+    c = torch.arange(-300, 600)
+    got = onehot_half2(c)
+    want = (c[:, None] == torch.arange(p1.NB)[None, :]).to(torch.float16)
+    assert torch.equal(got, want)
+
+
+def test_dfa_step_late_pick_is_told_apart(scans):
+    for name in ("k6", "C", "D", "make_scan_select"):
+        T, c, form, tm, pick, classes, want = scans[name]
+        cl = None if classes is None else _t(classes)
+        got = dfa_step_warpgroups(_t(T), _t(c), form, tm, pick, cl, late=True)
+        assert not np.array_equal(got.numpy(), want), name
