@@ -1293,9 +1293,13 @@ def sass_ops(lib_path: str, names: dict) -> dict:
         elif fn in out and "/*" in ln and ";" in ln:
             ins = ln.split("*/", 1)[1].split()
             ins = ins[1:] if ins and ins[0].startswith("@") else ins
-            op = ins[0].split(".")[0] if ins else ""
-            if op in out[fn]:
-                out[fn][op] += 1
+            # an opcode with modifiers (STG.128) counts the instructions of
+            # that opcode that carry every one of them (STG.E.128)
+            parts = ins[0].split(".") if ins else [""]
+            for key in out[fn]:
+                want = key.split(".")
+                if want[0] == parts[0] and all(m in parts[1:] for m in want[1:]):
+                    out[fn][key] += 1
     return out
 
 
@@ -1335,10 +1339,12 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     the lone chain of dependent gathers (lane_gather, [1, 128], one warp)
     is set beside configs[3]'s table-scan chain step of this run, and the
     SASS shows wgmma in the tensor-core kernels (HGMMA in dfa_step's
-    products, IGMMA in int8_mma) and 256 compares a byte in onehot_count
+    products, IGMMA in int8_mma), 16-byte copies and stores in dfa_step's
+    lookup (LDGSTS .128, STG.128) and 256 compares a byte in onehot_count
     (HSET2 or HSETP2, two at once), and ptxas' log no spills in
-    onehot_count, int8_mma and dfa_step.  int8_mma's measurements count
-    two launches a call (the staging pass, then the product kernel)."""
+    onehot_count, int8_mma and dfa_step (both kernels).  int8_mma's
+    measurements count two launches a call (the staging pass, then the
+    product kernel)."""
     from halo2_regex_tpu_torch.probes import (harness, probe_tpu, probe_tpu2, probe_tpu3,
                                               probe_tpu17, probe_tpu18)
 
@@ -1393,6 +1399,8 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     # the loops' and the bounds', not compares of a byte)
     sass = sass_ops(kernels.build_probes()._name,
                     {"dfa_kernel": ("HGMMA", "HMMA", "HSET2", "LDS", "ISETP"),
+                     "dfa_lookup_kernel": ("LDGSTS.128", "LDGSTS", "STG.128", "STG", "LDS.128",
+                                           "LDS"),
                      "int8_mma_kernel": ("IGMMA", "IMMA", "UTMALDG", "UTMASTG"),
                      "onehot_count_kernel": ("ISETP", "HSET2", "HSETP2", "HADD2", "LDS")})
     for fn, ops in sass.items():
@@ -1402,12 +1410,16 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     per_byte = {fn: 2 * (ops["HSET2"] + ops["HSETP2"])
                 / int(re.search(r"onehot_count_kernelILi(\d+)E", fn).group(1))
                 for fn, ops in sass.items() if "onehot_count" in fn}
-    spills = {k: v for name in ("onehot_count_kernel", "int8_", "dfa_kernel")
+    lookup = {fn: ops for fn, ops in sass.items() if "dfa_lookup_kernel" in fn}
+    spills = {k: v for name in ("onehot_count_kernel", "int8_", "dfa_kernel", "dfa_lookup_kernel")
               for k, v in probe_spills(kernels, name).items()}
     log(f"[11] onehot_count compares a byte in the SASS (HSET2 and HSETP2, two each): "
         f"{per_byte}; ptxas spill bytes (onehot_count, int8_mma, dfa_step) {spills}")
     if any(spills.values()):
         raise AssertionError(f"[11] spills: {spills}")
+    # the lookup's 16-byte copies (cp.async, LDGSTS .128) and stores (STG.128)
+    if len(lookup) != 2 or not all(ops["LDGSTS.128"] and ops["STG.128"] for ops in lookup.values()):
+        raise AssertionError(f"[11] the lookup's SASS lacks 16-byte copies or stores: {lookup}")
     if (len(mma) != 4 or not all(ops["HGMMA"] and not ops["HMMA"] for ops in mma.values())
             or len(int8) != 2 or not all(ops["IGMMA"] and not ops["IMMA"] for ops in int8.values())
             or not per_byte or not all(v >= 256 for v in per_byte.values())):
@@ -1674,7 +1686,9 @@ def t2c_probe_phase(kernels, times: dict, card: str) -> dict:
     and the scan (B, C), the path kernels of D's and E's witness plans
     (``kernels.path_kernels``), the table kernels (D's PallasMatcher).  Then the
     verdict's forms are logged beside K2 and the match path's wall of this
-    run ([4], [6]), and probe_tpu61's chain slopes beside them."""
+    run ([4], [6]), and probe_tpu61's chain slopes beside them.  The SASS
+    shows the chunked form reading the stack by TMA alone (UTMALDG, no LDG)
+    in each chunk length's instance, and ptxas' log no spills in it."""
     from halo2_regex_tpu_torch.probes import probe_tpu57, probe_tpu57_lib, probe_tpu61
 
     dev = torch.device("cuda")
@@ -1759,9 +1773,18 @@ def t2c_probe_phase(kernels, times: dict, card: str) -> dict:
     d = {r["probe"]: r["ms"] for r in recs if r["probe"].startswith(("d_", "e_"))}
     log(f"[14] D (from: at 4096 x 65536) and E (the 200-word model at {B} x {L}) walls (ms): "
         + "; ".join(f"{k} {x:.4f}" for k, x in d.items()) + f"; card {card}")
+    sass = sass_ops(kernels.build_probes()._name,
+                    {"marker_chunked_kernel": ("UTMALDG", "LDG", "LDS", "LOP3")})
+    spills = probe_spills(kernels, "marker_")
+    log(f"[14] sass {sass}; ptxas spill bytes (marker_match) {spills}")
+    if any(spills.values()):
+        raise AssertionError(f"[14] spills: {spills}")
+    if (len(sass) != len(probe_tpu57_lib.CHUNKS)
+            or not all(ops["UTMALDG"] and not ops["LDG"] for ops in sass.values())):
+        raise AssertionError(f"[14] the chunked marker's SASS lacks TMA loads: {sass}")
     return {"rows": list(rows.values()), "times": tms, "errs": errs,
             "launches": {"t2c_probes": got},
-            "rec": {"scripts": recs, "verdict_ms": side, "walls_ms": d}}
+            "rec": {"scripts": recs, "verdict_ms": side, "walls_ms": d, "sass": sass}}
 
 
 def main() -> dict:

@@ -1,6 +1,6 @@
 // Hopper's asynchronous matrix pipeline as small helpers: tensor maps
 // (TMA descriptors, encoded on the host through the driver's entry point),
-// TMA loads and stores of 3-D boxes, mbarriers, the async-proxy fence, the
+// TMA loads and stores of 3-D boxes, bulk copies, mbarriers, the async-proxy fence, the
 // shared-memory matrix descriptors of wgmma and wgmma itself (bf16 and f16
 // with A in shared memory or registers, s8 with s32 sums).  Every
 // helper is one PTX instruction or a short loop of one; what a kernel does
@@ -84,6 +84,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* m, int
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)m), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// into shared memory; completion is counted on `bar` in bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -24,8 +24,8 @@
 //
 // Layouts: stack [10, L, NW] int32 (planes 0-7 the byte bits, 8 the
 // enable plane, 9 the end plane); out [NW] int32.  Lane = word in both
-// forms, so a warp's loads of one position are 32 (or WB) neighbouring
-// words.
+// forms, so a warp's loads of one position are 32 neighbouring words: one
+// 128-byte line a plane.
 //
 // What bounds it: bytes.  The stack is read once (41.9 MB at B=32768 x
 // L=1024: 0.0125 ms at 3.35 TB/s); the program is 100 int32 ops a word
@@ -36,39 +36,65 @@
 //   next RING - 1 positions in flight to a shared-memory ring by cp.async
 //   (probe_ring.cuh, K2's design), blocks of 32: K2's geometry (1024
 //   threads at B=32768), so it is bound by one thread's dependent walk.
-// chunked (chunk = C): a thread a (word, chunk of C positions).  A block
-//   takes WB words and every chunk of their L (WB x L / C threads, at most
-//   kMaxThreads; thread t: word t % WB, chunk t / WB), so a block's warps
-//   hold consecutive chunks of the same words.  A thread walks its
-//   chunk's HALO positions first (the cascade and the line start reach
-//   back 7: re-read from L2, as the previous chunk's thread reads them
-//   too), then its C positions, then AHEAD positions past it (its ds at
-//   e-1 and e feed done at e+1 and e+2).  ns and v at the chunk's start are
-//   unknown, but every register is AND/OR-linear in them with no term
-//   holding both, so the walk carries each of ns, v, ds and done as a
-//   constant and a coefficient of each carry-in (the serial form's walk
-//   with both carry-ins zero is its constant part: the compiler drops the
-//   coefficients there).  The chunk's summary -- ns and v at its end and
-//   its OR of done, as masks -- goes to shared memory, the block composes
-//   the summaries in order by a tree (log2 L/C rounds), and the first
-//   chunk's thread writes the constant OR.  One pass over the stack, no
-//   re-walk: the halo costs HALO + AHEAD extra class programs a chunk
-//   (28 % at C = 32).
+// chunked (chunk = C): a warp a (word group of 32 words, chunk of C
+//   positions), a lane a word.  A warp walks its chunk's HALO positions
+//   first (the cascade and the line start reach back 7), then its C
+//   positions, then AHEAD positions past it (its ds at e-1 and e feed
+//   done at e+1 and e+2).  ns and v at the chunk's start are unknown, but
+//   every register is AND/OR-linear in them with no term holding both, so
+//   the walk carries each of ns, v, ds and done as a constant and a
+//   coefficient of each carry-in (the serial form's walk with both
+//   carry-ins zero is its constant part: the compiler drops the
+//   coefficients there).  The chunk's summary is ns and v at its end and
+//   its OR of done, as masks.
+//   Geometry (geometry() below): a word group's nch = L / C chunks are
+//   split over a cluster of K blocks (the largest divisor of nch up to
+//   kMaxCluster: 16 at L = 1024, past the portable 8), each block NB =
+//   nch / K consecutive chunks, walked W warps at a time (W x C <= kSpan
+//   positions a round).  A round's window, its W x C positions and a
+//   piece of kPiece before and after them, is staged whole in shared
+//   memory by TMA boxes [10 planes, kPiece positions, 32 words] (a 3-D
+//   tensor map over the stack; positions past L read as zeros, those
+//   before 0 are written as zeros), each box on its own mbarrier and
+//   issued in the order the warps reach them, so a warp starts when its
+//   first box lands and the halo and ahead positions of the block's inner
+//   chunks come from the tile, read once.  Composition: warp 0 folds the
+//   round's chunk summaries into the block's in order; then every rank
+//   writes its block summary into rank 0's shared memory (distributed
+//   shared memory, after a cluster barrier: rank 0's tile is free), and
+//   after a second barrier rank 0 folds the K summaries in order and
+//   writes each of its 32 verdicts once.  One pass over the stack, one
+//   launch, no zero fill; the halo costs HALO + AHEAD extra class
+//   programs a chunk (56 % at C = 16) and the pieces 2 kPiece extra
+//   positions a round read (25 % at kSpan = 64, from L2: a neighbour
+//   block reads them too).  On the H100 the boxes' loads bound it: the
+//   kernel without its walk takes as long (kernel_ab.py's no_compute), and
+//   16-byte cp.async copies of the same boxes are slower.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hopper_mma.cuh"
 #include "probe_marker_class.cuh"
 #include "probe_ring.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kPlanes = 10;
 constexpr int HALO = 7;
 constexpr int AHEAD = 2;
-constexpr int kMaxThreads = 512;  // a chunked block's threads (128 registers a thread)
 constexpr int kSerialThreads = 32;
 constexpr int RING = 16;  // positions in the serial form's ring (RING - 1 in flight): 20 KiB
+constexpr int kWords = 32;       // a chunked warp's words: a 128-byte line a plane and position
+constexpr int kPiece = 8;        // positions a TMA box
+constexpr int kSpan = 64;        // positions a chunked block's round walks at most (W x C)
+constexpr int kMaxCluster = 16;  // blocks over L (past the portable 8: opted in)
+constexpr int kMaxPieces = kSpan / kPiece + 2;         // a round's window: a piece each side
+constexpr int kPieceBytes = kPlanes * kPiece * kWords * 4;  // 10 KiB, laid out [10][8][32]
+constexpr int kTileBytes = kMaxPieces * kPieceBytes;
 
 enum Phase { kHalo, kMain, kAhead };
 
@@ -125,55 +151,147 @@ __device__ __forceinline__ void step(Walk& s, const uint32_t* p, bool first) {
   s.lf1 = lf;
 }
 
-template <int PHASE>
-__device__ __forceinline__ void walk(Walk& s, const int32_t* __restrict__ st, size_t plane,
-                                     int NW, int w, int from, int to) {
-#pragma unroll 2
-  for (int i = from; i < to; ++i) {
-    uint32_t p[kPlanes];
-#pragma unroll
-    for (int j = 0; j < kPlanes; ++j) p[j] = (uint32_t)__ldg(st + j * plane + (size_t)i * NW + w);
-    step<PHASE>(s, p, i == 0);
-  }
+// The summary of chunk a then chunk b (probe_tpu57_lib.compose), each in
+// SUMMARY's order: na nb vv vn v0 o0 on ov.
+__device__ __forceinline__ void compose(uint32_t (&a)[8], const uint32_t (&b)[8]) {
+  const uint32_t na = a[0], nb = a[1], vv = a[2], vn = a[3], v0 = a[4];
+  a[0] = b[0] & na;
+  a[1] = (b[0] & nb) | b[1];
+  a[2] = b[2] & vv;
+  a[3] = (b[2] & vn) | (b[3] & na);
+  a[4] = (b[2] & v0) | (b[3] & nb) | b[4];
+  a[5] = a[5] | b[5] | (b[6] & nb) | (b[7] & v0);
+  a[6] = a[6] | (b[6] & na) | (b[7] & vn);
+  a[7] = a[7] | (b[7] & vv);
+}
+
+// The chunked form's split of a word group's L (chunk C): K blocks a
+// cluster, NB chunks a block, W warps a block (NB / W rounds).
+__host__ __device__ inline void geometry(int L, int C, int& K, int& NB, int& W) {
+  const int nch = L / C;
+  K = 1;
+  for (int k = nch < kMaxCluster ? nch : kMaxCluster; k > 1; --k)
+    if (nch % k == 0) { K = k; break; }
+  NB = nch / K;
+  W = 1;
+  for (int w = NB < kSpan / C ? NB : kSpan / C; w > 1; --w)
+    if (NB % w == 0) { W = w; break; }
 }
 
 template <int C>
-__global__ void __launch_bounds__(kMaxThreads)
-marker_chunked_kernel(const int32_t* __restrict__ st, int32_t* __restrict__ out, int NW, int L,
-                      int WB) {
-  // chunk summaries: ns (na, nb), v (vv, vn, v0), the OR of done (o0, on, ov)
-  __shared__ uint32_t sum[8][kMaxThreads];
-  const int t = threadIdx.x, nch = L / C;
-  const int k = t / WB, w = blockIdx.x * WB + t % WB;
-  const size_t plane = (size_t)L * NW;
-  const int s0 = k * C;
-  Walk s;
-  walk<kHalo>(s, st, plane, NW, w, max(0, s0 - HALO), s0);
-  walk<kMain>(s, st, plane, NW, w, s0, s0 + C);
-  walk<kAhead>(s, st, plane, NW, w, s0 + C, min(s0 + C + AHEAD, L));
-  sum[0][t] = s.nsN, sum[1][t] = s.ns0, sum[2][t] = s.vV, sum[3][t] = s.vN;
-  sum[4][t] = s.v0, sum[5][t] = s.o0, sum[6][t] = s.oN, sum[7][t] = s.oV;
-  __syncthreads();
-  // chunk k takes chunk k + h's summary after its own (h = 1, 2, 4, ...)
-  for (int h = 1; h < nch; h *= 2) {
-    if (k % (2 * h) == 0 && k + h < nch) {
-      const int u = t + h * WB;
-      const uint32_t na = sum[0][t], nb = sum[1][t], vv = sum[2][t], vn = sum[3][t];
-      const uint32_t v0 = sum[4][t], o0 = sum[5][t], on = sum[6][t], ov = sum[7][t];
-      const uint32_t Na = sum[0][u], Nb = sum[1][u], Vv = sum[2][u], Vn = sum[3][u];
-      const uint32_t V0 = sum[4][u], O0 = sum[5][u], On = sum[6][u], Ov = sum[7][u];
-      sum[0][t] = Na & na;
-      sum[1][t] = (Na & nb) | Nb;
-      sum[2][t] = Vv & vv;
-      sum[3][t] = (Vv & vn) | (Vn & na);
-      sum[4][t] = (Vv & v0) | (Vn & nb) | V0;
-      sum[5][t] = o0 | O0 | (On & nb) | (Ov & v0);
-      sum[6][t] = on | (On & na) | (Ov & vn);
-      sum[7][t] = ov | (Ov & vv);
-    }
-    __syncthreads();
+__global__ void __launch_bounds__(kSpan / 8 * 32)
+marker_chunked_kernel(const __grid_constant__ CUtensorMap map, int32_t* __restrict__ out, int L,
+                      int NB, int W) {
+  extern __shared__ __align__(128) unsigned char tile[];  // kMaxPieces x [10][kPiece][32] words
+  __shared__ __align__(8) uint64_t bar[kMaxPieces];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = blockIdx.x, wg = blockIdx.y;  // the cluster spans gridDim.x
+  const int n_pieces = W * C / kPiece + 2;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < n_pieces; ++q) hopper::mbar_init(&bar[q], 1);
+    hopper::fence_barrier_init();
   }
-  if (k == 0) out[w] = (int32_t)sum[5][t];
+  __syncthreads();
+  uint32_t run[8] = {~0u, 0, ~0u, 0, 0, 0, 0, 0};  // warp 0: the block's summary (the identity)
+  for (int rd = 0; rd < NB / W; ++rd) {
+    const int s0 = (rank * NB + rd * W) * C;  // the round's first position; its window from s0 - kPiece
+    // box q holds window positions [q kPiece, (q + 1) kPiece); one wholly
+    // outside [0, L) is written as zeros (the walk over zeros before 0 is
+    // a fresh start; past L it adds nothing) and its barrier arrived on
+    auto outside = [&](int q) {
+      const int g = s0 - kPiece + q * kPiece;
+      return g + kPiece <= 0 || g >= L;
+    };
+    if (threadIdx.x == 0) {
+      hopper::fence_proxy_async();  // the tile's generic accesses (last round) before TMA's writes
+      // the warps' first boxes first, then their second, ...
+      for (int j = 0; j < C / kPiece + 2; ++j)
+        for (int v = 0; v < W; ++v) {
+          const int q = v * C / kPiece + j;
+          if (j >= C / kPiece && v < W - 1) continue;  // warp v + 1's box
+          if (outside(q)) {
+            hopper::mbar_arrive(&bar[q]);
+          } else {
+            hopper::mbar_expect_tx(&bar[q], kPieceBytes);
+            hopper::tma_load_3d(tile + q * kPieceBytes, &map, wg * kWords,
+                                s0 - kPiece + q * kPiece, 0, &bar[q]);
+          }
+        }
+    }
+    if (outside(0) || outside(n_pieces - 1)) {
+      for (int q = 0; q < n_pieces; ++q)
+        if (outside(q))
+          for (int i = threadIdx.x; i < kPieceBytes / 16; i += blockDim.x)
+            ((uint4*)(tile + q * kPieceBytes))[i] = make_uint4(0, 0, 0, 0);
+      __syncthreads();
+    }
+    Walk s;
+    int have = -1;  // the last box this warp waited for
+    uint32_t p[kPlanes];
+    auto load = [&](int x) {  // window position x into p
+      const int q = x / kPiece;
+      if (q != have) {
+        hopper::mbar_wait(&bar[q], rd & 1);
+        have = q;
+      }
+      const uint32_t* b = (const uint32_t*)(tile + q * kPieceBytes) + (x % kPiece) * kWords + lane;
+#pragma unroll
+      for (int j = 0; j < kPlanes; ++j) p[j] = b[j * kPiece * kWords];
+    };
+    const int x0 = kPiece + warp * C;  // the chunk's first position in the window
+#pragma unroll 1
+    for (int x = x0 - HALO; x < x0; ++x) {
+      load(x);
+      step<kHalo>(s, p, false);
+    }
+#pragma unroll 4
+    for (int x = x0; x < x0 + C; ++x) {
+      load(x);
+      step<kMain>(s, p, s0 - kPiece + x == 0);
+    }
+#pragma unroll 1
+    for (int x = x0 + C; x < x0 + C + AHEAD; ++x) {
+      load(x);
+      step<kAhead>(s, p, false);
+    }
+    __syncthreads();  // every warp is done with the tile: it holds the summaries now
+    uint32_t* sums = (uint32_t*)tile;  // [W][8][32]
+    const uint32_t mine[8] = {s.nsN, s.ns0, s.vV, s.vN, s.v0, s.o0, s.oN, s.oV};
+#pragma unroll
+    for (int f = 0; f < 8; ++f) sums[(warp * 8 + f) * kWords + lane] = mine[f];
+    __syncthreads();
+    if (warp == 0) {
+      for (int v = 0; v < W; ++v) {
+        uint32_t b[8];
+#pragma unroll
+        for (int f = 0; f < 8; ++f) b[f] = sums[(v * 8 + f) * kWords + lane];
+        compose(run, b);
+      }
+      __syncwarp();  // read before thread 0 issues the next round's boxes
+    }
+  }
+  // every rank's block summary into rank 0's tile, in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every rank is done with its tile (rank 0's takes the summaries)
+  uint32_t* parts = cluster.map_shared_rank((uint32_t*)tile, 0);  // [K][8][32]
+  if (warp == 0) {
+#pragma unroll
+    for (int f = 0; f < 8; ++f) parts[(rank * 8 + f) * kWords + lane] = run[f];
+  }
+  cluster.sync();  // every summary is in
+  if (rank == 0 && warp == 0) {
+    const uint32_t* mine = (const uint32_t*)tile;
+    uint32_t acc[8];
+#pragma unroll
+    for (int f = 0; f < 8; ++f) acc[f] = mine[f * kWords + lane];
+    for (int r = 1; r < (int)gridDim.x; ++r) {
+      uint32_t b[8];
+#pragma unroll
+      for (int f = 0; f < 8; ++f) b[f] = mine[(r * 8 + f) * kWords + lane];
+      compose(acc, b);
+    }
+    out[wg * kWords + lane] = (int32_t)acc[5];  // the OR of done with both carry-ins zero
+  }
 }
 
 __global__ void __launch_bounds__(kSerialThreads)
@@ -204,17 +322,53 @@ marker_serial_kernel(const int32_t* __restrict__ st, int32_t* __restrict__ out, 
   probe_ring::wait_all();
 }
 
+// the map of the stack [10, L, NW] int32 in boxes [10, kPiece, 32] (no
+// swizzle: a box lands as [10][kPiece][32] words); false where refused
+inline bool stack_map(CUtensorMap* m, const void* st, int NW, int L) {
+  const hopper::EncodeTiled fn = hopper::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)NW, (cuuint64_t)L, kPlanes};
+  const cuuint64_t strides[2] = {(cuuint64_t)NW * 4, (cuuint64_t)NW * L * 4};
+  const cuuint32_t box[3] = {kWords, kPiece, kPlanes};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, const_cast<void*>(st), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int C>
-int launch_chunked(const void* st, void* out, int NW, int L, int WB, cudaStream_t stream) {
-  marker_chunked_kernel<C><<<NW / WB, (L / C) * WB, 0, stream>>>(
-      (const int32_t*)st, (int32_t*)out, NW, L, WB);
+int launch_chunked(const void* st, void* out, int NW, int L, cudaStream_t stream) {
+  int K, NB, W;
+  geometry(L, C, K, NB, W);
+  CUtensorMap map;
+  if (!stack_map(&map, st, NW, L)) return (int)cudaErrorInvalidValue;
+  auto kernel = marker_chunked_kernel<C>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kTileBytes);
+  if (e == cudaSuccess && K > 8)  // past the portable cluster size
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K, NW / kWords);
+  cfg.blockDim = dim3(W * 32);
+  cfg.dynamicSmemBytes = (W * C / kPiece + 2) * kPieceBytes;  // a round's window
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, map, (int32_t*)out, L, NB, W);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// chunk 0: the serial form; else the chunked form with WB words a block
-extern "C" int h2r_marker_match(const void* stack, void* out, int NW, int L, int chunk, int WB,
+// chunk 0: the serial form; else the chunked form (its geometry: geometry())
+extern "C" int h2r_marker_match(const void* stack, void* out, int NW, int L, int chunk,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (NW <= 0 || NW % kSerialThreads || L <= 0) return (int)cudaErrorInvalidValue;
@@ -223,13 +377,12 @@ extern "C" int h2r_marker_match(const void* stack, void* out, int NW, int L, int
         (const int32_t*)stack, (int32_t*)out, NW, L);
     return (int)cudaGetLastError();
   }
-  if (chunk < 0 || L % chunk || WB <= 0 || 32 % WB || (L / chunk) * WB > kMaxThreads)
-    return (int)cudaErrorInvalidValue;
+  if (chunk < 0 || L % chunk || (uintptr_t)stack % 16) return (int)cudaErrorInvalidValue;
   switch (chunk) {
-    case 8: return launch_chunked<8>(stack, out, NW, L, WB, s);
-    case 16: return launch_chunked<16>(stack, out, NW, L, WB, s);
-    case 32: return launch_chunked<32>(stack, out, NW, L, WB, s);
-    case 64: return launch_chunked<64>(stack, out, NW, L, WB, s);
+    case 8: return launch_chunked<8>(stack, out, NW, L, s);
+    case 16: return launch_chunked<16>(stack, out, NW, L, s);
+    case 32: return launch_chunked<32>(stack, out, NW, L, s);
+    case 64: return launch_chunked<64>(stack, out, NW, L, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -325,8 +325,8 @@ _ENTRIES = {
     CLASS_CHAIN: [_P, _P, _LL, _P, _P, _I, _I, _P],
     # T, frags, chars, entry, out, TB, L, K, W, hilo, cmod, smod, form, in_smem, stream
     DFA_WIDE: [_P] * 5 + [_I] * 9 + [_P],
-    # stack, out, NW, L, chunk (0: serial), words a block, stream
-    MARKER_MATCH: [_P, _P, _I, _I, _I, _I, _P],
+    # stack, out, NW, L, chunk (0: serial), stream
+    MARKER_MATCH: [_P, _P, _I, _I, _I, _P],
 }
 TABLE_KERNELS = (TABLE_SCAN, TABLE_TAG, TABLE_FSM, TABLE_FLAT)
 # the post modes, all over chunks of L: each call launches the chunk maps

@@ -90,13 +90,14 @@ def marker_lines(timer, card: str, tag: str, stack: torch.Tensor, want: torch.Te
                                     nbytes=work["nbytes"], shape=shape)
     recs = [rec]
     plain_ms = rec.get("ms", rec.get("host_ms"))
-    for chunk in (L,) + tuple(c for c in chunks if L % c == 0 and L // c <= lib.MAX_THREADS):
+    for chunk in (L,) + tuple(c for c in chunks if L % c == 0):
         form = "serial" if chunk == L else f"chunk{chunk}"
+        geo = {} if chunk == L else dict(zip(("cluster", "block_chunks", "warps"),
+                                             lib.geometry(L, chunk)))
         rec, out = harness.measure(timer, card, f"{tag}_marker_{form}", kernels.MARKER_MATCH,
                                    lambda c=chunk: lib.marker_match(stack, c), L,
-                                   (plain, plain_ms), form=form, chunk=chunk,
-                                   block_words=32 if chunk == L else lib.block_words(L, chunk),
-                                   shape=shape, **work)
+                                   (plain, plain_ms), form=form, chunk=chunk, shape=shape,
+                                   **geo, **work)
         recs.append(rec)
         for what, v in (("plain", plain), (form, out)):
             if not torch.equal(v, want):

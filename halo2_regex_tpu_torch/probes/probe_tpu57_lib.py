@@ -21,7 +21,9 @@ the verdict is one word per input word, in the same mapping.
   (:133), the body of both TPU kernels (tools/probe_tpu57.py:190,
   tools/probe_tpu61.py:228): the same with a tree OR;
 - ``marker_chunks_plain``: the torch twin of the kernel's chunked form
-  (its halo, its walk and its ordered composition of chunk summaries);
+  (its halo, its walk, and its composition of chunk summaries in the
+  kernel's order: ``geometry``'s blocks, each folding its chunks, then the
+  cluster folding its blocks);
 - ``marker_match``: the kernel on a CUDA stack, the plain versions on a
   CPU one.
 
@@ -37,7 +39,10 @@ walk is AND/OR-linear in its two unknown carry-ins ns[s-1] and v[s-1]
 e, and the OR of done over the positions whose ds it owns (it reads 2
 positions past e for done[e+1], done[e+2]), each as a constant and a
 coefficient of each carry-in.  Summaries compose in order (``compose``),
-and the whole string's verdict is the composition's constant OR.
+and the whole string's verdict is the composition's constant OR.  The
+chunked kernel splits each word group's chunks over a cluster of blocks
+(``geometry``): a block folds its chunks' summaries left to right, and
+the cluster's first block folds the blocks' left to right.
 """
 
 from __future__ import annotations
@@ -66,7 +71,9 @@ HALO = 7  # positions before a chunk that its cascade and line start read
 AHEAD = 2  # positions after a chunk whose done terms read its ds
 CHUNKS = (8, 16, 32, 64)  # the chunk lengths csrc/probe_marker.cu is built for
 CHUNK = 16  # the default: the fastest at B = 32768 x L = 1024 on an H100 (PERF.md §6, P19)
-MAX_THREADS = 512  # kMaxThreads of csrc/probe_marker.cu: a chunked block's threads
+# the chunked kernel's geometry (csrc/probe_marker.cu: kSpan, kMaxCluster)
+SPAN = 64  # positions a block's round walks at most (its warps' chunks)
+MAX_CLUSTER = 16  # blocks a cluster splits a word group's L over
 CLASS_HEADER = "probe_marker_class.cuh"  # CLASS_PROG as C, written by class_header()
 
 
@@ -200,13 +207,36 @@ def compose(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> Tuple[torch
             on | (On & na) | (Ov & vn), ov | (Ov & vv))
 
 
-def marker_chunks_plain(stack: torch.Tensor, chunk: int) -> torch.Tensor:
-    """The kernel's chunked form in torch ops: each chunk of ``chunk``
-    positions walks its halo (the ``HALO`` positions before it, zeros
-    before position 0), its own positions and the ``AHEAD`` after it
-    (zeros past L), all chunks at once; then the chunk summaries compose in
-    order by a tree (pairs of neighbours, an odd count keeping its last).
-    ``chunk`` = L is the serial form's walk.  The verdict [NW] int32."""
+IDENTITY = (-1, 0, -1, 0, 0, 0, 0, 0)  # the summary of no positions, in SUMMARY's order
+
+
+def geometry(L: int, chunk: int) -> Tuple[int, int, int]:
+    """The chunked kernel's split of a word group's L / chunk chunks
+    (``geometry()`` of csrc/probe_marker.cu): K blocks a cluster (the
+    largest divisor of the chunk count up to ``MAX_CLUSTER``), NB
+    consecutive chunks a block, W warps a block (the largest divisor of NB
+    with W x chunk <= ``SPAN``; NB / W rounds)."""
+    nch = L // chunk
+    K = max(k for k in range(1, min(nch, MAX_CLUSTER) + 1) if nch % k == 0)
+    NB = nch // K
+    W = max(w for w in range(1, max(1, min(NB, SPAN // chunk)) + 1) if NB % w == 0)
+    return K, NB, W
+
+
+def fold(summaries: Sequence[Tuple[torch.Tensor, ...]]) -> Tuple[torch.Tensor, ...]:
+    """``summaries`` composed left to right from the identity."""
+    ref = summaries[0][0]
+    acc = tuple(torch.full_like(ref, v) for v in IDENTITY)
+    for s in summaries:
+        acc = compose(acc, s)
+    return acc
+
+
+def chunk_summaries(stack: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, ...]:
+    """Each chunk's summary, SUMMARY's fields [L / chunk, NW] each: the
+    chunk walks its halo (the ``HALO`` positions before it, zeros before
+    position 0), its own positions and the ``AHEAD`` after it (zeros past
+    L), all chunks at once."""
     L, NW = _check(stack, chunk)
     C = chunk
     NCH = L // C
@@ -243,13 +273,21 @@ def marker_chunks_plain(stack: torch.Tensor, chunk: int) -> torch.Tensor:
         ls = first | (cr2 & lf1)
         k0, k1, k2, k3, k4 = ls & x["f"], k0 & x["r"], k1 & x["o"], k2 & x["m"], k3 & x["colon"]
         cr2, cr1, lf1 = cr1, x["cr"], x["lf"]
-    s = (nsN, ns0, vV, vN, v0, *o)
-    while s[0].shape[0] > 1:
-        n = s[0].shape[0]
-        half = n // 2
-        y = compose([v[0: 2 * half: 2] for v in s], [v[1: 2 * half: 2] for v in s])
-        s = y if n % 2 == 0 else tuple(torch.cat([a, v[2 * half:]]) for a, v in zip(y, s))
-    return s[5][0]
+    return (nsN, ns0, vV, vN, v0, *o)
+
+
+def marker_chunks_plain(stack: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The kernel's chunked form in torch ops: the chunk summaries
+    (``chunk_summaries``), each block of ``geometry`` folding its NB
+    chunks in order, then the cluster's K block summaries folded in order;
+    the verdict is the constant OR.  ``chunk`` = L is the serial form's
+    walk (one chunk).  The verdict [NW] int32."""
+    L, _ = _check(stack, chunk)
+    s = chunk_summaries(stack, chunk)
+    K, NB, _ = geometry(L, chunk)
+    blocks = [fold([tuple(f[k] for f in s) for k in range(r * NB, (r + 1) * NB)])
+              for r in range(K)]
+    return fold(blocks)[5]
 
 
 # ----------------------------------------------------------------- the kernel
@@ -264,36 +302,25 @@ def _check(stack: torch.Tensor, chunk: Optional[int]) -> Tuple[int, int]:
     if L < 1 or NW < 32 or NW % 32:
         raise ValueError(f"stack {tuple(stack.shape)}: expected L >= 1 and NW a positive "
                          "multiple of 32")
-    if chunk is not None and (chunk < 1 or L % chunk or L // chunk > MAX_THREADS):
-        raise ValueError(f"chunk {chunk}: expected a divisor of L={L} with at most "
-                         f"{MAX_THREADS} chunks")
+    if chunk is not None and (chunk < 1 or L % chunk):
+        raise ValueError(f"chunk {chunk}: expected a divisor of L={L}")
     return L, NW
-
-
-def block_words(L: int, chunk: int) -> int:
-    """Words a chunked block takes (its threads: this times L / chunk, at
-    most ``MAX_THREADS``): 32, or the largest power of two that fits."""
-    wb = 32
-    while wb * (L // chunk) > MAX_THREADS:
-        wb //= 2
-    return wb
 
 
 def marker_match_cuda(stack: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
     """The ``marker_match`` kernel: ``chunk`` = L the serial form (a thread
     a word walks every position, the planes through a ``cp.async`` ring),
-    else the chunked form (a thread a word and chunk; ``chunk`` one of
-    ``CHUNKS``).  One launch."""
+    else the chunked form (a warp a word group and chunk, ``chunk`` one of
+    ``CHUNKS``; the stack read by TMA, so 16-byte aligned).  One launch."""
     L, NW = _check(stack, chunk)
     if chunk != L and chunk not in CHUNKS:
         raise ValueError(f"chunk {chunk}: the kernel is built for {CHUNKS} and the serial "
                          f"form (chunk = L = {L})")
     kernels._check(stack, "stack", torch.int32, (PLANES, L, NW))
-    kernels._check_aligned(stack, "stack", 4)
+    kernels._check_aligned(stack, "stack", 4 if chunk == L else 16)
     out = torch.empty((NW,), dtype=torch.int32, device=stack.device)
-    form, wb = (0, 32) if chunk == L else (chunk, block_words(L, chunk))
     kernels._launch(kernels.MARKER_MATCH, kernels.build_probes().h2r_marker_match,
-                    stack.data_ptr(), out.data_ptr(), NW, L, form, wb,
+                    stack.data_ptr(), out.data_ptr(), NW, L, 0 if chunk == L else chunk,
                     kernels._stream(stack))
     return out
 

@@ -34,12 +34,18 @@ Walls, old package against new, with equal outputs, 30 runs each, at
 B=32768 and B=4096: match, tiled_match, tiled_witness, L1000 witness
 (pack_raw) and witness (no kernel of this PR on its path).
 
-marker (needs no ``--old``): the marker-stream probe kernel
-(``csrc/probe_marker.cu``, chunked form) against its variants
-(``MARKER_VARIANTS``) at each chunk length, on the probes' corpus at
-B=32768 and B=4096 x L=1024, in turns (kernel, variant, variant, kernel):
+marker (``--old`` optional): the marker-stream probe kernel
+(``csrc/probe_marker.cu``, chunked form) against the old package's and
+its variants (``MARKER_VARIANTS``) at each chunk length, on the probes'
+corpus at B=32768 and B=4096 x L=1024, in turns (kernel, variant,
+variant, kernel); beside them the stack's ``clone`` and the kernel after
+a flush that reads (``ReadFlush``: clean lines in L2):
 
     python3 kernel_ab.py --only marker
+
+lookup (needs ``--old``): dfa_step's lookup (``csrc/probe_dfa_step.cu``)
+at the from: batch and k7, old against new and against
+``LOOKUP_VARIANTS``, and after a reading flush.
 
 units (needs ``--old``): the compare-rate probe ``onehot_count``
 (``csrc/probe_units.cu``) at [1024, 512], the accumulate probe
@@ -107,12 +113,18 @@ def in_turns(cs, name, run_old, run_new, flush, card, device_only=True, iters=10
             "iqr": [x["iqr"] for x in t], "runs": [x["all"] for x in t]}
 
 
+def probes_key(K) -> str:
+    """The build-log key of ``K``'s probes library (built here if need be)."""
+    return Path(K.build_probes()._name).parent.name
+
+
 def ptxas_of(K, keys, kernel: str) -> list:
     """ptxas' lines for the entries whose mangled name holds ``kernel`` in
-    the libraries ``keys`` of the build log: registers, smem, spills."""
+    the libraries ``keys`` (the build log kept beside each): registers,
+    smem, spills."""
     out = []
     for key in keys:
-        lines = str(K.BUILD_LOG[key]["ptxas"]).splitlines()
+        lines = (K.build_root() / key / "build.log").read_text().splitlines()
         for i, ln in enumerate(lines):
             if "Compiling entry" in ln and kernel in ln:
                 out.append(" | ".join(x.strip() for x in lines[i: i + 4]))
@@ -199,37 +211,29 @@ FB_VARIANTS = {
     "no_cluster": [("bitplane_fb.cu", "const int cs = min(kMaxCluster, (L + kStep - 1) / kStep);",
                     "const int cs = 1;")],
 }
-# marker_match's variants (csrc/probe_marker.cu, the chunked form): the
-# next position's words loaded before the current position's step; blocks
-# of up to 1024 threads (twice the words a block); and, for timing only,
-# the kernel without its loads (a hash of the indices in their place) and
-# without its program (an XOR of the words)
+# marker_match's variants (csrc/probe_marker.cu, the chunked form):
+# clusters of at most 8 blocks (the portable size: two rounds a block at
+# L=1024); the TMA boxes
+# issued in window order (the kernel: the warps' first boxes first); and,
+# for timing only, the kernel without its loads
+# (no boxes issued, no waits: the tile's stale words walked) and without
+# its program (an XOR of the words)
 MARKER_VARIANTS = {
-    "prefetch": [
-        ("probe_marker.cu", "template <int C>\n__global__ void __launch_bounds__(kMaxThreads)",
-         "__device__ __forceinline__ void load(uint32_t* p, const int32_t* __restrict__ q,\n"
-         "                                     size_t plane) {\n#pragma unroll\n"
-         "  for (int j = 0; j < kPlanes; ++j) p[j] = (uint32_t)__ldg(q + j * plane);\n}\n\n"
-         "template <int C>\n__global__ void __launch_bounds__(kMaxThreads)"),
-        ("probe_marker.cu",
-         "  walk<kHalo>(s, st, plane, NW, w, max(0, s0 - HALO), s0);\n"
-         "  walk<kMain>(s, st, plane, NW, w, s0, s0 + C);\n"
-         "  walk<kAhead>(s, st, plane, NW, w, s0 + C, min(s0 + C + AHEAD, L));",
-         "  const int h0 = max(0, s0 - HALO), h1 = min(s0 + C + AHEAD, L);\n"
-         "  const int32_t* q = st + (size_t)h0 * NW + w;\n  uint32_t nx[kPlanes];\n"
-         "  load(nx, q, plane);\n#pragma unroll 1\n  for (int i = h0; i < h1; ++i) {\n"
-         "    uint32_t p[kPlanes];\n#pragma unroll\n"
-         "    for (int j = 0; j < kPlanes; ++j) p[j] = nx[j];\n    q += NW;\n"
-         "    if (i + 1 < h1) load(nx, q, plane);\n"
-         "    if (i < s0) step<kHalo>(s, p, i == 0);\n"
-         "    else if (i < s0 + C) step<kMain>(s, p, i == 0);\n"
-         "    else step<kAhead>(s, p, false);\n  }")],
-    "t1024": [("probe_marker.cu", "constexpr int kMaxThreads = 512;",
-               "constexpr int kMaxThreads = 1024;")],
-    "no_load": [("probe_marker.cu",
-                 "p[j] = (uint32_t)__ldg(st + j * plane + (size_t)i * NW + w);",
-                 "p[j] = (uint32_t)((i * 2654435761u) ^ (w * 40503u) ^ (j * 97u)) + "
-                 "(uint32_t)(size_t)st;")],
+    "cluster8": [("probe_marker.cu", "constexpr int kMaxCluster = 16;",
+                  "constexpr int kMaxCluster = 8;")],
+    "boxes_in_order": [("probe_marker.cu",
+                        "      for (int j = 0; j < C / kPiece + 2; ++j)\n"
+                        "        for (int v = 0; v < W; ++v) {\n"
+                        "          const int q = v * C / kPiece + j;\n"
+                        "          if (j >= C / kPiece && v < W - 1) continue;  // warp v + 1's box",
+                        "      for (int q = 0; q < n_pieces; ++q) {")],
+    "no_load": [("probe_marker.cu", "            hopper::tma_load_3d(tile + q * kPieceBytes,",
+                 "            if (L < 0) hopper::tma_load_3d(tile + q * kPieceBytes,"),
+                ("probe_marker.cu", "        hopper::mbar_wait(&bar[q], rd & 1);",
+                 "        if (L < 0) hopper::mbar_wait(&bar[q], rd & 1);")],
+    "no_sync": [("probe_marker.cu",
+                 "  cluster.sync();  // every rank is done with its tile (rank 0's takes the summaries)",
+                 "")],
     "no_compute": [("probe_marker.cu",
                     "__device__ __forceinline__ void step(Walk& s, const uint32_t* p, bool first) {\n",
                     "__device__ __forceinline__ void step(Walk& s, const uint32_t* p, bool first) {\n"
@@ -238,7 +242,7 @@ MARKER_VARIANTS = {
                     "    return;\n  }\n")],
 }
 TIMING_ONLY = ("no_load", "no_compute", "no_store", "no_stage", "class_half_products",
-               "class_no_products")
+               "class_no_products", "no_fill", "no_chain", "no_sync")
 # onehot_count's variants (csrc/probe_units.cu), code that each inserts:
 # - int: the compares on the int pipe (ISETP and a sum) against int keys;
 # - atomic: the partials by atomics after a zero fill (cudaMemsetAsync) in
@@ -444,12 +448,36 @@ DFA_VARIANTS = {
     "no_overlap": [(_D, "      if (t >= LAG && t - LAG < LB) pick_step(",
                     "      hopper::wgmma_wait<0>();\n"
                     "      if (t >= LAG && t - LAG < LB) pick_step(")],
-    "one_warpgroup": [(_D, "WARPS = FORM == LOOKUP ? 4 : 8;", "WARPS = FORM == LOOKUP ? 4 : 4;")],
+    "one_warpgroup": [(_D, "constexpr int WARPS = 8;", "constexpr int WARPS = 4;")],
     "class_chains2": _class_chains(2),
     "class_chains4": _class_chains(4),
     "class_half_products": [(_D, _CLASS_WGMMA, _CLASS_WGMMA.replace("else", "else if (kt < 8)"))],
     "class_no_products": [(_D, _CLASS_WGMMA, _CLASS_WGMMA.replace("else", "else if (kt < 0)"))],
 }
+# the lookup's variants (csrc/probe_dfa_step.cu, dfa_lookup_kernel): a ring
+# of 3 groups (the kernel: 5); at most 4 warps a block (the kernel: 8, 6
+# batch-major);
+# and, for timing only, T's copies skipped (the state masked to 7 bits so
+# that the stale table's lookups stay in it: one more op on the chain), the
+# bytes' copies skipped (the ring's stale words walked), the states' stores
+# skipped, and the lookup replaced by its address (no LDS on the chain)
+LOOKUP_VARIANTS = {
+    "ring3": [(_D, "constexpr int kLkRing = 5;", "constexpr int kLkRing = 3;")],
+    "warps4": [(_D, "constexpr int kLkWarps = 8;", "constexpr int kLkWarps = 4;")],
+    "no_fill": [(_D, "        hopper::bulk_load(", "        if (TB < 0) hopper::bulk_load("),
+                (_D, "  if (vec_t) hopper::mbar_wait(bar, 0);", ""),
+                (_D, "          s = lds(row + ((uint32_t)s << 2));",
+                 "          s = lds(row + ((uint32_t)s << 2)) & 127;")],
+    "no_load": [(_D, "          if (b < TB && i < LB) cp16(dst, src);",
+                 "          if (TB < 0) cp16(dst, src);")],
+    "no_store": [(_D, "        if (b < TB && i < LB) *(int4*)dst = v;",
+                  "        if (TB < 0) *(int4*)dst = v;")],
+    "no_chain": [(_D, "          s = lds(row + ((uint32_t)s << 2));",
+                  "          s = (int)((row + ((uint32_t)s << 2)) & 0x1fffcu);")],
+}
+
+
+MEMORY_OPS = ("LDG", "STG", "LDGSTS", "UTMALDG", "UTMASTG", "LDS", "STS")
 
 
 def sass_counts(K, keys, kernel: str) -> list:
@@ -460,15 +488,16 @@ def sass_counts(K, keys, kernel: str) -> list:
     out = []
     (ROOT / "chiprun_out" / "sass").mkdir(parents=True, exist_ok=True)
     for key in keys:
-        so = Path(str(K.BUILD_LOG[key]["dir"])) / "libh2r.so"
+        so = K.build_root() / key / "libh2r.so"
         res = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True)
         (ROOT / "chiprun_out" / "sass" / f"{key}.sass").write_text(res.stdout)
-        fn, ops = None, {}
+        fn, ops, mem = None, {}, {}
         for ln in res.stdout.splitlines():
             if "Function :" in ln:
                 if fn and kernel in fn:
-                    out.append({"function": fn, "instructions": sum(ops.values()), "ops": ops})
-                fn, ops = ln.split("Function :", 1)[1].strip(), {}
+                    out.append({"function": fn, "instructions": sum(ops.values()), "ops": ops,
+                                "memory": mem})
+                fn, ops, mem = ln.split("Function :", 1)[1].strip(), {}, {}
             elif fn and "/*" in ln and ";" in ln:
                 ins = ln.split("*/", 1)[1].strip().split()
                 if ins and ins[0].startswith("@"):
@@ -476,12 +505,28 @@ def sass_counts(K, keys, kernel: str) -> list:
                 if ins:
                     op = ins[0].split(".")[0]
                     ops[op] = ops.get(op, 0) + 1
+                    if op in MEMORY_OPS:  # with its modifiers: the access width
+                        mem[ins[0]] = mem.get(ins[0], 0) + 1
         if fn and kernel in fn:
-            out.append({"function": fn, "instructions": sum(ops.values()), "ops": ops})
+            out.append({"function": fn, "instructions": sum(ops.values()), "ops": ops,
+                        "memory": mem})
     for r in out:
         top = sorted(r["ops"].items(), key=lambda kv: -kv[1])[:12]
-        print(f"sass {r['function'][-60:]}: {r['instructions']} instructions; {top}", flush=True)
+        print(f"sass {r['function'][-60:]}: {r['instructions']} instructions; {top}; memory "
+              f"{r['memory']}", flush=True)
     return out
+
+
+class ReadFlush:
+    """A flush for ``time_ms`` that reads the buffer in place of writing it:
+    the L2 then holds clean lines, which the timed kernel need not write
+    back (``time_ms``'s own flush, ``zero_``, leaves them dirty)."""
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf = buf
+
+    def zero_(self):
+        self.buf.view(torch.int64).sum()
 
 
 def no_flush_ms(cs, fn, dev, name, card) -> float:
@@ -697,13 +742,17 @@ def walls_ab(pk: Pkgs, cs, dev, card, flush, corpora) -> dict:
     return out
 
 
-def marker_ab(cs, dev, card, flush) -> dict:
-    """marker_match's chunked form (``csrc/probe_marker.cu``) against each
-    of ``MARKER_VARIANTS`` at every chunk length, on the probes' corpus at
-    B=32768 and 4096 x L=1024: kernel, variant, variant, kernel."""
+def marker_ab(pk, cs, dev, card, flush) -> dict:
+    """marker_match's chunked form (``csrc/probe_marker.cu``) against the
+    ``--old`` package's (old, new, new, old; where given) and each of
+    ``MARKER_VARIANTS`` (kernel, variant, variant, kernel) at every chunk
+    length, on the probes' corpus at B=32768 and 4096 x L=1024; ptxas and
+    the SASS of both."""
     from halo2_regex_tpu_torch.ops import kernels as K
     from halo2_regex_tpu_torch.probes import probe_tpu57_lib as lib
     from halo2_regex_tpu_torch.probes.probe_tpu64 import batch
+
+    old = importlib.import_module("h2r_old.probes.probe_tpu57_lib") if pk else None
 
     dirs = {name: variant_csrc(K, f"marker_{name}", edits)
             for name, edits in MARKER_VARIANTS.items()}
@@ -711,9 +760,13 @@ def marker_ab(cs, dev, card, flush) -> dict:
         jobs = {name: pool.submit(K._build_library, ("probe_marker.cu",), (K.MARKER_MATCH,),
                                   K.PROBE_HEADERS, None, d) for name, d in dirs.items()}
         libs = {name: j.result() for name, j in jobs.items()}
-    K.build_probes()
-    out: dict = {"ptxas": ptxas_of(K, list(K.BUILD_LOG), "marker")}
-    for ln in out["ptxas"]:
+    keys = [probes_key(K)]
+    out: dict = {"ptxas": ptxas_of(K, keys, "marker"), "sass": sass_counts(K, keys, "marker")}
+    if pk:
+        okeys = [probes_key(pk.old_k)]
+        out["ptxas_old"] = ptxas_of(pk.old_k, okeys, "marker")
+        out["sass_old"] = sass_counts(pk.old_k, okeys, "marker_chunked")
+    for ln in out["ptxas"] + out.get("ptxas_old", []):
         print(ln, flush=True)
     L = 1024
     for B in SIZES:
@@ -721,16 +774,27 @@ def marker_ab(cs, dev, card, flush) -> dict:
         st = lib.marker_stack(chars, lengths)
         want = lib.marker_match_reduced_plain(st)
         NW = B // 32
+        t = cs.time_ms(lambda: st.clone(), flush, device_only=True)
+        print(f"marker B={B}: the stack's clone {cs.fmt(t)} ({2 * st.numel() * 4 / 1e6:.1f} MB "
+              f"moved); card {card}", flush=True)
+        out[f"marker B={B} clone_ms"] = t["median"]
+        for chunk in (8, 16):
+            t = cs.time_ms(lambda c=chunk: lib.marker_match(st, c), ReadFlush(flush), True)
+            print(f"marker B={B} chunk {chunk} after a read flush: {cs.fmt(t)}; card {card}",
+                  flush=True)
+            out[f"marker B={B} chunk {chunk} read_flush_ms"] = t["median"]
         for chunk in lib.CHUNKS:
             check(cs, f"marker chunk {chunk}", lib.marker_match(st, chunk), want)
+            if old:
+                check(cs, f"marker chunk {chunk} old", old.marker_match(st, chunk), want)
+                out[f"marker B={B} chunk {chunk} old/new"] = in_turns(
+                    cs, f"marker B={B} chunk {chunk}", lambda c=chunk: old.marker_match(st, c),
+                    lambda c=chunk: lib.marker_match(st, c), flush, card)
             for vname, vlib in libs.items():
-                wb, threads = 32, 1024 if vname == "t1024" else lib.MAX_THREADS
-                while wb * (L // chunk) > threads:
-                    wb //= 2
                 got = torch.empty(NW, dtype=torch.int32, device=dev)
 
-                def run_var(vlib=vlib, got=got, wb=wb, chunk=chunk):
-                    if vlib.h2r_marker_match(st.data_ptr(), got.data_ptr(), NW, L, chunk, wb,
+                def run_var(vlib=vlib, got=got, chunk=chunk):
+                    if vlib.h2r_marker_match(st.data_ptr(), got.data_ptr(), NW, L, chunk,
                                              K._stream(st)):
                         raise RuntimeError("marker variant: launch failed")
                     return got
@@ -748,6 +812,66 @@ def marker_ab(cs, dev, card, flush) -> dict:
                              "variant": [t[1]["median"], t[2]["median"]],
                              "iqr": [x["iqr"] for x in t]}
     return out
+
+
+def lookup_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
+    """dfa_step's lookup (``csrc/probe_dfa_step.cu``, dfa_lookup_kernel)
+    at chip_smoke's widths, the from: batch (32768 x 1024, time-major) and
+    k7 ([256, 256], batch-major): the ``--old`` package's against the new
+    (old, new, new, old) and each of ``LOOKUP_VARIANTS`` against the
+    kernel (kernel, variant, variant, kernel); ptxas and the SASS of both."""
+    K, old_k = pk.K, pk.old_k
+    p1, p2 = (importlib.import_module(f"halo2_regex_tpu_torch.probes.{m}")
+              for m in ("probe_tpu", "probe_tpu2"))
+    o1 = importlib.import_module("h2r_old.probes.probe_tpu")
+    dirs = {name: variant_csrc(K, f"lookup_{name}", edits)
+            for name, edits in LOOKUP_VARIANTS.items()}
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        jobs = {name: pool.submit(K._build_library, ("probe_dfa_step.cu",), (K.DFA_STEP,),
+                                  K.PROBE_HEADERS, None, d) for name, d in dirs.items()}
+        libs = {name: j.result() for name, j in jobs.items()}
+    keys, okeys = [probes_key(K)], [probes_key(old_k)]
+    rec = {"ptxas": ptxas_of(K, keys, "dfa_lookup"), "ptxas_old": ptxas_of(old_k, okeys, "dfa_"),
+           "sass": sass_counts(K, keys, "dfa_lookup"),
+           "sass_old": sass_counts(old_k, okeys, "dfa_kernelILi0")}
+    for ln in rec["ptxas"] + rec["ptxas_old"]:
+        print(ln, flush=True)
+    T = p1.table().to(dev)
+    TB, LB = p2.BIG
+    widths = [(f"from: batch {TB}x{LB} time-major", p1.bytes_(LB, TB, seed=7, dev=dev), True),
+              ("k7 256x256 batch-major", p1.bytes_(256, 256, seed=6, dev=dev), False)]
+    for lab, c, tm in widths:
+        tb, lb = (c.shape[1], c.shape[0]) if tm else tuple(c.shape)
+        want = p1.dfa_step_plain(T, c, "lookup", tm)
+        check(cs, f"lookup {lab}", p1.dfa_step(T, c, "lookup", tm), want)
+        check(cs, f"lookup {lab} old", o1.dfa_step(T, c, "lookup", tm), want)
+        rec[f"lookup {lab} old/new"] = in_turns(
+            cs, f"lookup {lab}", lambda c=c, tm=tm: o1.dfa_step(T, c, "lookup", tm),
+            lambda c=c, tm=tm: p1.dfa_step(T, c, "lookup", tm), flush, card)
+        t = cs.time_ms(lambda c=c, tm=tm: p1.dfa_step(T, c, "lookup", tm), ReadFlush(flush), True)
+        print(f"lookup {lab} after a read flush: {cs.fmt(t)}; card {card}", flush=True)
+        rec[f"lookup {lab} read_flush_ms"] = t["median"]
+        for vname, vlib in libs.items():
+            got = torch.empty_like(want)
+
+            def run_var(vlib=vlib, got=got, c=c, tm=tm, tb=tb, lb=lb):
+                if vlib.h2r_dfa_step(T.data_ptr(), None, c.data_ptr(), got.data_ptr(), tb, lb,
+                                     int(tm), 0, 0, 1, K._stream(c)):
+                    raise RuntimeError("lookup variant: launch failed")
+                return got
+
+            if vname not in TIMING_ONLY:
+                check(cs, f"lookup {vname}", run_var(), want)
+            t = [cs.time_ms(f, flush, device_only=True)
+                 for f in (lambda c=c, tm=tm: p1.dfa_step(T, c, "lookup", tm), run_var, run_var,
+                           lambda c=c, tm=tm: p1.dfa_step(T, c, "lookup", tm))]
+            print(f"lookup {lab} variant {vname}: kernel {t[0]['median']:.4f} / "
+                  f"{t[3]['median']:.4f} ms, variant {t[1]['median']:.4f} / {t[2]['median']:.4f} "
+                  f"ms (kernel, variant, variant, kernel); card {card}", flush=True)
+            rec[f"lookup {lab} {vname}"] = {"kernel": [t[0]["median"], t[3]["median"]],
+                                            "variant": [t[1]["median"], t[2]["median"]],
+                                            "iqr": [x["iqr"] for x in t]}
+    return rec
 
 
 def units_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
@@ -947,13 +1071,13 @@ def main() -> dict:
         raise SystemExit("kernel_ab: needs an NVIDIA GPU")
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", help="directory of the earlier halo2_regex_tpu_torch/ package "
-                    "(every part but marker)")
-    ap.add_argument("--only", default="pack,fb,walls,marker,units",
+                    "(every part; marker runs without it, its variants alone)")
+    ap.add_argument("--only", default="pack,fb,walls,marker,lookup,units",
                     help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
     if parts - {"marker"} and not args.old:
-        ap.error("--old is needed for the pack, fb, walls and units parts")
+        ap.error("--old is needed for the pack, fb, walls, lookup and units parts")
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import halo2_regex_tpu_torch as h2r
@@ -979,7 +1103,9 @@ def main() -> dict:
     if "walls" in parts:
         out["walls"] = walls_ab(pk, cs, dev, card, flush, corpora)
     if "marker" in parts:
-        out["marker"] = marker_ab(cs, dev, card, flush)
+        out["marker"] = marker_ab(pk, cs, dev, card, flush)
+    if "lookup" in parts:
+        out["lookup"] = lookup_ab(pk, cs, dev, card, flush)
     if "units" in parts:
         out["units"] = units_ab(pk, cs, dev, card, flush)
     rec["ab"] = out

@@ -1512,6 +1512,26 @@ def test_probe_dfa_step_matches_plain(dev, form, pick, TB, LB, time_major):
     assert torch.equal(got, p1.dfa_step_plain(T, c, form, time_major, pick, classes))
 
 
+@pytest.mark.parametrize("TB,LB,time_major,offset", [
+    (40000, 16, True, 0), (40000, 16, False, 0), (1027, 37, True, 0), (1027, 37, False, 0),
+    (512, 64, True, 1), (512, 64, False, 1)])
+def test_probe_dfa_lookup_geometry(dev, TB, LB, time_major, offset):
+    """The lookup's edges: more tiles than SMs (40000 strings: a block
+    walks two tiles), TB and LB not multiples of 4 (4-byte copies and
+    stores), and chars at a 4-byte offset (16-byte copies refused)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu as p1
+
+    shape = (LB, TB) if time_major else (TB, LB)
+    flat = p1.bytes_(1, shape[0] * shape[1] + offset, seed=TB, dev=dev)[0]
+    c = flat[offset:].view(shape)
+    T = p1.table(seed=LB).to(dev)
+    kernels.reset_launch_counts()
+    got = p1.dfa_step(T, c, "lookup", time_major)
+    torch.cuda.synchronize()
+    assert kernels.DFA_STEP.launches == 1
+    assert torch.equal(got, p1.dfa_step_plain(T, c, "lookup", time_major))
+
+
 @pytest.mark.parametrize("L,B", [(1024, 4096), (64, 100)])
 @pytest.mark.parametrize("n_out", [1, 2, 4])
 def test_probe_slab_anatomy_matches_plain(dev, n_out, L, B):
@@ -1876,11 +1896,14 @@ def test_probe_t2_entry_points_raise(dev):
             call()
 
 
-@pytest.mark.parametrize("L", [96, 1024])
-@pytest.mark.parametrize("B", [4096, 32768])
+@pytest.mark.parametrize("L", [96, 136, 1024, 2048])
+@pytest.mark.parametrize("B", [1024, 2048, 4096, 32768])
 def test_probe_marker_match_matches_plain(dev, B, L):
     """marker_match serial and at each chunk length against the plain
-    verdict (and re's) on the probes' corpus; one launch a call."""
+    verdict (and re's) on the probes' corpus; one launch a call.  The
+    chunked form's edges: one and two word groups (NW = 32, 64), clusters
+    of 3, 6, 12 and 16 blocks, one block of 17 rounds (L = 136, chunk 8)
+    and blocks of two rounds (L = 2048)."""
     from halo2_regex_tpu_torch.probes import probe_tpu57_lib as lib
     from halo2_regex_tpu_torch.probes.probe_tpu64 import probe_corpus
 
@@ -1900,14 +1923,18 @@ def test_probe_marker_match_matches_plain(dev, B, L):
 
 def test_probe_marker_entry_points_raise(dev):
     """A word count not a multiple of 32, a chunk that does not divide L or
-    that the kernel is not built for, int64, a strided view (the kernel
-    reads 4-byte words: every int32 view is aligned for it), a CPU stack to
-    the kernel's wrapper."""
+    that the kernel is not built for, int64, a strided view, a stack off
+    16-byte alignment for the chunked form (its TMA boxes; the serial form
+    reads 4-byte words and takes it), a CPU stack to the kernel's
+    wrapper."""
     from halo2_regex_tpu_torch.probes import probe_tpu57_lib as lib
 
     st = torch.zeros((10, 1024, 128), dtype=torch.int32, device=dev)
     wide = torch.zeros((10, 1024, 256), dtype=torch.int32, device=dev)
-    bad = [lambda: lib.marker_match(st[:, :, :48].contiguous(), 16),
+    odd = torch.zeros((10 * 1024 * 128 + 1,), dtype=torch.int32, device=dev)[1:].view(st.shape)
+    assert torch.equal(lib.marker_match(odd, 1024), lib.marker_match(st, 1024))
+    bad = [lambda: lib.marker_match(odd, 16),
+           lambda: lib.marker_match(st[:, :, :48].contiguous(), 16),
            lambda: lib.marker_match(st, 24), lambda: lib.marker_match(st, 128),
            lambda: lib.marker_match(st.long(), 16),
            lambda: lib.marker_match(wide[:, :, ::2], 16),

@@ -21,6 +21,12 @@ plain versions.
   past M, N and Kp zero-filled, int32 sums that wrap; against
   probe_tpu17.py's ``k`` (interpret mode) and ``int8_mma_plain`` on the
   probe's ranges and the whole int8 range (-128 included).
+- ``dfa_lookup_tiles``: the lookup's persistent warps (a warp a tile of
+  32 strings, a lane a string, the grid's warp g taking tiles g, g + its
+  warps, ...), groups of steps that move as [steps, strings] tiles
+  through the warp's ring slots, words past TB or LB neither fetched nor
+  stored, T staged as it is; against k7 (interpret mode) and
+  ``dfa_step_plain``, ragged TB and LB in both layouts.
 - ``dfa_step_warpgroups``: the strings in rows of 64 (a warpgroup's, four
   warps of 16), each step's one-hot built as the kernel's half2 compares
   (a byte less (2 q, 2 q + 1) against (16 kt, 16 kt) and (16 kt + 8, 16 kt
@@ -33,7 +39,8 @@ plain versions.
 The twins' geometry is read from the kernels' sources (``csrc/``), so a
 change there is a change here.  Each twin has one mutation (a slice
 counted twice; the accumulator reset at each l; a k32 slice read one byte
-off; a pick taken from the position after its own) that the probe's
+off; a group's first lookup from the state two steps back; a pick taken
+from the position after its own) that the probe's
 output tells apart, and the half2 form's claim (every int32 converts to
 fp16 as a value in 0..255 only if it is that value) is checked on the
 int32 edges.  The kernels themselves run only on the card
@@ -396,11 +403,93 @@ def test_int8_mma_slice_shift_is_told_apart(k_outs):
 
 # ----------------------------------------------------------------- dfa_step
 
+# csrc/probe_dfa_step.cu's lookup: a block's warps at most (time-major;
+# batch-major three quarters of them), a group's steps, a warp's ring of
+# groups
+LK_WARPS, LK_STEP, LK_RING = (_cu_int("probe_dfa_step.cu", rf"constexpr int {n} = (\d+);")
+                              for n in ("kLkWarps", "kLkStep", "kLkRing"))
+
+
+def dfa_lookup_tiles(T: torch.Tensor, chars: torch.Tensor, time_major: bool = False,
+                     sms: int = 132, stale: bool = False) -> torch.Tensor:
+    """The lookup kernel's walk in torch: tiles of 32 strings (a lane a
+    string); each warp walks the same number of tiles (rounds: the fewest
+    that ``sms`` blocks of at most LK_WARPS warps allow), the grid's warp g
+    tiles g, g + its warps, ... from s = 0.  Group p (steps
+    LK_STEP p ..) is copied into ring slot p % LK_RING as the [steps,
+    strings] tile, only the words inside [TB] x [LB]; the walk reads every
+    lane's byte from the slot (stale words for strings past TB or steps
+    past LB, whose states are never stored), one lookup T[c & 255, s] a
+    step, and stores the inside words of the group's staged states.
+    ``stale``: each group's first lookup takes the state two steps back (a
+    mutation the tests tell apart)."""
+    p1._check_dfa(T, chars, "lookup", "gather", None)
+    c = (chars if time_major else chars.t()).long()  # [LB, TB]
+    LB, TB = c.shape
+    tab = T.reshape(-1).long()  # staged as it is: rows of 128 words
+    out = torch.full((LB, TB), -1, dtype=torch.int32)
+    n_tiles, n_groups = -(-TB // 32), -(-LB // LK_STEP)
+    most = LK_WARPS if time_major else LK_WARPS * 3 // 4
+    rounds = -(-n_tiles // (sms * most))
+    warps = -(-n_tiles // (sms * rounds))
+    grid = -(-n_tiles // (warps * rounds)) * warps  # the grid's warps
+    ring = torch.zeros((LK_RING, LK_STEP, 32), dtype=torch.int64)  # [slot][step][lane]
+    for g in range(grid):
+        for tile in range(g, n_tiles, grid):
+            b = tile * 32 + torch.arange(32)
+            s = torch.zeros(32, dtype=torch.int64)
+            back = s  # the state two steps back
+            for p in range(n_groups):
+                slot = ring[p % LK_RING]
+                i = LK_STEP * p + torch.arange(LK_STEP)[:, None]
+                ok = (b[None, :] < TB) & (i < LB)
+                slot[ok] = c[i.expand(-1, 32)[ok], b.expand(LK_STEP, -1)[ok]]
+                for j in range(LK_STEP):
+                    prev = back if stale and j == 0 and p > 0 else s
+                    back, s = s, tab[(slot[j] & 255) * p1.NS + prev]
+                    if LK_STEP * p + j < LB:
+                        out[LK_STEP * p + j, b[b < TB]] = s[b < TB].to(torch.int32)
+    return out if time_major else out.t().contiguous()
+
+
+@pytest.mark.parametrize("tm", [False, True])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dfa_lookup_tiles_equal_k7(scans, tm, sms):
+    """k7's output (batch-major, interpret mode) by the lookup's
+    decomposition, in either layout (the time-major input is k7's bytes
+    transposed)."""
+    T, c, form, _tm, _pick, _cl, want = scans["k7"]
+    assert form == "lookup" and not _tm
+    chars = _t(c).t().contiguous() if tm else _t(c)
+    got = dfa_lookup_tiles(_t(T), chars, tm, sms)
+    got = got.t() if tm else got
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(got, p1.dfa_step_plain(_t(T), _t(c)))
+
+
+@pytest.mark.parametrize("tm", [False, True])
+@pytest.mark.parametrize("TB,LB,sms", [(37, 13, 132), (100, 21, 132), (300, 9, 132),
+                                       (32 * 17 + 5, 6, 2), (64, LK_STEP * (LK_RING + 2) + 3, 1)])
+def test_dfa_lookup_tiles_ragged(TB, LB, sms, tm):
+    """Strings past TB in a warp's 32 (37, 100, 300), steps past LB in a
+    group (13, 21, 9, 6), more tiles than the grid's warps (18 tiles on 2
+    blocks: a warp walks 2), and more groups than the ring holds."""
+    shape = (LB, TB) if tm else (TB, LB)
+    c = p1.bytes_(*shape, seed=TB + LB)
+    T = p1.table(seed=TB)
+    assert torch.equal(dfa_lookup_tiles(T, c, tm, sms), p1.dfa_step_plain(T, c, "lookup", tm))
+
+
+def test_dfa_lookup_stale_group_start_is_told_apart(scans):
+    T, c, _form, _tm, _pick, _cl, want = scans["k7"]
+    assert not np.array_equal(dfa_lookup_tiles(_t(T), _t(c), stale=True).numpy(), want)
+
+
 # csrc/probe_dfa_step.cu's geometry for the products: a warp's strings, a
 # block's warps (two warpgroups of four), a ring group's steps (even: the
 # two accumulators alternate with the step's parity)
-DFA_WARP_STRINGS = _cu_int("probe_dfa_step.cu", r"STRINGS = FORM == LOOKUP \? \d+ : (\d+);")
-DFA_WARPS = _cu_int("probe_dfa_step.cu", r"WARPS = FORM == LOOKUP \? \d+ : (\d+);")
+DFA_WARP_STRINGS = _cu_int("probe_dfa_step.cu", r"constexpr int STRINGS = (\d+);")
+DFA_WARPS = _cu_int("probe_dfa_step.cu", r"constexpr int WARPS = (\d+);")
 DFA_GROUP = _cu_int("probe_dfa_step.cu", r"constexpr int GROUP = (\d+);")
 # steps from a position's bytes to its pick (one-hot, class forms)
 DFA_LAG = {form: _cu_int("probe_dfa_step.cu",

@@ -15,8 +15,14 @@ every chunk boundary), empty strings and strings of length L that match.
 Also: the port's copy of the lib against the JAX lib, the kernel's class
 header against ``Program.to_c``, ``pack_bytes`` / ``pack_bool`` against
 JAX's, a ``hypothesis`` property (the plain verdict equals ``re`` on
-strings of near-miss tokens), the chunk summaries' composition, and two
-mutations of the plain version that the body tells apart.  The kernel
+strings of near-miss tokens), the chunk summaries' composition, two
+mutations of the plain version that the body tells apart, and the chunked
+kernel's split of L (``geometry``, its constants read from
+csrc/probe_marker.cu): a cluster's blocks each folding their chunks in
+order, then the first folding the blocks' in order, at NW = 32 and 64
+words, every chunk length and L with 1 to 16 blocks and 1 or 2 rounds a
+block, against the plain verdict and ``re``; two blocks folded out of
+order is told apart.  The kernel
 itself runs only on the card (tests/test_torch_cuda.py).
 """
 
@@ -24,6 +30,7 @@ import functools
 import importlib.util
 import os
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +41,7 @@ from hypothesis import strategies as st
 
 from halo2_regex_tpu.ops import bitplane as jbp
 from halo2_regex_tpu_torch.ops import bitplane as bp
+from halo2_regex_tpu_torch.ops import kernels
 from halo2_regex_tpu_torch.probes import probe_tpu57_lib as lib
 from halo2_regex_tpu_torch.probes.probe_tpu64 import probe_corpus
 
@@ -252,3 +260,52 @@ def test_entry_point_refuses_bad_stacks():
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+# ------------------------------------------------- the chunked kernel's split
+
+
+def _marker_cu(name: str) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);",
+                  (Path(kernels.CSRC) / "probe_marker.cu").read_text())
+    assert m, name
+    return int(m.group(1))
+
+
+def test_geometry_follows_the_source():
+    """The lib's constants are the kernel's, and its split of L = 1024
+    (16 blocks, each 64 positions in one round) and of the odd lengths
+    the tests use."""
+    assert (lib.SPAN, lib.MAX_CLUSTER, lib.HALO, lib.AHEAD) == (
+        _marker_cu("kSpan"), _marker_cu("kMaxCluster"), _marker_cu("HALO"), _marker_cu("AHEAD"))
+    assert [lib.geometry(1024, c) for c in lib.CHUNKS] == [(16, 8, 8), (16, 4, 4), (16, 2, 2),
+                                                           (16, 1, 1)]
+    assert [lib.geometry(96, c) for c in (8, 16, 32)] == [(12, 1, 1), (6, 1, 1), (3, 1, 1)]
+    assert lib.geometry(2048, 8) == (16, 16, 8) and lib.geometry(2048, 64) == (16, 2, 1)
+    assert lib.geometry(136, 8) == (1, 17, 1)  # 17 chunks: one block, 17 rounds
+
+
+SPLITS = [(L, c) for L in (64, 96, 136, 1024, 2048) for c in lib.CHUNKS if L % c == 0]
+
+
+@pytest.mark.parametrize("L,chunk", SPLITS)
+@pytest.mark.parametrize("NW", [32, 64])
+def test_cluster_fold_equals_plain(NW, L, chunk):
+    B = 32 * NW
+    stack = torch.from_numpy(_stack("near", B, L))
+    want = lib.marker_match_reduced_plain(stack)
+    assert torch.equal(want, torch.from_numpy(_want_re("near", B, L)))
+    assert torch.equal(lib.marker_chunks_plain(stack, chunk), want)
+    assert torch.equal(lib.marker_match(stack, chunk), want)
+
+
+def test_blocks_out_of_order_are_told_apart():
+    L, chunk, B = 96, 8, 1024
+    stack = torch.from_numpy(_stack("near", B, L))
+    K, NB, _ = lib.geometry(L, chunk)
+    s = lib.chunk_summaries(stack, chunk)
+    blocks = [lib.fold([tuple(f[k] for f in s) for k in range(r * NB, (r + 1) * NB)])
+              for r in range(K)]
+    assert torch.equal(lib.fold(blocks)[5], lib.marker_match_reduced_plain(stack))
+    blocks[0], blocks[1] = blocks[1], blocks[0]
+    assert not torch.equal(lib.fold(blocks)[5], lib.marker_match_reduced_plain(stack))
