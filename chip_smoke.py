@@ -256,14 +256,16 @@ and proves on the card that:
      class_chain in both forms at [64, 128] and [1024, 32768]; dfa_wide
      lookup, onehot_mma and count at the probes' (K, S) from 32 x 256 to
      1024 x 128 and at configs[3]'s B=64 x L=65536, where B8's table scan
-     equals it too), mma_accum bit-exact on integer inputs and within 2e-5
+     equals it too and the chunked lookup repairs as many positions as its
+     twin, ``lookup_chunks_plain``), mma_accum bit-exact on integer inputs and within 2e-5
      x sum |a b| on N(0, 1) ones ([4, 2, 128, 128], [4, 8, 1024, 1024]);
      the library calls beside them (``torch.matmul(a, b).float().cumsum(1)``,
      ``((c[..., None] >= b) * delta).sum(-1)``, ``torch.cumsum``,
      ``x.clone()``); probe_tpu67's chains give a launch's wall and device
      slope and its cost past its bytes, and its witness batches agree on
-     the rows they share; the SASS holds HGMMA (wgmma) in mma_accum, HMMA
-     in dfa_wide's product instance and none in its lookup;
+     the rows they share; the SASS holds HGMMA (wgmma) in mma_accum and in
+     every instance of dfa_wide's product, no HMMA there and neither in its
+     lookup, and ptxas reports no spills in either;
  14. the marker probe scripts' runs, driven with the launch counts reset,
      launched marker_match and, of the others, only the matcher kernels
      they reuse (pack_raw, scan, qpack, post, decode, the table kernels);
@@ -1541,7 +1543,8 @@ def t2_probe_phase(kernels, m3, chars3, card: str) -> dict:
     67, 7, 28, 30, 31, 32): each script's ``run`` at its own widths, and the
     widened step (dfa_wide, lookup and onehot_mma) at configs[3]'s batch
     (B=64 x L=65536, its 96 x 1008 table) beside B8's table scan on the
-    same table, the launch counts reset just before and read just after.
+    same table, the launch counts reset just before and read just after
+    (the chunked lookup at configs[3] two launches a call).
     Each kernel line holds a kernel against its plain version
     (``harness.measure``: one call with every count read around it, 2 + 10
     timed runs, the last output against the plain version's: int32 outputs
@@ -1551,8 +1554,10 @@ def t2_probe_phase(kernels, m3, chars3, card: str) -> dict:
     loop_floor (k1), slab_anatomy (k3), tile_move (probe_tpu67's A), the
     witness kernels (its C) and the table scan (B8 at configs[3]).  Then
     the launch cost past the bytes, the forms of each family and B8 are
-    logged side by side, and the SASS shows HGMMA in mma_accum, HMMA in
-    dfa_wide's product instance and none in its lookup."""
+    logged side by side (with the lookup's form and repaired positions
+    beside B8's, held to its twin's count), the SASS shows HGMMA and no
+    HMMA in mma_accum and every instance of dfa_wide's product, neither in
+    its lookup, and ptxas no spills in either."""
     from halo2_regex_tpu_torch.probes import (harness, probe_tpu6, probe_tpu7, probe_tpu20,
                                               probe_tpu21, probe_tpu28, probe_tpu30, probe_tpu31,
                                               probe_tpu32, probe_tpu67)
@@ -1647,26 +1652,38 @@ def t2_probe_phase(kernels, m3, chars3, card: str) -> dict:
     c3 = {r["form"]: r["ms"] for r in recs if r["probe"] in ("configs3", "configs3_b8")}
     log(f"[13] configs[3]'s step at B={B3} x L={L3} (ms): "
         + "; ".join(f"{k} {v:.4f}" for k, v in c3.items()) + f"; card {card}")
-    # the SASS: wgmma (HGMMA) in both tile widths of mma_accum, mma.sync
-    # (HMMA) in dfa_wide's product instance only
+    lk = next(r for r in recs if r["probe"] == "configs3" and r["form"] == "lookup")
+    b8r = next(r for r in recs if r["probe"] == "configs3_b8")
+    log(f"[13] configs[3]'s lookup: form {'chunked' if lk['cw'][0] else 'serial'} (C, W) = "
+        f"{tuple(lk['cw'])}, {lk['repaired']} positions repaired in a call (its twin "
+        f"{lk.get('repaired_twin')}, twin vs plain max_abs_err={lk.get('twin_max_abs_err')}); "
+        f"B8 {b8r['form']} (C, W) = {tuple(b8r['cw'])}, {b8r['repaired']} repaired; card {card}")
+    if lk["cw"][0] and (lk["repaired"] != lk["repaired_twin"] or lk["twin_max_abs_err"]):
+        raise AssertionError(f"[13] the chunked lookup disagrees with its twin: {lk}")
+    # the SASS: wgmma (HGMMA) in both tile widths of mma_accum and in every
+    # k-tile instance of dfa_wide's product, mma.sync (HMMA) in neither, no
+    # matrix instruction in dfa_wide's lookup
     sass = sass_ops(kernels.build_probes()._name,
                     {"mma_accum_tma_kernel": ("HGMMA", "HMMA"),
-                     "wide_mma_kernel": ("HMMA", "LDG"),
-                     "wide_lookup_kernel": ("HMMA", "LDS", "LDG"),
+                     "wide_mma_kernel": ("HGMMA", "HMMA", "LDS"),
+                     "wide_lookup_kernel": ("HGMMA", "HMMA", "LDS", "LDG"),
+                     "wide_repair_kernel": ("HGMMA", "HMMA", "LDS", "LDG"),
                      "class_chain_kernel": ("ISETP", "LDS"), "bitop_carry_kernel": ("LOP3",)})
     for fn, ops in sass.items():
         log(f"[13] sass {fn[-60:]}: {ops}")
-    hmma = {k: [bool(ops["HMMA"]) for fn, ops in sass.items() if k in fn]
-            for k in ("wide_mma_kernel", "wide_lookup_kernel")}
-    hgmma = [bool(ops["HGMMA"]) for fn, ops in sass.items() if "mma_accum_tma_kernel" in fn]
-    spills = probe_spills(kernels, "mma_accum_tma_kernel")
-    log(f"[13] mma_accum ptxas spill bytes {spills}")
+    mma = {k: [(ops["HGMMA"] > 0, ops["HMMA"] > 0) for fn, ops in sass.items() if k in fn]
+           for k in ("mma_accum_tma_kernel", "wide_mma_kernel", "wide_lookup_kernel",
+                     "wide_repair_kernel")}
+    spills = {**probe_spills(kernels, "mma_accum_tma_kernel"), **probe_spills(kernels, "wide_")}
+    log(f"[13] mma_accum and dfa_wide ptxas spill bytes {spills}")
     if any(spills.values()):
-        raise AssertionError(f"[13] mma_accum spills: {spills}")
-    if hmma != {"wide_mma_kernel": [True], "wide_lookup_kernel": [False, False]} \
-            or len(hgmma) != 2 or not all(hgmma):
-        raise AssertionError(f"[13] the SASS lacks wgmma in mma_accum or mma.sync in dfa_wide: "
-                             f"{sass}")
+        raise AssertionError(f"[13] spills: {spills}")
+    if (len(mma["mma_accum_tma_kernel"]) != 2 or not all(h for h, _ in mma["mma_accum_tma_kernel"])
+            or not mma["wide_mma_kernel"] or set(mma["wide_mma_kernel"]) != {(True, False)}
+            or not mma["wide_lookup_kernel"] or not mma["wide_repair_kernel"]
+            or set(mma["wide_lookup_kernel"] + mma["wide_repair_kernel"]) != {(False, False)}):
+        raise AssertionError(f"[13] the SASS lacks wgmma in mma_accum or dfa_wide's product, or "
+                             f"holds mma.sync: {sass}")
     return {"rows": list(rows.values()), "times": tms, "errs": errs,
             "launches": {"t2_probes": got},
             "rec": {"scripts": recs, "configs3_ms": c3, "sass": sass}}

@@ -323,8 +323,9 @@ _ENTRIES = {
     BITOP_CARRY: [_P, _P, _P] + [_I] * 5 + [_P],
     # c, out, n, thresholds and deltas (host ints), n_terms, form, stream
     CLASS_CHAIN: [_P, _P, _LL, _P, _P, _I, _I, _P],
-    # T, frags, chars, entry, out, TB, L, K, W, hilo, cmod, smod, form, in_smem, stream
-    DFA_WIDE: [_P] * 5 + [_I] * 9 + [_P],
+    # T, frags, chars, entry, out, scratch, repaired, TB, L, K, W, hilo, cmod,
+    # smod, form, in_smem, C, W (warm-up), stream
+    DFA_WIDE: [_P] * 7 + [_I] * 11 + [_P],
     # stack, out, NW, L, chunk (0: serial), stream
     MARKER_MATCH: [_P, _P, _I, _I, _I, _P],
 }

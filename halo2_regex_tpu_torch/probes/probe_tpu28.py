@@ -13,11 +13,23 @@ that every configs[3] table-step probe runs.
   outside [0, K) or a state outside [0, S) gives next state 0 (the probes'
   one-hot and select then have no term).  out [L, TB] int32; its last row
   is the exit state, the entry of a launch that continues the scan.
-  ``form``: ``"lookup"`` (the decoded table in shared memory, or read from
-  global memory where it does not fit), ``"onehot_mma"`` (the probes'
-  method: the one-hot of the classes times all W columns on the tensor
-  cores, then the pick of column s) or ``"count"`` (v1: ``out[t] = T[c, 0]
-  + t + entry``, no chain).  Every form gives the same states.
+  ``form``, every one giving the same states:
+
+  - ``"lookup"``: a thread walks a string on the decoded table (in
+    shared memory, or read from global memory where it does not fit).
+    Serial where the strings fill the card; where they are fewer than
+    four warps an SM and L > 2 (W + C) (``lookup_form``: B8's rule, C =
+    512, W = 8192) chunked as B8's scan is, two launches: S1 walks each
+    chunk of C positions after a warm-up of W, S2 repairs wrong guesses
+    (``lookup_repaired`` counts the positions; ``lookup_chunks_plain`` is
+    its twin in torch).
+  - ``"onehot_mma"``: the probes' method: each step the one-hot of 64
+    strings' classes times all W columns of T on the tensor cores
+    (wgmma), the columns split over a cluster of ceil(W / 128) blocks (up
+    to 16), each holding its slice in shared memory (from ``b_fragments``);
+    the holder of column s (and S + s) picks it and writes it to every
+    block, one cluster barrier a step.
+  - ``"count"`` (v1): ``out[t] = T[c, 0] + t + entry``, no chain.
 
 The probe's own lines: v1 (``count``: ``c mod 96``, column 0 plus the
 position) and v2 (hi/lo, ``c mod 96``, ``s mod S``: the configs[3] step)
@@ -35,7 +47,7 @@ x L=65536, 96 classes x 1008 states) beside B8's table scan
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,9 +60,11 @@ FORMS = ("lookup", "onehot_mma", "count")
 TB, K, S = 128, 96, 1008  # the probe's strings, classes and states
 L = 4096  # its 4 chunks of 1024
 MAX_K, MAX_S = 256, 1024
-# the lookup kernel's shared memory past its table: its four scanning
-# warps' rings (csrc/probe_dfa_wide.cu: 4 x 8 x 8 x 32 x 4 bytes)
-LOOKUP_RING_BYTES = 4 * 8 * 8 * 32 * 4
+# the lookup kernel's shared memory past its table: up to four walking
+# warps' shallowest rings (csrc/probe_dfa_wide.cu: 4 warps x 4 groups x 16
+# positions x 32 strings x 4 bytes)
+LOOKUP_RING_BYTES = 4 * 4 * 16 * 32 * 4
+_REPAIRED: Dict[int, torch.Tensor] = {}  # the chunked lookup's counter, a device
 
 
 def as_table(tbl) -> torch.Tensor:
@@ -140,11 +154,12 @@ def dfa_wide_plain(tbl: torch.Tensor, chars: torch.Tensor, hilo: bool = False,
 
 
 def b_fragments(tbl: torch.Tensor) -> torch.Tensor:
-    """The B fragments of ``tbl`` in the order the product form streams
-    them: [ceil(W / 8), ceil(K / 16), 32 lanes, 4] int16 (bf16 bits), lane
-    4 n8 + q holding rows k, k + 1, k + 8, k + 9 (k = 16 kt + 2 q) of
-    column 8 nt + n8, zero past K and W.  The same for every string: made
-    once a table (``dfa_wide`` makes it when not given)."""
+    """The product form's operand, ``tbl`` as mma B fragments: [ceil(W /
+    8), ceil(K / 16), 32 lanes, 4] int16 (bf16 bits), lane 4 n8 + q holding
+    rows k, k + 1, k + 8, k + 9 (k = 16 kt + 2 q) of column 8 nt + n8, zero
+    past K and W; each rank of the kernel's cluster stages its columns from
+    it.  The same for every string: made once a table (``dfa_wide`` makes
+    it when not given)."""
     K_, W = tbl.shape
     kt, nt = -(-K_ // 16), -(-W // 8)
     bits = torch.zeros((kt * 16, nt * 8), dtype=torch.int16, device=tbl.device)
@@ -156,20 +171,102 @@ def b_fragments(tbl: torch.Tensor) -> torch.Tensor:
 
 def table_in_smem(K_: int, S_: int, dev: torch.device) -> bool:
     """Whether the lookup form holds the decoded table in shared memory:
-    its K S uint16 (in 16-byte units) beside four warps' rings within the
-    card's per-block opt-in."""
-    need = -(-K_ * S_ * 2 // 16) * 16 + LOOKUP_RING_BYTES
+    its (K + 1)(S + 1) uint16 (in 16-byte units) beside four warps' rings
+    within the card's per-block opt-in."""
+    need = -(-(K_ + 1) * (S_ + 1) * 2 // 16) * 16 + LOOKUP_RING_BYTES
     return need <= torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+def lookup_form(TB_: int, L_: int, dev: torch.device) -> Tuple[int, int]:
+    """``(C, W)`` of the lookup's chunked form (speculate, then repair), or
+    ``(0, 0)`` for its serial form: B8's rule (``kernels.table_scan_form``
+    of one def: fewer than four warps of strings an SM and L > 2 (W + C))."""
+    return kernels.table_scan_form(1, TB_, L_, dev)
+
+
+def wide_launches(TB_: int, L_: int, form: str, dev: torch.device) -> int:
+    """The kernel launches of one ``dfa_wide`` call on the card: two for
+    the chunked lookup (S1, S2), else one."""
+    return 2 if form == "lookup" and lookup_form(TB_, L_, dev)[0] else 1
+
+
+def lookup_repaired(dev: torch.device) -> int:
+    """Positions the chunked lookup's repair pass has overwritten on
+    ``dev`` since the process started (reads a device counter:
+    synchronises)."""
+    t = _REPAIRED.get(kernels._index(dev))
+    return 0 if t is None else int(t.item())
+
+
+def lookup_chunks_plain(tbl: torch.Tensor, chars: torch.Tensor, hilo: bool = False,
+                        cmod: bool = False, smod: bool = False,
+                        entry: Optional[torch.Tensor] = None, C: int = kernels.TABLE_SCAN_C,
+                        W: int = kernels.TABLE_SCAN_W) -> Tuple[torch.Tensor, int]:
+    """The chunked lookup (S1, S2 of ``csrc/probe_dfa_wide.cu``) with torch
+    ops, vectorised over chunks: the states of ``dfa_wide_plain`` and the
+    positions S2 overwrote.  S1: chunks of ``C`` positions, each from the
+    entry state ``W`` positions before it (from position 0 if that comes
+    first: then exact), its guess g the state reached there, its end e;
+    S2: chunk by chunk, where the true end before chunk c differs from
+    g[c], it is walked again from that end, overwriting, until the walk
+    meets the stored state or the chunk ends.  Guesses and ends compare as
+    states clamped to S (every state past S steps to 0)."""
+    K_, _W, S_, L_, TB_ = _check(tbl, chars, hilo, "lookup", entry)
+    check_ranges(tbl, hilo)
+    dev = chars.device
+    rows = _classes(chars, K_, cmod) * (S_ + 1)  # [L, TB]
+    flat = next_states(tbl, hilo, smod).reshape(-1)
+    e0 = (torch.zeros(TB_, dtype=torch.int64, device=dev) if entry is None else entry.long())
+
+    def step(s, p):  # the states after position p (a tensor of positions, or an int)
+        return flat[rows[p] + torch.where((s >= 0) & (s < S_), s, S_)]
+
+    def key(s):
+        return torch.where((s >= 0) & (s < S_), s, S_)
+
+    out = torch.empty((L_, TB_), dtype=torch.int64, device=dev)
+    n_ch = -(-L_ // C)
+    cs = torch.arange(n_ch, device=dev) * C
+    ce = (cs + C).clamp(max=L_)
+    ws = (cs - W).clamp(min=0)
+    lead = cs - ws
+    s = e0[None, :].expand(n_ch, -1).clone()
+    g = key(s)
+    for t in range(int((ce - ws).max())):  # S1, all chunks at once
+        pos = ws + t
+        g = torch.where((lead == t)[:, None], key(s), g)
+        live = pos < ce
+        s = torch.where(live[:, None], step(s, pos.clamp(max=L_ - 1)), s)
+        keep = live & (pos >= cs)
+        out[pos[keep]] = s[keep]
+    e = key(s)
+    repaired, end = 0, e[0]
+    for c in range(1, n_ch):  # S2, chunk by chunk
+        bad = end != g[c]
+        s = end.clone()
+        for p in range(int(cs[c]), int(ce[c])):
+            if not bool(bad.any()):
+                break
+            s_new = step(s, p)
+            bad = bad & (s_new != out[p])
+            out[p] = torch.where(bad, s_new, out[p])
+            repaired += int(bad.sum())
+            s = torch.where(bad, s_new, s)
+        end = torch.where(bad, key(s), e[c])
+    return out.to(torch.int32), repaired
 
 
 def dfa_wide_cuda(tbl: torch.Tensor, chars: torch.Tensor, hilo: bool = False,
                   cmod: bool = False, smod: bool = False,
                   entry: Optional[torch.Tensor] = None, form: str = "lookup",
-                  frags: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  frags: Optional[torch.Tensor] = None,
+                  cw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The ``dfa_wide`` kernel in ``form``.  ``frags``: ``b_fragments(tbl)``
     for the product form (made here when not given); the lookup form's
     table in shared memory where it fits (``table_in_smem``), else in
-    global memory.  Precondition (``check_ranges``; not checked here)."""
+    global memory, and its chunks ``cw`` = (C, W), ``(0, 0)`` for the
+    serial form, ``None`` for ``lookup_form``'s choice (the chunked form
+    is two launches).  Precondition (``check_ranges``; not checked here)."""
     K_, W, S_, L_, TB_ = _check(tbl, chars, hilo, form, entry)
     kernels._check(tbl, "tbl", torch.bfloat16, (K_, W))
     kernels._check(chars, "chars", torch.int32, (L_, TB_))
@@ -184,14 +281,29 @@ def dfa_wide_cuda(tbl: torch.Tensor, chars: torch.Tensor, hilo: bool = False,
         kernels._check_aligned(frags, "frags", 8)
     else:
         frags = None
+    C = Wu = 0
+    if form == "lookup":
+        C, Wu = lookup_form(TB_, L_, dev) if cw is None else cw
+        if C < 0 or Wu < 0 or (C == 0 and Wu != 0):
+            raise ValueError(f"cw {(C, Wu)}: expected (0, 0) or (C > 0, W >= 0)")
+    elif cw is not None:
+        raise ValueError(f"cw: the lookup form's alone, not {form!r}'s")
     smem = form == "lookup" and table_in_smem(K_, S_, dev)
     out = torch.empty((L_, TB_), dtype=torch.int32, device=dev)
+    scratch = repaired = None
+    if C:
+        scratch = torch.empty((2, -(-L_ // C), TB_), dtype=torch.int32, device=dev)
+        repaired = _REPAIRED.get(kernels._index(dev))
+        if repaired is None:
+            repaired = _REPAIRED[kernels._index(dev)] = torch.zeros(1, dtype=torch.int64,
+                                                                   device=dev)
     lib = kernels.build_probes()
     with torch.cuda.device(dev):
-        kernels._launch(kernels.DFA_WIDE, lib.h2r_dfa_wide, tbl.data_ptr(),
-                        None if frags is None else frags.data_ptr(), chars.data_ptr(),
-                        entry.data_ptr(), out.data_ptr(), TB_, L_, K_, W, int(hilo), int(cmod),
-                        int(smod), FORMS.index(form), int(smem), kernels._stream(chars))
+        kernels._launch(kernels.DFA_WIDE, lib.h2r_dfa_wide, tbl.data_ptr(), kernels._ptr(frags),
+                        chars.data_ptr(), entry.data_ptr(), out.data_ptr(),
+                        kernels._ptr(scratch), kernels._ptr(repaired), TB_, L_, K_, W, int(hilo),
+                        int(cmod), int(smod), FORMS.index(form), int(smem), C, Wu,
+                        kernels._stream(chars), n=2 if C else 1)
     return out
 
 
@@ -207,8 +319,9 @@ def dfa_wide(tbl: torch.Tensor, chars: torch.Tensor, hilo: bool = False, cmod: b
 def wide_work(K_: int, W: int, L_: int, TB_: int, form: str) -> dict:
     """The bytes, int32 operations and tensor-core flops a bound reads: the
     chars in and states out in int32, the table once as bf16; a lookup a
-    state, or for the product its mma.sync flops (16-row tiles of the
-    strings, 16-row k tiles of the classes, 8-column n tiles)."""
+    state, or for the product its flops at the probes' method (the one-hot
+    [TB, K] times all W columns a step, tiles of 16 strings, 16 classes
+    and 8 columns: what a dense product of that shape needs)."""
     work = dict(nbytes=2 * L_ * TB_ * 4 + K_ * W * 2 + TB_ * 4, int32_ops=L_ * TB_)
     if form == "onehot_mma":
         tiles = -(-TB_ // 16) * -(-K_ // 16) * -(-W // 8)
@@ -220,8 +333,10 @@ def wide_line(timer, card, probe: str, tbl: torch.Tensor, chars: torch.Tensor, f
               plain, hilo: bool = False, cmod: bool = False, smod: bool = False,
               entry: Optional[torch.Tensor] = None, **kw) -> Tuple[dict, torch.Tensor]:
     """A ``dfa_wide`` measurement (``harness.measure``; ns a step over L),
-    the product's fragments made once beforehand and its runs 1 + 3;
-    ``plain`` as measure's (one plain output shared by a probe's forms)."""
+    the product's fragments made once beforehand; ``plain`` as measure's
+    (one plain output shared by a probe's forms).  On the card a lookup
+    line names its table's place and its form (``cw``: (C, W), or
+    ``(0, 0)`` serial) and counts its launches (two chunked)."""
     K_, W = tbl.shape
     L_, TB_ = chars.shape
     frags = b_fragments(tbl) if form == "onehot_mma" and chars.is_cuda else None
@@ -229,8 +344,8 @@ def wide_line(timer, card, probe: str, tbl: torch.Tensor, chars: torch.Tensor, f
     if chars.is_cuda and form == "lookup":
         extra["table"] = "shared" if table_in_smem(K_, W // 2 if hilo else W,
                                                    chars.device) else "global"
-    if form == "onehot_mma":  # the slow form: fewer runs
-        kw = {"warmup": 1, "iters": 3, **kw}
+        extra["cw"] = list(lookup_form(TB_, L_, chars.device))
+        extra["calls"] = wide_launches(TB_, L_, form, chars.device)
     return harness.measure(
         timer, card, probe, kernels.DFA_WIDE,
         lambda: dfa_wide(tbl, chars, hilo, cmod, smod, entry, form, frags), L_, plain,
@@ -289,11 +404,17 @@ def configs3_lines(dev: torch.device, next_table: torch.Tensor, cmap: torch.Tens
     want = dfa_wide_plain(tbl, cls, hilo=True, entry=entry)
     torch.cuda.synchronize(dev)
     want = (want, (time.perf_counter() - t0) * 1e3)
-    recs = []
-    for form in ("lookup", "onehot_mma"):
-        runs = dict(warmup=0, iters=1) if form == "onehot_mma" else {}
-        recs.append(wide_line(timer, card, "configs3", tbl, cls, form, want, hilo=True,
-                              entry=entry, **runs)[0])
+    recs = [wide_line(timer, card, "configs3", tbl, cls, form, want, hilo=True, entry=entry)[0]
+            for form in ("lookup", "onehot_mma")]
+    # the lookup's repaired positions in one call, beside its twin's on the same input
+    before = lookup_repaired(dev)
+    dfa_wide(tbl, cls, hilo=True, entry=entry)
+    recs[0]["repaired"] = lookup_repaired(dev) - before
+    C, W = recs[0]["cw"]
+    if C:
+        twin, recs[0]["repaired_twin"] = lookup_chunks_plain(tbl, cls, hilo=True, entry=entry,
+                                                             C=C, W=W)
+        recs[0]["twin_max_abs_err"] = harness.max_abs_err(twin, want[0])
     cm = cmap.to(dev).reshape(1, 256).to(torch.int32).contiguous()
     nt3 = nt.reshape(1, *nt.shape).to(torch.int32).contiguous()
     init = entry.reshape(1, B_)
@@ -308,7 +429,10 @@ def configs3_lines(dev: torch.device, next_table: torch.Tensor, cmap: torch.Tens
     recs.append(harness.measure(
         timer, card, "configs3_b8", kernels.TABLE_SCAN, b8, L_, want, calls=2 if form[0] else 1,
         nbytes=2 * L_ * B_ * 4, int32_ops=L_ * B_, shape=[L_, B_], K=nt.shape[0],
-        S=nt.shape[1], form=f"b8 {'chunked' if form[0] else 'serial'}")[0])
+        S=nt.shape[1], form=f"b8 {'chunked' if form[0] else 'serial'}", cw=list(form))[0])
+    before = kernels.table_scan_repaired(dev)
+    b8()
+    recs[-1]["repaired"] = kernels.table_scan_repaired(dev) - before
     return recs
 
 

@@ -47,6 +47,18 @@ lookup (needs ``--old``): dfa_step's lookup (``csrc/probe_dfa_step.cu``)
 at the from: batch and k7, old against new and against
 ``LOOKUP_VARIANTS``, and after a reading flush.
 
+wide (``--old`` optional): the widened DFA step ``dfa_wide``
+(``csrc/probe_dfa_wide.cu``) at configs[3] (B=64 x L=65536, its 96 x
+1008 table split hi/lo) and at v2's [4096, 128]: both forms against the
+old package's (old, new, new, old), the lookup beside B8's table scan at
+configs[3] (in turns), the product against ``wide_variants`` (clusters of
+8, the exchange by weak tagged stores; ``no_products`` and
+``no_exchange`` timed only) and the lookup in
+other forms, all checked (``LOOKUP_FORMS``: serial, W = 4096, C = 256
+and 1024), each after the harness's flush and after a reading flush:
+
+    python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only wide
+
 units (needs ``--old``): the compare-rate probe ``onehot_count``
 (``csrc/probe_units.cu``) at [1024, 512], the accumulate probe
 ``mma_accum`` (``csrc/probe_mma_accum.cu``) at [4, 2, 128, 128] and
@@ -242,7 +254,8 @@ MARKER_VARIANTS = {
                     "    return;\n  }\n")],
 }
 TIMING_ONLY = ("no_load", "no_compute", "no_store", "no_stage", "class_half_products",
-               "class_no_products", "no_fill", "no_chain", "no_sync")
+               "class_no_products", "no_fill", "no_chain", "no_sync", "no_products",
+               "no_exchange")
 # onehot_count's variants (csrc/probe_units.cu), code that each inserts:
 # - int: the compares on the int pipe (ISETP and a sum) against int keys;
 # - atomic: the partials by atomics after a zero fill (cudaMemsetAsync) in
@@ -476,6 +489,83 @@ LOOKUP_VARIANTS = {
                   "          s = (int)((row + ((uint32_t)s << 2)) & 0x1fffcu);")],
 }
 
+
+# dfa_wide's product variants (csrc/probe_dfa_wide.cu, wide_mma_kernel):
+# clusters of at most 8 ranks (two n tiles a rank at configs[3]); and, for
+# timing only, no products issued (the picks read stale sums) and no
+# exchange (no words sent, no waits for them: each rank reads its own
+# stale slots)
+_W = "probe_dfa_wide.cu"
+WIDE_VARIANTS = {
+    "cluster8": [(_W, "constexpr int kMaxCluster = 16;", "constexpr int kMaxCluster = 8;")],
+    "no_products": [(_W, "        hopper::wgmma_m64n128k16_f16_rs(",
+                     "        if (L < 0) hopper::wgmma_m64n128k16_f16_rs(")],
+    "no_exchange": [(_W, "        st_async4(xr[i]", "        if (L < 0) st_async4(xr[i]"),
+                    (_W, "    if (lane == 0) hopper::mbar_expect_tx(",
+                     "    if (L < 0) hopper::mbar_expect_tx("),
+                    (_W, "    warp_wait(&mbar[q * 4 + w], (t / kSlots) & 1);", "")],
+}
+# and the exchange as weak 16-byte remote stores of (word, tag) pairs,
+# polled by volatile loads, no mbarrier (checked: the same states)
+_WEAK_SEND = (
+    "    const uint32_t tag = (uint32_t)(t / kSlots) + 1;\n#pragma unroll\n"
+    "    for (int i = 0; i < kMaxCluster / 4; ++i)\n      if (tig + 4 * i < R)\n"
+    "        asm volatile(\"st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\\n\" ::\"r\"(\n"
+    "                         xr[i] + q * (kMaxCluster * 4 * 32 * 4)),\n"
+    "                     \"r\"(w0), \"r\"(tag), \"r\"(w1), \"r\"(tag)\n                     : \"memory\");")
+_WEAK_RECV = (
+    "    uint32_t s0 = 0, s1 = 0;\n    {\n"
+    "      const uint32_t base = hopper::smem_u32(xbuf + (q * kMaxCluster * 4 + w) * 32 + "
+    "4 * (lane & 7));\n"
+    "      bool all = false;\n      while (!all) {\n        bool ok = true;\n"
+    "        s0 = 0;\n        s1 = 0;\n#pragma unroll\n"
+    "        for (int i = 0; i < kMaxCluster / 4; ++i) {\n"
+    "          const int r = (lane >> 3) * (kMaxCluster / 4) + i;\n"
+    "          uint32_t a0, t0, a1, t1;\n"
+    "          asm volatile(\"ld.volatile.shared.v4.u32 {%0, %1, %2, %3}, [%4];\\n\"\n"
+    "                       : \"=r\"(a0), \"=r\"(t0), \"=r\"(a1), \"=r\"(t1)\n"
+    "                       : \"r\"(base + (uint32_t)r * (4 * 32 * 4))\n"
+    "                       : \"memory\");\n"
+    "          s0 += r < R ? a0 : 0u;\n          s1 += r < R ? a1 : 0u;\n"
+    "          ok = ok && (r >= R || (t0 == tag && t1 == tag));\n        }\n"
+    "        all = __all_sync(0xffffffffu, ok);\n      }\n"
+    "      s0 += __shfl_xor_sync(0xffffffffu, s0, 8);\n"
+    "      s0 += __shfl_xor_sync(0xffffffffu, s0, 16);\n"
+    "      s1 += __shfl_xor_sync(0xffffffffu, s1, 8);\n"
+    "      s1 += __shfl_xor_sync(0xffffffffu, s1, 16);\n    }\n    int y[4];\n    {\n"
+    "      const uint32_t v0 = __shfl_sync(0xffffffffu, s0, g), v1 = __shfl_sync(0xffffffffu, s1, g);\n"
+    "      y[0] = (int)(v0 & 0xFFFF);\n      y[1] = (int)(v0 >> 16);\n"
+    "      y[2] = (int)(v1 & 0xFFFF);\n      y[3] = (int)(v1 >> 16);\n    }")
+
+
+def _block(text: str, first: str, last: str) -> str:
+    """The lines of ``text`` from the one holding ``first`` to the one ending ``last``."""
+    i = text.index(first)
+    return text[i: text.index(last, i) + len(last)]
+
+
+def wide_variants(K) -> dict:
+    """``WIDE_VARIANTS`` and ``weak_tagged``, whose edits replace blocks of
+    the source as it is."""
+    src = (K.CSRC / _W).read_text()
+    send = _block(src, "    const uint32_t msg[4] = {w0, w1,",
+                  "st_async4(xr[i] + q * (kMaxCluster * kStrings * 4), msg, mr[i] + q * 32);")
+    recv = _block(src, "    warp_wait(&mbar[q * 4 + w], (t / kSlots) & 1);",
+                  "      y[2 * h + 1] = (int)(v >> 16);\n    }")
+    return {**WIDE_VARIANTS, "weak_tagged": [
+        (_W, "constexpr int kXbufWords = kSlots * kMaxCluster * kStrings;",
+         "constexpr int kXbufWords = kSlots * kMaxCluster * 4 * 32;"),
+        (_W, "    xr[i] = map_rank(hopper::smem_u32(xbuf + (rank * 4 + w) * 16 + 2 * g), r);",
+         "    xr[i] = map_rank(hopper::smem_u32(xbuf + (rank * 4 + w) * 32 + 4 * g), r);"),
+        (_W, "  if (tid < kSlots * 4) hopper::mbar_init(&mbar[tid], 1);",
+         "  for (int u = tid; u < kXbufWords; u += 128) xbuf[u] = 0;\n"
+         "  if (tid < kSlots * 4) hopper::mbar_init(&mbar[tid], 1);"),
+        (_W, send, _WEAK_SEND), (_W, recv, _WEAK_RECV)]}
+
+
+# the lookup's other forms, (C, W) of its chunks: (0, 0) the serial form
+LOOKUP_FORMS = {"serial": (0, 0), "W4096": (512, 4096), "C256": (256, 8192),
+                "C1024": (1024, 8192)}
 
 MEMORY_OPS = ("LDG", "STG", "LDGSTS", "UTMALDG", "UTMASTG", "LDS", "STS")
 
@@ -874,6 +964,119 @@ def lookup_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
     return rec
 
 
+def wide_ab(pk, cs, dev, card, flush) -> dict:
+    """dfa_wide at configs[3] and v2's [4096, 128] (hi/lo; v2 with c mod K
+    and s mod S): lookup and onehot_mma against the ``--old`` package's
+    (old, new, new, old; where given), the lookup against B8's table scan
+    at configs[3] (kernel, B8, B8, kernel), onehot_mma against each of
+    ``wide_variants`` and the lookup against each of ``LOOKUP_FORMS``
+    (kernel, variant, variant, kernel), each new form after a reading
+    flush too; ptxas and the SASS of both kernels."""
+    import halo2_regex_tpu_torch as h2r
+    from halo2_regex_tpu_torch.ops import kernels as K
+    from halo2_regex_tpu_torch.probes import probe_tpu28 as p28
+
+    o28 = importlib.import_module("h2r_old.probes.probe_tpu28") if pk else None
+    dirs = {name: variant_csrc(K, f"wide_{name}", edits)
+            for name, edits in wide_variants(K).items()}
+    with ThreadPoolExecutor(len(dirs) + 1) as pool:
+        jobs = {name: pool.submit(K._build_library, (_W,), (K.DFA_WIDE,), K.PROBE_HEADERS, None,
+                                  d) for name, d in dirs.items()}
+        if pk:
+            pool.submit(pk.old_k.build_probes).result()
+        K.build_probes()
+        libs = {name: j.result() for name, j in jobs.items()}
+    keys = [probes_key(K)]
+    rec: dict = {"ptxas": ptxas_of(K, keys, "wide_"), "sass": sass_counts(K, keys, "wide_")}
+    if pk:
+        okeys = [probes_key(pk.old_k)]
+        rec["ptxas_old"] = ptxas_of(pk.old_k, okeys, "wide_")
+    for ln in rec["ptxas"] + rec.get("ptxas_old", []):
+        print(ln, flush=True)
+
+    def turns(name, a, b, labels, iters=10):
+        t = [cs.time_ms(f, flush, device_only=True, iters=iters) for f in (a, b, b, a)]
+        print(f"{name}: {labels[0]} {t[0]['median']:.4f} / {t[3]['median']:.4f} ms, {labels[1]} "
+              f"{t[1]['median']:.4f} / {t[2]['median']:.4f} ms ({labels[0]}, {labels[1]}, "
+              f"{labels[1]}, {labels[0]}); card {card}", flush=True)
+        return {labels[0]: [t[0]["median"], t[3]["median"]],
+                labels[1]: [t[1]["median"], t[2]["median"]], "iqr": [x["iqr"] for x in t]}
+
+    model, chars3, _l = cs.config3(h2r)
+    m3 = h2r.PallasMatcher(model, max_pairs=4096, device=dev)
+    nt, cmap = m3.next_table[0], m3.class_map[0]
+    ch3 = torch.from_numpy(chars3).to(dev)
+    widths = {}
+    B_, L_ = ch3.shape
+    tbl = p28.as_table(torch.cat([nt & 255, nt >> 8], 1))
+    cls = cmap.long()[ch3.long()].t().contiguous().to(torch.int32)
+    entry = torch.full((B_,), int(m3.first_states[0]), dtype=torch.int32, device=dev)
+    widths["configs3 64x65536"] = (tbl, cls, dict(hilo=True, entry=entry))
+    t2, c2 = p28.probe_inputs(4096, 128, dev=dev)
+    widths["v2 4096x128"] = (t2, c2, dict(hilo=True, cmod=True, smod=True))
+    for lab, (tbl, cls, kw) in widths.items():
+        K_, W = tbl.shape
+        L2, TB = cls.shape
+        want = p28.dfa_wide_plain(tbl, cls, **kw)
+        frags = p28.b_fragments(tbl)
+        for form in ("lookup", "onehot_mma"):
+            new = lambda form=form: p28.dfa_wide(tbl, cls, form=form, frags=frags, **kw)  # noqa: E731
+            check(cs, f"{lab} {form}", new(), want)
+            iters = 3 if form == "onehot_mma" and lab.startswith("configs3") else 10
+            if o28:
+                old = lambda form=form: o28.dfa_wide(tbl, cls, form=form, **kw)  # noqa: E731
+                check(cs, f"{lab} {form} old", old(), want)
+                rec[f"{lab} {form} old/new"] = turns(f"{lab} {form}", old, new, ("old", "new"),
+                                                     iters)
+            t = cs.time_ms(new, ReadFlush(flush), True)
+            print(f"{lab} {form} after a read flush: {cs.fmt(t)}; card {card}", flush=True)
+            rec[f"{lab} {form} read_flush_ms"] = t["median"]
+        lookup = lambda: p28.dfa_wide(tbl, cls, **kw)  # noqa: E731
+        if lab.startswith("configs3"):
+            n16 = (nt * 2).to(torch.int16).reshape(1, *nt.shape)
+            init = entry.reshape(1, B_)
+
+            def b8():
+                out = torch.empty((1, L2, B_), dtype=torch.int32, device=dev)
+                K.table_scan_cuda(m3.class_map, m3.next_table, ch3, init, 0, L2, out,
+                                  next16=n16)
+                return out[0]
+
+            check(cs, "b8", b8(), want)
+            rec[f"{lab} lookup/b8"] = turns(f"{lab} lookup against B8", lookup, b8,
+                                            ("kernel", "b8"))
+            before = p28.lookup_repaired(dev)
+            lookup()
+            rec[f"{lab} lookup repaired"] = p28.lookup_repaired(dev) - before
+            print(f"{lab} lookup {p28.lookup_form(TB, L2, dev)}: "
+                  f"{rec[f'{lab} lookup repaired']} positions repaired", flush=True)
+        for name, cw in LOOKUP_FORMS.items():
+            var = lambda cw=cw: p28.dfa_wide_cuda(tbl, cls, form="lookup", cw=cw, **kw)  # noqa: E731
+            check(cs, f"{lab} lookup {name}", var(), want)
+            rec[f"{lab} lookup {name}"] = turns(f"{lab} lookup {name}", lookup, var,
+                                                ("kernel", "variant"))
+        prod = lambda: p28.dfa_wide(tbl, cls, form="onehot_mma", frags=frags, **kw)  # noqa: E731
+        for vname, vlib in libs.items():
+            got = torch.empty_like(want)
+            e = kw.get("entry")
+            e = torch.zeros(TB, dtype=torch.int32, device=dev) if e is None else e
+
+            def run_var(vlib=vlib, got=got, e=e):
+                if vlib.h2r_dfa_wide(tbl.data_ptr(), frags.data_ptr(), cls.data_ptr(),
+                                     e.data_ptr(), got.data_ptr(), None, None, TB, L2, K_, W,
+                                     int(kw.get("hilo", False)), int(kw.get("cmod", False)),
+                                     int(kw.get("smod", False)), 1, 0, 0, 0, K._stream(cls)):
+                    raise RuntimeError("dfa_wide variant: launch failed")
+                return got
+
+            if vname not in TIMING_ONLY:
+                check(cs, f"{lab} onehot_mma {vname}", run_var(), want)
+            rec[f"{lab} onehot_mma {vname}"] = turns(
+                f"{lab} onehot_mma {vname}", prod, run_var, ("kernel", "variant"),
+                3 if lab.startswith("configs3") else 10)
+    return rec
+
+
 def units_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
     """onehot_count (P10) at [1024, 512], mma_accum (P15) at [4, 2, 128,
     128] and [4, 8, 1024, 1024] (integer inputs), int8_mma (P11) at 128^3
@@ -1072,11 +1275,11 @@ def main() -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", help="directory of the earlier halo2_regex_tpu_torch/ package "
                     "(every part; marker runs without it, its variants alone)")
-    ap.add_argument("--only", default="pack,fb,walls,marker,lookup,units",
+    ap.add_argument("--only", default="pack,fb,walls,marker,lookup,units,wide",
                     help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
-    if parts - {"marker"} and not args.old:
+    if parts - {"marker", "wide"} and not args.old:
         ap.error("--old is needed for the pack, fb, walls, lookup and units parts")
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -1108,6 +1311,8 @@ def main() -> dict:
         out["lookup"] = lookup_ab(pk, cs, dev, card, flush)
     if "units" in parts:
         out["units"] = units_ab(pk, cs, dev, card, flush)
+    if "wide" in parts:
+        out["wide"] = wide_ab(pk, cs, dev, card, flush)
     rec["ab"] = out
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:

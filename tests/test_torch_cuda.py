@@ -1816,6 +1816,33 @@ def test_probe_dfa_wide_matches_plain(dev, K, S, hilo, cmod, smod, form):
     assert len(torch.unique(want)) > 8
 
 
+@pytest.mark.parametrize("table", ["random", "permutation"])
+def test_probe_dfa_wide_chunked_lookup_repairs_as_its_twin(dev, table):
+    """The chunked lookup (S1, S2) in chunks of 16 after 8 positions of
+    warm-up: the states of the plain version and as many positions
+    repaired as its twin, on a hi/lo table with classes and states out of
+    range and on a permutation table (every wrong guess repaired); 130
+    strings (five warps, a partial one), L = 1000."""
+    from halo2_regex_tpu_torch.probes import probe_tpu28 as p28
+
+    rng = np.random.default_rng(21)
+    if table == "random":
+        tbl = p28.as_table(rng.integers(0, 256, size=(96, 2016)).astype(np.float32))
+        chars = rng.integers(-5, 105, size=(1000, 130))
+        flags = dict(hilo=True, cmod=False, smod=True)
+    else:
+        tbl = p28.as_table(np.stack([rng.permutation(300) for _ in range(20)]).astype(np.float32))
+        chars = rng.integers(0, 20, size=(1000, 130))
+        flags = {}
+    chars = torch.from_numpy(chars.astype(np.int32))
+    want, n_twin = p28.lookup_chunks_plain(tbl, chars, C=16, W=8, **flags)
+    assert torch.equal(want, p28.dfa_wide_plain(tbl, chars, **flags))
+    before = p28.lookup_repaired(dev)
+    got = p28.dfa_wide_cuda(tbl.to(dev), chars.to(dev), cw=(16, 8), **flags)
+    assert torch.equal(got.cpu(), want)
+    assert p28.lookup_repaired(dev) - before == n_twin > 0
+
+
 def test_probe_dfa_wide_count_and_chain(dev):
     """v1's count form; two launches chained at the first's last row equal
     one (w3)."""
