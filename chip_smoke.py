@@ -72,7 +72,8 @@ corpus and on configs[3], the corpus-scan CLI and the device-expand
             size 1 over nccl on cli_scan's file (a subprocess);
   probes    the serial-scan probes of tools/ (``probes/``): the ``run``
             of ``halo2_regex_tpu_torch.probes.probe_tpu9`` (loop_floor,
-            slab_scan), ``.probe_tpu20`` (bitop_scan) and ``.probe_tpu56``
+            slab_scan: chunked, and serial at [65536, 64]),
+            ``.probe_tpu20`` (bitop_scan) and ``.probe_tpu56``
             (chains), which their ``python -m`` entry points call, at
             [10]'s widths;
   table probes  the table-kernel probes of tools/ (``probes/``): the
@@ -172,8 +173,8 @@ and proves on the card that:
      each path end to end as a caller sees one call (host launch overhead
      included) with its peak device memory (and, for the table paths, the
      host's enqueue time), the B=4096 latency of match, extraction serving
-     and pallas_from, and the plain pipelines (the witness one with
-     2 + 10 runs, the others with PLAIN_WARMUP + PLAIN_ITERS); the tiled
+     and pallas_from, and the plain pipelines (PLAIN_WARMUP +
+     PLAIN_ITERS runs); the tiled
      and [B, L] walls side by side at B=32768 and B=4096 with the host's
      tile_corpus time per batch; pallas_dict beside its split-mode
      equivalent (max_pairs=4096); the portable paths' walls (xla at
@@ -207,12 +208,16 @@ and proves on the card that:
      around it), and its line names this card; each probe kernel is
      bit-exact against its plain version (int32, tolerance 0) at
      loop_floor (slab 1 and 8) [1024, 256], [1024, 1024], [65536, 64];
-     slab_scan [1024, 256], [65536, 64]; bitop_scan n_ops 96, 192, 384,
+     slab_scan [1024, 256], [65536, 64] (both in their chunked form, and
+     at [65536, 64] in their serial form too); bitop_scan n_ops 96, 192, 384,
      768 at [1024, 12, 8, 128] from seeded start planes (its outputs not
      all zero); chains C = 1, 2, 4 at blocks of 32 and of 1024 threads;
      each timed (2 + 10 runs; ns and cycles a serial step at 1.98 GHz;
      the plain version once; ``torch.cumsum`` beside loop_floor), and
-     K2's and configs[3]'s table scan's steps set beside those curves;
+     K2's and configs[3]'s table scan's steps set beside those curves (the
+     serial forms' steps, each with its launches a call); ptxas' log
+     beside the library shows no spills in the chunked loop_floor and slab
+     kernels, and their SASS no local memory (LDL, STL);
  11. the table-kernel probe scripts' runs, driven with the launch counts
      reset, launched every table probe kernel and no other; each
      measurement as in [10] (an int8_mma call launches twice: its staging
@@ -305,7 +310,7 @@ B, L = 32768, 1024
 L_UNPADDED = 1000  # L_pad 1024: the raw-quads pack (B5) path
 B_LATENCY = 4096  # the suite's latency rows
 WARMUP, ITERS = 2, 10
-PLAIN_WARMUP, PLAIN_ITERS = 1, 3
+PLAIN_WARMUP, PLAIN_ITERS = 0, 2  # each plain version ran before [6] ([4], [5])
 ORACLE_N = 256
 B3, L3, S3 = 64, 65536, 1000  # BASELINE configs[3] (run_benchmarks.py:352-396)
 ORACLE_N3 = 8
@@ -1205,16 +1210,19 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
     plain version (``harness.measure``: one call with every kernel's count
     read around it, 2 + 10 timed runs with the L2 flushed, the last output
     against the plain version's, which runs once; ``torch.cumsum`` beside
-    loop_floor); then the two serial scans are set on the measured curves:
-    K2's step-circuit ops a position and cycles a position against
-    bitop_scan's sweep, configs[3]'s table-scan chain step against
-    loop_floor and slab_scan at [65536, 64]."""
+    loop_floor; loop_floor and slab_scan in their default, chunked form at
+    every width and in their serial form too at [65536, 64]); then the two
+    serial scans are set on the measured curves: K2's step-circuit ops a
+    position and cycles a position against bitop_scan's sweep, configs[3]'s
+    table-scan chain step against the serial forms of loop_floor and
+    slab_scan at [65536, 64].  ptxas' log and the SASS show no spills and
+    no local memory (LDL, STL) in the chunked kernels."""
     from halo2_regex_tpu_torch.probes import harness, probe_tpu9, probe_tpu20, probe_tpu56
 
     dev = torch.device("cuda")
     clock = harness.CLOCK_HZ
     kernels.reset_launch_counts()
-    recs = (probe_tpu9.run(dev, FLOOR_WIDTHS, SLAB_WIDTHS)
+    recs = (probe_tpu9.run(dev, FLOOR_WIDTHS, SLAB_WIDTHS, ((L3, B3),))
             + probe_tpu20.run(dev, BITOP_L, BITOP_NWS)
             + probe_tpu56.run(dev))
     torch.cuda.synchronize()
@@ -1227,8 +1235,10 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
 
     def label(r) -> str:
         at = "x".join(map(str, r["shape"]))
-        return {"A_loop_floor": f"slab 1, {at}", "B_slab8_floor": f"slab 8, {at}",
-                "C_slab8_scan": at, "A_bitop_scan": f"n_ops {r.get('n_ops')}",
+        return {"A_loop_floor": f"slab 1, {at}, {r.get('form')}",
+                "B_slab8_floor": f"slab 8, {at}, {r.get('form')}",
+                "C_slab8_scan": f"{at}, {r.get('form')}",
+                "A_bitop_scan": f"n_ops {r.get('n_ops')}",
                 "A_chains": f"C {r.get('C')}, {r.get('threads')} threads a block"}[r["probe"]]
 
     for r in recs:
@@ -1256,21 +1266,47 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
     t3 = times["table_scan@pallas_large"]["kernel"]["median"]
     t1 = times["table_scan_one_string@pallas_large"]["kernel"]["median"]
     at = f"{L3}x{B3}"
-    probe_ns = {name: tms[name]["ns_per_step"] for name in
-                (f"loop_floor[slab 1, {at}]", f"loop_floor[slab 8, {at}]", f"slab_scan[{at}]")}
+    serial = {"loop_floor": (f"slab 1, {at}, serial", f"slab 8, {at}, serial"),
+              "slab_scan": (f"{at}, serial",)}
+    probe_ns = {f"{k}[{lab}]": tms[f"{k}[{lab}]"]["ns_per_step"]
+                for k, labs in serial.items() for lab in labs}
+    serial_launches = {f"{r['kernel']}[{label(r)}]": r["launches"] for r in recs
+                       if r.get("form") == "serial"}
     log(f"[10] configs[3]'s table scan: {t3 * 1e6 / n3:.3f} ns a chain step ({t3:.4f} ms over "
         f"its {n3}-step chain, C={C3}, W={W3}); one string in the serial form "
-        f"{t1 * 1e6 / segment:.3f} ns a step ({segment} steps); at {at}, ns a step of "
-        "loop_floor (a rolled loop, its row read from shared memory) and of "
+        f"{t1 * 1e6 / segment:.3f} ns a step ({segment} steps); at {at}, ns a step of the "
+        "serial forms of loop_floor (a rolled loop, its row read from shared memory) and of "
         "slab_scan (the probe's table step: a dependent load, 3 more loads, 4 stores): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in probe_ns.items()) + f"; card {card}")
+        + ", ".join(f"{k} {v:.3f} ({serial_launches[k]} launch a call)"
+                    for k, v in probe_ns.items()) + f"; card {card}")
+    # the chunked kernels: no spills in ptxas' log, no local memory in the SASS
+    spills = {k: v for name in ("floor_chunk_kernel", "slab_chunk_kernel")
+              for k, v in probe_spills(kernels, name).items()}
+    sass = sass_ops(kernels.build_probes()._name,
+                    {"floor_chunk_kernel": ("LDL", "STL", "LDG", "STG"),
+                     "slab_chunk_kernel": ("LDL", "STL", "LDS", "STG")})
+    for fn, ops in sass.items():
+        log(f"[10] sass {fn[-60:]}: {ops}")
+    log(f"[10] ptxas spill bytes of the chunked kernels {spills}; card {card}")
+    # every instance there: loop_floor's R = C / 8 a C; the slab kernel's
+    # (N_OUT, C), slab_scan's N_OUT = 4 and slab_anatomy's 1, 2 and 4 (each
+    # source's anonymous namespace gives its instances names of their own)
+    found = sorted(re.search(r"(floor|slab)_chunk_kernelILi(\d+)E(?:Li(\d+)E)?", fn).groups()
+                   for fn in sass)
+    want = sorted([("floor", str(c // 8), None) for c in kernels.SCAN_CHUNKS]
+                  + [("slab", str(n), str(c)) for n in (4, 1, 2, 4) for c in kernels.SCAN_CHUNKS])
+    if (any(spills.values()) or found != want
+            or any(ops["LDL"] or ops["STL"] for ops in sass.values())):
+        raise AssertionError(f"[10] the chunked kernels spill, use local memory or lack an "
+                             f"instance ({found} against {want}): {spills} {sass}")
     placement = {"k2_step_ops": k2_ops, "k2_cycles_a_position": k2_cyc,
                  "bitop_sweep_cycles": dict(sweep), "bitop_fit": [float(slope), float(icpt)],
                  "table_scan_ns_a_chain_step": t3 * 1e6 / n3, "chain_steps": n3,
-                 "table_scan_one_string_ns_a_step": t1 * 1e6 / segment, "probe_ns": probe_ns}
+                 "table_scan_one_string_ns_a_step": t1 * 1e6 / segment, "probe_ns": probe_ns,
+                 "serial_launches": serial_launches}
     return {"rows": list(rows.values()), "times": tms, "errs": errs,
             "launches": {"probes": got},
-            "rec": {"scripts": recs, "placement": placement}}
+            "rec": {"scripts": recs, "placement": placement, "sass": sass, "spills": spills}}
 
 
 def sass_ops(lib_path: str, names: dict) -> dict:
@@ -2854,10 +2890,7 @@ def main() -> dict:
         t = time_ms(fn, flush, device_only=False)
         peak = torch.cuda.max_memory_allocated()
         m = matchers[mk]
-        if path == "witness":
-            tp = time_ms(lambda: bp.run(m.plan, m.tables(), ch, ln, plain=True), flush,
-                         device_only=False)
-        elif path != "extract_serving":
+        if path != "extract_serving":
             tp = time_ms(lambda: bp.run(m.plan, m.tables(), ch, ln, plain=True), flush,
                          device_only=False, warmup=PLAIN_WARMUP, iters=PLAIN_ITERS)
         else:

@@ -256,8 +256,8 @@ PROBE_SOURCES = ("probe_tpu9.cu", "probe_tpu20.cu", "probe_tpu56.cu", "probe_gat
                  "probe_dfa_step.cu", "probe_tpu18.cu", "probe_units.cu",
                  "probe_tile_move.cu", "probe_emit.cu", "probe_dfa_wide.cu", "probe_marker.cu",
                  "probe_mma_accum.cu", "probe_int8_mma.cu")
-PROBE_HEADERS = ("probe_ring.cuh", "probe_slab.cuh", "bitplane_common.cuh",
-                 "probe_marker_class.cuh", "hopper_mma.cuh")
+PROBE_HEADERS = ("probe_ring.cuh", "probe_lookback.cuh", "probe_slab.cuh",
+                 "bitplane_common.cuh", "probe_marker_class.cuh", "hopper_mma.cuh")
 # entry points of each library: (kernel, ctypes argument kinds)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
@@ -291,10 +291,11 @@ _ENTRIES = {
     # chars, lengths, cmap, table, first, states, ids, start, endf, fwd,
     # bwd, bits, n_defs, B, L, K, S, vec, smem bytes, stream
     TABLE_FLAT: [_P] * 12 + [_I] * 7 + [_P],
-    # x, out, slab, L, TB, stream
-    LOOP_FLOOR: [_P, _P, _I, _I, _I, _P],
-    # tk, classes, x, four outputs, L, TB, K, S, stream
-    SLAB_SCAN: [_P] * 7 + [_I] * 4 + [_P],
+    # x, out, slab, L, TB, chunk (0: serial), scratch, epoch, stream
+    LOOP_FLOOR: [_P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # tk, classes, x, four outputs, L, TB, K, S, chunk (0: serial), scratch,
+    # epoch, stream
+    SLAB_SCAN: [_P] * 7 + [_I] * 5 + [_P, _I, _P],
     # cls, st0, out, n_ops, NW, L, LC, stream
     BITOP_SCAN: [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, out, C, NW, n_steps, threads a block, stream
@@ -303,8 +304,9 @@ _ENTRIES = {
     LANE_GATHER: [_P, _P, _P, _I, _I, _I, _P],
     # T (or Tk), classes, chars, out, TB, LB, time_major, form, pick, K, stream
     DFA_STEP: [_P] * 4 + [_I] * 6 + [_P],
-    # tk, classes, x, four outputs, L, TB, K, S, first, n_out, stream
-    SLAB_ANATOMY: [_P] * 7 + [_I] * 6 + [_P],
+    # tk, classes, x, four outputs, L, TB, K, S, first, n_out, chunk (0:
+    # serial), scratch, epoch, stream
+    SLAB_ANATOMY: [_P] * 7 + [_I] * 7 + [_P, _I, _P],
     # x, out, n, stream
     NOP: [_P, _P, _I, _P],
     # c, out, LB, TB, stream
@@ -850,6 +852,68 @@ def _launch(kernel: CudaKernel, fn, *args, n: int = 1) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# The probes' chunked scans (csrc/probe_tpu9.cu loop_floor, probe_slab.cuh):
+# their forms, chunk lengths and the look-back's scratch
+# ---------------------------------------------------------------------------
+
+SCAN_FORMS = ("chunked", "serial")
+SCAN_CHUNKS = (64, 128, 512)  # the chunked forms' instances: C, rows or positions a tile
+SLAB_CHUNK_MAX_S = 32  # kChunkMaxS of csrc/probe_slab.cuh: a warp holds every start state
+SLAB_CHUNK_WARPS = 8  # kChunkWarps: a block's warps, the sub-chunks of a chunk
+LOOKBACK_TICKET_BYTES = 256  # kTicketBytes of csrc/probe_lookback.cuh
+LOOKBACK_EPOCHS = 1 << 24  # epochs before the scratch starts again from zeros
+# the look-back's status bytes a tile, each tile's at a fixed stride:
+# loop_floor's 32 words of 8 bytes; the slab kernel's record (kRecordBytes),
+# 32 maps of four 8-byte words, then 32 end-state words
+LOOKBACK_TILE_BYTES = {LOOP_FLOOR.name: 32 * 8, SLAB_SCAN.name: 32 * 4 * 8 + 32 * 4,
+                       SLAB_ANATOMY.name: 32 * 4 * 8 + 32 * 4}
+_LOOKBACK: Dict[Tuple[int, int, str], list] = {}
+
+
+def slab_form(S: int) -> str:
+    """The slab kernel's form for a table of S states: ``"chunked"`` where a
+    warp holds every start state of a string (S <= ``SLAB_CHUNK_MAX_S``),
+    else ``"serial"``."""
+    return "chunked" if S <= SLAB_CHUNK_MAX_S else "serial"
+
+
+def scan_chunk(L: int, TB: int, dev: torch.device) -> int:
+    """The chunk length C of the probes' chunked scans for [L, TB]: 512
+    where its tiles (32 columns x C rows) are at least as many as the
+    card's SMs, else 128 where they are, else 64 (``kernel_ab.py --only
+    scan`` times other C)."""
+    n_grp = -(-TB // 32)
+    for c in (512, 128):
+        if n_grp * -(-L // c) >= _sms(dev):
+            return c
+    return 64
+
+
+def lookback_scratch(kernel: CudaKernel, t: torch.Tensor, n_blk: int) -> Tuple[int, int]:
+    """The scratch of ``kernel``'s chunked form on ``t``'s device and
+    current stream, for a grid of ``n_blk`` tiles, and the call's epoch:
+    (pointer, epoch).  The scratch is made (and remade larger when a larger
+    grid comes) as zeros: the ticket at 0 and no status word of any epoch.
+    Each call takes the next epoch, so the status words of earlier calls
+    read as not ready and nothing is filled between calls; after
+    ``LOOKBACK_EPOCHS`` calls the scratch is zeroed and the epochs start
+    again.  One scratch a kernel, so that an address holds the same kind of
+    word in every call (tile t's words lie at t times
+    ``LOOKBACK_TILE_BYTES``, whatever the grid), and one a stream, so that
+    calls on two streams never share a ticket."""
+    key = (_index(t.device), _stream(t), kernel.name)
+    nbytes = LOOKBACK_TICKET_BYTES + n_blk * LOOKBACK_TILE_BYTES[kernel.name]
+    ent = _LOOKBACK.get(key)
+    if ent is None or ent[0].numel() < nbytes:
+        ent = _LOOKBACK[key] = [torch.zeros(nbytes, dtype=torch.uint8, device=t.device), 0]
+    ent[1] += 1
+    if ent[1] >= LOOKBACK_EPOCHS:
+        ent[0].zero_()
+        ent[1] = 1
+    return ent[0].data_ptr(), ent[1]
 
 
 def qpack_cuda(plan: BitplanePlan, chars: torch.Tensor, len_wb: torch.Tensor):

@@ -3,8 +3,9 @@
 Each module keeps the name of the TPU script it ports, so a reader finds
 its counterpart.  The serial-scan probes:
 
-- :mod:`.probe_tpu9`: ``loop_floor`` (A and B, the floor of a serial loop,
-  one row or eight a step) and ``slab_scan`` (C, the table scan's step);
+- :mod:`.probe_tpu9`: ``loop_floor`` (A and B: a column cumsum, one row or
+  eight a step in its serial form) and ``slab_scan`` (C, the table scan's
+  step), each a chunked scan over the card by default (``form``);
 - :mod:`.probe_tpu20`: ``bitop_scan`` (A, a serial bit-op scan swept over
   ops a step, at the bitplane scan's geometry);
 - :mod:`.probe_tpu56`: ``chains`` (A, the issue width: 1, 2 or 4

@@ -11,8 +11,9 @@ slab kernel, its table step stripped to 1, 2 or 4 picks and stores.
 
 The kernel is ``csrc/probe_tpu18.cu``, probe_tpu9's slab kernel
 (``csrc/probe_slab.cuh``) with the pick and store count a template
-parameter; the plain version is :mod:`.probe_tpu9`'s ``slab_plain``.  Run
-on the card::
+parameter, in its chunked form by default or its serial one (``form``, as
+:mod:`.probe_tpu9`'s ``slab_scan``); the plain version is
+:mod:`.probe_tpu9`'s ``slab_plain``.  Run on the card::
 
     python -m halo2_regex_tpu_torch.probes.probe_tpu18
 
@@ -21,7 +22,7 @@ on the card::
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +31,7 @@ from ..models import zoo
 from ..ops import kernels
 from ..ops.pallas_scan import build_packed_tables, byte_classes
 from . import harness
-from .probe_tpu9 import _check_x, check_table, slab_plain
+from .probe_tpu9 import _check_x, check_table, scan_form, slab_launch, slab_plain
 
 L, B = 1024, 4096  # the probe's
 N_OUTS = {1: "scan_only", 2: "scan_ids", 4: "scan_all4"}
@@ -82,28 +83,20 @@ def slab_anatomy_plain(tab: torch.Tensor, classes: torch.Tensor, x: torch.Tensor
 
 
 def slab_anatomy_cuda(tab: torch.Tensor, classes: torch.Tensor, x: torch.Tensor, first: int,
-                      n_out: int = 4):
-    """The ``slab_anatomy`` kernel.  Precondition (``check_ranges``; not
-    checked here)."""
-    K, S, L_, B_ = _check(tab, classes, x, first, n_out)
-    kernels._check(tab, "tab", torch.int32, (K, 4 * S))
-    kernels._check(classes, "classes", torch.int32, (256,))
-    kernels._check(x, "x", torch.int32, (L_, B_))
-    outs = tuple(torch.empty_like(x) for _ in range(n_out))
-    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - n_out)
-    lib = kernels.build_probes()
-    kernels._launch(kernels.SLAB_ANATOMY, lib.h2r_slab_anatomy, tab.data_ptr(),
-                    classes.data_ptr(), x.data_ptr(), *ptrs, L_, B_, K, S, first, n_out,
-                    kernels._stream(x))
-    return outs
+                      n_out: int = 4, form: Optional[str] = None):
+    """The ``slab_anatomy`` kernel in ``form`` (None: ``kernels.slab_form``'s).
+    Precondition (``check_ranges``; not checked here)."""
+    _check(tab, classes, x, first, n_out)
+    return slab_launch(kernels.SLAB_ANATOMY, tab, classes, x, first, n_out, form)
 
 
 def slab_anatomy(tab: torch.Tensor, classes: torch.Tensor, x: torch.Tensor, first: int,
-                 n_out: int = 4):
+                 n_out: int = 4, form: Optional[str] = None):
     """The kernel on CUDA tensors, the plain version on CPU ones."""
     if x.device.type == "cpu":
+        scan_form(form, check_table(tab, classes)[1])
         return slab_anatomy_plain(tab, classes, x, first, n_out)
-    return slab_anatomy_cuda(tab, classes, x, first, n_out)
+    return slab_anatomy_cuda(tab, classes, x, first, n_out, form)
 
 
 def inputs(L_: int, B_: int, seed: int = 0, dev=None):
@@ -128,7 +121,7 @@ def run(dev: torch.device, L_: int = L, B_: int = B) -> List[dict]:
             lambda: slab_anatomy_plain(tab, classes, x, first, n_out),
             nbytes=((1 + n_out) * x.numel() + tab.numel() + 256) * 4,
             int32_ops=(1 + n_out) * x.numel(), shape=[L_, B_], n_out=n_out,
-            K=tab.shape[0], S=tab.shape[1] // 4)[0])
+            K=tab.shape[0], S=tab.shape[1] // 4, form=scan_form(None, tab.shape[1] // 4))[0])
     return recs
 
 

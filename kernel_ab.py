@@ -76,6 +76,18 @@ kernel (kernel, library, library, kernel; the range test,
 
     python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only units
 
+scan (``--old`` optional): the chunked ``loop_floor`` and slab kernels
+(``csrc/probe_tpu9.cu``, ``csrc/probe_slab.cuh``) at chip_smoke's [10] and
+[11] widths and probe_tpu6's k1 and k3 against the ``--old`` package's
+(its serial kernels; old, new, new, old, after the harness's flush and
+after a reading flush), against their serial forms and against
+``scan_variants`` (C = 64, 128, 256, 512; n_sub, two launches, one tile a
+look-back round, wide maps, no early end states; no_compute, no_store and
+no_lookback timed only), and B8's speculation and repair in place of the maps on the
+probe's table and on a permutation table:
+
+    python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only scan
+
 The record goes to ``chiprun_out/kernel_ab.json``; the last line is a
 JSON summary.  Imports nothing of JAX.
 """
@@ -255,7 +267,7 @@ MARKER_VARIANTS = {
 }
 TIMING_ONLY = ("no_load", "no_compute", "no_store", "no_stage", "class_half_products",
                "class_no_products", "no_fill", "no_chain", "no_sync", "no_products",
-               "no_exchange")
+               "no_exchange", "no_lookback")
 # onehot_count's variants (csrc/probe_units.cu), code that each inserts:
 # - int: the compares on the int pipe (ISETP and a sum) against int keys;
 # - atomic: the partials by atomics after a zero fill (cudaMemsetAsync) in
@@ -1077,6 +1089,303 @@ def wide_ab(pk, cs, dev, card, flush) -> dict:
     return rec
 
 
+# the chunked scans' variants (csrc/probe_tpu9.cu floor_chunk_kernel,
+# csrc/probe_slab.cuh slab_chunk_kernel):
+# - c64, c128, c256, c512: every call over tiles of that C (the entries'
+#   switch sends every chunk to it; the library compiles only the C that
+#   ``kernels.scan_chunk`` picks, 64, 128 and 512);
+# - n_sub4, n_sub16: 4 or 16 warps a block, so 4 or 16 sub-chunks a chunk
+#   (8 or 2 strings a warp in the maps);
+# - two_launches: launch 1 publishes every tile's sums or maps; launch 2
+#   walks the tile again and takes its prefix from all earlier tiles' (no
+#   look-back, no waiting), then stores;
+# - window1: the look-back reads one earlier tile a round (the kernels: 8
+#   for loop_floor, 2 for the slab kernel);
+# - slab_wide: the maps never go narrow; slab_no_constant: no end state is
+#   published before the look-back;
+# - timing only: no_compute (loop_floor without its adds, the slab kernel
+#   without its maps), no_store, no_lookback (every tile from the start:
+#   prefix 0, state ``first``)
+_F, _S, _LB = "probe_tpu9.cu", "probe_slab.cuh", "probe_lookback.cuh"
+_FLOOR_AGG_PASS = """    if (agg_pass) {
+      probe_lookback::st_relaxed(mine, tag | agg);
+    } else {
+      for (int k = (int)t - n_grp; k >= 0; k -= n_grp)
+        excl += (uint32_t)probe_lookback::ld_relaxed(status + (size_t)k * 32 + lane);
+    }"""
+_SLAB_AGG_PASS = """  if (agg_pass) {
+#pragma unroll
+    for (int q = 0; q < kChunkStrings; ++q) {
+      unsigned long long word = (unsigned long long)epoch << 40;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        word |= (unsigned long long)__shfl_sync(kFull, s[q], (lane & ~7) + i) << (5 * i);
+      if ((lane & 7) == 0)
+        probe_lookback::st_relaxed(map_words(status, t, str0 + q) + (lane >> 3), word);
+    }
+    return;
+  }
+  int st[kChunkStrings];
+#pragma unroll
+  for (int q = 0; q < kChunkStrings; ++q) {
+    int acc = lane;
+    for (int kk = (int)t - n_grp; kk >= 0; kk -= n_grp) {
+      const unsigned long long m =
+          probe_lookback::ld_relaxed(map_words(status, kk, str0 + q) + (lane >> 3));
+      acc = __shfl_sync(kFull, acc, (int)(m >> (5 * (lane & 7))) & 31);
+    }
+    st[q] = __shfl_sync(kFull, acc, first);
+    if (lane == 0) start[str0 + q] = st[q];
+  }
+  __syncthreads();
+"""
+
+
+def scan_variants(K) -> dict:
+    """``SCAN_VARIANTS``: edits of the csrc/ sources as they are (the
+    two-launch variant replaces whole blocks of them)."""
+    f_src, s_src = (K.CSRC / _F).read_text(), (K.CSRC / _S).read_text()
+    floor_lb = _block(f_src, "    if (r == 0) {\n      probe_lookback::st_relaxed(mine, tag | inc | agg);",
+                      "      probe_lookback::st_relaxed(mine, tag | inc | (excl + agg));\n    }")
+    slab_lb = _block(s_src, "  // 3. start states: publish the maps at once",
+                     "      start[str0 + q] = st[q];\n    }\n  }\n  __syncthreads();\n")
+    floor_launch = ("  floor_chunk_kernel<R><<<n_blk, kFloorThreads, 0, st>>>(\n"
+                    "      (const int32_t*)x, (int32_t*)o, L, TB,")
+    slab_launch = ("  slab_chunk_kernel<N_OUT, C><<<n_blk, kChunkThreads, smem, st>>>(\n"
+                   "      (const int32_t*)tk, (const int32_t*)classes, (const int32_t*)x, o, L, TB,")
+    floor_sig = ("floor_chunk_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ o, "
+                 "int L, int TB,\n")
+    slab_sig = ("                  const int32_t* __restrict__ x, Outs<N_OUT> outs, int L, int TB, "
+                "int K, int S,\n")
+    chunks = {f"c{c}": [(_F, "    switch (chunk) {\n      case 64: return floor_chunk<8>(",
+                         f"    switch (chunk = 64) {{\n      case 64: return floor_chunk<{c // 8}>("),
+                        (_S, "  switch (chunk) {\n    case 64: return launch_chunked<N_OUT, 64>(",
+                         f"  switch (chunk = 64) {{\n    case 64: return launch_chunked<N_OUT, {c}>(")]
+              for c in (64, 128, 256, 512)}
+    return {
+        **chunks,
+        "n_sub4": [(_S, "constexpr int kChunkWarps = 8;", "constexpr int kChunkWarps = 4;")],
+        "n_sub16": [(_S, "constexpr int kChunkWarps = 8;", "constexpr int kChunkWarps = 16;")],
+        "two_launches": [
+            (_F, floor_sig, floor_sig.replace("int TB,", "int TB_arg,")),
+            (_F, "  constexpr int C = kFloorWarps * R;\n",
+             "  constexpr int C = kFloorWarps * R;\n  const bool agg_pass = TB_arg < 0;\n"
+             "  const int TB = agg_pass ? -TB_arg : TB_arg;\n"),
+            (_F, floor_lb, _FLOOR_AGG_PASS),
+            (_F, "  __syncthreads();\n  const uint32_t add = before[lane] + part[w][lane];",
+             "  __syncthreads();\n  if (agg_pass) return;\n"
+             "  const uint32_t add = before[lane] + part[w][lane];"),
+            (_F, floor_launch, floor_launch.replace("L, TB,", "L, -TB,") + " (uint32_t*)scratch,\n"
+             "      (unsigned long long*)((char*)scratch + probe_lookback::kTicketBytes), epoch);\n"
+             + floor_launch),
+            (_S, slab_sig, slab_sig.replace("int TB,", "int TB_arg,")),
+            (_S, "  constexpr int kRows = C / kChunkWarps;",
+             "  const bool agg_pass = TB_arg < 0;\n  const int TB = agg_pass ? -TB_arg : TB_arg;\n"
+             "  constexpr int kRows = C / kChunkWarps;"),
+            (_S, slab_lb, _SLAB_AGG_PASS),
+            (_S, slab_launch, slab_launch.replace("L, TB,", "L, -TB,") + " K, S, first,\n"
+             "      (uint32_t*)scratch, (char*)scratch + probe_lookback::kTicketBytes, epoch);\n"
+             + slab_launch)],
+        "window1": [(_LB, "constexpr int kWindow = 8;", "constexpr int kWindow = 1;"),
+                    (_S, "constexpr int kSlabWindow = 2;", "constexpr int kSlabWindow = 1;")],
+        "slab_wide": [(_S, "      if (fits) {", "      if (fits && L < 0) {")],
+        "slab_no_constant": [(_S, "    if (r > 0 && __all_sync(kFull, s[q] == __shfl_sync(kFull, s[q], 0))) {",
+                              "    if (L < 0 && __all_sync(kFull, s[q] == __shfl_sync(kFull, s[q], 0))) {")],
+        "no_compute": [(_F, "  for (int i = 1; i < R; ++i) v[i] += v[i - 1];", "  for (int i = 1; i < 0; ++i) {}"),
+                       (_S, "  for (int k = 0; k < kChunkWarps; ++k) {\n    if (k) {",
+                        "  for (int k = 0; k < (L < 0); ++k) {\n    if (k) {")],
+        "no_store": [(_F, "      if (i0 + i < L) o[(size_t)(i0 + i) * TB + b]",
+                      "      if (L < 0) o[(size_t)(i0 + i) * TB + b]"),
+                     (_S, "    if (b < TB) {\n      const size_t at", "    if (L < 0) {\n      const size_t at")],
+        "no_lookback": [(_F, "    if (r == 0) {\n      probe_lookback::st_relaxed(mine, tag | inc | agg);",
+                         "    if (L > 0) {\n      probe_lookback::st_relaxed(mine, tag | inc | agg);"),
+                        (_S, "    k[q] = r == 0 ? -1 : (int)t - n_grp;", "    k[q] = -1;")],
+    }
+
+
+def scan_ab(pk, cs, dev, card, flush) -> dict:
+    """The chunked loop_floor and slab kernels (``csrc/probe_tpu9.cu``,
+    ``csrc/probe_slab.cuh``) at chip_smoke's [10] and [11] widths and
+    probe_tpu6's k1 and k3: the ``--old`` package's (its serial kernels;
+    where given) against the new, in turns (old, new, new, old) after the
+    harness's flush and after a reading flush (``ReadFlush``); the new
+    kernels against ``scan_variants`` (kernel, variant, variant, kernel;
+    at k3 only the other C); the serial forms; B8's speculation
+    and repair (``table_scan_cuda`` chunked, W = C) in place of the maps on
+    the probe's table and on a permutation table, against slab_anatomy's
+    one output; ptxas and the SASS of both kernels."""
+    import numpy as np
+
+    import halo2_regex_tpu_torch as h2r
+    from halo2_regex_tpu_torch.ops import kernels as K
+    from halo2_regex_tpu_torch.probes import probe_tpu6 as p6
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+    from halo2_regex_tpu_torch.probes import probe_tpu18 as p18
+
+    o9 = importlib.import_module("h2r_old.probes.probe_tpu9") if pk else None
+    o18 = importlib.import_module("h2r_old.probes.probe_tpu18") if pk else None
+    srcs = ("probe_tpu9.cu", "probe_tpu18.cu")
+    dirs = {name: variant_csrc(K, f"scan_{name}", edits)
+            for name, edits in scan_variants(K).items()}
+    with ThreadPoolExecutor(len(dirs) + 1) as pool:
+        jobs = {name: pool.submit(K._build_library, srcs, (K.LOOP_FLOOR, K.SLAB_SCAN,
+                                                           K.SLAB_ANATOMY), K.PROBE_HEADERS,
+                                  None, d) for name, d in dirs.items()}
+        if pk:
+            pool.submit(pk.old_k.build_probes).result()
+        K.build_probes()
+        libs = {name: j.result() for name, j in jobs.items()}
+    keys = [probes_key(K)]
+    rec: dict = {"ptxas": ptxas_of(K, keys, "_chunk_kernel"),
+                 "sass": sass_counts(K, keys, "_chunk_kernel")}
+    for ln in rec["ptxas"]:
+        print(ln, flush=True)
+
+    def turns(name, a, b, labels, fl=flush):
+        t = [cs.time_ms(f, fl, device_only=True) for f in (a, b, b, a)]
+        print(f"{name}: {labels[0]} {t[0]['median']:.4f} / {t[3]['median']:.4f} ms, {labels[1]} "
+              f"{t[1]['median']:.4f} / {t[2]['median']:.4f} ms ({labels[0]}, {labels[1]}, "
+              f"{labels[1]}, {labels[0]}); card {card}", flush=True)
+        return {labels[0]: [t[0]["median"], t[3]["median"]],
+                labels[1]: [t[1]["median"], t[2]["median"]], "iqr": [x["iqr"] for x in t]}
+
+    def tiles(x):  # the grid at the smallest C: the scratch of every variant
+        return -(-x.shape[1] // 32) * -(-x.shape[0] // min(K.SCAN_CHUNKS))
+
+    def floor_var(lib, x, slab, c):
+        out = torch.empty_like(x)
+        L_, TB_ = x.shape
+        sc, ep = K.lookback_scratch(K.LOOP_FLOOR, x, tiles(x))
+        if lib.h2r_loop_floor(x.data_ptr(), out.data_ptr(), slab, L_, TB_, c, sc, ep,
+                              K._stream(x)):
+            raise RuntimeError("loop_floor variant: launch failed")
+        return out
+
+    def slab_var(lib, tab, cls, x, first, n_out, c):
+        L_, TB_ = x.shape
+        outs = [torch.empty_like(x) for _ in range(n_out)]
+        sc, ep = K.lookback_scratch(K.SLAB_ANATOMY, x, tiles(x))
+        ptrs = [o.data_ptr() for o in outs] + [None] * (4 - n_out)
+        if lib.h2r_slab_anatomy(tab.data_ptr(), cls.data_ptr(), x.data_ptr(), *ptrs, L_, TB_,
+                                tab.shape[0], tab.shape[1] // 4, first, n_out, c, sc, ep,
+                                K._stream(x)):
+            raise RuntimeError("slab variant: launch failed")
+        return tuple(outs)
+
+    def variants(lab, new, run_var, want, c, only_c=False):
+        for vname, vlib in libs.items():
+            if vname == f"c{c}" or (only_c and not vname.startswith("c")):
+                continue
+            f = lambda vlib=vlib: run_var(vlib)  # noqa: E731
+            if vname not in TIMING_ONLY:
+                check(cs, f"{lab} {vname}", f(), want)
+            rec[f"{lab} {vname}"] = turns(f"{lab} {vname} (kernel: C = {c})", new, f,
+                                          ("kernel", "variant"))
+
+    # loop_floor at [10]'s widths, k1's
+    for L_, TB_ in cs.FLOOR_WIDTHS + ((128, 256),):
+        x = p9.inputs(L_, TB_, dev=dev)[0] if TB_ != 256 or L_ != 128 else \
+            p6.inputs(dev=dev)["x1"]
+        lab = f"loop_floor {L_}x{TB_}"
+        want = p9.loop_floor_plain(x)
+        c0 = K.scan_chunk(L_, TB_, dev)
+        for slab in (1, 8):
+            new = lambda slab=slab: p9.loop_floor(x, slab)  # noqa: E731
+            check(cs, f"{lab} slab {slab}", new(), want)
+            if o9:
+                old = lambda slab=slab: o9.loop_floor(x, slab)  # noqa: E731
+                check(cs, f"{lab} slab {slab} old", old(), want)
+                rec[f"{lab} slab {slab} old/new"] = turns(f"{lab} slab {slab}", old, new,
+                                                          ("old", "new"))
+                rec[f"{lab} slab {slab} old/new read_flush"] = turns(
+                    f"{lab} slab {slab} after a read flush", old, new, ("old", "new"),
+                    ReadFlush(flush))
+            ser = lambda slab=slab: p9.loop_floor(x, slab, "serial")  # noqa: E731
+            check(cs, f"{lab} slab {slab} serial", ser(), want)
+            rec[f"{lab} slab {slab} serial"] = turns(f"{lab} slab {slab} serial", new, ser,
+                                                     ("kernel", "serial"))
+        new = lambda: p9.loop_floor(x, 1)  # noqa: E731
+        lib_t = cs.time_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32), flush, True)
+        print(f"{lab} torch.cumsum: {cs.fmt(lib_t)}; card {card}", flush=True)
+        rec[f"{lab} cumsum_ms"] = lib_t["median"]
+        variants(lab, new, lambda vlib: floor_var(vlib, x, 1, c0), want, c0)
+
+    # the slab kernel: slab_scan at [10]'s widths, slab_anatomy at [11]'s and k3's
+    model = h2r.zoo.email_headers_model(max_chars_size=p18.L, headers=("from",))
+    tab18, cls18, first18 = (v.to(dev) if isinstance(v, torch.Tensor) else v
+                             for v in p18.slab_tables(model))
+    t6 = p6.inputs(dev=dev)
+    ident = torch.arange(256, dtype=torch.int32, device=dev)
+    cases = []
+    for L_, TB_ in cs.SLAB_WIDTHS:
+        x, cls9, tk9 = p9.inputs(L_, TB_, dev=dev)
+        cases.append((f"slab_scan {L_}x{TB_}", tk9, cls9, x, 0, 4, "scan"))
+    x18 = p18.inputs(p18.L, p18.B, dev=dev)
+    cases += [(f"slab_anatomy n_out {n} {p18.L}x{p18.B}", tab18, cls18, x18, first18, n,
+               "anatomy") for n in (1, 2, 4)]
+    cases.append(("k3 128x128", t6["P4"], ident, t6["x3"], 0, 2, "anatomy"))
+    for lab, tab, cls, x, first, n_out, kind in cases:
+        L_, TB_ = x.shape
+        want = p9.slab_plain(tab, cls, x, first, n_out)
+        c0 = K.scan_chunk(L_, TB_, dev)
+        if kind == "scan":
+            new = lambda tab=tab, cls=cls, x=x: p9.slab_scan(tab, cls, x)  # noqa: E731
+            ser = lambda tab=tab, cls=cls, x=x: p9.slab_scan(tab, cls, x, "serial")  # noqa: E731
+            old = (lambda tab=tab, cls=cls, x=x: o9.slab_scan(tab, cls, x)) if o9 else None
+        else:
+            new = lambda tab=tab, cls=cls, x=x, f=first, n=n_out: \
+                p18.slab_anatomy(tab, cls, x, f, n)  # noqa: E731
+            ser = lambda tab=tab, cls=cls, x=x, f=first, n=n_out: \
+                p18.slab_anatomy(tab, cls, x, f, n, "serial")  # noqa: E731
+            old = (lambda tab=tab, cls=cls, x=x, f=first, n=n_out:
+                   o18.slab_anatomy(tab, cls, x, f, n)) if o18 else None
+        check(cs, lab, new(), want)
+        check(cs, f"{lab} serial", ser(), want)
+        if old:
+            check(cs, f"{lab} old", old(), want)
+            rec[f"{lab} old/new"] = turns(lab, old, new, ("old", "new"))
+            rec[f"{lab} old/new read_flush"] = turns(f"{lab} after a read flush", old, new,
+                                                     ("old", "new"), ReadFlush(flush))
+        rec[f"{lab} serial"] = turns(f"{lab} serial", new, ser, ("kernel", "serial"))
+        variants(lab, new, lambda vlib, tab=tab, cls=cls, x=x, fi=first, n=n_out, c0=c0:
+                 slab_var(vlib, tab, cls, x, fi, n, c0), want, c0, lab.startswith("k3"))
+
+    # B8's speculation and repair (W = C) in place of the maps: its states
+    # are slab_anatomy's one output, on the probe's table and on a
+    # permutation table (no two walks ever meet: every chunk repaired)
+    L3, B3 = cs.L3, cs.B3
+    x, cls9, tk9 = p9.inputs(L3, B3, dev=dev)
+    rng = np.random.default_rng(9)
+    perm = torch.from_numpy(np.stack([np.concatenate([rng.permutation(p9.S) for _ in range(4)])
+                                      for _ in range(p9.K)]).astype(np.int32)).to(dev)
+    chars = x.clamp(0, 255).to(torch.uint8).t().contiguous()
+    for tname, tab in (("probe table", tk9), ("permutation table", perm)):
+        lab = f"maps against B8 {L3}x{B3} {tname}"
+        want = p9.slab_plain(tab, cls9, x, 0, 1)
+        c0 = K.scan_chunk(L3, B3, dev)
+        new = lambda tab=tab: p18.slab_anatomy(tab, cls9, x, 0, 1)  # noqa: E731
+        check(cs, lab, new(), want)
+        next_tab = tab[:, :p9.S].reshape(1, p9.K, p9.S).contiguous()
+        init = torch.zeros((1, B3), dtype=torch.int32, device=dev)
+
+        def b8(next_tab=next_tab, c=c0):
+            out = torch.empty((1, L3, B3), dtype=torch.int32, device=dev)
+            K.table_scan_cuda(cls9.reshape(1, 256), next_tab, chars, init, 0, L3, out,
+                              form=(c, c))
+            return (out[0],)
+
+        check(cs, f"{lab} b8", b8(), want)
+        before = K.table_scan_repaired(dev)
+        b8()
+        rec[f"{lab} b8 repaired"] = K.table_scan_repaired(dev) - before
+        print(f"{lab}: B8 (C = W = {c0}) repaired {rec[f'{lab} b8 repaired']} positions",
+              flush=True)
+        rec[lab] = turns(lab, new, b8, ("kernel", "b8"))
+        ser = lambda tab=tab: p18.slab_anatomy(tab, cls9, x, 0, 1, "serial")  # noqa: E731
+        rec[f"{lab} serial"] = turns(f"{lab} serial", new, ser, ("kernel", "serial"))
+    return rec
+
+
 def units_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
     """onehot_count (P10) at [1024, 512], mma_accum (P15) at [4, 2, 128,
     128] and [4, 8, 1024, 1024] (integer inputs), int8_mma (P11) at 128^3
@@ -1275,11 +1584,11 @@ def main() -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", help="directory of the earlier halo2_regex_tpu_torch/ package "
                     "(every part; marker runs without it, its variants alone)")
-    ap.add_argument("--only", default="pack,fb,walls,marker,lookup,units,wide",
+    ap.add_argument("--only", default="pack,fb,walls,marker,lookup,units,wide,scan",
                     help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
-    if parts - {"marker", "wide"} and not args.old:
+    if parts - {"marker", "wide", "scan"} and not args.old:
         ap.error("--old is needed for the pack, fb, walls, lookup and units parts")
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -1313,6 +1622,8 @@ def main() -> dict:
         out["units"] = units_ab(pk, cs, dev, card, flush)
     if "wide" in parts:
         out["wide"] = wide_ab(pk, cs, dev, card, flush)
+    if "scan" in parts:
+        out["scan"] = scan_ab(pk, cs, dev, card, flush)
     rec["ab"] = out
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:

@@ -1440,6 +1440,221 @@ def test_probe_slab_scan_matches_plain(dev, L, TB, lo, hi):
         assert torch.equal(g, w)
 
 
+def _perm_table(K, S, seed, dev):
+    """A [K, 4S] table whose column blocks are permutations: no two walks
+    of the slab kernel's maps ever meet."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack([np.concatenate([rng.permutation(S) for _ in range(4)])
+                                      for _ in range(K)]).astype(np.int32)).to(dev)
+
+
+# [L, TB] of the chunked forms' card tests, and the C that ``scan_chunk``
+# gives each on a card of 132 SMs: every compiled C, L not a multiple of C
+# at each, L < C at 64 and 512 (at 128 the rule never gives L < C), TB not
+# a multiple of 32, L a multiple of 8 (for the serial forms beside them)
+FLOOR_CASES = [(72, 40, 64), (40, 33, 64), (128, 32, 64), (104, 3190, 64), (4104, 300, 128),
+               (65536, 64, 512), (200, 4300, 512)]
+SLAB_CASES = [(72, 40, 64), (40, 33, 64), (104, 3190, 64), (1000, 1000, 128),
+              (1024, 4096, 512), (65536, 64, 512), (200, 4300, 512)]
+
+
+def test_probe_chunked_cases_cover_every_chunk(dev):
+    """The cases below reach every C the library compiles, at the C each
+    is listed with, on this card's SM count."""
+    if kernels._sms(dev) != 132:
+        pytest.skip(f"the cases are sized for 132 SMs, not {kernels._sms(dev)}")
+    for cases in (FLOOR_CASES, SLAB_CASES):
+        assert [kernels.scan_chunk(L, TB, dev) for L, TB, _c in cases] == [c for *_, c in cases]
+        assert {c for *_, c in cases} == set(kernels.SCAN_CHUNKS)
+
+
+@pytest.mark.parametrize("slab", [1, 8])
+@pytest.mark.parametrize("L,TB,C", FLOOR_CASES)
+def test_probe_loop_floor_chunks_match_plain(dev, L, TB, C, slab):
+    """The chunked form at every C (by the rule, the C of its case): L not
+    a multiple of C and L < C, TB not a multiple of 32, sums that wrap,
+    more tiles than SMs and configs[3]'s [65536, 64]; the serial form
+    beside it."""
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+
+    for hi in (256, 2**31):
+        x = torch.from_numpy(np.random.default_rng(L + TB).integers(0, hi, size=(L, TB),
+                                                                    dtype=np.int64)
+                             .astype(np.int32)).to(dev)
+        want = p9.loop_floor_plain(x, slab)
+        assert torch.equal(p9.loop_floor(x, slab), want)
+        assert torch.equal(p9.loop_floor(x, slab, "serial"), want)
+
+
+def test_probe_chunked_calls_need_no_zero_fill(dev):
+    """Two calls in a row, and calls after a larger grid, equal the plain
+    version: the look-back's status words of earlier calls carry earlier
+    epochs, and the ticket is back at 0 after every launch."""
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+    from halo2_regex_tpu_torch.probes import probe_tpu18 as p18
+
+    big = p9.inputs(65536, 64, seed=3, dev=dev)
+    small = p9.inputs(1024, 256, seed=4, dev=dev)
+    model = T.zoo.email_headers_model(max_chars_size=1024, headers=("from",))
+    tab, classes, first = (v.to(dev) if isinstance(v, torch.Tensor) else v
+                           for v in p18.slab_tables(model))
+    x18 = p18.inputs(1024, 4096, dev=dev)
+    want = {"fb": p9.loop_floor_plain(big[0]), "fs": p9.loop_floor_plain(small[0]),
+            "sb": p9.slab_scan_plain(big[2], big[1], big[0]),
+            "ss": p9.slab_scan_plain(small[2], small[1], small[0]),
+            "a": p18.slab_anatomy_plain(tab, classes, x18, first, 2)}
+    calls = {"fb": lambda: p9.loop_floor(big[0], 1), "fs": lambda: p9.loop_floor(small[0], 8),
+             "sb": lambda: p9.slab_scan(big[2], big[1], big[0]),
+             "ss": lambda: p9.slab_scan(small[2], small[1], small[0]),
+             "a": lambda: p18.slab_anatomy(tab, classes, x18, first, 2)}
+    for key in ("fs", "fs", "fb", "fs", "ss", "ss", "sb", "ss", "a", "fs", "a", "sb", "fb"):
+        got = calls[key]()
+        got = got if isinstance(got, tuple) else (got,)
+        w = want[key] if isinstance(want[key], tuple) else (want[key],)
+        assert all(torch.equal(g, v) for g, v in zip(got, w)), key
+
+
+@pytest.mark.parametrize("S", [1, 24, 32])
+@pytest.mark.parametrize("L,TB,C", SLAB_CASES)
+def test_probe_slab_chunks_match_plain(dev, L, TB, C, S):
+    """The chunked slab kernel at every C (by the rule, the C of its case)
+    with S = 1, 24 and 32 states and N_OUT = 1, 2 and 4, bytes outside
+    [0, 256), from states other than 0, on a random table (its walks meet)
+    and a permutation table (they never do); the serial form beside it."""
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+    from halo2_regex_tpu_torch.probes import probe_tpu18 as p18
+
+    rng = np.random.default_rng(L + S)
+    K = 16
+    first = (L + TB) % 7 % S
+    classes = torch.from_numpy(rng.integers(0, K, size=256).astype(np.int32)).to(dev)
+    x = torch.from_numpy(rng.integers(-300, 600, size=(L, TB)).astype(np.int32)).to(dev)
+    tables = [torch.from_numpy(rng.integers(0, S, size=(K, 4 * S)).astype(np.int32)).to(dev),
+              _perm_table(K, S, S, dev)]
+    for tab in tables:
+        want = p9.slab_plain(tab, classes, x, first, 4)
+        assert all(torch.equal(g, w) for g, w in
+                   zip(p18.slab_anatomy(tab, classes, x, first, 4), want))
+        assert all(torch.equal(g, w) for g, w in
+                   zip(p18.slab_anatomy(tab, classes, x, first, 4, "serial"), want))
+        for n_out in (1, 2):
+            got = p18.slab_anatomy(tab, classes, x, first, n_out)
+            assert all(torch.equal(g, w) for g, w in zip(got, want[:n_out])), n_out
+        if first == 0:
+            assert all(torch.equal(g, w) for g, w in zip(p9.slab_scan(tab, classes, x), want))
+
+
+def _stale_scratch(kernel, x, n_blk: int, epoch: int, seed: int) -> torch.Tensor:
+    """A look-back scratch of ``kernel``'s layout for ``n_blk`` tiles whose
+    every status word carries ``epoch`` (its inclusive flag set, values and
+    states at random): what calls of that epoch could have left."""
+    rng = np.random.default_rng(seed)
+    tile = kernels.LOOKBACK_TILE_BYTES[kernel.name]
+    buf = np.zeros(kernels.LOOKBACK_TICKET_BYTES + n_blk * tile, dtype=np.uint8)
+    st = buf[kernels.LOOKBACK_TICKET_BYTES:].reshape(n_blk, tile)
+    if kernel is kernels.LOOP_FLOOR:  # (epoch << 1 | inclusive) << 32 | value
+        words = (np.uint64(epoch << 1 | 1) << np.uint64(32)) | rng.integers(
+            0, 2**32, size=(n_blk, 32), dtype=np.uint64)
+        st[:] = words.view(np.uint8).reshape(n_blk, tile)
+    else:  # 32 maps of four words, epoch << 40 | eight 5-bit entries; 32 end words
+        maps = (np.uint64(epoch) << np.uint64(40)) | rng.integers(
+            0, 2**40, size=(n_blk, 128), dtype=np.uint64)
+        ends = (np.uint32(epoch) << np.uint32(5)) | rng.integers(
+            0, 32, size=(n_blk, 32), dtype=np.uint32)
+        st[:, :1024] = maps.view(np.uint8).reshape(n_blk, 1024)
+        st[:, 1024:] = ends.view(np.uint8).reshape(n_blk, 128)
+    return torch.from_numpy(buf).to(x.device)
+
+
+def test_probe_chunked_scratch_reads_no_stale_word(dev, monkeypatch):
+    """Each chunked kernel has a scratch of its own, with tile t's status
+    words at an address fixed by t whatever the grid, so a word an earlier
+    call left is never read as one of this call.  First, the scratch holds
+    words of the epoch just before, over a grid four times as large, with
+    wrong values and states; then each kernel's large grid at epoch e is
+    followed by each kernel's small grid at 8e + k, 16e + k or 128e + k
+    (where a word of another layout or grid would carry the small call's
+    epoch in the bits that tag it).  Every call equals the plain version.
+    The epochs and the fill are set on whatever scratch the wrapper takes
+    (``lookback_scratch``, watched), so the test does not depend on how
+    the scratches are keyed."""
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+    from halo2_regex_tpu_torch.probes import probe_tpu18 as p18
+
+    big, small = p9.inputs(65536, 64, seed=5, dev=dev), p9.inputs(1024, 256, seed=6, dev=dev)
+    model = T.zoo.email_headers_model(max_chars_size=1024, headers=("from",))
+    tab, classes, first = (v.to(dev) if isinstance(v, torch.Tensor) else v
+                           for v in p18.slab_tables(model))
+    x18, x18s = p18.inputs(1024, 4096, seed=7, dev=dev), p18.inputs(200, 300, seed=8, dev=dev)
+    calls = {  # kernel: (large call, its plain outputs), (small call, its plain outputs)
+        kernels.LOOP_FLOOR: [(big[0], lambda x: (p9.loop_floor(x, 1),),
+                              lambda x: (p9.loop_floor_plain(x),)),
+                             (small[0], lambda x: (p9.loop_floor(x, 8),),
+                              lambda x: (p9.loop_floor_plain(x),))],
+        kernels.SLAB_SCAN: [(v[0], lambda x, v=v: p9.slab_scan(v[2], v[1], x),
+                             lambda x, v=v: p9.slab_scan_plain(v[2], v[1], x))
+                            for v in (big, small)],
+        kernels.SLAB_ANATOMY: [(x, lambda x: p18.slab_anatomy(tab, classes, x, first, 2),
+                                lambda x: p18.slab_anatomy_plain(tab, classes, x, first, 2))
+                               for x in (x18, x18s)]}
+    want = {(k, i): plain(x) for k, cs in calls.items() for i, (x, _c, plain) in enumerate(cs)}
+    order = {}  # for the next call: its epoch, and a scratch to put in place first
+    take = kernels.lookback_scratch
+
+    def watched(kernel, t, n_blk):
+        ptr, _epoch = take(kernel, t, n_blk)
+        ent = next(e for e in kernels._LOOKBACK.values() if e[0].data_ptr() == ptr)
+        if "fill" in order:
+            ent[0] = order.pop("fill")
+        ent[1] = order.pop("epoch", ent[1])
+        return ent[0].data_ptr(), ent[1]
+
+    monkeypatch.setattr(kernels, "lookback_scratch", watched)
+
+    def run(kernel, i, epoch=None, fill=None):
+        x, call, _p = calls[kernel][i]
+        order.update({} if epoch is None else {"epoch": epoch})
+        order.update({} if fill is None else {"fill": fill})
+        got = call(x)
+        assert all(torch.equal(g, w) for g, w in zip(got, want[(kernel, i)])), \
+            (kernel.name, i, epoch)
+
+    for kernel in calls:
+        x = calls[kernel][0][0]
+        n_blk = 4 * -(-x.shape[1] // 32) * -(-x.shape[0] // 64)
+        for i in (0, 1):  # epochs 1000 and 2000, each over words of the one before
+            run(kernel, i, 1000 * (i + 1), _stale_scratch(kernel, x, n_blk, 1000 * (i + 1) - 1, i))
+    for e in (3, 10):  # epochs 24-39, 48-63, 384-399; 80-95, 160-175, 1280-1295
+        for k in range(16):
+            for writer in calls:
+                for mult in (8, 16, 128):
+                    for reader in calls:
+                        run(writer, 0, e)
+                        run(reader, 1, mult * e + k)
+
+
+def test_probe_chunked_forms_launch_once(dev):
+    """The chunked forms launch one kernel a call, the serial forms one;
+    a table past 32 states takes the serial form by the rule."""
+    from halo2_regex_tpu_torch.probes import probe_tpu9 as p9
+
+    x, classes, tk = p9.inputs(1024, 256, dev=dev)
+    wide = torch.zeros((4, 4 * 40), dtype=torch.int32, device=dev)  # S = 40
+    for call in (lambda: p9.loop_floor(x, 1), lambda: p9.loop_floor(x, 8, "serial"),
+                 lambda: p9.slab_scan(tk, classes, x), lambda: p9.slab_scan(tk, classes, x, "serial"),
+                 lambda: p9.slab_scan(wide, classes % 4, x)):
+        before = {k.name: k.launches for k in kernels.PROBE_KERNELS}
+        call()
+        torch.cuda.synchronize()
+        moved = {k.name: k.launches - before[k.name] for k in kernels.PROBE_KERNELS
+                 if k.launches != before[k.name]}
+        assert list(moved.values()) == [1], moved
+    with pytest.raises(ValueError, match="S <= 32"):
+        p9.slab_scan(wide, classes % 4, x, "chunked")
+    assert all(torch.equal(g, w) for g, w in zip(p9.slab_scan(wide, classes % 4, x),
+                                                 p9.slab_scan_plain(wide, classes % 4, x)))
+
+
 @pytest.mark.parametrize("L,lc", [(256, 128), (256, 7), (10, 4)])
 @pytest.mark.parametrize("n_ops", [96, 192, 384, 768])
 def test_probe_bitop_scan_matches_plain(dev, n_ops, L, lc):
