@@ -73,9 +73,9 @@ corpus and on configs[3], the corpus-scan CLI and the device-expand
   probes    the serial-scan probes of tools/ (``probes/``): the ``run``
             of ``halo2_regex_tpu_torch.probes.probe_tpu9`` (loop_floor,
             slab_scan: chunked, and serial at [65536, 64]),
-            ``.probe_tpu20`` (bitop_scan) and ``.probe_tpu56``
-            (chains), which their ``python -m`` entry points call, at
-            [10]'s widths;
+            ``.probe_tpu20`` (bitop_table, then bitop_scan: table and
+            serial) and ``.probe_tpu56`` (chains: fixed and serial),
+            which their ``python -m`` entry points call, at [10]'s widths;
   table probes  the table-kernel probes of tools/ (``probes/``): the
             ``run`` of ``.probe_tpu`` (lane_gather, dfa_step),
             ``.probe_tpu2`` (nop, dfa_step time-major, the lone gather
@@ -1211,12 +1211,16 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
     read around it, 2 + 10 timed runs with the L2 flushed, the last output
     against the plain version's, which runs once; ``torch.cumsum`` beside
     loop_floor; loop_floor and slab_scan in their default, chunked form at
-    every width and in their serial form too at [65536, 64]); then the two
-    serial scans are set on the measured curves: K2's step-circuit ops a
-    position and cycles a position against bitop_scan's sweep, configs[3]'s
-    table-scan chain step against the serial forms of loop_floor and
-    slab_scan at [65536, 64].  ptxas' log and the SASS show no spills and
-    no local memory (LDL, STL) in the chunked kernels."""
+    every width and in their serial form too at [65536, 64]; bitop_scan's
+    table build, then its table and serial forms at every n_ops on one plain
+    output; chains' fixed and serial forms in both geometries, the fixed
+    form's steps counter equal to its twin's); then the two serial scans are
+    set on the measured curves: K2's step-circuit ops a position and cycles
+    a position against bitop_scan's serial sweep, configs[3]'s table-scan
+    chain step against the serial forms of loop_floor and slab_scan at
+    [65536, 64].  ptxas' log and the SASS show no spills and no local
+    memory (LDL, STL) in the chunked kernels, bitop_scan's table kernels
+    and chains' fixed form."""
     from halo2_regex_tpu_torch.probes import harness, probe_tpu9, probe_tpu20, probe_tpu56
 
     dev = torch.device("cuda")
@@ -1238,25 +1242,35 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
         return {"A_loop_floor": f"slab 1, {at}, {r.get('form')}",
                 "B_slab8_floor": f"slab 8, {at}, {r.get('form')}",
                 "C_slab8_scan": f"{at}, {r.get('form')}",
-                "A_bitop_scan": f"n_ops {r.get('n_ops')}",
-                "A_chains": f"C {r.get('C')}, {r.get('threads')} threads a block"}[r["probe"]]
+                "A_bitop_table": f"n_ops {r.get('n_ops')}",
+                "A_bitop_scan": f"n_ops {r.get('n_ops')}, {r.get('form')}",
+                "A_chains": f"C {r.get('C')}, {r.get('threads')} threads a block, "
+                            f"{r.get('form')}"}[r["probe"]]
 
     for r in recs:
         if r["probe"] == "A_bitop_scan" and not r["nonzero_share"] > 0:
             raise AssertionError(f"[10] bitop_scan [{label(r)}]: the timed output is all zero")
+        if r["probe"] == "A_chains" and r["form"] == "fixed":
+            if r["steps_run"] != r["steps_plain"]:
+                raise AssertionError(f"[10] chains [{label(r)}]: the kernel ran "
+                                     f"{r['steps_run']} steps, its twin {r['steps_plain']}")
+            log(f"[10] chains [{label(r)}]: the most steps a warp ran {r['steps_run']} of "
+                f"{r['steps']} (the twin's {r['steps_plain']}); card {card}")
     rows, tms, errs = probe_lines(kernels, recs, kernels.SERIAL_PROBES, got, label, "[10]", card)
 
     # the bitplane scan (K2) on the bitop_scan curve
     k2_ops = sum(c.step_prog.n_ops for c in plan.circuits)
     k2_ms = times["scan"]["kernel"]["median"]
     k2_cyc = k2_ms * 1e-3 * clock / plan.L_pad
-    sweep = [(n, tms[f"bitop_scan[n_ops {n}]"]["cycles_per_step"]) for n in probe_tpu20.N_OPS]
+    sweep = [(n, tms[f"bitop_scan[n_ops {n}, serial]"]["cycles_per_step"])
+             for n in probe_tpu20.N_OPS]
     slope, icpt = np.polyfit([n for n, _ in sweep], [c for _, c in sweep], 1)
     near = min(sweep, key=lambda nc: abs(nc[0] - k2_ops))
     log(f"[10] K2 (the from: witness plan's scan) has {k2_ops} step-circuit ops a position "
         f"(its circuits' step programs) and took {k2_ms:.4f} ms = {k2_cyc:.1f} cycles a "
         f"position in [6] of this run (its circuit-only variant: {K2_CIRCUIT_ONLY_CYCLES} "
-        f"cycles, kernel_ab.py, PERF.md §6); bitop_scan at the nearest n_ops {near[0]}: "
+        f"cycles, kernel_ab.py, PERF.md §6); bitop_scan's serial form at the nearest n_ops "
+        f"{near[0]}: "
         f"{near[1]:.1f} cycles a step; the sweep {', '.join(f'{n}: {c:.1f}' for n, c in sweep)} "
         f"fits {slope:.3f} cycles an op + {icpt:.1f}, {slope * k2_ops + icpt:.1f} at {k2_ops} "
         f"ops; card {card}")
@@ -1279,25 +1293,33 @@ def probe_phase(kernels, plan, times: dict, chain3, segment: int, card: str) -> 
         "slab_scan (the probe's table step: a dependent load, 3 more loads, 4 stores): "
         + ", ".join(f"{k} {v:.3f} ({serial_launches[k]} launch a call)"
                     for k, v in probe_ns.items()) + f"; card {card}")
-    # the chunked kernels: no spills in ptxas' log, no local memory in the SASS
-    spills = {k: v for name in ("floor_chunk_kernel", "slab_chunk_kernel")
-              for k, v in probe_spills(kernels, name).items()}
+    # the chunked kernels, bitop_scan's table build and scan and chains'
+    # fixed form: no spills in ptxas' log, no local memory in the SASS
+    redesigned = ("floor_chunk_kernel", "slab_chunk_kernel", "bitop_table", "chains_fixed_kernel")
+    spills = {k: v for name in redesigned for k, v in probe_spills(kernels, name).items()}
     sass = sass_ops(kernels.build_probes()._name,
                     {"floor_chunk_kernel": ("LDL", "STL", "LDG", "STG"),
-                     "slab_chunk_kernel": ("LDL", "STL", "LDS", "STG")})
+                     "slab_chunk_kernel": ("LDL", "STL", "LDS", "STG"),
+                     "bitop_table": ("LDL", "STL", "LDS", "SHFL", "VOTE", "LDGSTS", "STG"),
+                     "chains_fixed_kernel": ("LDL", "STL", "VOTE", "STG")})
     for fn, ops in sass.items():
         log(f"[10] sass {fn[-60:]}: {ops}")
-    log(f"[10] ptxas spill bytes of the chunked kernels {spills}; card {card}")
+    log(f"[10] ptxas spill bytes of the redesigned kernels {spills}; card {card}")
+    # bitop_table_kernel a value of n_ops, bitop_table_scan_kernel, chains'
+    # fixed form a C
+    extra = [fn for fn in sass if "bitop_table" in fn or "chains_fixed" in fn]
+    if len(extra) != len(probe_tpu20.N_OPS) + 1 + len(probe_tpu56.CHAINS):
+        raise AssertionError(f"[10] the table and fixed-form instances: {extra}")
     # every instance there: loop_floor's R = C / 8 a C; the slab kernel's
     # (N_OUT, C), slab_scan's N_OUT = 4 and slab_anatomy's 1, 2 and 4 (each
     # source's anonymous namespace gives its instances names of their own)
     found = sorted(re.search(r"(floor|slab)_chunk_kernelILi(\d+)E(?:Li(\d+)E)?", fn).groups()
-                   for fn in sass)
+                   for fn in sass if fn not in extra)
     want = sorted([("floor", str(c // 8), None) for c in kernels.SCAN_CHUNKS]
                   + [("slab", str(n), str(c)) for n in (4, 1, 2, 4) for c in kernels.SCAN_CHUNKS])
     if (any(spills.values()) or found != want
             or any(ops["LDL"] or ops["STL"] for ops in sass.values())):
-        raise AssertionError(f"[10] the chunked kernels spill, use local memory or lack an "
+        raise AssertionError(f"[10] the redesigned kernels spill, use local memory or lack an "
                              f"instance ({found} against {want}): {spills} {sass}")
     placement = {"k2_step_ops": k2_ops, "k2_cycles_a_position": k2_cyc,
                  "bitop_sweep_cycles": dict(sweep), "bitop_fit": [float(slope), float(icpt)],

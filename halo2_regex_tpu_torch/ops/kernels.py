@@ -179,7 +179,12 @@ CHAINS = CudaKernel(
     "chains", "h2r_chains", "halo2_regex_tpu_torch/csrc/probe_tpu56.cu",
     "tools/probe_tpu56.py:71 (make_chains_kernel :61)",
 )
-SERIAL_PROBES = (LOOP_FLOOR, SLAB_SCAN, BITOP_SCAN, CHAINS)
+# bitop_scan's table form: its table T, built once a device and n_ops
+BITOP_TABLE = CudaKernel(
+    "bitop_table", "h2r_bitop_table", "halo2_regex_tpu_torch/csrc/probe_tpu20.cu",
+    "tools/probe_tpu20.py:74 (make_scan_probe :42)",
+)
+SERIAL_PROBES = (LOOP_FLOOR, SLAB_SCAN, BITOP_SCAN, CHAINS, BITOP_TABLE)
 # the table-kernel probes of tools/ (probe_tpu, 2, 3, 17, 18)
 LANE_GATHER = CudaKernel(
     "lane_gather", "h2r_lane_gather", "halo2_regex_tpu_torch/csrc/probe_gather.cu",
@@ -296,10 +301,13 @@ _ENTRIES = {
     # tk, classes, x, four outputs, L, TB, K, S, chunk (0: serial), scratch,
     # epoch, stream
     SLAB_SCAN: [_P] * 7 + [_I] * 5 + [_P, _I, _P],
-    # cls, st0, out, n_ops, NW, L, LC, stream
-    BITOP_SCAN: [_P, _P, _P, _I, _I, _I, _I, _P],
-    # x, out, C, NW, n_steps, threads a block, stream
-    CHAINS: [_P, _P, _I, _I, _I, _I, _P],
+    # cls, st0, T (null: the serial form), out, n_ops, NW, L, LC, stream
+    BITOP_SCAN: [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # T, n_ops, stream
+    BITOP_TABLE: [_P, _I, _P],
+    # x, out, C, NW, n_steps, threads a block, steps a warp (null: the
+    # serial form), stream
+    CHAINS: [_P, _P, _I, _I, _I, _I, _P, _P],
     # g (or t), f (or c), out, R, steps, form, stream
     LANE_GATHER: [_P, _P, _P, _I, _I, _I, _P],
     # T (or Tk), classes, chars, out, TB, LB, time_major, form, pick, K, stream

@@ -88,6 +88,18 @@ probe's table and on a permutation table:
 
     python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only scan
 
+bitop (``--old`` optional): bitop_scan's table form (``csrc/probe_tpu20.cu``)
+at [1024, 12, 8, 128] against the ``--old`` package's serial kernel at each
+n_ops (old, new, new, old, after the harness's flush and after a reading
+flush), against its own serial form, and against ``BITOP_VARIANTS`` (the
+split table, per-bit extraction of the index; ``no_chain`` timed only) at
+n_ops 96 and 768; the table's build at each n_ops; chains' fixed form
+(``csrc/probe_tpu56.cu``) against its serial form and the ``--old``
+package's at C = 1, 2, 4 in both geometries; ptxas and the SASS of the
+new kernels:
+
+    python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only bitop
+
 The record goes to ``chiprun_out/kernel_ab.json``; the last line is a
 JSON summary.  Imports nothing of JAX.
 """
@@ -267,7 +279,7 @@ MARKER_VARIANTS = {
 }
 TIMING_ONLY = ("no_load", "no_compute", "no_store", "no_stage", "class_half_products",
                "class_no_products", "no_fill", "no_chain", "no_sync", "no_products",
-               "no_exchange", "no_lookback")
+               "no_exchange", "no_lookback", "no_transpose", "no_ballot", "chain_only")
 # onehot_count's variants (csrc/probe_units.cu), code that each inserts:
 # - int: the compares on the int pipe (ISETP and a sum) against int keys;
 # - atomic: the partials by atomics after a zero fill (cudaMemsetAsync) in
@@ -1203,6 +1215,80 @@ def scan_variants(K) -> dict:
     }
 
 
+# bitop_scan's table form's variants (csrc/probe_tpu20.cu), code that each
+# inserts:
+# - split: T as a 4-bit table (8 entries a word, 512 words a state row)
+#   and a 2-bit table (16 a word, 256 a row) read at the same index, two
+#   independent LDS, each unpacked by a shift and a mask (the kernel: five
+#   6-bit entries a word, one LDS);
+# - per_bit: each lane builds its index from the 12 class words of each
+#   step (broadcast LDS, a shift and a mask a bit) in place of the warp
+#   transpose;
+# - timing only: no_chain (the next state is the index's low bits: every
+#   lookup, ballot and store, but no lookup waits for the one before),
+#   no_load (no class words copied: the ring's stale words), no_transpose
+#   (the raw words as indices), no_ballot (a step's word as its output),
+#   chain_only (the last three at once: the chain and its index work alone)
+_B = "probe_tpu20.cu"
+_PACKED_BUILD = """  for (int w = t; w < kTabRowWords; w += kBuildThreads) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < kTabPerWord; ++i) {
+      const int cls = kTabPerWord * w + i;
+      if (cls < kTabClasses) word |= (uint32_t)ent[cls] << (6 * i);
+    }
+    tab[(size_t)st * kTabRowWords + w] = word;
+  }"""
+_SPLIT_BUILD = """  for (int w = t; w < kTabClasses / 8; w += kBuildThreads) {
+    uint32_t lo = 0;
+    for (int i = 0; i < 8; ++i) lo |= (uint32_t)(ent[8 * w + i] & 15) << (4 * i);
+    tab[(size_t)st * (kTabClasses / 8) + w] = lo;
+  }
+  for (int w = t; w < kTabClasses / 16; w += kBuildThreads) {
+    uint32_t hi = 0;
+    for (int i = 0; i < 16; ++i) hi |= (uint32_t)(ent[16 * w + i] >> 4) << (2 * i);
+    tab[kTabStates * (kTabClasses / 8) + (size_t)st * (kTabClasses / 16) + w] = hi;
+  }"""
+_PACKED_AT = """    const uint32_t prod = idx * 52429u;
+    const uint32_t at = tab + ((prod >> 16) & ~3u);  // 4 (idx / 5)
+    const uint32_t sh = (prod >> 13) & 30u;          // 6 (idx % 5)"""
+_SPLIT_AT = """    const uint32_t at = tab + 4u * (idx >> 3), sh = (idx & 7) * 4;
+    const uint32_t at2 = tab + 4u * (kTabStates * (kTabClasses / 8) + (idx >> 4));
+    const uint32_t sh2 = (idx & 15) * 2;"""
+_PACKED_LDS = """    uint32_t a, w;
+    asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(a) : "r"(st), "n"(4 * kTabRowWords), "r"(at));
+    asm("ld.shared.u32 %0, [%1];" : "=r"(w) : "r"(a));
+    words[j] = __ballot_sync(0xFFFFFFFFu, w & (32u << sh));
+    st = (w >> sh) & 63u;"""
+_SPLIT_LDS = """    uint32_t w, w2;
+    asm("ld.shared.u32 %0, [%1];" : "=r"(w) : "r"(at + st * (4u * (kTabClasses / 8))));
+    asm("ld.shared.u32 %0, [%1];" : "=r"(w2) : "r"(at2 + st * (4u * (kTabClasses / 16))));
+    words[j] = __ballot_sync(0xFFFFFFFFu, w2 & (2u << sh2));
+    st = ((w >> sh) & 15u) | (((w2 >> sh2) & 3u) << 4);"""
+_TRANSPOSE = "  for (int k = 0; k < kTsX; ++k) xn[k] = transpose32(col[32 * k + lane], keep, rot);"
+_PER_BIT = """  for (int k = 0; k < kTsX; ++k) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) x |= ((col[32 * k + r] >> lane) & 1u) << r;
+    xn[k] = x;
+  }"""
+_COPY4 = """          probe_ring::copy4(dst + 4u * kRowsAPass * i, src + (size_t)kRowsAPass * i * NW);"""
+BITOP_VARIANTS = {
+    "split": [(_B, _PACKED_BUILD, _SPLIT_BUILD), (_B, _PACKED_AT, _SPLIT_AT),
+              (_B, _PACKED_LDS, _SPLIT_LDS)],
+    "per_bit": [(_B, _TRANSPOSE, _PER_BIT)],
+    "no_chain": [(_B, "    st = (w >> sh) & 63u;", "    st = idx & 63u;")],
+    "no_load": [(_B, _COPY4, "          (void)src;")],
+    "no_transpose": [(_B, _TRANSPOSE, "  for (int k = 0; k < kTsX; ++k) xn[k] = col[32 * k + lane];")],
+    "no_ballot": [(_B, "    words[j] = __ballot_sync(0xFFFFFFFFu, w & (32u << sh));",
+                   "    words[j] = w;")],
+    "chain_only": [(_B, _TRANSPOSE, "  for (int k = 0; k < kTsX; ++k) xn[k] = col[32 * k + lane];"),
+                   (_B, "    words[j] = __ballot_sync(0xFFFFFFFFu, w & (32u << sh));",
+                    "    words[j] = w;"),
+                   (_B, _COPY4, "          (void)src;")],
+}
+
+
 def scan_ab(pk, cs, dev, card, flush) -> dict:
     """The chunked loop_floor and slab kernels (``csrc/probe_tpu9.cu``,
     ``csrc/probe_slab.cuh``) at chip_smoke's [10] and [11] widths and
@@ -1383,6 +1469,104 @@ def scan_ab(pk, cs, dev, card, flush) -> dict:
         rec[lab] = turns(lab, new, b8, ("kernel", "b8"))
         ser = lambda tab=tab: p18.slab_anatomy(tab, cls9, x, 0, 1, "serial")  # noqa: E731
         rec[f"{lab} serial"] = turns(f"{lab} serial", new, ser, ("kernel", "serial"))
+    return rec
+
+
+def bitop_ab(pk, cs, dev, card, flush) -> dict:
+    """bitop_scan's table form (P4) at [1024, 12, 8, 128]: against the
+    ``--old`` package's serial kernel (where given) at each n_ops, old,
+    new, new, old, after the harness's flush and after a reading flush;
+    against its own serial form; against ``BITOP_VARIANTS`` at n_ops 96
+    and 768 (kernel, variant, variant, kernel; each variant's T built by
+    its own library); the table's build time at each n_ops.  chains' fixed
+    form (P5) against its serial form and the ``--old`` package's at each
+    C and geometry, with the steps its calls ran.  ptxas and the SASS of
+    the new kernels."""
+    from halo2_regex_tpu_torch.ops import kernels as K
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+    from halo2_regex_tpu_torch.probes import probe_tpu56 as p56
+
+    o20 = importlib.import_module("h2r_old.probes.probe_tpu20") if pk else None
+    o56 = importlib.import_module("h2r_old.probes.probe_tpu56") if pk else None
+    dirs = {name: variant_csrc(K, f"bitop_{name}", edits)
+            for name, edits in BITOP_VARIANTS.items()}
+    with ThreadPoolExecutor(len(dirs) + 1) as pool:
+        jobs = {name: pool.submit(K._build_library, (_B,), (K.BITOP_SCAN, K.BITOP_TABLE),
+                                  K.PROBE_HEADERS, None, d) for name, d in dirs.items()}
+        if pk:
+            pool.submit(pk.old_k.build_probes).result()
+        K.build_probes()
+        libs = {name: j.result() for name, j in jobs.items()}
+    keys = [probes_key(K)]
+    rec: dict = {"ptxas": ptxas_of(K, keys, "bitop_table") + ptxas_of(K, keys, "chains"),
+                 "sass": sass_counts(K, keys, "bitop_table") + sass_counts(K, keys, "chains")}
+    for ln in rec["ptxas"]:
+        print(ln, flush=True)
+
+    def turns(name, a, b, labels, fl=flush):
+        t = [cs.time_ms(f, fl, device_only=True) for f in (a, b, b, a)]
+        print(f"{name}: {labels[0]} {t[0]['median']:.4f} / {t[3]['median']:.4f} ms, {labels[1]} "
+              f"{t[1]['median']:.4f} / {t[2]['median']:.4f} ms ({labels[0]}, {labels[1]}, "
+              f"{labels[1]}, {labels[0]}); card {card}", flush=True)
+        return {labels[0]: [t[0]["median"], t[3]["median"]],
+                labels[1]: [t[1]["median"], t[2]["median"]], "iqr": [x["iqr"] for x in t]}
+
+    cls, st0 = p20.inputs(p20.L, p20.NWS, dev=dev)
+    nw = p20.NWS * p20.LANE
+    for n in p20.N_OPS:
+        lab = f"bitop_scan n_ops {n}"
+        want = p20.bitop_scan_plain(cls, st0, n)
+        tw = p20.table_words(p20.bitop_table_plain(n)).to(dev)
+        check(cs, f"{lab} table", p20.bitop_table_cuda(n, dev), tw)
+        t = cs.time_ms(lambda n=n: p20.bitop_table_cuda(n, dev), flush, True)
+        print(f"{lab}: the table's build {cs.fmt(t)}; card {card}", flush=True)
+        rec[f"{lab} build_ms"] = t["median"]
+        new = lambda n=n: p20.bitop_scan(cls, st0, n)  # noqa: E731
+        ser = lambda n=n: p20.bitop_scan(cls, st0, n, form="serial")  # noqa: E731
+        check(cs, lab, new(), want)
+        check(cs, f"{lab} serial", ser(), want)
+        if o20:
+            old = lambda n=n: o20.bitop_scan(cls, st0, n)  # noqa: E731
+            check(cs, f"{lab} old", old(), want)
+            rec[f"{lab} old/new"] = turns(lab, old, new, ("old", "new"))
+            rec[f"{lab} old/new read_flush"] = turns(f"{lab} after a read flush", old, new,
+                                                     ("old", "new"), ReadFlush(flush))
+        rec[f"{lab} serial"] = turns(f"{lab} serial", new, ser, ("kernel", "serial"))
+        if n not in (96, 768):
+            continue
+        for vname, vlib in libs.items():
+            vtab = torch.empty(p20.TABLE_WORDS, dtype=torch.int32, device=dev)
+            if vlib.h2r_bitop_table(vtab.data_ptr(), n, K._stream(vtab)):
+                raise RuntimeError(f"bitop {vname}: the table's build failed")
+
+            def run_var(vlib=vlib, vtab=vtab, n=n):
+                out = torch.empty((p20.L, 1, p20.NWS, p20.LANE), dtype=torch.int32, device=dev)
+                if vlib.h2r_bitop_scan(cls.data_ptr(), st0.data_ptr(), vtab.data_ptr(),
+                                       out.data_ptr(), n, nw, p20.L, p20.LC, K._stream(cls)):
+                    raise RuntimeError(f"bitop {vname}: launch failed")
+                return out
+
+            if vname not in TIMING_ONLY:
+                check(cs, f"{lab} {vname}", run_var(), want)
+            rec[f"{lab} {vname}"] = turns(f"{lab} variant {vname}", new, run_var,
+                                          ("kernel", "variant"))
+
+    for c in p56.CHAINS:
+        x = p56.inputs(c, dev=dev)
+        want = p56.chains_plain(x)
+        for th in p56.THREADS:
+            lab = f"chains C {c}, {th} threads a block"
+            new = lambda th=th: p56.chains(x, p56.N_STEPS, th)  # noqa: E731
+            ser = lambda th=th: p56.chains(x, p56.N_STEPS, th, "serial")  # noqa: E731
+            check(cs, lab, new(), want)
+            rec[f"{lab} steps"] = p56.chains_steps(dev)
+            check(cs, f"{lab} serial", ser(), want)
+            rec[f"{lab} serial"] = turns(f"{lab} (fixed form, {rec[f'{lab} steps']} steps)",
+                                         new, ser, ("kernel", "serial"))
+            if o56:
+                old = lambda th=th: o56.chains(x, o56.N_STEPS, th)  # noqa: E731
+                check(cs, f"{lab} old", old(), want)
+                rec[f"{lab} old/new"] = turns(lab, old, new, ("old", "new"))
     return rec
 
 
@@ -1584,11 +1768,11 @@ def main() -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", help="directory of the earlier halo2_regex_tpu_torch/ package "
                     "(every part; marker runs without it, its variants alone)")
-    ap.add_argument("--only", default="pack,fb,walls,marker,lookup,units,wide,scan",
+    ap.add_argument("--only", default="pack,fb,walls,marker,lookup,units,wide,scan,bitop",
                     help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
-    if parts - {"marker", "wide", "scan"} and not args.old:
+    if parts - {"marker", "wide", "scan", "bitop"} and not args.old:
         ap.error("--old is needed for the pack, fb, walls, lookup and units parts")
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -1606,7 +1790,8 @@ def main() -> dict:
     print(f"card: {card}", flush=True)
     rec: dict = {"card": card, "versions": cs.versions()}
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
-    corpora = {Lc: cs.bench_corpus(cs.B, Lc) for Lc in (cs.L, cs.L_UNPADDED)}
+    corpora = ({Lc: cs.bench_corpus(cs.B, Lc) for Lc in (cs.L, cs.L_UNPADDED)}
+               if parts & {"pack", "fb", "walls"} else {})
     out = {}
     if "pack" in parts:
         out["pack"] = pack_ab(pk, cs, dev, card, flush, corpora)
@@ -1624,6 +1809,8 @@ def main() -> dict:
         out["wide"] = wide_ab(pk, cs, dev, card, flush)
     if "scan" in parts:
         out["scan"] = scan_ab(pk, cs, dev, card, flush)
+    if "bitop" in parts:
+        out["bitop"] = bitop_ab(pk, cs, dev, card, flush)
     rec["ab"] = out
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:

@@ -1658,25 +1658,93 @@ def test_probe_chunked_forms_launch_once(dev):
 @pytest.mark.parametrize("L,lc", [(256, 128), (256, 7), (10, 4)])
 @pytest.mark.parametrize("n_ops", [96, 192, 384, 768])
 def test_probe_bitop_scan_matches_plain(dev, n_ops, L, lc):
-    """L = 10: fewer steps than the kernel's ring holds."""
+    """Both forms; L = 10: fewer steps than the serial kernel's ring and
+    the table kernel's stage hold."""
     from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
 
     cls, st0 = p20.inputs(L, 2, seed=n_ops, dev=dev)
-    got = p20.bitop_scan(cls, st0, n_ops, lc=lc)
-    assert torch.equal(got, p20.bitop_scan_plain(cls, st0, n_ops, lc=lc))
-    assert bool(got.any())
+    want = p20.bitop_scan_plain(cls, st0, n_ops, lc=lc)
     zeros = torch.zeros_like(st0)  # the probe's own start: all zero out
-    assert not bool(p20.bitop_scan(cls, zeros, n_ops, lc=lc).any())
+    for form in p20.FORMS:
+        got = p20.bitop_scan(cls, st0, n_ops, lc=lc, form=form)
+        assert torch.equal(got, want), form
+        assert bool(got.any())
+        assert not bool(p20.bitop_scan(cls, zeros, n_ops, lc=lc, form=form).any())
+
+
+@pytest.mark.parametrize("L,lc,nws", [(1024, 128, 8), (1000, 33, 1), (17, 1, 3), (1, 5, 1),
+                                      (48, 16, 2)])
+def test_probe_bitop_table_form_edges(dev, L, lc, nws):
+    """The table form at the probe's width and at lengths that leave a
+    partial ring stage, one step a chunk, one step in all; classes over
+    the whole int32 range (bit 31 set)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+
+    cls, st0 = p20.inputs(L, nws, seed=L + lc, dev=dev)
+    cls = cls ^ torch.randint(-(2**31), 2**31 - 1, cls.shape, dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(L)).to(dev)
+    for n_ops in (96, 768):
+        assert torch.equal(p20.bitop_scan(cls, st0, n_ops, lc=lc),
+                           p20.bitop_scan_plain(cls, st0, n_ops, lc=lc)), n_ops
+
+
+def test_probe_bitop_table_built_once(dev):
+    """T equals its torch twin packed; once built for an n_ops, a call
+    launches the scan alone, one launch; a call for a new n_ops builds
+    its T first (two launches)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+
+    for n_ops in p20.N_OPS:
+        want = p20.table_words(p20.bitop_table_plain(n_ops)).to(dev)
+        assert torch.equal(p20.bitop_table_cuda(n_ops, dev), want), n_ops
+    p20._TABLES.clear()
+    cls, st0 = p20.inputs(64, 1, seed=4, dev=dev)
+    for n_ops, want in ((96, {"bitop_table": 1, "bitop_scan": 1}), (96, {"bitop_scan": 1}),
+                        (192, {"bitop_table": 1, "bitop_scan": 1}), (96, {"bitop_scan": 1})):
+        before = {k.name: k.launches for k in kernels.PROBE_KERNELS}
+        p20.bitop_scan(cls, st0, n_ops)
+        torch.cuda.synchronize()
+        moved = {k.name: k.launches - before[k.name] for k in kernels.PROBE_KERNELS
+                 if k.launches != before[k.name]}
+        assert moved == want, (n_ops, moved)
+    assert p20.bitop_table(96, dev) is p20.bitop_table(96, dev)
 
 
 @pytest.mark.parametrize("threads", [32, 1024])
 @pytest.mark.parametrize("n_steps", [0, 7, 4096])
 @pytest.mark.parametrize("C", [1, 2, 4])
 def test_probe_chains_matches_plain(dev, C, n_steps, threads):
+    """Both forms; the fixed form's steps counter against its twin's."""
     from halo2_regex_tpu_torch.probes import probe_tpu56 as p56
 
     x = p56.inputs(C, seed=C, dev=dev)
-    assert torch.equal(p56.chains(x, n_steps, threads), p56.chains_plain(x, n_steps))
+    want = p56.chains_plain(x, n_steps)
+    assert torch.equal(p56.chains(x, n_steps, threads, "serial"), want)
+    assert torch.equal(p56.chains(x, n_steps, threads), want)
+    assert p56.chains_steps(dev) == p56.chains_fixed_plain(x, n_steps)[1]
+
+
+@pytest.mark.parametrize("threads", [32, 1024])
+@pytest.mark.parametrize("n_steps", [2, 8, 21, 4096])
+def test_probe_chains_fixed_exit(dev, n_steps, threads):
+    """The exit: a start already at a fixed point stops at the first check
+    (4 steps), below a group every step runs; rows of words that are no
+    whole number of warps (their last warp padded with zeros); each call's
+    counter is its own (a later call with fewer steps reads fewer)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu56 as p56
+
+    fixed = p56.chains_plain(p56.inputs(4, seed=0, dev=dev), 64)
+    assert torch.equal(p56.chains(fixed, n_steps, threads), fixed)
+    assert p56.chains_steps(dev) == min(n_steps, 4)
+    gen = torch.Generator().manual_seed(n_steps)
+    odd = torch.randint(-(2**31), 2**31 - 1, (2, 5, 9), dtype=torch.int32, generator=gen).to(dev)
+    got = p56.chains(odd, n_steps, threads)
+    assert torch.equal(got, p56.chains_plain(odd, n_steps))
+    assert p56.chains_steps(dev) == p56.chains_fixed_plain(odd, n_steps)[1]
+    for form in p56.FORMS:  # one launch a call in either form
+        before = kernels.CHAINS.launches
+        p56.chains(fixed, n_steps, threads, form)
+        assert kernels.CHAINS.launches == before + 1
 
 
 # ---------------------------------------------------------------------------
