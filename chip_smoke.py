@@ -224,7 +224,7 @@ and proves on the card that:
      pass, then its product kernel), each kernel bit-exact against its plain
      version (int32, tolerance 0): lane_gather (k3, k4, k5, k1, 1024-step
      chains at [256, 128] and [1, 128], the row in shared memory and in
-     registers), dfa_step (lookup, onehot_mma with both picks, class_mma;
+     registers, each chain by squaring and serially), dfa_step (lookup, onehot_mma with both picks, class_mma;
      batch- and time-major, the probes' widths and the from: batch),
      slab_anatomy (1, 2, 4 outputs, from: tables, [1024, 4096]), nop,
      onehot_count and int8_mma (128^3, 4096^3); library calls beside them
@@ -235,8 +235,9 @@ and proves on the card that:
      mma.sync (HMMA), integer wgmma (IGMMA) in both tile widths of
      int8_mma and at least 256 compares a byte in onehot_count (an HSET2
      or HSETP2 two); ptxas' log beside the library shows no spills in
-     onehot_count, int8_mma (its staging pass and product kernel) or
-     dfa_step;
+     onehot_count, int8_mma (its staging pass and product kernel),
+     dfa_step or lane_gather's pow form, and that form's SASS no local
+     memory (LDL, STL);
  12. the emission and decode probe scripts' runs, driven with the launch
      counts reset, launched every emit probe kernel and, of the others,
      only the matcher kernels their witness fronts and walls run; each
@@ -257,7 +258,8 @@ and proves on the card that:
      slab_anatomy, tile_move, the witness kernels (qpack, scan, post) and
      the table scan; each measurement as in [10], each kernel against its
      plain version: int32 outputs bit-exact (bitop_carry at one position
-     a chunk from a zero and a seeded start and at every position;
+     a chunk from a zero and a seeded start and at every position, each in
+     its reduce and serial forms;
      class_chain in both forms at [64, 128] and [1024, 32768]; dfa_wide
      lookup, onehot_mma and count at the probes' (K, S) from 32 x 256 to
      1024 x 128 and at configs[3]'s B=64 x L=65536, where B8's table scan
@@ -270,7 +272,9 @@ and proves on the card that:
      slope and its cost past its bytes, and its witness batches agree on
      the rows they share; the SASS holds HGMMA (wgmma) in mma_accum and in
      every instance of dfa_wide's product, no HMMA there and neither in its
-     lookup, and ptxas reports no spills in either;
+     lookup, LOP3 in bitop_carry's serial kernel, 16-byte loads (LDG.E.128)
+     in its reduce kernel and no local memory (LDL, STL) there, and ptxas
+     reports no spills in mma_accum, dfa_wide or the reduce kernel;
  14. the marker probe scripts' runs, driven with the launch counts reset,
      launched marker_match and, of the others, only the matcher kernels
      they reuse (pack_raw, scan, qpack, post, decode, the table kernels);
@@ -1401,8 +1405,11 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     SASS shows wgmma in the tensor-core kernels (HGMMA in dfa_step's
     products, IGMMA in int8_mma), 16-byte copies and stores in dfa_step's
     lookup (LDGSTS .128, STG.128) and 256 compares a byte in onehot_count
-    (HSET2 or HSETP2, two at once), and ptxas' log no spills in
-    onehot_count, int8_mma and dfa_step (both kernels).  int8_mma's
+    (HSET2 or HSETP2, two at once), ptxas' log no spills in onehot_count,
+    int8_mma, dfa_step (both kernels) and lane_gather's pow form, and that
+    form's SASS no local memory (LDL, STL).  lane_gather's 1024-step
+    chains run in both forms, the lone chain read from the serial one.
+    int8_mma's
     measurements count two launches a call (the staging pass, then the
     product kernel)."""
     from halo2_regex_tpu_torch.probes import (harness, probe_tpu, probe_tpu2, probe_tpu3,
@@ -1444,7 +1451,8 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
     tms.update(ktms)
 
     # the lone chain beside configs[3]'s table-scan chain step ([10], this run)
-    lone = {r["store"]: r for r in recs if r["probe"] == "E_take_along_loop_1x128"}
+    lone = {r["store"]: r for r in recs
+            if r["probe"] == "E_take_along_loop_1x128" and r["form"] == "serial"}
     sh, rg = lone["shared"], lone["regs"]
     log(f"[11] the lone chain of dependent gathers (lane_gather [1, 128], one warp, "
         f"{sh['steps']} steps): shared memory {sh['ns_per_step']:.3f} ns = "
@@ -1462,7 +1470,8 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
                      "dfa_lookup_kernel": ("LDGSTS.128", "LDGSTS", "STG.128", "STG", "LDS.128",
                                            "LDS"),
                      "int8_mma_kernel": ("IGMMA", "IMMA", "UTMALDG", "UTMASTG"),
-                     "onehot_count_kernel": ("ISETP", "HSET2", "HSETP2", "HADD2", "LDS")})
+                     "onehot_count_kernel": ("ISETP", "HSET2", "HSETP2", "HADD2", "LDS"),
+                     "gather_pow_kernel": ("LDL", "STL", "LDS", "SHFL")})
     for fn, ops in sass.items():
         log(f"[11] sass {fn[-60:]}: {ops}")
     mma = {fn: ops for fn, ops in sass.items() if "dfa_kernelILi1" in fn or "dfa_kernelILi2" in fn}
@@ -1471,12 +1480,19 @@ def table_probe_phase(kernels, chain_ns: float, card: str) -> dict:
                 / int(re.search(r"onehot_count_kernelILi(\d+)E", fn).group(1))
                 for fn, ops in sass.items() if "onehot_count" in fn}
     lookup = {fn: ops for fn, ops in sass.items() if "dfa_lookup_kernel" in fn}
-    spills = {k: v for name in ("onehot_count_kernel", "int8_", "dfa_kernel", "dfa_lookup_kernel")
+    gpow = {fn: ops for fn, ops in sass.items() if "gather_pow_kernel" in fn}
+    spills = {k: v for name in ("onehot_count_kernel", "int8_", "dfa_kernel", "dfa_lookup_kernel",
+                                "gather_pow_kernel")
               for k, v in probe_spills(kernels, name).items()}
     log(f"[11] onehot_count compares a byte in the SASS (HSET2 and HSETP2, two each): "
-        f"{per_byte}; ptxas spill bytes (onehot_count, int8_mma, dfa_step) {spills}")
+        f"{per_byte}; ptxas spill bytes (onehot_count, int8_mma, dfa_step, lane_gather's pow "
+        f"form) {spills}")
     if any(spills.values()):
         raise AssertionError(f"[11] spills: {spills}")
+    # lane_gather's pow form, one instance a store: no local memory
+    if len(gpow) != 2 or any(ops["LDL"] or ops["STL"] for ops in gpow.values()):
+        raise AssertionError(f"[11] lane_gather's pow form lacks an instance or uses local "
+                             f"memory: {gpow}")
     # the lookup's 16-byte copies (cp.async, LDGSTS .128) and stores (STG.128)
     if len(lookup) != 2 or not all(ops["LDGSTS.128"] and ops["STG.128"] for ops in lookup.values()):
         raise AssertionError(f"[11] the lookup's SASS lacks 16-byte copies or stores: {lookup}")
@@ -1726,16 +1742,27 @@ def t2_probe_phase(kernels, m3, chars3, card: str) -> dict:
                      "wide_mma_kernel": ("HGMMA", "HMMA", "LDS"),
                      "wide_lookup_kernel": ("HGMMA", "HMMA", "LDS", "LDG"),
                      "wide_repair_kernel": ("HGMMA", "HMMA", "LDS", "LDG"),
-                     "class_chain_kernel": ("ISETP", "LDS"), "bitop_carry_kernel": ("LOP3",)})
+                     "class_chain_kernel": ("ISETP", "LDS"), "bitop_carry_kernel": ("LOP3",),
+                     "bitop_carry_reduce_kernel": ("LDG.E.128", "LDG", "LOP3", "LDL", "STL")})
     for fn, ops in sass.items():
         log(f"[13] sass {fn[-60:]}: {ops}")
     mma = {k: [(ops["HGMMA"] > 0, ops["HMMA"] > 0) for fn, ops in sass.items() if k in fn]
            for k in ("mma_accum_tma_kernel", "wide_mma_kernel", "wide_lookup_kernel",
                      "wide_repair_kernel")}
-    spills = {**probe_spills(kernels, "mma_accum_tma_kernel"), **probe_spills(kernels, "wide_")}
-    log(f"[13] mma_accum and dfa_wide ptxas spill bytes {spills}")
+    spills = {**probe_spills(kernels, "mma_accum_tma_kernel"), **probe_spills(kernels, "wide_"),
+              **probe_spills(kernels, "bitop_carry_reduce_kernel")}
+    log(f"[13] mma_accum, dfa_wide and bitop_carry's reduce form ptxas spill bytes {spills}")
     if any(spills.values()):
         raise AssertionError(f"[13] spills: {spills}")
+    # bitop_carry: LOP3 in the serial kernel; the reduce kernel's two
+    # instances (V = 4, 1), 16-byte loads in V = 4's, no local memory
+    serial = [ops for fn, ops in sass.items() if "bitop_carry_kernel" in fn]
+    red = {fn: ops for fn, ops in sass.items() if "bitop_carry_reduce_kernel" in fn}
+    red4 = [ops for fn, ops in red.items() if "ILi4E" in fn]
+    if (len(serial) != 1 or not serial[0]["LOP3"] or len(red) != 2 or len(red4) != 1
+            or not red4[0]["LDG.E.128"] or any(ops["LDL"] or ops["STL"] for ops in red.values())):
+        raise AssertionError(f"[13] bitop_carry's SASS lacks LOP3 in its serial kernel or "
+                             f"16-byte loads in its reduce kernel, or uses local memory: {sass}")
     if (len(mma["mma_accum_tma_kernel"]) != 2 or not all(h for h, _ in mma["mma_accum_tma_kernel"])
             or not mma["wide_mma_kernel"] or set(mma["wide_mma_kernel"]) != {(True, False)}
             or not mma["wide_lookup_kernel"] or not mma["wide_repair_kernel"]

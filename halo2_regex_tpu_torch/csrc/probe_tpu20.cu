@@ -64,17 +64,41 @@
 // chunk.  The probe starts each b from its zeroed scratch, which the op
 // keeps at zero; here the start st0 [NW] is an input, as bitop_scan's.
 // steps = LC is the carry scan the probe meant: every position in order.
-// The TPU carried st in VMEM scratch across the grid's chunk axis; here
-// one thread owns one (b, w) and walks its chunks itself, the positions'
-// words in flight through the same ring.  What bounds it: the chain, one
-// LOP3 a position.  Layouts: cls [NB, L, NW] int32 (the probe's [NB, L, 1,
-// NWS, 128]); st0 [NW]; out [NB, NW]; L % LC == 0, 1 <= steps <= LC.
+// Layouts: cls [NB, L, NW] int32 (the probe's [NB, L, 1, NWS, 128]); st0
+// [NW]; out [NB, NW]; L % LC == 0, 1 <= steps <= LC.  Two forms, the same
+// outputs.
+//
+// The serial form (bitop_carry_kernel): the TPU carried st in VMEM scratch
+// across the grid's chunk axis; here one thread owns one (b, w) and walks
+// its chunks itself, the positions' words in flight through the same ring.
+// What bounds it: the chain, one LOP3 a position, and the latency of its
+// ring: 2048 threads at the probe's shape, 64 blocks of 32 on 64 SMs.
+//
+// The reduce form (bitop_carry_reduce_kernel): st ^= c & st is st & ~c, so
+// out = st0 & ~(c_0 | c_1 | ...) over the positions read, an OR reduction
+// in any order, exact for any input.  What bounds it: bytes, each word of
+// the positions read once.  A warp owns a tile of 32 V words (V = 4: a
+// lane's 16-byte load, where NW % 4 == 0 and cls, st0 and out are 16-byte
+// aligned; else V = 1, 4-byte loads, in the same source) and a slice of
+// consecutive positions; a block is 8 warps on one tile, and a cluster of
+// `cluster` blocks (up to 16, past the portable 8 by opt-in) splits the
+// positions, rank r the r-th run of per_rank, its warp w the w-th run of
+// per_warp (the wrapper's `carry_geometry` picks `cluster`: two blocks an
+// SM where every warp then has a batch of loads, else fewer; at the probe's
+// 8 positions one block a tile, no cluster).  A lane issues 8 loads before
+// it ORs them, so each SM holds tens of KB in flight; rank 0 reads its st0
+// words beside them.  The warps' ORs meet in the block's shared memory,
+// each rank's in rank 0's (distributed shared memory), and rank 0 masks st0
+// and writes the tile: one writer a word, no zero fill, one launch a call.
 
 #include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "probe_ring.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -390,16 +414,158 @@ bitop_carry_kernel(const int32_t* __restrict__ cls, const int32_t* __restrict__ 
   probe_ring::wait_all();
 }
 
+// ------------------------------------------------------- the reduce form
+
+constexpr int kRedWarps = 8;        // a block: 8 warps on one tile of words
+constexpr int kRedThreads = 32 * kRedWarps;
+constexpr int kRedMaxCluster = 16;  // blocks over the positions (past the portable 8: opted in)
+constexpr int kRedBatch = 8;        // loads a lane issues before it ORs them
+
+// a lane's words of a position: V = 4, one 16-byte load; V = 1, one word.
+// The loads skip L1 (each word is read once) and ask L2 for whole 256-byte
+// runs of the row (a warp reads 128 V bytes of it)
+template <int V>
+struct RedWord;
+template <>
+struct RedWord<4> {
+  using T = uint4;
+  static __device__ __forceinline__ T zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ T load(const T* p) {
+    T v;
+    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+    return v;
+  }
+  static __device__ __forceinline__ T or_(T a, T b) {
+    return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+  }
+  static __device__ __forceinline__ T andnot(T s, T c) {
+    return make_uint4(s.x & ~c.x, s.y & ~c.y, s.z & ~c.z, s.w & ~c.w);
+  }
+};
+template <>
+struct RedWord<1> {
+  using T = uint32_t;
+  static __device__ __forceinline__ T zero() { return 0u; }
+  static __device__ __forceinline__ T load(const T* p) {
+    T v;
+    asm("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+  }
+  static __device__ __forceinline__ T or_(T a, T b) { return a | b; }
+  static __device__ __forceinline__ T andnot(T s, T c) { return s & ~c; }
+};
+
+// grid: (tiles x cluster, NB), a cluster of `cluster` blocks (rank =
+// blockIdx.x % cluster) on one tile of 32 V words of string group blockIdx.y
+template <int V>
+__global__ void __launch_bounds__(kRedThreads)
+bitop_carry_reduce_kernel(const int32_t* __restrict__ cls, const int32_t* __restrict__ st0,
+                          int32_t* __restrict__ out, int NW, int L, int LC, int steps,
+                          int cluster, int per_rank, int per_warp) {
+  using R = RedWord<V>;
+  using T = typename R::T;
+  __shared__ T part[kRedWarps][32];
+  __shared__ T parts[kRedMaxCluster][32];  // rank 0's: every rank's
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rank = blockIdx.x % cluster, b = blockIdx.y;
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int w0 = ((blockIdx.x / cluster) * 32 + lane) * V;  // this lane's first word
+  const bool col = w0 < NW;  // V = 4 divides NW
+  const int n_pos = L / LC * steps;
+  const int r_lo = min(n_pos, rank * per_rank), r_hi = min(n_pos, r_lo + per_rank);
+  const int lo = min(r_hi, r_lo + warp * per_warp), hi = min(r_hi, lo + per_warp);
+  const T* base = reinterpret_cast<const T*>(cls + (size_t)b * L * NW + w0);
+  const size_t row_t = NW / V;  // a position's row, in T
+  int j = lo / steps, i = lo - j * steps;  // the chunk and position in it of p = lo
+  T s = R::zero();  // rank 0's st0 words, read beside the positions
+  if (rank == 0 && warp == 0 && col) s = __ldg(reinterpret_cast<const T*>(st0 + w0));
+  T acc = R::zero();
+#pragma unroll 1
+  for (int p = lo; p < hi; p += kRedBatch) {
+    T v[kRedBatch];
+#pragma unroll
+    for (int k = 0; k < kRedBatch; ++k) {
+      v[k] = R::zero();
+      if (col && p + k < hi) v[k] = R::load(base + (size_t)(j * LC + i) * row_t);
+      if (++i == steps) {
+        i = 0;
+        ++j;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRedBatch; ++k) acc = R::or_(acc, v[k]);
+  }
+  part[warp][lane] = acc;
+  __syncthreads();
+  T sum = R::zero();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < kRedWarps; ++k) sum = R::or_(sum, part[k][lane]);
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every rank has started
+  cg::cluster_group cl = cg::this_cluster();
+  if (warp == 0) cl.map_shared_rank(&parts[0][0], 0)[rank * 32 + lane] = sum;
+  cl.sync();  // every rank's OR is in rank 0's memory
+  if (rank == 0 && warp == 0 && col) {
+    T all = R::zero();
+#pragma unroll
+    for (int r = 0; r < kRedMaxCluster; ++r)
+      if (r < cluster) all = R::or_(all, parts[r][lane]);
+    *reinterpret_cast<T*>(out + (size_t)b * NW + w0) = R::andnot(s, all);
+  }
+}
+
+template <int V>
+int launch_reduce(const void* cls, const void* st0, void* out, int NB, int NW, int L, int LC,
+                  int steps, int cluster, cudaStream_t stream) {
+  auto kernel = bitop_carry_reduce_kernel<V>;
+  if (cluster > 8) {  // past the portable cluster size
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int n_pos = L / LC * steps;
+  const int per_rank = (n_pos + cluster - 1) / cluster;
+  const int per_warp = (per_rank + kRedWarps - 1) / kRedWarps;
+  const int tiles = (NW + 32 * V - 1) / (32 * V);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * cluster, NB);
+  cfg.blockDim = dim3(kRedThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1;  // a launch without clusters is a cluster of one block
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, (const int32_t*)cls, (const int32_t*)st0, (int32_t*)out,
+                         NW, L, LC, steps, cluster, per_rank, per_warp);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// cluster 0: the serial form; 1 <= cluster <= min(16, the positions
+// read): the reduce form on clusters of that many blocks
 extern "C" int h2r_bitop_carry(const void* cls, const void* st0, void* out, int NB, int NW,
-                               int L, int LC, int steps, void* stream) {
+                               int L, int LC, int steps, int cluster, void* stream) {
   if (NB <= 0 || NB > 65535 || NW <= 0 || LC < 1 || L < LC || L % LC || steps < 1 ||
-      steps > LC)
+      steps > LC || cluster < 0 || cluster > kRedMaxCluster || cluster > L / LC * steps)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cluster > 0) {
+    if (NW % 4 == 0 && ((uintptr_t)cls | (uintptr_t)st0 | (uintptr_t)out) % 16 == 0)
+      return launch_reduce<4>(cls, st0, out, NB, NW, L, LC, steps, cluster, st);
+    return launch_reduce<1>(cls, st0, out, NB, NW, L, LC, steps, cluster, st);
+  }
   const dim3 grid((NW + THREADS - 1) / THREADS, NB);
-  bitop_carry_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)cls, (const int32_t*)st0, (int32_t*)out, NW, L, LC, steps);
+  bitop_carry_kernel<<<grid, THREADS, 0, st>>>((const int32_t*)cls, (const int32_t*)st0,
+                                               (int32_t*)out, NW, L, LC, steps);
   return (int)cudaGetLastError();
 }
 

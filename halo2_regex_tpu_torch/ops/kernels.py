@@ -308,7 +308,7 @@ _ENTRIES = {
     # x, out, C, NW, n_steps, threads a block, steps a warp (null: the
     # serial form), stream
     CHAINS: [_P, _P, _I, _I, _I, _I, _P, _P],
-    # g (or t), f (or c), out, R, steps, form, stream
+    # g (or t), f (or c), out, R, steps, form (0, 1 serial; 2 rows; 3, 4 pow), stream
     LANE_GATHER: [_P, _P, _P, _I, _I, _I, _P],
     # T (or Tk), classes, chars, out, TB, LB, time_major, form, pick, K, stream
     DFA_STEP: [_P] * 4 + [_I] * 6 + [_P],
@@ -329,8 +329,8 @@ _ENTRIES = {
     FIELD_DECODE: [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, b, c, NI, NL, M, N, K, stream
     MMA_ACCUM: [_P, _P, _P] + [_I] * 5 + [_P],
-    # cls, st0, out, NB, NW, L, LC, steps, stream
-    BITOP_CARRY: [_P, _P, _P] + [_I] * 5 + [_P],
+    # cls, st0, out, NB, NW, L, LC, steps, cluster (0: the serial form), stream
+    BITOP_CARRY: [_P, _P, _P] + [_I] * 6 + [_P],
     # c, out, n, thresholds and deltas (host ints), n_terms, form, stream
     CLASS_CHAIN: [_P, _P, _LL, _P, _P, _I, _I, _P],
     # T, frags, chars, entry, out, scratch, repaired, TB, L, K, W, hilo, cmod,

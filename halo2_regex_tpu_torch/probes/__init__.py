@@ -14,7 +14,8 @@ its counterpart.  The serial-scan probes:
 The table-kernel probes:
 
 - :mod:`.probe_tpu`: ``lane_gather`` (k3, k4; k5's rows mode
-  ``row_gather``), the row in shared memory or registers, and
+  ``row_gather``), the row in shared memory or registers, a chain of
+  gathers by squaring or serially (``form``), and
   ``dfa_step`` (k6, k7: the DFA step by a lookup or a one-hot product on
   the tensor cores);
 - :mod:`.probe_tpu2`: ``nop`` (A, the dispatch cost), ``dfa_step``
@@ -48,7 +49,8 @@ probes:
   batch scaling;
 - :mod:`.probe_tpu21`: ``mma_accum`` (a bf16 product accumulated in f32
   over a grid axis); :mod:`.probe_tpu20`'s D and E (``mma_accum``, and
-  ``bitop_carry``: a state carried across chunks);
+  ``bitop_carry``: a state carried across chunks, an OR reduction over
+  the card or serially, ``form``);
 - :mod:`.probe_tpu6`: k1 (``loop_floor``), k2 (``dfa_wide``), k3 (the slab
   kernel, a packed table's second column), k4 (``class_chain``: a byte's
   class by a chain of compares or a 256-entry table);

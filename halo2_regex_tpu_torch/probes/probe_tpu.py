@@ -1,12 +1,17 @@
 """tools/probe_tpu.py's Pallas probes on the H100: lane gathers, a row
 gather by byte, and the DFA step by a one-hot product or a lookup.
 
-- ``lane_gather(g, f, steps=1, store="shared")``: ``o[r, j] = g[r, f[r,
-  j]]`` over rows of 128 int32 lanes, ``steps`` times with f taken from
-  the last output (k3 at [8, 128], k4 at [256, 128]; probe_tpu2's E and
-  probe_tpu3's loop at 1024 steps).  ``store`` is the row's storage on the
-  card: ``"shared"`` (one shared-memory load an output) or ``"regs"``
-  (registers, gathered by warp shuffles, the TPU's lane permute).
+- ``lane_gather(g, f, steps=1, store="shared", form=None)``: ``o[r, j] =
+  g[r, f[r, j]]`` over rows of 128 int32 lanes, ``steps`` times with f
+  taken from the last output (k3 at [8, 128], k4 at [256, 128];
+  probe_tpu2's E and probe_tpu3's loop at 1024 steps).  ``store`` is the
+  row's storage on the card: ``"shared"`` (one shared-memory load an
+  output) or ``"regs"`` (registers, gathered by warp shuffles, the TPU's
+  lane permute).  ``form`` (``GATHER_FORMS``): ``"serial"``, the chain of
+  ``steps`` dependent gathers, or ``"pow"``, the default past one step:
+  each row g is then a map of [0, 128) into itself and the output is
+  g^steps(f), built by squaring (``pow_rounds``: 1024 steps are 10
+  squarings and one gather); ``lane_gather_pow_plain`` is its torch twin.
 - ``row_gather(t, c)``: ``o[i, :] = t[c[i], :]`` (k5).
 - ``dfa_step(T, chars, form, time_major, pick, classes)``: the DFA scan
   ``s = T[c, s]`` from s = 0, every state written, T [256, 128] in [0,
@@ -46,6 +51,7 @@ LANES = 128  # a row's lanes
 NB, NS = 256, 128  # the DFA table: bytes x states (the probes' S)
 KC = 16  # class_mma's classes at most
 STORES = ("shared", "regs")
+GATHER_FORMS = ("pow", "serial")
 FORMS = ("lookup", "onehot_mma", "class_mma")
 PICKS = ("gather", "sum")
 B, L = 4096, 1024  # the script's corpus shape (its XLA lines)
@@ -64,6 +70,17 @@ def _within(t: torch.Tensor, name: str, hi: int) -> None:
 
 
 # ----------------------------------------------------------------- lane_gather
+
+
+def gather_form(form: Optional[str], steps: int) -> str:
+    """The form a call runs: ``form``, or where it is None ``"pow"`` past
+    one step and ``"serial"`` at 0 or 1 (the same single gather); raises on
+    an unknown form."""
+    if form is None:
+        return "pow" if steps > 1 else "serial"
+    if form not in GATHER_FORMS:
+        raise ValueError(f"form {form!r}: expected one of {GATHER_FORMS}")
+    return form
 
 
 def _check_gather(g: torch.Tensor, f: torch.Tensor, steps: int, store: str) -> int:
@@ -88,6 +105,20 @@ def check_gather_ranges(g: torch.Tensor, f: torch.Tensor, steps: int) -> None:
         _within(g, "g", LANES)
 
 
+def pow_rounds(steps: int) -> List[str]:
+    """The pow form's dependent rounds in the kernel's order: for each bit
+    of ``steps`` from the lowest, ``"apply"`` (acc = p[acc]) where it is
+    set, then ``"square"`` (p = p[p]) while a higher bit remains."""
+    rounds = []
+    while steps:
+        if steps & 1:
+            rounds.append("apply")
+        steps >>= 1
+        if steps:
+            rounds.append("square")
+    return rounds
+
+
 def lane_gather_plain(g: torch.Tensor, f: torch.Tensor, steps: int = 1,
                       store: str = "shared") -> torch.Tensor:
     """``steps`` rounds of ``take_along_axis(g, acc, -1)`` from acc = f;
@@ -100,26 +131,47 @@ def lane_gather_plain(g: torch.Tensor, f: torch.Tensor, steps: int = 1,
     return acc
 
 
+def lane_gather_pow_plain(g: torch.Tensor, f: torch.Tensor, steps: int = 1,
+                          store: str = "shared") -> torch.Tensor:
+    """The pow form's function as the kernel computes it: from p = g and
+    acc = f, ``pow_rounds(steps)`` in order, each a gather of a whole row;
+    ``store`` does not change it."""
+    _check_gather(g, f, steps, store)
+    check_gather_ranges(g, f, steps)
+    p, acc = g.long(), f.long()
+    for op in pow_rounds(steps):
+        if op == "apply":
+            acc = torch.gather(p, 1, acc)
+        else:
+            p = torch.gather(p, 1, p)
+    return acc.to(torch.int32)
+
+
 def lane_gather_cuda(g: torch.Tensor, f: torch.Tensor, steps: int = 1,
-                     store: str = "shared") -> torch.Tensor:
-    """The ``lane_gather`` kernel, the row in shared memory or registers.
-    Precondition (``check_gather_ranges``; not checked here)."""
+                     store: str = "shared", form: Optional[str] = None) -> torch.Tensor:
+    """The ``lane_gather`` kernel in ``form`` (``gather_form``), the row in
+    shared memory or registers.  Precondition (``check_gather_ranges``; not
+    checked here)."""
     R = _check_gather(g, f, steps, store)
+    form = gather_form(form, steps)
     kernels._check(g, "g", torch.int32, (R, LANES))
     kernels._check(f, "f", torch.int32, (R, LANES))
     out = torch.empty_like(g)
     lib = kernels.build_probes()
     kernels._launch(kernels.LANE_GATHER, lib.h2r_lane_gather, g.data_ptr(), f.data_ptr(),
-                    out.data_ptr(), R, steps, STORES.index(store), kernels._stream(g))
+                    out.data_ptr(), R, steps,
+                    STORES.index(store) + (3 if form == "pow" else 0), kernels._stream(g))
     return out
 
 
 def lane_gather(g: torch.Tensor, f: torch.Tensor, steps: int = 1,
-                store: str = "shared") -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain version on CPU ones."""
+                store: str = "shared", form: Optional[str] = None) -> torch.Tensor:
+    """The kernel on CUDA tensors (``form`` as ``lane_gather_cuda``'s), the
+    plain version on CPU ones."""
+    gather_form(form, steps)
     if g.device.type == "cpu":
         return lane_gather_plain(g, f, steps, store)
-    return lane_gather_cuda(g, f, steps, store)
+    return lane_gather_cuda(g, f, steps, store, form)
 
 
 def _check_rows(t: torch.Tensor, c: torch.Tensor) -> Tuple[int, int]:
@@ -289,16 +341,29 @@ def bytes_(d0: int, d1: int, seed: int = 0, dev: Optional[torch.device] = None,
 
 
 def gather_line(timer, card, probe: str, g: torch.Tensor, f: torch.Tensor, steps: int,
-                store: str) -> dict:
-    """A ``lane_gather`` measurement (``harness.measure``): ns a step is
-    the time over ``steps`` (a step is one gather of every lane)."""
+                store: str) -> List[dict]:
+    """``lane_gather`` measurements (``harness.measure``), a line a form
+    past one step (on the CPU the plain version once), else one: ns a step
+    is the time over ``steps`` (a step is one gather of every lane).  The
+    serial form's int32 work is a gather a lane and step; the pow form's a
+    gather a lane and round (``pow_rounds``)."""
     R, fl = g.shape[0], f.long()
-    return harness.measure(
-        timer, card, probe, kernels.LANE_GATHER, lambda: lane_gather(g, f, steps, store),
-        max(steps, 1), lambda: lane_gather_plain(g, f, steps, store),
-        library=(lambda: torch.gather(g, 1, fl)) if steps == 1 else None,
-        nbytes=3 * g.numel() * 4, int32_ops=g.numel() * steps, shape=[R, LANES], store=store,
-        gathers=steps)[0]
+    forms = GATHER_FORMS if steps > 1 and g.device.type == "cuda" else (gather_form(None, steps),)
+    if len(forms) > 1:
+        tp = timer(lambda: lane_gather_plain(g, f, steps, store), 0, 1)
+        plain = (tp["out"], tp["median"])
+    else:
+        plain = lambda: lane_gather_plain(g, f, steps, store)  # noqa: E731
+    recs = []
+    for form in forms:
+        rounds = len(pow_rounds(steps)) if form == "pow" else steps
+        recs.append(harness.measure(
+            timer, card, probe, kernels.LANE_GATHER,
+            lambda: lane_gather(g, f, steps, store, form), max(steps, 1), plain,
+            library=(lambda: torch.gather(g, 1, fl)) if steps == 1 else None,
+            nbytes=3 * g.numel() * 4, int32_ops=g.numel() * rounds, shape=[R, LANES],
+            store=store, form=form, gathers=steps, rounds=rounds)[0])
+    return recs
 
 
 def dfa_line(timer, card, probe: str, T: torch.Tensor, chars: torch.Tensor, form: str,
@@ -328,7 +393,7 @@ def run(dev: torch.device, small: bool = False) -> List[dict]:
     for probe, R in (("k3_take_along_8x128", 8), ("k4_take_along_256x128", 256)):
         g, f = gather_inputs(R, seed=R, dev=dev)
         for store in STORES:
-            recs.append(gather_line(timer, card, probe, g, f, 1, store))
+            recs += gather_line(timer, card, probe, g, f, 1, store)
     c = torch.from_numpy(rng.integers(0, NB, size=8).astype(np.int32)).to(dev)
     cl = c.long()
     recs.append(harness.measure(

@@ -171,8 +171,7 @@ def run(dev: torch.device, small: bool = False, big: bool = False) -> List[dict]
     for R in e_rows:
         g, f = gather_inputs(R, seed=R + 3, dev=dev)
         for store in ("shared", "regs"):
-            recs.append(gather_line(timer, card, f"E_take_along_loop_{R}x128", g, f, e_steps,
-                                    store))
+            recs += gather_line(timer, card, f"E_take_along_loop_{R}x128", g, f, e_steps, store)
     cf = bytes_(*f_shape, seed=5, dev=dev)
     recs.append(harness.measure(
         timer, card, "F_vpu_onehot_count", kernels.ONEHOT_COUNT, lambda: onehot_count(cf),

@@ -38,15 +38,26 @@ raise: ``a_ref[0]`` is [1, 128, 128], so its ``jnp.dot`` gives [1, 128, 1,
 128] and the store refuses it.  The port runs the corrected body,
 :mod:`.probe_tpu21`'s ``mma_accum``, at the probe's [4, 2, 128, 128].
 
-E (``kern2`` :246): ``bitop_carry(cls, st0, lc, steps)``: per string
-group b and word w, ``st ^= cls[b, j * lc + i] & st`` for i < ``steps`` at
-each chunk j of ``lc`` positions, st carried across the chunks from
-``st0`` [1, NWS, 128], out [NB, 1, 1, NWS, 128] the last st.  The probe as
-written reads one position a chunk (its loop runs ``cls_ref.shape[0]`` =
-1 trip: ``steps=1``) from its zeroed scratch, so every output is zero;
-``steps=lc`` is the carry scan it meant.  cls [NB, L, 1, NWS, 128] int32.
-Its kernel is ``bitop_scan``'s carry mode (``bitop_carry``, the same
-source).  Run on the card::
+E (``kern2`` :246): ``bitop_carry(cls, st0, lc, steps, form)``: per
+string group b and word w, ``st ^= cls[b, j * lc + i] & st`` for i <
+``steps`` at each chunk j of ``lc`` positions, st carried across the
+chunks from ``st0`` [1, NWS, 128], out [NB, 1, 1, NWS, 128] the last st.
+The probe as written reads one position a chunk (its loop runs
+``cls_ref.shape[0]`` = 1 trip: ``steps=1``) from its zeroed scratch, so
+every output is zero; ``steps=lc`` is the carry scan it meant.  cls [NB,
+L, 1, NWS, 128] int32.  Its kernel is ``bitop_scan``'s carry mode
+(``bitop_carry``, the same source), in two forms (``CARRY_FORMS``), the
+same outputs:
+
+- ``"reduce"``, the default: st ^= c & st is st & ~c, so out = st0 & ~(the
+  OR of every word read), a reduction split over the card
+  (``carry_geometry``: warps on tiles of 32 V words and runs of positions,
+  8 a block, clusters of up to 16 blocks over the positions; V = 4, 16-byte
+  loads, where ``carry_vec`` allows); ``bitop_carry_reduce_plain`` is its
+  torch twin, the same runs ORed and folded in the kernel's order;
+- ``"serial"``: a thread a (b, word) walks its positions in order.
+
+Run on the card::
 
     python -m halo2_regex_tpu_torch.probes.probe_tpu20 --sections ADE
 
@@ -329,6 +340,23 @@ def run(dev: torch.device, L_: int = L, nws: int = NWS,
 # ------------------------------------------------------------ E: bitop_carry
 
 E_NB = 2  # E's string groups (its grid's first axis)
+CARRY_FORMS = ("reduce", "serial")
+# the reduce form's geometry (csrc/probe_tpu20.cu kRedWarps, kRedMaxCluster)
+CARRY_WARPS = 8  # warps a block, each a run of positions of one tile
+CARRY_MAX_CLUSTER = 16  # blocks a cluster over the positions
+CARRY_BLOCKS_AN_SM = 2  # blocks an SM the split aims at
+CARRY_BATCH = 8  # loads a lane issues at once (kRedBatch): a rank takes at least a batch a warp
+SMS = 132  # the H100 SXM's SMs (the twin's default; the wrapper asks the device)
+
+
+def carry_form(form: Optional[str]) -> str:
+    """The form a call runs: ``form``, or ``"reduce"`` where it is None;
+    raises on an unknown form."""
+    if form is None:
+        return "reduce"
+    if form not in CARRY_FORMS:
+        raise ValueError(f"form {form!r}: expected one of {CARRY_FORMS}")
+    return form
 
 
 def _check_carry(cls: torch.Tensor, st0: torch.Tensor, lc: int, steps: int
@@ -347,6 +375,58 @@ def _check_carry(cls: torch.Tensor, st0: torch.Tensor, lc: int, steps: int
     return NB, L_, nws
 
 
+def carry_vec(cls: torch.Tensor, st0: torch.Tensor) -> int:
+    """The words a lane loads at once in the reduce form: 4 (16-byte loads)
+    where the row's words are a multiple of 4 and cls and st0 start on 16
+    bytes (the wrapper's output always does), else 1."""
+    nw = cls.shape[-2] * cls.shape[-1]
+    return 4 if nw % 4 == 0 and cls.data_ptr() % 16 == 0 and st0.data_ptr() % 16 == 0 else 1
+
+
+def carry_geometry(NB: int, NW: int, L_: int, lc: int, steps: int, vec: int,
+                   sms: int = SMS) -> Dict[str, int]:
+    """The reduce form's split of one call: a warp owns a tile of 32 vec
+    words and a run of the positions read (``n_pos``), a block 8 warps on
+    one tile, a cluster of ``cluster`` blocks the tile's positions (rank r
+    the r-th run of ``per_rank``, its warp w the w-th run of ``per_warp``).
+    ``cluster`` aims at ``CARRY_BLOCKS_AN_SM`` blocks an SM over the NB x
+    ``tiles`` clusters, at most 16, at most a rank a batch of loads for
+    each warp (``CARRY_BATCH``: at E's one read a chunk, 8 positions, one
+    block a tile and no cluster, which the card runs sooner than 8 ranks
+    of one position), and no rank without a position (the kernel takes
+    ``per_rank`` as ceil(n_pos / cluster) itself)."""
+    tiles = -(-NW // (32 * vec))
+    n_pos = L_ // lc * steps
+    cluster = max(1, min(CARRY_MAX_CLUSTER, n_pos // (CARRY_WARPS * CARRY_BATCH),
+                         -(-CARRY_BLOCKS_AN_SM * sms // (NB * tiles))))
+    per_rank = -(-n_pos // cluster)
+    cluster = -(-n_pos // per_rank)
+    return dict(vec=vec, tiles=tiles, n_pos=n_pos, cluster=cluster, per_rank=per_rank,
+                per_warp=-(-per_rank // CARRY_WARPS), blocks=NB * tiles * cluster)
+
+
+def carry_slices(geo: Dict[str, int]) -> List[Tuple[int, int, int, int]]:
+    """(rank, warp, lo, hi) of each warp's run of positions [lo, hi), in
+    the order the kernel folds them: the warps of a rank, then the ranks."""
+    out = []
+    for rank in range(geo["cluster"]):
+        r_lo = min(geo["n_pos"], rank * geo["per_rank"])
+        r_hi = min(geo["n_pos"], r_lo + geo["per_rank"])
+        for warp in range(CARRY_WARPS):
+            lo = min(r_hi, r_lo + warp * geo["per_warp"])
+            out.append((rank, warp, lo, min(r_hi, lo + geo["per_warp"])))
+    return out
+
+
+def _or_all(x: torch.Tensor) -> torch.Tensor:
+    """The OR over dim 1 of [NB, n, NW] (n > 0), by halving."""
+    while x.shape[1] > 1:
+        if x.shape[1] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:, :1])], 1)
+        x = x[:, 0::2] | x[:, 1::2]
+    return x[:, 0]
+
+
 def bitop_carry_plain(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC,
                       steps: int = 1) -> torch.Tensor:
     """E's recurrence, every string group and word at once: a torch op a
@@ -359,25 +439,60 @@ def bitop_carry_plain(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC,
     return st.reshape(NB, 1, 1, nws, LANE).contiguous()
 
 
-def bitop_carry_cuda(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC,
-                     steps: int = 1) -> torch.Tensor:
-    """The ``bitop_carry`` kernel: a thread a (b, word)."""
+def bitop_carry_reduce_plain(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC,
+                             steps: int = 1, sms: int = SMS) -> torch.Tensor:
+    """The reduce form's function as the kernel computes it: the positions
+    read split as ``carry_geometry`` splits them for this shape on ``sms``
+    SMs, each warp's run ORed, the runs folded in the kernel's order (a
+    rank's warps, then the ranks), then st0 & ~ that."""
+    NB, L_, nws = _check_carry(cls, st0, lc, steps)
+    nw = nws * LANE
+    geo = carry_geometry(NB, nw, L_, lc, steps, carry_vec(cls, st0), sms)
+    p = torch.arange(geo["n_pos"], device=cls.device)
+    rows = p // steps * lc + p % steps
+    words = cls.reshape(NB, L_, nw)
+    zero = torch.zeros((NB, nw), dtype=torch.int32, device=cls.device)
+    total, part = zero, zero
+    for rank, warp, lo, hi in carry_slices(geo):
+        if warp == 0:
+            part = zero
+        if hi > lo:
+            part = part | _or_all(words[:, rows[lo:hi]])
+        if warp == CARRY_WARPS - 1:
+            total = total | part
+    return (st0.reshape(1, nw) & ~total).reshape(NB, 1, 1, nws, LANE)
+
+
+def bitop_carry_cuda(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC, steps: int = 1,
+                     form: Optional[str] = None) -> torch.Tensor:
+    """The ``bitop_carry`` kernel in ``form`` (``carry_form``): the reduce
+    form on ``carry_geometry``'s clusters for this device's SMs, or the
+    serial form, a thread a (b, word)."""
+    form = carry_form(form)
     NB, L_, nws = _check_carry(cls, st0, lc, steps)
     kernels._check(cls, "cls", torch.int32, (NB, L_, 1, nws, LANE))
     kernels._check(st0, "st0", torch.int32, (1, nws, LANE))
     out = torch.empty((NB, 1, 1, nws, LANE), dtype=torch.int32, device=cls.device)
+    cluster = 0
+    if form == "reduce":
+        sms = torch.cuda.get_device_properties(cls.device).multi_processor_count
+        cluster = carry_geometry(NB, nws * LANE, L_, lc, steps, carry_vec(cls, st0),
+                                 sms)["cluster"]
     lib = kernels.build_probes()
     kernels._launch(kernels.BITOP_CARRY, lib.h2r_bitop_carry, cls.data_ptr(), st0.data_ptr(),
-                    out.data_ptr(), NB, nws * LANE, L_, lc, steps, kernels._stream(cls))
+                    out.data_ptr(), NB, nws * LANE, L_, lc, steps, cluster,
+                    kernels._stream(cls))
     return out
 
 
-def bitop_carry(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC,
-                steps: int = 1) -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain version on CPU ones."""
+def bitop_carry(cls: torch.Tensor, st0: torch.Tensor, lc: int = LC, steps: int = 1,
+                form: Optional[str] = None) -> torch.Tensor:
+    """The kernel on CUDA tensors (``form`` as ``bitop_carry_cuda``'s), the
+    plain version on CPU ones."""
+    carry_form(form)
     if cls.device.type == "cpu":
         return bitop_carry_plain(cls, st0, lc, steps)
-    return bitop_carry_cuda(cls, st0, lc, steps)
+    return bitop_carry_cuda(cls, st0, lc, steps, form)
 
 
 def carry_inputs(L_: int, nws: int, seed: int = 0, dev: Optional[torch.device] = None):
@@ -393,24 +508,38 @@ def run_de(dev: torch.device, L_: int = L, nws: int = NWS, lc: int = LC) -> List
     """D (``mma_accum`` at the probe's [4, 2, 128, 128], its all-ones
     inputs) and E (``bitop_carry`` at [2, L, 1, NWS, 128]: one position a
     chunk from the zero start, as written; from a seeded start; every
-    position, ``steps = lc``): a line each (``harness.measure``).  E's
-    lines carry the share of output words that are not zero."""
+    position, ``steps = lc``), each E case in both forms on the card, held
+    to one plain output (on the CPU the plain version once): a line each
+    (``harness.measure``).  E's lines carry the share of output words that
+    are not zero, and the reduce form's its clusters and blocks."""
     timer, card = harness.Timer(dev), harness.card(dev)
     a, b = d_inputs(D_SHAPE, "ones", dev=dev)
     recs = [accum_line(timer, card, "D_mxu_2dgrid_scratch", a, b, "ones")]
     cls, st0 = carry_inputs(L_, nws, dev=dev)
     zero = torch.zeros_like(st0)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else SMS)
     for start, s0, steps in (("zero", zero, 1), ("seeded", st0, 1), ("seeded", st0, lc)):
         n_pos = L_ // lc * steps
-        rec, out = harness.measure(
-            timer, card, "E_2dgrid_bitops_scratch", kernels.BITOP_CARRY,
-            lambda: bitop_carry(cls, s0, lc, steps), n_pos,
-            lambda: bitop_carry_plain(cls, s0, lc, steps),
-            nbytes=(E_NB * n_pos * nws * LANE + s0.numel() + E_NB * nws * LANE) * 4,
-            int32_ops=E_NB * n_pos * nws * LANE, shape=list(cls.shape), lc=lc, reads=steps,
-            start=start)
-        rec["nonzero_share"] = float((out != 0).float().mean())
-        recs.append(rec)
+        if dev.type == "cuda":
+            tp = timer(lambda: bitop_carry_plain(cls, s0, lc, steps), 0, 1)
+            plain = (tp["out"], tp["median"])
+        else:
+            plain = lambda: bitop_carry_plain(cls, s0, lc, steps)  # noqa: E731
+        for form in CARRY_FORMS:
+            rec, out = harness.measure(
+                timer, card, "E_2dgrid_bitops_scratch", kernels.BITOP_CARRY,
+                lambda: bitop_carry(cls, s0, lc, steps, form), n_pos, plain,
+                nbytes=(E_NB * n_pos * nws * LANE + s0.numel() + E_NB * nws * LANE) * 4,
+                int32_ops=E_NB * n_pos * nws * LANE, shape=list(cls.shape), lc=lc, reads=steps,
+                start=start, form=form)
+            rec["nonzero_share"] = float((out != 0).float().mean())
+            if form == "reduce":
+                geo = carry_geometry(E_NB, nws * LANE, L_, lc, steps, carry_vec(cls, s0), sms)
+                rec.update(cluster=geo["cluster"], blocks=geo["blocks"])
+            recs.append(rec)
+            if dev.type != "cuda":
+                break  # the plain version once: both forms are the same function
     return recs
 
 

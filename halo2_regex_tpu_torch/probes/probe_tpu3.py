@@ -59,7 +59,7 @@ def run(dev: torch.device, small: bool = False) -> List[dict]:
     timer, card = harness.Timer(dev), harness.card(dev)
     recs = []
     g, f = k1_inputs(k1_tb, dev=dev)
-    recs.append(gather_line(timer, card, "1_take_along_TBx1", g, f, 1, "shared"))
+    recs += gather_line(timer, card, "1_take_along_TBx1", g, f, 1, "shared")
     T = table().to(dev)
     for pick, probe, tbs in (("gather", "scan_fullwidth", full_tb),
                              ("sum", "scan_select", select_tb)):
@@ -77,8 +77,8 @@ def run(dev: torch.device, small: bool = False) -> List[dict]:
     rec["rel_err"] = float((out.float() - ref).abs().mean() / ref.abs().mean())
     recs.append(rec)
     g, f = gather_inputs(loop[0], seed=9, dev=dev)
-    recs.append(gather_line(timer, card, f"5_take_along_loop_{loop[0]}x128", g, f, loop[1],
-                            "shared"))
+    recs += gather_line(timer, card, f"5_take_along_loop_{loop[0]}x128", g, f, loop[1],
+                        "shared")
     return recs
 
 

@@ -100,6 +100,25 @@ new kernels:
 
     python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only bitop
 
+carry (``--old`` optional): bitop_carry's reduce form (``csrc/probe_tpu20.cu``)
+at [2, 1024, 1, 8, 128] (one read a chunk, every position) and at [2, 8192,
+1, 8, 128] (every position, 64 MiB) against the ``--old`` package's serial
+kernel (old, new, new, old, after the harness's flush and after a reading
+flush), its own serial form, an int64 sum of the same words and its
+variants (4-byte loads only, the loads by ``__ldg``, the other combine: the
+last block of a tile folding the partials from global memory; half the
+blocks and every other cluster size; no_sync and no_load timed only), with
+its geometry and bytes bound:
+
+    python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only carry
+
+gather (``--old`` optional): lane_gather's pow form (``csrc/probe_gather.cu``)
+at 1024 steps on [256, 128], [1, 128] and probe_tpu3's loop, both stores,
+against the ``--old`` package's serial chain, its own serial form and eight
+rows a block:
+
+    python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only gather
+
 The record goes to ``chiprun_out/kernel_ab.json``; the last line is a
 JSON summary.  Imports nothing of JAX.
 """
@@ -1570,6 +1589,268 @@ def bitop_ab(pk, cs, dev, card, flush) -> dict:
     return rec
 
 
+# bitop_carry's reduce form (P16) and its variants, one a design choice:
+# 4-byte loads only (the 16-byte path never taken); the loads by __ldg;
+# the other combine, the partial ORs through global memory, the last block
+# of each tile (a ticket that wraps, taken by atomicInc) folding them,
+# launched without a cluster; and, timed only, no cluster barriers or
+# exchange, no loads.  Half the blocks (and the other cluster sizes) are
+# calls of the kernel itself at that cluster (``carry_ab``)
+_LB_GLOBALS = """constexpr int kLbPairs = 256;  // (b, tile) pairs the variant's scratch holds
+__device__ uint4 g_red_parts[kLbPairs * kRedMaxCluster * 32];
+__device__ unsigned g_red_ticket[kLbPairs];
+
+template <int V>
+__global__ void __launch_bounds__(kRedThreads)
+bitop_carry_reduce_kernel("""
+_LB_COMBINE = """  const int pair = blockIdx.y * (gridDim.x / cluster) + blockIdx.x / cluster;
+  T* gp = reinterpret_cast<T*>(g_red_parts) + (size_t)pair * kRedMaxCluster * 32;
+  __shared__ bool last;
+  if (warp == 0) {
+    gp[rank * 32 + lane] = sum;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) last = atomicInc(&g_red_ticket[pair], cluster - 1) == (unsigned)(cluster - 1);
+  __syncthreads();
+  if (last && warp == 0 && col) {
+    __threadfence();
+    T all = R::zero();
+#pragma unroll
+    for (int r = 0; r < kRedMaxCluster; ++r)
+      if (r < cluster) all = R::or_(all, __ldcg(gp + r * 32 + lane));
+    const T s = __ldg(reinterpret_cast<const T*>(st0 + w0));
+    *reinterpret_cast<T*>(out + (size_t)b * NW + w0) = R::andnot(s, all);
+  }
+}"""
+
+
+_LD4 = """  static __device__ __forceinline__ T load(const T* p) {
+    T v;
+    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+    return v;
+  }"""
+_LD1 = """  static __device__ __forceinline__ T load(const T* p) {
+    T v;
+    asm("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+  }"""
+
+
+def carry_variants(K) -> dict:
+    """The reduce form's source variants; ``no_sync`` and ``lastblock``
+    replace the combine as the source has it."""
+    src = (K.CSRC / _B).read_text()
+    combine = _block(src, '  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");  '
+                          '// every rank has started\n  cg::cluster_group cl',
+                     "    *reinterpret_cast<T*>(out + (size_t)b * NW + w0) = R::andnot(s, all);"
+                     "\n  }\n}")
+    return {
+        "vec1": [(_B, "    if (NW % 4 == 0 && ((uintptr_t)cls | (uintptr_t)st0 | (uintptr_t)out) "
+                      "% 16 == 0)", "    if (false)")],
+        # timing only: no cluster barriers or exchange (each rank writes
+        # its own partial), and no loads (the launch and the combine alone)
+        "no_sync": [
+            (_B, '  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" ::: "memory");\n'
+                 "  const int w0 = ((blockIdx.x", "  const int w0 = ((blockIdx.x"),
+            (_B, combine, "  if (warp == 0 && col)\n    *reinterpret_cast<T*>(out + (size_t)b * NW "
+                          "+ w0) = R::andnot(s, sum);\n}")],
+        "no_load": [(_B, "      if (col && p + k < hi) v[k] = R::load(base + (size_t)(j * LC + i) * "
+                         "row_t);", "")],
+        # the loads by __ldg (L1 bypass and the 256-byte L2 runs not asked)
+        "ldg": [(_B, _LD4, "  static __device__ __forceinline__ T load(const T* p) { return __ldg(p); }"),
+                (_B, _LD1, "  static __device__ __forceinline__ T load(const T* p) { return __ldg(p); }")],
+        "lastblock": [
+            (_B, "template <int V>\n__global__ void __launch_bounds__(kRedThreads)\n"
+                 "bitop_carry_reduce_kernel(", _LB_GLOBALS),
+            (_B, '  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" ::: "memory");\n'
+                 "  const int w0 = ((blockIdx.x", "  const int w0 = ((blockIdx.x"),
+            (_B, combine, _LB_COMBINE),
+            (_B, "  cfg.numAttrs = cluster > 1;", "  cfg.numAttrs = 0;")]}
+
+
+# lane_gather's pow form (P6): eight rows (warps) a block in place of one
+GATHER_VARIANTS = {
+    "rows8": [("probe_gather.cu", "constexpr int kPowRows = 1;", "constexpr int kPowRows = 8;")],
+}
+
+
+def _turns(cs, card, flush, name, a, b, labels, fl=None) -> dict:
+    """a, b, b, a (device time, the L2 flushed by ``fl``, else ``flush``)."""
+    t = [cs.time_ms(f, fl or flush, device_only=True) for f in (a, b, b, a)]
+    print(f"{name}: {labels[0]} {t[0]['median']:.4f} / {t[3]['median']:.4f} ms, {labels[1]} "
+          f"{t[1]['median']:.4f} / {t[2]['median']:.4f} ms ({labels[0]}, {labels[1]}, "
+          f"{labels[1]}, {labels[0]}); card {card}", flush=True)
+    return {labels[0]: [t[0]["median"], t[3]["median"]],
+            labels[1]: [t[1]["median"], t[2]["median"]], "iqr": [x["iqr"] for x in t]}
+
+
+def carry_ab(pk, cs, dev, card, flush) -> dict:
+    """bitop_carry's reduce form (P16) at E's [2, 1024, 1, 8, 128] (one
+    read a chunk from a zero and a seeded start, every position) and every
+    position at [2, 8192, 1, 8, 128] (64 MiB): against the ``--old``
+    package's (its serial kernel; old, new, new, old, after the harness's
+    flush and after a reading flush), against its own serial form, against
+    an int64 sum of every word (a read rate, after a reading flush), against
+    the variants (``carry_variants``, those not timing-only checked;
+    ``half``: the kernel at half its cluster, ``clusterC`` at C blocks a
+    cluster), ``ldg`` and ``lastblock`` also after a reading flush; its
+    geometry and bytes bound beside it; ptxas and the SASS of the reduce
+    kernel."""
+    from halo2_regex_tpu_torch.ops import kernels as K
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+
+    o20 = importlib.import_module("h2r_old.probes.probe_tpu20") if pk else None
+    dirs = {name: variant_csrc(K, f"carry_{name}", edits)
+            for name, edits in carry_variants(K).items()}
+    with ThreadPoolExecutor(len(dirs) + 1) as pool:
+        jobs = {name: pool.submit(K._build_library, (_B,), (K.BITOP_CARRY,), K.PROBE_HEADERS,
+                                  None, d) for name, d in dirs.items()}
+        if pk:
+            pool.submit(pk.old_k.build_probes).result()
+        lib = K.build_probes()
+        libs = {name: j.result() for name, j in jobs.items()}
+    keys = [probes_key(K)]
+    rec: dict = {"ptxas": ptxas_of(K, keys, "bitop_carry_reduce"),
+                 "sass": sass_counts(K, keys, "bitop_carry_reduce")}
+    for ln in rec["ptxas"]:
+        print(ln, flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def launch(vlib, cls, s0, lc, steps, cluster, name):
+        NB, L_, _one, nws, _lane = cls.shape
+        out = torch.empty((NB, 1, 1, nws, p20.LANE), dtype=torch.int32, device=dev)
+        if vlib.h2r_bitop_carry(cls.data_ptr(), s0.data_ptr(), out.data_ptr(), NB,
+                                nws * p20.LANE, L_, lc, steps, cluster, K._stream(cls)):
+            raise RuntimeError(f"bitop_carry {name}: launch failed")
+        return out
+
+    cases = []
+    for L_ in (p20.L, 8 * p20.L):
+        cls, st0 = p20.carry_inputs(L_, p20.NWS, dev=dev)
+        if L_ == p20.L:
+            cases += [(cls, torch.zeros_like(st0), 1, "zero"), (cls, st0, 1, "seeded")]
+        cases.append((cls, st0, p20.LC, "seeded"))
+    for cls, s0, steps, start in cases:
+        NB, L_ = cls.shape[:2]
+        lab = f"bitop_carry {list(cls.shape)} {start} reads {steps}"
+        geo = p20.carry_geometry(NB, p20.NWS * p20.LANE, L_, p20.LC, steps,
+                                 p20.carry_vec(cls, s0), sms)
+        n_pos = geo["n_pos"]
+        bd = cs.bound((NB * n_pos * p20.NWS * p20.LANE + s0.numel() + NB * p20.NWS * p20.LANE) * 4,
+                      NB * n_pos * p20.NWS * p20.LANE)
+        print(f"{lab}: geometry {geo}; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}",
+              flush=True)
+        rec[f"{lab} geometry"] = geo
+        rec[f"{lab} bound"] = bd
+        want = p20.bitop_carry_plain(cls, s0, p20.LC, steps)
+        new = lambda cls=cls, s0=s0, steps=steps: p20.bitop_carry(cls, s0, p20.LC, steps)  # noqa: E731
+        ser = lambda cls=cls, s0=s0, steps=steps: p20.bitop_carry(  # noqa: E731
+            cls, s0, p20.LC, steps, "serial")
+        check(cs, lab, new(), want)
+        check(cs, f"{lab} serial", ser(), want)
+        kernels_before = K.BITOP_CARRY.launches
+        new()
+        rec[f"{lab} launches a call"] = K.BITOP_CARRY.launches - kernels_before
+        if o20:
+            old = lambda cls=cls, s0=s0, steps=steps: o20.bitop_carry(  # noqa: E731
+                cls, s0, p20.LC, steps)
+            check(cs, f"{lab} old", old(), want)
+            rec[f"{lab} old/new"] = _turns(cs, card, flush, lab, old, new, ("old", "new"))
+            rec[f"{lab} old/new read_flush"] = _turns(cs, card, flush,
+                                                      f"{lab} after a read flush", old, new,
+                                                      ("old", "new"), ReadFlush(flush))
+        rec[f"{lab} serial"] = _turns(cs, card, flush, f"{lab} serial", new, ser,
+                                      ("kernel", "serial"))
+        if steps == p20.LC:  # a read rate to set it by: an int64 sum of every word (not E's function)
+            rec[f"{lab} int64_sum read_flush"] = _turns(
+                cs, card, flush, f"{lab} beside an int64 sum of cls, after a read flush", new,
+                lambda cls=cls: cls.view(torch.int64).sum(), ("kernel", "sum"), ReadFlush(flush))
+        runs = {name: (vlib, geo["cluster"]) for name, vlib in libs.items()}
+        # half the blocks, and the other cluster sizes the shape takes
+        if geo["cluster"] > 1:
+            runs["half"] = (lib, geo["cluster"] // 2)
+        for c in (1, 2, 4, 8, 16):
+            if c not in (geo["cluster"], geo["cluster"] // 2) and c <= n_pos:
+                runs[f"cluster{c}"] = (lib, c)
+        for vname, (vlib, cl) in runs.items():
+            f = lambda vlib=vlib, cl=cl, cls=cls, s0=s0, steps=steps, v=vname: launch(  # noqa: E731
+                vlib, cls, s0, p20.LC, steps, cl, v)
+            if vname not in TIMING_ONLY:
+                check(cs, f"{lab} {vname}", f(), want)
+            rec[f"{lab} {vname}"] = _turns(cs, card, flush, f"{lab} variant {vname}", new, f,
+                                           ("kernel", "variant"))
+            if vname in ("lastblock", "ldg"):
+                rec[f"{lab} {vname} read_flush"] = _turns(
+                    cs, card, flush, f"{lab} variant {vname} after a read flush", new, f,
+                    ("kernel", "variant"), ReadFlush(flush))
+    return rec
+
+
+def gather_ab(pk, cs, dev, card, flush) -> dict:
+    """lane_gather's pow form (P6) at 1024 steps on [256, 128] and [1, 128]
+    (probe_tpu2's E) and on probe_tpu3's loop, in both stores: against the
+    ``--old`` package's (its serial chain; old, new, new, old, after the
+    harness's flush and after a reading flush), against its own serial
+    form and against ``GATHER_VARIANTS``, each checked; ptxas and the SASS
+    of the pow kernel."""
+    from halo2_regex_tpu_torch.ops import kernels as K
+    from halo2_regex_tpu_torch.probes import probe_tpu as p1
+    from halo2_regex_tpu_torch.probes import probe_tpu2 as p2
+
+    o1 = importlib.import_module("h2r_old.probes.probe_tpu") if pk else None
+    dirs = {name: variant_csrc(K, f"gather_{name}", edits)
+            for name, edits in GATHER_VARIANTS.items()}
+    with ThreadPoolExecutor(len(dirs) + 1) as pool:
+        jobs = {name: pool.submit(K._build_library, ("probe_gather.cu",), (K.LANE_GATHER,),
+                                  K.PROBE_HEADERS, None, d) for name, d in dirs.items()}
+        if pk:
+            pool.submit(pk.old_k.build_probes).result()
+        K.build_probes()
+        libs = {name: j.result() for name, j in jobs.items()}
+    keys = [probes_key(K)]
+    rec: dict = {"ptxas": ptxas_of(K, keys, "gather_pow"),
+                 "sass": sass_counts(K, keys, "gather_pow")}
+    for ln in rec["ptxas"]:
+        print(ln, flush=True)
+    steps = p2.E_STEPS
+    cases = [(f"E {R}x128", *p1.gather_inputs(R, seed=R + 3, dev=dev)) for R in (256, 1)]
+    cases.append(("loop 256x128", *p1.gather_inputs(256, seed=9, dev=dev)))
+    for name, g, f in cases:
+        for store in p1.STORES:
+            lab = f"lane_gather {name} {steps} steps {store}"
+            want = p1.lane_gather_plain(g, f, steps, store)
+            new = lambda g=g, f=f, store=store: p1.lane_gather(g, f, steps, store)  # noqa: E731
+            ser = lambda g=g, f=f, store=store: p1.lane_gather(  # noqa: E731
+                g, f, steps, store, "serial")
+            check(cs, lab, new(), want)
+            check(cs, f"{lab} serial", ser(), want)
+            if o1:
+                old = lambda g=g, f=f, store=store: o1.lane_gather(g, f, steps, store)  # noqa: E731
+                check(cs, f"{lab} old", old(), want)
+                rec[f"{lab} old/new"] = _turns(cs, card, flush, lab, old, new, ("old", "new"))
+                rec[f"{lab} old/new read_flush"] = _turns(
+                    cs, card, flush, f"{lab} after a read flush", old, new, ("old", "new"),
+                    ReadFlush(flush))
+            rec[f"{lab} serial"] = _turns(cs, card, flush, f"{lab} serial", new, ser,
+                                          ("kernel", "serial"))
+            for vname, vlib in libs.items():
+                def run_var(vlib=vlib, g=g, f=f, store=store):
+                    out = torch.empty_like(g)
+                    if vlib.h2r_lane_gather(g.data_ptr(), f.data_ptr(), out.data_ptr(),
+                                            g.shape[0], steps, p1.STORES.index(store) + 3,
+                                            K._stream(g)):
+                        raise RuntimeError(f"lane_gather {vname}: launch failed")
+                    return out
+
+                check(cs, f"{lab} {vname}", run_var(), want)
+                rec[f"{lab} {vname}"] = _turns(cs, card, flush, f"{lab} variant {vname}", new,
+                                               run_var, ("kernel", "variant"))
+    return rec
+
+
 def units_ab(pk: Pkgs, cs, dev, card, flush) -> dict:
     """onehot_count (P10) at [1024, 512], mma_accum (P15) at [4, 2, 128,
     128] and [4, 8, 1024, 1024] (integer inputs), int8_mma (P11) at 128^3
@@ -1768,11 +2049,12 @@ def main() -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", help="directory of the earlier halo2_regex_tpu_torch/ package "
                     "(every part; marker runs without it, its variants alone)")
-    ap.add_argument("--only", default="pack,fb,walls,marker,lookup,units,wide,scan,bitop",
+    ap.add_argument("--only",
+                    default="pack,fb,walls,marker,lookup,units,wide,scan,bitop,carry,gather",
                     help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
     parts = set(args.only.split(","))
-    if parts - {"marker", "wide", "scan", "bitop"} and not args.old:
+    if parts - {"marker", "wide", "scan", "bitop", "carry", "gather"} and not args.old:
         ap.error("--old is needed for the pack, fb, walls, lookup and units parts")
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -1811,6 +2093,10 @@ def main() -> dict:
         out["scan"] = scan_ab(pk, cs, dev, card, flush)
     if "bitop" in parts:
         out["bitop"] = bitop_ab(pk, cs, dev, card, flush)
+    if "carry" in parts:
+        out["carry"] = carry_ab(pk, cs, dev, card, flush)
+    if "gather" in parts:
+        out["gather"] = gather_ab(pk, cs, dev, card, flush)
     rec["ab"] = out
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:

@@ -1752,13 +1752,47 @@ def test_probe_chains_fixed_exit(dev, n_steps, threads):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("form", ["pow", "serial"])
 @pytest.mark.parametrize("store", ["shared", "regs"])
-@pytest.mark.parametrize("R,steps", [(8, 1), (256, 1), (256, 1024), (1, 1024), (3, 7), (5, 0)])
-def test_probe_lane_gather_matches_plain(dev, R, steps, store):
+@pytest.mark.parametrize("R,steps", [(8, 1), (256, 1), (256, 1024), (1, 1024), (3, 7), (5, 0),
+                                     (256, 1025), (3, 127), (7, 2), (300, 5)])
+def test_probe_lane_gather_matches_plain(dev, R, steps, store, form):
+    """Both forms in both stores, one launch a call, at the probes' chains
+    and ragged row counts; one step with g past the row (the pow form
+    squares nothing there)."""
     from halo2_regex_tpu_torch.probes import probe_tpu as p1
 
     g, f = p1.gather_inputs(R, seed=R + steps, dev=dev)
-    assert torch.equal(p1.lane_gather(g, f, steps, store), p1.lane_gather_plain(g, f, steps, store))
+    want = p1.lane_gather_plain(g, f, steps, store)
+    before = kernels.LANE_GATHER.launches
+    got = p1.lane_gather(g, f, steps, store, form)
+    torch.cuda.synchronize()
+    assert kernels.LANE_GATHER.launches == before + 1 and torch.equal(got, want)
+    assert torch.equal(p1.lane_gather(g, f, steps, store), want)
+    big = g * 1000 + 128
+    assert torch.equal(p1.lane_gather(big, f, 1, store, form), torch.gather(big, 1, f.long()))
+
+
+def test_probe_lane_gather_entry_raises(dev):
+    """Wrong forms and shapes raise ValueError in the wrapper; the C entry
+    returns cudaErrorInvalidValue (1) for a form past 4, no rows or negative
+    steps."""
+    from halo2_regex_tpu_torch.probes import probe_tpu as p1
+
+    g, f = p1.gather_inputs(4, dev=dev)
+    for call in (lambda: p1.lane_gather(g, f, 8, "shared", "doubling"),
+                 lambda: p1.lane_gather(g, f[:, :64], 8, "regs", "pow"),
+                 lambda: p1.lane_gather(g.long(), f.long(), 8, "shared", "pow"),
+                 lambda: p1.lane_gather(g, f, -1, "shared", "pow"),
+                 lambda: p1.lane_gather_cuda(g.cpu(), f.cpu(), 8, "shared", "pow")):
+        with pytest.raises(ValueError):
+            call()
+    lib = kernels.build_probes()
+    out = torch.empty_like(g)
+    st = kernels._stream(g)
+    for R, steps, form in ((4, 8, 5), (0, 8, 3), (4, -1, 4), (4, 8, -1)):
+        assert lib.h2r_lane_gather(g.data_ptr(), f.data_ptr(), out.data_ptr(), R, steps, form,
+                                   st) == 1
 
 
 @pytest.mark.parametrize("RT,R", [(256, 8), (3, 70)])
@@ -2036,22 +2070,106 @@ def test_probe_mma_accum_n_ne_m(dev, NI, NL, M, K, N):
     assert got.shape == (NI, NL, M, N) and torch.equal(got, p21.mma_accum_plain(a, b))
 
 
+@pytest.mark.parametrize("form", ["reduce", "serial"])
 @pytest.mark.parametrize("steps", [1, 8, 64])
 @pytest.mark.parametrize("L,nws,lc,start", [(256, 1, 64, "zero"), (1024, 8, 128, "seeded"),
                                             (96, 3, 32, "seeded")])
-def test_probe_bitop_carry_matches_plain(dev, L, nws, lc, start, steps):
+def test_probe_bitop_carry_matches_plain(dev, L, nws, lc, start, steps, form):
     """One position a chunk (the probe as written), eight, and every
     position (steps = lc where lc = 64); a word count that is not a
-    multiple of the block (nws = 3); the zero start stays zero."""
+    multiple of the block (nws = 3); the zero start stays zero; both forms,
+    one launch a call, and a view of cls off 16-byte alignment (the reduce
+    form's 4-byte path)."""
     from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
 
     steps = min(steps, lc)
     cls, st0 = p20.carry_inputs(L, nws, seed=L, dev=dev)
     if start == "zero":
         st0 = torch.zeros_like(st0)
-    got = p20.bitop_carry(cls, st0, lc, steps)
-    assert torch.equal(got, p20.bitop_carry_plain(cls, st0, lc, steps))
+    want = p20.bitop_carry_plain(cls, st0, lc, steps)
+    before = kernels.BITOP_CARRY.launches
+    got = p20.bitop_carry(cls, st0, lc, steps, form)
+    torch.cuda.synchronize()
+    assert kernels.BITOP_CARRY.launches == before + 1 and torch.equal(got, want)
     assert bool(got.any()) == (start != "zero")
+    odd = torch.empty(cls.numel() + 1, dtype=torch.int32, device=dev)[1:].view(cls.shape)
+    odd.copy_(cls)
+    assert p20.carry_vec(odd, st0) == 1
+    assert torch.equal(p20.bitop_carry(odd, st0, lc, steps, form), want)
+
+
+@pytest.mark.parametrize("form", ["reduce", "serial"])
+@pytest.mark.parametrize("NB,L,nws,lc,steps", [(2, 8192, 8, 128, 128), (1, 96, 3, 32, 7),
+                                               (3, 64, 1, 16, 16), (5, 40, 2, 8, 5),
+                                               (1, 4096, 1, 1, 1)])
+def test_probe_bitop_carry_forms_at_other_shapes(dev, NB, L, nws, lc, steps, form):
+    """Both forms at 64 MiB and at other string-group counts (1, 3, 5:
+    tiles and clusters that do not fill the card, one position a chunk over
+    4096), from a seeded start and from all ones; the twin of the reduce
+    form beside them."""
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+
+    rng = np.random.default_rng(L + nws + steps)
+    cls = torch.from_numpy(rng.integers(0, 2**31, size=(NB, L, 1, nws, 128)).astype(np.int32))
+    cls = cls.to(dev)
+    st0 = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(1, nws, 128),
+                                        dtype=np.int64).astype(np.int32)).to(dev)
+    for s0 in (st0, torch.full_like(st0, -1)):
+        want = p20.bitop_carry_plain(cls, s0, lc, steps)
+        assert torch.equal(p20.bitop_carry(cls, s0, lc, steps, form), want)
+        assert torch.equal(p20.bitop_carry_reduce_plain(cls, s0, lc, steps), want)
+
+
+@pytest.mark.parametrize("NW", [130, 33, 4, 1])
+def test_probe_bitop_carry_entry_words_not_a_multiple_of_4(dev, NW):
+    """The C entry at word counts the wrapper never makes (NW = NWS x 128):
+    NW % 4 != 0 takes 4-byte loads, NW = 4 one 16-byte lane; every cluster
+    size the reduce form takes, and the serial form (cluster 0)."""
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+
+    NB, L, lc, steps = 2, 64, 16, 16
+    rng = np.random.default_rng(NW)
+    cls = torch.from_numpy(rng.integers(0, 2**31, size=(NB, L, NW)).astype(np.int32)).to(dev)
+    st0 = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(NW,),
+                                        dtype=np.int64).astype(np.int32)).to(dev)
+    ors = torch.zeros((NB, NW), dtype=torch.int32, device=dev)
+    for i in range(L):
+        ors |= cls[:, i]
+    want = st0[None] & ~ors
+    lib = kernels.build_probes()
+    for cluster in (0, 1, 3, 8, 16):
+        out = torch.empty((NB, NW), dtype=torch.int32, device=dev)
+        assert lib.h2r_bitop_carry(cls.data_ptr(), st0.data_ptr(), out.data_ptr(), NB, NW, L, lc,
+                                   steps, cluster, kernels._stream(cls)) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), cluster
+
+
+def test_probe_bitop_carry_entry_raises(dev):
+    """Wrong forms and shapes raise ValueError in the wrapper; the C entry
+    returns cudaErrorInvalidValue (1) for a cluster past 16 or past the
+    positions read, a negative one, and bad shapes, in either form."""
+    from halo2_regex_tpu_torch.probes import probe_tpu20 as p20
+
+    cls, st0 = p20.carry_inputs(128, 1, dev=dev)
+    for call in (lambda: p20.bitop_carry(cls, st0, 32, 1, "tree"),
+                 lambda: p20.bitop_carry(cls, st0, 48, 1, "reduce"),
+                 lambda: p20.bitop_carry(cls, st0, 32, 33, "reduce"),
+                 lambda: p20.bitop_carry(cls, st0[:, :, :64], 32, 1, "reduce"),
+                 lambda: p20.bitop_carry(cls.long(), st0.long(), 32, 1, "reduce"),
+                 lambda: p20.bitop_carry(cls[:, ::2], st0, 32, 1, "reduce"),
+                 lambda: p20.bitop_carry_cuda(cls.cpu(), st0.cpu(), 32, 1, "reduce")):
+        with pytest.raises(ValueError):
+            call()
+    lib = kernels.build_probes()
+    out = torch.empty((2, 128), dtype=torch.int32, device=dev)
+    args = dict(NB=2, NW=128, L=128, LC=32, steps=1, cluster=1)
+    for bad in (dict(cluster=17), dict(cluster=5), dict(cluster=-1), dict(steps=33),
+                dict(LC=48), dict(NB=0), dict(NW=0), dict(cluster=0, steps=0)):
+        a = {**args, **bad}
+        assert lib.h2r_bitop_carry(cls.data_ptr(), st0.data_ptr(), out.data_ptr(), a["NB"],
+                                   a["NW"], a["L"], a["LC"], a["steps"], a["cluster"],
+                                   kernels._stream(cls)) == 1, bad
 
 
 @pytest.mark.parametrize("form", ["chain", "table"])

@@ -149,6 +149,22 @@ def test_bitop_carry_equals_e(e_outs, start):
     assert bool(want.any()) == (start == "hash")
 
 
+@pytest.mark.parametrize("form", p20.CARRY_FORMS)
+@pytest.mark.parametrize("start", ["zero", "hash"])
+def test_bitop_carry_reduce_equals_e(e_outs, start, form):
+    """The reduce form's twin (the positions split and folded as the
+    kernel does) gives E's outputs too; the CPU entry point in either form
+    takes the plain version."""
+    cls, want = e_outs["cls"], e_outs[start]
+    if start == "hash":
+        st0 = np.asarray(jax.jit(_hash_like)(jnp.zeros((1, NWS_E, 128), jnp.int32)))
+    else:
+        st0 = np.zeros((1, NWS_E, 128), np.int32)
+    got = p20.bitop_carry_reduce_plain(cls, _t(st0), LC_E, 1)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(p20.bitop_carry(cls, _t(st0), LC_E, 1, form).numpy(), want)
+
+
 def test_bitop_carry_every_position_is_the_recurrence():
     """steps = lc: st ^= c & st at every position in order (the carry scan
     E meant), equal to st & ~(c_0 | c_1 | ...)."""

@@ -210,6 +210,19 @@ def test_lane_gather_equals_probe(gathers, name, store):
         assert len(np.unique(want)) > 1  # the chain does not collapse
 
 
+@pytest.mark.parametrize("store", p1.STORES)
+@pytest.mark.parametrize("name", ["k3", "k4", "E", "loop", "k1"])
+def test_lane_gather_pow_equals_probe(gathers, name, store):
+    """The pow form's twin (the row's map raised by squaring) gives the
+    probes' outputs: 1024 steps are 10 squarings and one gather; one step
+    (k1's g in [0, 999)) a gather alone."""
+    g, f, steps, want = gathers[name]
+    got = p1.lane_gather_pow_plain(_t(g), _t(f), steps, store)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(p1.lane_gather(_t(g), _t(f), steps, store, "pow").numpy(), want)
+    assert len(p1.pow_rounds(steps)) == (11 if steps == 1024 else 1)
+
+
 def test_row_gather_equals_k5():
     T = _T(3)
     c = np.random.default_rng(3).integers(0, 256, size=(8, 1)).astype(np.int32)
