@@ -111,7 +111,12 @@ corpus and on configs[3], the corpus-scan CLI and the device-expand
             BitplaneMatcher witness beside PallasMatcher; E: the 200-word
             model's witness at 32768 x 1024 in two plans) and
             ``.probe_tpu61`` (C: the same verdicts and K2 by the slope of
-            chained calls).
+            chained calls);
+  examples  ``examples/extract_email_torch.py`` (``BatchMatcher``: the
+            table scan), ``corpus_scan_torch.py`` (``best_matcher``'s
+            bitplane rung, ``ScanJob``, ``extract_runs`` on the card) and
+            ``prover_handoff_torch.py`` (host only), each ``main()`` with
+            its defaults.
 
 and proves on the card that:
 
@@ -167,7 +172,8 @@ and proves on the card that:
      default path of its column set on every key and the oracle's
      subset; scan_planes the oracle's states of each def;
   6. timings with CUDA events (2 warm-ups, 10 timed runs, median and
-     IQR; L2 flushed before each timed run): each kernel's device time
+     IQR; the L2 flushed by a read of 128 MiB before each timed run,
+     ``profiling.time_ms``): each kernel's device time
      beside its plain version's and its bound (the larger of its bytes
      over 3.35 TB/s and its int32 operations over the card's int32 rate),
      each path end to end as a caller sees one call (host launch overhead
@@ -285,7 +291,16 @@ and proves on the card that:
      matchers and E's two witness plans equal the C++ oracle's match_ok
      and masked characters on 64 rows; the verdict's forms are logged
      beside K2 and the match path's wall of this run, and probe_tpu61's
-     chain slopes (rounds under the copy-rate floor discarded) beside them.
+     chain slopes (rounds under the copy-rate floor discarded) beside them;
+ 15. ``utils/profiling.py`` on the card: ``device_specs`` equals the card's
+     SM count and L2 size; the three examples pass their own asserts, with
+     their launches by kernel (extract_email and corpus_scan launch,
+     corpus_scan on the bitplane rung); on the witness at B x L,
+     ``benchmark``, ``benchmark_chained`` (K = 1, 8), ``time_ms`` as a
+     caller's window and device-only after the reading and after the
+     write flush (and qpack, scan and post after each, in turns);
+     ``result_nbytes`` of the witness and full results per input byte and
+     the witness's input rate over 0.8 x ``scan_roofline_bytes_per_sec``.
 
 Prints the wall seconds of each phase, one JSON line of per-kernel
 results (the knob modes of a kernel under its ``modes``, a probe
@@ -310,6 +325,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from halo2_regex_tpu_torch.utils import profiling
+
 B, L = 32768, 1024
 L_UNPADDED = 1000  # L_pad 1024: the raw-quads pack (B5) path
 B_LATENCY = 4096  # the suite's latency rows
@@ -320,14 +337,10 @@ B3, L3, S3 = 64, 65536, 1000  # BASELINE configs[3] (run_benchmarks.py:352-396)
 ORACLE_N3 = 8
 N_CLI = 50000  # bench.py strings in cli_scan's file: two lines each
 LAUNCH_REPEAT = 32  # launch's file: cli_scan's, this many times over
-# bounds: H100 SXM HBM3 rate; int32 rate = 132 SMs x 64 INT32 lanes x the
-# 1.98 GHz boost clock (Hopper white paper); half2 instructions (HSET2,
-# HADD2, HFMA2) = 132 SMs x 128 lanes x 1.98 GHz, the white paper's fp16
-# rate outside the tensor cores (twice float32's 67 TFLOP/s, two halves an
-# instruction)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-HALF2_INSTRS_PER_S = 132 * 128 * 1.98e9
+# bounds: the H100 SXM's peaks from the port's one copy of them
+# (``utils/profiling.py``: HBM3 rate; int32 = 132 SMs x 64 lanes x 1.98
+# GHz; half2 instructions = 132 SMs x 128 lanes x 1.98 GHz)
+H100 = profiling.spec_for_kind(profiling.H100_KIND)
 # [10]'s widths: the probe's own, the bitplane scan's word count (B=32768:
 # 1024 words) and configs[3]'s strings x L (the table scan's serial shape)
 FLOOR_WIDTHS = ((1024, 256), (1024, 1024), (L3, B3))
@@ -416,33 +429,14 @@ def bench_corpus(n: int, length: int, seed: int = 0):
     return chars, lengths
 
 
-def time_ms(fn, flush: torch.Tensor, device_only: bool, warmup: int = WARMUP,
-            iters: int = ITERS) -> dict:
-    """Median and IQR of ``fn`` in ms from CUDA events; the L2 cache is
-    flushed (a write larger than it) before each run, outside the window.
-    ``device_only``: a ~1 ms device spin is queued before the window, so
-    the host has launched ``fn`` before the card reaches the start event
-    and the window holds device time only (no host launch overhead).
-    Without it the window is what one call costs a caller."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        flush.zero_()
-        if device_only:
-            torch.cuda._sleep(2_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    ms = np.array([a.elapsed_time(b) for a, b in pairs])
-    q1, med, q3 = np.percentile(ms, [25, 50, 75])
-    return {"median": float(med), "iqr": [float(q1), float(q3)],
-            "all": [float(x) for x in ms], "runs": iters}
+def time_ms(fn, flush, device_only: bool, warmup: int = WARMUP, iters: int = ITERS) -> dict:
+    """``profiling.time_ms`` in this script's argument order: median, IQR
+    and every run of ``fn`` in ms from CUDA events, the L2 flushed before
+    each run by ``flush`` (an ``L2Flush``: the reading flush unless made
+    with ``write``; ``False`` for none).  ``device_only``: a device spin
+    ahead of the window, which then holds device time only; without it the
+    window is what one call costs a caller."""
+    return profiling.time_ms(fn, device_only, flush=flush, warmup=warmup, iters=iters)
 
 
 def dict_corpus(n: int, length: int, words, seed: int = 2):
@@ -505,8 +499,8 @@ def bound(nbytes: float, ops: float, half2: float = 0) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate, the int32 operations over the int32 rate and the
     half2 instructions over theirs (the two pipes side by side)."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = max(ops / INT32_OPS_PER_S, half2 / HALF2_INSTRS_PER_S) * 1e3
+    t_b = nbytes / H100["hbm_gbps"] * 1e3
+    t_o = max(ops / H100["int32_ops"], half2 / H100["half2_instrs"]) * 1e3
     out = {"bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
            "bytes": float(nbytes), "ops": float(ops)}
     if half2:
@@ -1889,6 +1883,107 @@ def t2c_probe_phase(kernels, times: dict, card: str) -> dict:
             "rec": {"scripts": recs, "verdict_ms": side, "walls_ms": d, "sass": sass}}
 
 
+def example_module(name: str):
+    """``examples/<name>.py`` beside this script, loaded as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def profiling_phase(kernels, wm, fm, chars, lengths, flush, stages: dict, card: str,
+                    dev) -> dict:
+    """[15] ``utils/profiling.py`` and the three examples on the card:
+    ``device_specs`` against the card's own SM count and L2; each example's
+    ``main`` with its defaults (the card), the launch counts reset just
+    before and read just after (extract_email and corpus_scan must launch,
+    corpus_scan on the bitplane rung; prover_handoff is host only); then
+    the witness matcher ``wm`` at B x L: ``benchmark``,
+    ``benchmark_chained`` (K = 1 and 8 calls, fetched on the last output),
+    ``time_ms`` as a caller's window and device-only after the reading
+    flush and after the write flush, and the witness's kernels (``stages``:
+    name -> call) after each flush in turns (read, write, write, read);
+    ``result_nbytes`` of the witness and of the full result (``fm``) per
+    input byte, and the witness's input rate over 0.8 x
+    ``scan_roofline_bytes_per_sec``."""
+    spec = profiling.device_specs(dev)
+    props = torch.cuda.get_device_properties(dev)
+    l2 = getattr(props, "L2_cache_size", None)
+    if spec["sm_count"] != props.multi_processor_count or (l2 is not None
+                                                           and spec["l2_bytes"] != l2):
+        raise AssertionError(f"[15] device_specs {spec} disagrees with the card: "
+                             f"{props.multi_processor_count} SMs, L2 {l2} B")
+    log(f"[15] device_specs: {json.dumps(spec)} (the card: {props.multi_processor_count} SMs, "
+        f"L2 {l2} B); card {card}")
+    rec: dict = {"device_specs": spec, "examples": {}}
+    for name in ("extract_email_torch", "corpus_scan_torch", "prover_handoff_torch"):
+        mod = example_module(name)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main()
+        torch.cuda.synchronize()
+        got = {k: n for k, n in counts(kernels).items() if n}
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        if rc != 0 or (name != "prover_handoff_torch") != bool(got):
+            raise AssertionError(f"[15] {name}: rc {rc}, launches {got}")
+        if name == "corpus_scan_torch" and not text.startswith("backend: bitplane\n"):
+            raise AssertionError(f"[15] corpus_scan took another backend: {text.splitlines()[0]}")
+        rec["examples"][name] = {"launches": got, "seconds": wall, "stdout": text}
+        log(f"[15] examples/{name}.py main(): {text.splitlines()[-1]!r}; launches {got}; "
+            f"{wall:.2f} s (first call, builds cached in [2]); card {card}")
+    n_in = chars.numel()
+    call = lambda: wm(chars, lengths)  # noqa: E731
+    s_call = profiling.benchmark(call, iters=ITERS, warmup=1)
+
+    def chained(k):
+        def run():
+            for _ in range(k):
+                out = call()
+            return out
+        return run
+
+    s_chain = profiling.benchmark_chained(chained, (), ks=(1, 8))
+    write = profiling.L2Flush(buf=flush.buf, write=True)  # the flush before profiling.time_ms
+    caller = time_ms(call, flush, device_only=False)
+    dev_read = time_ms(call, flush, device_only=True)
+    dev_write = time_ms(call, write, device_only=True)
+    shift = {}
+    for name, run_k in stages.items():
+        t = [time_ms(run_k, fl, device_only=True) for fl in (flush, write, write, flush)]
+        shift[name] = {"read": [t[0]["median"], t[3]["median"]],
+                       "write": [t[1]["median"], t[2]["median"]]}
+        log(f"[15] {name} device-only, reading flush {t[0]['median']:.4f} / "
+            f"{t[3]['median']:.4f} ms, write flush {t[1]['median']:.4f} / {t[2]['median']:.4f} "
+            f"ms (read, write, write, read); card {card}")
+    w_bytes = profiling.result_nbytes(call()) / n_in
+    f_bytes = profiling.result_nbytes(fm(chars, lengths)) / n_in
+    roof = 0.8 * profiling.scan_roofline_bytes_per_sec(dev)
+    rate = n_in / (caller["median"] * 1e-3)
+    rec.update(benchmark_ms=s_call * 1e3, benchmark_chained_ms=s_chain * 1e3,
+               caller=caller, device_read_flush=dev_read, device_write_flush=dev_write,
+               witness_bytes_per_input_byte=w_bytes, full_bytes_per_input_byte=f_bytes,
+               roofline_0p8_bytes_per_s=roof, witness_input_bytes_per_s=rate,
+               vs_roofline_0p8=rate / roof, flush_shift=shift)
+    log(f"[15] witness at B={B} x L={L}: benchmark {s_call * 1e3:.4f} ms a call; "
+        f"benchmark_chained (K = 1, 8) {s_chain * 1e3:.4f} ms a call; time_ms caller's window "
+        f"{fmt(caller)}; device-only after the reading flush {fmt(dev_read)}, after the write "
+        f"flush {fmt(dev_write)} (write - read {dev_write['median'] - dev_read['median']:.4f} "
+        f"ms); card {card}")
+    log(f"[15] result_nbytes per input byte: witness {w_bytes:.4f}, full {f_bytes:.4f}; "
+        f"0.8 x scan_roofline_bytes_per_sec {roof / 1e9:.4f} GB/s of input, the witness "
+        f"{rate / 1e9:.4f} GB/s at the caller's window: {rate / roof:.4f} of it; card {card}")
+    return {"rec": rec, "times": {"profiling_witness_caller": caller,
+                                  "profiling_witness_device_read_flush": dev_read,
+                                  "profiling_witness_device_write_flush": dev_write},
+            "launches": {f"example_{k}": v["launches"] for k, v in rec["examples"].items()}}
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1996,6 +2091,9 @@ def main() -> dict:
             list(pool.map(lambda m: kernels.build(m.plan), ms.values()))
 
     builds.append(build_e)
+    # [15]'s corpus_scan example: the from: model's full plan at L=128
+    builds += [lambda: kernels.build(h2r.BitplaneMatcher(h2r.zoo.email_headers_model(
+        max_chars_size=128, headers=("from",))).plan)]
     builds += [kernels.build_tables, kernels.build_probes]
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda f: f(), builds))
@@ -2786,7 +2884,7 @@ def main() -> dict:
     del data, p_chars, p_lens
 
     # [6] timings
-    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    flush = profiling.L2Flush(dev)  # a read of 128 MiB before each timed run
     kern_rows, times = [], {}
     path_of = {"qpack": "witness", "scan": "witness", "post": "witness",
                "fb_only": "match", "post_planes": "full", "pack_raw": "L1000",
@@ -3060,6 +3158,12 @@ def main() -> dict:
     errs.update(t2c["errs"])
     path_launches.update(t2c["launches"])
     rec["t2c_probes"] = t2c["rec"]
+    # [15] profiling's peaks and timers, and the examples, on the card
+    pp = profiling_phase(kernels, matchers["witness"], matchers["full"], chars, lengths, flush,
+                         {n: stages[n][1] for n in ("qpack", "scan", "post")}, card, dev)
+    times.update(pp["times"])
+    path_launches.update(pp["launches"])
+    rec["profiling"] = pp["rec"]
     if sorted(r["name"] for r in kern_rows) != sorted(
             k.name for k in kernels.KERNELS + kernels.PROBE_KERNELS):
         raise AssertionError("the kernels line does not list every kernel once")

@@ -17,10 +17,11 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from ..utils import profiling
 
-CLOCK_HZ = 1.98e9  # the H100 SXM's boost clock: cycles a step are quoted at it
-FLUSH_BYTES = 128 * 1024 * 1024  # more than the 50 MB L2
-WARMUP, ITERS = 2, 10  # untimed calls, then timed ones (median and IQR)
+# the H100 SXM's boost clock (``profiling``'s row): cycles a step are quoted at it
+CLOCK_HZ = profiling.spec_for_kind(profiling.H100_KIND)["clock_hz"]
+WARMUP, ITERS = profiling.WARMUP, profiling.ITERS  # untimed calls, then timed ones
 
 
 def parser(description: str) -> argparse.ArgumentParser:
@@ -48,46 +49,28 @@ def card(dev: torch.device) -> str:
 
 
 class Timer:
-    """Times calls on one device: on the card with CUDA events, the L2
-    flushed before each call and a device spin queued ahead of the window
-    (so it holds device time only, no host launch overhead); on the CPU
-    with the host clock."""
+    """Times calls on one device (``profiling.time_ms``): on the card with
+    CUDA events, the L2 flushed by a read before each call and a device
+    spin queued ahead of the window (so it holds device time only, no host
+    launch overhead); on the CPU with the host clock."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
-        self.flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
-                      if dev.type == "cuda" else None)
+        self.flush = profiling.L2Flush(dev) if dev.type == "cuda" else None
 
     def __call__(self, fn: Callable[[], object], warmup: Optional[int] = None,
                  iters: Optional[int] = None) -> Dict[str, object]:
         """Median and IQR of ``fn``'s ms, and the last call's output ("out");
         ``warmup`` and ``iters`` default to ``WARMUP`` and ``ITERS``."""
-        warmup = WARMUP if warmup is None else warmup
-        iters = ITERS if iters is None else iters
-        for _ in range(warmup):
-            fn()
-        ms: List[float] = []
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-            pairs = []
-            for _ in range(iters):
-                self.flush.zero_()
-                torch.cuda._sleep(2_000_000)
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                out = fn()
-                b.record()
-                pairs.append((a, b))
-            torch.cuda.synchronize(self.dev)
-            ms = [a.elapsed_time(b) for a, b in pairs]
-        else:
-            for _ in range(iters):
-                t0 = time.perf_counter()
-                out = fn()
-                ms.append((time.perf_counter() - t0) * 1e3)
-        q1, med, q3 = np.percentile(ms, [25, 50, 75])
-        return {"median": float(med), "iqr": [float(q1), float(q3)], "runs": len(ms), "out": out}
+        last: List[object] = [None]
+
+        def call():
+            last[0] = fn()
+
+        t = profiling.time_ms(call, True, flush=self.flush,
+                              warmup=WARMUP if warmup is None else warmup,
+                              iters=ITERS if iters is None else iters, device=self.dev)
+        return {"median": t["median"], "iqr": t["iqr"], "runs": t["runs"], "out": last[0]}
 
 
 def max_abs_err(a, b):
@@ -213,9 +196,10 @@ def wall_slope(dev: torch.device, chain: Callable[[int], object], ks: Tuple[int,
                runs: int = 5) -> Dict[str, object]:
     """What one more call of a chain costs, host enqueue included:
     ``chain(k)`` enqueues k calls back to back.  On the card, each run
-    flushes the L2 and waits for it, then takes the host's wall clock from
-    the first enqueue to ``torch.cuda.synchronize()`` (no spin ahead, so the
-    host's enqueue counts) at both k, and the host's own part of it (to the
+    flushes the L2 (a read, ``profiling.L2Flush``) and waits for it, then
+    takes the host's wall clock from the first enqueue to
+    ``torch.cuda.synchronize()`` (no spin ahead, so the host's enqueue
+    counts) at both k, and the host's own part of it (to the
     last enqueue's return), then the device time of the same chain with a
     spin queued ahead of it (CUDA events: the device's own time a call,
     launch gaps included, the host's enqueue hidden); on the CPU the host
@@ -223,7 +207,7 @@ def wall_slope(dev: torch.device, chain: Callable[[int], object], ks: Tuple[int,
     ``runs``), the slope a call (ms, from each run's pair: median, IQR and
     every run's, "all") and, on the card, the device slope."""
     k0, k1 = ks
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev) if dev.type == "cuda" else None
+    flush = profiling.L2Flush(dev) if dev.type == "cuda" else None
     chain(k0)  # warm
     walls: Dict[int, List[float]] = {k0: [], k1: []}
     enqueue: Dict[int, List[float]] = {k0: [], k1: []}
@@ -231,7 +215,7 @@ def wall_slope(dev: torch.device, chain: Callable[[int], object], ks: Tuple[int,
     for _ in range(runs):
         for k in ks:
             if flush is not None:
-                flush.zero_()
+                flush()
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             chain(k)
@@ -242,7 +226,7 @@ def wall_slope(dev: torch.device, chain: Callable[[int], object], ks: Tuple[int,
             walls[k].append((t2 - t0) * 1e3)
             enqueue[k].append((t1 - t0) * 1e3)
             if flush is not None:
-                flush.zero_()
+                flush()
                 # a spin past the host's enqueue of the chain (twice this run's)
                 torch.cuda._sleep(int(max(2e6, 2 * (t1 - t0) * CLOCK_HZ)))
                 a = torch.cuda.Event(enable_timing=True)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from ..utils import profiling
 from . import harness
 
 LANES = 128  # a row's lanes
@@ -55,7 +56,7 @@ GATHER_FORMS = ("pow", "serial")
 FORMS = ("lookup", "onehot_mma", "class_mma")
 PICKS = ("gather", "sum")
 B, L = 4096, 1024  # the script's corpus shape (its XLA lines)
-BF16_PEAK = 989e12  # the H100 SXM's dense bf16 tensor-core rate (data sheet)
+BF16_PEAK = profiling.spec_for_kind(profiling.H100_KIND)["bf16_flops"]  # the H100 SXM's, dense
 
 
 def _ints(t: torch.Tensor, name: str, shape=None) -> None:

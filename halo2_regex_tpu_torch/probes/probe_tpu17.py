@@ -30,12 +30,13 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from ..utils import profiling
 from . import harness
 
 WIDTHS = (128, 4096)  # M = N = K
 MAX_K = (2**31 - 1) // (128 * 128)  # int32 sums exact: |a b| <= 2^14 a term
 LAUNCHES = 2  # a call: the staging pass, then the product kernel
-INT8_PEAK = 1979e12  # the H100 SXM's dense int8 tensor-core rate (data sheet)
+INT8_PEAK = profiling.spec_for_kind(profiling.H100_KIND)["int8_ops"]  # the H100 SXM's, dense
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int, int]:

@@ -37,6 +37,7 @@ from typing import List, Tuple
 import torch
 
 from ..ops import kernels
+from ..utils import profiling
 from ..ops.bitplane import LANE, _l4_rows
 from . import harness
 from .probe_tpu47 import SHAPE, SMALL, tile_move, tile_move_plain, words
@@ -44,7 +45,7 @@ from .probe_tpu47 import SHAPE, SMALL, tile_move, tile_move_plain, words
 FORMS = ("permute", "swap", "mma_pack", "mma_select")
 TP = 64  # positions a block of csrc/probe_emit.cu: L is a multiple of it on the card
 MMA_FLOPS = 2 * 16 * 8 * 16  # one mma.sync.m16n8k16
-BF16_PEAK = 989e12  # the H100 SXM's dense bf16 tensor-core rate (data sheet)
+BF16_PEAK = profiling.spec_for_kind(profiling.H100_KIND)["bf16_flops"]  # the H100 SXM's, dense
 
 
 def _check_pack(w: torch.Tensor, form: str) -> Tuple[int, int, int]:

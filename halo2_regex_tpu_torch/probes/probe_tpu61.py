@@ -39,6 +39,7 @@ import torch
 
 from ..ops import bitplane as bp
 from ..ops import kernels
+from ..utils import profiling
 from . import harness
 from . import probe_tpu57_lib as lib
 from .probe_tpu57 import marker_lines, scan_line
@@ -50,7 +51,7 @@ L_BIG = 1024
 SMALL = ((4096,), 128)  # the CPU's batches and L
 KS = (8, 64)  # the probe's KS_KERN
 ROUNDS = 5  # the probe's H2R_PROBE_ROUNDS
-L2_BYTES = 50 * 1024 * 1024
+L2_BYTES = profiling.spec_for_kind(profiling.H100_KIND)["l2_bytes"]
 
 
 def copies(x: torch.Tensor, traffic: int) -> List[torch.Tensor]:

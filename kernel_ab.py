@@ -8,9 +8,10 @@ package, on one NVIDIA GPU.
 imported as ``h2r_old``: its own kernels module builds its ``csrc/`` by
 the same nvcc route into the same build root.  Every pair runs on the
 same inputs, is checked equal (and equal to the plain version), and is
-timed in turns, old, new, new, old (CUDA events, L2 flushed;
-chip_smoke's ``time_ms``: device-only windows for kernels, a caller's
-window for walls).
+timed in turns, old, new, new, old (CUDA events, the L2 flushed by a
+write, ``profiling.L2Flush(write=True)``, unless a line says a reading
+flush; chip_smoke's ``time_ms``: device-only windows for kernels, a
+caller's window for walls).
 
 Kernels, on the zk-email ``from:`` model with bench.py's corpus, at
 B=32768 and at B=4096 (its first strings):
@@ -55,7 +56,7 @@ configs[3] (in turns), the product against ``wide_variants`` (clusters of
 8, the exchange by weak tagged stores; ``no_products`` and
 ``no_exchange`` timed only) and the lookup in
 other forms, all checked (``LOOKUP_FORMS``: serial, W = 4096, C = 256
-and 1024), each after the harness's flush and after a reading flush:
+and 1024), each after the write flush and after a reading flush:
 
     python3 kernel_ab.py --old build/ab_old/halo2_regex_tpu_torch --only wide
 
@@ -79,7 +80,7 @@ kernel (kernel, library, library, kernel; the range test,
 scan (``--old`` optional): the chunked ``loop_floor`` and slab kernels
 (``csrc/probe_tpu9.cu``, ``csrc/probe_slab.cuh``) at chip_smoke's [10] and
 [11] widths and probe_tpu6's k1 and k3 against the ``--old`` package's
-(its serial kernels; old, new, new, old, after the harness's flush and
+(its serial kernels; old, new, new, old, after the write flush and
 after a reading flush), against their serial forms and against
 ``scan_variants`` (C = 64, 128, 256, 512; n_sub, two launches, one tile a
 look-back round, wide maps, no early end states; no_compute, no_store and
@@ -90,7 +91,7 @@ probe's table and on a permutation table:
 
 bitop (``--old`` optional): bitop_scan's table form (``csrc/probe_tpu20.cu``)
 at [1024, 12, 8, 128] against the ``--old`` package's serial kernel at each
-n_ops (old, new, new, old, after the harness's flush and after a reading
+n_ops (old, new, new, old, after the write flush and after a reading
 flush), against its own serial form, and against ``BITOP_VARIANTS`` (the
 split table, per-bit extraction of the index; ``no_chain`` timed only) at
 n_ops 96 and 768; the table's build at each n_ops; chains' fixed form
@@ -103,7 +104,7 @@ new kernels:
 carry (``--old`` optional): bitop_carry's reduce form (``csrc/probe_tpu20.cu``)
 at [2, 1024, 1, 8, 128] (one read a chunk, every position) and at [2, 8192,
 1, 8, 128] (every position, 64 MiB) against the ``--old`` package's serial
-kernel (old, new, new, old, after the harness's flush and after a reading
+kernel (old, new, new, old, after the write flush and after a reading
 flush), its own serial form, an int64 sum of the same words and its
 variants (4-byte loads only, the loads by ``__ldg``, the other combine: the
 last block of a tile folding the partials from global memory; half the
@@ -650,22 +651,18 @@ def sass_counts(K, keys, kernel: str) -> list:
     return out
 
 
-class ReadFlush:
-    """A flush for ``time_ms`` that reads the buffer in place of writing it:
-    the L2 then holds clean lines, which the timed kernel need not write
-    back (``time_ms``'s own flush, ``zero_``, leaves them dirty)."""
+def ReadFlush(flush):
+    """The reading flush (``profiling.L2Flush``: clean lines in L2) on the
+    buffer of ``flush``, the script's write flush."""
+    from halo2_regex_tpu_torch.utils import profiling
 
-    def __init__(self, buf: torch.Tensor):
-        self.buf = buf
-
-    def zero_(self):
-        self.buf.view(torch.int64).sum()
+    return profiling.L2Flush(buf=flush.buf)
 
 
 def no_flush_ms(cs, fn, dev, name, card) -> float:
     """``fn``'s median device time with the L2 left as the last run left
     it (no flush before each run)."""
-    t = cs.time_ms(fn, torch.empty(1, dtype=torch.uint8, device=dev), device_only=True)
+    t = cs.time_ms(fn, False, device_only=True)
     print(f"{name}, new, without the L2 flush: {cs.fmt(t)}; card {card}", flush=True)
     return t["median"]
 
@@ -1313,7 +1310,7 @@ def scan_ab(pk, cs, dev, card, flush) -> dict:
     ``csrc/probe_slab.cuh``) at chip_smoke's [10] and [11] widths and
     probe_tpu6's k1 and k3: the ``--old`` package's (its serial kernels;
     where given) against the new, in turns (old, new, new, old) after the
-    harness's flush and after a reading flush (``ReadFlush``); the new
+    write flush and after a reading flush (``ReadFlush``); the new
     kernels against ``scan_variants`` (kernel, variant, variant, kernel;
     at k3 only the other C); the serial forms; B8's speculation
     and repair (``table_scan_cuda`` chunked, W = C) in place of the maps on
@@ -1494,7 +1491,7 @@ def scan_ab(pk, cs, dev, card, flush) -> dict:
 def bitop_ab(pk, cs, dev, card, flush) -> dict:
     """bitop_scan's table form (P4) at [1024, 12, 8, 128]: against the
     ``--old`` package's serial kernel (where given) at each n_ops, old,
-    new, new, old, after the harness's flush and after a reading flush;
+    new, new, old, after the write flush and after a reading flush;
     against its own serial form; against ``BITOP_VARIANTS`` at n_ops 96
     and 768 (kernel, variant, variant, kernel; each variant's T built by
     its own library); the table's build time at each n_ops.  chains' fixed
@@ -1691,7 +1688,7 @@ def carry_ab(pk, cs, dev, card, flush) -> dict:
     """bitop_carry's reduce form (P16) at E's [2, 1024, 1, 8, 128] (one
     read a chunk from a zero and a seeded start, every position) and every
     position at [2, 8192, 1, 8, 128] (64 MiB): against the ``--old``
-    package's (its serial kernel; old, new, new, old, after the harness's
+    package's (its serial kernel; old, new, new, old, after the write
     flush and after a reading flush), against its own serial form, against
     an int64 sum of every word (a read rate, after a reading flush), against
     the variants (``carry_variants``, those not timing-only checked;
@@ -1793,7 +1790,7 @@ def gather_ab(pk, cs, dev, card, flush) -> dict:
     """lane_gather's pow form (P6) at 1024 steps on [256, 128] and [1, 128]
     (probe_tpu2's E) and on probe_tpu3's loop, in both stores: against the
     ``--old`` package's (its serial chain; old, new, new, old, after the
-    harness's flush and after a reading flush), against its own serial
+    write flush and after a reading flush), against its own serial
     form and against ``GATHER_VARIANTS``, each checked; ptxas and the SASS
     of the pow kernel."""
     from halo2_regex_tpu_torch.ops import kernels as K
@@ -2060,6 +2057,7 @@ def main() -> dict:
     import chip_smoke as cs
     import halo2_regex_tpu_torch as h2r
     from halo2_regex_tpu_torch.ops import kernels as K
+    from halo2_regex_tpu_torch.utils import profiling
 
     # both packages build into the checkout's build root
     os.environ.setdefault("H2R_TORCH_BUILD_DIR", str(K.build_root()))
@@ -2071,7 +2069,10 @@ def main() -> dict:
     card = cs.smi()
     print(f"card: {card}", flush=True)
     rec: dict = {"card": card, "versions": cs.versions()}
-    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    # the write flush (a zeroed buffer past the L2: dirty lines), which
+    # this script's pairs were timed after before chip_smoke and the probes
+    # took the reading flush; ReadFlush(flush) gives that one
+    flush = profiling.L2Flush(dev, write=True)
     corpora = ({Lc: cs.bench_corpus(cs.B, Lc) for Lc in (cs.L, cs.L_UNPADDED)}
                if parts & {"pack", "fb", "walls"} else {})
     out = {}

@@ -2370,3 +2370,74 @@ def test_probe_marker_entry_points_raise(dev):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+def test_profiling_device_specs_are_the_cards(dev):
+    """The card's row by its name: its SM count and L2 are what torch reads
+    from the card; the default device is the same row."""
+    from halo2_regex_tpu_torch.utils import profiling
+
+    spec = profiling.device_specs(dev)
+    props = torch.cuda.get_device_properties(dev)
+    assert spec["kind"] == torch.cuda.get_device_name(dev)
+    assert spec["sm_count"] == props.multi_processor_count
+    if hasattr(props, "L2_cache_size"):
+        assert spec["l2_bytes"] == props.L2_cache_size
+    assert profiling.device_specs() == spec
+    assert profiling.scan_roofline_bytes_per_sec(dev) == spec["hbm_gbps"] / 6
+    assert profiling.FLUSH_BYTES > spec["l2_bytes"]
+
+
+def test_profiling_timers_on_the_card(dev):
+    """``time_ms`` under the reading flush, the write flush and none, in
+    both windows; ``benchmark`` waits for the work it times (a 20M-cycle
+    spin queued on the current stream before the result)."""
+    from halo2_regex_tpu_torch.utils import profiling
+
+    x = torch.ones(1 << 24, dtype=torch.int32, device=dev)
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return x + 1
+
+    for kw in (dict(), dict(flush=profiling.L2Flush(dev, write=True)), dict(flush=False),
+               dict(flush=profiling.L2Flush(dev))):
+        for device_only in (True, False):
+            t = profiling.time_ms(fn, device_only, warmup=1, iters=4, **kw)
+            assert t["runs"] == 4 == len(t["all"]) and min(t["all"]) > 0, kw
+    assert len(calls) == 8 * 5
+
+    def spin():
+        torch.cuda._sleep(20_000_000)
+        return x + 1
+
+    assert profiling.benchmark(spin, iters=3) > 0.009  # >= 20M cycles at 1.98 GHz
+    assert profiling.benchmark_chained(lambda k: lambda: [spin() for _ in range(k)][-1],
+                                       (), ks=(1, 3)) > 0.009
+
+
+@pytest.mark.parametrize("name", ["extract_email_torch", "corpus_scan_torch",
+                                  "prover_handoff_torch"])
+def test_example_on_the_card(dev, name, capsys):
+    """Each example's ``main`` with its defaults: the card (the table scan
+    for extract_email, the bitplane kernels for corpus_scan); prover_handoff
+    runs on the host."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    kernels.reset_launch_counts()
+    assert mod.main() == 0
+    launched = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    out = capsys.readouterr().out
+    if name == "extract_email_torch":
+        assert "table_scan" in launched and "vitalik" in out
+    elif name == "corpus_scan_torch":
+        assert out.startswith("backend: bitplane") and "scan" in launched and "OK" in out
+    else:
+        assert not launched and "hand-off verified" in out

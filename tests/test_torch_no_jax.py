@@ -15,7 +15,8 @@ dump and its C++ verifier, ``gen_circom``, the CLI's ``gen-circom`` and
 devices; ``parallel.launch`` at one process), the serial-scan probes'
 plain versions, the table-kernel, the emission and decode and the
 marker-stream probe scripts on the CPU (``probes/``: probe_tpu57's D at
-64 x 512 and E at 64 x 1024 held against the C++ oracle), and assert that neither JAX, the JAX
+64 x 512 and E at 64 x 1024 held against the C++ oracle), ``utils/profiling.py`` and
+the three examples (``examples/*_torch.py``) on the CPU, and assert that neither JAX, the JAX
 package nor ``tools/`` was loaded along the way.
 """
 
@@ -148,6 +149,14 @@ assert probe_tpu20.main(["--device", "cpu", "--sections", "ADE"]) == 0
 from halo2_regex_tpu_torch.probes import probe_tpu57, probe_tpu61
 assert probe_tpu57.main(["--device", "cpu"]) == 0  # B-C vs re, D and E vs the C++ oracle
 assert probe_tpu61.main(["--device", "cpu"]) == 0
+from halo2_regex_tpu_torch.utils import profiling
+assert profiling.device_specs("cpu")["hbm_gbps"] == 50e9
+assert profiling.result_nbytes(res) > 0 and profiling.benchmark(lambda: res, iters=2) > 0
+assert profiling.time_ms(lambda: None, device="cpu", iters=2)["runs"] == 2
+import examples.corpus_scan_torch, examples.extract_email_torch, examples.prover_handoff_torch
+assert examples.extract_email_torch.main("cpu") == 0
+assert examples.corpus_scan_torch.main("cpu") == 0
+assert examples.prover_handoff_torch.main() == 0
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "halo2_regex_tpu", "tools"))
 assert not bad, bad
